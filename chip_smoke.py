@@ -8,31 +8,52 @@ exits non-zero without the final result line:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions; fails when torch.cuda.is_available() is False;
-2. build: both CUDA kernels from tpu_ffv1_torch/csrc with nvcc;
-3. kernel checks on random codec-like inputs: each kernel against its
-   plain PyTorch version on the card, on the same inputs, exact
-   equality (integer codec); both timed;
-4. main path: 1080p yuv420p, 24 slices, range coder, 2 streams x 8
-   frames (one key frame, one non-key warm-up frame, six timed non-key
-   frames) through TorchFFV1Encoder / TorchFFV1Decoder (batch=2):
-   packets byte-identical to the host C encoder, lossless decode, both
-   kernels' launch counters risen, per-step times and a stage breakdown;
-5. main-path kernel checks: the kernel outputs of the warm-up frame's
-   launches (the main path's own inputs and shapes: 48 lanes of 129,600
-   pixels) held exactly against the plain versions on CPU copies of
-   the same inputs (the plain versions are per-pixel loops of small
-   tensor ops, which run faster on the host than as card launches);
-6. one JSON line with the per-kernel numbers, the nvidia-smi line, and
-   the result line {"ok": true, "device": {...}} last.
+2. build: the four lane-scan kernels and the chain probe from
+   tpu_ffv1_torch/csrc, one nvcc per source, all started together;
+3. chain probe: the latency of one dependent range-coder decision on a
+   single warp (encode and decode form), the yardstick of the kernels'
+   chain bound;
+4. kernel checks on random codec-like inputs: K1 (8 bits), K2 (an 8-bit
+   stream of the port's own encoder), K1-ext and K2-ext at 11, 16 and 17
+   bits (random residuals; random bytes, which exercise the damaged-
+   stream paths, plus a 16-bit stream of the port's own encoder), each
+   against its plain PyTorch version on the card, on the same inputs,
+   exact equality (integer codec); all timed;
+5. two main paths, 1080p, 24 slices, range coder, 2 streams x 8 frames
+   (one key frame, one non-key warm-up frame, six timed non-key frames)
+   through TorchFFV1Encoder / TorchFFV1Decoder (batch=2): the 8-bit path
+   (yuv420p; kernels K1, K2) and the 16-bit archival path (yuv444p16le;
+   the extended schedule, kernels K1-ext, K2-ext).  Each path runs with
+   the launch counters set to 0 just before it and read just after; its
+   packets must match the golden SHA-256 digests of the reference host
+   encoder (tpu_ffv1_torch/goldens/chip_smoke.json), its decode must be
+   lossless; per-step times, a stage breakdown and peak device memory;
+6. main-path kernel checks: each kernel's outputs on its path's warm-up
+   frame (all 48 lanes at full shape) held exactly against its plain
+   version, run on CPU copies of the same inputs (the plain versions are
+   per-pixel loops of small tensor ops).  Each launch is split into
+   segments whose start states come from the kernel relaunched on the
+   prefix (the scans are causal), and the segments run in parallel
+   worker processes, one per core; the workers return digests of their
+   outputs, which must equal the digests of the kernel's outputs;
+7. one JSON line with the per-kernel numbers (time, launches, roofline
+   and chain bounds, plain version's time, max abs error), the
+   nvidia-smi line, and the result line {"ok": true, "device": {...}}
+   last.
 
-Imports nothing of JAX.  Of the JAX package it uses only the host codec
-(tpu_ffv1's EncoderParams, the host FFV1Encoder with its native C
-engine, and tpu_ffv1.core's tables), never tpu_ffv1.tpu;
-tests/test_torch_import.py checks the import set.
+Imports nothing of JAX and nothing of the JAX package (tpu_ffv1);
+tests/test_torch_import.py checks the import set, and
+tests/test_torch_goldens.py regenerates the golden digests from the
+content generators below with the JAX package's host C encoder.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import ctypes
+import hashlib
 import json
+import multiprocessing
+import os
 import subprocess
 import sys
 import time
@@ -40,10 +61,10 @@ import time
 import numpy as np
 import torch
 
-from tpu_ffv1 import EncoderParams, FFV1Encoder
-from tpu_ffv1.core import tables as T
-from tpu_ffv1.core.rac import custom_state_tables
-from tpu_ffv1_torch import TorchFFV1Decoder, TorchFFV1Encoder
+import tpu_ffv1_torch
+from tpu_ffv1_torch import EncoderParams, TorchFFV1Decoder, TorchFFV1Encoder
+from tpu_ffv1_torch.core import tables as T
+from tpu_ffv1_torch.core.rac import custom_state_tables
 from tpu_ffv1_torch.kernels import build
 from tpu_ffv1_torch.tpu import decoder as port_decoder
 from tpu_ffv1_torch.tpu import encoder as port_encoder
@@ -54,6 +75,16 @@ W, H, SLICES, BATCH = 1920, 1080, 24, 2
 WARM, TIMED = 1, 6                  # non-key frames after the key frame
 FRAMES = 1 + WARM + TIMED
 SEED = 20261016
+GOLDENS = os.path.join(os.path.dirname(tpu_ffv1_torch.__file__), "goldens",
+                       "chip_smoke.json")
+# H100 SXM peaks (on-chip-measurement guide): HBM bytes/s, and int32
+# instructions/s on the CUDA cores (64 INT32 lanes per SM per clock,
+# half the FP32 lanes behind the 67 TFLOP/s figure, at 132 SMs and
+# 1.98 GHz)
+PEAK_BYTES_S = 3.35e12
+PEAK_INT_OPS_S = 132 * 64 * 1.98e9
+# integer instructions of one decision (range split, select, renorm)
+OPS_PER_DECISION = 12
 
 
 def log(msg):
@@ -71,6 +102,9 @@ def gpu_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return res.stdout.strip().splitlines()[0]
+
+
+# ------------------------------------------------------------- content
 
 
 def synthetic_streams(n_streams, n_frames, width, height, seed):
@@ -92,6 +126,56 @@ def synthetic_streams(n_streams, n_frames, width, height, seed):
                            for p in (y, u, v)])
         out.append(frames)
     return out
+
+
+def synthetic_streams16(n_streams, n_frames, width, height, seed):
+    """yuv444p16le frames: the 16-bit archival leg's steep gradient and
+    8-bit noise (bench.py bench_16bit_archival) at full size, plus a
+    checker pattern of 4096 moving 5 px/frame, whose edges give
+    residuals past 2^10 (put_symbol's repeated rows 10 and 31)."""
+    r = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:height, 0:width]
+    base = (xx + yy) * 257
+    out = []
+    for s in range(n_streams):
+        frames = []
+        for t in range(n_frames):
+            sh = 5 * t + 17 * s
+            pat = ((((xx + sh) // 24) + (yy // 24)) % 2) * 4096
+            frames.append([
+                ((base + t * 1031 + k * 7919 + pat +
+                  r.randint(0, 255, (height, width))) % 65536)
+                .astype(np.uint16) for k in range(3)])
+        out.append(frames)
+    return out
+
+
+# the main paths: name -> (pix_fmt, content generator, seed)
+PATHS = {"8bit": ("yuv420p", synthetic_streams, SEED),
+         "16bit": ("yuv444p16le", synthetic_streams16, SEED + 16)}
+
+
+def params_kw(pix_fmt):
+    """EncoderParams fields of a main path (BASELINE configs 2 and 3)."""
+    return dict(width=W, height=H, pix_fmt=pix_fmt, level=3, coder=2,
+                slices=SLICES)
+
+
+def path_streams(name):
+    pix_fmt, gen, seed = PATHS[name]
+    return gen(BATCH, FRAMES, W, H, seed)
+
+
+def digest(data: bytes) -> dict:
+    return {"sha256": hashlib.sha256(data).hexdigest(), "len": len(data)}
+
+
+def load_goldens() -> dict:
+    with open(GOLDENS) as f:
+        return json.load(f)
+
+
+# ------------------------------------------------------------- timing
 
 
 def cuda_time_ms(fn, reps):
@@ -130,6 +214,24 @@ def flat_outputs(out):
     return [t for o in out for t in (o if isinstance(o, tuple) else (o,))]
 
 
+def roofline_ms(nbytes, nops):
+    """(bound ms, "bytes" or "operations"): the larger of bytes over the
+    HBM rate and integer operations over the CUDA cores' int32 rate."""
+    tb = nbytes / PEAK_BYTES_S * 1e3
+    to = nops / PEAK_INT_OPS_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def decisions_per_lane(diff, active):
+    """Binary decisions each lane codes (its serial chain): per active
+    pixel the zero flag, and for a nonzero residual e + 1 exponent
+    decisions, e mantissa bits and the sign."""
+    a = diff.long().abs()
+    e = torch.frexp(a.clamp(min=1).double())[1].long() - 1
+    per_px = 1 + (a != 0).long() * (2 * e + 2)
+    return (per_px * active.long()).sum(dim=1)
+
+
 class LastLaunch:
     """Stands in for a kernel wrapper where a port module calls it, and
     keeps the inputs (cloned before the call) and outputs of the calls
@@ -151,113 +253,230 @@ class LastLaunch:
             self.out = out
         return out
 
+    def take(self):
+        """(args, out) of the recorded call; forgets them."""
+        rec = (self.args, self.out)
+        self.args = self.out = None
+        return rec
 
-def check_encode_kernel(dev):
-    """K1 against rc_encode_packed_ref at L=48, N=4096, CC=1332 on random
-    residuals: mostly small, 5% large, 3% inactive."""
-    r = np.random.RandomState(SEED)
-    L, N, CC = 48, 4096, 2 * T.CONTEXT_COUNTS[0]
+
+# ------------------------------------------------------- chain probe
+
+
+def chain_probe_ns(dev, mode, n=1 << 20):
+    """ns per dependent decision of one warp (mode 0 encode, 1 decode),
+    csrc/chain_probe.cu timed with CUDA events."""
+    r = np.random.RandomState(SEED + mode)
+    states = torch.from_numpy(r.randint(1, 256, 32).astype(np.uint8)).to(dev)
+    data = torch.from_numpy(r.randint(0, 256, 32).astype(np.uint8)).to(dev)
+    out = torch.zeros(3, dtype=torch.int32, device=dev)
+    fn = build.load("chain_probe").chain_probe_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+
+    def run(k):
+        err = fn(states.data_ptr(), data.data_ptr(), k, mode,
+                 out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        check(err == 0, f"chain probe launch failed: CUDA error {err}")
+
+    run(1024)
+    ms = cuda_time_ms(lambda: run(n), 3)
+    return ms * 1e6 / n
+
+
+# -------------------------------------------- kernel checks, random
+
+
+def random_encode_args(dev, bits, L, N, seed):
+    """Codec-like K1 / K1-ext inputs: mostly small residuals, 5% over the
+    whole folded range, the fold's extremes, 3% inactive pixels."""
+    r = np.random.RandomState(seed)
+    CC = 2 * T.CONTEXT_COUNTS[0]
+    half = 1 << (bits - 1)
     one, zero = custom_state_tables(T.VER2_STATE)
     ctx = r.randint(0, CC, (L, N))
     diff = r.randint(-4, 5, (L, N))
     big = r.rand(L, N) < 0.05
-    diff = np.where(big, r.randint(-128, 128, (L, N)), diff)
+    diff = np.where(big, r.randint(-half, half, (L, N)), diff)
+    diff[:, :3] = [-half, half - 1, 0]
     act = r.rand(L, N) < 0.97
     states = r.randint(16, 241, (L, CC, 32))
-    args = [torch.from_numpy(np.ascontiguousarray(a).astype(t)).to(dev)
+    return [torch.from_numpy(np.ascontiguousarray(a).astype(t)).to(dev)
             for a, t in ((ctx, np.int32), (diff, np.int32), (act, np.bool_),
                          (states, np.uint8), (one, np.uint8),
                          (zero, np.uint8), (np.zeros(L), np.int32),
                          (np.full(L, 0xFF00), np.int32))]
-    got = rc_encode.rc_encode_packed(*args, 8)
-    plain_ms, want = host_time_ms(
-        lambda: rc_encode.rc_encode_packed_ref(*args, 8))
+
+
+def check_encode_kernel(dev, bits, N):
+    """K1 / K1-ext against its plain version at L=48, CC=1332."""
+    L = BATCH * SLICES
+    args = random_encode_args(dev, bits, L, N, SEED + bits)
+    ref = rc_encode.rc_encode_packed_ext_ref if bits > 10 else \
+        rc_encode.rc_encode_packed_ref
+    got = rc_encode.rc_encode_packed(*args, bits)
+    plain_ms, want = host_time_ms(lambda: ref(*args, bits))
     err = max_abs_err(got, want)
-    check(err == 0, f"rc_encode kernel differs from its plain version "
-          f"(max abs err {err})")
+    name = "rc_encode_ext" if bits > 10 else "rc_encode"
+    check(err == 0, f"{name} kernel differs from its plain version at "
+          f"{bits} bits (max abs err {err})")
     check(bool(((got[0] >> 20) & 1).sum() > 0), "kernel emitted nothing")
-    ms = cuda_time_ms(lambda: rc_encode.rc_encode_packed(*args, 8), 5)
-    log(f"[kernels] rc_encode L={L} N={N} random residuals: exact match; "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms")
+    ms = cuda_time_ms(lambda: rc_encode.rc_encode_packed(*args, bits), 5)
+    S = got[0].shape[1]
+    log(f"[kernels] {name} bits={bits} L={L} N={N} S={S} random residuals: "
+        f"exact match; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms")
     return dict(max_abs_err=err, check_ms=ms, check_plain_ms=plain_ms,
-                check_shape=f"L={L} N={N} CC={CC} S=17")
+                check_shape=f"bits={bits} L={L} N={N} CC={args[3].shape[1]} "
+                            f"S={S}")
 
 
-def check_decode_kernel(dev):
-    """K2 against rc_decode_planes_ref on the bytes of a 64x64-per-lane
-    encode (384x256 yuv420p, 24 slices, 2 streams: 48 lanes)."""
-    w, h = 384, 256
-    params = EncoderParams(width=w, height=h, pix_fmt="yuv420p", level=3,
-                           coder=2, slices=SLICES)
-    streams = synthetic_streams(BATCH, 1, w, h, SEED + 1)
-    host = [FFV1Encoder(params, engine="native") for _ in range(BATCH)]
-    pkts = [host[b].encode_frame(streams[b][0])[0] for b in range(BATCH)]
-    dec = TorchFFV1Decoder(w, h, host[0].extradata, batch=BATCH,
-                           device=dev)
+def decode_args_from_packets(dec, pkts, bits):
     parsed = [dec._parse_packet(bi, p) for bi, p in enumerate(pkts)]
     (bufs, lows, ranges, poss), _lens, q = dec._lane_inputs(parsed)
     cc = dec.g.context_counts[q]
     specs = tuple((pw, ph, sp * cc) for (pw, ph, sp) in dec._plane_specs())
-    states = dec._reset_lane_states([True] * BATCH, q).clone()
-    args = (bufs, states, dec.one_tab, dec.zero_tab, dec.qts[q], lows,
-            ranges, poss, specs, 8)
+    states = dec._reset_lane_states([True] * dec.batch, q).clone()
+    return (bufs, states, dec.one_tab, dec.zero_tab, dec.qts[q], lows,
+            ranges, poss, specs, bits)
+
+
+def check_decode_args(name, args, label, lossless=None):
+    """K2 / K2-ext on ``args`` against its plain version, exactly."""
+    bits = args[9]
+    ref = rc_decode.rc_decode_planes_ext_ref if bits > 10 else \
+        rc_decode.rc_decode_planes_ref
     got = rc_decode.rc_decode_planes(*args)
-    plain_ms, want = host_time_ms(
-        lambda: rc_decode.rc_decode_planes_ref(*args))
+    plain_ms, want = host_time_ms(lambda: ref(*args))
     err = max_abs_err(flat_outputs(got), flat_outputs(want))
-    check(err == 0, f"rc_decode kernel differs from its plain version "
-          f"(max abs err {err})")
-    lane0 = got[0][0][0].cpu().numpy()
-    check(np.array_equal(lane0, streams[0][0][0][:64, :64]),
-          "kernel decode of lane 0 is not lossless")
+    check(err == 0, f"{name} kernel differs from its plain version on "
+          f"{label} (max abs err {err})")
+    if lossless is not None:
+        check(np.array_equal(got[0][0][0].cpu().numpy(), lossless),
+              f"{name} decode of lane 0 is not lossless ({label})")
     ms = cuda_time_ms(lambda: rc_decode.rc_decode_planes(*args), 5)
-    log(f"[kernels] rc_decode L={bufs.shape[0]} 64x64+2x32x32 px/lane: "
-        f"exact match; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms")
+    log(f"[kernels] {name} bits={bits} L={args[0].shape[0]} "
+        f"planes={args[8]} {label}: exact match; kernel {ms:.3f} ms, "
+        f"plain {plain_ms:.1f} ms")
     return dict(max_abs_err=err, check_ms=ms, check_plain_ms=plain_ms,
-                check_shape=f"L={bufs.shape[0]} planes={specs}")
+                check_shape=f"bits={bits} L={args[0].shape[0]} "
+                            f"planes={args[8]}")
 
 
-def step_stats(name, steps_s, mpix, gpu):
+def check_decode_kernel(dev):
+    """K2 on the port's own 8-bit encode of 384x256 yuv420p, 24 slices,
+    2 streams (48 lanes of 64x64 + 2 x 32x32)."""
+    w, h = 384, 256
+    params = EncoderParams(width=w, height=h, pix_fmt="yuv420p", level=3,
+                           coder=2, slices=SLICES)
+    streams = synthetic_streams(BATCH, 1, w, h, SEED + 1)
+    enc = TorchFFV1Encoder(params, batch=BATCH, device=dev)
+    pkts = [p for p, _kf in enc.encode_frames([s[0] for s in streams])]
+    dec = TorchFFV1Decoder(w, h, enc.extradata, batch=BATCH, device=dev)
+    args = decode_args_from_packets(dec, pkts, 8)
+    return check_decode_args("rc_decode", args, "port-encoded stream",
+                             streams[0][0][0][:64, :64])
+
+
+def check_decode_ext_kernel(dev):
+    """K2-ext on the port's own 16-bit encode (96x64 yuv444p16le, 24
+    slices, 2 streams: 48 lanes of 3 x 16x16), and on random bytes at
+    11, 16 and 17 bits (garbage symbols: exponents past the width,
+    reads past the buffer, clamped contexts)."""
+    w, h = 96, 64
+    params = EncoderParams(width=w, height=h, pix_fmt="yuv444p16le",
+                           level=3, coder=2, slices=SLICES)
+    streams = synthetic_streams16(BATCH, 1, w, h, SEED + 2)
+    enc = TorchFFV1Encoder(params, batch=BATCH, device=dev)
+    pkts = [p for p, _kf in enc.encode_frames([s[0] for s in streams])]
+    dec = TorchFFV1Decoder(w, h, enc.extradata, batch=BATCH, device=dev)
+    args = decode_args_from_packets(dec, pkts, 16)
+    lossless = streams[0][0][0][:16, :16].astype(np.int32)
+    lossless = ((lossless + 0x8000) & 0xFFFF) - 0x8000     # int16 rows
+    res = [check_decode_args("rc_decode_ext", args, "port-encoded stream",
+                             lossless)]
+    L, cap = BATCH * SLICES, 4096
+    CC = T.CONTEXT_COUNTS[0]
+    one, zero = custom_state_tables(T.VER2_STATE)
+    for bits in (11, 16, 17):
+        r = np.random.RandomState(SEED + 100 + bits)
+        bufs = r.randint(0, 256, (L, cap)).astype(np.uint8)
+        low0 = np.minimum(bufs[:, 0].astype(np.int32) << 8 | bufs[:, 1],
+                          0xFEFF)
+        qt = T.default_quant_tables(bits)[0].astype(np.int32)
+        rnd = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+            bufs, r.randint(16, 241, (L, 2 * CC, 32)).astype(np.uint8),
+            one, zero, qt, low0.astype(np.int32),
+            np.full(L, 0xFF00, np.int32), np.full(L, 2, np.int32))]
+        specs = ((16, 16, 0), (16, 16, CC), (16, 16, CC))
+        res.append(check_decode_args("rc_decode_ext", (*rnd, specs, bits),
+                                     "random bytes"))
+    return res
+
+
+# ---------------------------------------------------------- main path
+
+
+def step_stats(tag, name, steps_s, mpix, gpu):
     ms = sorted(1e3 * s for s in steps_s)
     med = ms[len(ms) // 2] if len(ms) % 2 else \
         (ms[len(ms) // 2 - 1] + ms[len(ms) // 2]) / 2
-    log(f"[main] {name} steady over {len(ms)} non-key steps (batch {BATCH}, "
-        f"{gpu}): median {med:.2f} ms/step = {mpix / med * 1e3:.2f} Mpix/s; "
-        f"min {ms[0]:.2f}, max {ms[-1]:.2f}; steps "
-        f"{', '.join(f'{1e3 * s:.2f}' for s in steps_s)} ms")
+    log(f"[{tag}] {name} steady over {len(ms)} non-key steps (batch "
+        f"{BATCH}, {gpu}): median {med:.2f} ms/step = "
+        f"{mpix / med * 1e3:.2f} Mpix/s; min {ms[0]:.2f}, max {ms[-1]:.2f}; "
+        f"steps {', '.join(f'{1e3 * s:.2f}' for s in steps_s)} ms")
     return med
 
 
-def main_path(dev, gpu, rec_enc, rec_dec):
-    """1080p, 24 slices, 2 streams x FRAMES frames through the port."""
-    params = EncoderParams(width=W, height=H, pix_fmt="yuv420p", level=3,
-                           coder=2, slices=SLICES)
-    streams = synthetic_streams(BATCH, FRAMES, W, H, SEED)
+def reset_counts():
+    rc_encode.LAUNCHES = rc_encode.LAUNCHES_EXT = 0
+    rc_decode.LAUNCHES = rc_decode.LAUNCHES_EXT = 0
+
+
+def main_path(dev, gpu, name, rec_enc, rec_dec):
+    """One main path: 1080p, 24 slices, 2 streams x FRAMES frames through
+    the port, held against the golden digests.  Returns the launch
+    counts of its kernels, their main-path times and the recorded
+    warm-up launches."""
+    pix_fmt = PATHS[name][0]
+    tag = f"main {name}"
+    ext = name == "16bit"
+    k_enc, k_dec = ("rc_encode_ext", "rc_decode_ext") if ext else \
+        ("rc_encode", "rc_decode")
     t0 = time.perf_counter()
-    hosts = [FFV1Encoder(params, engine="native") for _ in range(BATCH)]
-    ref = [[hosts[b].encode_frame(streams[b][t]) for t in range(FRAMES)]
-           for b in range(BATCH)]
-    log(f"[main] host C encoder: {BATCH}x{FRAMES} frames in "
+    streams = path_streams(name)
+    golden = load_goldens()[name]
+    log(f"[{tag}] {pix_fmt} content: {BATCH}x{FRAMES} frames in "
         f"{time.perf_counter() - t0:.1f} s")
-    enc = TorchFFV1Encoder(params, batch=BATCH, device=dev)
+    enc = TorchFFV1Encoder(EncoderParams(**params_kw(pix_fmt)), batch=BATCH,
+                           device=dev)
+    check(digest(enc.extradata) == golden["extradata"],
+          f"{name}: extradata differs from the golden")
     dec = TorchFFV1Decoder(W, H, enc.extradata, batch=BATCH, device=dev)
     check(enc.L == SLICES * BATCH and enc.n_slices == SLICES,
           "expected 48 lanes")
+    check(enc.bits == (16 if ext else 8), "coded width")
 
-    rc_encode.LAUNCHES = 0
-    rc_decode.LAUNCHES = 0
-    enc_s, dec_s = [], []
+    enc_s, dec_s, peak = [], [], []
+    reset_counts()
     for t in range(FRAMES):
         # keep the kernels' inputs and outputs of the warm-up frame
         rec_enc.armed = rec_dec.armed = (t == 1)
+        frame = [streams[b][t] for b in range(BATCH)]
         torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        res = enc.encode_frames([streams[b][t] for b in range(BATCH)])
+        res = enc.encode_frames(frame)
         enc_s.append(time.perf_counter() - t0)
+        peak.append((torch.cuda.max_memory_allocated() - base) / 2**30)
         for b in range(BATCH):
-            check(res[b] == ref[b][t],
-                  f"stream {b} frame {t}: packet differs from the host "
-                  f"encoder ({len(res[b][0])} vs {len(ref[b][t][0])} B)")
+            want = golden["packets"][b][t]
+            check(digest(res[b][0]) == {"sha256": want["sha256"],
+                                        "len": want["len"]} and
+                  res[b][1] == want["key"],
+                  f"{name} stream {b} frame {t}: packet differs from the "
+                  f"golden ({len(res[b][0])} vs {want['len']} B)")
         t0 = time.perf_counter()
         out = dec.decode_frames([res[b][0] for b in range(BATCH)])
         dec_s.append(time.perf_counter() - t0)
@@ -265,94 +484,219 @@ def main_path(dev, gpu, rec_enc, rec_dec):
             planes, kf = out[b]
             check(kf == (t == 0), "keyframe flag")
             for k in range(3):
-                check(np.array_equal(planes[k], streams[b][t][k]),
-                      f"stream {b} frame {t} plane {k}: decode not lossless")
+                check(planes[k].dtype == frame[b][k].dtype and
+                      np.array_equal(planes[k], frame[b][k]),
+                      f"{name} stream {b} frame {t} plane {k}: decode not "
+                      f"lossless")
         check(not dec.slice_damaged.any(), "slice flagged damaged")
         kind = "key" if t == 0 else "non-key, warm-up" if t <= WARM \
             else "non-key"
-        log(f"[main] frame {t} ({kind}): "
-            f"{sum(len(r[0]) for r in res)} B, byte-identical to host C; "
-            f"decode lossless; encode {enc_s[-1] * 1e3:.2f} ms, "
-            f"decode {dec_s[-1] * 1e3:.2f} ms")
+        log(f"[{tag}] frame {t} ({kind}): "
+            f"{sum(len(r[0]) for r in res)} B, equal to the golden digests; "
+            f"decode lossless; encode {enc_s[-1] * 1e3:.2f} ms, decode "
+            f"{dec_s[-1] * 1e3:.2f} ms; encode peak device memory "
+            f"{peak[-1]:.2f} GiB over the {base / 2**30:.2f} GiB held "
+            f"({gpu})")
     rec_enc.armed = rec_dec.armed = False
-    launches = {"rc_encode": rc_encode.LAUNCHES,
-                "rc_decode": rc_decode.LAUNCHES}
-    log(f"[main] kernel launches in the main path: {launches}")
+    launches = {k_enc: rc_encode.LAUNCHES_EXT if ext else rc_encode.LAUNCHES,
+                k_dec: rc_decode.LAUNCHES_EXT if ext else rc_decode.LAUNCHES}
+    log(f"[{tag}] kernel launches in this path's {FRAMES} steps: "
+        f"{launches}")
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the path never launched: {launches}")
-    check(rec_enc.out is not None and rec_dec.out is not None,
+    enc_rec, dec_rec = rec_enc.take(), rec_dec.take()
+    check(enc_rec[1] is not None and dec_rec[1] is not None,
           "the warm-up frame's kernel calls were not recorded")
 
     mpix = BATCH * W * H / 1e6
-    enc_ms = step_stats("encode", enc_s[1 + WARM:], mpix, gpu)
-    dec_ms = step_stats("decode", dec_s[1 + WARM:], mpix, gpu)
+    enc_ms = step_stats(tag, "encode", enc_s[1 + WARM:], mpix, gpu)
+    dec_ms = step_stats(tag, "decode", dec_s[1 + WARM:], mpix, gpu)
 
     # stage times at the main path's shapes (launches not counted above)
     frame = [streams[b][FRAMES - 1] for b in range(BATCH)]
     up_ms, planes = host_time_ms(lambda: enc._upload(frame))
     st_ms = cuda_time_ms(lambda: enc._streams_uniform(planes), 3)
-    k1_args = rec_enc.args
+    k1_args = enc_rec[0]
     k1_ms = cuda_time_ms(lambda: rc_encode.rc_encode_packed(*k1_args), 3)
-    packed, low, rng, _st = rec_enc.out
+    packed, low, rng, _st = enc_rec[1]
     _l, _r, prefixes, plens = enc._prefix_arrays(False)
-    fin_ms = cuda_time_ms(lambda: finalize_packed(packed, low, rng,
-                                                  prefixes, plens), 3)
-    pkts = [ref[b][FRAMES - 1][0] for b in range(BATCH)]
+    torch.cuda.synchronize()
+    fbase = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fin_ms = cuda_time_ms(lambda: finalize_packed(packed, low, rng, prefixes,
+                                                  plens, enc.s2), 3)
+    fin_peak = (torch.cuda.max_memory_allocated() - fbase) / 2**30
+    pkts = [r[0] for r in res]                  # the last frame's packets
     parse_ms, _x = host_time_ms(lambda: dec._lane_inputs(
         [dec._parse_packet(b, p) for b, p in enumerate(pkts)]))
-    k2_args = rec_dec.args
+    k2_args = dec_rec[0]
     k2_ms = cuda_time_ms(lambda: rc_decode.rc_decode_planes(*k2_args), 3)
     L, n = k1_args[0].shape
-    log(f"[main] encode stages (ms, L={L}, {n} px/lane, each timed "
-        f"alone): upload {up_ms:.2f}, stencil {st_ms:.2f}, rc_encode "
-        f"{k1_ms:.2f}, finalize {fin_ms:.2f}; the median step minus these "
-        f"{enc_ms - up_ms - st_ms - k1_ms - fin_ms:.2f}")
-    log(f"[main] decode stages (ms, each timed alone): parse+upload "
-        f"{parse_ms:.2f}, rc_decode {k2_ms:.2f}; the median step minus "
-        f"these {dec_ms - parse_ms - k2_ms:.2f}")
-    return launches, dict(rc_encode=k1_ms, rc_decode=k2_ms)
+    log(f"[{tag}] encode stages (ms, L={L}, {n} px/lane, each timed alone, "
+        f"{gpu}): upload {up_ms:.2f}, stencil {st_ms:.2f}, {k_enc} "
+        f"{k1_ms:.2f}, finalize s2={enc.s2} {fin_ms:.2f} (peak "
+        f"{fin_peak:.2f} GiB over its {packed.numel() * 4 / 2**30:.2f} GiB "
+        f"input); the median step minus these "
+        f"{enc_ms - up_ms - st_ms - k1_ms - fin_ms:.2f}; encode step peak "
+        f"{max(peak[1 + WARM:]):.2f} GiB")
+    log(f"[{tag}] decode stages (ms, each timed alone, {gpu}): parse+upload "
+        f"{parse_ms:.2f}, {k_dec} {k2_ms:.2f}; the median step minus these "
+        f"{dec_ms - parse_ms - k2_ms:.2f}")
+    return dict(launches=launches, ms={k_enc: k1_ms, k_dec: k2_ms},
+                recs={k_enc: enc_rec, k_dec: dec_rec},
+                steps=FRAMES, enc_ms=enc_ms, dec_ms=dec_ms)
 
 
-def on_cpu(args):
-    return tuple(a.cpu() if isinstance(a, torch.Tensor) else a
-                 for a in args)
+# ------------------------------------------- main-path plain checks
 
 
-def check_main_path_kernels(rec_enc, rec_dec):
-    """The main path's kernel outputs (warm-up frame, all lanes) against
-    the plain versions on CPU copies of the same inputs, exactly."""
-    out = {}
+def output_digests(out):
+    """(shape, dtype, sha256) of every output tensor, in a canonical
+    contiguous layout on the host."""
+    res = []
+    for t in flat_outputs(out):
+        a = t.cpu().contiguous().numpy()
+        res.append((tuple(a.shape), str(a.dtype),
+                    hashlib.sha256(a.data).hexdigest()))
+    return res
 
-    # K1: args (ctx, diff, active, states0, one, zero, low0, range0, bits)
+
+PLAIN = {"rc_encode": "rc_encode_packed_ref",
+         "rc_encode_ext": "rc_encode_packed_ext_ref",
+         "rc_decode": "rc_decode_planes_ref",
+         "rc_decode_ext": "rc_decode_planes_ext_ref"}
+
+
+def plain_worker(name, args):
+    """Worker process: the plain version of kernel ``name`` on CPU
+    tensors; returns (seconds, output digests)."""
+    torch.set_num_threads(1)
+    mod = rc_encode if name.startswith("rc_encode") else rc_decode
+    fn = getattr(mod, PLAIN[name])
+    targs = [torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+             for a in args]
     t0 = time.perf_counter()
-    want = rc_encode.rc_encode_packed_ref(*on_cpu(rec_enc.args))
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    err = max_abs_err(on_cpu(rec_enc.out), want)
-    check(err == 0, f"rc_encode on the main path's inputs differs from its "
-          f"plain version (max abs err {err})")
-    L, n = rec_enc.args[0].shape
-    shape = f"L={L} N={n} CC={rec_enc.args[3].shape[1]} " \
-        f"S={rec_enc.out[0].shape[1]}"
-    log(f"[check] rc_encode, main path's warm-up frame ({shape}): exact "
-        f"match; plain version on the CPU {plain_ms:.1f} ms")
-    out["rc_encode"] = dict(max_abs_err=err, plain_ms=plain_ms,
-                            main_path_shape=shape)
+    out = fn(*targs)
+    return time.perf_counter() - t0, output_digests(out)
 
-    # K2: args (bufs, states, one, zero, qt, low0, range0, pos0, specs,
-    # bits, five)
-    t0 = time.perf_counter()
-    want = rc_decode.rc_decode_planes_ref(*on_cpu(rec_dec.args[:10]))
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    err = max_abs_err(flat_outputs(on_cpu(flat_outputs(rec_dec.out))),
-                      flat_outputs(want))
-    check(err == 0, f"rc_decode on the main path's inputs differs from its "
-          f"plain version (max abs err {err})")
-    shape = f"L={rec_dec.args[0].shape[0]} planes={rec_dec.args[8]}"
-    log(f"[check] rc_decode, main path's warm-up frame ({shape}): exact "
-        f"match; plain version on the CPU {plain_ms:.1f} ms")
-    out["rc_decode"] = dict(max_abs_err=err, plain_ms=plain_ms,
-                            main_path_shape=shape)
-    return out
+
+def segments(name, args, out):
+    """Split one main-path launch into independent segments for the
+    plain version: [(plain args, the kernel's outputs for them)].
+
+    The scans are causal, so a segment's start state (adaptive states,
+    low, range, and for the decoder pos) is that of the kernel
+    relaunched on the prefix before it.  The relaunch must reproduce the
+    main-path launch's outputs on that prefix exactly; each segment's
+    outputs under the plain version must equal the main-path launch's
+    outputs on it and the state the next prefix run (or the full run)
+    ends in.  By induction over the segments the plain version run on
+    the whole launch would give the main-path launch's outputs.  The
+    encoder splits its pixel stream in equal parts, the decoder at its
+    plane boundaries (each plane starts from zeroed rows)."""
+    if name.startswith("rc_encode"):
+        ctx, diff, act, st0, one, zero, low0, rng0, bits = args
+        packed, low, rng, st = out
+        N = ctx.shape[1]
+        nseg = 3 if bits > 10 else 2
+        cuts = [N * i // nseg for i in range(nseg + 1)]
+        ends = []
+        for c in cuts[1:-1]:
+            pk, lo, ra, s = rc_encode.rc_encode_packed(
+                ctx[:, :c].contiguous(), diff[:, :c].contiguous(),
+                act[:, :c].contiguous(), st0, one, zero, low0, rng0, bits)
+            check(torch.equal(pk, packed[:c]),
+                  f"{name} relaunched on {c} pixels is not the main-path "
+                  f"launch's prefix")
+            ends.append((lo, ra, s))
+        ends.append((low, rng, st))
+        starts = [(low0, rng0, st0)] + ends[:-1]
+        return [((ctx[:, a:b], diff[:, a:b], act[:, a:b], s0, one, zero,
+                  l0, r0, bits), (packed[a:b], *ends[i]))
+                for i, (a, b, (l0, r0, s0)) in enumerate(
+                    zip(cuts, cuts[1:], starts))]
+    bufs, st0, one, zero, qt, low0, rng0, pos0, specs, bits = args[:10]
+    planes, st, low, rng, pos = out
+    ends = []
+    for k in range(1, len(specs)):
+        pl, s, lo, ra, po = rc_decode.rc_decode_planes(
+            bufs, st0, one, zero, qt, low0, rng0, pos0, specs[:k], bits)
+        check(all(torch.equal(x, y) for x, y in zip(pl, planes)),
+              f"{name} relaunched on {k} planes is not the main-path "
+              f"launch's prefix")
+        ends.append((s, lo, ra, po))
+    ends.append((st, low, rng, pos))
+    starts = [(st0, low0, rng0, pos0)] + ends[:-1]
+    return [((bufs, s0, one, zero, qt, l0, r0, p0, (specs[k],), bits),
+             ((planes[k],), *ends[k]))
+            for k, (s0, l0, r0, p0) in enumerate(starts)]
+
+
+def check_main_path_kernels(recs):
+    """Every kernel's warm-up launch on its path (all lanes, full shape)
+    against its plain version on CPU copies of the same inputs, split
+    into segments (see ``segments``) that run in parallel worker
+    processes, one per CPU core; exact (equal output digests)."""
+    jobs = []
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=os.cpu_count() or 4, mp_context=ctx) as pool:
+        for name, (args, out) in recs.items():
+            for seg_args, want in segments(name, args, out):
+                cpu_args = [a.cpu().numpy() if isinstance(a, torch.Tensor)
+                            else a for a in seg_args]
+                jobs.append((name, want,
+                             pool.submit(plain_worker, name, cpu_args)))
+        mine = [output_digests(want) for _name, want, _fut in jobs]
+        res = {}
+        for (name, _want, fut), digests in zip(jobs, mine):
+            secs, theirs = fut.result()
+            check(theirs == digests,
+                  f"{name} on its main path's inputs differs from its plain "
+                  f"version: " + "; ".join(
+                      f"output {i} {a[0]}"
+                      for i, (a, b) in enumerate(zip(digests, theirs))
+                      if a != b))
+            res.setdefault(name, {"segs": []})["segs"].append(secs)
+    for name, r in res.items():
+        args = recs[name][0]
+        if name.startswith("rc_encode"):
+            shape = (f"L={args[0].shape[0]} N={args[0].shape[1]} "
+                     f"CC={args[3].shape[1]} S={2 * args[8] + 1} "
+                     f"bits={args[8]}")
+        else:
+            shape = f"L={args[0].shape[0]} planes={args[8]} bits={args[9]}"
+        segs = r.pop("segs")
+        log(f"[check] {name}, main path's warm-up frame ({shape}): exact "
+            f"match in {len(segs)} segments (equal SHA-256 of every "
+            f"output); plain version on the host CPU "
+            f"{' + '.join(f'{x:.1f}' for x in segs)} = {sum(segs):.1f} s")
+        r.update(max_abs_err=0, plain_ms=sum(segs) * 1e3,
+                 plain_segments_s=segs, main_path_shape=shape)
+    return res
+
+
+def kernel_bounds(name, rec, ns_per_decision, decisions):
+    """(roofline bound ms, its term, chain bound ms) of one kernel's
+    main-path launch."""
+    args, out = rec
+    if name.startswith("rc_encode"):
+        L, N = args[0].shape
+        CC, bits = args[3].shape[1], args[8]
+        S = 2 * bits + 1
+        nbytes = L * N * 9 + 2 * L * CC * 32 + 512 + 16 * L + L * N * S * 4
+        nops = L * N * S * OPS_PER_DECISION       # every slot is evaluated
+    else:
+        planes, states_out, _low, _rng, pos = out
+        L, CC = args[1].shape[0], args[1].shape[1]
+        consumed = int((pos.long() - args[7].long()).sum())
+        px = sum(p.shape[1] * p.shape[2] for p in planes)
+        nbytes = consumed + 2 * L * CC * 32 + 512 + 3 * 1024 + 24 * L + \
+            L * px * 4
+        nops = int(decisions.sum()) * OPS_PER_DECISION
+    bound, term = roofline_ms(nbytes, nops)
+    chain = int(decisions.max()) * ns_per_decision * 1e-6
+    return bound, term, chain
 
 
 def main():
@@ -363,14 +707,16 @@ def main():
     log(f"[env] {gpu}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
 
+    libs = ("rc_encode", "rc_decode", "rc_encode_ext", "rc_decode_ext",
+            "chain_probe")
     t0 = time.perf_counter()
-    build.load("rc_encode")
-    build.load("rc_decode")
-    log(f"[build] rc_encode {build.BUILD_SECONDS['rc_encode']:.1f} s, "
-        f"rc_decode {build.BUILD_SECONDS['rc_decode']:.1f} s "
-        f"(total {time.perf_counter() - t0:.1f} s)")
-    for name in ("rc_encode", "rc_decode"):
+    build.build_all(libs)
+    log(f"[build] " + ", ".join(f"{n} {build.BUILD_SECONDS[n]:.1f} s"
+                                for n in libs) +
+        f" (all started together; {time.perf_counter() - t0:.1f} s)")
+    for name in libs:
         seen = set()
         for line in build.BUILD_LOG.get(name, "").splitlines():
             line = line.split(":", 1)[-1].strip()
@@ -378,28 +724,62 @@ def main():
                 seen.add(line)
                 log(f"[build] {name} (all bit-depth instances): {line}")
 
-    k1 = check_encode_kernel(dev)
-    k2 = check_decode_kernel(dev)
+    ns_enc = chain_probe_ns(dev, 0)
+    ns_dec = chain_probe_ns(dev, 1)
+    log(f"[probe] one dependent decision on one warp ({gpu}): encode form "
+        f"{ns_enc:.2f} ns, decode form {ns_dec:.2f} ns")
+
+    checks = {"rc_encode": [check_encode_kernel(dev, 8, 4096)],
+              "rc_decode": [check_decode_kernel(dev)],
+              "rc_encode_ext": [check_encode_kernel(dev, b, 1024)
+                                for b in (11, 16, 17)],
+              "rc_decode_ext": check_decode_ext_kernel(dev)}
+
     rec_enc = LastLaunch(port_encoder, "rc_encode_packed")
     rec_dec = LastLaunch(port_decoder, "rc_decode_planes")
-    launches, main_ms = main_path(dev, gpu, rec_enc, rec_dec)
-    mp = check_main_path_kernels(rec_enc, rec_dec)
+    paths = {name: main_path(dev, gpu, name, rec_enc, rec_dec)
+             for name in PATHS}
+    recs = {k: v for p in paths.values() for k, v in p["recs"].items()}
+    mp = check_main_path_kernels(recs)
 
     kernels = []
-    for name, src, replaces, chk in (
+    for name, src, replaces, path in (
             ("rc_encode", "tpu_ffv1_torch/csrc/rc_encode.cu",
-             "tpu_ffv1/tpu/rc_pallas.py:58", k1),
+             "tpu_ffv1/tpu/rc_pallas.py:58", "8bit"),
             ("rc_decode", "tpu_ffv1_torch/csrc/rc_decode.cu",
-             "tpu_ffv1/tpu/rc_dec_pallas.py:60", k2)):
+             "tpu_ffv1/tpu/rc_dec_pallas.py:60", "8bit"),
+            ("rc_encode_ext", "tpu_ffv1_torch/csrc/rc_encode_ext.cu",
+             "tpu_ffv1/tpu/rc_pallas.py:317", "16bit"),
+            ("rc_decode_ext", "tpu_ffv1_torch/csrc/rc_decode_ext.cu",
+             "tpu_ffv1/tpu/rc_dec_pallas.py:343", "16bit")):
+        p = paths[path]
+        enc_args = p["recs"]["rc_encode_ext" if path == "16bit"
+                             else "rc_encode"][0]
+        # the decode of the warm-up frame makes the same decisions as its
+        # encode
+        decisions = decisions_per_lane(enc_args[1], enc_args[2])
+        ns = ns_enc if name.startswith("rc_encode") else ns_dec
+        bound, term, chain = kernel_bounds(name, recs[name], ns, decisions)
         m = mp[name]
+        chk = checks[name]
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches[name],
-            max_abs_err=max(chk["max_abs_err"], m["max_abs_err"]),
-            ms=main_ms[name], plain_ms=m["plain_ms"], plain_device="cpu",
+            launches=p["launches"][name],
+            launches_per_step=p["launches"][name] / p["steps"],
+            max_abs_err=max([c["max_abs_err"] for c in chk] +
+                            [m["max_abs_err"]]),
+            ms=p["ms"][name], plain_ms=m["plain_ms"], plain_device="cpu",
+            bound_ms=bound, bound_by=term, chain_bound_ms=chain,
+            chain_decisions_max_lane=int(decisions.max()),
+            ns_per_decision=ns, library_ms=None,
             main_path_shape=m["main_path_shape"],
-            check_shape=chk["check_shape"], check_ms=chk["check_ms"],
-            check_plain_ms=chk["check_plain_ms"]))
+            checks=[{k: c[k] for k in ("check_shape", "check_ms",
+                                       "check_plain_ms")} for c in chk]))
+        log(f"[bound] {name} ({gpu}): {p['ms'][name]:.2f} ms at the main "
+            f"path's shape; roofline bound {bound:.3f} ms ({term}); chain "
+            f"bound {chain:.2f} ms ({int(decisions.max())} decisions on the "
+            f"longest lane x {ns:.2f} ns)")
+    log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"kernels": kernels}))
     log(gpu)
     print(json.dumps({"ok": True, "device": {

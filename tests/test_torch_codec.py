@@ -6,9 +6,11 @@ integer and lossless."""
 import numpy as np
 import pytest
 
+from .util import synth_frames
 from tpu_ffv1 import EncoderParams, FFV1Decoder, FFV1Encoder
 from tpu_ffv1.tpu.decoder import TPUFFV1Decoder
 from tpu_ffv1.tpu.encoder import TPUFFV1Encoder
+from tpu_ffv1_torch import EncoderParams as TorchEncoderParams
 from tpu_ffv1_torch import TorchFFV1Decoder, TorchFFV1Encoder
 from tpu_ffv1_torch.tpu import encoder as tenc
 from tpu_ffv1_torch.tpu.state import (decoder_state_from_numpy,
@@ -178,14 +180,85 @@ def test_reset_starts_a_fresh_gop():
     assert port.encode_frame(frames[0]) == first
 
 
+def _params16(gop):
+    return EncoderParams(width=32, height=24, pix_fmt="yuv444p16le",
+                         level=3, coder=2, slices=4, gop_size=gop)
+
+
+@pytest.fixture(scope="module")
+def jax16():
+    """Frames 0-1 of a 16-bit GOP through TPUFFV1Encoder (one instance,
+    so one compile): its packets and the state it would carry on."""
+    frames = synth_frames("yuv444p16le", 32, 24, 4, seed=7)
+    jaxe = TPUFFV1Encoder(_params16(4))
+    pkts = [jaxe.encode_frame(f) for f in frames[:2]]
+    return frames, pkts, np.asarray(jaxe.states), jaxe.picture_number
+
+
+def test_16bit_encoder_matches_jax_and_host(jax16):
+    """yuv444p16le (the extended schedule, K1-ext's plain version), with
+    the port's own EncoderParams: the host encoder's and TPUFFV1Encoder's
+    bytes, and a lossless uint16 decode."""
+    frames, jax_pkts, _states, _pn = jax16
+    host = FFV1Encoder(_params16(4))
+    port = TorchFFV1Encoder(TorchEncoderParams(**vars(_params16(4))),
+                            device="cpu")
+    assert port.bits == 16 and port.s2 == 6
+    dec = TorchFFV1Decoder(32, 24, port.extradata, device="cpu")
+    for i, f in enumerate(frames[:2]):
+        want = host.encode_frame(f)
+        assert jax_pkts[i] == want
+        got = port.encode_frame(f)
+        assert got == want, f"frame {i}"
+        planes, kf = dec.decode_frame(got[0])
+        assert kf == want[1] == (i == 0)
+        for a, b in zip(planes, f):
+            assert a.dtype == np.uint16 and np.array_equal(a, b)
+
+
+def test_16bit_gop_begun_in_jax_continues_in_port(jax16):
+    """Frames 0-1 of a 16-bit GOP in TPUFFV1Encoder, frames 2-3 in the
+    port after encoder_state_from_numpy: the same bytes as the JAX
+    package's encoders alone (host and TPUFFV1Encoder agree on them)."""
+    frames, jax_pkts, states, pn = jax16
+    host = FFV1Encoder(_params16(4))
+    want = [host.encode_frame(f) for f in frames]
+    assert jax_pkts == want[:2]
+    port = TorchFFV1Encoder(_params16(4), device="cpu")
+    encoder_state_from_numpy(port, states, pn)
+    assert [port.encode_frame(f) for f in frames[2:]] == want[2:]
+    assert not want[2][1]                       # frame 2 is non-key
+
+
+def test_16bit_flipped_byte_flags_slice_and_conceals():
+    frames = synth_frames("yuv444p16le", 32, 24, 2, seed=8)
+    enc = FFV1Encoder(_params16(12))
+    pkts = [enc.encode_frame(f)[0] for f in frames]
+    dec = TorchFFV1Decoder(32, 24, enc.extradata, device="cpu")
+    dec.decode_frame(pkts[0])
+    bad = bytearray(pkts[1])
+    bad[20] ^= 0x40                         # inside the first slice's data
+    planes, _ = dec.decode_frame(bytes(bad))
+    assert dec.slice_damaged.sum() == 1
+    g = dec.geoms[int(np.nonzero(dec.slice_damaged[0])[0][0])]
+    for k in range(3):
+        p = planes[k]
+        assert np.array_equal(p[g.y:g.y + g.height, g.x:g.x + g.width],
+                              frames[0][k][g.y:g.y + g.height,
+                                           g.x:g.x + g.width])
+        mask = np.ones(p.shape, bool)
+        mask[g.y:g.y + g.height, g.x:g.x + g.width] = False
+        assert np.array_equal(p[mask], frames[1][k][mask])
+
+
 @pytest.mark.parametrize("kw", [
     dict(pix_fmt="yuv420p", coder=-1),                   # Golomb-Rice
     dict(pix_fmt="yuv420p", coder=2, context_model=1),
-    dict(pix_fmt="yuv420p16le", coder=2),                # ext schedule
+    dict(pix_fmt="yuv420p16le", coder=2, level=1),       # 16 bits, v1
     dict(pix_fmt="bgr0", coder=2),                       # RGB
     dict(pix_fmt="yuv420p", coder=2, slices=6),          # non-uniform
 ], ids=["golomb", "context1", "16bit", "rgb", "nonuniform"])
 def test_outside_the_slice_raises(kw):
-    params = EncoderParams(width=50, height=40, level=3, **kw)
+    params = EncoderParams(width=50, height=40, **{"level": 3, **kw})
     with pytest.raises(NotImplementedError):
         TorchFFV1Encoder(params, device="cpu")

@@ -67,6 +67,37 @@ def test_finalize_packed_full_matches_jax(trial):
         assert np.array_equal(o0[lane, :c0[lane]], o1[lane, :c1[lane]])
 
 
+@pytest.mark.parametrize("trial", range(4))
+def test_finalize_packed_s2_6_matches_jax(trial):
+    """The extended widths' finalize (6 slots per pixel, no group level)
+    on ext-shaped arrays (S = 33): two within the cap, two that overflow
+    it, then their full-width redo."""
+    N, L, S = 48, 4, 33
+    r = np.random.RandomState(200 + trial)
+    valid = r.rand(N, S, L) < (0.12 if trial < 2 else 0.3)
+    if trial < 2:
+        valid &= np.cumsum(valid, axis=1) <= 6
+    prov = r.randint(0, 1 << 17, (N, S, L)).astype(np.int32)
+    ff = r.rand(N, S, L) < 0.3
+    prov = np.where(ff, (prov & ~0x1FF) | 0xFF | (1 << 16), prov)
+    packed = np.where(valid, prov | (1 << 20), 0).astype(np.int32)
+    rest = list(_packed(trial, N=N, L=L, S=S)[1:])
+    args = [packed] + rest
+    (o0, c0, v0), (o1, c1, v1) = _both(
+        lambda *a: jfin.finalize_packed(*a, s2=6),
+        lambda *a: tfin.finalize_packed(*a, s2=6), args)
+    assert np.array_equal(v0, v1)
+    assert v1.any() == (trial >= 2)
+    assert np.array_equal(c0, c1)
+    for lane in range(L):
+        assert np.array_equal(o0[lane, :c0[lane]], o1[lane, :c1[lane]])
+    (o0, c0), (o1, c1) = _both(jfin.finalize_packed_full,
+                               tfin.finalize_packed_full, args)
+    assert np.array_equal(c0, c1)
+    for lane in range(L):
+        assert np.array_equal(o0[lane, :c0[lane]], o1[lane, :c1[lane]])
+
+
 def test_packed_from_strided_view():
     """The lane scan returns (N, S, L) as a view of (L, N, S) storage;
     finalize must read it like a contiguous array."""

@@ -10,10 +10,12 @@ from tpu_ffv1_torch import TorchFFV1Decoder, TorchFFV1Encoder
 
 
 @pytest.mark.parametrize("pix", ["gray", "yuv422p", "yuv444p", "yuva420p",
-                                 "yuv420p10le"])
+                                 "yuv420p10le", "yuv420p16le", "gray16le",
+                                 "yuva444p16le"])
 def test_pixel_formats_roundtrip(pix):
     """The slice's other planar layouts: no chroma, other subsampling,
-    an alpha plane (state plane 2), 10-bit samples."""
+    an alpha plane (state plane 2), 10-bit samples, and 16-bit samples
+    through the extended schedule (uint16 out, samples past 0x7FFF)."""
     params = EncoderParams(width=32, height=24, pix_fmt=pix, level=3,
                            coder=2, slices=4, gop_size=2)
     frames = synth_frames(pix, 32, 24, 2)

@@ -1,0 +1,54 @@
+"""The golden digests that chip_smoke.py holds the port's packets to
+(tpu_ffv1_torch/goldens/chip_smoke.json) are the reference host C
+encoder's: regenerated here from chip_smoke's seeded content generators
+with tpu_ffv1.FFV1Encoder(engine="native") on the CPU, every packet of
+both main paths (2 streams x 8 frames of 1080p yuv420p and of 1080p
+yuv444p16le), and compared with the committed file exactly.
+
+To rewrite the file after a deliberate change of the content or the
+configuration:  python tests/test_torch_goldens.py
+"""
+import json
+import os
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+import chip_smoke  # noqa: E402
+from tpu_ffv1 import EncoderParams, FFV1Encoder, native  # noqa: E402
+
+
+def golden_path(name):
+    """Digests of one main path's packets under the host C encoder."""
+    pix_fmt, _gen, seed = chip_smoke.PATHS[name]
+    params = EncoderParams(**chip_smoke.params_kw(pix_fmt))
+    encs = [FFV1Encoder(params, engine="native")
+            for _ in range(chip_smoke.BATCH)]
+    assert all(e.engine == "native" for e in encs)
+    packets = []
+    for enc, frames in zip(encs, chip_smoke.path_streams(name)):
+        packets.append([])
+        for f in frames:
+            pkt, key = enc.encode_frame(f)
+            packets[-1].append(dict(chip_smoke.digest(pkt), key=bool(key)))
+    return {"pix_fmt": pix_fmt, "seed": seed, "frames": chip_smoke.FRAMES,
+            "extradata": chip_smoke.digest(encs[0].extradata),
+            "packets": packets}
+
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.PATHS))
+def test_goldens_match_host_c_encoder(name):
+    assert native.available(), \
+        "the host C encoder (native/) must build to check the goldens"
+    assert golden_path(name) == chip_smoke.load_goldens()[name]
+
+
+if __name__ == "__main__":
+    out = {name: golden_path(name) for name in sorted(chip_smoke.PATHS)}
+    with open(chip_smoke.GOLDENS, "w") as f:
+        json.dump(out, f, indent=1)
+        f.write("\n")
+    print(f"wrote {chip_smoke.GOLDENS}")

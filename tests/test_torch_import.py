@@ -1,4 +1,5 @@
-"""The port imports torch and never jax, and never hides a missing GPU."""
+"""The port imports torch and never jax nor anything of the JAX package
+(tpu_ffv1), and never hides a missing GPU."""
 import os
 import subprocess
 import sys
@@ -13,16 +14,22 @@ MODULES = ["tpu_ffv1_torch", "tpu_ffv1_torch.device",
            "tpu_ffv1_torch.tpu.residual", "tpu_ffv1_torch.tpu.rc_encode",
            "tpu_ffv1_torch.tpu.finalize", "tpu_ffv1_torch.tpu.rc_decode",
            "tpu_ffv1_torch.tpu.encoder", "tpu_ffv1_torch.tpu.decoder",
-           "tpu_ffv1_torch.tpu.state"]
+           "tpu_ffv1_torch.tpu.state", "tpu_ffv1_torch.core.tables",
+           "tpu_ffv1_torch.core.rac", "tpu_ffv1_torch.core.crc",
+           "tpu_ffv1_torch.core.intmath", "tpu_ffv1_torch.codec.pixfmt",
+           "tpu_ffv1_torch.codec.params", "tpu_ffv1_torch.codec.context",
+           "tpu_ffv1_torch.bitstream.symbols",
+           "tpu_ffv1_torch.bitstream.headers"]
 
 
 def _jax_modules_after(imports: str) -> str:
-    """Run ``imports`` in a fresh interpreter; the jax / tpu_ffv1.tpu
-    modules it left in sys.modules, comma-separated."""
+    """Run ``imports`` in a fresh interpreter; the jax modules and the
+    JAX package's modules (tpu_ffv1, tpu_ffv1.*) it left in sys.modules,
+    comma-separated."""
     code = ("import sys\n" + imports +
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
-            "             or m.startswith('tpu_ffv1.tpu'))\n"
+            "             or m == 'tpu_ffv1' or m.startswith('tpu_ffv1.'))\n"
             "print(','.join(bad))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -36,15 +43,16 @@ def test_port_never_imports_jax():
         f"for m in {MODULES!r}:\n"
         "    __import__(m)\n"
         "import tpu_ffv1_torch\n"
-        "tpu_ffv1_torch.TorchFFV1Encoder, tpu_ffv1_torch.TorchFFV1Decoder\n")
-    assert bad == "", f"port pulled in jax / tpu_ffv1.tpu: {bad}"
+        "tpu_ffv1_torch.TorchFFV1Encoder, tpu_ffv1_torch.TorchFFV1Decoder\n"
+        "tpu_ffv1_torch.EncoderParams\n")
+    assert bad == "", f"port pulled in jax / tpu_ffv1: {bad}"
 
 
 def test_chip_smoke_never_imports_jax():
     """chip_smoke.py imports everything it uses at module level: the port
-    and tpu_ffv1's host codec, never jax or tpu_ffv1.tpu."""
+    and nothing else of this repo, never jax or tpu_ffv1."""
     bad = _jax_modules_after("import chip_smoke\n")
-    assert bad == "", f"chip_smoke pulled in jax / tpu_ffv1.tpu: {bad}"
+    assert bad == "", f"chip_smoke pulled in jax / tpu_ffv1: {bad}"
 
 
 @pytest.mark.parametrize("cls", ["encoder", "decoder"])

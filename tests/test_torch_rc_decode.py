@@ -1,7 +1,8 @@
-"""Decode lane scan: the plain PyTorch version (which rc_decode_planes
-runs for CPU tensors) equals dec_scan_lanes.rc_decode_planes_lanes on
+"""Decode lane scan: the plain PyTorch versions (which rc_decode_planes
+runs for CPU tensors) equal dec_scan_lanes.rc_decode_planes_lanes on
 the same inputs: planes, states, low, range and pos, exactly (integer
-codec), on intact and on damaged streams."""
+codec), on intact and on damaged streams, at the fast widths (8, 10)
+and the extended ones (12, 16)."""
 import numpy as np
 import pytest
 import torch
@@ -81,6 +82,95 @@ def test_matches_xla_lanes_on_damaged_stream():
     dec = TorchFFV1Decoder(W, H, enc.extradata, device="cpu")
     args, specs = _lane_args(dec, [bytes(pkt)], None)
     _compare(args, specs, 8)
+
+
+def _frames16(w, h, n, seed):
+    """yuv444p16le content whose residuals pass 2^10 (rows 10 and 31)
+    and whose samples pass 0x7FFF (the int16 wrap)."""
+    r = np.random.RandomState(seed)
+    base = np.add.outer(np.arange(h), np.arange(w)) * 2311
+    return [[((base + 9001 * k + 4099 * t + r.randint(0, 3000, (h, w)))
+              % 65536).astype(np.uint16) for k in range(3)]
+            for t in range(n)]
+
+
+@pytest.fixture(scope="module")
+def stream16():
+    """A 16-bit GOP of the host encoder: two streams x two frames of
+    16x12 yuv444p16le, 4 slices (8x6 per lane)."""
+    w, h = 16, 12
+    params = EncoderParams(width=w, height=h, pix_fmt="yuv444p16le",
+                           level=3, coder=2, slices=4, gop_size=2)
+    frames = [_frames16(w, h, 2, seed=40 + s) for s in range(2)]
+    encs = [FFV1Encoder(params) for _ in range(2)]
+    pkts = [[e.encode_frame(f)[0] for f in fr] for e, fr in zip(encs, frames)]
+    return w, h, encs[0].extradata, frames, pkts
+
+
+def test_ext_matches_xla_lanes_16bit(stream16):
+    """K2-ext's plain version at 16 bits, key frame then a non-key frame
+    from the states the first returned: planes (int16-wrapped), states,
+    low, range and pos equal the XLA lane decoder's."""
+    w, h, extradata, frames, pkts = stream16
+    dec = TorchFFV1Decoder(w, h, extradata, batch=2, device="cpu")
+    args, specs = _lane_args(dec, [p[0] for p in pkts], None)
+    got = _compare(args, specs, 16)
+    want = frames[0][0][0][:6, :8].astype(np.int32)
+    assert np.array_equal(got[0][0][0].numpy() & 0xFFFF, want)
+    assert (got[0][0].numpy() < 0).any(), "no sample went through the wrap"
+    args, specs = _lane_args(dec, [p[1] for p in pkts], got[1])
+    _compare(args, specs, 16)
+
+
+def test_ext_matches_xla_lanes_on_damaged_16bit_stream(stream16):
+    w, h, extradata, _frames, pkts = stream16
+    bad = [bytearray(p[0]) for p in pkts]
+    for b in bad:
+        for off in (20, 21, 22):               # inside the first slice
+            b[off] ^= 0xA5
+    dec = TorchFFV1Decoder(w, h, extradata, batch=2, device="cpu")
+    args, specs = _lane_args(dec, [bytes(b) for b in bad], None)
+    _compare(args, specs, 16)
+
+
+def test_ext_matches_xla_lanes_12bit_plain_encoder_stream():
+    """12 bits, a width no planar format codes: one 16x12 plane per lane
+    encoded by the port's stencil + K1-ext's plain version + finalize,
+    decoded losslessly by K2-ext's plain version and the XLA decoder."""
+    from tpu_ffv1.core import tables as T
+    from tpu_ffv1.core.rac import custom_state_tables
+    from tpu_ffv1_torch.tpu.finalize import finalize_packed_full
+    from tpu_ffv1_torch.tpu.rc_encode import rc_encode_packed
+    from tpu_ffv1_torch.tpu.residual import residuals_and_contexts
+    L, w, h, bits = 3, 16, 12, 12
+    r = np.random.RandomState(12)
+    samples = ((np.add.outer(np.arange(h), np.arange(w)) * 97 +
+                r.randint(0, 1500, (L, h, w))) % 4096).astype(np.int32)
+    qt = torch.from_numpy(T.default_quant_tables(bits)[0].astype(np.int32))
+    ctx, diff = residuals_and_contexts(torch.from_numpy(samples), qt, bits,
+                                       False)
+    cc = T.CONTEXT_COUNTS[0]
+    one, zero = (torch.from_numpy(t)
+                 for t in custom_state_tables(T.VER2_STATE))
+    states = torch.full((L, cc, 32), 128, dtype=torch.uint8)
+    packed, low, rng, _st = rc_encode_packed(
+        ctx.reshape(L, -1), diff.reshape(L, -1),
+        torch.ones((L, h * w), dtype=torch.bool), states, one, zero,
+        torch.zeros(L, dtype=torch.int32),
+        torch.full((L,), 0xFF00, dtype=torch.int32), bits)
+    out, count = finalize_packed_full(packed, low, rng,
+                                      torch.zeros((L, 1), dtype=torch.int32),
+                                      torch.zeros(L, dtype=torch.int32))
+    cap = 4096
+    bufs = torch.zeros((L, cap), dtype=torch.uint8)
+    for lane in range(L):
+        bufs[lane, :int(count[lane])] = out[lane, :int(count[lane])]
+    low0 = (bufs[:, 0].int() << 8) | bufs[:, 1].int()
+    args = (bufs, states, one, zero, qt, low0,
+            torch.full((L,), 0xFF00, dtype=torch.int32),
+            torch.full((L,), 2, dtype=torch.int32))
+    got = _compare(args, ((w, h, 0),), bits)
+    assert np.array_equal(got[0][0].numpy(), samples)
 
 
 def test_five_input_is_refused():

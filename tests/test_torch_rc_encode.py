@@ -1,5 +1,5 @@
-"""Encode lane scan: the plain PyTorch version (which rc_encode_packed
-runs for CPU tensors) equals the JAX kernels on the same numpy inputs.
+"""Encode lane scan: the plain PyTorch versions (which rc_encode_packed
+runs for CPU tensors) equal the JAX kernels on the same numpy inputs.
 Every comparison is exact: the codec is integer and lossless.
 
 Against the Pallas kernel (interpret mode, as tests/test_pallas.py runs
@@ -18,9 +18,12 @@ from tpu_ffv1.core import tables as T
 from tpu_ffv1.core.rac import custom_state_tables, default_state_tables
 from tpu_ffv1.tpu.rc_pallas import rc_encode_pallas_packed
 from tpu_ffv1.tpu.rc_scan_lanes import (finalize_packed_full,
+                                        rc_encode_scan_lanes_ext,
                                         rc_encode_scan_lanes_unrolled)
 from tpu_ffv1_torch.tpu import finalize as tfin
-from tpu_ffv1_torch.tpu.rc_encode import rc_encode_packed
+from tpu_ffv1_torch.tpu import rc_encode as tenc
+from tpu_ffv1_torch.tpu.rc_encode import (rc_encode_packed,
+                                          rc_encode_packed_ext_ref)
 
 
 def _inputs(L, N, bits, seed, tables="default"):
@@ -87,7 +90,43 @@ def test_matches_xla_scan_after_finalize(bits, tables):
     assert np.array_equal(ts.numpy(), np.asarray(s0))
 
 
+@pytest.mark.parametrize("bits", [11, 16, 17])
+def test_ext_matches_xla_ext_scan(bits, monkeypatch):
+    """The extended schedule (rows 10/31 running) against
+    rc_encode_scan_lanes_ext packed as the JAX encoder packs it
+    (prov | valid << 20, (N, S, L)): emit flags everywhere, values where
+    a slot emits, low, range and states.  The residuals span the whole
+    folded range, with its extremes, so e reaches bits - 1."""
+    L, N = 3, 512
+    r = np.random.RandomState(30 + bits)
+    args = list(_inputs(L, N, bits, bits))
+    half = 1 << (bits - 1)
+    diff = r.randint(-40, 41, (L, N))
+    diff = np.where(r.rand(L, N) < 0.3, r.randint(-half, half, (L, N)), diff)
+    diff[:, :4] = [-half, half - 1, -half + 1, 0]
+    args[1] = diff.astype(np.int32)
+    p0, v0, l0, r0, s0 = rc_encode_scan_lanes_ext(
+        *[jnp.asarray(a) for a in args], bits)
+    pk = np.moveaxis(np.asarray(p0) + (np.asarray(v0).astype(np.int32) << 20),
+                     1, 2)
+    tp, tl, tr, ts = rc_encode_packed(*_torch(args), bits)
+    tp = tp.numpy()
+    assert tp.shape == pk.shape == (N, 2 * bits + 1, L)
+    emit = (pk >> 20) & 1
+    assert emit.sum() > 0
+    assert np.array_equal((tp >> 20) & 1, emit)
+    assert np.array_equal(tp, np.where(emit == 1, pk, 0))
+    assert np.array_equal(tl.numpy(), np.asarray(l0))
+    assert np.array_equal(tr.numpy(), np.asarray(r0))
+    assert np.array_equal(ts.numpy(), np.asarray(s0))
+    # the chunked mask build does not change the result
+    monkeypatch.setattr(tenc, "EXT_MASK_CHUNK", 100)
+    again = rc_encode_packed_ext_ref(*_torch(args), bits)
+    for a, b in zip(again, (tp, tl, tr, ts)):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+
+
 def test_cuda_wrapper_refuses_bad_bits():
     args = _torch(_inputs(1, 8, 8, 2))
     with pytest.raises(NotImplementedError):
-        rc_encode_packed(*args, 11)
+        rc_encode_packed(*args, 18)

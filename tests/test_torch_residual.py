@@ -50,6 +50,29 @@ def test_residuals_and_contexts_match_jax(bits, jax_form, h, w):
         assert np.array_equal(np.asarray(dj), dt[i].numpy())
 
 
+@pytest.mark.parametrize("jax_form", ["gather", "steps"])
+def test_residuals_and_contexts_16bit_match_jax(jax_form):
+    """The 16-bit stencil: samples int16-wrapped as load_plane leaves
+    them (values past 0x7FFF go negative), byte-wrapped gradients into
+    the 10-bit quant tables, residuals folded to 16 bits."""
+    bits = 16
+    qt = np.asarray(T.default_quant_tables(bits)[0], np.int32)
+    raw = np.stack([_plane(bits, 12, 20, s) for s in range(3)])
+    crops = tres.load_plane(torch.from_numpy(raw), bits, False).numpy()
+    assert (crops < 0).any()
+    qspec_j = jres.quant_spec(qt) if jax_form == "steps" else None
+    ct, dt = tres.residuals_and_contexts(
+        torch.from_numpy(crops), torch.from_numpy(qt), bits, False)
+    for i, s in enumerate(crops):
+        sj = jres.load_plane(jnp.asarray(raw[i].astype(np.uint16)), bits,
+                             False)
+        assert np.array_equal(np.asarray(sj), s)
+        cj, dj = jres.residuals_and_contexts(sj, jnp.asarray(qt), bits,
+                                             False, qspec=qspec_j)
+        assert np.array_equal(np.asarray(cj), ct[i].numpy())
+        assert np.array_equal(np.asarray(dj), dt[i].numpy())
+
+
 @pytest.mark.parametrize("bits,lsb", [(8, True), (10, True), (10, False),
                                       (16, False)])
 def test_load_plane_matches_jax(bits, lsb):

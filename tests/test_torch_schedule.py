@@ -19,3 +19,16 @@ def test_schedule_matches_jax(bits):
 def test_fast_schedule_rejects_deep_widths():
     with pytest.raises(ValueError):
         schedule.chain_order(11)
+
+
+@pytest.mark.parametrize("bits", range(11, 18))
+def test_ext_slots_match_jax(bits):
+    assert schedule.ext_slots(bits) == jax_sched.ext_slots(bits)
+    # the ext kernels' slot count: 33 at 16 bits
+    assert len(schedule.ext_slots(bits)) == 2 * bits + 1
+
+
+@pytest.mark.parametrize("bits", [10, 18])
+def test_ext_slots_reject_other_widths(bits):
+    with pytest.raises(ValueError):
+        schedule.ext_slots(bits)

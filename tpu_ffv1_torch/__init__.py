@@ -1,22 +1,24 @@
 """tpu_ffv1_torch — the FFV1 device tier in PyTorch with CUDA kernels.
 
 A port of ``tpu_ffv1.tpu`` (JAX/Pallas) to PyTorch on NVIDIA Hopper.
-The normative layers (``tpu_ffv1.core``, ``codec.params``/``context``/
-``pixfmt``, ``bitstream.headers``, ``log``) are imported from the JAX
-package, which they do not tie to jax; this package never imports jax.
+The port keeps its own copies of the normative host layers it uses
+(``core``, ``codec``, ``bitstream``: numpy-only, trimmed to what the
+port reaches) and imports nothing of the JAX package, nor jax.
 
-Covered so far: the planar range-coder path at coded widths <= 10 bits
-with context model 0 on uniform slice grids (version 3), encode and
-decode, with GOP context carry-over.  The two range-coder scans run as
+Covered so far: the planar range-coder path (version 3, context model 0,
+uniform slice grids) at every planar coded width, <= 10 bits through the
+fast schedule and 11..16 bits through the extended one, encode and
+decode, with GOP context carry-over.  The range-coder scans run as
 hand-written CUDA kernels (``csrc/``) on CUDA tensors and as their plain
 PyTorch versions on CPU tensors.
 
 The classes load lazily so importing the package touches no device.
 """
 
-__all__ = ["TorchFFV1Encoder", "TorchFFV1Decoder"]
+__all__ = ["EncoderParams", "TorchFFV1Encoder", "TorchFFV1Decoder"]
 
 _LAZY = {
+    "EncoderParams": ("tpu_ffv1_torch.codec.params", "EncoderParams"),
     "TorchFFV1Encoder": ("tpu_ffv1_torch.tpu.encoder", "TorchFFV1Encoder"),
     "TorchFFV1Decoder": ("tpu_ffv1_torch.tpu.decoder", "TorchFFV1Decoder"),
 }

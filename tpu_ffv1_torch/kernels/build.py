@@ -4,8 +4,8 @@ check the tensors their wrappers pass.
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for Hopper (sm_90a) into ``tpu_ffv1_torch/_build/lib<name>.so``,
 then loaded with ``ctypes``.  A library is rebuilt when its source is
-newer than it.  Nothing here falls back: a missing ``nvcc`` or a failed
-build raises.
+newer than it; ``build_all`` compiles several sources in parallel.
+Nothing here falls back: a missing ``nvcc`` or a failed build raises.
 """
 from __future__ import annotations
 
@@ -54,27 +54,48 @@ def expect(name, t, dtype, shape, device):
                          f"{t.device}")
 
 
+def _stale(name: str) -> bool:
+    src = os.path.join(CSRC, f"{name}.cu")
+    out = os.path.join(BUILD_DIR, f"lib{name}.so")
+    return not os.path.exists(out) or \
+        os.path.getmtime(out) < os.path.getmtime(src)
+
+
+def build_all(names) -> None:
+    """Compile every stale library of ``names`` at once: one nvcc per
+    source, all started together, then wait for each."""
+    jobs = []
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    for name in names:
+        BUILD_SECONDS.setdefault(name, 0.0)
+        if not _stale(name):
+            continue
+        src = os.path.join(CSRC, f"{name}.cu")
+        out = os.path.join(BUILD_DIR, f"lib{name}.so")
+        tmp = f"{out}.{os.getpid()}.tmp"
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, src, out, tmp, proc, time.perf_counter()))
+    failed = []
+    for name, src, out, tmp, proc, t0 in jobs:
+        BUILD_LOG[name] = proc.communicate()[0]
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {src} (exit {proc.returncode}):"
+                          f"\n{BUILD_LOG[name]}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu``."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    src = os.path.join(CSRC, f"{name}.cu")
-    out = os.path.join(BUILD_DIR, f"lib{name}.so")
-    BUILD_SECONDS[name] = 0.0
-    if not os.path.exists(out) or \
-            os.path.getmtime(out) < os.path.getmtime(src):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        BUILD_SECONDS[name] = time.perf_counter() - t0
-        BUILD_LOG[name] = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src} "
-                               f"(exit {res.returncode}):\n{BUILD_LOG[name]}")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(out)
+    build_all([name])
+    lib = ctypes.CDLL(os.path.join(BUILD_DIR, f"lib{name}.so"))
     _LIBS[name] = lib
     return lib

@@ -16,15 +16,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpu_ffv1.bitstream.headers import read_extra_header, read_slice_header
-from tpu_ffv1.codec.context import SliceState, slice_grid
-from tpu_ffv1.codec.pixfmt import reconstruct_pix_fmt
-from tpu_ffv1.core import tables as T
-from tpu_ffv1.core.crc import crc32_ieee
-from tpu_ffv1.core.intmath import ceil_rshift
-from tpu_ffv1.core.rac import (RangeDecoder, custom_state_tables,
-                               default_state_tables)
-
+from ..bitstream.headers import read_extra_header, read_slice_header
+from ..codec.context import SliceState, slice_grid
+from ..codec.pixfmt import reconstruct_pix_fmt
+from ..core import tables as T
+from ..core.crc import crc32_ieee
+from ..core.intmath import ceil_rshift
+from ..core.rac import (RangeDecoder, custom_state_tables,
+                        default_state_tables)
 from ..device import resolve_device
 from .rc_decode import rc_decode_planes
 
@@ -59,9 +58,8 @@ class TorchFFV1Decoder:
         self.quant_table_count = g.quant_table_count
         self.ec = g.ec
         self.bits = 8 if g.bits_per_raw_sample <= 8 else g.bits_per_raw_sample
-        if self.bits > 10:
-            raise NotImplementedError("coded widths > 10 bits are not "
-                                      "ported")
+        if self.bits > 17:
+            raise NotImplementedError("no coded width above 17 bits exists")
         self.pix_fmt = reconstruct_pix_fmt(
             g.colorspace, g.bits_per_raw_sample or 8, g.chroma_planes,
             g.chroma_h_shift, g.chroma_v_shift, g.transparency)
@@ -257,7 +255,10 @@ class TorchFFV1Decoder:
             if self.bits <= 8:
                 planes_full.append(x.to(torch.uint8).cpu().numpy())
             else:
-                planes_full.append(x.cpu().numpy().astype(np.uint16))
+                # 16-bit samples come back int16-wrapped (negative above
+                # 0x7FFF), as the reference's int16_t rows hold them
+                planes_full.append((x & 0xFFFF).cpu().numpy()
+                                   .astype(np.uint16))
         self._validate(parsed, torch.stack([low, rng, pos]).cpu().numpy(),
                        buflens)
         return [(self._conceal(bi, [fp[bi] for fp in planes_full]),

@@ -13,23 +13,23 @@ Port of the planar range-coder path of ``tpu_ffv1/tpu/encoder.py``
 Adaptive states stay on the device across frames (GOP context
 carry-over, ffv1enc.c:1171-1172): keyframes reset them to 128, other
 frames continue from the previous frame's states.  Covered: version 3,
-range coder, planar YUV/gray at <= 10 bits, context model 0, uniform
-slice grids; everything else raises NotImplementedError.
+range coder, planar YUV/gray at every coded width (<= 10 bits through
+the fast schedule, 11..16 through the extended one), context model 0,
+uniform slice grids; everything else raises NotImplementedError.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from tpu_ffv1.bitstream.headers import write_extradata, write_slice_header
-from tpu_ffv1.codec.context import slice_grid
-from tpu_ffv1.codec.params import EncoderParams, resolve
-from tpu_ffv1.core import tables as T
-from tpu_ffv1.core.crc import crc32_ieee
-from tpu_ffv1.core.intmath import ceil_rshift
-from tpu_ffv1.core.rac import (ProvisionalRangeEncoder, custom_state_tables,
-                               default_state_tables)
-
+from ..bitstream.headers import write_extradata, write_slice_header
+from ..codec.context import slice_grid
+from ..codec.params import EncoderParams, resolve
+from ..core import tables as T
+from ..core.crc import crc32_ieee
+from ..core.intmath import ceil_rshift
+from ..core.rac import (ProvisionalRangeEncoder, custom_state_tables,
+                        default_state_tables)
 from ..device import resolve_device
 from .finalize import finalize_packed, finalize_packed_full
 from .rc_encode import rc_encode_packed
@@ -61,9 +61,12 @@ class TorchFFV1Encoder:
             raise NotImplementedError("only context model 0 is ported")
         self.bits = 8 if rp.bits_per_raw_sample <= 8 else \
             rp.bits_per_raw_sample
-        if self.bits > 10:
-            raise NotImplementedError("coded widths > 10 bits (the ext "
-                                      "schedule) are not ported")
+        if self.bits > 17:
+            raise NotImplementedError("no coded width above 17 bits exists")
+        # 11..17-bit coded widths ride the extended schedule (K1-ext),
+        # which chains put_symbol's repeated rows 10/31; their finalize
+        # compacts to 6 slots per pixel (encoder.py of the JAX package)
+        self.s2 = 4 if self.bits <= 10 else 6
         self.batch = batch
         self.extradata = write_extradata(rp)
         self.geoms = slice_grid(rp.width, rp.height,
@@ -96,8 +99,9 @@ class TorchFFV1Encoder:
         self.n_slices = len(self.geoms)
         self.L = self.n_slices * batch
         self.n_max = self._stream_len(g0)
-        # output cap per lane: the codeable worst case is ~2.2 B/pixel
-        self.out_cap = self.n_max * 3 + 4096
+        # output cap per lane: the codeable worst case is ~2.2 B/pixel at
+        # 8 bits, more at the extended widths
+        self.out_cap = self.n_max * (3 if self.bits <= 10 else 4) + 4096
         self.states = torch.full((self.L, self.total_cc, 32), 128,
                                  dtype=torch.uint8, device=dev)
         self.picture_number = 0
@@ -214,7 +218,7 @@ class TorchFFV1Encoder:
             ctxs, diffs, acts, states0, self.one_tab, self.zero_tab,
             lows, ranges, self.bits)
         out, counts, overflow = finalize_packed(packed, low, rng,
-                                                prefixes, plens)
+                                                prefixes, plens, self.s2)
         return out, counts, states_out, overflow, packed, low, rng
 
     def _assemble(self, payloads):
@@ -260,7 +264,7 @@ class TorchFFV1Encoder:
         self.states = states_out
         self.picture_number += 1
         if bool(overflow.any()):
-            # a pixel emitted > 4 slots (or a 16-pixel group > 24): redo
+            # a pixel emitted > s2 slots (or a 16-pixel group > 24): redo
             # the finalize at full slot width from the raw scan output
             out, counts = finalize_packed_full(packed, low, rng, prefixes,
                                                plens)

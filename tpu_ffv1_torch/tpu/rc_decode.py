@@ -1,15 +1,18 @@
-"""Decode lane scan: the CUDA kernel (csrc/rc_decode.cu) and its plain
-PyTorch version.
+"""Decode lane scan: the CUDA kernels (csrc/rc_decode.cu, bits <= 10;
+csrc/rc_decode_ext.cu, bits 11..17) and their plain PyTorch versions.
 
 Port of ``tpu_ffv1/tpu/rc_dec_pallas.py`` (``rc_decode_planes_pallas``,
-fast schedule, 3-input context), same contract:
+3-input context: the fast schedule at bits <= 10, the extended one with
+running rows 10/31 at 11..17), same contract:
 
   in:  bufs uint8 (L, cap) per-lane slice bytes (zero padded), states
        uint8 (L, CC, 32), one_tab/zero_tab uint8 (256,), qt int32
        (5, 256), low0/range0/pos0 int32 (L,) after the host-parsed slice
        headers, plane_specs ((w, h, plane_base), ...) in coding order,
-       bits <= 10
-  out: (planes: tuple of int32 (L, h, w), states_out, low, range, pos)
+       bits 1..17
+  out: (planes: tuple of int32 (L, h, w), states_out, low, range, pos);
+       at 16 bits the samples are int16-wrapped, as the reference's
+       int16_t sample rows hold them (dec_scan_lanes.py:189-193)
 
 A read at pos >= cap gives 0, and the context index is clamped into the
 state table, so damaged streams stay in bounds (the caller detects them
@@ -25,14 +28,18 @@ import torch.nn.functional as F
 
 from ..kernels.build import expect, load
 
-# kernel launches made by rc_decode_planes (read by chip_smoke.py)
+# kernel launches made by rc_decode_planes (read by chip_smoke.py): K2
+# (bits <= 10) and K2-ext (bits 11..17)
 LAUNCHES = 0
+LAUNCHES_EXT = 0
 
 
-def rc_decode_planes_ref(bufs, states, one_tab, zero_tab, qt, low0,
-                         range0, pos0, plane_specs, bits: int):
-    """Plain PyTorch version: a loop over pixels, vectorised over lanes
-    (the semantics of dec_scan_lanes.rc_decode_planes_lanes)."""
+def _decode_planes_ref(bufs, states, one_tab, zero_tab, qt, low0, range0,
+                       pos0, plane_specs, bits: int):
+    """A loop over pixels, vectorised over lanes (the semantics of
+    dec_scan_lanes.rc_decode_planes_lanes at any coded width).  Every
+    decision adapts its state at once, so the repeated rows 10 and 31 of
+    the extended widths chain sequentially."""
     L, cap = bufs.shape
     CC = states.shape[1]
     dev = bufs.device
@@ -96,7 +103,7 @@ def rc_decode_planes_ref(bufs, states, one_tab, zero_tab, qt, low0,
                 for j in range(e_max + 1):   # exponent unary + stop
                     if bool(done.all()):
                         break
-                    bit = rac(row + (1 + j), ~done)
+                    bit = rac(row + (1 + min(j, 9)), ~done)
                     e = e + bit
                     done = done | ~bit
                 a = torch.ones((L,), dtype=torch.int64, device=dev)
@@ -113,6 +120,10 @@ def rc_decode_planes_ref(bufs, states, one_tab, zero_tab, qt, low0,
                 pred = (Lv + m + T) - torch.minimum(torch.minimum(Lv, m), T) \
                     - torch.maximum(torch.maximum(Lv, m), T)
                 val = (pred + diff) & mask_v
+                if bits == 16:
+                    # int16_t sample-row storage wrap: the median
+                    # predictor compares 16-bit samples signed
+                    val = ((val + 0x8000) & 0xFFFF) - 0x8000
                 plane[:, y, x] = val
                 LT = T
                 Lv = val
@@ -121,22 +132,45 @@ def rc_decode_planes_ref(bufs, states, one_tab, zero_tab, qt, low0,
             low.to(torch.int32), rng.to(torch.int32), pos.to(torch.int32))
 
 
+def rc_decode_planes_ref(bufs, states, one_tab, zero_tab, qt, low0,
+                         range0, pos0, plane_specs, bits: int):
+    """Plain PyTorch version of K2 (the fast schedule, bits <= 10)."""
+    if not 1 <= bits <= 10:
+        raise ValueError("the fast schedule covers bits <= 10")
+    return _decode_planes_ref(bufs, states, one_tab, zero_tab, qt, low0,
+                              range0, pos0, plane_specs, bits)
+
+
+def rc_decode_planes_ext_ref(bufs, states, one_tab, zero_tab, qt, low0,
+                             range0, pos0, plane_specs, bits: int):
+    """Plain PyTorch version of K2-ext (the extended schedule, bits
+    11..17: exponent row 1 + min(j, 9), mantissa row 22 + min(i, 9),
+    sign row 11 + min(e, 10), the int16 wrap at 16 bits)."""
+    if not 11 <= bits <= 17:
+        raise ValueError("the extended schedule covers bits 11..17")
+    return _decode_planes_ref(bufs, states, one_tab, zero_tab, qt, low0,
+                              range0, pos0, plane_specs, bits)
+
+
 def rc_decode_planes(bufs, states, one_tab, zero_tab, qt, low0, range0,
                      pos0, plane_specs, bits: int, five: bool = False):
     """Decode all planes of L slice lanes; the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors (contract in the module
-    docstring).  ``five`` (the 5-input context model) is not ported."""
-    global LAUNCHES
+    tensors (K2 at bits <= 10, K2-ext at 11..17), the plain version for
+    CPU tensors (contract in the module docstring).  ``five`` (the
+    5-input context model) is not ported."""
+    global LAUNCHES, LAUNCHES_EXT
     if five:
         raise NotImplementedError("the 5-input context model (context "
                                   "model 1) is not ported")
-    if not 1 <= bits <= 10:
-        raise NotImplementedError("the fast schedule covers bits <= 10")
+    if not 1 <= bits <= 17:
+        raise NotImplementedError("the lane scan covers bits 1..17")
+    ext = bits > 10
     plane_specs = tuple(tuple(int(v) for v in s) for s in plane_specs)
     dev = bufs.device
     if dev.type == "cpu":
-        return rc_decode_planes_ref(bufs, states, one_tab, zero_tab, qt,
-                                    low0, range0, pos0, plane_specs, bits)
+        ref = rc_decode_planes_ext_ref if ext else rc_decode_planes_ref
+        return ref(bufs, states, one_tab, zero_tab, qt, low0, range0, pos0,
+                   plane_specs, bits)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     L, cap = bufs.shape
@@ -152,8 +186,8 @@ def rc_decode_planes(bufs, states, one_tab, zero_tab, qt, low0, range0,
         raise ValueError("1..4 planes per call")
     if states.data_ptr() % 16:
         states = states.clone()            # the kernel copies in 16 B words
-    lib = load("rc_decode")
-    fn = lib.rc_decode_launch
+    name = "rc_decode_ext" if ext else "rc_decode"
+    fn = getattr(load(name), f"{name}_launch")
     fn.restype = ctypes.c_int
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p, i, p, p, p, p, p, p, p, p, i, p, i, p, p, p, p,
@@ -174,8 +208,11 @@ def rc_decode_planes(bufs, states, one_tab, zero_tab, qt, low0, range0,
              pos.data_ptr(), states_out.data_ptr(), L, CC, bits,
              torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f"rc_decode kernel launch failed: CUDA error {err}")
-    LAUNCHES += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    if ext:
+        LAUNCHES_EXT += 1
+    else:
+        LAUNCHES += 1
     planes, off = [], 0
     for (w, h, _b) in plane_specs:
         planes.append(out[:, off:off + w * h].view(L, h, w))

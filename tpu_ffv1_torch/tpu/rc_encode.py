@@ -1,16 +1,19 @@
-"""Encode lane scan: the CUDA kernel (csrc/rc_encode.cu) and its plain
-PyTorch version.
+"""Encode lane scan: the CUDA kernels (csrc/rc_encode.cu, bits <= 10;
+csrc/rc_encode_ext.cu, bits 11..17) and their plain PyTorch versions.
 
-Port of ``tpu_ffv1/tpu/rc_pallas.py`` (``rc_encode_pallas_packed``, fast
-schedule, raw packed output).  Contract, for L slice lanes of N pixels:
+Port of ``tpu_ffv1/tpu/rc_pallas.py`` (``rc_encode_pallas_packed``, raw
+packed output: the fast schedule at bits <= 10, the extended one at
+11..17).  Contract, for L slice lanes of N pixels:
 
   in:  ctx int32 (L, N), diff int32 (L, N) folded residuals, active bool
        (L, N), states0 uint8 (L, CC, 32), one_tab/zero_tab uint8 (256,),
-       low0/range0 int32 (L,), bits <= 10
+       low0/range0 int32 (L,), bits 1..17
   out: packed int32 (N, S, L), S = 2 * bits + 1 (a view of (L, N, S)
        storage); an emitting slot holds the provisional value in bits
        0..16 and the emit flag in bit 20, a silent slot 0.  low/range
-       int32 (L,), states uint8 (L, CC, 32).
+       int32 (L,), states uint8 (L, CC, 32).  Slot order: the fast
+       schedule (schedule.chain_order_nosign + one sign slot) at
+       bits <= 10, schedule.ext_slots above.
 
 ``rc_encode_packed`` runs the plain version for CPU tensors and the
 kernel for CUDA tensors; it never substitutes one for the other.
@@ -23,10 +26,14 @@ import torch
 
 from ..kernels.build import expect, load
 
-from .schedule import chain_order_nosign
+from .schedule import chain_order_nosign, ext_slots
 
-# kernel launches made by rc_encode_packed (read by chip_smoke.py)
+# kernel launches made by rc_encode_packed (read by chip_smoke.py): K1
+# (bits <= 10) and K1-ext (bits 11..17)
 LAUNCHES = 0
+LAUNCHES_EXT = 0
+# pixels whose per-slot masks the extended plain version builds at once
+EXT_MASK_CHUNK = 4096
 
 
 def floor_log2(a: torch.Tensor) -> torch.Tensor:
@@ -119,19 +126,131 @@ def rc_encode_packed_ref(ctx, diff, active, states0, one_tab, zero_tab,
             rng.to(torch.int32), st.to(torch.uint8).view(L, CC, 32))
 
 
-def rc_encode_packed(ctx, diff, active, states0, one_tab, zero_tab,
-                     low0, range0, bits: int):
-    """Encode lane scan; the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors (see the module docstring for the contract)."""
-    global LAUNCHES
-    if not 1 <= bits <= 10:
-        raise NotImplementedError("the fast schedule covers bits <= 10")
+def _ext_slot_masks(diff, active, bits):
+    """Per-slot state position, activity and bit, each (L, n, S), in
+    ext_slots order (running slots at positions 10 and 31)."""
+    v = diff.to(torch.int64)
+    a = v.abs()
+    e = floor_log2(a).to(torch.int64)
+    nz = v != 0
+    ap = active.to(torch.bool)
+    apnz = ap & nz
+    pos, act, bit = [], [], []
+    for sl in ext_slots(bits):
+        kind = sl[0]
+        if kind == "zero":
+            p, ac, b = 0, ap, ~nz
+        elif kind == "exp":
+            j = sl[1]
+            p, ac, b = 1 + min(j, 9), apnz & (j <= e), j < e
+        elif kind == "man31":
+            r = sl[1]
+            p, ac = 31, apnz & (e >= 10 + r)
+            b = ((a >> (e - 1 - r).clamp(0, 31)) & 1) == 1
+        elif kind == "man":
+            i = sl[1]
+            p, ac, b = 22 + i, apnz & (i < e), ((a >> i) & 1) == 1
+        else:
+            p, ac, b = 11 + e.clamp(max=10), apnz, v < 0
+        pos.append(torch.full_like(e, p) if isinstance(p, int) else p)
+        act.append(ac)
+        bit.append(b)
+    return (torch.stack(pos, -1), torch.stack(act, -1),
+            torch.stack(bit, -1))
+
+
+def rc_encode_packed_ext_ref(ctx, diff, active, states0, one_tab, zero_tab,
+                             low0, range0, bits: int):
+    """Plain PyTorch version of the extended schedule (bits 11..17): a
+    loop over pixels, vectorised over lanes (the semantics of
+    rc_scan_lanes.rc_encode_scan_lanes_ext).  Rows 10 and 31 carry
+    running states through every decision that touches them; the other
+    positions adapt once per pixel after the chain.  The per-slot masks
+    are built EXT_MASK_CHUNK pixels at a time to bound memory."""
+    L, N = ctx.shape
+    CC = states0.shape[1]
     dev = ctx.device
-    if dev.type == "cpu":
-        return rc_encode_packed_ref(ctx, diff, active, states0, one_tab,
-                                    zero_tab, low0, range0, bits)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
+    slots = ext_slots(bits)
+    S = len(slots)
+    run10 = [k for k, sl in enumerate(slots)
+             if sl[0] == "exp" and sl[1] >= 9]
+    run31 = [k for k, sl in enumerate(slots) if sl[0] == "man31"]
+    single = torch.tensor([k for k in range(S)
+                           if k not in run10 and k not in run31],
+                          device=dev)
+    trans = torch.cat([torch.arange(256, device=dev),
+                       zero_tab.to(dev, torch.int64),
+                       one_tab.to(dev, torch.int64)])
+    st = states0.reshape(-1).to(torch.int64)
+    low = low0.to(torch.int64)
+    rng = range0.to(torch.int64)
+    packed = torch.zeros((L, N, S), dtype=torch.int32, device=dev)
+    rows_all = (torch.arange(L, device=dev)[:, None] * CC +
+                ctx.long().clamp(0, CC - 1)) << 5            # (L, N)
+    no_nl = torch.zeros((L,), dtype=torch.int64, device=dev)
+    no_em = torch.zeros((L,), dtype=torch.bool, device=dev)
+
+    for c0 in range(0, N, EXT_MASK_CHUNK):
+        c1 = min(N, c0 + EXT_MASK_CHUNK)
+        n = c1 - c0
+        pos, act, bit = _ext_slot_masks(diff[:, c0:c1], active[:, c0:c1],
+                                        bits)
+        bit = bit & act
+        rows = rows_all[:, c0:c1]
+        at = rows[..., None] + pos                            # (L, n, S)
+        sel = (act.long() + bit.long()) << 8
+        act_l = act.long()
+        coded = act.any(dim=0).cpu().numpy()                  # (n, S)
+        nl_c = torch.zeros((L, n, S), dtype=torch.int64, device=dev)
+        em_c = torch.zeros((L, n, S), dtype=torch.bool, device=dev)
+        for i in range(n):
+            at_i = at[:, i]
+            s_all = st[at_i]                                  # (L, S)
+            s_k = (s_all * act_l[:, i]).unbind(1)
+            b_k = bit[:, i].unbind(1)
+            a_k = act[:, i].unbind(1)
+            sel_k = sel[:, i].unbind(1)
+            s10 = s_all[:, run10[0]]
+            s31 = s_all[:, run31[0]]
+            nls, ems = [no_nl] * S, [no_em] * S
+            for k in coded[i].nonzero()[0]:
+                b = b_k[k]
+                if k in run10:
+                    s = s10 * a_k[k]
+                    s10 = trans[sel_k[k] + s10]
+                elif k in run31:
+                    s = s31 * a_k[k]
+                    s31 = trans[sel_k[k] + s31]
+                else:
+                    s = s_k[k]
+                r1 = (rng * s) >> 8
+                t = rng - r1
+                nr = torch.where(b, r1, t)
+                nl = low + t * b
+                em = a_k[k] & (nr < 0x100)
+                nls[k], ems[k] = nl, em
+                low = torch.where(em, (nl & 0xFF) << 8, nl)
+                rng = torch.where(em, nr << 8, nr)
+            nl_c[:, i] = torch.stack(nls, dim=1)
+            em_c[:, i] = torch.stack(ems, dim=1)
+            # deferred adaptation of the single-touch (pairwise distinct)
+            # positions, then the running rows' final states
+            st[at_i[:, single]] = trans[sel[:, i, single] + s_all[:, single]]
+            row = rows[:, i]
+            st[row + 10] = s10
+            st[row + 31] = s31
+        pv = (nl_c >> 8) | (((nl_c & 0xFF) != 0).long() << 16) | (1 << 20)
+        packed[:, c0:c1] = torch.where(em_c, pv, 0).to(torch.int32)
+
+    return (packed.permute(1, 2, 0), low.to(torch.int32),
+            rng.to(torch.int32), st.to(torch.uint8).view(L, CC, 32))
+
+
+def _launch(name, ctx, diff, active, states0, one_tab, zero_tab, low0,
+            range0, bits):
+    """Check the arguments and launch ``<name>_launch`` from
+    csrc/<name>.cu on the current stream; returns the outputs."""
+    dev = ctx.device
     L, N = ctx.shape
     CC = states0.shape[1]
     S = 2 * bits + 1
@@ -145,8 +264,7 @@ def rc_encode_packed(ctx, diff, active, states0, one_tab, zero_tab,
     expect("range0", range0, torch.int32, (L,), dev)
     if states0.data_ptr() % 16:
         states0 = states0.clone()          # the kernel copies in 16 B words
-    lib = load("rc_encode")
-    fn = lib.rc_encode_launch
+    fn = getattr(load(name), f"{name}_launch")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + \
         [ctypes.c_void_p]
@@ -160,6 +278,30 @@ def rc_encode_packed(ctx, diff, active, states0, one_tab, zero_tab,
              low.data_ptr(), rng.data_ptr(), states.data_ptr(),
              L, N, CC, bits, torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f"rc_encode kernel launch failed: CUDA error {err}")
-    LAUNCHES += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return packed.permute(1, 2, 0), low, rng, states
+
+
+def rc_encode_packed(ctx, diff, active, states0, one_tab, zero_tab,
+                     low0, range0, bits: int):
+    """Encode lane scan; the CUDA kernel for CUDA tensors (K1 at
+    bits <= 10, K1-ext at 11..17), the plain version for CPU tensors
+    (see the module docstring for the contract)."""
+    global LAUNCHES, LAUNCHES_EXT
+    if not 1 <= bits <= 17:
+        raise NotImplementedError("the lane scan covers bits 1..17")
+    ext = bits > 10
+    dev = ctx.device
+    if dev.type == "cpu":
+        ref = rc_encode_packed_ext_ref if ext else rc_encode_packed_ref
+        return ref(ctx, diff, active, states0, one_tab, zero_tab, low0,
+                   range0, bits)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    out = _launch("rc_encode_ext" if ext else "rc_encode", ctx, diff,
+                  active, states0, one_tab, zero_tab, low0, range0, bits)
+    if ext:
+        LAUNCHES_EXT += 1
+    else:
+        LAUNCHES += 1
+    return out

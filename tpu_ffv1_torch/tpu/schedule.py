@@ -1,4 +1,5 @@
-"""Static range-coder slot schedules (coded widths <= 10 bits).
+"""Static range-coder slot schedules (fast: coded widths <= 10 bits;
+extended: 11..17).
 
 Re-derived from ``tpu_ffv1/tpu/rc_scan_fast.py`` (which imports jax).
 At bits <= 10 every binary decision of one pixel lands in a distinct
@@ -26,6 +27,32 @@ def chain_order(bits: int):
 
 def slot_count(bits: int) -> int:
     return len(chain_order(bits))
+
+
+def ext_slots(bits: int):
+    """Static decision list for coded widths 11..17 bits (e_max 10..16).
+
+    put_symbol caps the exponent row at 1 + min(j, 9) and the mantissa
+    row at 22 + min(i, 9) (ffv1enc.c:185-231), so above 10 bits rows 10
+    and 31 carry several decisions per pixel, each with the state the
+    previous one left.  Slot descriptors in coding order:
+
+      ("zero",)     row 0,             bit = (v == 0)
+      ("exp", j)    row 1 + min(j, 9), j = 0..e_max, active j <= e,
+                    bit = j < e (j >= 9 repeats row 10)
+      ("man31", r)  row 31, r = 0..e_max - 10, active e >= 10 + r,
+                    bit = (a >> (e - 1 - r)) & 1 (repeats row 31)
+      ("man", i)    row 22 + i, i = 8..0, active i < e, bit = (a >> i) & 1
+      ("sign",)     row 11 + min(e, 10), bit = v < 0
+
+    33 slots at 16 bits, 2 * bits + 1 in general.
+    """
+    e_max = bits - 1
+    if not 10 <= e_max <= 16:
+        raise ValueError("the extended schedule covers bit depths 11..17")
+    return ([("zero",)] + [("exp", j) for j in range(e_max + 1)] +
+            [("man31", r) for r in range(e_max - 9)] +
+            [("man", i) for i in range(8, -1, -1)] + [("sign",)])
 
 
 def chain_order_nosign(bits: int):

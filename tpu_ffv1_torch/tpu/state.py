@@ -1,9 +1,9 @@
 """Carry stream state across from the JAX package's classes.
 
 The codec has no weights: its tables (quant tables, one/zero state
-transitions, initial states) come from ``tpu_ffv1.core`` and the
-extradata, as in the JAX classes.  What a running stream carries is its
-adaptive context states and the picture counter / keyframe gate.  These
+transitions, initial states) come from the normative tables
+(``tpu_ffv1_torch.core``) and the extradata, as in the JAX classes.
+What a running stream carries is its adaptive context states and the picture counter / keyframe gate.  These
 helpers install that state, taken as numpy arrays from
 ``TPUFFV1Encoder`` / ``TPUFFV1Decoder``, into the port's classes, so a
 GOP begun in JAX continues in the port with the same bytes.
