@@ -77,7 +77,7 @@ FRAMES = 1 + WARM + TIMED
 SEED = 20261016
 GOLDENS = os.path.join(os.path.dirname(tpu_ffv1_torch.__file__), "goldens",
                        "chip_smoke.json")
-# H100 SXM peaks (on-chip-measurement guide): HBM bytes/s, and int32
+# H100 SXM peaks (published data-sheet figures): HBM bytes/s, and int32
 # instructions/s on the CUDA cores (64 INT32 lanes per SM per clock,
 # half the FP32 lanes behind the 67 TFLOP/s figure, at 132 SMs and
 # 1.98 GHz)
