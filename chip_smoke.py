@@ -12,7 +12,8 @@ exits non-zero without the final result line:
    tpu_ffv1_torch/csrc, one nvcc per source, all started together;
 3. chain probe: the latency of one dependent range-coder decision on a
    single warp (encode and decode form), the yardstick of the kernels'
-   chain bound;
+   chain bound, and the SASS instructions of one decision (cuobjdump of
+   the probe), the operations term of their roofline bound;
 4. kernel checks on random codec-like inputs: K1 (8 bits), K2 (an 8-bit
    stream of the port's own encoder), K1-ext and K2-ext at 11, 16 and 17
    bits (random residuals; random bytes, which exercise the damaged-
@@ -27,7 +28,8 @@ exits non-zero without the final result line:
    the launch counters set to 0 just before it and read just after; its
    packets must match the golden SHA-256 digests of the reference host
    encoder (tpu_ffv1_torch/goldens/chip_smoke.json), its decode must be
-   lossless; per-step times, a stage breakdown and peak device memory;
+   lossless; per-step times, a stage breakdown (the host CRC-32 of the
+   step's slices timed alone too) and peak device memory;
 6. main-path kernel checks: each kernel's outputs on its path's warm-up
    frame (all 48 lanes at full shape) held exactly against its plain
    version, run on CPU copies of the same inputs (the plain versions are
@@ -54,6 +56,7 @@ import hashlib
 import json
 import multiprocessing
 import os
+import re
 import subprocess
 import sys
 import time
@@ -64,6 +67,7 @@ import torch
 import tpu_ffv1_torch
 from tpu_ffv1_torch import EncoderParams, TorchFFV1Decoder, TorchFFV1Encoder
 from tpu_ffv1_torch.core import tables as T
+from tpu_ffv1_torch.core.crc import crc32_ieee
 from tpu_ffv1_torch.core.rac import custom_state_tables
 from tpu_ffv1_torch.kernels import build
 from tpu_ffv1_torch.tpu import decoder as port_decoder
@@ -83,8 +87,6 @@ GOLDENS = os.path.join(os.path.dirname(tpu_ffv1_torch.__file__), "goldens",
 # 1.98 GHz)
 PEAK_BYTES_S = 3.35e12
 PEAK_INT_OPS_S = 132 * 64 * 1.98e9
-# integer instructions of one decision (range split, select, renorm)
-OPS_PER_DECISION = 12
 
 
 def log(msg):
@@ -283,6 +285,43 @@ def chain_probe_ns(dev, mode, n=1 << 20):
     run(1024)
     ms = cuda_time_ms(lambda: run(n), 3)
     return ms * 1e6 / n
+
+
+def probe_sass_ops():
+    """(encode, decode) SASS instructions of one decision, from
+    ``cuobjdump -sass`` of csrc/chain_probe.cu's two kernel instances:
+    the instructions of each instance's main loop (the span from a
+    backward branch's target to the branch with the most shuffles in
+    it), less the branch, over the decisions it unrolls: one shuffle per
+    decision in the encode form, two in the decode form."""
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    lib = os.path.join(build.BUILD_DIR, "libchain_probe.so")
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    res = {}
+    for func in re.split(r"Function : ", sass)[1:]:
+        mode = re.match(r"_Z\d+chain_probe_kernelILi(\d)E", func)
+        if not mode:
+            continue
+        ins = [(int(a, 16), t.strip()) for a, t in
+               re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", func)]
+        best = (0, 0)                      # (shuffles, instructions)
+        for addr, text in ins:
+            m = re.search(r"\bBRA\S*\s+0x([0-9a-f]+)", text)
+            if not m or int(m.group(1), 16) >= addr:
+                continue
+            body = [t for a, t in ins if int(m.group(1), 16) <= a <= addr]
+            best = max(best, (sum("SHFL" in t for t in body),
+                              sum(1 for t in body
+                                  if not re.search(r"\b(BRA|NOP)\b", t))))
+        per = 1 + int(mode.group(1))       # shuffles per decision
+        check(best[0] > 0 and best[0] % per == 0,
+              f"chain probe SASS, mode {mode.group(1)}: no loop of whole "
+              f"decisions found (shuffles, instructions) = {best}")
+        res[int(mode.group(1))] = best[1] / (best[0] // per)
+    check(sorted(res) == [0, 1], "chain probe SASS: a kernel instance is "
+          "missing")
+    return res[0], res[1]
 
 
 # -------------------------------------------- kernel checks, random
@@ -529,6 +568,13 @@ def main_path(dev, gpu, name, rec_enc, rec_dec):
     pkts = [r[0] for r in res]                  # the last frame's packets
     parse_ms, _x = host_time_ms(lambda: dec._lane_inputs(
         [dec._parse_packet(b, p) for b, p in enumerate(pkts)]))
+    # the host CRC-32 alone over the step's slices: the encoder's over
+    # each slice up to its CRC, the decoder's over each whole slice
+    spans = [(p, a, b) for p in pkts for a, b in dec._split_slices(p)]
+    crc_enc_ms, _x = host_time_ms(
+        lambda: [crc32_ieee(p[a:b - 4]) for p, a, b in spans])
+    crc_dec_ms, _x = host_time_ms(
+        lambda: [crc32_ieee(p[a:b]) for p, a, b in spans])
     k2_args = dec_rec[0]
     k2_ms = cuda_time_ms(lambda: rc_decode.rc_decode_planes(*k2_args), 3)
     L, n = k1_args[0].shape
@@ -537,11 +583,14 @@ def main_path(dev, gpu, name, rec_enc, rec_dec):
         f"{k1_ms:.2f}, finalize s2={enc.s2} {fin_ms:.2f} (peak "
         f"{fin_peak:.2f} GiB over its {packed.numel() * 4 / 2**30:.2f} GiB "
         f"input); the median step minus these "
-        f"{enc_ms - up_ms - st_ms - k1_ms - fin_ms:.2f}; encode step peak "
+        f"{enc_ms - up_ms - st_ms - k1_ms - fin_ms:.2f}, of which the "
+        f"slices' CRC-32 alone takes {crc_enc_ms:.2f} ({len(spans)} slices, "
+        f"{sum(b - a for _p, a, b in spans)} B); encode step peak "
         f"{max(peak[1 + WARM:]):.2f} GiB")
     log(f"[{tag}] decode stages (ms, each timed alone, {gpu}): parse+upload "
-        f"{parse_ms:.2f}, {k_dec} {k2_ms:.2f}; the median step minus these "
-        f"{dec_ms - parse_ms - k2_ms:.2f}")
+        f"{parse_ms:.2f}, of which the slices' CRC-32 alone takes "
+        f"{crc_dec_ms:.2f}; {k_dec} {k2_ms:.2f}; the median step minus "
+        f"these {dec_ms - parse_ms - k2_ms:.2f}")
     return dict(launches=launches, ms={k_enc: k1_ms, k_dec: k2_ms},
                 recs={k_enc: enc_rec, k_dec: dec_rec},
                 steps=FRAMES, enc_ms=enc_ms, dec_ms=dec_ms)
@@ -659,10 +708,10 @@ def check_main_path_kernels(recs):
                       if a != b))
             res.setdefault(name, {"segs": []})["segs"].append(secs)
     for name, r in res.items():
-        args = recs[name][0]
+        args, out = recs[name]
         if name.startswith("rc_encode"):
             shape = (f"L={args[0].shape[0]} N={args[0].shape[1]} "
-                     f"CC={args[3].shape[1]} S={2 * args[8] + 1} "
+                     f"CC={args[3].shape[1]} S={out[0].shape[1]} "
                      f"bits={args[8]}")
         else:
             shape = f"L={args[0].shape[0]} planes={args[8]} bits={args[9]}"
@@ -676,16 +725,16 @@ def check_main_path_kernels(recs):
     return res
 
 
-def kernel_bounds(name, rec, ns_per_decision, decisions):
+def kernel_bounds(name, rec, ns_per_decision, ops_per_decision,
+                  decisions):
     """(roofline bound ms, its term, chain bound ms) of one kernel's
     main-path launch."""
     args, out = rec
     if name.startswith("rc_encode"):
         L, N = args[0].shape
-        CC, bits = args[3].shape[1], args[8]
-        S = 2 * bits + 1
+        CC, S = args[3].shape[1], out[0].shape[1]
         nbytes = L * N * 9 + 2 * L * CC * 32 + 512 + 16 * L + L * N * S * 4
-        nops = L * N * S * OPS_PER_DECISION       # every slot is evaluated
+        nops = L * N * S * ops_per_decision       # every slot is evaluated
     else:
         planes, states_out, _low, _rng, pos = out
         L, CC = args[1].shape[0], args[1].shape[1]
@@ -693,7 +742,7 @@ def kernel_bounds(name, rec, ns_per_decision, decisions):
         px = sum(p.shape[1] * p.shape[2] for p in planes)
         nbytes = consumed + 2 * L * CC * 32 + 512 + 3 * 1024 + 24 * L + \
             L * px * 4
-        nops = int(decisions.sum()) * OPS_PER_DECISION
+        nops = int(decisions.sum()) * ops_per_decision
     bound, term = roofline_ms(nbytes, nops)
     chain = int(decisions.max()) * ns_per_decision * 1e-6
     return bound, term, chain
@@ -726,8 +775,11 @@ def main():
 
     ns_enc = chain_probe_ns(dev, 0)
     ns_dec = chain_probe_ns(dev, 1)
+    ops_enc, ops_dec = probe_sass_ops()
     log(f"[probe] one dependent decision on one warp ({gpu}): encode form "
-        f"{ns_enc:.2f} ns, decode form {ns_dec:.2f} ns")
+        f"{ns_enc:.2f} ns, decode form {ns_dec:.2f} ns; SASS instructions "
+        f"of one decision: encode form {ops_enc:.2f}, decode form "
+        f"{ops_dec:.2f}")
 
     checks = {"rc_encode": [check_encode_kernel(dev, 8, 4096)],
               "rc_decode": [check_decode_kernel(dev)],
@@ -758,8 +810,10 @@ def main():
         # the decode of the warm-up frame makes the same decisions as its
         # encode
         decisions = decisions_per_lane(enc_args[1], enc_args[2])
-        ns = ns_enc if name.startswith("rc_encode") else ns_dec
-        bound, term, chain = kernel_bounds(name, recs[name], ns, decisions)
+        ns, ops = (ns_enc, ops_enc) if name.startswith("rc_encode") else \
+            (ns_dec, ops_dec)
+        bound, term, chain = kernel_bounds(name, recs[name], ns, ops,
+                                           decisions)
         m = mp[name]
         chk = checks[name]
         kernels.append(dict(
@@ -771,12 +825,13 @@ def main():
             ms=p["ms"][name], plain_ms=m["plain_ms"], plain_device="cpu",
             bound_ms=bound, bound_by=term, chain_bound_ms=chain,
             chain_decisions_max_lane=int(decisions.max()),
-            ns_per_decision=ns, library_ms=None,
+            ns_per_decision=ns, ops_per_decision=ops, library_ms=None,
             main_path_shape=m["main_path_shape"],
             checks=[{k: c[k] for k in ("check_shape", "check_ms",
                                        "check_plain_ms")} for c in chk]))
         log(f"[bound] {name} ({gpu}): {p['ms'][name]:.2f} ms at the main "
-            f"path's shape; roofline bound {bound:.3f} ms ({term}); chain "
+            f"path's shape; roofline bound {bound:.3f} ms ({term}, "
+            f"{ops:.2f} instructions per decision); chain "
             f"bound {chain:.2f} ms ({int(decisions.max())} decisions on the "
             f"longest lane x {ns:.2f} ns)")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")

@@ -257,8 +257,22 @@ def test_16bit_flipped_byte_flags_slice_and_conceals():
     dict(pix_fmt="yuv420p16le", coder=2, level=1),       # 16 bits, v1
     dict(pix_fmt="bgr0", coder=2),                       # RGB
     dict(pix_fmt="yuv420p", coder=2, slices=6),          # non-uniform
-], ids=["golomb", "context1", "16bit", "rgb", "nonuniform"])
+    dict(pix_fmt="yuv420p", coder=2, pass1=True),        # two-pass, 1st
+    dict(pix_fmt="yuv420p", coder=2, stats_in=""),       # two-pass, 2nd
+], ids=["golomb", "context1", "16bit", "rgb", "nonuniform", "pass1",
+        "stats_in"])
 def test_outside_the_slice_raises(kw):
     params = EncoderParams(width=50, height=40, **{"level": 3, **kw})
+    with pytest.raises(NotImplementedError):
+        TorchFFV1Encoder(params, device="cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(pass1=True), dict(stats_in="")],
+                         ids=["pass1", "stats_in"])
+def test_port_params_two_pass_raises(kw):
+    """The port's own EncoderParams carries the two-pass fields; the
+    encoder refuses them rather than ignore them."""
+    params = TorchEncoderParams(width=50, height=40, pix_fmt="yuv420p",
+                                level=3, coder=2, **kw)
     with pytest.raises(NotImplementedError):
         TorchFFV1Encoder(params, device="cpu")

@@ -47,14 +47,12 @@ def test_state_tables_match():
 
 @pytest.mark.parametrize("n", [0, 1, 3, 64, 4099])
 def test_crc32_matches(n):
-    """Both of the port's forms (the table loop and the zlib form it
-    runs) against the JAX package's, from a zero and a running start."""
+    """The port's zlib form against the JAX package's table loop, from a
+    zero and a running start."""
     data = np.random.RandomState(n).randint(0, 256, n).astype(np.uint8) \
         .tobytes()
     for start in (0, 0x1234ABCD):
-        want = jcrc.crc32_ieee(data, start)
-        assert tcrc.crc32_ieee(data, start) == want
-        assert tcrc._crc32_py(data, start) == want
+        assert tcrc.crc32_ieee(data, start) == jcrc.crc32_ieee(data, start)
     # appending the little-endian CRC makes the whole buffer's CRC zero
     tail = tcrc.crc32_ieee(data).to_bytes(4, "little")
     assert tcrc.crc32_ieee(data + tail) == 0

@@ -91,7 +91,7 @@ def test_matches_xla_scan_after_finalize(bits, tables):
 
 
 @pytest.mark.parametrize("bits", [11, 16, 17])
-def test_ext_matches_xla_ext_scan(bits, monkeypatch):
+def test_ext_matches_xla_ext_scan(bits):
     """The extended schedule (rows 10/31 running) against
     rc_encode_scan_lanes_ext packed as the JAX encoder packs it
     (prov | valid << 20, (N, S, L)): emit flags everywhere, values where
@@ -120,8 +120,7 @@ def test_ext_matches_xla_ext_scan(bits, monkeypatch):
     assert np.array_equal(tr.numpy(), np.asarray(r0))
     assert np.array_equal(ts.numpy(), np.asarray(s0))
     # the chunked mask build does not change the result
-    monkeypatch.setattr(tenc, "EXT_MASK_CHUNK", 100)
-    again = rc_encode_packed_ext_ref(*_torch(args), bits)
+    again = rc_encode_packed_ext_ref(*_torch(args), bits, _chunk=100)
     for a, b in zip(again, (tp, tl, tr, ts)):
         assert np.array_equal(np.asarray(a), np.asarray(b))
 

@@ -64,7 +64,6 @@ class ResolvedParams:
     intra: int = 1
     gop_size: int = 12
     sar: tuple = (0, 1)
-    pass1: bool = False
 
     @property
     def slice_count(self) -> int:
@@ -164,4 +163,4 @@ def resolve(p: EncoderParams) -> ResolvedParams:
         quant_table_count=2, state_transition=state_transition,
         initial_states=[None, None], num_h_slices=num_h, num_v_slices=num_v,
         ec=ec, intra=1 if p.gop_size < 2 else 0, gop_size=p.gop_size,
-        sar=p.sar, pass1=p.pass1)
+        sar=p.sar)

@@ -1,15 +1,13 @@
 """CRC-32 (IEEE poly, FFmpeg av_crc bit order) used for FFV1 error
 detection (global-header CRC and per-slice CRCs).
 
-The port's copy of ``tpu_ffv1/core/crc.py``.  The table and the
-byte-at-a-time loop (``_crc32_py``) are the normative definition; the
-JAX package speeds them up with its C runtime, which the port does not
-load.  The port computes the same checksum through ``zlib.crc32``
-instead: av_crc with this table is the MSB-first CRC-32 (poly
-0x04C11DB7, no reflection, no final xor) kept byte-swapped, and an
-MSB-first CRC is the bit-reversal of the reflected CRC (zlib's) over
-bit-reversed bytes.  ``tests/test_torch_host.py`` holds both forms
-against ``tpu_ffv1.core.crc`` on random bytes.
+The port's copy of ``tpu_ffv1/core/crc.py``, whose table and
+byte-at-a-time loop are the normative definition.  The port computes the
+same checksum through ``zlib.crc32``: av_crc with that table is the
+MSB-first CRC-32 (poly 0x04C11DB7, no reflection, no final xor) kept
+byte-swapped, and an MSB-first CRC is the bit-reversal of the reflected
+CRC (zlib's) over bit-reversed bytes.  ``tests/test_torch_host.py`` holds
+it against ``tpu_ffv1.core.crc`` on random bytes.
 
 Behavioral parity reference: libavutil/crc.c:310-341 (table build, le=0,
 bits=32, poly 0x04C11DB7, byte-swapped entries) and :357-378 (update loop).
@@ -20,33 +18,6 @@ the FFV1 decoder validates (ffv1dec.c:609-618, :963-980).
 from __future__ import annotations
 
 import zlib
-
-import numpy as np
-
-_POLY = 0x04C11DB7
-
-
-def _build_table() -> np.ndarray:
-    tab = np.zeros(256, dtype=np.uint32)
-    for i in range(256):
-        c = (i << 24) & 0xFFFFFFFF
-        for _ in range(8):
-            mask = 0xFFFFFFFF if (c & 0x80000000) else 0
-            c = ((c << 1) & 0xFFFFFFFF) ^ (_POLY & mask)
-        # byte-swap (crc.c:328) so the LE-style update loop can be used
-        tab[i] = int.from_bytes(int(c).to_bytes(4, "big"), "little")
-    return tab
-
-
-_TABLE = _build_table()
-
-
-def _crc32_py(data: bytes, crc: int = 0) -> int:
-    c = crc & 0xFFFFFFFF
-    for b in data:
-        c = int(_TABLE[(c ^ b) & 0xFF]) ^ (c >> 8)
-    return c
-
 
 # bit reversal of every byte value, as a bytes.translate table
 _REV8 = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))

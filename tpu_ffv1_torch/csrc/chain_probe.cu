@@ -14,20 +14,26 @@
 //   mode 1 (decode, as K2): the same split decided by low >= range - r1,
 //     and the refill byte read by shuffle at the chain's own position.
 // The final coder state is written out so nothing is optimised away.
+// Each mode is its own kernel instance, so chip_smoke.py can count the
+// SASS instructions of one decision in it (cuobjdump -sass: the main
+// loop's instructions over the decisions it unrolls, one shuffle each
+// in mode 0, two in mode 1) for the operations term of the kernels'
+// roofline bound.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define FULL_MASK 0xffffffffu
 
+template <int MODE>
 __global__ void __launch_bounds__(32) chain_probe_kernel(
     const uint8_t* __restrict__ states, const uint8_t* __restrict__ bytes,
-    int n, int mode, int32_t* __restrict__ out) {
+    int n, int32_t* __restrict__ out) {
   const int t = threadIdx.x;
   const int mys = max((int)states[t], 1);
   const int myb = bytes[t];
   const uint32_t pattern = 0x9E3779B9u;
   int low = 0, rng = 0xFF00, pos = 0;
-  if (mode == 0) {
+  if (MODE == 0) {
     for (int i = 0; i < n; ++i) {
       const int s = __shfl_sync(FULL_MASK, mys, i & 31);
       const int b = (pattern >> (i & 31)) & 1;
@@ -72,8 +78,12 @@ __global__ void __launch_bounds__(32) chain_probe_kernel(
 extern "C" int chain_probe_launch(const void* states, const void* bytes,
                                   int n, int mode, void* out,
                                   void* stream) {
-  chain_probe_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)states, (const uint8_t*)bytes, n, mode,
-      (int32_t*)out);
+  if (mode == 0) {
+    chain_probe_kernel<0><<<1, 32, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)states, (const uint8_t*)bytes, n, (int32_t*)out);
+  } else {
+    chain_probe_kernel<1><<<1, 32, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)states, (const uint8_t*)bytes, n, (int32_t*)out);
+  }
   return (int)cudaGetLastError();
 }

@@ -48,6 +48,9 @@ class TorchFFV1Encoder:
 
     def __init__(self, params: EncoderParams, batch: int = 1,
                  device="cuda"):
+        if params.pass1 or params.stats_in is not None:
+            raise NotImplementedError("two-pass statistics are not ported "
+                                      "yet; use the host encoder")
         self.device = resolve_device(device)
         self.rp = rp = resolve(params)
         if rp.ac == T.AC_GOLOMB_RICE:

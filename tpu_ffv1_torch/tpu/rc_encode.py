@@ -32,8 +32,6 @@ from .schedule import chain_order_nosign, ext_slots
 # (bits <= 10) and K1-ext (bits 11..17)
 LAUNCHES = 0
 LAUNCHES_EXT = 0
-# pixels whose per-slot masks the extended plain version builds at once
-EXT_MASK_CHUNK = 4096
 
 
 def floor_log2(a: torch.Tensor) -> torch.Tensor:
@@ -160,13 +158,13 @@ def _ext_slot_masks(diff, active, bits):
 
 
 def rc_encode_packed_ext_ref(ctx, diff, active, states0, one_tab, zero_tab,
-                             low0, range0, bits: int):
+                             low0, range0, bits: int, _chunk: int = 4096):
     """Plain PyTorch version of the extended schedule (bits 11..17): a
     loop over pixels, vectorised over lanes (the semantics of
     rc_scan_lanes.rc_encode_scan_lanes_ext).  Rows 10 and 31 carry
     running states through every decision that touches them; the other
     positions adapt once per pixel after the chain.  The per-slot masks
-    are built EXT_MASK_CHUNK pixels at a time to bound memory."""
+    are built ``_chunk`` pixels at a time to bound memory."""
     L, N = ctx.shape
     CC = states0.shape[1]
     dev = ctx.device
@@ -190,8 +188,8 @@ def rc_encode_packed_ext_ref(ctx, diff, active, states0, one_tab, zero_tab,
     no_nl = torch.zeros((L,), dtype=torch.int64, device=dev)
     no_em = torch.zeros((L,), dtype=torch.bool, device=dev)
 
-    for c0 in range(0, N, EXT_MASK_CHUNK):
-        c1 = min(N, c0 + EXT_MASK_CHUNK)
+    for c0 in range(0, N, _chunk):
+        c1 = min(N, c0 + _chunk)
         n = c1 - c0
         pos, act, bit = _ext_slot_masks(diff[:, c0:c1], active[:, c0:c1],
                                         bits)
