@@ -8,36 +8,51 @@ exits non-zero without the final result line:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions; fails when torch.cuda.is_available() is False;
-2. build: the four lane-scan kernels and the chain probe from
-   tpu_ffv1_torch/csrc, one nvcc per source, all started together;
-3. chain probe: the latency of one dependent range-coder decision on a
+2. build: the lane-scan kernels (every instance of the four sources:
+   K1, K2, K1-ext, K2-ext, each with its state table in shared memory
+   and in global memory, the decoders also with the 5-input context)
+   and the probes from tpu_ffv1_torch/csrc, one nvcc per source, all
+   started together;
+3. probes: the latency of one dependent range-coder decision on a
    single warp (encode and decode form), the yardstick of the kernels'
-   chain bound, and the SASS instructions of one decision (cuobjdump of
-   the probe), the operations term of their roofline bound;
-4. kernel checks on random codec-like inputs: K1 (8 bits), K2 (an 8-bit
-   stream of the port's own encoder), K1-ext and K2-ext at 11, 16 and 17
-   bits (random residuals; random bytes, which exercise the damaged-
-   stream paths, plus a 16-bit stream of the port's own encoder), each
-   against its plain PyTorch version on the card, on the same inputs,
-   exact equality (integer codec); all timed;
-5. two main paths, 1080p, 24 slices, range coder, 2 streams x 8 frames
-   (one key frame, one non-key warm-up frame, six timed non-key frames)
-   through TorchFFV1Encoder / TorchFFV1Decoder (batch=2): the 8-bit path
-   (yuv420p; kernels K1, K2) and the 16-bit archival path (yuv444p16le;
-   the extended schedule, kernels K1-ext, K2-ext).  Each path runs with
-   the launch counters set to 0 just before it and read just after; its
-   packets must match the golden SHA-256 digests of the reference host
-   encoder (tpu_ffv1_torch/goldens/chip_smoke.json), its decode must be
+   chain bound, the SASS instructions of one decision (cuobjdump of the
+   probe), the operations term of their roofline bound, and the latency
+   of one dependent 32-byte row read from L2 on one warp, which the
+   global-table decoders add to their chain per pixel;
+4. kernel launches on random codec-like inputs, each instance timed
+   and held against its plain PyTorch version in phase 6: K1 (8 bits)
+   and its global-table form (8 bits, context model 1's 15,126 rows);
+   K2 and K2-five (8-bit streams of the port's own encoder at context
+   models 0 and 1); K1-ext and its global-table form at 11, 16 and 17
+   bits (random residuals); K2-ext and K2-ext-five on 16-bit streams of
+   the port's own encoder and on random bytes at 11, 16 and 17 bits
+   (the damaged-stream paths);
+5. four main paths through TorchFFV1Encoder / TorchFFV1Decoder
+   (batch=2), 24 slices, range coder, 2 streams x (one key frame, one
+   non-key warm-up frame, then timed non-key frames): at 1080p with six
+   timed frames the 8-bit path (yuv420p; K1, K2), the 16-bit archival
+   path (yuv444p16le, the extended schedule; K1-ext, K2-ext) and the
+   8-bit path's configuration and content at context model 1
+   (8bit_ctx1; K1's global-table form, K2-five); and the 16-bit path at
+   context model 1 cut to 960x540 with two timed frames to stay inside
+   the script's time (16bit_ctx1_540p; K1-ext's global-table form,
+   K2-ext-five).  Each path runs with the launch counters set to 0 just
+   before it and read just after, and must launch each of its two
+   kernels once per frame; its packets must match the golden SHA-256
+   digests of the reference host encoder
+   (tpu_ffv1_torch/goldens/chip_smoke.json), its decode must be
    lossless; per-step times, a stage breakdown (the host CRC-32 of the
    step's slices timed alone too) and peak device memory;
-6. main-path kernel checks: each kernel's outputs on its path's warm-up
-   frame (all 48 lanes at full shape) held exactly against its plain
-   version, run on CPU copies of the same inputs (the plain versions are
-   per-pixel loops of small tensor ops).  Each launch is split into
-   segments whose start states come from the kernel relaunched on the
-   prefix (the scans are causal), and the segments run in parallel
-   worker processes, one per core; the workers return digests of their
-   outputs, which must equal the digests of the kernel's outputs;
+6. plain checks: every launch of phase 4, and each kernel's launch on
+   its path's warm-up frame (all 48 lanes at full shape), held exactly
+   (integer codec) against its plain version, run on CPU copies of the
+   same inputs (the plain versions are per-pixel loops of small tensor
+   ops, faster on the host than as per-op card launches).  Each
+   main-path launch is split into segments whose start states come from
+   the kernel relaunched on the prefix (the scans are causal); all
+   segments run in parallel worker processes, one per core, the
+   longest first; the workers return digests of their outputs, which
+   must equal the digests of the kernel's outputs;
 7. one JSON line with the per-kernel numbers (time, launches, roofline
    and chain bounds, plain version's time, max abs error), the
    nvidia-smi line, and the result line {"ok": true, "device": {...}}
@@ -60,6 +75,7 @@ import re
 import subprocess
 import sys
 import time
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -77,7 +93,6 @@ from tpu_ffv1_torch.tpu.finalize import finalize_packed
 
 W, H, SLICES, BATCH = 1920, 1080, 24, 2
 WARM, TIMED = 1, 6                  # non-key frames after the key frame
-FRAMES = 1 + WARM + TIMED
 SEED = 20261016
 GOLDENS = os.path.join(os.path.dirname(tpu_ffv1_torch.__file__), "goldens",
                        "chip_smoke.json")
@@ -152,20 +167,48 @@ def synthetic_streams16(n_streams, n_frames, width, height, seed):
     return out
 
 
-# the main paths: name -> (pix_fmt, content generator, seed)
-PATHS = {"8bit": ("yuv420p", synthetic_streams, SEED),
-         "16bit": ("yuv444p16le", synthetic_streams16, SEED + 16)}
+class MainPath(NamedTuple):
+    pix_fmt: str
+    gen: Callable          # content generator
+    seed: int
+    context_model: int
+    width: int
+    height: int
+    timed: int             # timed non-key frames after the warm-up
+    kernels: tuple         # (encode instance, decode instance) it runs
+
+    @property
+    def frames(self):
+        return 1 + WARM + self.timed
 
 
-def params_kw(pix_fmt):
-    """EncoderParams fields of a main path (BASELINE configs 2 and 3)."""
-    return dict(width=W, height=H, pix_fmt=pix_fmt, level=3, coder=2,
-                slices=SLICES)
+# the main paths (BASELINE configs 2 and 3, and both at context model 1;
+# the 16-bit one at context model 1 cut to quarter size for time)
+PATHS = {
+    "8bit": MainPath("yuv420p", synthetic_streams, SEED, 0, W, H, TIMED,
+                     ("rc_encode", "rc_decode")),
+    "16bit": MainPath("yuv444p16le", synthetic_streams16, SEED + 16, 0, W,
+                      H, TIMED, ("rc_encode_ext", "rc_decode_ext")),
+    "8bit_ctx1": MainPath("yuv420p", synthetic_streams, SEED, 1, W, H,
+                          TIMED, ("rc_encode_global",
+                                  "rc_decode_five_global")),
+    "16bit_ctx1_540p": MainPath("yuv444p16le", synthetic_streams16,
+                                SEED + 16, 1, W // 2, H // 2, 2,
+                                ("rc_encode_ext_global",
+                                 "rc_decode_ext_five_global")),
+}
+
+
+def params_kw(name):
+    """EncoderParams fields of a main path."""
+    p = PATHS[name]
+    return dict(width=p.width, height=p.height, pix_fmt=p.pix_fmt, level=3,
+                coder=2, slices=SLICES, context_model=p.context_model)
 
 
 def path_streams(name):
-    pix_fmt, gen, seed = PATHS[name]
-    return gen(BATCH, FRAMES, W, H, seed)
+    p = PATHS[name]
+    return p.gen(BATCH, p.frames, p.width, p.height, p.seed)
 
 
 def digest(data: bytes) -> dict:
@@ -200,15 +243,6 @@ def host_time_ms(fn):
     out = fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3, out
-
-
-def max_abs_err(a_list, b_list):
-    err = 0
-    for a, b in zip(a_list, b_list):
-        check(tuple(a.shape) == tuple(b.shape), "shape mismatch")
-        d = (a.long() - b.long()).abs()
-        err = max(err, int(d.max()) if d.numel() else 0)
-    return err
 
 
 def flat_outputs(out):
@@ -287,6 +321,36 @@ def chain_probe_ns(dev, mode, n=1 << 20):
     return ms * 1e6 / n
 
 
+def row_probe_ns(dev, rows=2 * T.CONTEXT_COUNTS[1], n=1 << 16):
+    """ns per dependent 32-byte row read from L2 on one warp
+    (csrc/chain_probe.cu row_probe_kernel, CUDA events), over a table of
+    one lane's context-model-1 size whose rows form one random cycle:
+    bytes 0 and 1 of a row hold the next row's index."""
+    r = np.random.RandomState(SEED + 2)
+    order = r.permutation(rows)
+    nxt = np.empty(rows, np.int64)
+    nxt[order] = np.roll(order, -1)
+    table = r.randint(0, 256, (rows, 32)).astype(np.uint8)
+    table[:, 0] = nxt & 0xFF
+    table[:, 1] = nxt >> 8
+    table = torch.from_numpy(table).to(dev)
+    out = torch.zeros(2, dtype=torch.int32, device=dev)
+    fn = build.load("chain_probe").row_probe_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+
+    def run(k):
+        err = fn(table.data_ptr(), k, out.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
+        check(err == 0, f"row probe launch failed: CUDA error {err}")
+
+    run(rows)                       # one lap: the table is in L2
+    ms = cuda_time_ms(lambda: run(n), 3)
+    check(0 <= int(out[0]) < rows, "row probe left the table")
+    return ms * 1e6 / n
+
+
 def probe_sass_ops():
     """(encode, decode) SASS instructions of one decision, from
     ``cuobjdump -sass`` of csrc/chain_probe.cu's two kernel instances:
@@ -327,11 +391,10 @@ def probe_sass_ops():
 # -------------------------------------------- kernel checks, random
 
 
-def random_encode_args(dev, bits, L, N, seed):
+def random_encode_args(dev, bits, L, N, CC, seed):
     """Codec-like K1 / K1-ext inputs: mostly small residuals, 5% over the
     whole folded range, the fold's extremes, 3% inactive pixels."""
     r = np.random.RandomState(seed)
-    CC = 2 * T.CONTEXT_COUNTS[0]
     half = 1 << (bits - 1)
     one, zero = custom_state_tables(T.VER2_STATE)
     ctx = r.randint(0, CC, (L, N))
@@ -348,26 +411,23 @@ def random_encode_args(dev, bits, L, N, seed):
                          (np.full(L, 0xFF00), np.int32))]
 
 
-def check_encode_kernel(dev, bits, N):
-    """K1 / K1-ext against its plain version at L=48, CC=1332."""
+def check_encode_kernel(dev, bits, N, context_model):
+    """K1 / K1-ext on random codec-like inputs at L=48 and the two state
+    planes of the context model (CC = 1,332 or 15,126: the table in
+    shared or in global memory), timed; returns (instance, its numbers,
+    the launch's (args, outputs)) for the plain check (``plain_checks``)."""
     L = BATCH * SLICES
-    args = random_encode_args(dev, bits, L, N, SEED + bits)
-    ref = rc_encode.rc_encode_packed_ext_ref if bits > 10 else \
-        rc_encode.rc_encode_packed_ref
-    got = rc_encode.rc_encode_packed(*args, bits)
-    plain_ms, want = host_time_ms(lambda: ref(*args, bits))
-    err = max_abs_err(got, want)
-    name = "rc_encode_ext" if bits > 10 else "rc_encode"
-    check(err == 0, f"{name} kernel differs from its plain version at "
-          f"{bits} bits (max abs err {err})")
+    CC = 2 * T.CONTEXT_COUNTS[context_model]
+    args = (*random_encode_args(dev, bits, L, N, CC,
+                                SEED + bits + 100 * context_model), bits)
+    name = rc_encode.instance(bits, CC)
+    got = rc_encode.rc_encode_packed(*args)
     check(bool(((got[0] >> 20) & 1).sum() > 0), "kernel emitted nothing")
-    ms = cuda_time_ms(lambda: rc_encode.rc_encode_packed(*args, bits), 5)
-    S = got[0].shape[1]
-    log(f"[kernels] {name} bits={bits} L={L} N={N} S={S} random residuals: "
-        f"exact match; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms")
-    return dict(max_abs_err=err, check_ms=ms, check_plain_ms=plain_ms,
-                check_shape=f"bits={bits} L={L} N={N} CC={args[3].shape[1]} "
-                            f"S={S}")
+    ms = cuda_time_ms(lambda: rc_encode.rc_encode_packed(*args), 5)
+    shape = f"bits={bits} L={L} N={N} CC={CC} S={got[0].shape[1]}"
+    log(f"[kernels] {name} {shape} random residuals: kernel {ms:.3f} ms")
+    return name, dict(check_ms=ms, check_shape=shape,
+                      label="random residuals"), (args, got)
 
 
 def decode_args_from_packets(dec, pkts, bits):
@@ -376,55 +436,63 @@ def decode_args_from_packets(dec, pkts, bits):
     cc = dec.g.context_counts[q]
     specs = tuple((pw, ph, sp * cc) for (pw, ph, sp) in dec._plane_specs())
     states = dec._reset_lane_states([True] * dec.batch, q).clone()
+    five = bool(dec.g.quant_tables[q][3][127])
     return (bufs, states, dec.one_tab, dec.zero_tab, dec.qts[q], lows,
-            ranges, poss, specs, bits)
+            ranges, poss, specs, bits, five)
 
 
-def check_decode_args(name, args, label, lossless=None):
-    """K2 / K2-ext on ``args`` against its plain version, exactly."""
-    bits = args[9]
-    ref = rc_decode.rc_decode_planes_ext_ref if bits > 10 else \
-        rc_decode.rc_decode_planes_ref
+def decode_instance(args):
+    """The kernel instance rc_decode_planes launches on ``args``."""
+    specs, bits, five = args[8:11]
+    return rc_decode.instance(bits, five, args[1].shape[1],
+                              max(w for (w, _h, _b) in specs))
+
+
+def check_decode_args(args, label, lossless=None):
+    """K2 / K2-ext (with or without the 5-input context) on ``args``,
+    timed, lane 0 held to ``lossless`` where given; returns (instance,
+    its numbers, the launch's (args, outputs)) for the plain check."""
+    name = decode_instance(args)
     got = rc_decode.rc_decode_planes(*args)
-    plain_ms, want = host_time_ms(lambda: ref(*args))
-    err = max_abs_err(flat_outputs(got), flat_outputs(want))
-    check(err == 0, f"{name} kernel differs from its plain version on "
-          f"{label} (max abs err {err})")
     if lossless is not None:
         check(np.array_equal(got[0][0][0].cpu().numpy(), lossless),
               f"{name} decode of lane 0 is not lossless ({label})")
     ms = cuda_time_ms(lambda: rc_decode.rc_decode_planes(*args), 5)
-    log(f"[kernels] {name} bits={bits} L={args[0].shape[0]} "
-        f"planes={args[8]} {label}: exact match; kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.1f} ms")
-    return dict(max_abs_err=err, check_ms=ms, check_plain_ms=plain_ms,
-                check_shape=f"bits={bits} L={args[0].shape[0]} "
-                            f"planes={args[8]}")
+    shape = (f"bits={args[9]} L={args[0].shape[0]} CC={args[1].shape[1]} "
+             f"planes={args[8]}")
+    log(f"[kernels] {name} {shape} {label}: kernel {ms:.3f} ms")
+    return name, dict(check_ms=ms, check_shape=shape, label=label), \
+        (args, got)
 
 
-def check_decode_kernel(dev):
-    """K2 on the port's own 8-bit encode of 384x256 yuv420p, 24 slices,
-    2 streams (48 lanes of 64x64 + 2 x 32x32)."""
+def check_decode_kernel(dev, context_model):
+    """K2 / K2-five on the port's own 8-bit encode of 384x256 yuv420p, 24
+    slices, 2 streams (48 lanes of 64x64 + 2 x 32x32)."""
     w, h = 384, 256
     params = EncoderParams(width=w, height=h, pix_fmt="yuv420p", level=3,
-                           coder=2, slices=SLICES)
+                           coder=2, slices=SLICES,
+                           context_model=context_model)
     streams = synthetic_streams(BATCH, 1, w, h, SEED + 1)
     enc = TorchFFV1Encoder(params, batch=BATCH, device=dev)
     pkts = [p for p, _kf in enc.encode_frames([s[0] for s in streams])]
     dec = TorchFFV1Decoder(w, h, enc.extradata, batch=BATCH, device=dev)
     args = decode_args_from_packets(dec, pkts, 8)
-    return check_decode_args("rc_decode", args, "port-encoded stream",
-                             streams[0][0][0][:64, :64])
+    return [check_decode_args(args, f"port-encoded stream, context model "
+                              f"{context_model}",
+                              streams[0][0][0][:64, :64])]
 
 
-def check_decode_ext_kernel(dev):
-    """K2-ext on the port's own 16-bit encode (96x64 yuv444p16le, 24
-    slices, 2 streams: 48 lanes of 3 x 16x16), and on random bytes at
-    11, 16 and 17 bits (garbage symbols: exponents past the width,
-    reads past the buffer, clamped contexts)."""
+def check_decode_ext_kernel(dev, context_model):
+    """K2-ext / K2-ext-five on the port's own 16-bit encode (96x64
+    yuv444p16le, 24 slices, 2 streams: 48 lanes of 3 x 16x16), and on
+    random bytes at 11, 16 and 17 bits (garbage symbols: exponents past
+    the width, reads past the buffer, clamped contexts), with the
+    context model's quant tables and table size (context model 1: the
+    16-bit extradata's 2 x 5,063 rows, in global memory)."""
     w, h = 96, 64
     params = EncoderParams(width=w, height=h, pix_fmt="yuv444p16le",
-                           level=3, coder=2, slices=SLICES)
+                           level=3, coder=2, slices=SLICES,
+                           context_model=context_model)
     streams = synthetic_streams16(BATCH, 1, w, h, SEED + 2)
     enc = TorchFFV1Encoder(params, batch=BATCH, device=dev)
     pkts = [p for p, _kf in enc.encode_frames([s[0] for s in streams])]
@@ -432,23 +500,25 @@ def check_decode_ext_kernel(dev):
     args = decode_args_from_packets(dec, pkts, 16)
     lossless = streams[0][0][0][:16, :16].astype(np.int32)
     lossless = ((lossless + 0x8000) & 0xFFFF) - 0x8000     # int16 rows
-    res = [check_decode_args("rc_decode_ext", args, "port-encoded stream",
-                             lossless)]
+    res = [check_decode_args(args, f"port-encoded stream, context model "
+                             f"{context_model}", lossless)]
     L, cap = BATCH * SLICES, 4096
-    CC = T.CONTEXT_COUNTS[0]
+    CC = T.CONTEXT_COUNTS[0] if context_model == 0 else \
+        dec.g.context_counts[1]
+    five = context_model == 1
     one, zero = custom_state_tables(T.VER2_STATE)
     for bits in (11, 16, 17):
-        r = np.random.RandomState(SEED + 100 + bits)
+        r = np.random.RandomState(SEED + 100 + bits + 50 * context_model)
         bufs = r.randint(0, 256, (L, cap)).astype(np.uint8)
         low0 = np.minimum(bufs[:, 0].astype(np.int32) << 8 | bufs[:, 1],
                           0xFEFF)
-        qt = T.default_quant_tables(bits)[0].astype(np.int32)
+        qt = T.default_quant_tables(bits)[context_model].astype(np.int32)
         rnd = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
             bufs, r.randint(16, 241, (L, 2 * CC, 32)).astype(np.uint8),
             one, zero, qt, low0.astype(np.int32),
             np.full(L, 0xFF00, np.int32), np.full(L, 2, np.int32))]
         specs = ((16, 16, 0), (16, 16, CC), (16, 16, CC))
-        res.append(check_decode_args("rc_decode_ext", (*rnd, specs, bits),
+        res.append(check_decode_args((*rnd, specs, bits, five),
                                      "random bytes"))
     return res
 
@@ -460,7 +530,7 @@ def step_stats(tag, name, steps_s, mpix, gpu):
     ms = sorted(1e3 * s for s in steps_s)
     med = ms[len(ms) // 2] if len(ms) % 2 else \
         (ms[len(ms) // 2 - 1] + ms[len(ms) // 2]) / 2
-    log(f"[{tag}] {name} steady over {len(ms)} non-key steps (batch "
+    log(f"[{tag}] {name} over {len(ms)} timed non-key steps (batch "
         f"{BATCH}, {gpu}): median {med:.2f} ms/step = "
         f"{mpix / med * 1e3:.2f} Mpix/s; min {ms[0]:.2f}, max {ms[-1]:.2f}; "
         f"steps {', '.join(f'{1e3 * s:.2f}' for s in steps_s)} ms")
@@ -468,37 +538,38 @@ def step_stats(tag, name, steps_s, mpix, gpu):
 
 
 def reset_counts():
-    rc_encode.LAUNCHES = rc_encode.LAUNCHES_EXT = 0
-    rc_decode.LAUNCHES = rc_decode.LAUNCHES_EXT = 0
+    rc_encode.LAUNCHES.clear()
+    rc_decode.LAUNCHES.clear()
 
 
 def main_path(dev, gpu, name, rec_enc, rec_dec):
-    """One main path: 1080p, 24 slices, 2 streams x FRAMES frames through
-    the port, held against the golden digests.  Returns the launch
-    counts of its kernels, their main-path times and the recorded
-    warm-up launches."""
-    pix_fmt = PATHS[name][0]
+    """One main path: 24 slices, 2 streams x its frames through the port,
+    held against the golden digests.  Returns the launch counts of its
+    kernels, their main-path times and the recorded warm-up launches."""
+    path = PATHS[name]
+    pix_fmt, w, h, frames = path.pix_fmt, path.width, path.height, \
+        path.frames
     tag = f"main {name}"
-    ext = name == "16bit"
-    k_enc, k_dec = ("rc_encode_ext", "rc_decode_ext") if ext else \
-        ("rc_encode", "rc_decode")
+    k_enc, k_dec = path.kernels
     t0 = time.perf_counter()
     streams = path_streams(name)
     golden = load_goldens()[name]
-    log(f"[{tag}] {pix_fmt} content: {BATCH}x{FRAMES} frames in "
+    log(f"[{tag}] {w}x{h} {pix_fmt}, context model {path.context_model} "
+        f"content: {BATCH}x{frames} frames in "
         f"{time.perf_counter() - t0:.1f} s")
-    enc = TorchFFV1Encoder(EncoderParams(**params_kw(pix_fmt)), batch=BATCH,
+    enc = TorchFFV1Encoder(EncoderParams(**params_kw(name)), batch=BATCH,
                            device=dev)
     check(digest(enc.extradata) == golden["extradata"],
           f"{name}: extradata differs from the golden")
-    dec = TorchFFV1Decoder(W, H, enc.extradata, batch=BATCH, device=dev)
+    dec = TorchFFV1Decoder(w, h, enc.extradata, batch=BATCH, device=dev)
     check(enc.L == SLICES * BATCH and enc.n_slices == SLICES,
           "expected 48 lanes")
-    check(enc.bits == (16 if ext else 8), "coded width")
+    check(enc.bits == (16 if pix_fmt.endswith("16le") else 8),
+          "coded width")
 
     enc_s, dec_s, peak = [], [], []
     reset_counts()
-    for t in range(FRAMES):
+    for t in range(frames):
         # keep the kernels' inputs and outputs of the warm-up frame
         rec_enc.armed = rec_dec.armed = (t == 1)
         frame = [streams[b][t] for b in range(BATCH)]
@@ -537,22 +608,22 @@ def main_path(dev, gpu, name, rec_enc, rec_dec):
             f"{peak[-1]:.2f} GiB over the {base / 2**30:.2f} GiB held "
             f"({gpu})")
     rec_enc.armed = rec_dec.armed = False
-    launches = {k_enc: rc_encode.LAUNCHES_EXT if ext else rc_encode.LAUNCHES,
-                k_dec: rc_decode.LAUNCHES_EXT if ext else rc_decode.LAUNCHES}
-    log(f"[{tag}] kernel launches in this path's {FRAMES} steps: "
+    launches = {**rc_encode.LAUNCHES, **rc_decode.LAUNCHES}
+    log(f"[{tag}] kernel launches in this path's {frames} steps: "
         f"{launches}")
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel of the path never launched: {launches}")
+    check(launches == {k_enc: frames, k_dec: frames},
+          f"expected {k_enc} and {k_dec} launched once per step, and no "
+          f"other kernel: {launches}")
     enc_rec, dec_rec = rec_enc.take(), rec_dec.take()
     check(enc_rec[1] is not None and dec_rec[1] is not None,
           "the warm-up frame's kernel calls were not recorded")
 
-    mpix = BATCH * W * H / 1e6
+    mpix = BATCH * w * h / 1e6
     enc_ms = step_stats(tag, "encode", enc_s[1 + WARM:], mpix, gpu)
     dec_ms = step_stats(tag, "decode", dec_s[1 + WARM:], mpix, gpu)
 
     # stage times at the main path's shapes (launches not counted above)
-    frame = [streams[b][FRAMES - 1] for b in range(BATCH)]
+    frame = [streams[b][frames - 1] for b in range(BATCH)]
     up_ms, planes = host_time_ms(lambda: enc._upload(frame))
     st_ms = cuda_time_ms(lambda: enc._streams_uniform(planes), 3)
     k1_args = enc_rec[0]
@@ -593,7 +664,7 @@ def main_path(dev, gpu, name, rec_enc, rec_dec):
         f"these {dec_ms - parse_ms - k2_ms:.2f}")
     return dict(launches=launches, ms={k_enc: k1_ms, k_dec: k2_ms},
                 recs={k_enc: enc_rec, k_dec: dec_rec},
-                steps=FRAMES, enc_ms=enc_ms, dec_ms=dec_ms)
+                steps=frames, enc_ms=enc_ms, dec_ms=dec_ms)
 
 
 # ------------------------------------------- main-path plain checks
@@ -610,18 +681,21 @@ def output_digests(out):
     return res
 
 
-PLAIN = {"rc_encode": "rc_encode_packed_ref",
-         "rc_encode_ext": "rc_encode_packed_ext_ref",
-         "rc_decode": "rc_decode_planes_ref",
-         "rc_decode_ext": "rc_decode_planes_ext_ref"}
+def plain_version(name):
+    """The plain PyTorch version of kernel instance ``name``."""
+    if name.startswith("rc_encode"):
+        return rc_encode.rc_encode_packed_ext_ref \
+            if name.startswith("rc_encode_ext") else \
+            rc_encode.rc_encode_packed_ref
+    return rc_decode.rc_decode_planes_ext_ref \
+        if name.startswith("rc_decode_ext") else rc_decode.rc_decode_planes_ref
 
 
 def plain_worker(name, args):
-    """Worker process: the plain version of kernel ``name`` on CPU
-    tensors; returns (seconds, output digests)."""
+    """Worker process: the plain version of kernel instance ``name`` on
+    CPU tensors; returns (seconds, output digests)."""
     torch.set_num_threads(1)
-    mod = rc_encode if name.startswith("rc_encode") else rc_decode
-    fn = getattr(mod, PLAIN[name])
+    fn = plain_version(name)
     targs = [torch.from_numpy(a) if isinstance(a, np.ndarray) else a
              for a in args]
     t0 = time.perf_counter()
@@ -664,88 +738,131 @@ def segments(name, args, out):
                   l0, r0, bits), (packed[a:b], *ends[i]))
                 for i, (a, b, (l0, r0, s0)) in enumerate(
                     zip(cuts, cuts[1:], starts))]
-    bufs, st0, one, zero, qt, low0, rng0, pos0, specs, bits = args[:10]
+    bufs, st0, one, zero, qt, low0, rng0, pos0, specs, bits, five = args
     planes, st, low, rng, pos = out
     ends = []
     for k in range(1, len(specs)):
         pl, s, lo, ra, po = rc_decode.rc_decode_planes(
-            bufs, st0, one, zero, qt, low0, rng0, pos0, specs[:k], bits)
+            bufs, st0, one, zero, qt, low0, rng0, pos0, specs[:k], bits,
+            five)
         check(all(torch.equal(x, y) for x, y in zip(pl, planes)),
               f"{name} relaunched on {k} planes is not the main-path "
               f"launch's prefix")
         ends.append((s, lo, ra, po))
     ends.append((st, low, rng, pos))
     starts = [(st0, low0, rng0, pos0)] + ends[:-1]
-    return [((bufs, s0, one, zero, qt, l0, r0, p0, (specs[k],), bits),
+    return [((bufs, s0, one, zero, qt, l0, r0, p0, (specs[k],), bits, five),
              ((planes[k],), *ends[k]))
             for k, (s0, l0, r0, p0) in enumerate(starts)]
 
 
-def check_main_path_kernels(recs):
-    """Every kernel's warm-up launch on its path (all lanes, full shape)
-    against its plain version on CPU copies of the same inputs, split
-    into segments (see ``segments``) that run in parallel worker
-    processes, one per CPU core; exact (equal output digests)."""
+def launch_shape(name, args, out):
+    """A main-path launch's shape, for the log and the JSON line."""
+    if name.startswith("rc_encode"):
+        return (f"L={args[0].shape[0]} N={args[0].shape[1]} "
+                f"CC={args[3].shape[1]} S={out[0].shape[1]} bits={args[8]}")
+    return (f"L={args[0].shape[0]} CC={args[1].shape[1]} planes={args[8]} "
+            f"bits={args[9]} five={args[10]}")
+
+
+def plain_cost(name, args):
+    """A rough relative cost of the plain version on ``args`` (lanes x
+    pixels x slots, the decoder's loop about twice the encoder's per
+    decision), to start the longest worker jobs first."""
+    if name.startswith("rc_encode"):
+        return args[0].numel() * (2 * args[8] + 1)
+    return 2 * args[0].shape[0] * (2 * args[9] + 1) * \
+        sum(w * h for (w, h, _b) in args[8])
+
+
+def plain_checks(launches):
+    """Hold kernel launches exactly against their plain versions, run on
+    CPU copies of the same inputs in parallel worker processes, one per
+    CPU core, the longest jobs first.  ``launches``: [(instance, (args,
+    outputs), split)]; a launch with ``split`` is cut into segments (see
+    ``segments``), the others run whole.  The workers return digests of
+    their outputs, which must equal the digests of the kernel's outputs.
+    Returns the plain version's seconds per segment of each launch, in
+    the order given, and the number of workers."""
     jobs = []
+    for i, (name, (args, out), split) in enumerate(launches):
+        segs = segments(name, args, out) if split else [(args, out)]
+        for k, (seg_args, want) in enumerate(segs):
+            cpu_args = [a.cpu().numpy() if isinstance(a, torch.Tensor)
+                        else a for a in seg_args]
+            jobs.append((plain_cost(name, seg_args), i, k, name,
+                         output_digests(want), cpu_args))
+    jobs.sort(key=lambda j: -j[0])
+    secs = [{} for _ in launches]
+    workers = os.cpu_count() or 4
     ctx = multiprocessing.get_context("spawn")
     with concurrent.futures.ProcessPoolExecutor(
-            max_workers=os.cpu_count() or 4, mp_context=ctx) as pool:
-        for name, (args, out) in recs.items():
-            for seg_args, want in segments(name, args, out):
-                cpu_args = [a.cpu().numpy() if isinstance(a, torch.Tensor)
-                            else a for a in seg_args]
-                jobs.append((name, want,
-                             pool.submit(plain_worker, name, cpu_args)))
-        mine = [output_digests(want) for _name, want, _fut in jobs]
-        res = {}
-        for (name, _want, fut), digests in zip(jobs, mine):
-            secs, theirs = fut.result()
-            check(theirs == digests,
-                  f"{name} on its main path's inputs differs from its plain "
-                  f"version: " + "; ".join(
-                      f"output {i} {a[0]}"
-                      for i, (a, b) in enumerate(zip(digests, theirs))
+            max_workers=workers, mp_context=ctx) as pool:
+        futs = [(job, pool.submit(plain_worker, job[3], job[5]))
+                for job in jobs]
+        for (_c, i, k, name, mine, _a), fut in futs:
+            sec, theirs = fut.result()
+            check(theirs == mine,
+                  f"{name} differs from its plain version on the same "
+                  f"inputs: " + "; ".join(
+                      f"output {n} {a[0]}"
+                      for n, (a, b) in enumerate(zip(mine, theirs))
                       if a != b))
-            res.setdefault(name, {"segs": []})["segs"].append(secs)
-    for name, r in res.items():
-        args, out = recs[name]
-        if name.startswith("rc_encode"):
-            shape = (f"L={args[0].shape[0]} N={args[0].shape[1]} "
-                     f"CC={args[3].shape[1]} S={out[0].shape[1]} "
-                     f"bits={args[8]}")
-        else:
-            shape = f"L={args[0].shape[0]} planes={args[8]} bits={args[9]}"
-        segs = r.pop("segs")
-        log(f"[check] {name}, main path's warm-up frame ({shape}): exact "
-            f"match in {len(segs)} segments (equal SHA-256 of every "
-            f"output); plain version on the host CPU "
-            f"{' + '.join(f'{x:.1f}' for x in segs)} = {sum(segs):.1f} s")
-        r.update(max_abs_err=0, plain_ms=sum(segs) * 1e3,
-                 plain_segments_s=segs, main_path_shape=shape)
-    return res
+            secs[i][k] = sec
+    return [[d[k] for k in sorted(d)] for d in secs], workers
 
 
 def kernel_bounds(name, rec, ns_per_decision, ops_per_decision,
-                  decisions):
+                  decisions, row_ns):
     """(roofline bound ms, its term, chain bound ms) of one kernel's
-    main-path launch."""
+    main-path launch.  The chain bound is the longest lane's decisions x
+    one dependent decision's latency; a decoder with its state table in
+    global memory also waits on one dependent row read from L2 per pixel
+    (``row_ns``), since each pixel's context needs the pixel before.
+    The encoder's contexts are known in advance, so its row reads are
+    not on the chain."""
     args, out = rec
     if name.startswith("rc_encode"):
         L, N = args[0].shape
         CC, S = args[3].shape[1], out[0].shape[1]
         nbytes = L * N * 9 + 2 * L * CC * 32 + 512 + 16 * L + L * N * S * 4
         nops = L * N * S * ops_per_decision       # every slot is evaluated
+        px = 0
     else:
         planes, states_out, _low, _rng, pos = out
         L, CC = args[1].shape[0], args[1].shape[1]
         consumed = int((pos.long() - args[7].long()).sum())
         px = sum(p.shape[1] * p.shape[2] for p in planes)
-        nbytes = consumed + 2 * L * CC * 32 + 512 + 3 * 1024 + 24 * L + \
+        nq = 5 if args[10] else 3
+        nbytes = consumed + 2 * L * CC * 32 + 512 + nq * 1024 + 24 * L + \
             L * px * 4
         nops = int(decisions.sum()) * ops_per_decision
+        if not name.endswith("_global"):
+            px = 0
     bound, term = roofline_ms(nbytes, nops)
-    chain = int(decisions.max()) * ns_per_decision * 1e-6
+    chain = (int(decisions.max()) * ns_per_decision + px * row_ns) * 1e-6
     return bound, term, chain
+
+
+# kernel instance -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "rc_encode": ("tpu_ffv1_torch/csrc/rc_encode.cu",
+                  "tpu_ffv1/tpu/rc_pallas.py:58"),
+    "rc_decode": ("tpu_ffv1_torch/csrc/rc_decode.cu",
+                  "tpu_ffv1/tpu/rc_dec_pallas.py:60"),
+    "rc_encode_ext": ("tpu_ffv1_torch/csrc/rc_encode_ext.cu",
+                      "tpu_ffv1/tpu/rc_pallas.py:317"),
+    "rc_decode_ext": ("tpu_ffv1_torch/csrc/rc_decode_ext.cu",
+                      "tpu_ffv1/tpu/rc_dec_pallas.py:343"),
+    "rc_encode_global": ("tpu_ffv1_torch/csrc/rc_encode.cu",
+                         "tpu_ffv1/tpu/rc_pallas.py:58"),
+    "rc_decode_five_global": ("tpu_ffv1_torch/csrc/rc_decode.cu",
+                              "tpu_ffv1/tpu/rc_dec_pallas.py:201"),
+    "rc_encode_ext_global": ("tpu_ffv1_torch/csrc/rc_encode_ext.cu",
+                             "tpu_ffv1/tpu/rc_pallas.py:317"),
+    "rc_decode_ext_five_global": ("tpu_ffv1_torch/csrc/rc_decode_ext.cu",
+                                  "tpu_ffv1/tpu/rc_dec_pallas.py:201"),
+}
 
 
 def main():
@@ -771,69 +888,96 @@ def main():
             line = line.split(":", 1)[-1].strip()
             if ("registers" in line or "spill" in line) and line not in seen:
                 seen.add(line)
-                log(f"[build] {name} (all bit-depth instances): {line}")
+                log(f"[build] {name} (all instances): {line}")
 
     ns_enc = chain_probe_ns(dev, 0)
     ns_dec = chain_probe_ns(dev, 1)
     ops_enc, ops_dec = probe_sass_ops()
+    row_ns = row_probe_ns(dev)
     log(f"[probe] one dependent decision on one warp ({gpu}): encode form "
         f"{ns_enc:.2f} ns, decode form {ns_dec:.2f} ns; SASS instructions "
         f"of one decision: encode form {ops_enc:.2f}, decode form "
-        f"{ops_dec:.2f}")
+        f"{ops_dec:.2f}; one dependent 32-byte row read from L2 "
+        f"{row_ns:.2f} ns")
 
-    checks = {"rc_encode": [check_encode_kernel(dev, 8, 4096)],
-              "rc_decode": [check_decode_kernel(dev)],
-              "rc_encode_ext": [check_encode_kernel(dev, b, 1024)
-                                for b in (11, 16, 17)],
-              "rc_decode_ext": check_decode_ext_kernel(dev)}
+    random = ([check_encode_kernel(dev, 8, 4096, 0)] +
+              check_decode_kernel(dev, 0) +
+              [check_encode_kernel(dev, b, 1024, 0) for b in (11, 16, 17)] +
+              check_decode_ext_kernel(dev, 0) +
+              [check_encode_kernel(dev, 8, 4096, 1)] +
+              check_decode_kernel(dev, 1) +
+              [check_encode_kernel(dev, b, 1024, 1) for b in (11, 16, 17)] +
+              check_decode_ext_kernel(dev, 1))
+    check(sorted({r[0] for r in random}) == sorted(KERNELS),
+          "the random checks do not cover every instance")
 
     rec_enc = LastLaunch(port_encoder, "rc_encode_packed")
     rec_dec = LastLaunch(port_decoder, "rc_decode_planes")
     paths = {name: main_path(dev, gpu, name, rec_enc, rec_dec)
              for name in PATHS}
     recs = {k: v for p in paths.values() for k, v in p["recs"].items()}
-    mp = check_main_path_kernels(recs)
+    check(sorted(recs) == sorted(KERNELS),
+          f"the main paths ran {sorted(recs)}, not every instance")
+
+    # phase 6: every launch above against its plain version
+    t0 = time.perf_counter()
+    launches = [(name, rec, False) for name, _info, rec in random] + \
+        [(name, rec, True) for name, rec in recs.items()]
+    secs, workers = plain_checks(launches)
+    checks = {}
+    for (name, info, _rec), segs in zip(random, secs):
+        info["check_plain_ms"] = segs[0] * 1e3
+        checks.setdefault(name, []).append(info)
+        log(f"[check] {name} {info['check_shape']} {info['label']}: exact "
+            f"match (equal SHA-256 of every output); plain version on the "
+            f"host CPU {segs[0]:.1f} s")
+    mp = {}
+    for name, segs in zip(recs, secs[len(random):]):
+        shape = launch_shape(name, *recs[name])
+        mp[name] = dict(plain_ms=sum(segs) * 1e3, main_path_shape=shape)
+        log(f"[check] {name}, main path's warm-up frame ({shape}): exact "
+            f"match in {len(segs)} segments (equal SHA-256 of every "
+            f"output); plain version on the host CPU "
+            f"{' + '.join(f'{x:.1f}' for x in segs)} = {sum(segs):.1f} s")
+    log(f"[check] all plain checks in {time.perf_counter() - t0:.1f} s "
+        f"({workers} worker processes, {sum(map(sum, secs)):.1f} s of "
+        f"plain version in all)")
 
     kernels = []
-    for name, src, replaces, path in (
-            ("rc_encode", "tpu_ffv1_torch/csrc/rc_encode.cu",
-             "tpu_ffv1/tpu/rc_pallas.py:58", "8bit"),
-            ("rc_decode", "tpu_ffv1_torch/csrc/rc_decode.cu",
-             "tpu_ffv1/tpu/rc_dec_pallas.py:60", "8bit"),
-            ("rc_encode_ext", "tpu_ffv1_torch/csrc/rc_encode_ext.cu",
-             "tpu_ffv1/tpu/rc_pallas.py:317", "16bit"),
-            ("rc_decode_ext", "tpu_ffv1_torch/csrc/rc_decode_ext.cu",
-             "tpu_ffv1/tpu/rc_dec_pallas.py:343", "16bit")):
-        p = paths[path]
-        enc_args = p["recs"]["rc_encode_ext" if path == "16bit"
-                             else "rc_encode"][0]
+    for path_name, path in PATHS.items():
+        p = paths[path_name]
+        enc_args = p["recs"][path.kernels[0]][0]
         # the decode of the warm-up frame makes the same decisions as its
         # encode
         decisions = decisions_per_lane(enc_args[1], enc_args[2])
-        ns, ops = (ns_enc, ops_enc) if name.startswith("rc_encode") else \
-            (ns_dec, ops_dec)
-        bound, term, chain = kernel_bounds(name, recs[name], ns, ops,
-                                           decisions)
-        m = mp[name]
-        chk = checks[name]
-        kernels.append(dict(
-            name=name, route="cuda", source=src, replaces=replaces,
-            launches=p["launches"][name],
-            launches_per_step=p["launches"][name] / p["steps"],
-            max_abs_err=max([c["max_abs_err"] for c in chk] +
-                            [m["max_abs_err"]]),
-            ms=p["ms"][name], plain_ms=m["plain_ms"], plain_device="cpu",
-            bound_ms=bound, bound_by=term, chain_bound_ms=chain,
-            chain_decisions_max_lane=int(decisions.max()),
-            ns_per_decision=ns, ops_per_decision=ops, library_ms=None,
-            main_path_shape=m["main_path_shape"],
-            checks=[{k: c[k] for k in ("check_shape", "check_ms",
-                                       "check_plain_ms")} for c in chk]))
-        log(f"[bound] {name} ({gpu}): {p['ms'][name]:.2f} ms at the main "
-            f"path's shape; roofline bound {bound:.3f} ms ({term}, "
-            f"{ops:.2f} instructions per decision); chain "
-            f"bound {chain:.2f} ms ({int(decisions.max())} decisions on the "
-            f"longest lane x {ns:.2f} ns)")
+        for name in path.kernels:
+            src, replaces = KERNELS[name]
+            ns, ops = (ns_enc, ops_enc) if name.startswith("rc_encode") \
+                else (ns_dec, ops_dec)
+            bound, term, chain = kernel_bounds(name, recs[name], ns, ops,
+                                               decisions, row_ns)
+            row = name.startswith("rc_decode") and name.endswith("_global")
+            kernels.append(dict(
+                name=name, route="cuda", source=src, replaces=replaces,
+                main_path=path_name, launches=p["launches"][name],
+                launches_per_step=p["launches"][name] / p["steps"],
+                max_abs_err=0, ms=p["ms"][name],
+                plain_ms=mp[name]["plain_ms"], plain_device="cpu",
+                bound_ms=bound, bound_by=term, chain_bound_ms=chain,
+                chain_decisions_max_lane=int(decisions.max()),
+                ns_per_decision=ns, ops_per_decision=ops,
+                row_read_ns=row_ns if row else None, library_ms=None,
+                main_path_shape=mp[name]["main_path_shape"],
+                checks=[{k: c[k] for k in ("check_shape", "check_ms",
+                                           "check_plain_ms")}
+                        for c in checks[name]]))
+            log(f"[bound] {name} ({path_name}, {gpu}): {p['ms'][name]:.2f} "
+                f"ms at the main path's shape; roofline bound {bound:.3f} "
+                f"ms ({term}, {ops:.2f} instructions per decision); chain "
+                f"bound {chain:.2f} ms ({int(decisions.max())} decisions "
+                f"on the longest lane x {ns:.2f} ns" +
+                (f", plus a {row_ns:.2f} ns row read per pixel)" if row
+                 else ")"))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"kernels": kernels}))
     log(gpu)

@@ -1,7 +1,7 @@
 """The port's slice as a whole on device="cpu" (the plain PyTorch versions
 of both kernels): packets byte-identical to TPUFFV1Encoder and the host
 FFV1Encoder, lossless decode, GOP state handed over from the JAX
-classes, damage concealment.  Every comparison is exact: the codec is
+classes, damage concealment; at context models 0 and 1.  Every comparison is exact: the codec is
 integer and lossless."""
 import numpy as np
 import pytest
@@ -30,9 +30,10 @@ def _frames(w, h, n, seed=3, noise=4):
     return out
 
 
-def _params(w, h, slices, gop):
+def _params(w, h, slices, gop, context_model=0):
     return EncoderParams(width=w, height=h, pix_fmt="yuv420p", level=3,
-                         coder=2, slices=slices, gop_size=gop)
+                         coder=2, slices=slices, gop_size=gop,
+                         context_model=context_model)
 
 
 CONFIGS = [
@@ -253,14 +254,12 @@ def test_16bit_flipped_byte_flags_slice_and_conceals():
 
 @pytest.mark.parametrize("kw", [
     dict(pix_fmt="yuv420p", coder=-1),                   # Golomb-Rice
-    dict(pix_fmt="yuv420p", coder=2, context_model=1),
     dict(pix_fmt="yuv420p16le", coder=2, level=1),       # 16 bits, v1
     dict(pix_fmt="bgr0", coder=2),                       # RGB
     dict(pix_fmt="yuv420p", coder=2, slices=6),          # non-uniform
     dict(pix_fmt="yuv420p", coder=2, pass1=True),        # two-pass, 1st
     dict(pix_fmt="yuv420p", coder=2, stats_in=""),       # two-pass, 2nd
-], ids=["golomb", "context1", "16bit", "rgb", "nonuniform", "pass1",
-        "stats_in"])
+], ids=["golomb", "16bit", "rgb", "nonuniform", "pass1", "stats_in"])
 def test_outside_the_slice_raises(kw):
     params = EncoderParams(width=50, height=40, **{"level": 3, **kw})
     with pytest.raises(NotImplementedError):
@@ -276,3 +275,106 @@ def test_port_params_two_pass_raises(kw):
                                 level=3, coder=2, **kw)
     with pytest.raises(NotImplementedError):
         TorchFFV1Encoder(params, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# context model 1 (-context 1: the 5-input context, 2 x 7,563 contexts)
+
+
+@pytest.fixture(scope="module")
+def jax_ctx1():
+    """A context-model-1 GOP of two streams through TPUFFV1Encoder (one
+    instance, so one compile): frames, its packets per stream, and the
+    state it carries after frame 1."""
+    params = _params(48, 40, 4, 4, context_model=1)
+    streams = [_frames(48, 40, 4, seed=30 + b) for b in range(2)]
+    jaxe = TPUFFV1Encoder(params, batch=2)
+    pkts = [[], []]
+    states = None
+    for t in range(4):
+        for b, res in enumerate(jaxe.encode_frames([s[t] for s in streams])):
+            pkts[b].append(res)
+        if t == 1:
+            states = (np.asarray(jaxe.states), jaxe.picture_number)
+    return params, streams, pkts, states
+
+
+def test_context1_encoder_matches_jax_and_host(jax_ctx1):
+    """batch=2 at context model 1: the host encoder's bytes and
+    TPUFFV1Encoder's, frame by frame."""
+    params, streams, jax_pkts, _st = jax_ctx1
+    port = TorchFFV1Encoder(params, batch=2, device="cpu")
+    hosts = [FFV1Encoder(params) for _ in range(2)]
+    assert port.total_cc == 2 * 7563 and port.five_input
+    assert port.extradata == hosts[0].extradata
+    for t in range(4):
+        res = port.encode_frames([streams[b][t] for b in range(2)])
+        for b in range(2):
+            want = hosts[b].encode_frame(streams[b][t])
+            assert jax_pkts[b][t] == want
+            assert res[b] == want, f"stream {b} frame {t}"
+
+
+def test_context1_decoder_lossless_on_own_and_host_packets():
+    params = _params(48, 40, 4, 2, context_model=1)
+    frames = _frames(48, 40, 3, seed=31)
+    port = TorchFFV1Encoder(params, device="cpu")
+    host = FFV1Encoder(params)
+    dec_own = TorchFFV1Decoder(48, 40, port.extradata, device="cpu")
+    dec_host = TorchFFV1Decoder(48, 40, host.extradata, device="cpu")
+    assert dec_own.g.context_counts[1] == 7563
+    for i, f in enumerate(frames):
+        for enc, dec in ((port, dec_own), (host, dec_host)):
+            pkt, kf = enc.encode_frame(f)
+            planes, kf2 = dec.decode_frame(pkt)
+            assert kf == kf2 == (i % 2 == 0)
+            for a, b in zip(planes, f):
+                assert np.array_equal(a, b), f"frame {i}"
+        assert dec_own.states.shape == (4, 2 * 7563, 32)
+        assert not dec_own.slice_damaged.any()
+
+
+def test_context1_gop_begun_in_jax_continues_in_port(jax_ctx1):
+    """Frames 0-1 in TPUFFV1Encoder, frames 2-3 in the port after
+    encoder_state_from_numpy (uint8 (8, 15126, 32)); likewise the
+    decoder, frame 0 in TPUFFV1Decoder and the rest in the port."""
+    params, streams, jax_pkts, (states, pn) = jax_ctx1
+    assert states.shape == (8, 2 * 7563, 32)
+    port = TorchFFV1Encoder(params, batch=2, device="cpu")
+    encoder_state_from_numpy(port, states, pn)
+    for t in (2, 3):
+        res = port.encode_frames([streams[b][t] for b in range(2)])
+        assert [r for r in res] == [jax_pkts[b][t] for b in range(2)]
+    assert not jax_pkts[0][2][1]                 # frame 2 is non-key
+
+    jaxd = TPUFFV1Decoder(48, 40, port.extradata)
+    jaxd.decode_frame(jax_pkts[0][0][0])
+    portd = TorchFFV1Decoder(48, 40, port.extradata, device="cpu")
+    decoder_state_from_numpy(portd, np.asarray(jaxd.states),
+                             jaxd.key_frame_ok)
+    for t in (1, 2, 3):
+        planes, _ = portd.decode_frame(jax_pkts[0][t][0])
+        for a, b in zip(planes, streams[0][t]):
+            assert np.array_equal(a, b)
+
+
+def test_context1_16bit_encoder_matches_host():
+    """yuv444p16le at context model 1 (K1-ext's and K2-ext's plain
+    versions with the 5-input context; the encoder sizes its table by
+    7,563 contexts per plane, the 16-bit extradata gives 5,063): the
+    host encoder's bytes and a lossless uint16 decode."""
+    params = EncoderParams(width=32, height=24, pix_fmt="yuv444p16le",
+                           level=3, coder=2, slices=4, gop_size=2,
+                           context_model=1)
+    frames = synth_frames("yuv444p16le", 32, 24, 2, seed=11)
+    host = FFV1Encoder(params)
+    port = TorchFFV1Encoder(params, device="cpu")
+    dec = TorchFFV1Decoder(32, 24, port.extradata, device="cpu")
+    assert port.total_cc == 2 * 7563 and dec.g.context_counts[1] == 5063
+    for i, f in enumerate(frames):
+        want = host.encode_frame(f)
+        got = port.encode_frame(f)
+        assert got == want, f"frame {i}"
+        planes, _kf = dec.decode_frame(got[0])
+        for a, b in zip(planes, f):
+            assert a.dtype == np.uint16 and np.array_equal(a, b)

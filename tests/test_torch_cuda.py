@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version on the same CUDA tensors (exact: integer codec), and the slice
-end to end against the host encoder.  Marked ``cuda``; each test skips
+end to end against the host encoder, at context models 0 and 1 (whose
+state table the kernels keep in global memory).  Marked ``cuda``; each test skips
 where torch.cuda.is_available() is False (this file imports no jax, so
 it runs on a machine without it: FFV1_TEST_NO_CACHE=1 python -m pytest
 tests/test_torch_cuda.py)."""
@@ -30,11 +31,10 @@ def _frames(w, h, n, seed):
             for t in range(n)]
 
 
-@pytest.mark.parametrize("bits", [8, 10, 11, 16, 17])
-def test_rc_encode_kernel_matches_plain(cuda, bits):
+def _check_encode(cuda, bits, CC, want_instance):
     from tpu_ffv1_torch.tpu import rc_encode as K
     r = np.random.RandomState(bits)
-    L, N, CC = 5, 700, 2 * T.CONTEXT_COUNTS[0]
+    L, N = 5, 700
     half = 1 << (bits - 1)
     one, zero = custom_state_tables(T.VER2_STATE)
     diff = np.where(r.rand(L, N) < 0.1, r.randint(-half, half, (L, N)),
@@ -46,25 +46,58 @@ def test_rc_encode_kernel_matches_plain(cuda, bits):
                          (one, np.uint8), (zero, np.uint8),
                          (r.randint(0, 1 << 16, L), np.int32),
                          (r.randint(0x100, 0xFF01, L), np.int32))]
-    ext = bits > 10
-    counter = "LAUNCHES_EXT" if ext else "LAUNCHES"
-    before = getattr(K, counter)
+    assert K.instance(bits, CC) == want_instance
+    before = K.LAUNCHES.get(want_instance, 0)
     got = K.rc_encode_packed(*args, bits)
-    assert getattr(K, counter) == before + 1
-    ref = K.rc_encode_packed_ext_ref if ext else K.rc_encode_packed_ref
+    assert K.LAUNCHES[want_instance] == before + 1
+    ref = K.rc_encode_packed_ext_ref if bits > 10 else \
+        K.rc_encode_packed_ref
     want = ref(*args, bits)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 
 
-def test_rc_decode_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("bits", [8, 10, 11, 16, 17])
+def test_rc_encode_kernel_matches_plain(cuda, bits):
+    _check_encode(cuda, bits, 2 * T.CONTEXT_COUNTS[0],
+                  "rc_encode_ext" if bits > 10 else "rc_encode")
+
+
+@pytest.mark.parametrize("bits", [8, 10, 11, 16, 17])
+def test_rc_encode_global_kernel_matches_plain(cuda, bits):
+    """Context model 1's table (2 x 7,563 rows, 484 KB per lane) does
+    not fit shared memory: the instance that keeps it in global memory."""
+    _check_encode(cuda, bits, 2 * T.CONTEXT_COUNTS[1],
+                  "rc_encode_ext_global" if bits > 10 else
+                  "rc_encode_global")
+
+
+def _check_decode(K, args, specs, bits, five, want_instance):
+    CC = args[1].shape[1]
+    assert K.instance(bits, five, CC, max(s[0] for s in specs)) == \
+        want_instance
+    before = K.LAUNCHES.get(want_instance, 0)
+    got = K.rc_decode_planes(*args, specs, bits, five)
+    assert K.LAUNCHES[want_instance] == before + 1
+    ref = K.rc_decode_planes_ext_ref if bits > 10 else \
+        K.rc_decode_planes_ref
+    want = ref(*args, specs, bits, five)
+    for a, b in zip(got[0], want[0]):
+        assert torch.equal(a, b)
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a, b)
+    return got
+
+
+def _decode_stream_check(cuda, context_model, want_instance):
     from tpu_ffv1_torch.tpu import rc_decode as K
     from tpu_ffv1_torch.tpu.decoder import TorchFFV1Decoder
     w, h = 96, 64
     params = EncoderParams(width=w, height=h, pix_fmt="yuv420p", level=3,
-                           coder=2, slices=4)
+                           coder=2, slices=4, context_model=context_model)
     enc = FFV1Encoder(params)
-    pkt = enc.encode_frame(_frames(w, h, 1, 1)[0])[0]
+    frame = _frames(w, h, 1, 1)[0]
+    pkt = enc.encode_frame(frame)[0]
     dec = TorchFFV1Decoder(w, h, enc.extradata, device=cuda)
     parsed = [dec._parse_packet(0, pkt)]
     (bufs, lows, ranges, poss), _lens, q = dec._lane_inputs(parsed)
@@ -72,15 +105,33 @@ def test_rc_decode_kernel_matches_plain(cuda):
     specs = tuple((pw, ph, sp * cc) for (pw, ph, sp) in dec._plane_specs())
     states = dec._reset_lane_states([True], q)
     args = (bufs, states, dec.one_tab, dec.zero_tab, dec.qts[q], lows,
-            ranges, poss, specs, 8)
-    before = K.LAUNCHES
-    got = K.rc_decode_planes(*args)
-    assert K.LAUNCHES == before + 1
-    want = K.rc_decode_planes_ref(*args)
-    for a, b in zip(got[0], want[0]):
-        assert torch.equal(a, b)
-    for a, b in zip(got[1:], want[1:]):
-        assert torch.equal(a, b)
+            ranges, poss)
+    five = bool(dec.g.quant_tables[q][3][127])
+    assert five == (context_model == 1)
+    got = _check_decode(K, args, specs, 8, five, want_instance)
+    assert np.array_equal(got[0][0][0].cpu().numpy(), frame[0][:32, :48])
+
+
+def test_rc_decode_kernel_matches_plain(cuda):
+    _decode_stream_check(cuda, 0, "rc_decode")
+
+
+def test_rc_decode_five_kernel_matches_plain(cuda):
+    """K2-five (the 5-input context, its 2 x 7,563-row table in global
+    memory) on a context-model-1 stream of the host encoder."""
+    _decode_stream_check(cuda, 1, "rc_decode_five_global")
+
+
+def _random_decode_args(cuda, bits, CC, model):
+    r = np.random.RandomState(bits)
+    L, cap = 5, 2048
+    one, zero = custom_state_tables(T.VER2_STATE)
+    bufs = r.randint(0, 256, (L, cap)).astype(np.uint8)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in (
+        bufs, r.randint(16, 241, (L, 2 * CC, 32)).astype(np.uint8), one,
+        zero, T.default_quant_tables(bits)[model].astype(np.int32),
+        np.minimum(bufs[:, 0].astype(np.int32) << 8 | bufs[:, 1], 0xFEFF),
+        np.full(L, 0xFF00, np.int32), np.full(L, 2, np.int32))]
 
 
 @pytest.mark.parametrize("bits", [11, 16, 17])
@@ -89,33 +140,35 @@ def test_rc_decode_ext_kernel_matches_plain(cuda, bits):
     int16 wrap at 16 bits, reads past the buffer) at a 40-pixel-wide
     plane, so the decoded rows span two warps' worth of columns."""
     from tpu_ffv1_torch.tpu import rc_decode as K
-    r = np.random.RandomState(bits)
-    L, cap, CC = 5, 2048, T.CONTEXT_COUNTS[0]
-    one, zero = custom_state_tables(T.VER2_STATE)
-    bufs = r.randint(0, 256, (L, cap)).astype(np.uint8)
-    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in (
-        bufs, r.randint(16, 241, (L, 2 * CC, 32)).astype(np.uint8), one,
-        zero, T.default_quant_tables(bits)[0].astype(np.int32),
-        np.minimum(bufs[:, 0].astype(np.int32) << 8 | bufs[:, 1], 0xFEFF),
-        np.full(L, 0xFF00, np.int32), np.full(L, 2, np.int32))]
+    CC = T.CONTEXT_COUNTS[0]
     specs = ((40, 6, 0), (20, 6, CC), (20, 6, CC))
-    before = K.LAUNCHES_EXT
-    got = K.rc_decode_planes(*args, specs, bits)
-    assert K.LAUNCHES_EXT == before + 1
-    want = K.rc_decode_planes_ext_ref(*args, specs, bits)
-    for a, b in zip(got[0], want[0]):
-        assert torch.equal(a, b)
-    for a, b in zip(got[1:], want[1:]):
-        assert torch.equal(a, b)
+    _check_decode(K, _random_decode_args(cuda, bits, CC, 0), specs, bits,
+                  False, "rc_decode_ext")
 
 
-def test_16bit_slice_on_cuda_matches_host(cuda):
-    """yuv444p16le through K1-ext and K2-ext: the host encoder's bytes
-    and a lossless decode."""
+@pytest.mark.parametrize("bits", [8, 11, 16, 17])
+def test_rc_decode_five_global_kernel_matches_plain(cuda, bits):
+    """K2-five and K2-ext-five on random bytes, with context model 1's
+    quant tables and a 2 x 5,063-row table (the 16-bit extradata's
+    count), in global memory."""
+    from tpu_ffv1_torch.tpu import rc_decode as K
+    CC = 5063
+    specs = ((40, 6, 0), (20, 6, CC), (20, 6, CC))
+    _check_decode(K, _random_decode_args(cuda, bits, CC, 1), specs, bits,
+                  True, "rc_decode_ext_five_global" if bits > 10 else
+                  "rc_decode_five_global")
+
+
+@pytest.mark.parametrize("context_model", [0, 1])
+def test_16bit_slice_on_cuda_matches_host(cuda, context_model):
+    """yuv444p16le through K1-ext and K2-ext (context model 1: their
+    global-table forms, K2-ext with the 5-input context): the host
+    encoder's bytes and a lossless decode."""
     from tpu_ffv1_torch import TorchFFV1Decoder, TorchFFV1Encoder
     w, h = 64, 48
     params = EncoderParams(width=w, height=h, pix_fmt="yuv444p16le",
-                           level=3, coder=2, slices=4, gop_size=2)
+                           level=3, coder=2, slices=4, gop_size=2,
+                           context_model=context_model)
     r = np.random.RandomState(16)
     base = np.add.outer(np.arange(h), np.arange(w)) * 1031
     streams = [[[((base + 7919 * k + 977 * t + r.randint(0, 4000, (h, w)))
@@ -134,11 +187,13 @@ def test_16bit_slice_on_cuda_matches_host(cuda):
                 assert x.dtype == np.uint16 and np.array_equal(x, y)
 
 
-def test_slice_on_cuda_matches_host(cuda):
+@pytest.mark.parametrize("context_model", [0, 1])
+def test_slice_on_cuda_matches_host(cuda, context_model):
     from tpu_ffv1_torch import TorchFFV1Decoder, TorchFFV1Encoder
     w, h = 96, 64
     params = EncoderParams(width=w, height=h, pix_fmt="yuv420p", level=3,
-                           coder=2, slices=4, gop_size=2)
+                           coder=2, slices=4, gop_size=2,
+                           context_model=context_model)
     streams = [_frames(w, h, 3, 10 + b) for b in range(2)]
     port = TorchFFV1Encoder(params, batch=2, device=cuda)
     dec = TorchFFV1Decoder(w, h, port.extradata, batch=2, device=cuda)
@@ -151,3 +206,21 @@ def test_slice_on_cuda_matches_host(cuda):
         for b in range(2):
             for x, y in zip(out[b][0], streams[b][t]):
                 assert np.array_equal(x, y)
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("five", [True, False],
+                         ids=["five_shared", "three_global"])
+def test_rc_decode_other_placements_match_plain(cuda, bits, five):
+    """The placement follows the table's size alone, whatever the
+    context: the 5-input context (context model 1's quant tables) with a
+    table that fits shared memory, and the 3-input one with a table that
+    does not (both reachable with custom quant tables in the
+    extradata)."""
+    from tpu_ffv1_torch.tpu import rc_decode as K
+    CC = T.CONTEXT_COUNTS[0 if five else 1]
+    specs = ((40, 6, 0), (20, 6, CC), (20, 6, CC))
+    name = ("rc_decode_ext" if bits > 10 else "rc_decode") + \
+        ("_five" if five else "_global")
+    _check_decode(K, _random_decode_args(cuda, bits, CC, int(five)), specs,
+                  bits, five, name)

@@ -2,8 +2,10 @@
 (tpu_ffv1_torch/goldens/chip_smoke.json) are the reference host C
 encoder's: regenerated here from chip_smoke's seeded content generators
 with tpu_ffv1.FFV1Encoder(engine="native") on the CPU, every packet of
-both main paths (2 streams x 8 frames of 1080p yuv420p and of 1080p
-yuv444p16le), and compared with the committed file exactly.
+every main path (2 streams x 8 frames of 1080p yuv420p and of 1080p
+yuv444p16le at context model 0, of 1080p yuv420p at context model 1,
+and 2 x 4 frames of 960x540 yuv444p16le at context model 1), and
+compared with the committed file exactly.
 
 To rewrite the file after a deliberate change of the content or the
 configuration:  python tests/test_torch_goldens.py
@@ -23,8 +25,8 @@ from tpu_ffv1 import EncoderParams, FFV1Encoder, native  # noqa: E402
 
 def golden_path(name):
     """Digests of one main path's packets under the host C encoder."""
-    pix_fmt, _gen, seed = chip_smoke.PATHS[name]
-    params = EncoderParams(**chip_smoke.params_kw(pix_fmt))
+    path = chip_smoke.PATHS[name]
+    params = EncoderParams(**chip_smoke.params_kw(name))
     encs = [FFV1Encoder(params, engine="native")
             for _ in range(chip_smoke.BATCH)]
     assert all(e.engine == "native" for e in encs)
@@ -34,7 +36,9 @@ def golden_path(name):
         for f in frames:
             pkt, key = enc.encode_frame(f)
             packets[-1].append(dict(chip_smoke.digest(pkt), key=bool(key)))
-    return {"pix_fmt": pix_fmt, "seed": seed, "frames": chip_smoke.FRAMES,
+    return {"pix_fmt": path.pix_fmt, "width": path.width,
+            "height": path.height, "context_model": path.context_model,
+            "seed": path.seed, "frames": path.frames,
             "extradata": chip_smoke.digest(encs[0].extradata),
             "packets": packets}
 

@@ -2,7 +2,8 @@
 runs for CPU tensors) equal dec_scan_lanes.rc_decode_planes_lanes on
 the same inputs: planes, states, low, range and pos, exactly (integer
 codec), on intact and on damaged streams, at the fast widths (8, 10)
-and the extended ones (12, 16)."""
+and the extended ones (12, 16), with the 3-input context and with the
+5-input one of context model 1."""
 import numpy as np
 import pytest
 import torch
@@ -42,10 +43,10 @@ def _lane_args(dec, pkts, states):
             ranges, poss), specs
 
 
-def _compare(args, specs, bits):
-    got = rc_decode_planes(*args, specs, bits)
+def _compare(args, specs, bits, five=False):
+    got = rc_decode_planes(*args, specs, bits, five)
     want = rc_decode_planes_lanes(
-        *[jnp.asarray(a.numpy()) for a in args], specs, bits, False)
+        *[jnp.asarray(a.numpy()) for a in args], specs, bits, five)
     for a, b in zip(want[0], got[0]):
         assert np.array_equal(np.asarray(a), b.numpy())
     for a, b in zip(want[1:], got[1:]):
@@ -53,35 +54,56 @@ def _compare(args, specs, bits):
     return got
 
 
-@pytest.mark.parametrize("pix,bits", [("yuv420p", 8), ("yuv420p10le", 10)])
-def test_matches_xla_lanes_with_gop_carry(pix, bits):
+def _gop_carry(pix, bits, context_model):
     """Key frame from fresh states, then a non-key frame continuing from
     the states the first decode returned (2 streams x 4 slices)."""
     params = EncoderParams(width=W, height=H, pix_fmt=pix, level=3,
-                           coder=2, slices=4, gop_size=2)
+                           coder=2, slices=4, gop_size=2,
+                           context_model=context_model)
     streams = [_frames(pix, bits, 2, seed=s) for s in range(2)]
     encs = [FFV1Encoder(params) for _ in range(2)]
     pkts = [[e.encode_frame(f)[0] for f in fr] for e, fr in zip(encs, streams)]
     dec = TorchFFV1Decoder(W, H, encs[0].extradata, batch=2, device="cpu")
+    five = context_model == 1
     args, specs = _lane_args(dec, [p[0] for p in pkts], None)
-    got = _compare(args, specs, bits)
+    got = _compare(args, specs, bits, five)
     assert np.array_equal(got[0][0][0].numpy(), streams[0][0][0][:12, :16])
     args, specs = _lane_args(dec, [p[1] for p in pkts], got[1])
-    _compare(args, specs, bits)
+    _compare(args, specs, bits, five)
 
 
-def test_matches_xla_lanes_on_damaged_stream():
+@pytest.mark.parametrize("pix,bits", [("yuv420p", 8), ("yuv420p10le", 10)])
+def test_matches_xla_lanes_with_gop_carry(pix, bits):
+    _gop_carry(pix, bits, 0)
+
+
+@pytest.mark.parametrize("pix,bits", [("yuv420p", 8), ("yuv420p10le", 10)])
+def test_five_matches_xla_lanes_with_gop_carry(pix, bits):
+    """The 5-input context (context model 1: a 2 x 7,563-row table,
+    LL and TT from the 2-row ring)."""
+    _gop_carry(pix, bits, 1)
+
+
+def _damaged(context_model):
     """A flipped byte sends the decoder through garbage symbols: context
     clamping, reads past the buffer and e = bits all have to agree."""
     params = EncoderParams(width=W, height=H, pix_fmt="yuv420p", level=3,
-                           coder=2, slices=4)
+                           coder=2, slices=4, context_model=context_model)
     enc = FFV1Encoder(params)
     pkt = bytearray(enc.encode_frame(_frames("yuv420p", 8, 1)[0])[0])
     for off in (40, 41, 42):
         pkt[off] ^= 0xA5
     dec = TorchFFV1Decoder(W, H, enc.extradata, device="cpu")
     args, specs = _lane_args(dec, [bytes(pkt)], None)
-    _compare(args, specs, 8)
+    _compare(args, specs, 8, context_model == 1)
+
+
+def test_matches_xla_lanes_on_damaged_stream():
+    _damaged(0)
+
+
+def test_five_matches_xla_lanes_on_damaged_stream():
+    _damaged(1)
 
 
 def _frames16(w, h, n, seed):
@@ -94,32 +116,47 @@ def _frames16(w, h, n, seed):
             for t in range(n)]
 
 
-@pytest.fixture(scope="module")
-def stream16():
+def _stream16(context_model):
     """A 16-bit GOP of the host encoder: two streams x two frames of
     16x12 yuv444p16le, 4 slices (8x6 per lane)."""
     w, h = 16, 12
     params = EncoderParams(width=w, height=h, pix_fmt="yuv444p16le",
-                           level=3, coder=2, slices=4, gop_size=2)
+                           level=3, coder=2, slices=4, gop_size=2,
+                           context_model=context_model)
     frames = [_frames16(w, h, 2, seed=40 + s) for s in range(2)]
     encs = [FFV1Encoder(params) for _ in range(2)]
     pkts = [[e.encode_frame(f)[0] for f in fr] for e, fr in zip(encs, frames)]
     return w, h, encs[0].extradata, frames, pkts
 
 
-def test_ext_matches_xla_lanes_16bit(stream16):
-    """K2-ext's plain version at 16 bits, key frame then a non-key frame
-    from the states the first returned: planes (int16-wrapped), states,
-    low, range and pos equal the XLA lane decoder's."""
-    w, h, extradata, frames, pkts = stream16
+@pytest.fixture(scope="module")
+def stream16():
+    return _stream16(0)
+
+
+def _ext_16bit(stream, five):
+    w, h, extradata, frames, pkts = stream
     dec = TorchFFV1Decoder(w, h, extradata, batch=2, device="cpu")
     args, specs = _lane_args(dec, [p[0] for p in pkts], None)
-    got = _compare(args, specs, 16)
+    got = _compare(args, specs, 16, five)
     want = frames[0][0][0][:6, :8].astype(np.int32)
     assert np.array_equal(got[0][0][0].numpy() & 0xFFFF, want)
     assert (got[0][0].numpy() < 0).any(), "no sample went through the wrap"
     args, specs = _lane_args(dec, [p[1] for p in pkts], got[1])
-    _compare(args, specs, 16)
+    _compare(args, specs, 16, five)
+
+
+def test_ext_matches_xla_lanes_16bit(stream16):
+    """K2-ext's plain version at 16 bits, key frame then a non-key frame
+    from the states the first returned: planes (int16-wrapped), states,
+    low, range and pos equal the XLA lane decoder's."""
+    _ext_16bit(stream16, False)
+
+
+def test_five_ext_matches_xla_lanes_16bit():
+    """K2-ext-five's plain version: a context-model-1 GOP at 16 bits
+    (the extradata's 2 x 5,063-row table; LL and TT int16-wrapped)."""
+    _ext_16bit(_stream16(1), True)
 
 
 def test_ext_matches_xla_lanes_on_damaged_16bit_stream(stream16):
@@ -133,7 +170,7 @@ def test_ext_matches_xla_lanes_on_damaged_16bit_stream(stream16):
     _compare(args, specs, 16)
 
 
-def test_ext_matches_xla_lanes_12bit_plain_encoder_stream():
+def _plain_12bit(context_model):
     """12 bits, a width no planar format codes: one 16x12 plane per lane
     encoded by the port's stencil + K1-ext's plain version + finalize,
     decoded losslessly by K2-ext's plain version and the XLA decoder."""
@@ -143,13 +180,15 @@ def test_ext_matches_xla_lanes_12bit_plain_encoder_stream():
     from tpu_ffv1_torch.tpu.rc_encode import rc_encode_packed
     from tpu_ffv1_torch.tpu.residual import residuals_and_contexts
     L, w, h, bits = 3, 16, 12, 12
+    five = context_model == 1
     r = np.random.RandomState(12)
     samples = ((np.add.outer(np.arange(h), np.arange(w)) * 97 +
                 r.randint(0, 1500, (L, h, w))) % 4096).astype(np.int32)
-    qt = torch.from_numpy(T.default_quant_tables(bits)[0].astype(np.int32))
+    qt = torch.from_numpy(
+        T.default_quant_tables(bits)[context_model].astype(np.int32))
     ctx, diff = residuals_and_contexts(torch.from_numpy(samples), qt, bits,
-                                       False)
-    cc = T.CONTEXT_COUNTS[0]
+                                       five)
+    cc = T.CONTEXT_COUNTS[context_model]
     one, zero = (torch.from_numpy(t)
                  for t in custom_state_tables(T.VER2_STATE))
     states = torch.full((L, cc, 32), 128, dtype=torch.uint8)
@@ -169,11 +208,13 @@ def test_ext_matches_xla_lanes_12bit_plain_encoder_stream():
     args = (bufs, states, one, zero, qt, low0,
             torch.full((L,), 0xFF00, dtype=torch.int32),
             torch.full((L,), 2, dtype=torch.int32))
-    got = _compare(args, ((w, h, 0),), bits)
+    got = _compare(args, ((w, h, 0),), bits, five)
     assert np.array_equal(got[0][0].numpy(), samples)
 
 
-def test_five_input_is_refused():
-    args = [torch.zeros(1)] * 8
-    with pytest.raises(NotImplementedError):
-        rc_decode_planes(*args, ((4, 4, 0),), 8, five=True)
+def test_ext_matches_xla_lanes_12bit_plain_encoder_stream():
+    _plain_12bit(0)
+
+
+def test_five_ext_matches_xla_lanes_12bit_plain_encoder_stream():
+    _plain_12bit(1)

@@ -129,3 +129,72 @@ def test_cuda_wrapper_refuses_bad_bits():
     args = _torch(_inputs(1, 8, 8, 2))
     with pytest.raises(NotImplementedError):
         rc_encode_packed(*args, 18)
+
+
+def _five_input_args(L, h, w, bits, seed):
+    """Context-model-1 lane streams from the port's 5-input stencil on
+    random planes (contexts past model 0's 666, into a 2 x 7,563-row
+    table), random states and coder starts."""
+    from tpu_ffv1_torch.tpu.residual import residuals_and_contexts
+    r = np.random.RandomState(seed)
+    hi = 1 << bits
+    planes = ((np.add.outer(np.arange(h), np.arange(w)) * (hi // 64) +
+               r.randint(0, hi // 8, (L, h, w))) % hi).astype(np.int32)
+    qt = torch.from_numpy(T.default_quant_tables(bits)[1].astype(np.int32))
+    ctx, diff = residuals_and_contexts(torch.from_numpy(planes), qt, bits,
+                                       True)
+    CC = 2 * T.CONTEXT_COUNTS[1]
+    # the second state plane, as the encoder offsets chroma contexts
+    ctx = ctx.reshape(L, -1) + torch.tensor([0, CC // 2] * L)[:L, None]
+    assert int(ctx.max()) >= T.CONTEXT_COUNTS[0]
+    one, zero = custom_state_tables(T.VER2_STATE)
+    return (ctx.numpy().astype(np.int32), diff.reshape(L, -1).numpy(),
+            r.rand(L, h * w) < 0.95,
+            r.randint(1, 256, (L, CC, 32)).astype(np.uint8), one, zero,
+            r.randint(0, 1 << 16, L).astype(np.int32),
+            r.randint(0x100, 0xFF01, L).astype(np.int32))
+
+
+def test_five_input_matches_xla_scan_after_finalize():
+    """K1's plain version at context model 1's table size (15,126 rows,
+    the one the kernel keeps in global memory) against the XLA scan,
+    after finalize: bytes, low, range, states."""
+    L = 3
+    args = _five_input_args(L, 12, 20, 8, 51)
+    p0, v0, l0, r0, s0 = rc_encode_scan_lanes_unrolled(
+        *[jnp.asarray(a) for a in args], 8, 2)
+    packed0 = jnp.moveaxis(p0 + (v0.astype(jnp.int32) << 20), 1, 2)
+    prefix = np.zeros((L, 1), np.int32)
+    plen = np.zeros(L, np.int32)
+    o0, c0 = finalize_packed_full(packed0, l0, r0, jnp.asarray(prefix),
+                                  jnp.asarray(plen))
+    tp, tl, tr, ts = rc_encode_packed(*_torch(args), 8)
+    o1, c1 = tfin.finalize_packed_full(tp, tl, tr, torch.from_numpy(prefix),
+                                       torch.from_numpy(plen))
+    assert np.array_equal(np.asarray(c0), c1.numpy())
+    for lane in range(L):
+        n = int(c0[lane])
+        assert np.array_equal(np.asarray(o0)[lane, :n], o1.numpy()[lane, :n])
+    assert np.array_equal(tl.numpy(), np.asarray(l0))
+    assert np.array_equal(tr.numpy(), np.asarray(r0))
+    assert np.array_equal(ts.numpy(), np.asarray(s0))
+
+
+def test_five_input_ext_matches_xla_ext_scan():
+    """K1-ext's plain version at 16 bits and context model 1's table size
+    against rc_encode_scan_lanes_ext: emit flags, values where a slot
+    emits, low, range, states."""
+    args = _five_input_args(2, 12, 16, 16, 52)
+    p0, v0, l0, r0, s0 = rc_encode_scan_lanes_ext(
+        *[jnp.asarray(a) for a in args], 16)
+    pk = np.moveaxis(np.asarray(p0) + (np.asarray(v0).astype(np.int32) << 20),
+                     1, 2)
+    tp, tl, tr, ts = rc_encode_packed(*_torch(args), 16)
+    tp = tp.numpy()
+    emit = (pk >> 20) & 1
+    assert emit.sum() > 0
+    assert np.array_equal((tp >> 20) & 1, emit)
+    assert np.array_equal(tp, np.where(emit == 1, pk, 0))
+    assert np.array_equal(tl.numpy(), np.asarray(l0))
+    assert np.array_equal(tr.numpy(), np.asarray(r0))
+    assert np.array_equal(ts.numpy(), np.asarray(s0))

@@ -83,3 +83,28 @@ def test_load_plane_matches_jax(bits, lsb):
     a = jres.load_plane(jnp.asarray(src), bits, lsb)
     b = tres.load_plane(torch.from_numpy(src.astype(np.int32)), bits, lsb)
     assert np.array_equal(np.asarray(a), b.numpy())
+
+
+@pytest.mark.parametrize("bits", [8, 10, 16])
+@pytest.mark.parametrize("jax_form", ["gather", "steps"])
+def test_five_input_residuals_and_contexts_match_jax(bits, jax_form):
+    """Context model 1 (the 5-input context: quant tables 3 and 4 on
+    LL - L and TT - T) on a stack of crops, against both forms of the JAX
+    function; at 16 bits the samples are int16-wrapped by load_plane, so
+    LL and TT wrap too."""
+    qt = np.asarray(T.default_quant_tables(bits)[1], np.int32)
+    assert qt[3][127] != 0
+    raw = np.stack([_plane(bits, 12, 20, 10 + s) for s in range(3)])
+    crops = tres.load_plane(torch.from_numpy(raw), bits, False).numpy() \
+        if bits == 16 else raw
+    if bits == 16:
+        assert (crops < 0).any()
+    qspec_j = jres.quant_spec(qt) if jax_form == "steps" else None
+    ct, dt = tres.residuals_and_contexts(
+        torch.from_numpy(crops), torch.from_numpy(qt), bits, True)
+    assert int(ct.max()) > T.CONTEXT_COUNTS[0]       # past model 0's range
+    for i, s in enumerate(crops):
+        cj, dj = jres.residuals_and_contexts(jnp.asarray(s), jnp.asarray(qt),
+                                             bits, True, qspec=qspec_j)
+        assert np.array_equal(np.asarray(cj), ct[i].numpy())
+        assert np.array_equal(np.asarray(dj), dt[i].numpy())

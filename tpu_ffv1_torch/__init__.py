@@ -5,8 +5,8 @@ The port keeps its own copies of the normative host layers it uses
 (``core``, ``codec``, ``bitstream``: numpy-only, trimmed to what the
 port reaches) and imports nothing of the JAX package, nor jax.
 
-Covered so far: the planar range-coder path (version 3, context model 0,
-uniform slice grids) at every planar coded width, <= 10 bits through the
+Covered so far: the planar range-coder path (version 3, context models 0
+and 1, uniform slice grids) at every planar coded width, <= 10 bits through the
 fast schedule and 11..16 bits through the extended one, encode and
 decode, with GOP context carry-over.  The range-coder scans run as
 hand-written CUDA kernels (``csrc/``) on CUDA tensors and as their plain

@@ -14,6 +14,15 @@
 //   mode 1 (decode, as K2): the same split decided by low >= range - r1,
 //     and the refill byte read by shuffle at the chain's own position.
 // The final coder state is written out so nothing is optimised away.
+//
+// row_probe_kernel is the yardstick of the table-in-global-memory forms
+// (context model 1), whose decode chain waits on each pixel's 32-byte state
+// row: the latency of one dependent row read from L2 on one warp.  Thread t
+// loads byte t of the row with ld.global.cg (from L2: the kernels' plain
+// loads may also hit L1, which this probe leaves out), and the next row's
+// index comes by shuffle from bytes 0 and 1; the table is one random cycle over its rows (chip_smoke.py builds
+// it, 484,032 B as one lane's context-model-1 table), so each read waits on
+// the one before.
 // Each mode is its own kernel instance, so chip_smoke.py can count the
 // SASS instructions of one decision in it (cuobjdump -sass: the main
 // loop's instructions over the decisions it unrolls, one shuffle each
@@ -72,6 +81,29 @@ __global__ void __launch_bounds__(32) chain_probe_kernel(
     out[1] = rng;
     out[2] = pos;
   }
+}
+
+__global__ void __launch_bounds__(32) row_probe_kernel(
+    const uint8_t* __restrict__ table, int n, int32_t* __restrict__ out) {
+  const int t = threadIdx.x;
+  int r = 0, acc = 0;
+  for (int i = 0; i < n; ++i) {
+    const int b = __ldcg(table + (size_t)r * 32 + t);
+    acc += b;
+    r = __shfl_sync(FULL_MASK, b, 0) | (__shfl_sync(FULL_MASK, b, 1) << 8);
+  }
+  if (t == 0) {
+    out[0] = r;
+    out[1] = acc;
+  }
+}
+
+// Plain C entry point of the row probe: the cudaError_t of the launch.
+extern "C" int row_probe_launch(const void* table, int n, void* out,
+                                void* stream) {
+  row_probe_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)table, n, (int32_t*)out);
+  return (int)cudaGetLastError();
 }
 
 // Plain C entry point: returns the cudaError_t of the launch (0 = ok).

@@ -1,39 +1,46 @@
-// Adaptive range-decoder lane scan (FFV1 decode, planar, 3-input
-// context), extended schedule for coded widths 11..17 bits (K2-ext).
+// Adaptive range-decoder lane scan (FFV1 decode, planar, 3-input context, and
+// with FIVE the 5-input context of context model 1), extended schedule for
+// coded widths 11..17 bits (K2-ext, K2-ext-five).
 //
-// Replaces the Pallas TPU kernel tpu_ffv1/tpu/rc_dec_pallas.py `_kernel`
-// at bits > 10 (five=False): its running rows 10/31 (rc_dec_pallas.py:
-// 343-363, 364-381), the capped row addressing (:398-401), the int16
-// ring-row wrap at 16 bits (:435-439) and the wider byte feed (:214-215),
-// launched through `rc_decode_planes_pallas`.  Same computation as
-// dec_scan_lanes.rc_decode_planes_lanes: for each of L slice lanes,
-// pixel-serial decode of every plane; get_symbol with put_symbol's row
-// caps (exponent row 1 + min(j, 9), mantissa row 22 + min(i, 9), sign
-// row 11 + min(e, 10), ffv1dec.c:42-63); median prediction + residual
-// folded to `bits`; at 16 bits the sample is stored int16-wrapped, so
-// the predictor and the context compare it signed.  Behaviour of
-// ffv1dec.c:100-181 (decode_line) and rangecoder.h:104-145
-// (get_rac/refill).
+// Replaces the Pallas TPU kernel tpu_ffv1/tpu/rc_dec_pallas.py `_kernel` at
+// bits > 10, five=False and five=True (:201-206, 237-241, the y-2 ring row
+// and LL/TT in the context): its running rows 10/31
+// (rc_dec_pallas.py:343-363, 364-381), the capped row addressing (:398-401),
+// the int16 ring-row wrap at 16 bits (:435-439) and the wider byte feed
+// (:214-215), launched through `rc_decode_planes_pallas`.  Same computation
+// as dec_scan_lanes.rc_decode_planes_lanes: for each of L slice lanes,
+// pixel-serial decode of every plane; get_symbol with put_symbol's row caps
+// (exponent row 1 + min(j, 9), mantissa row 22 + min(i, 9), sign row 11 +
+// min(e, 10), ffv1dec.c:42-63); median prediction + residual folded to
+// `bits`; at 16 bits the sample is stored int16-wrapped, so the predictor and
+// the context compare it signed.  Behaviour of ffv1dec.c:100-181
+// (decode_line) and rangecoder.h:104-145 (get_rac/refill).
 //
-// What bounds it on the H100: as K2, the serial decision chain, here up
-// to 2 * BITS + 1 dependent decisions per pixel (33 at 16 bits), each
-// decision on rows 10/31 also waiting on a shared-memory table load;
-// bytes are ~3 per pixel in and 4 out.  One lane per SM: L of the 132
-// SMs work.
+// What bounds it on the H100: as K2, the serial decision chain, here up to 2
+// * BITS + 1 dependent decisions per pixel (33 at 16 bits), each decision on
+// rows 10/31 also waiting on a shared-memory table load; bytes are ~3 per
+// pixel in and 4 out.  One lane per SM: L of the 132 SMs work.  With the
+// table in global memory the row read lies on the chain too.
 //
-// Design: K2's, one warp per lane, all planes in one launch; state
-// table, one/zero tables, quant tables and two reconstructed rows in
-// shared memory (49 KB at w = 320 with two state planes, so the launch
-// raises the dynamic shared-memory limit).  Every thread runs the chain
-// redundantly; single-touch positions are read from their owners by
-// shuffle and adapted by the owner after the pixel.  Rows 10 and 31 are
-// running values s10/s31 in every thread, advanced after each decision
-// on them; their owners store them after the pixel.  A pixel can take
-// 35 decisions, more than K2's 32-byte window holds, so the byte window
-// is 64 bytes, two per thread (byte o of the window in thread o & 31,
-// register o >> 5), refreshed before a pixel could run past it.  Reads
-// at pos >= cap give 0 and the context index is clamped, so damaged
-// streams stay in bounds.
+// Design: K2's, one warp per lane, all planes in one launch; state table,
+// one/zero tables, quant tables and two reconstructed rows in shared memory
+// (49 KB at w = 320 with two state planes, so the launch raises the dynamic
+// shared-memory limit).  At context model 1 the table (2 x 5,063 rows from
+// the 16-bit extradata, 324,032 B) does not fit a block: the GTAB instance
+// adapts it in place in global memory, in states_out, which the wrapper fills
+// with states0; the chain code is the same.  FIVE adds TT (the stale cur[x]
+// of the 2-row ring: row y-2) and LL (the previous pixel's L, 0 at x = 0) as
+// in K2-five; both are int16-wrapped at 16 bits like every stored sample.
+//
+// Every thread runs the chain redundantly; single-touch positions are read
+// from their owners by shuffle and adapted by the owner after the pixel.
+// Rows 10 and 31 are running values s10/s31 in every thread, advanced after
+// each decision on them; their owners store them after the pixel.  A pixel
+// can take 35 decisions, more than K2's 32-byte window holds, so the byte
+// window is 64 bytes, two per thread (byte o of the window in thread o & 31,
+// register o >> 5), refreshed before a pixel could run past it.  Reads at pos
+// >= cap give 0 and the context index is clamped, so damaged streams stay in
+// bounds.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -46,7 +53,7 @@ struct PlaneSpecs {
   int w[MAX_PLANES], h[MAX_PLANES], pbase[MAX_PLANES], off[MAX_PLANES];
 };
 
-template <int BITS>
+template <int BITS, bool FIVE, bool GTAB>
 __global__ void __launch_bounds__(32) rc_decode_ext_kernel(
     const uint8_t* __restrict__ bufs, int cap,
     const uint8_t* __restrict__ states0, const uint8_t* __restrict__ one_tab,
@@ -61,21 +68,25 @@ __global__ void __launch_bounds__(32) rc_decode_ext_kernel(
   constexpr int MAXDEC = 2 * BITS + 1;     // decisions per pixel, at most
   constexpr int MASK_V = (1 << BITS) - 1;
   static_assert(MAXDEC <= WIN, "a pixel must fit the byte window");
+  constexpr int NQ = FIVE ? 5 : 3;         // quant tables read
   extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* st = smem;                              // CC x 32
-  int32_t* qt_s = reinterpret_cast<int32_t*>(smem + CC * 32);  // 3 x 256
-  uint8_t* one_s = reinterpret_cast<uint8_t*>(qt_s + 3 * 256);
+  const int lane = blockIdx.x;
+  const int t = threadIdx.x;
+  // CC x 32 state table: shared memory, or the lane's rows of states_out
+  uint8_t* st = GTAB ? states_out + (size_t)lane * CC * 32 : smem;
+  int32_t* qt_s = reinterpret_cast<int32_t*>(smem + (GTAB ? 0 : CC * 32));
+  uint8_t* one_s = reinterpret_cast<uint8_t*>(qt_s + NQ * 256);
   uint8_t* zero_s = one_s + 256;
   int32_t* rowA = reinterpret_cast<int32_t*>(zero_s + 256);
   int32_t* rowB = rowA + (wmax + 1);
-  const int lane = blockIdx.x;
-  const int t = threadIdx.x;
 
-  const uint4* src = reinterpret_cast<const uint4*>(
-      states0 + (size_t)lane * CC * 32);
-  for (int i = t; i < CC * 2; i += 32)
-    reinterpret_cast<uint4*>(st)[i] = src[i];
-  for (int i = t; i < 3 * 256; i += 32) qt_s[i] = qt[i];
+  if (!GTAB) {
+    const uint4* src = reinterpret_cast<const uint4*>(
+        states0 + (size_t)lane * CC * 32);
+    for (int i = t; i < CC * 2; i += 32)
+      reinterpret_cast<uint4*>(st)[i] = src[i];
+  }
+  for (int i = t; i < NQ * 256; i += 32) qt_s[i] = qt[i];
   for (int i = t; i < 256; i += 32) {
     one_s[i] = one_tab[i];
     zero_s[i] = zero_tab[i];
@@ -101,12 +112,18 @@ __global__ void __launch_bounds__(32) rc_decode_ext_kernel(
       // stale content of the 2-row ring)
       int Lv = prev[0];
       int LT = cur[0];
+      int LL = 0;
       __syncwarp();
       for (int x = 0; x < w; ++x) {
         const int T = prev[x];
         const int RT = prev[min(x + 1, w - 1)];
         int ctx = qt_s[(Lv - LT) & 0xFF] + qt_s[256 + ((LT - T) & 0xFF)] +
                   qt_s[512 + ((T - RT) & 0xFF)];
+        if (FIVE) {
+          const int TT = cur[x];          // row y-2, before thread 0 writes
+          ctx += qt_s[768 + ((LL - Lv) & 0xFF)] +
+                 qt_s[1024 + ((TT - T) & 0xFF)];
+        }
         const bool csign = ctx < 0;
         if (csign) ctx = -ctx;
         const int ci = min(max(ctx + pbase, 0), CC - 1);
@@ -187,6 +204,7 @@ __global__ void __launch_bounds__(32) rc_decode_ext_kernel(
         if (BITS == 16) val = ((val + 0x8000) & 0xFFFF) - 0x8000;
         if (t == 0) cur[x] = val;
         LT = T;
+        LL = Lv;
         Lv = val;
       }
       __syncwarp();
@@ -203,12 +221,14 @@ __global__ void __launch_bounds__(32) rc_decode_ext_kernel(
     pos_out[lane] = pos;
   }
   __syncwarp();
-  uint4* dst = reinterpret_cast<uint4*>(states_out + (size_t)lane * CC * 32);
-  for (int i = t; i < CC * 2; i += 32)
-    dst[i] = reinterpret_cast<const uint4*>(st)[i];
+  if (!GTAB) {
+    uint4* dst = reinterpret_cast<uint4*>(states_out + (size_t)lane * CC * 32);
+    for (int i = t; i < CC * 2; i += 32)
+      dst[i] = reinterpret_cast<const uint4*>(st)[i];
+  }
 }
 
-template <int BITS>
+template <int BITS, bool FIVE, bool GTAB>
 static int launch(const void* bufs, int cap, const void* states0,
                   const void* one_tab, const void* zero_tab, const void* qt,
                   const void* low0, const void* range0, const void* pos0,
@@ -216,15 +236,16 @@ static int launch(const void* bufs, int cap, const void* states0,
                   void* low_out, void* range_out, void* pos_out,
                   void* states_out, int L, int CC, int wmax,
                   cudaStream_t stream) {
-  const size_t smem = (size_t)CC * 32 + 3 * 256 * 4 + 512 +
+  const size_t smem = (GTAB ? 0 : (size_t)CC * 32) +
+                      (FIVE ? 5 : 3) * 256 * 4 + 512 +
                       2 * (size_t)(wmax + 1) * 4;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        rc_decode_ext_kernel<BITS>,
+        rc_decode_ext_kernel<BITS, FIVE, GTAB>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  rc_decode_ext_kernel<BITS><<<L, 32, smem, stream>>>(
+  rc_decode_ext_kernel<BITS, FIVE, GTAB><<<L, 32, smem, stream>>>(
       (const uint8_t*)bufs, cap, (const uint8_t*)states0,
       (const uint8_t*)one_tab, (const uint8_t*)zero_tab, (const int32_t*)qt,
       (const int32_t*)low0, (const int32_t*)range0, (const int32_t*)pos0,
@@ -237,13 +258,16 @@ static int launch(const void* bufs, int cap, const void* states0,
 // Plain C entry point: returns the cudaError_t of the launch (0 = ok).
 // spec is a host array of nplanes x (w, h, pbase) triples; plane k's
 // samples start at column sum_{j<k} w_j * h_j of the (L, out_stride) out.
+// five != 0 selects the 5-input context (qt holds five tables); gtab != 0
+// the table-in-global-memory instance, where states_out must hold a copy
+// of states0.
 extern "C" int rc_decode_ext_launch(
     const void* bufs, int cap, const void* states0, const void* one_tab,
     const void* zero_tab, const void* qt, const void* low0,
     const void* range0, const void* pos0, const int* spec, int nplanes,
     void* out, int out_stride, void* low_out, void* range_out,
-    void* pos_out, void* states_out, int L, int CC, int bits,
-    void* stream) {
+    void* pos_out, void* states_out, int L, int CC, int bits, int five,
+    int gtab, void* stream) {
   if (nplanes < 1 || nplanes > MAX_PLANES) return (int)cudaErrorInvalidValue;
   PlaneSpecs specs;
   specs.n = nplanes;
@@ -258,11 +282,16 @@ extern "C" int rc_decode_ext_launch(
   }
   if (off > out_stride) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+#define RC_DEC_ARGS                                                       \
+  bufs, cap, states0, one_tab, zero_tab, qt, low0, range0, pos0, specs,  \
+      out, out_stride, low_out, range_out, pos_out, states_out, L, CC,   \
+      wmax, s
 #define RC_DEC_EXT_CASE(B)                                                \
   case B:                                                                 \
-    return launch<B>(bufs, cap, states0, one_tab, zero_tab, qt, low0,    \
-                     range0, pos0, specs, out, out_stride, low_out,      \
-                     range_out, pos_out, states_out, L, CC, wmax, s);
+    return five ? (gtab ? launch<B, true, true>(RC_DEC_ARGS)              \
+                        : launch<B, true, false>(RC_DEC_ARGS))            \
+                : (gtab ? launch<B, false, true>(RC_DEC_ARGS)             \
+                        : launch<B, false, false>(RC_DEC_ARGS));
   switch (bits) {
     RC_DEC_EXT_CASE(11) RC_DEC_EXT_CASE(12) RC_DEC_EXT_CASE(13)
     RC_DEC_EXT_CASE(14) RC_DEC_EXT_CASE(15) RC_DEC_EXT_CASE(16)
@@ -271,4 +300,5 @@ extern "C" int rc_decode_ext_launch(
       return (int)cudaErrorInvalidValue;
   }
 #undef RC_DEC_EXT_CASE
+#undef RC_DEC_ARGS
 }

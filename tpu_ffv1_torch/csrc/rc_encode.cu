@@ -12,11 +12,25 @@
 // dependent decisions per pixel at 8 bits, one pixel after another per
 // lane.  Bytes are few (4 B of ctx + 4 B of residual + 1 B of flag in,
 // 68 B of packed slots out per pixel).  At one lane per SM only L of the
-// 132 SMs work (24 per stream in the batch).
+// 132 SMs work (24 per stream in the batch).  With the table in global
+// memory (below) each pixel's row read comes from L1/L2; the contexts are
+// known in advance, so it is off the chain in principle, but here it
+// waits behind the previous pixel's stores.
 //
-// Design: one warp per lane.  The lane's whole state table (CC x 32 B,
-// 42,624 B on the 1080p main path) is staged into shared memory at the
-// start and written back at the end.  Thread t owns position t of the
+// Design: one warp per lane.  Where the lane's state table fits a block's
+// shared memory (context model 0: CC x 32 B = 42,624 B on the 1080p main
+// path), it is staged there at the start and written back at the end
+// (GTAB = false).  Context model 1's table (2 x 7,563 rows, 484,032 B
+// per lane) does not fit, so that instance (GTAB = true) adapts the rows
+// in place in global memory, in states_out, which the wrapper fills with
+// states0 (48 lanes = 23.2 MB, resident in the 50 MB L2): one coalesced
+// 32-byte row read per pixel and the owners' byte stores after it.  Both
+// instances run the same chain code; only where `st` points differs.
+// Thread t reads and writes only byte t of a row, so a pixel that reads
+// a row the previous pixel adapted sees the adapted byte (its own
+// store).  The wrapper picks the instance from the table's size.
+//
+// Thread t owns position t of the
 // context row: it reads its state byte once per pixel, the chain reads
 // the 17 slot states from their owners with warp shuffles, and after the
 // chain each thread adapts its own position in one parallel step.  That
@@ -35,7 +49,7 @@
 
 #define FULL_MASK 0xffffffffu
 
-template <int BITS>
+template <int BITS, bool GTAB>
 __global__ void __launch_bounds__(32) rc_encode_kernel(
     const int32_t* __restrict__ ctx, const int32_t* __restrict__ diff,
     const uint8_t* __restrict__ active, const uint8_t* __restrict__ states0,
@@ -47,16 +61,19 @@ __global__ void __launch_bounds__(32) rc_encode_kernel(
   constexpr int E_MAX = BITS - 1;
   constexpr int S = 2 * BITS + 1;   // zero, E_MAX+1 exp, E_MAX man, sign
   extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* st = smem;                // CC x 32 state table
-  uint8_t* one_s = smem + CC * 32;
-  uint8_t* zero_s = one_s + 256;
   const int lane = blockIdx.x;
   const int t = threadIdx.x;
+  // CC x 32 state table: shared memory, or the lane's rows of states_out
+  uint8_t* st = GTAB ? states_out + (size_t)lane * CC * 32 : smem;
+  uint8_t* one_s = smem + (GTAB ? 0 : CC * 32);
+  uint8_t* zero_s = one_s + 256;
 
-  const uint4* src = reinterpret_cast<const uint4*>(
-      states0 + (size_t)lane * CC * 32);
-  for (int i = t; i < CC * 2; i += 32)
-    reinterpret_cast<uint4*>(st)[i] = src[i];
+  if (!GTAB) {
+    const uint4* src = reinterpret_cast<const uint4*>(
+        states0 + (size_t)lane * CC * 32);
+    for (int i = t; i < CC * 2; i += 32)
+      reinterpret_cast<uint4*>(st)[i] = src[i];
+  }
   for (int i = t; i < 256; i += 32) {
     one_s[i] = one_tab[i];
     zero_s[i] = zero_tab[i];
@@ -141,26 +158,28 @@ __global__ void __launch_bounds__(32) rc_encode_kernel(
     low_out[lane] = low;
     range_out[lane] = rng;
   }
-  uint4* dst = reinterpret_cast<uint4*>(states_out + (size_t)lane * CC * 32);
-  for (int i = t; i < CC * 2; i += 32)
-    dst[i] = reinterpret_cast<const uint4*>(st)[i];
+  if (!GTAB) {
+    uint4* dst = reinterpret_cast<uint4*>(states_out + (size_t)lane * CC * 32);
+    for (int i = t; i < CC * 2; i += 32)
+      dst[i] = reinterpret_cast<const uint4*>(st)[i];
+  }
 }
 
-template <int BITS>
+template <int BITS, bool GTAB>
 static int launch(const void* ctx, const void* diff, const void* active,
                   const void* states0, const void* one_tab,
                   const void* zero_tab, const void* low0,
                   const void* range0, void* packed, void* low_out,
                   void* range_out, void* states_out, int L, int N, int CC,
                   cudaStream_t stream) {
-  const size_t smem = (size_t)CC * 32 + 512;
+  const size_t smem = (GTAB ? 0 : (size_t)CC * 32) + 512;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        rc_encode_kernel<BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        rc_encode_kernel<BITS, GTAB>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  rc_encode_kernel<BITS><<<L, 32, smem, stream>>>(
+  rc_encode_kernel<BITS, GTAB><<<L, 32, smem, stream>>>(
       (const int32_t*)ctx, (const int32_t*)diff, (const uint8_t*)active,
       (const uint8_t*)states0, (const uint8_t*)one_tab,
       (const uint8_t*)zero_tab, (const int32_t*)low0,
@@ -170,18 +189,24 @@ static int launch(const void* ctx, const void* diff, const void* active,
 }
 
 // Plain C entry point: returns the cudaError_t of the launch (0 = ok).
+// gtab != 0 selects the table-in-global-memory instance; states_out must
+// then hold a copy of states0.
 extern "C" int rc_encode_launch(
     const void* ctx, const void* diff, const void* active,
     const void* states0, const void* one_tab, const void* zero_tab,
     const void* low0, const void* range0, void* packed, void* low_out,
     void* range_out, void* states_out, int L, int N, int CC, int bits,
-    void* stream) {
+    int gtab, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
 #define RC_ENC_CASE(B)                                                     \
   case B:                                                                  \
-    return launch<B>(ctx, diff, active, states0, one_tab, zero_tab, low0, \
-                     range0, packed, low_out, range_out, states_out, L, N, \
-                     CC, s);
+    return gtab ? launch<B, true>(ctx, diff, active, states0, one_tab,    \
+                                  zero_tab, low0, range0, packed, low_out, \
+                                  range_out, states_out, L, N, CC, s)      \
+                : launch<B, false>(ctx, diff, active, states0, one_tab,   \
+                                   zero_tab, low0, range0, packed,        \
+                                   low_out, range_out, states_out, L, N,  \
+                                   CC, s);
   switch (bits) {
     RC_ENC_CASE(1) RC_ENC_CASE(2) RC_ENC_CASE(3) RC_ENC_CASE(4)
     RC_ENC_CASE(5) RC_ENC_CASE(6) RC_ENC_CASE(7) RC_ENC_CASE(8)

@@ -26,7 +26,12 @@
 // 132 SMs work.
 //
 // Design: K1's, one warp per lane.  The lane's state table (CC x 32 B,
-// 42,624 B at two state planes) sits in shared memory; thread t owns
+// 42,624 B at two state planes in context model 0) sits in shared
+// memory; context model 1's (2 x 7,563 rows, 484,032 B) does not fit a
+// block, so that instance (GTAB = true) adapts the rows in place in
+// states_out, which the wrapper fills with states0, as K1's does (one
+// coalesced 32-byte row read per pixel; thread t reads and writes only
+// byte t).  The chain code is the same in both.  Thread t owns
 // position t of the context row and reads it once per pixel; every
 // thread runs the slot walk redundantly (identical values, so every
 // branch is warp-uniform), reading single-touch slot states from their
@@ -46,7 +51,7 @@
 
 #define FULL_MASK 0xffffffffu
 
-template <int BITS>
+template <int BITS, bool GTAB>
 __global__ void __launch_bounds__(32) rc_encode_ext_kernel(
     const int32_t* __restrict__ ctx, const int32_t* __restrict__ diff,
     const uint8_t* __restrict__ active, const uint8_t* __restrict__ states0,
@@ -62,16 +67,19 @@ __global__ void __launch_bounds__(32) rc_encode_ext_kernel(
   static_assert(S == 2 * BITS + 1, "slot count");
   static_assert(S <= 64, "two packed values per thread");
   extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* st = smem;                // CC x 32 state table
-  uint8_t* one_s = smem + CC * 32;
-  uint8_t* zero_s = one_s + 256;
   const int lane = blockIdx.x;
   const int t = threadIdx.x;
+  // CC x 32 state table: shared memory, or the lane's rows of states_out
+  uint8_t* st = GTAB ? states_out + (size_t)lane * CC * 32 : smem;
+  uint8_t* one_s = smem + (GTAB ? 0 : CC * 32);
+  uint8_t* zero_s = one_s + 256;
 
-  const uint4* src = reinterpret_cast<const uint4*>(
-      states0 + (size_t)lane * CC * 32);
-  for (int i = t; i < CC * 2; i += 32)
-    reinterpret_cast<uint4*>(st)[i] = src[i];
+  if (!GTAB) {
+    const uint4* src = reinterpret_cast<const uint4*>(
+        states0 + (size_t)lane * CC * 32);
+    for (int i = t; i < CC * 2; i += 32)
+      reinterpret_cast<uint4*>(st)[i] = src[i];
+  }
   for (int i = t; i < 256; i += 32) {
     one_s[i] = one_tab[i];
     zero_s[i] = zero_tab[i];
@@ -190,26 +198,28 @@ __global__ void __launch_bounds__(32) rc_encode_ext_kernel(
     low_out[lane] = low;
     range_out[lane] = rng;
   }
-  uint4* dst = reinterpret_cast<uint4*>(states_out + (size_t)lane * CC * 32);
-  for (int i = t; i < CC * 2; i += 32)
-    dst[i] = reinterpret_cast<const uint4*>(st)[i];
+  if (!GTAB) {
+    uint4* dst = reinterpret_cast<uint4*>(states_out + (size_t)lane * CC * 32);
+    for (int i = t; i < CC * 2; i += 32)
+      dst[i] = reinterpret_cast<const uint4*>(st)[i];
+  }
 }
 
-template <int BITS>
+template <int BITS, bool GTAB>
 static int launch(const void* ctx, const void* diff, const void* active,
                   const void* states0, const void* one_tab,
                   const void* zero_tab, const void* low0,
                   const void* range0, void* packed, void* low_out,
                   void* range_out, void* states_out, int L, int N, int CC,
                   cudaStream_t stream) {
-  const size_t smem = (size_t)CC * 32 + 512;
+  const size_t smem = (GTAB ? 0 : (size_t)CC * 32) + 512;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        rc_encode_ext_kernel<BITS>,
+        rc_encode_ext_kernel<BITS, GTAB>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  rc_encode_ext_kernel<BITS><<<L, 32, smem, stream>>>(
+  rc_encode_ext_kernel<BITS, GTAB><<<L, 32, smem, stream>>>(
       (const int32_t*)ctx, (const int32_t*)diff, (const uint8_t*)active,
       (const uint8_t*)states0, (const uint8_t*)one_tab,
       (const uint8_t*)zero_tab, (const int32_t*)low0,
@@ -219,18 +229,24 @@ static int launch(const void* ctx, const void* diff, const void* active,
 }
 
 // Plain C entry point: returns the cudaError_t of the launch (0 = ok).
+// gtab != 0 selects the table-in-global-memory instance; states_out must
+// then hold a copy of states0.
 extern "C" int rc_encode_ext_launch(
     const void* ctx, const void* diff, const void* active,
     const void* states0, const void* one_tab, const void* zero_tab,
     const void* low0, const void* range0, void* packed, void* low_out,
     void* range_out, void* states_out, int L, int N, int CC, int bits,
-    void* stream) {
+    int gtab, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
 #define RC_ENC_EXT_CASE(B)                                                 \
   case B:                                                                  \
-    return launch<B>(ctx, diff, active, states0, one_tab, zero_tab, low0, \
-                     range0, packed, low_out, range_out, states_out, L, N, \
-                     CC, s);
+    return gtab ? launch<B, true>(ctx, diff, active, states0, one_tab,    \
+                                  zero_tab, low0, range0, packed, low_out, \
+                                  range_out, states_out, L, N, CC, s)      \
+                : launch<B, false>(ctx, diff, active, states0, one_tab,   \
+                                   zero_tab, low0, range0, packed,        \
+                                   low_out, range_out, states_out, L, N,  \
+                                   CC, s);
   switch (bits) {
     RC_ENC_EXT_CASE(11) RC_ENC_EXT_CASE(12) RC_ENC_EXT_CASE(13)
     RC_ENC_EXT_CASE(14) RC_ENC_EXT_CASE(15) RC_ENC_EXT_CASE(16)

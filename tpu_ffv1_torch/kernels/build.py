@@ -21,6 +21,9 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# dynamic shared memory one block may have on Hopper (227 KB)
+SMEM_PER_BLOCK = 232448
+
 _LIBS: dict = {}
 # seconds spent compiling each library in this process (0.0 when an
 # existing build was loaded)
@@ -52,6 +55,14 @@ def expect(name, t, dtype, shape, device):
         raise ValueError(f"{name}: expected contiguous {dtype} {tuple(shape)} "
                          f"on {device}, got {t.dtype} {tuple(t.shape)} on "
                          f"{t.device}")
+
+
+def table_in_global(table_bytes: int, other_smem_bytes: int) -> bool:
+    """Whether a lane scan keeps its state table in global memory: when
+    the table and the kernel's other shared memory do not fit a block.
+    The lane-scan wrappers decide the placement here, from sizes alone,
+    before the launch."""
+    return table_bytes + other_smem_bytes > SMEM_PER_BLOCK
 
 
 def _stale(name: str) -> bool:

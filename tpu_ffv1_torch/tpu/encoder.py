@@ -14,8 +14,10 @@ Adaptive states stay on the device across frames (GOP context
 carry-over, ffv1enc.c:1171-1172): keyframes reset them to 128, other
 frames continue from the previous frame's states.  Covered: version 3,
 range coder, planar YUV/gray at every coded width (<= 10 bits through
-the fast schedule, 11..16 through the extended one), context model 0,
-uniform slice grids; everything else raises NotImplementedError.
+the fast schedule, 11..16 through the extended one), context models 0
+and 1 (the 5-input context, whose 2 x 7,563-row state table the lane
+scan keeps in global memory), uniform slice grids; everything else
+raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -60,8 +62,8 @@ class TorchFFV1Encoder:
             raise NotImplementedError("only version 3 is ported")
         if rp.colorspace != 0 or rp.fmt.interleaved:
             raise NotImplementedError("only planar YUV/gray is ported")
-        if rp.context_model != 0:
-            raise NotImplementedError("only context model 0 is ported")
+        if rp.context_model not in (0, 1):
+            raise NotImplementedError("context models 0 and 1 exist")
         self.bits = 8 if rp.bits_per_raw_sample <= 8 else \
             rp.bits_per_raw_sample
         if self.bits > 17:

@@ -2,14 +2,16 @@
 csrc/rc_decode_ext.cu, bits 11..17) and their plain PyTorch versions.
 
 Port of ``tpu_ffv1/tpu/rc_dec_pallas.py`` (``rc_decode_planes_pallas``,
-3-input context: the fast schedule at bits <= 10, the extended one with
-running rows 10/31 at 11..17), same contract:
+3-input context, and with ``five`` the 5-input one of context model 1:
+the fast schedule at bits <= 10, the extended one with running rows
+10/31 at 11..17), same contract:
 
   in:  bufs uint8 (L, cap) per-lane slice bytes (zero padded), states
        uint8 (L, CC, 32), one_tab/zero_tab uint8 (256,), qt int32
        (5, 256), low0/range0/pos0 int32 (L,) after the host-parsed slice
        headers, plane_specs ((w, h, plane_base), ...) in coding order,
-       bits 1..17
+       bits 1..17, five (the 5-input context: quant tables 3 and 4 on
+       LL - L and TT - T)
   out: (planes: tuple of int32 (L, h, w), states_out, low, range, pos);
        at 16 bits the samples are int16-wrapped, as the reference's
        int16_t sample rows hold them (dec_scan_lanes.py:189-193)
@@ -17,7 +19,11 @@ running rows 10/31 at 11..17), same contract:
 A read at pos >= cap gives 0, and the context index is clamped into the
 state table, so damaged streams stay in bounds (the caller detects them
 with the sentinel/byte-count check).  ``rc_decode_planes`` runs the
-plain version for CPU tensors and the kernel for CUDA tensors.
+plain version for CPU tensors and the kernel for CUDA tensors.  The
+kernel keeps the lane's state table in shared memory where it fits a
+block (context model 0) and in global memory where it does not (context
+model 1); the wrapper picks the instance from the table's size
+(``build.table_in_global``).
 """
 from __future__ import annotations
 
@@ -26,20 +32,34 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from ..kernels.build import expect, load
+from ..kernels.build import expect, load, table_in_global
 
-# kernel launches made by rc_decode_planes (read by chip_smoke.py): K2
-# (bits <= 10) and K2-ext (bits 11..17)
-LAUNCHES = 0
-LAUNCHES_EXT = 0
+# kernel launches made by rc_decode_planes, by kernel instance (read by
+# chip_smoke.py): rc_decode (K2, bits <= 10) and rc_decode_ext (K2-ext,
+# bits 11..17), each with the suffix _five for the 5-input context and
+# _global for the state table in global memory (K2-five is
+# rc_decode_five_global)
+LAUNCHES: dict = {}
+
+
+def instance(bits: int, five: bool, CC: int, wmax: int) -> str:
+    """The kernel instance rc_decode_planes launches for a coded width,
+    the context model's ``five``, a state table of CC rows and planes at
+    most ``wmax`` wide (two int32 rows of w + 1 in shared memory)."""
+    other = (5 if five else 3) * 256 * 4 + 512 + 2 * (wmax + 1) * 4
+    return ("rc_decode_ext" if bits > 10 else "rc_decode") + \
+        ("_five" if five else "") + \
+        ("_global" if table_in_global(CC * 32, other) else "")
 
 
 def _decode_planes_ref(bufs, states, one_tab, zero_tab, qt, low0, range0,
-                       pos0, plane_specs, bits: int):
+                       pos0, plane_specs, bits: int, five: bool):
     """A loop over pixels, vectorised over lanes (the semantics of
     dec_scan_lanes.rc_decode_planes_lanes at any coded width).  Every
     decision adapts its state at once, so the repeated rows 10 and 31 of
-    the extended widths chain sequentially."""
+    the extended widths chain sequentially.  With ``five`` the context
+    adds LL (the previous pixel's L, 0 at x = 0) and TT (the sample two
+    rows up, 0 for y < 2)."""
     L, cap = bufs.shape
     CC = states.shape[1]
     dev = bufs.device
@@ -54,7 +74,7 @@ def _decode_planes_ref(bufs, states, one_tab, zero_tab, qt, low0, range0,
     trans = torch.cat([torch.arange(256, device=dev),
                        zero_tab.to(dev, torch.int64),
                        one_tab.to(dev, torch.int64)])
-    q0, q1, q2 = (qt[k].to(dev, torch.int64) for k in range(3))
+    q0, q1, q2, q3, q4 = (qt[k].to(dev, torch.int64) for k in range(5))
     st = states.reshape(-1).to(torch.int64)                # (L*CC*32,)
     st_base = lanes * (CC * 32)
     low = low0.to(torch.int64)
@@ -90,11 +110,15 @@ def _decode_planes_ref(bufs, states, one_tab, zero_tab, qt, low0, range0,
             # row before that (ffv1dec.c:202-203)
             Lv = prev[:, 0]
             LT = plane[:, y - 2, 0] if y >= 2 else zrow[:, 0]
+            LL = zrow[:, 0]
             for x in range(w):
                 T = prev[:, x]
                 RT = prev[:, min(x + 1, w - 1)]
                 ctx = (q0[(Lv - LT) & 0xFF] + q1[(LT - T) & 0xFF] +
                        q2[(T - RT) & 0xFF])
+                if five:
+                    TT = plane[:, y - 2, x] if y >= 2 else zrow[:, x]
+                    ctx = ctx + q3[(LL - Lv) & 0xFF] + q4[(TT - T) & 0xFF]
                 csign = ctx < 0
                 row = st_base + ((ctx.abs() + pbase).clamp(0, CC - 1) << 5)
                 nz = ~rac(row, ones)
@@ -126,6 +150,7 @@ def _decode_planes_ref(bufs, states, one_tab, zero_tab, qt, low0, range0,
                     val = ((val + 0x8000) & 0xFFFF) - 0x8000
                 plane[:, y, x] = val
                 LT = T
+                LL = Lv
                 Lv = val
         planes.append(plane.to(torch.int32))
     return (tuple(planes), st.to(torch.uint8).view(L, CC, 32),
@@ -133,44 +158,46 @@ def _decode_planes_ref(bufs, states, one_tab, zero_tab, qt, low0, range0,
 
 
 def rc_decode_planes_ref(bufs, states, one_tab, zero_tab, qt, low0,
-                         range0, pos0, plane_specs, bits: int):
-    """Plain PyTorch version of K2 (the fast schedule, bits <= 10)."""
+                         range0, pos0, plane_specs, bits: int,
+                         five: bool = False):
+    """Plain PyTorch version of K2 and K2-five (the fast schedule,
+    bits <= 10)."""
     if not 1 <= bits <= 10:
         raise ValueError("the fast schedule covers bits <= 10")
     return _decode_planes_ref(bufs, states, one_tab, zero_tab, qt, low0,
-                              range0, pos0, plane_specs, bits)
+                              range0, pos0, plane_specs, bits, five)
 
 
 def rc_decode_planes_ext_ref(bufs, states, one_tab, zero_tab, qt, low0,
-                             range0, pos0, plane_specs, bits: int):
-    """Plain PyTorch version of K2-ext (the extended schedule, bits
-    11..17: exponent row 1 + min(j, 9), mantissa row 22 + min(i, 9),
-    sign row 11 + min(e, 10), the int16 wrap at 16 bits)."""
+                             range0, pos0, plane_specs, bits: int,
+                             five: bool = False):
+    """Plain PyTorch version of K2-ext and K2-ext-five (the extended
+    schedule, bits 11..17: exponent row 1 + min(j, 9), mantissa row
+    22 + min(i, 9), sign row 11 + min(e, 10), the int16 wrap at 16
+    bits)."""
     if not 11 <= bits <= 17:
         raise ValueError("the extended schedule covers bits 11..17")
     return _decode_planes_ref(bufs, states, one_tab, zero_tab, qt, low0,
-                              range0, pos0, plane_specs, bits)
+                              range0, pos0, plane_specs, bits, five)
 
 
 def rc_decode_planes(bufs, states, one_tab, zero_tab, qt, low0, range0,
                      pos0, plane_specs, bits: int, five: bool = False):
     """Decode all planes of L slice lanes; the CUDA kernel for CUDA
-    tensors (K2 at bits <= 10, K2-ext at 11..17), the plain version for
-    CPU tensors (contract in the module docstring).  ``five`` (the
-    5-input context model) is not ported."""
-    global LAUNCHES, LAUNCHES_EXT
-    if five:
-        raise NotImplementedError("the 5-input context model (context "
-                                  "model 1) is not ported")
+    tensors (K2 at bits <= 10, K2-ext at 11..17, with the 5-input context
+    if ``five``, the state table in shared or global memory by its
+    size), the plain version for CPU tensors (contract in the module
+    docstring)."""
     if not 1 <= bits <= 17:
         raise NotImplementedError("the lane scan covers bits 1..17")
     ext = bits > 10
+    five = bool(five)
     plane_specs = tuple(tuple(int(v) for v in s) for s in plane_specs)
     dev = bufs.device
     if dev.type == "cpu":
         ref = rc_decode_planes_ext_ref if ext else rc_decode_planes_ref
         return ref(bufs, states, one_tab, zero_tab, qt, low0, range0, pos0,
-                   plane_specs, bits)
+                   plane_specs, bits, five)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     L, cap = bufs.shape
@@ -186,12 +213,14 @@ def rc_decode_planes(bufs, states, one_tab, zero_tab, qt, low0, range0,
         raise ValueError("1..4 planes per call")
     if states.data_ptr() % 16:
         states = states.clone()            # the kernel copies in 16 B words
-    name = "rc_decode_ext" if ext else "rc_decode"
-    fn = getattr(load(name), f"{name}_launch")
+    name = instance(bits, five, CC, max(w for (w, _h, _b) in plane_specs))
+    gtab = name.endswith("_global")
+    lib = "rc_decode_ext" if ext else "rc_decode"
+    fn = getattr(load(lib), f"{lib}_launch")
     fn.restype = ctypes.c_int
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p, i, p, p, p, p, p, p, p, p, i, p, i, p, p, p, p,
-                   i, i, i, p]
+                   i, i, i, i, i, p]
     spec = (ctypes.c_int * (3 * len(plane_specs)))(
         *[v for s in plane_specs for v in s])
     total = sum(w * h for (w, h, _b) in plane_specs)
@@ -199,20 +228,19 @@ def rc_decode_planes(bufs, states, one_tab, zero_tab, qt, low0, range0,
     low = torch.empty((L,), dtype=torch.int32, device=dev)
     rng = torch.empty((L,), dtype=torch.int32, device=dev)
     pos = torch.empty((L,), dtype=torch.int32, device=dev)
-    states_out = torch.empty((L, CC, 32), dtype=torch.uint8, device=dev)
+    # the global-table instance adapts the rows in place, in states_out
+    states_out = states.clone() if gtab else \
+        torch.empty((L, CC, 32), dtype=torch.uint8, device=dev)
     err = fn(bufs.data_ptr(), cap, states.data_ptr(), one_tab.data_ptr(),
              zero_tab.data_ptr(), qt.data_ptr(), low0.data_ptr(),
              range0.data_ptr(), pos0.data_ptr(),
              ctypes.cast(spec, ctypes.c_void_p), len(plane_specs),
              out.data_ptr(), total, low.data_ptr(), rng.data_ptr(),
-             pos.data_ptr(), states_out.data_ptr(), L, CC, bits,
-             torch.cuda.current_stream(dev).cuda_stream)
+             pos.data_ptr(), states_out.data_ptr(), L, CC, bits, int(five),
+             int(gtab), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    if ext:
-        LAUNCHES_EXT += 1
-    else:
-        LAUNCHES += 1
+    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
     planes, off = [], 0
     for (w, h, _b) in plane_specs:
         planes.append(out[:, off:off + w * h].view(L, h, w))

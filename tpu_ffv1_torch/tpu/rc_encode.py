@@ -16,7 +16,11 @@ packed output: the fast schedule at bits <= 10, the extended one at
        bits <= 10, schedule.ext_slots above.
 
 ``rc_encode_packed`` runs the plain version for CPU tensors and the
-kernel for CUDA tensors; it never substitutes one for the other.
+kernel for CUDA tensors; it never substitutes one for the other.  The
+kernel keeps the lane's state table in shared memory where it fits a
+block (context model 0) and in global memory where it does not (context
+model 1: 2 x 7,563 rows, 484 KB per lane); the wrapper picks the
+instance from the table's size (``build.table_in_global``).
 """
 from __future__ import annotations
 
@@ -24,14 +28,22 @@ import ctypes
 
 import torch
 
-from ..kernels.build import expect, load
+from ..kernels.build import expect, load, table_in_global
 
 from .schedule import chain_order_nosign, ext_slots
 
-# kernel launches made by rc_encode_packed (read by chip_smoke.py): K1
-# (bits <= 10) and K1-ext (bits 11..17)
-LAUNCHES = 0
-LAUNCHES_EXT = 0
+# kernel launches made by rc_encode_packed, by kernel instance (read by
+# chip_smoke.py): rc_encode (K1, bits <= 10), rc_encode_ext (K1-ext,
+# bits 11..17), and their table-in-global-memory forms rc_encode_global
+# and rc_encode_ext_global
+LAUNCHES: dict = {}
+
+
+def instance(bits: int, CC: int) -> str:
+    """The kernel instance rc_encode_packed launches for a coded width
+    and a state table of CC rows."""
+    name = "rc_encode_ext" if bits > 10 else "rc_encode"
+    return name + ("_global" if table_in_global(CC * 32, 512) else "")
 
 
 def floor_log2(a: torch.Tensor) -> torch.Tensor:
@@ -244,10 +256,11 @@ def rc_encode_packed_ext_ref(ctx, diff, active, states0, one_tab, zero_tab,
             rng.to(torch.int32), st.to(torch.uint8).view(L, CC, 32))
 
 
-def _launch(name, ctx, diff, active, states0, one_tab, zero_tab, low0,
-            range0, bits):
+def _launch(name, gtab, ctx, diff, active, states0, one_tab, zero_tab,
+            low0, range0, bits):
     """Check the arguments and launch ``<name>_launch`` from
-    csrc/<name>.cu on the current stream; returns the outputs."""
+    csrc/<name>.cu on the current stream, with the state table in global
+    memory if ``gtab``; returns the outputs."""
     dev = ctx.device
     L, N = ctx.shape
     CC = states0.shape[1]
@@ -264,17 +277,20 @@ def _launch(name, ctx, diff, active, states0, one_tab, zero_tab, low0,
         states0 = states0.clone()          # the kernel copies in 16 B words
     fn = getattr(load(name), f"{name}_launch")
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + \
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + \
         [ctypes.c_void_p]
     packed = torch.empty((L, N, S), dtype=torch.int32, device=dev)
     low = torch.empty((L,), dtype=torch.int32, device=dev)
     rng = torch.empty((L,), dtype=torch.int32, device=dev)
-    states = torch.empty((L, CC, 32), dtype=torch.uint8, device=dev)
+    # the global-table instance adapts the rows in place, in states
+    states = states0.clone() if gtab else \
+        torch.empty((L, CC, 32), dtype=torch.uint8, device=dev)
     err = fn(ctx.data_ptr(), diff.data_ptr(), active.data_ptr(),
              states0.data_ptr(), one_tab.data_ptr(), zero_tab.data_ptr(),
              low0.data_ptr(), range0.data_ptr(), packed.data_ptr(),
              low.data_ptr(), rng.data_ptr(), states.data_ptr(),
-             L, N, CC, bits, torch.cuda.current_stream(dev).cuda_stream)
+             L, N, CC, bits, int(gtab),
+             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return packed.permute(1, 2, 0), low, rng, states
@@ -283,9 +299,9 @@ def _launch(name, ctx, diff, active, states0, one_tab, zero_tab, low0,
 def rc_encode_packed(ctx, diff, active, states0, one_tab, zero_tab,
                      low0, range0, bits: int):
     """Encode lane scan; the CUDA kernel for CUDA tensors (K1 at
-    bits <= 10, K1-ext at 11..17), the plain version for CPU tensors
+    bits <= 10, K1-ext at 11..17, each with the state table in shared or
+    in global memory by its size), the plain version for CPU tensors
     (see the module docstring for the contract)."""
-    global LAUNCHES, LAUNCHES_EXT
     if not 1 <= bits <= 17:
         raise NotImplementedError("the lane scan covers bits 1..17")
     ext = bits > 10
@@ -296,10 +312,9 @@ def rc_encode_packed(ctx, diff, active, states0, one_tab, zero_tab,
                    range0, bits)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    out = _launch("rc_encode_ext" if ext else "rc_encode", ctx, diff,
-                  active, states0, one_tab, zero_tab, low0, range0, bits)
-    if ext:
-        LAUNCHES_EXT += 1
-    else:
-        LAUNCHES += 1
+    name = instance(bits, states0.shape[1])
+    out = _launch("rc_encode_ext" if ext else "rc_encode",
+                  name.endswith("_global"), ctx, diff, active, states0,
+                  one_tab, zero_tab, low0, range0, bits)
+    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
     return out
