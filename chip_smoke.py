@@ -10,15 +10,19 @@ exits non-zero without the final result line:
    CUDA versions; fails when torch.cuda.is_available() is False;
 2. build: the lane-scan kernels (every instance of the four sources:
    K1, K2, K1-ext, K2-ext, each with its state table in shared memory
-   and in global memory, the decoders also with the 5-input context)
-   and the probes from tpu_ffv1_torch/csrc, one nvcc per source, all
-   started together;
+   and in global memory, the decoders also with the 5-input context,
+   K1 also in its compact form and as stage probes) and the probes from
+   tpu_ffv1_torch/csrc, one nvcc per source, all started together; the
+   registers, spills and SASS instructions of every instance;
 3. probes: the latency of one dependent range-coder decision on a
    single warp (encode and decode form), the yardstick of the kernels'
    chain bound, the SASS instructions of one decision (cuobjdump of the
-   probe), the operations term of their roofline bound, and the latency
+   probe), the operations term of their roofline bound, the latency
    of one dependent 32-byte row read from L2 on one warp, which the
-   global-table decoders add to their chain per pixel;
+   global-table decoders add to their chain per pixel, and the
+   shared-memory lookups of the lane scans (a 32-byte row read from
+   context model 0's table, a transition-table byte), each held against
+   its plain loop;
 4. kernel launches on random codec-like inputs, each instance timed
    and held against its plain PyTorch version in phase 6: K1 (8 bits)
    and its global-table form (8 bits, context model 1's 15,126 rows);
@@ -26,7 +30,8 @@ exits non-zero without the final result line:
    models 0 and 1); K1-ext and its global-table form at 11, 16 and 17
    bits (random residuals); K2-ext and K2-ext-five on 16-bit streams of
    the port's own encoder and on random bytes at 11, 16 and 17 bits
-   (the damaged-stream paths);
+   (the damaged-stream paths); K1-compact in both placements at 8 bits
+   with states from 1..255, so that some pixels overflow its 4 slots;
 5. four main paths through TorchFFV1Encoder / TorchFFV1Decoder
    (batch=2), 24 slices, range coder, 2 streams x (one key frame, one
    non-key warm-up frame, then timed non-key frames): at 1080p with six
@@ -36,15 +41,24 @@ exits non-zero without the final result line:
    (8bit_ctx1; K1's global-table form, K2-five); and the 16-bit path at
    context model 1 cut to 960x540 with two timed frames to stay inside
    the script's time (16bit_ctx1_540p; K1-ext's global-table form,
-   K2-ext-five).  Each path runs with the launch counters set to 0 just
-   before it and read just after, and must launch each of its two
-   kernels once per frame; its packets must match the golden SHA-256
-   digests of the reference host encoder
-   (tpu_ffv1_torch/goldens/chip_smoke.json), its decode must be
+   K2-ext-five); then the 8-bit and 8bit_ctx1 paths again, encode only,
+   in the compact form (TorchFFV1Encoder(compact=True): K1-compact and
+   finalize_compact; 8bit_compact, 8bit_ctx1_compact).  Each path runs
+   with the launch counters set to 0 just before it and read just
+   after, and must launch each of its kernels once per frame and no
+   other; its packets must match the golden SHA-256 digests of the
+   reference host encoder (tpu_ffv1_torch/goldens/chip_smoke.json; the
+   compact paths those of their raw paths), its decode must be
    lossless; per-step times, a stage breakdown (the host CRC-32 of the
-   step's slices timed alone too) and peak device memory;
+   step's slices timed alone too) and peak device memory.  Each compact
+   path's warm-up launch is held to its raw path's K1 launch: the same
+   inputs (SHA-256), cm equal to compact_packed of K1's slots, the same
+   low, range and states; then K1's stage split: each stage probe of K1
+   and of its global form on the 8bit and 8bit_ctx1 warm-up inputs,
+   the median of 5 launches;
 6. plain checks: every launch of phase 4, and each kernel's launch on
-   its path's warm-up frame (all 48 lanes at full shape), held exactly
+   its path's warm-up frame (all 48 lanes at full shape; K1-compact's
+   through its raw path's K1 launch, phase 5), held exactly
    (integer codec) against its plain version, run on CPU copies of the
    same inputs (the plain versions are per-pixel loops of small tensor
    ops, faster on the host than as per-op card launches).  Each
@@ -53,10 +67,11 @@ exits non-zero without the final result line:
    segments run in parallel worker processes, one per core, the
    longest first; the workers return digests of their outputs, which
    must equal the digests of the kernel's outputs;
-7. one JSON line with the per-kernel numbers (time, launches, roofline
-   and chain bounds, plain version's time, max abs error), the
-   nvidia-smi line, and the result line {"ok": true, "device": {...}}
-   last.
+7. JSON lines: the probes' latencies ("probes"), each path's step and
+   stage times ("steps"), K1's stage split ("stages") and the
+   per-kernel numbers ("kernels": time, launches, roofline and chain
+   bounds, plain version's time, max abs error); then the nvidia-smi
+   line, and the result line {"ok": true, "device": {...}} last.
 
 Imports nothing of JAX and nothing of the JAX package (tpu_ffv1);
 tests/test_torch_import.py checks the import set, and
@@ -85,11 +100,12 @@ from tpu_ffv1_torch import EncoderParams, TorchFFV1Decoder, TorchFFV1Encoder
 from tpu_ffv1_torch.core import tables as T
 from tpu_ffv1_torch.core.crc import crc32_ieee
 from tpu_ffv1_torch.core.rac import custom_state_tables
-from tpu_ffv1_torch.kernels import build
+from tpu_ffv1_torch.kernels import build, probes
 from tpu_ffv1_torch.tpu import decoder as port_decoder
 from tpu_ffv1_torch.tpu import encoder as port_encoder
 from tpu_ffv1_torch.tpu import rc_decode, rc_encode
-from tpu_ffv1_torch.tpu.finalize import finalize_packed
+from tpu_ffv1_torch.tpu.finalize import (compact_packed, finalize_compact,
+                                         finalize_packed)
 
 W, H, SLICES, BATCH = 1920, 1080, 24, 2
 WARM, TIMED = 1, 6                  # non-key frames after the key frame
@@ -175,7 +191,9 @@ class MainPath(NamedTuple):
     width: int
     height: int
     timed: int             # timed non-key frames after the warm-up
-    kernels: tuple         # (encode instance, decode instance) it runs
+    kernels: tuple         # (encode instance, decode instance or None)
+    compact: bool = False  # the compact encode form, encode only
+    golden: str = ""       # the path whose golden digests it must match
 
     @property
     def frames(self):
@@ -196,7 +214,16 @@ PATHS = {
                                 SEED + 16, 1, W // 2, H // 2, 2,
                                 ("rc_encode_ext_global",
                                  "rc_decode_ext_five_global")),
+    # the compact encode form of 8bit and 8bit_ctx1 (the same frames and
+    # bytes), after them: their warm-up launches are held to those paths'
+    "8bit_compact": MainPath("yuv420p", synthetic_streams, SEED, 0, W, H,
+                             TIMED, ("rc_encode_compact", None), True,
+                             "8bit"),
+    "8bit_ctx1_compact": MainPath("yuv420p", synthetic_streams, SEED, 1, W,
+                                  H, TIMED, ("rc_encode_compact_global",
+                                             None), True, "8bit_ctx1"),
 }
+_STREAMS: dict = {}
 
 
 def params_kw(name):
@@ -207,8 +234,12 @@ def params_kw(name):
 
 
 def path_streams(name):
+    """A path's content, made once per generator, seed and size."""
     p = PATHS[name]
-    return p.gen(BATCH, p.frames, p.width, p.height, p.seed)
+    key = (p.gen, p.seed, p.width, p.height, p.frames)
+    if key not in _STREAMS:
+        _STREAMS[key] = p.gen(BATCH, p.frames, p.width, p.height, p.seed)
+    return _STREAMS[key]
 
 
 def digest(data: bytes) -> dict:
@@ -234,6 +265,18 @@ def cuda_time_ms(fn, reps):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def launch_ms(fn):
+    """CUDA-event time of one call of fn, alone on the stream."""
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0.record()
+    fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1)
 
 
 def host_time_ms(fn):
@@ -325,15 +368,10 @@ def row_probe_ns(dev, rows=2 * T.CONTEXT_COUNTS[1], n=1 << 16):
     """ns per dependent 32-byte row read from L2 on one warp
     (csrc/chain_probe.cu row_probe_kernel, CUDA events), over a table of
     one lane's context-model-1 size whose rows form one random cycle:
-    bytes 0 and 1 of a row hold the next row's index."""
-    r = np.random.RandomState(SEED + 2)
-    order = r.permutation(rows)
-    nxt = np.empty(rows, np.int64)
-    nxt[order] = np.roll(order, -1)
-    table = r.randint(0, 256, (rows, 32)).astype(np.uint8)
-    table[:, 0] = nxt & 0xFF
-    table[:, 1] = nxt >> 8
-    table = torch.from_numpy(table).to(dev)
+    bytes 0 and 1 of a row hold the next row's index.  Its first lap is
+    held against the plain loop (probes.row_walk_ref, thread 0)."""
+    host = probes.cycle_table(rows, SEED + 2)
+    table = torch.from_numpy(host).to(dev)
     out = torch.zeros(2, dtype=torch.int32, device=dev)
     fn = build.load("chain_probe").row_probe_launch
     fn.restype = ctypes.c_int
@@ -346,9 +384,53 @@ def row_probe_ns(dev, rows=2 * T.CONTEXT_COUNTS[1], n=1 << 16):
         check(err == 0, f"row probe launch failed: CUDA error {err}")
 
     run(rows)                       # one lap: the table is in L2
+    check(torch.equal(out.cpu(), probes.row_walk_ref(host, rows)[0]),
+          "row probe differs from its plain loop")
     ms = cuda_time_ms(lambda: run(n), 3)
     check(0 <= int(out[0]) < rows, "row probe left the table")
     return ms * 1e6 / n
+
+
+def smem_probe_ns(dev, mode, n=1 << 20):
+    """ns per dependent shared-memory lookup on one warp
+    (probes.smem_probe, CUDA events): ``row`` a 32-byte row of context
+    model 0's table (1,332 rows as one random cycle), ``byte`` K1's
+    transition lookup in the custom state table.  A launch of 4,096
+    lookups is held against the plain loop first."""
+    if mode == "row":
+        host = probes.cycle_table(2 * T.CONTEXT_COUNTS[0], SEED + 3)
+    else:
+        host = custom_state_tables(T.VER2_STATE)[0]
+    table = torch.from_numpy(host).to(dev)
+    got = probes.smem_probe(table, 4096, mode)
+    check(torch.equal(got.cpu(), probes.smem_probe(torch.from_numpy(host),
+                                                   4096, mode)),
+          f"shared-memory {mode} probe differs from its plain loop")
+    return cuda_time_ms(lambda: probes.smem_probe(table, n, mode), 3) * \
+        1e6 / n
+
+
+def sass_counts(name, build_dir=None):
+    """{kernel instance: SASS instructions (NOPs left out)} of
+    lib<name>.so, from ``cuobjdump -sass``; an instance is named by its
+    function and template arguments, e.g. ``rc_encode_kernel<8,0,0,15>``
+    (BITS, GTAB, COMPACT, STAGES)."""
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    lib = os.path.join(build_dir or build.BUILD_DIR, f"lib{name}.so")
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    res = {}
+    for func in re.split(r"Function : ", sass)[1:]:
+        m = re.match(r"_Z(\d+)", func)
+        fname = func[m.end():m.end() + int(m.group(1))]
+        rest = func[m.end() + int(m.group(1)):].split(None, 1)[0]
+        targs = re.findall(r"L[a-z](\d+)E", rest.split("Ev", 1)[0]) \
+            if rest.startswith("I") else []
+        label = fname + (f"<{','.join(targs)}>" if targs else "")
+        res[label] = sum(
+            1 for t in re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", func)
+            if not re.search(r"\bNOP\b", t))
+    return res
 
 
 def probe_sass_ops():
@@ -391,9 +473,10 @@ def probe_sass_ops():
 # -------------------------------------------- kernel checks, random
 
 
-def random_encode_args(dev, bits, L, N, CC, seed):
+def random_encode_args(dev, bits, L, N, CC, seed, states_lo=16):
     """Codec-like K1 / K1-ext inputs: mostly small residuals, 5% over the
-    whole folded range, the fold's extremes, 3% inactive pixels."""
+    whole folded range, the fold's extremes, 3% inactive pixels; states
+    from states_lo..256 - states_lo."""
     r = np.random.RandomState(seed)
     half = 1 << (bits - 1)
     one, zero = custom_state_tables(T.VER2_STATE)
@@ -403,7 +486,7 @@ def random_encode_args(dev, bits, L, N, CC, seed):
     diff = np.where(big, r.randint(-half, half, (L, N)), diff)
     diff[:, :3] = [-half, half - 1, 0]
     act = r.rand(L, N) < 0.97
-    states = r.randint(16, 241, (L, CC, 32))
+    states = r.randint(states_lo, 257 - states_lo, (L, CC, 32))
     return [torch.from_numpy(np.ascontiguousarray(a).astype(t)).to(dev)
             for a, t in ((ctx, np.int32), (diff, np.int32), (act, np.bool_),
                          (states, np.uint8), (one, np.uint8),
@@ -411,23 +494,36 @@ def random_encode_args(dev, bits, L, N, CC, seed):
                          (np.full(L, 0xFF00), np.int32))]
 
 
-def check_encode_kernel(dev, bits, N, context_model):
-    """K1 / K1-ext on random codec-like inputs at L=48 and the two state
-    planes of the context model (CC = 1,332 or 15,126: the table in
-    shared or in global memory), timed; returns (instance, its numbers,
-    the launch's (args, outputs)) for the plain check (``plain_checks``)."""
+def check_encode_kernel(dev, bits, N, context_model, compact=False):
+    """K1 / K1-ext (or, with ``compact``, K1-compact, its states drawn
+    from 1..255 so that some pixels emit more than 4 bytes) on random
+    codec-like inputs at L=48 and the two state planes of the context
+    model (CC = 1,332 or 15,126: the table in shared or in global
+    memory), timed; returns (instance, its numbers, the launch's (args,
+    outputs)) for the plain check (``plain_checks``)."""
     L = BATCH * SLICES
     CC = 2 * T.CONTEXT_COUNTS[context_model]
     args = (*random_encode_args(dev, bits, L, N, CC,
-                                SEED + bits + 100 * context_model), bits)
-    name = rc_encode.instance(bits, CC)
-    got = rc_encode.rc_encode_packed(*args)
-    check(bool(((got[0] >> 20) & 1).sum() > 0), "kernel emitted nothing")
-    ms = cuda_time_ms(lambda: rc_encode.rc_encode_packed(*args), 5)
+                                SEED + bits + 100 * context_model +
+                                1000 * compact, 1 if compact else 16),
+            bits)
+    name = rc_encode.instance(bits, CC, compact)
+    fn = rc_encode.rc_encode_compact if compact else \
+        rc_encode.rc_encode_packed
+    got = fn(*args)
+    label = "random residuals"
+    if compact:
+        check(bool((got[0][:, 4] > 0).any()), "kernel emitted nothing")
+        over = int(got[0][:, 5].sum())
+        check(over > 0, "no pixel overflowed the compact form")
+        label += f", states 1..255, {over} overflowing pixels"
+    else:
+        check(bool(((got[0] >> 20) & 1).sum() > 0), "kernel emitted nothing")
+    ms = cuda_time_ms(lambda: fn(*args), 5)
     shape = f"bits={bits} L={L} N={N} CC={CC} S={got[0].shape[1]}"
-    log(f"[kernels] {name} {shape} random residuals: kernel {ms:.3f} ms")
-    return name, dict(check_ms=ms, check_shape=shape,
-                      label="random residuals"), (args, got)
+    log(f"[kernels] {name} {shape} {label}: kernel {ms:.3f} ms")
+    return name, dict(check_ms=ms, check_shape=shape, label=label), \
+        (args, got)
 
 
 def decode_args_from_packets(dec, pkts, bits):
@@ -542,23 +638,28 @@ def reset_counts():
     rc_decode.LAUNCHES.clear()
 
 
-def main_path(dev, gpu, name, rec_enc, rec_dec):
+def main_path(dev, gpu, name, recorders):
     """One main path: 24 slices, 2 streams x its frames through the port,
-    held against the golden digests.  Returns the launch counts of its
-    kernels, their main-path times and the recorded warm-up launches."""
+    held against the golden digests.  ``recorders``: the LastLaunch of
+    each lane-scan wrapper the encoder and decoder call ("packed",
+    "compact", "decode").  Returns the launch counts of its kernels,
+    their main-path times and the recorded warm-up launches."""
     path = PATHS[name]
     pix_fmt, w, h, frames = path.pix_fmt, path.width, path.height, \
         path.frames
     tag = f"main {name}"
     k_enc, k_dec = path.kernels
+    rec_enc = recorders["compact" if path.compact else "packed"]
+    rec_dec = recorders["decode"]
     t0 = time.perf_counter()
     streams = path_streams(name)
-    golden = load_goldens()[name]
-    log(f"[{tag}] {w}x{h} {pix_fmt}, context model {path.context_model} "
+    golden = load_goldens()[path.golden or name]
+    log(f"[{tag}] {w}x{h} {pix_fmt}, context model {path.context_model}"
+        f"{', compact encode form, encode only' if path.compact else ''} "
         f"content: {BATCH}x{frames} frames in "
         f"{time.perf_counter() - t0:.1f} s")
     enc = TorchFFV1Encoder(EncoderParams(**params_kw(name)), batch=BATCH,
-                           device=dev)
+                           device=dev, compact=path.compact)
     check(digest(enc.extradata) == golden["extradata"],
           f"{name}: extradata differs from the golden")
     dec = TorchFFV1Decoder(w, h, enc.extradata, batch=BATCH, device=dev)
@@ -566,6 +667,7 @@ def main_path(dev, gpu, name, rec_enc, rec_dec):
           "expected 48 lanes")
     check(enc.bits == (16 if pix_fmt.endswith("16le") else 8),
           "coded width")
+    check(enc.compact == path.compact, "compact form")
 
     enc_s, dec_s, peak = [], [], []
     reset_counts()
@@ -587,84 +689,179 @@ def main_path(dev, gpu, name, rec_enc, rec_dec):
                   res[b][1] == want["key"],
                   f"{name} stream {b} frame {t}: packet differs from the "
                   f"golden ({len(res[b][0])} vs {want['len']} B)")
-        t0 = time.perf_counter()
-        out = dec.decode_frames([res[b][0] for b in range(BATCH)])
-        dec_s.append(time.perf_counter() - t0)
-        for b in range(BATCH):
-            planes, kf = out[b]
-            check(kf == (t == 0), "keyframe flag")
-            for k in range(3):
-                check(planes[k].dtype == frame[b][k].dtype and
-                      np.array_equal(planes[k], frame[b][k]),
-                      f"{name} stream {b} frame {t} plane {k}: decode not "
-                      f"lossless")
-        check(not dec.slice_damaged.any(), "slice flagged damaged")
+        decoded = ""
+        if k_dec is not None:
+            t0 = time.perf_counter()
+            out = dec.decode_frames([res[b][0] for b in range(BATCH)])
+            dec_s.append(time.perf_counter() - t0)
+            for b in range(BATCH):
+                planes, kf = out[b]
+                check(kf == (t == 0), "keyframe flag")
+                for k in range(3):
+                    check(planes[k].dtype == frame[b][k].dtype and
+                          np.array_equal(planes[k], frame[b][k]),
+                          f"{name} stream {b} frame {t} plane {k}: decode "
+                          f"not lossless")
+            check(not dec.slice_damaged.any(), "slice flagged damaged")
+            decoded = (f"decode lossless; decode {dec_s[-1] * 1e3:.2f} ms, "
+                       f"")
         kind = "key" if t == 0 else "non-key, warm-up" if t <= WARM \
             else "non-key"
         log(f"[{tag}] frame {t} ({kind}): "
             f"{sum(len(r[0]) for r in res)} B, equal to the golden digests; "
-            f"decode lossless; encode {enc_s[-1] * 1e3:.2f} ms, decode "
-            f"{dec_s[-1] * 1e3:.2f} ms; encode peak device memory "
-            f"{peak[-1]:.2f} GiB over the {base / 2**30:.2f} GiB held "
+            f"{decoded}encode {enc_s[-1] * 1e3:.2f} ms; encode peak device "
+            f"memory {peak[-1]:.2f} GiB over the {base / 2**30:.2f} GiB held "
             f"({gpu})")
     rec_enc.armed = rec_dec.armed = False
     launches = {**rc_encode.LAUNCHES, **rc_decode.LAUNCHES}
     log(f"[{tag}] kernel launches in this path's {frames} steps: "
         f"{launches}")
-    check(launches == {k_enc: frames, k_dec: frames},
-          f"expected {k_enc} and {k_dec} launched once per step, and no "
+    want = {k: frames for k in path.kernels if k is not None}
+    check(launches == want,
+          f"expected {' and '.join(want)} launched once per step, and no "
           f"other kernel: {launches}")
-    enc_rec, dec_rec = rec_enc.take(), rec_dec.take()
-    check(enc_rec[1] is not None and dec_rec[1] is not None,
+    enc_rec = rec_enc.take()
+    dec_rec = rec_dec.take() if k_dec is not None else None
+    check(enc_rec[1] is not None and
+          (k_dec is None or dec_rec[1] is not None),
           "the warm-up frame's kernel calls were not recorded")
 
     mpix = BATCH * w * h / 1e6
     enc_ms = step_stats(tag, "encode", enc_s[1 + WARM:], mpix, gpu)
-    dec_ms = step_stats(tag, "decode", dec_s[1 + WARM:], mpix, gpu)
 
     # stage times at the main path's shapes (launches not counted above)
     frame = [streams[b][frames - 1] for b in range(BATCH)]
     up_ms, planes = host_time_ms(lambda: enc._upload(frame))
     st_ms = cuda_time_ms(lambda: enc._streams_uniform(planes), 3)
     k1_args = enc_rec[0]
-    k1_ms = cuda_time_ms(lambda: rc_encode.rc_encode_packed(*k1_args), 3)
-    packed, low, rng, _st = enc_rec[1]
+    scan = rc_encode.rc_encode_compact if path.compact else \
+        rc_encode.rc_encode_packed
+    k1_ms = cuda_time_ms(lambda: scan(*k1_args), 3)
+    slots, low, rng, _st = enc_rec[1]
     _l, _r, prefixes, plens = enc._prefix_arrays(False)
     torch.cuda.synchronize()
     fbase = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    fin_ms = cuda_time_ms(lambda: finalize_packed(packed, low, rng, prefixes,
-                                                  plens, enc.s2), 3)
+    if path.compact:
+        fin_name = "finalize_compact"
+        fin_ms = cuda_time_ms(lambda: finalize_compact(
+            slots, low, rng, prefixes, plens), 3)
+    else:
+        fin_name = f"finalize s2={enc.s2}"
+        fin_ms = cuda_time_ms(lambda: finalize_packed(
+            slots, low, rng, prefixes, plens, enc.s2), 3)
     fin_peak = (torch.cuda.max_memory_allocated() - fbase) / 2**30
     pkts = [r[0] for r in res]                  # the last frame's packets
-    parse_ms, _x = host_time_ms(lambda: dec._lane_inputs(
-        [dec._parse_packet(b, p) for b, p in enumerate(pkts)]))
     # the host CRC-32 alone over the step's slices: the encoder's over
     # each slice up to its CRC, the decoder's over each whole slice
     spans = [(p, a, b) for p in pkts for a, b in dec._split_slices(p)]
     crc_enc_ms, _x = host_time_ms(
         lambda: [crc32_ieee(p[a:b - 4]) for p, a, b in spans])
+    L, n = k1_args[0].shape
+    rest = enc_ms - up_ms - st_ms - k1_ms - fin_ms
+    log(f"[{tag}] encode stages (ms, L={L}, {n} px/lane, each timed alone, "
+        f"{gpu}): upload {up_ms:.2f}, stencil {st_ms:.2f}, {k_enc} "
+        f"{k1_ms:.2f}, {fin_name} {fin_ms:.2f} (peak "
+        f"{fin_peak:.2f} GiB over its {slots.numel() * 4 / 2**30:.2f} GiB "
+        f"input); the median step minus these "
+        f"{rest:.2f}, of which the "
+        f"slices' CRC-32 alone takes {crc_enc_ms:.2f} ({len(spans)} slices, "
+        f"{sum(b - a for _p, a, b in spans)} B); encode step peak "
+        f"{max(peak[1 + WARM:]):.2f} GiB")
+    res = dict(launches=launches, ms={k_enc: k1_ms},
+               recs={k_enc: enc_rec}, steps=frames, enc_ms=enc_ms,
+               dec_ms=None, stages=dict(
+                   upload=up_ms, stencil=st_ms, scan=k1_ms, finalize=fin_ms,
+                   rest=rest, crc=crc_enc_ms,
+                   step_peak_gib=max(peak[1 + WARM:]),
+                   finalize_peak_gib=fin_peak,
+                   slots_gib=slots.numel() * 4 / 2**30))
+    if k_dec is None:
+        return res
+    dec_ms = step_stats(tag, "decode", dec_s[1 + WARM:], mpix, gpu)
+    parse_ms, _x = host_time_ms(lambda: dec._lane_inputs(
+        [dec._parse_packet(b, p) for b, p in enumerate(pkts)]))
     crc_dec_ms, _x = host_time_ms(
         lambda: [crc32_ieee(p[a:b]) for p, a, b in spans])
     k2_args = dec_rec[0]
     k2_ms = cuda_time_ms(lambda: rc_decode.rc_decode_planes(*k2_args), 3)
-    L, n = k1_args[0].shape
-    log(f"[{tag}] encode stages (ms, L={L}, {n} px/lane, each timed alone, "
-        f"{gpu}): upload {up_ms:.2f}, stencil {st_ms:.2f}, {k_enc} "
-        f"{k1_ms:.2f}, finalize s2={enc.s2} {fin_ms:.2f} (peak "
-        f"{fin_peak:.2f} GiB over its {packed.numel() * 4 / 2**30:.2f} GiB "
-        f"input); the median step minus these "
-        f"{enc_ms - up_ms - st_ms - k1_ms - fin_ms:.2f}, of which the "
-        f"slices' CRC-32 alone takes {crc_enc_ms:.2f} ({len(spans)} slices, "
-        f"{sum(b - a for _p, a, b in spans)} B); encode step peak "
-        f"{max(peak[1 + WARM:]):.2f} GiB")
     log(f"[{tag}] decode stages (ms, each timed alone, {gpu}): parse+upload "
         f"{parse_ms:.2f}, of which the slices' CRC-32 alone takes "
         f"{crc_dec_ms:.2f}; {k_dec} {k2_ms:.2f}; the median step minus "
         f"these {dec_ms - parse_ms - k2_ms:.2f}")
-    return dict(launches=launches, ms={k_enc: k1_ms, k_dec: k2_ms},
-                recs={k_enc: enc_rec, k_dec: dec_rec},
-                steps=frames, enc_ms=enc_ms, dec_ms=dec_ms)
+    res["ms"][k_dec] = k2_ms
+    res["recs"][k_dec] = dec_rec
+    res["dec_ms"] = dec_ms
+    return res
+
+
+def check_compact_launch(name, rec, raw_name, raw_rec):
+    """A compact path's warm-up launch against its raw path's K1 launch
+    on the same frame: the same inputs (SHA-256 of every input tensor),
+    cm equal to compact_packed of K1's slots (on the host CPU, timed),
+    and K1's low, range and states.  K1's launch is itself held against
+    its plain version in phase 6.  Returns compact_packed's seconds."""
+    (args, out), (raw_args, raw_out) = rec, raw_rec
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    check(output_digests(tensors) == output_digests(
+        [a for a in raw_args if isinstance(a, torch.Tensor)]) and
+          args[-1] == raw_args[-1],
+          f"{name}'s warm-up inputs differ from {raw_name}'s")
+    packed = raw_out[0].cpu()
+    t0 = time.perf_counter()
+    want = compact_packed(packed)
+    sec = time.perf_counter() - t0
+    check(torch.equal(out[0].cpu(), want),
+          f"{name}'s cm differs from compact_packed of {raw_name}'s slots")
+    check(all(torch.equal(a, b) for a, b in zip(out[1:], raw_out[1:])),
+          f"{name}'s low, range or states differ from {raw_name}'s")
+    log(f"[check] {name}, main path's warm-up frame "
+        f"({launch_shape(name, args, out)}): the inputs of {raw_name}'s "
+        f"launch (equal SHA-256), cm = compact_packed of its slots "
+        f"({int(out[0][:, 5].sum())} overflowing pixels; compact_packed on "
+        f"the host CPU {sec:.1f} s), its low, range and states")
+    return sec
+
+
+STAGE_REPLACES = ("scripts/probes/ablate_kernel.py:206, "
+                  "scripts/probes/ablate3.py:274")
+
+
+def stage_split(gpu, recs, reps=5):
+    """K1's stage probes on the 8bit and 8bit_ctx1 warm-up inputs (K1
+    and its global form at 1080p, 48 lanes): ``full`` through the stage
+    entry point equals the production launch; each variant's median of
+    ``reps`` launches, each timed alone with CUDA events.  Returns the
+    rows of the ``stages`` JSON line."""
+    rows = []
+    for path_name, inst in (("8bit", "rc_encode"),
+                            ("8bit_ctx1", "rc_encode_global")):
+        args, out = recs[inst]
+        args = args[:8]
+        full = rc_encode.rc_encode_stages(*args, "full")
+        check(all(torch.equal(a, b) for a, b in zip(full, out)),
+              f"{inst}: the stage entry point's full variant differs from "
+              f"the production launch")
+        L, N = args[0].shape
+        med = {}
+        for variant in rc_encode.STAGE_VARIANTS:
+            rc_encode.rc_encode_stages(*args, variant)
+            times = sorted(launch_ms(
+                lambda: rc_encode.rc_encode_stages(*args, variant))
+                for _ in range(reps))
+            med[variant] = times[reps // 2]
+        for variant, ms in med.items():
+            share = None if variant == "full" else med["full"] - ms
+            rows.append(dict(instance=inst, path=path_name, variant=variant,
+                             ms=ms, ns_per_pixel=ms * 1e6 / N,
+                             stage_ms=share, replaces=STAGE_REPLACES))
+        log(f"[stage] {inst} ({path_name} warm-up inputs, L={L}, N={N}, "
+            f"median of {reps}, {gpu}): " + ", ".join(
+                f"{v} {ms:.2f} ms ({ms * 1e6 / N:.1f} ns/px" +
+                ("" if v == "full" else
+                 f"; full minus this {med['full'] - ms:.2f}") + ")"
+                for v, ms in med.items()))
+    return rows
 
 
 # ------------------------------------------- main-path plain checks
@@ -683,6 +880,8 @@ def output_digests(out):
 
 def plain_version(name):
     """The plain PyTorch version of kernel instance ``name``."""
+    if name.startswith("rc_encode_compact"):
+        return rc_encode.rc_encode_compact_ref
     if name.startswith("rc_encode"):
         return rc_encode.rc_encode_packed_ext_ref \
             if name.startswith("rc_encode_ext") else \
@@ -813,7 +1012,7 @@ def plain_checks(launches):
 
 
 def kernel_bounds(name, rec, ns_per_decision, ops_per_decision,
-                  decisions, row_ns):
+                  decisions, row_ns, extra_ops=0):
     """(roofline bound ms, its term, chain bound ms) of one kernel's
     main-path launch.  The chain bound is the longest lane's decisions x
     one dependent decision's latency; a decoder with its state table in
@@ -824,9 +1023,12 @@ def kernel_bounds(name, rec, ns_per_decision, ops_per_decision,
     args, out = rec
     if name.startswith("rc_encode"):
         L, N = args[0].shape
-        CC, S = args[3].shape[1], out[0].shape[1]
-        nbytes = L * N * 9 + 2 * L * CC * 32 + 512 + 16 * L + L * N * S * 4
-        nops = L * N * S * ops_per_decision       # every slot is evaluated
+        CC, S_out = args[3].shape[1], out[0].shape[1]
+        nbytes = L * N * 9 + 2 * L * CC * 32 + 512 + 16 * L + \
+            L * N * S_out * 4
+        # every slot is evaluated, and the compact form's per-pixel
+        # compaction adds ``extra_ops``
+        nops = L * N * ((2 * args[8] + 1) * ops_per_decision + extra_ops)
         px = 0
     else:
         planes, states_out, _low, _rng, pos = out
@@ -862,6 +1064,10 @@ KERNELS = {
                              "tpu_ffv1/tpu/rc_pallas.py:317"),
     "rc_decode_ext_five_global": ("tpu_ffv1_torch/csrc/rc_decode_ext.cu",
                                   "tpu_ffv1/tpu/rc_dec_pallas.py:201"),
+    "rc_encode_compact": ("tpu_ffv1_torch/csrc/rc_encode.cu",
+                          "tpu_ffv1/tpu/rc_pallas.py:419"),
+    "rc_encode_compact_global": ("tpu_ffv1_torch/csrc/rc_encode.cu",
+                                 "tpu_ffv1/tpu/rc_pallas.py:419"),
 }
 
 
@@ -889,16 +1095,25 @@ def main():
             if ("registers" in line or "spill" in line) and line not in seen:
                 seen.add(line)
                 log(f"[build] {name} (all instances): {line}")
+    sass = {name: sass_counts(name) for name in libs}
+    for name in libs:
+        log(f"[sass] {name}: SASS instructions per instance: " + ", ".join(
+            f"{k} {v}" for k, v in sorted(sass[name].items())))
 
     ns_enc = chain_probe_ns(dev, 0)
     ns_dec = chain_probe_ns(dev, 1)
     ops_enc, ops_dec = probe_sass_ops()
     row_ns = row_probe_ns(dev)
+    smem_row_ns = smem_probe_ns(dev, "row")
+    smem_byte_ns = smem_probe_ns(dev, "byte")
     log(f"[probe] one dependent decision on one warp ({gpu}): encode form "
         f"{ns_enc:.2f} ns, decode form {ns_dec:.2f} ns; SASS instructions "
         f"of one decision: encode form {ops_enc:.2f}, decode form "
         f"{ops_dec:.2f}; one dependent 32-byte row read from L2 "
-        f"{row_ns:.2f} ns")
+        f"{row_ns:.2f} ns; from shared memory (1,332 rows) "
+        f"{smem_row_ns:.2f} ns; one dependent transition-table byte "
+        f"lookup in shared memory {smem_byte_ns:.2f} ns (each held "
+        f"against its plain loop)")
 
     random = ([check_encode_kernel(dev, 8, 4096, 0)] +
               check_decode_kernel(dev, 0) +
@@ -907,22 +1122,43 @@ def main():
               [check_encode_kernel(dev, 8, 4096, 1)] +
               check_decode_kernel(dev, 1) +
               [check_encode_kernel(dev, b, 1024, 1) for b in (11, 16, 17)] +
-              check_decode_ext_kernel(dev, 1))
+              check_decode_ext_kernel(dev, 1) +
+              [check_encode_kernel(dev, 8, 4096, m, compact=True)
+               for m in (0, 1)])
     check(sorted({r[0] for r in random}) == sorted(KERNELS),
           "the random checks do not cover every instance")
 
-    rec_enc = LastLaunch(port_encoder, "rc_encode_packed")
-    rec_dec = LastLaunch(port_decoder, "rc_decode_planes")
-    paths = {name: main_path(dev, gpu, name, rec_enc, rec_dec)
-             for name in PATHS}
+    recorders = dict(packed=LastLaunch(port_encoder, "rc_encode_packed"),
+                     compact=LastLaunch(port_encoder, "rc_encode_compact"),
+                     decode=LastLaunch(port_decoder, "rc_decode_planes"))
+    paths = {name: main_path(dev, gpu, name, recorders) for name in PATHS}
     recs = {k: v for p in paths.values() for k, v in p["recs"].items()}
     check(sorted(recs) == sorted(KERNELS),
           f"the main paths ran {sorted(recs)}, not every instance")
+    # each compact launch against its raw path's K1 launch; the raw
+    # instance of a compact one is its name without "_compact"
+    compact_sec = {name: check_compact_launch(
+        name, recs[name], name.replace("_compact", ""),
+        recs[name.replace("_compact", "")])
+        for name in recs if name.startswith("rc_encode_compact")}
+    for name, p in paths.items():
+        raw = PATHS[name].golden
+        if raw:
+            a, b = paths[raw]["stages"], p["stages"]
+            log(f"[compact] {name} against {raw} ({gpu}): encode step "
+                f"{p['enc_ms']:.2f} / {paths[raw]['enc_ms']:.2f} ms; scan "
+                f"{b['scan']:.2f} / {a['scan']:.2f}, finalize "
+                f"{b['finalize']:.2f} / {a['finalize']:.2f} ms; slots "
+                f"{b['slots_gib']:.3f} / {a['slots_gib']:.3f} GiB; step "
+                f"peak {b['step_peak_gib']:.2f} / {a['step_peak_gib']:.2f} "
+                f"GiB")
+    stages = stage_split(gpu, recs)
 
     # phase 6: every launch above against its plain version
     t0 = time.perf_counter()
+    main_recs = {k: v for k, v in recs.items() if k not in compact_sec}
     launches = [(name, rec, False) for name, _info, rec in random] + \
-        [(name, rec, True) for name, rec in recs.items()]
+        [(name, rec, True) for name, rec in main_recs.items()]
     secs, workers = plain_checks(launches)
     checks = {}
     for (name, info, _rec), segs in zip(random, secs):
@@ -932,13 +1168,18 @@ def main():
             f"match (equal SHA-256 of every output); plain version on the "
             f"host CPU {segs[0]:.1f} s")
     mp = {}
-    for name, segs in zip(recs, secs[len(random):]):
+    for name, segs in zip(main_recs, secs[len(random):]):
         shape = launch_shape(name, *recs[name])
         mp[name] = dict(plain_ms=sum(segs) * 1e3, main_path_shape=shape)
         log(f"[check] {name}, main path's warm-up frame ({shape}): exact "
             f"match in {len(segs)} segments (equal SHA-256 of every "
             f"output); plain version on the host CPU "
             f"{' + '.join(f'{x:.1f}' for x in segs)} = {sum(segs):.1f} s")
+    for name, sec in compact_sec.items():
+        # its plain version is the raw one's, then compact_packed
+        raw = name.replace("_compact", "")
+        mp[name] = dict(plain_ms=mp[raw]["plain_ms"] + sec * 1e3,
+                        main_path_shape=launch_shape(name, *recs[name]))
     log(f"[check] all plain checks in {time.perf_counter() - t0:.1f} s "
         f"({workers} worker processes, {sum(map(sum, secs)):.1f} s of "
         f"plain version in all)")
@@ -950,12 +1191,20 @@ def main():
         # the decode of the warm-up frame makes the same decisions as its
         # encode
         decisions = decisions_per_lane(enc_args[1], enc_args[2])
-        for name in path.kernels:
+        for name in filter(None, path.kernels):
             src, replaces = KERNELS[name]
             ns, ops = (ns_enc, ops_enc) if name.startswith("rc_encode") \
                 else (ns_dec, ops_dec)
+            extra = 0
+            if name in compact_sec:
+                # the compaction's instructions per pixel: the compact
+                # instance's SASS count less the raw one's at 8 bits
+                g = int(name.endswith("_global"))
+                extra = max(0, sass["rc_encode"][
+                    f"rc_encode_kernel<8,{g},1,15>"] - sass["rc_encode"][
+                    f"rc_encode_kernel<8,{g},0,15>"])
             bound, term, chain = kernel_bounds(name, recs[name], ns, ops,
-                                               decisions, row_ns)
+                                               decisions, row_ns, extra)
             row = name.startswith("rc_decode") and name.endswith("_global")
             kernels.append(dict(
                 name=name, route="cuda", source=src, replaces=replaces,
@@ -966,6 +1215,7 @@ def main():
                 bound_ms=bound, bound_by=term, chain_bound_ms=chain,
                 chain_decisions_max_lane=int(decisions.max()),
                 ns_per_decision=ns, ops_per_decision=ops,
+                extra_ops_per_pixel=extra,
                 row_read_ns=row_ns if row else None, library_ms=None,
                 main_path_shape=mp[name]["main_path_shape"],
                 checks=[{k: c[k] for k in ("check_shape", "check_ms",
@@ -973,12 +1223,22 @@ def main():
                         for c in checks[name]]))
             log(f"[bound] {name} ({path_name}, {gpu}): {p['ms'][name]:.2f} "
                 f"ms at the main path's shape; roofline bound {bound:.3f} "
-                f"ms ({term}, {ops:.2f} instructions per decision); chain "
+                f"ms ({term}, {ops:.2f} instructions per decision" +
+                (f" + {extra} per pixel for the compaction" if extra
+                 else "") + f"); chain "
                 f"bound {chain:.2f} ms ({int(decisions.max())} decisions "
                 f"on the longest lane x {ns:.2f} ns" +
                 (f", plus a {row_ns:.2f} ns row read per pixel)" if row
                  else ")"))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
+    log(json.dumps({"probes": dict(
+        decision_encode_ns=ns_enc, decision_decode_ns=ns_dec,
+        l2_row_ns=row_ns, smem_row_ns=smem_row_ns,
+        smem_byte_ns=smem_byte_ns)}))
+    log(json.dumps({"steps": {name: dict(encode_ms=p["enc_ms"],
+                                         decode_ms=p["dec_ms"], **p["stages"])
+                              for name, p in paths.items()}}))
+    log(json.dumps({"stages": stages}))
     log(json.dumps({"kernels": kernels}))
     log(gpu)
     print(json.dumps({"ok": True, "device": {

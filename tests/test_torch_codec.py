@@ -93,6 +93,22 @@ def test_encoder_overflow_redo_is_byte_exact(monkeypatch):
     assert calls, "the overflow redo path was not taken"
 
 
+def test_compact_gop_begun_in_jax_continues_in_port():
+    """The compact form (compact=True) continues a GOP begun in
+    TPUFFV1Encoder with the raw form's bytes: those of JAX alone."""
+    params = _params(48, 40, 4, 4)
+    frames = _frames(48, 40, 4, seed=7)
+    alone = TPUFFV1Encoder(params)
+    want = [alone.encode_frame(f) for f in frames]
+    jaxe = TPUFFV1Encoder(params)
+    for f in frames[:2]:
+        jaxe.encode_frame(f)
+    port = TorchFFV1Encoder(params, device="cpu", compact=True)
+    encoder_state_from_numpy(port, np.asarray(jaxe.states),
+                             jaxe.picture_number)
+    assert [port.encode_frame(f) for f in frames[2:]] == want[2:]
+
+
 def test_decoder_lossless_on_own_and_host_packets():
     params = _params(48, 40, 4, 2)
     frames = _frames(48, 40, 4, seed=5)
@@ -356,6 +372,18 @@ def test_context1_gop_begun_in_jax_continues_in_port(jax_ctx1):
         planes, _ = portd.decode_frame(jax_pkts[0][t][0])
         for a, b in zip(planes, streams[0][t]):
             assert np.array_equal(a, b)
+
+
+def test_context1_compact_gop_begun_in_jax_continues_in_port(jax_ctx1):
+    """Context model 1 in the compact form (K1-compact's global-table
+    instance on the card), continued from TPUFFV1Encoder's states after
+    frame 1: the raw form's bytes."""
+    params, streams, jax_pkts, (states, pn) = jax_ctx1
+    port = TorchFFV1Encoder(params, batch=2, device="cpu", compact=True)
+    encoder_state_from_numpy(port, states, pn)
+    for t in (2, 3):
+        res = port.encode_frames([streams[b][t] for b in range(2)])
+        assert res == [jax_pkts[b][t] for b in range(2)]
 
 
 def test_context1_16bit_encoder_matches_host():

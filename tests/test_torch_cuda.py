@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version on the same CUDA tensors (exact: integer codec), and the slice
 end to end against the host encoder, at context models 0 and 1 (whose
-state table the kernels keep in global memory).  Marked ``cuda``; each test skips
+state table the kernels keep in global memory), in the raw and the
+compact encode form; K1's stage probes and the lookup probes.  Marked ``cuda``; each test skips
 where torch.cuda.is_available() is False (this file imports no jax, so
 it runs on a machine without it: FFV1_TEST_NO_CACHE=1 python -m pytest
 tests/test_torch_cuda.py)."""
@@ -70,6 +71,87 @@ def test_rc_encode_global_kernel_matches_plain(cuda, bits):
     _check_encode(cuda, bits, 2 * T.CONTEXT_COUNTS[1],
                   "rc_encode_ext_global" if bits > 10 else
                   "rc_encode_global")
+
+
+def _compact_args(cuda, CC):
+    """K1 inputs at 8 bits, 30% full-range residuals and states from
+    1..255, so that some pixels emit more than 4 bytes."""
+    r = np.random.RandomState(CC)
+    L, N = 5, 700
+    one, zero = custom_state_tables(T.VER2_STATE)
+    diff = np.where(r.rand(L, N) < 0.3, r.randint(-128, 128, (L, N)),
+                    r.randint(-3, 4, (L, N)))
+    return [torch.from_numpy(np.ascontiguousarray(a).astype(t)).to(cuda)
+            for a, t in ((r.randint(0, CC, (L, N)), np.int32),
+                         (diff, np.int32), (r.rand(L, N) < 0.9, np.bool_),
+                         (r.randint(1, 256, (L, CC, 32)), np.uint8),
+                         (one, np.uint8), (zero, np.uint8),
+                         (r.randint(0, 1 << 16, L), np.int32),
+                         (r.randint(0x100, 0xFF01, L), np.int32))]
+
+
+@pytest.mark.parametrize("model", [0, 1], ids=["shared", "global"])
+def test_rc_encode_compact_kernel_matches_plain(cuda, model):
+    """K1-compact in both table placements, overflowing pixels included."""
+    from tpu_ffv1_torch.tpu import rc_encode as K
+    CC = 2 * T.CONTEXT_COUNTS[model]
+    want_instance = "rc_encode_compact" + ("_global" if model else "")
+    assert K.instance(8, CC, compact=True) == want_instance
+    args = _compact_args(cuda, CC)
+    before = K.LAUNCHES.get(want_instance, 0)
+    got = K.rc_encode_compact(*args, 8)
+    assert K.LAUNCHES[want_instance] == before + 1
+    want = K.rc_encode_compact_ref(*args, 8)
+    assert int(want[0][:, 5].sum()) > 0
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("model", [0, 1], ids=["shared", "global"])
+def test_rc_encode_stages_full_is_the_production_instance(cuda, model):
+    """The stage entry point's ``full`` variant equals the production
+    K1; every stubbed variant launches (timing only: its outputs are
+    wrong on purpose)."""
+    from tpu_ffv1_torch.tpu import rc_encode as K
+    args = _compact_args(cuda, 2 * T.CONTEXT_COUNTS[model])
+    want = K.rc_encode_packed(*args, 8)
+    got = K.rc_encode_stages(*args, "full")
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for variant in K.STAGE_VARIANTS:
+        out = K.rc_encode_stages(*args, variant)
+        torch.cuda.synchronize()
+        assert out[0].shape == want[0].shape
+
+
+@pytest.mark.parametrize("mode", ["row", "byte"])
+def test_lookup_probes_match_plain_loops(cuda, mode):
+    from tpu_ffv1_torch.kernels import probes
+    if mode == "row":
+        table = probes.cycle_table(2 * T.CONTEXT_COUNTS[0], 7)
+    else:
+        table = custom_state_tables(T.VER2_STATE)[0]
+    n = 5000
+    got = probes.smem_probe(torch.from_numpy(table).to(cuda), n, mode)
+    want = probes.smem_probe(torch.from_numpy(table), n, mode)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("context_model", [0, 1])
+def test_compact_slice_on_cuda_matches_host(cuda, context_model):
+    """The compact encode form on the card: the host encoder's bytes."""
+    from tpu_ffv1_torch import TorchFFV1Encoder
+    w, h = 96, 64
+    params = EncoderParams(width=w, height=h, pix_fmt="yuv420p", level=3,
+                           coder=2, slices=4, gop_size=2,
+                           context_model=context_model)
+    streams = [_frames(w, h, 3, 20 + b) for b in range(2)]
+    port = TorchFFV1Encoder(params, batch=2, device=cuda, compact=True)
+    hosts = [FFV1Encoder(params) for _ in range(2)]
+    for t in range(3):
+        res = port.encode_frames([streams[b][t] for b in range(2)])
+        for b in range(2):
+            assert res[b] == hosts[b].encode_frame(streams[b][t])
 
 
 def _check_decode(K, args, specs, bits, five, want_instance):

@@ -10,7 +10,8 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 MODULES = ["tpu_ffv1_torch", "tpu_ffv1_torch.device",
-           "tpu_ffv1_torch.kernels.build", "tpu_ffv1_torch.tpu.schedule",
+           "tpu_ffv1_torch.kernels.build",
+           "tpu_ffv1_torch.kernels.probes", "tpu_ffv1_torch.tpu.schedule",
            "tpu_ffv1_torch.tpu.residual", "tpu_ffv1_torch.tpu.rc_encode",
            "tpu_ffv1_torch.tpu.finalize", "tpu_ffv1_torch.tpu.rc_decode",
            "tpu_ffv1_torch.tpu.encoder", "tpu_ffv1_torch.tpu.decoder",

@@ -14,6 +14,11 @@
 //   mode 1 (decode, as K2): the same split decided by low >= range - r1,
 //     and the refill byte read by shuffle at the chain's own position.
 // The final coder state is written out so nothing is optimised away.
+// Each mode is its own kernel instance, so chip_smoke.py can count the
+// SASS instructions of one decision in it (cuobjdump -sass: the main
+// loop's instructions over the decisions it unrolls, one shuffle each
+// in mode 0, two in mode 1) for the operations term of the kernels'
+// roofline bound.
 //
 // row_probe_kernel is the yardstick of the table-in-global-memory forms
 // (context model 1), whose decode chain waits on each pixel's 32-byte state
@@ -23,11 +28,22 @@
 // index comes by shuffle from bytes 0 and 1; the table is one random cycle over its rows (chip_smoke.py builds
 // it, 484,032 B as one lane's context-model-1 table), so each read waits on
 // the one before.
-// Each mode is its own kernel instance, so chip_smoke.py can count the
-// SASS instructions of one decision in it (cuobjdump -sass: the main
-// loop's instructions over the decisions it unrolls, one shuffle each
-// in mode 0, two in mode 1) for the operations term of the kernels'
-// roofline bound.
+//
+// smem_probe_kernel is the shared-memory counterpart, and the port of the
+// TPU lookup probes (scripts/probes/gather_probe.py:59,90,
+// gather_probe2.py:79,90, gather_probe3.py:40, gather_probe4.py:54,
+// read_probe.py:99,109), which timed a dependent per-lane lookup in a
+// VMEM table under each lowering Mosaic offered.  On Hopper the lane
+// scans do these lookups in shared memory, one way each:
+//   mode 0 (row): one 32-byte state row read from a table of `rows` rows
+//     staged in shared memory (1,332 rows = 42,624 B, context model 0's
+//     table in K1 and K2); thread t reads byte t and the next row's index
+//     comes by shuffle from bytes 0 and 1, as in row_probe_kernel;
+//   mode 1 (byte): the transition lookup of K1's adaptation, each thread
+//     s = tab[s] in a 256-entry table in shared memory, dependent on the
+//     thread's own previous result.
+// Both keep a running sum so that the plain loop in
+// tpu_ffv1_torch/kernels/probes.py can check the final index and sum.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -96,6 +112,46 @@ __global__ void __launch_bounds__(32) row_probe_kernel(
     out[0] = r;
     out[1] = acc;
   }
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(32) smem_probe_kernel(
+    const uint8_t* __restrict__ table, int rows, int n,
+    int32_t* __restrict__ out) {
+  extern __shared__ __align__(16) uint8_t tab[];
+  const int t = threadIdx.x;
+  const int nbytes = MODE == 0 ? rows * 32 : 256;
+  for (int i = t; i < nbytes; i += 32) tab[i] = table[i];
+  __syncwarp();
+  int r = MODE == 0 ? 0 : t, acc = 0;
+  for (int i = 0; i < n; ++i) {
+    if (MODE == 0) {
+      const int b = tab[r * 32 + t];
+      acc += b;
+      r = __shfl_sync(FULL_MASK, b, 0) | (__shfl_sync(FULL_MASK, b, 1) << 8);
+    } else {
+      r = tab[r];
+      acc += r;
+    }
+  }
+  out[2 * t] = r;
+  out[2 * t + 1] = acc;
+}
+
+// Plain C entry point of the shared-memory probes (mode 0 row, 1 byte):
+// the cudaError_t of the launch.  out holds (index, sum) per thread.
+extern "C" int smem_probe_launch(const void* table, int rows, int n,
+                                 int mode, void* out, void* stream) {
+  const size_t smem = mode == 0 ? (size_t)rows * 32 : 256;
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  if (mode == 0) {
+    smem_probe_kernel<0><<<1, 32, smem, (cudaStream_t)stream>>>(
+        (const uint8_t*)table, rows, n, (int32_t*)out);
+  } else {
+    smem_probe_kernel<1><<<1, 32, smem, (cudaStream_t)stream>>>(
+        (const uint8_t*)table, rows, n, (int32_t*)out);
+  }
+  return (int)cudaGetLastError();
 }
 
 // Plain C entry point of the row probe: the cudaError_t of the launch.

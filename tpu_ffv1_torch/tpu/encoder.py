@@ -10,6 +10,16 @@ Port of the planar range-coder path of ``tpu_ffv1/tpu/encoder.py``
           sentinel/terminate/carry-resolve/compaction (finalize.py)
   host:   per-slice size trailer + CRC, packet concatenation
 
+With ``compact=True`` (the counterpart of the JAX package's
+``FFV1_PALLAS_COMPACT=1``) coded widths <= 10 run the compact form:
+stencil -> K1-compact (8 rows per pixel instead of 2 * bits + 1) ->
+finalize_compact; a frame in which some pixel emitted more than 4 bytes
+is redone as the reference redoes it (encoder.py:1141-1163 of the JAX
+package): the raw scan from the same start states, finalize_packed, and
+finalize_packed_full if that overflows too.  Wider coded widths take the
+extended raw scan, as in the reference, whose compact form is fast-path
+only.  The packets are the same bytes either way.
+
 Adaptive states stay on the device across frames (GOP context
 carry-over, ffv1enc.c:1171-1172): keyframes reset them to 128, other
 frames continue from the previous frame's states.  Covered: version 3,
@@ -33,8 +43,8 @@ from ..core.intmath import ceil_rshift
 from ..core.rac import (ProvisionalRangeEncoder, custom_state_tables,
                         default_state_tables)
 from ..device import resolve_device
-from .finalize import finalize_packed, finalize_packed_full
-from .rc_encode import rc_encode_packed
+from .finalize import finalize_compact, finalize_packed, finalize_packed_full
+from .rc_encode import rc_encode_compact, rc_encode_packed
 from .residual import load_plane, residuals_and_contexts
 
 PREFIX_CAP = 96
@@ -45,11 +55,13 @@ class TorchFFV1Encoder:
 
     ``batch`` > 1 encodes that many independent streams in lockstep:
     lanes = batch x slices, lane index = stream * n_slices + slice.  Use
-    encode_frames([stream0_planes, stream1_planes, ...]).
+    encode_frames([stream0_planes, stream1_planes, ...]).  ``compact``
+    selects the compact lane-scan form at coded widths <= 10 (see the
+    module docstring); the bytes do not change.
     """
 
     def __init__(self, params: EncoderParams, batch: int = 1,
-                 device="cuda"):
+                 device="cuda", compact: bool = False):
         if params.pass1 or params.stats_in is not None:
             raise NotImplementedError("two-pass statistics are not ported "
                                       "yet; use the host encoder")
@@ -72,6 +84,8 @@ class TorchFFV1Encoder:
         # which chains put_symbol's repeated rows 10/31; their finalize
         # compacts to 6 slots per pixel (encoder.py of the JAX package)
         self.s2 = 4 if self.bits <= 10 else 6
+        # the compact form is fast-path only (rc_pallas.py:500)
+        self.compact = bool(compact) and self.bits <= 10
         self.batch = batch
         self.extradata = write_extradata(rp)
         self.geoms = slice_grid(rp.width, rp.height,
@@ -216,9 +230,20 @@ class TorchFFV1Encoder:
         return tuple(out)
 
     def _frame_pipeline(self, streams, states0, lows, ranges, prefixes,
-                        plens):
-        """Stencil -> lane scan -> finalize for one frame step."""
+                        plens, compact=None):
+        """Stencil -> lane scan -> finalize for one frame step, in the
+        compact form if ``compact`` (default: the encoder's).  Returns
+        (bytes, counts, states, overflow, packed, low, range); packed is
+        None in the compact form, whose raw slots never exist."""
+        compact = self.compact if compact is None else compact
         ctxs, diffs, acts = self._streams_uniform(streams)
+        if compact:
+            cm, low, rng, states_out = rc_encode_compact(
+                ctxs, diffs, acts, states0, self.one_tab, self.zero_tab,
+                lows, ranges, self.bits)
+            out, counts, overflow = finalize_compact(cm, low, rng, prefixes,
+                                                     plens)
+            return out, counts, states_out, overflow, None, low, rng
         packed, low, rng, states_out = rc_encode_packed(
             ctxs, diffs, acts, states0, self.one_tab, self.zero_tab,
             lows, ranges, self.bits)
@@ -268,6 +293,14 @@ class TorchFFV1Encoder:
                                  plens)
         self.states = states_out
         self.picture_number += 1
+        if bool(overflow.any()) and packed is None:
+            # the compact form dropped a pixel's slots past the fourth:
+            # redo the frame on the raw scan from the same start states
+            # (the stencil recomputed from the kept planes); its states
+            # equal the compact launch's, which stay
+            out, counts, _st, overflow, packed, low, rng = \
+                self._frame_pipeline(planes, states0, lows, ranges,
+                                     prefixes, plens, compact=False)
         if bool(overflow.any()):
             # a pixel emitted > s2 slots (or a 16-pixel group > 24): redo
             # the finalize at full slot width from the raw scan output

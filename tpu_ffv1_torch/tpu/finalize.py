@@ -1,7 +1,9 @@
 """Finalize the packed lane-scan output into slice payload bytes.
 
 Port of ``tpu_ffv1/tpu/rc_scan_lanes.py`` (``_resolve_compact``,
-``finalize_packed``, ``finalize_packed_full``) as PyTorch ops.  The
+``finalize_packed``, ``finalize_compact``, ``finalize_packed_full``) as
+PyTorch ops, with ``compact_packed``, the per-pixel slot compaction that
+the compact lane scan does in its kernel (``rc_pallas.py:419-445``).  The
 sentinel and terminate bytes, the carry suffix recurrence and the
 overflow verdicts are the JAX package's; the final compaction is a
 scatter at rank ``cumsum(valid) - 1`` where the TPU version sorted
@@ -108,6 +110,40 @@ def finalize_packed(packed, low, rng, prefix, prefix_len, s2: int = 4):
         vld = ac[None, :, None] < gcount[:, None, :]
     flat_b = slots.permute(2, 0, 1).reshape(L, -1)
     flat_v = vld.permute(2, 0, 1).reshape(L, -1)
+    out, count = _resolve_compact(flat_b, flat_v, low, rng, prefix,
+                                  prefix_len)
+    return out, count, overflow
+
+
+def compact_packed(packed):
+    """The compact lane scan's per-pixel compaction of a raw (N, S, L)
+    scan output (bit 20 = emit flag): cm int32 (N, 8, L), rows [the
+    first 4 emitted provisional values (bits 0..16; 0 past the count),
+    count, overflow (count > 4), 0, 0].  Slots past the fourth are
+    dropped; the count and the overflow flag keep that they existed."""
+    valid = (packed >> 20) & 1
+    pv = (packed & 0x1FFFF) * valid
+    cnt_exc = torch.cumsum(valid, dim=1, dtype=torch.int32) - valid
+    total = valid.sum(dim=1, dtype=torch.int32)               # (N, L)
+    zero = torch.zeros_like(total)
+    rows = [(pv * (cnt_exc == k)).sum(dim=1, dtype=torch.int32)
+            for k in range(4)]
+    return torch.stack(rows + [total, (total > 4).to(torch.int32), zero,
+                               zero], dim=1)
+
+
+def finalize_compact(cm, low, rng, prefix, prefix_len):
+    """Finalize from the compact lane-scan output cm int32 (N, 8, L)
+    (see ``compact_packed``).  Returns (bytes uint8 (L, T), count int32
+    (L,), overflow bool (L,)); on overflow the frame must be redone on
+    the raw scan, since the dropped slots no longer exist."""
+    N, _, L = cm.shape
+    slots = cm[:, :4, :]
+    vld = torch.arange(4, device=cm.device)[None, :, None] < \
+        cm[:, 4:5, :]
+    overflow = cm[:, 5, :].amax(dim=0) > 0
+    flat_b = slots.permute(2, 0, 1).reshape(L, N * 4)
+    flat_v = vld.permute(2, 0, 1).reshape(L, N * 4)
     out, count = _resolve_compact(flat_b, flat_v, low, rng, prefix,
                                   prefix_len)
     return out, count, overflow

@@ -15,12 +15,24 @@ packed output: the fast schedule at bits <= 10, the extended one at
        schedule (schedule.chain_order_nosign + one sign slot) at
        bits <= 10, schedule.ext_slots above.
 
-``rc_encode_packed`` runs the plain version for CPU tensors and the
-kernel for CUDA tensors; it never substitutes one for the other.  The
-kernel keeps the lane's state table in shared memory where it fits a
-block (context model 0) and in global memory where it does not (context
-model 1: 2 x 7,563 rows, 484 KB per lane); the wrapper picks the
-instance from the table's size (``build.table_in_global``).
+The compact form (``rc_encode_compact``, bits <= 10; port of
+``rc_encode_pallas_compact``, the Pallas kernel's compact=True branch)
+runs the same scan and returns cm int32 (N, 8, L) instead of packed:
+rows [the first 4 emitted provisional values (bits 0..16, 0 past the
+count), count, overflow (count > 4), 0, 0] per pixel
+(``finalize.compact_packed`` of the raw form); low, range and states
+are the raw form's.
+
+``rc_encode_packed`` and ``rc_encode_compact`` run the plain version for
+CPU tensors and the kernel for CUDA tensors; they never substitute one
+for the other.  The kernel keeps the lane's state table in shared memory
+where it fits a block (context model 0) and in global memory where it
+does not (context model 1: 2 x 7,563 rows, 484 KB per lane); the wrapper
+picks the instance from the table's size (``build.table_in_global``).
+
+``rc_encode_stages`` launches K1's stage probes (csrc/rc_encode.cu
+STAGES): timing instruments with stages stubbed, never called by the
+codec.
 """
 from __future__ import annotations
 
@@ -30,19 +42,29 @@ import torch
 
 from ..kernels.build import expect, load, table_in_global
 
+from .finalize import compact_packed
 from .schedule import chain_order_nosign, ext_slots
 
-# kernel launches made by rc_encode_packed, by kernel instance (read by
-# chip_smoke.py): rc_encode (K1, bits <= 10), rc_encode_ext (K1-ext,
-# bits 11..17), and their table-in-global-memory forms rc_encode_global
-# and rc_encode_ext_global
+# kernel launches made by rc_encode_packed and rc_encode_compact, by
+# kernel instance (read by chip_smoke.py): rc_encode (K1, bits <= 10),
+# rc_encode_ext (K1-ext, bits 11..17), rc_encode_compact (K1-compact),
+# and their table-in-global-memory forms rc_encode_global,
+# rc_encode_ext_global and rc_encode_compact_global
 LAUNCHES: dict = {}
 
+# K1's stage probes: the stages each variant keeps (csrc/rc_encode.cu
+# STAGE_READ 1, STAGE_TRANS 2, STAGE_WRITE 4, STAGE_CHAIN 8), the
+# variants of scripts/probes/ablate_kernel.py
+STAGE_VARIANTS = {"full": 15, "no_read": 14, "no_trans": 13,
+                  "no_write": 11, "no_chain": 7, "loops_only": 5}
 
-def instance(bits: int, CC: int) -> str:
-    """The kernel instance rc_encode_packed launches for a coded width
-    and a state table of CC rows."""
-    name = "rc_encode_ext" if bits > 10 else "rc_encode"
+
+def instance(bits: int, CC: int, compact: bool = False) -> str:
+    """The kernel instance rc_encode_packed (or, with ``compact``,
+    rc_encode_compact) launches for a coded width and a state table of
+    CC rows."""
+    name = "rc_encode_ext" if bits > 10 else \
+        "rc_encode_compact" if compact else "rc_encode"
     return name + ("_global" if table_in_global(CC * 32, 512) else "")
 
 
@@ -256,15 +278,26 @@ def rc_encode_packed_ext_ref(ctx, diff, active, states0, one_tab, zero_tab,
             rng.to(torch.int32), st.to(torch.uint8).view(L, CC, 32))
 
 
+def rc_encode_compact_ref(ctx, diff, active, states0, one_tab, zero_tab,
+                          low0, range0, bits: int):
+    """Plain PyTorch version of the compact form: the raw scan's plain
+    version, compacted per pixel."""
+    packed, low, rng, st = rc_encode_packed_ref(
+        ctx, diff, active, states0, one_tab, zero_tab, low0, range0, bits)
+    return compact_packed(packed), low, rng, st
+
+
 def _launch(name, gtab, ctx, diff, active, states0, one_tab, zero_tab,
-            low0, range0, bits):
-    """Check the arguments and launch ``<name>_launch`` from
-    csrc/<name>.cu on the current stream, with the state table in global
-    memory if ``gtab``; returns the outputs."""
+            low0, range0, bits, entry=None, code=None, width=None):
+    """Check the arguments and launch ``<entry>`` (default
+    ``<name>_launch``) from csrc/<name>.cu on the current stream, with
+    the state table in global memory if ``gtab``; ``code`` is the int
+    passed in the bits position, ``width`` the ints stored per pixel
+    (default 2 * bits + 1).  Returns the outputs."""
     dev = ctx.device
     L, N = ctx.shape
     CC = states0.shape[1]
-    S = 2 * bits + 1
+    S = width or 2 * bits + 1
     expect("ctx", ctx, torch.int32, (L, N), dev)
     expect("diff", diff, torch.int32, (L, N), dev)
     expect("active", active, torch.bool, (L, N), dev)
@@ -275,7 +308,7 @@ def _launch(name, gtab, ctx, diff, active, states0, one_tab, zero_tab,
     expect("range0", range0, torch.int32, (L,), dev)
     if states0.data_ptr() % 16:
         states0 = states0.clone()          # the kernel copies in 16 B words
-    fn = getattr(load(name), f"{name}_launch")
+    fn = getattr(load(name), entry or f"{name}_launch")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + \
         [ctypes.c_void_p]
@@ -289,7 +322,7 @@ def _launch(name, gtab, ctx, diff, active, states0, one_tab, zero_tab,
              states0.data_ptr(), one_tab.data_ptr(), zero_tab.data_ptr(),
              low0.data_ptr(), range0.data_ptr(), packed.data_ptr(),
              low.data_ptr(), rng.data_ptr(), states.data_ptr(),
-             L, N, CC, bits, int(gtab),
+             L, N, CC, bits if code is None else code, int(gtab),
              torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
@@ -318,3 +351,47 @@ def rc_encode_packed(ctx, diff, active, states0, one_tab, zero_tab,
                   one_tab, zero_tab, low0, range0, bits)
     LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
     return out
+
+
+def rc_encode_compact(ctx, diff, active, states0, one_tab, zero_tab,
+                      low0, range0, bits: int):
+    """Encode lane scan with per-pixel slot compaction (K1-compact,
+    bits <= 10): the CUDA kernel for CUDA tensors, its plain version for
+    CPU tensors; returns (cm int32 (N, 8, L), low, range, states)."""
+    if not 1 <= bits <= 10:
+        raise NotImplementedError("the compact form covers bits 1..10 "
+                                  "(the fast schedule)")
+    dev = ctx.device
+    if dev.type == "cpu":
+        return rc_encode_compact_ref(ctx, diff, active, states0, one_tab,
+                                     zero_tab, low0, range0, bits)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    name = instance(bits, states0.shape[1], compact=True)
+    out = _launch("rc_encode", name.endswith("_global"), ctx, diff, active,
+                  states0, one_tab, zero_tab, low0, range0, bits,
+                  entry="rc_encode_compact_launch", width=8)
+    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+    return out
+
+
+def rc_encode_stages(ctx, diff, active, states0, one_tab, zero_tab, low0,
+                     range0, variant: str):
+    """K1 at 8 bits with the stages of ``variant`` (STAGE_VARIANTS)
+    stubbed: a timing instrument whose outputs are wrong on purpose,
+    except ``full``, which is the production instance.  CUDA tensors
+    only; on the CPU only ``full`` has a plain version."""
+    stages = STAGE_VARIANTS[variant]
+    dev = ctx.device
+    if dev.type == "cpu":
+        if variant != "full":
+            raise NotImplementedError("a stubbed stage probe has no plain "
+                                      "version: it times the card")
+        return rc_encode_packed_ref(ctx, diff, active, states0, one_tab,
+                                    zero_tab, low0, range0, 8)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    gtab = instance(8, states0.shape[1]).endswith("_global")
+    return _launch("rc_encode", gtab, ctx, diff, active, states0, one_tab,
+                   zero_tab, low0, range0, 8,
+                   entry="rc_encode_stages_launch", code=stages)
