@@ -32,6 +32,12 @@ exits non-zero without the final result line:
    the port's own encoder and on random bytes at 11, 16 and 17 bits
    (the damaged-stream paths); K1-compact in both placements at 8 bits
    with states from 1..255, so that some pixels overflow its 4 slots;
+   and K1's edges at 8, 9 and 10 bits in all four instances (raw and
+   compact, each placement): runs of 2-64 equal contexts, also across a
+   32-pixel chunk boundary (the global-table instances forward the next
+   row's byte past the adaptation store), blocks of inactive pixels and
+   of zero residuals,
+   residuals at +-2^(bits-1);
 5. four main paths through TorchFFV1Encoder / TorchFFV1Decoder
    (batch=2), 24 slices, range coder, 2 streams x (one key frame, one
    non-key warm-up frame, then timed non-key frames): at 1080p with six
@@ -410,11 +416,11 @@ def smem_probe_ns(dev, mode, n=1 << 20):
         1e6 / n
 
 
-def sass_counts(name, build_dir=None):
-    """{kernel instance: SASS instructions (NOPs left out)} of
-    lib<name>.so, from ``cuobjdump -sass``; an instance is named by its
-    function and template arguments, e.g. ``rc_encode_kernel<8,0,0,15>``
-    (BITS, GTAB, COMPACT, STAGES)."""
+def sass_functions(name, build_dir=None):
+    """{kernel instance: [(address, SASS instruction)]} of lib<name>.so,
+    from ``cuobjdump -sass``; an instance is named by its function and
+    template arguments, e.g. ``rc_encode_kernel<8,0,0,15>`` (BITS, GTAB,
+    COMPACT, STAGES)."""
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     lib = os.path.join(build_dir or build.BUILD_DIR, f"lib{name}.so")
     sass = subprocess.run([tool, "-sass", lib], capture_output=True,
@@ -427,10 +433,25 @@ def sass_counts(name, build_dir=None):
         targs = re.findall(r"L[a-z](\d+)E", rest.split("Ev", 1)[0]) \
             if rest.startswith("I") else []
         label = fname + (f"<{','.join(targs)}>" if targs else "")
-        res[label] = sum(
-            1 for t in re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", func)
-            if not re.search(r"\bNOP\b", t))
+        res[label] = [(int(a, 16), t.strip()) for a, t in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", func)]
     return res
+
+
+def pixel_loop_count(ins):
+    """SASS instructions (branches and NOPs left out) of a lane scan's
+    per-pixel loop: of the spans from a backward branch's target to the
+    branch, the innermost of those with the most shuffles."""
+    best = (0, 0, 0)                  # (shuffles, -span, instructions)
+    for addr, text in ins:
+        m = re.search(r"\bBRA\S*\s+0x([0-9a-f]+)", text)
+        if not m or int(m.group(1), 16) >= addr:
+            continue
+        body = [t for a, t in ins if int(m.group(1), 16) <= a <= addr]
+        best = max(best, (sum("SHFL" in t for t in body), -len(body),
+                          sum(1 for t in body
+                              if not re.search(r"\b(BRA|NOP)\b", t))))
+    return best[2]
 
 
 def probe_sass_ops():
@@ -494,28 +515,68 @@ def random_encode_args(dev, bits, L, N, CC, seed, states_lo=16):
                          (np.full(L, 0xFF00), np.int32))]
 
 
-def check_encode_kernel(dev, bits, N, context_model, compact=False):
+def edge_encode_args(dev, bits, L, N, CC, seed):
+    """K1 inputs that reach the edges of its design: runs of 2-64 equal
+    contexts (the global-table read-ahead's forwarding), one across the
+    chunk boundary at pixel 32 in every lane, blocks of inactive pixels,
+    blocks of zero residuals (the zero flag alone), residuals at
+    +-2^(bits-1) (the longest exponent run and mantissa) alone and in
+    runs of one context; between them codec-like residuals; states from
+    1..255."""
+    r = np.random.RandomState(seed)
+    half = 1 << (bits - 1)
+    one, zero = custom_state_tables(T.VER2_STATE)
+    ctx = r.randint(0, CC, (L, N))
+    diff = np.where(r.rand(L, N) < 0.1, r.randint(-half, half + 1, (L, N)),
+                    r.randint(-4, 5, (L, N)))
+    act = r.rand(L, N) < 0.97
+    for lane in range(L):
+        p = 0
+        while p < N:
+            q = min(N, p + r.randint(2, 65))
+            kind = r.randint(6)
+            if kind in (0, 4):                 # a run of one context
+                ctx[lane, p:q] = ctx[lane, p]
+            if kind == 1:
+                act[lane, p:q] = False
+            elif kind == 2:
+                diff[lane, p:q] = 0
+            elif kind in (3, 4):
+                diff[lane, p:q] = r.choice([-half, half], q - p)
+            p = q
+    ctx[:, 20:80] = ctx[:, 20:21]              # across the chunk boundary
+    states = r.randint(1, 256, (L, CC, 32))
+    return [torch.from_numpy(np.ascontiguousarray(a).astype(t)).to(dev)
+            for a, t in ((ctx, np.int32), (diff, np.int32), (act, np.bool_),
+                         (states, np.uint8), (one, np.uint8),
+                         (zero, np.uint8), (r.randint(0, 1 << 16, L), np.int32),
+                         (r.randint(0x100, 0x10000, L), np.int32))]
+
+
+def check_encode_kernel(dev, bits, N, context_model, compact=False,
+                        edges=False):
     """K1 / K1-ext (or, with ``compact``, K1-compact, its states drawn
     from 1..255 so that some pixels emit more than 4 bytes) on random
     codec-like inputs at L=48 and the two state planes of the context
     model (CC = 1,332 or 15,126: the table in shared or in global
-    memory), timed; returns (instance, its numbers, the launch's (args,
-    outputs)) for the plain check (``plain_checks``)."""
+    memory), timed; with ``edges``, on ``edge_encode_args`` instead.
+    Returns (instance, its numbers, the launch's (args, outputs)) for
+    the plain check (``plain_checks``)."""
     L = BATCH * SLICES
     CC = 2 * T.CONTEXT_COUNTS[context_model]
-    args = (*random_encode_args(dev, bits, L, N, CC,
-                                SEED + bits + 100 * context_model +
-                                1000 * compact, 1 if compact else 16),
-            bits)
+    seed = SEED + bits + 100 * context_model + 1000 * compact
+    args = (*(edge_encode_args(dev, bits, L, N, CC, seed + 5000) if edges
+              else random_encode_args(dev, bits, L, N, CC, seed,
+                                      1 if compact else 16)), bits)
     name = rc_encode.instance(bits, CC, compact)
     fn = rc_encode.rc_encode_compact if compact else \
         rc_encode.rc_encode_packed
     got = fn(*args)
-    label = "random residuals"
+    label = "edge inputs" if edges else "random residuals"
     if compact:
         check(bool((got[0][:, 4] > 0).any()), "kernel emitted nothing")
         over = int(got[0][:, 5].sum())
-        check(over > 0, "no pixel overflowed the compact form")
+        check(edges or over > 0, "no pixel overflowed the compact form")
         label += f", states 1..255, {over} overflowing pixels"
     else:
         check(bool(((got[0] >> 20) & 1).sum() > 0), "kernel emitted nothing")
@@ -1019,16 +1080,20 @@ def kernel_bounds(name, rec, ns_per_decision, ops_per_decision,
     global memory also waits on one dependent row read from L2 per pixel
     (``row_ns``), since each pixel's context needs the pixel before.
     The encoder's contexts are known in advance, so its row reads are
-    not on the chain."""
+    not on the chain.  Operations: K1 (and K1-compact) codes only its
+    active decisions, ``ops_per_decision`` each, plus ``extra_ops`` per
+    pixel; K1-ext evaluates every slot of every pixel."""
     args, out = rec
     if name.startswith("rc_encode"):
         L, N = args[0].shape
         CC, S_out = args[3].shape[1], out[0].shape[1]
         nbytes = L * N * 9 + 2 * L * CC * 32 + 512 + 16 * L + \
             L * N * S_out * 4
-        # every slot is evaluated, and the compact form's per-pixel
-        # compaction adds ``extra_ops``
-        nops = L * N * ((2 * args[8] + 1) * ops_per_decision + extra_ops)
+        if name.startswith("rc_encode_ext"):
+            nops = L * N * (2 * args[8] + 1) * ops_per_decision
+        else:
+            nops = int(decisions.sum()) * ops_per_decision + \
+                L * N * extra_ops
         px = 0
     else:
         planes, states_out, _low, _rng, pos = out
@@ -1095,7 +1160,10 @@ def main():
             if ("registers" in line or "spill" in line) and line not in seen:
                 seen.add(line)
                 log(f"[build] {name} (all instances): {line}")
-    sass = {name: sass_counts(name) for name in libs}
+    funcs = {name: sass_functions(name) for name in libs}
+    sass = {name: {label: sum(1 for _a, t in ins
+                              if not re.search(r"\bNOP\b", t))
+                   for label, ins in funcs[name].items()} for name in libs}
     for name in libs:
         log(f"[sass] {name}: SASS instructions per instance: " + ", ".join(
             f"{k} {v}" for k, v in sorted(sass[name].items())))
@@ -1124,7 +1192,9 @@ def main():
               [check_encode_kernel(dev, b, 1024, 1) for b in (11, 16, 17)] +
               check_decode_ext_kernel(dev, 1) +
               [check_encode_kernel(dev, 8, 4096, m, compact=True)
-               for m in (0, 1)])
+               for m in (0, 1)] +
+              [check_encode_kernel(dev, b, 4096, m, compact=c, edges=True)
+               for b in (8, 9, 10) for m in (0, 1) for c in (False, True)])
     check(sorted({r[0] for r in random}) == sorted(KERNELS),
           "the random checks do not cover every instance")
 
@@ -1196,13 +1266,16 @@ def main():
             ns, ops = (ns_enc, ops_enc) if name.startswith("rc_encode") \
                 else (ns_dec, ops_dec)
             extra = 0
-            if name in compact_sec:
-                # the compaction's instructions per pixel: the compact
-                # instance's SASS count less the raw one's at 8 bits
+            if name.startswith("rc_encode") and \
+                    not name.startswith("rc_encode_ext"):
+                # K1's instructions per pixel beside its decisions: its
+                # pixel loop's (8 bits) less the loop's S + 1 decision
+                # bodies (the zero flag's twice: with a zero residual and
+                # a nonzero one); the compact form's compaction is in it
                 g = int(name.endswith("_global"))
-                extra = max(0, sass["rc_encode"][
-                    f"rc_encode_kernel<8,{g},1,15>"] - sass["rc_encode"][
-                    f"rc_encode_kernel<8,{g},0,15>"])
+                extra = max(0, pixel_loop_count(funcs["rc_encode"][
+                    f"rc_encode_kernel<8,{g},{int(name in compact_sec)},15>"])
+                    - 18 * ops_enc)
             bound, term, chain = kernel_bounds(name, recs[name], ns, ops,
                                                decisions, row_ns, extra)
             row = name.startswith("rc_decode") and name.endswith("_global")
@@ -1224,8 +1297,8 @@ def main():
             log(f"[bound] {name} ({path_name}, {gpu}): {p['ms'][name]:.2f} "
                 f"ms at the main path's shape; roofline bound {bound:.3f} "
                 f"ms ({term}, {ops:.2f} instructions per decision" +
-                (f" + {extra} per pixel for the compaction" if extra
-                 else "") + f"); chain "
+                (f" + {extra:.0f} per pixel" if extra else "") +
+                f"); chain "
                 f"bound {chain:.2f} ms ({int(decisions.max())} decisions "
                 f"on the longest lane x {ns:.2f} ns" +
                 (f", plus a {row_ns:.2f} ns row read per pixel)" if row

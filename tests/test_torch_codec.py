@@ -3,11 +3,16 @@ of both kernels): packets byte-identical to TPUFFV1Encoder and the host
 FFV1Encoder, lossless decode, GOP state handed over from the JAX
 classes, damage concealment; at context models 0 and 1.  Every comparison is exact: the codec is
 integer and lossless."""
+import copy
+import dataclasses
+
 import numpy as np
 import pytest
 
 from .util import synth_frames
 from tpu_ffv1 import EncoderParams, FFV1Decoder, FFV1Encoder
+from tpu_ffv1.codec import decoder as host_decoder
+from tpu_ffv1.core.intmath import ceil_rshift
 from tpu_ffv1.tpu.decoder import TPUFFV1Decoder
 from tpu_ffv1.tpu.encoder import TPUFFV1Encoder
 from tpu_ffv1_torch import EncoderParams as TorchEncoderParams
@@ -185,6 +190,101 @@ def test_flipped_byte_flags_slice_and_conceals():
     mask = np.ones(y0.shape, bool)
     mask[g.y:g.y + g.height, g.x:g.x + g.width] = False
     assert np.array_equal(y0[mask], frames[1][0][mask])
+
+
+# damaged slice headers: the port against the host decoder (spec engine)
+
+DAMAGES = [
+    # (label, context model, damaged slice): the slice's first 3 bytes,
+    # in packet 1, replaced by np.random.RandomState(t).randint(0, 256, 3)
+    ("slice1_ctx1", 1, 1),
+    ("slice0_ctx0", 0, 0),          # slice 0's header, after the key bit
+]
+DAMAGE_SEEDS = range(12)
+
+
+def _plane_rect(g, j):
+    """The (rows, cols) slices of slice geometry ``g`` in plane j of
+    yuv420p (ffv1dec.c:1010-1017)."""
+    s = 1 if j else 0
+    return (slice(g.y >> s, ceil_rshift(g.y + g.height, s)),
+            slice(g.x >> s, ceil_rshift(g.x + g.width, s)))
+
+
+def _host_decode(extradata, pkts):
+    """The host decoder's frames, slice flags and, per frame, the
+    pixels it left without a value: those no slice header that parsed
+    covers (a slice whose header fails writes nothing, ffv1dec.c:
+    282-359), and, in the rect a damaged slice conceals, those without a
+    value in the previous frame."""
+    parsed = []                     # the geometry each parsed header gave
+    parse = host_decoder.read_slice_header
+
+    def recording(f, ss, c):
+        out = parse(f, ss, c)
+        parsed.append(dataclasses.replace(ss.geom))
+        return out
+
+    host = FFV1Decoder(48, 40, extradata, engine="spec")
+    res, unknown = [], None
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(host_decoder, "read_slice_header", recording)
+        for pkt in pkts:
+            parsed.clear()
+            planes, _kf = host.decode_frame(pkt)
+            flags = [bool(ss.slice_damaged)
+                     for ss in host.slices[:host.slice_count]]
+            new = [np.ones(p.shape, bool) for p in planes]
+            for g in parsed:
+                for j, m in enumerate(new):
+                    m[_plane_rect(g, j)] = False
+            if unknown is not None:
+                for si, flagged in enumerate(flags):
+                    if flagged:
+                        for j, m in enumerate(new):
+                            r = _plane_rect(host.slices[si].geom, j)
+                            m[r] = unknown[j][r]
+            unknown = new
+            res.append(([np.array(p) for p in planes], flags, unknown))
+    return res
+
+
+@pytest.fixture(scope="module")
+def damaged_streams():
+    """Per damage: the extradata, packets 0-3 (GOP 12) of 48x40 yuv420p
+    with 4 slices, and a port decoder that has decoded packet 0."""
+    out = {}
+    for label, cm, si in DAMAGES:
+        enc = FFV1Encoder(_params(48, 40, 4, 12, context_model=cm))
+        pkts = [enc.encode_frame(f)[0] for f in _frames(48, 40, 4, seed=8)]
+        port = TorchFFV1Decoder(48, 40, enc.extradata, device="cpu")
+        port.decode_frame(pkts[0])
+        out[label] = (enc.extradata, pkts, port, si)
+    return out
+
+
+@pytest.mark.parametrize("t", DAMAGE_SEEDS)
+@pytest.mark.parametrize("label", [d[0] for d in DAMAGES])
+def test_damaged_slice_header_matches_host(damaged_streams, label, t):
+    """A damaged slice header in packet 1: the port decodes on, flags the
+    slices the host flags, and gives the host's planes wherever the host
+    wrote a value, in frames 0-3 (C1: a context-model-1 stream; C2: the
+    geometry a damaged header parses to moves no lane, only the rect
+    that slice conceals)."""
+    extradata, pkts, port0, si = damaged_streams[label]
+    start = port0._split_slices(pkts[1])[si][0]
+    bad = bytearray(pkts[1])
+    bad[start:start + 3] = np.random.RandomState(t).randint(
+        0, 256, 3).astype(np.uint8).tobytes()
+    pkts = [pkts[0], bytes(bad), *pkts[2:]]
+    host = _host_decode(extradata, pkts)
+    port = copy.deepcopy(port0)
+    for k, (want, want_flags, unknown) in enumerate(host):
+        planes = port.last_planes[0] if k == 0 else \
+            port.decode_frame(pkts[k])[0]
+        assert list(port.slice_damaged[0]) == want_flags, f"frame {k}"
+        for j, (a, b, u) in enumerate(zip(planes, want, unknown)):
+            assert np.array_equal(a[~u], b[~u]), f"frame {k} plane {j}"
 
 
 def test_reset_starts_a_fresh_gop():

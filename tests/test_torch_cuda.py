@@ -107,6 +107,60 @@ def test_rc_encode_compact_kernel_matches_plain(cuda, model):
         assert torch.equal(a, b)
 
 
+def _edge_args(cuda, bits, CC):
+    """K1 inputs at its design's edges: runs of 2-64 equal contexts
+    (the global-table instances forward the adapted byte), one across
+    the 32-pixel chunk boundary, blocks of inactive pixels and of zero
+    residuals, residuals at +-2^(bits-1), states from 1..255."""
+    r = np.random.RandomState(100 + bits)
+    L, N = 5, 700
+    half = 1 << (bits - 1)
+    one, zero = custom_state_tables(T.VER2_STATE)
+    ctx = r.randint(0, CC, (L, N))
+    diff = np.where(r.rand(L, N) < 0.1, r.randint(-half, half + 1, (L, N)),
+                    r.randint(-3, 4, (L, N)))
+    act = r.rand(L, N) < 0.95
+    for lane in range(L):
+        p = 0
+        while p < N:
+            q = min(N, p + r.randint(2, 65))
+            kind = r.randint(5)
+            if kind in (0, 4):
+                ctx[lane, p:q] = ctx[lane, p]
+            if kind == 1:
+                act[lane, p:q] = False
+            elif kind == 2:
+                diff[lane, p:q] = 0
+            elif kind in (3, 4):
+                diff[lane, p:q] = r.choice([-half, half], q - p)
+            p = q
+    ctx[:, 20:80] = ctx[:, 20:21]
+    return [torch.from_numpy(np.ascontiguousarray(a).astype(t)).to(cuda)
+            for a, t in ((ctx, np.int32), (diff, np.int32), (act, np.bool_),
+                         (r.randint(1, 256, (L, CC, 32)), np.uint8),
+                         (one, np.uint8), (zero, np.uint8),
+                         (r.randint(0, 1 << 16, L), np.int32),
+                         (r.randint(0x100, 0x10000, L), np.int32))]
+
+
+@pytest.mark.parametrize("bits", [8, 9, 10])
+@pytest.mark.parametrize("model", [0, 1], ids=["shared", "global"])
+@pytest.mark.parametrize("compact", [False, True], ids=["raw", "compact"])
+def test_rc_encode_edges_match_plain(cuda, bits, model, compact):
+    """All four K1 instances at the edges of their design."""
+    from tpu_ffv1_torch.tpu import rc_encode as K
+    CC = 2 * T.CONTEXT_COUNTS[model]
+    args = _edge_args(cuda, bits, CC)
+    fn = K.rc_encode_compact if compact else K.rc_encode_packed
+    ref = K.rc_encode_compact_ref if compact else K.rc_encode_packed_ref
+    name = K.instance(bits, CC, compact)
+    before = K.LAUNCHES.get(name, 0)
+    got = fn(*args, bits)
+    assert K.LAUNCHES[name] == before + 1
+    for a, b in zip(got, ref(*args, bits)):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("model", [0, 1], ids=["shared", "global"])
 def test_rc_encode_stages_full_is_the_production_instance(cuda, model):
     """The stage entry point's ``full`` variant equals the production

@@ -3,43 +3,81 @@
 // Replaces the Pallas TPU kernel tpu_ffv1/tpu/rc_pallas.py `_kernel`
 // (fast branch, compact=False, launched by `rc_encode_pallas_packed`).
 // Same computation: L independent slice lanes; for each pixel read the
-// lane's 32-byte context row at ctx, run the static decision chain
-// (zero flag, exponent + stop, mantissa MSB->LSB, one collapsed sign
-// slot), advance low/range with one-step renormalisation, emit
-// provisional bytes, then adapt every touched state.
+// lane's 32-byte context row at ctx, code the pixel's binary decisions
+// (zero flag, exponent run with its stop bit, mantissa MSB->LSB, one
+// collapsed sign slot), advance low/range with one-step renormalisation,
+// emit provisional bytes, then adapt every touched state.
 //
-// What bounds it on the H100: the serial low/range chain, about 17
-// dependent decisions per pixel at 8 bits, one pixel after another per
-// lane.  Bytes are few (4 B of ctx + 4 B of residual + 1 B of flag in,
-// 68 B of packed slots out per pixel).  At one lane per SM only L of the
-// 132 SMs work (24 per stream in the batch).  With the table in global
-// memory (below) each pixel's row read comes from L1/L2; the contexts are
-// known in advance, so it is off the chain in principle, but here it
-// waits behind the previous pixel's stores.
+// What bounds it on the H100: the serial low/range chain, one pixel after
+// another per lane, at one lane per warp and one warp per SM (L = 48 of
+// the 132 SMs on the 1080p main path).  Bytes are few (4 B of ctx + 4 B
+// of residual + 1 B of flag in, 4 B per slot out per pixel), so a pixel
+// costs its decisions' latency plus everything else its one warp issues
+// in order around them: input shuffles, the row read, the states'
+// shuffles, branches, the adaptation and the stores.
 //
-// Design: one warp per lane.  Where the lane's state table fits a block's
-// shared memory (context model 0: CC x 32 B = 42,624 B on the 1080p main
-// path), it is staged there at the start and written back at the end
-// (GTAB = false).  Context model 1's table (2 x 7,563 rows, 484,032 B
-// per lane) does not fit, so that instance (GTAB = true) adapts the rows
-// in place in global memory, in states_out, which the wrapper fills with
-// states0 (48 lanes = 23.2 MB, resident in the 50 MB L2): one coalesced
-// 32-byte row read per pixel and the owners' byte stores after it.  Both
-// instances run the same chain code; only where `st` points differs.
-// Thread t reads and writes only byte t of a row, so a pixel that reads
-// a row the previous pixel adapted sees the adapted byte (its own
-// store).  The wrapper picks the instance from the table's size.
+// What the design does about it:
 //
-// Thread t owns position t of the
-// context row: it reads its state byte once per pixel, the chain reads
-// the 17 slot states from their owners with warp shuffles, and after the
-// chain each thread adapts its own position in one parallel step.  That
-// deferred, batched adaptation is valid because at bits <= 10 the
+// - Only active decisions on the chain.  Every thread holds the same
+//   residual, so each branch on activity is warp-uniform: a pixel codes
+//   its zero flag (if active), then, if nonzero, exponent positions
+//   1..e+1, mantissa bits e-1..0 and the sign: 2e + 3 decisions, not all
+//   2 * bits + 1 slots.  The exponent run and the mantissa are prefixes
+//   of fixed unrolled sequences, each left by one uniform branch (the
+//   mantissa's states are shuffled in coding order, from lanes 21 + e -
+//   i, so no jump table is needed).  The states of all decisions come by
+//   shuffle from their owners before the first decision; between two
+//   decisions there is no shuffle and no load.
+// - No branch on the thread: each thread's activity and bit come from
+//   two 32-bit masks over the row that every thread computes alike (a
+//   branch on threadIdx diverges, and cost more than the decisions it
+//   guarded).
+// - Transition results off the chain: each thread owns position t of the
+//   context row; right after its byte is known it looks up both
+//   successors, and after the chain only the select on its bit and the
+//   store remain.
+// - With the table in global memory (below), the next row read ahead of
+//   the adaptation store: thread t loads its byte of pixel j+1's row
+//   before pixel j's store, and takes its own freshly adapted byte
+//   instead when pixel j+1 has pixel j's context.  Thread t reads and
+//   writes only byte t of a row, so that is the only alias; the chunk
+//   boundary takes the next chunk's first context, and the read past the
+//   last pixel is a harmless read of a valid row.  From shared memory
+//   the read after the store is faster than the read ahead and its
+//   select, so there the byte is read after the store.
+//
+// Deferred, batched adaptation is valid because at bits <= 10 the
 // positions touched within one pixel are pairwise distinct (sign row
 // 11+e, exponent rows past e+1 inactive).  Every thread runs the chain
-// redundantly, so no broadcast is needed; thread k keeps slot k's packed
-// value and the warp writes a pixel's slots as one contiguous store.
+// redundantly; thread k keeps slot k's packed value (a silent or skipped
+// slot 0) and the warp writes a pixel's slots as one contiguous store.
 // Inputs are read 32 pixels at a time, coalesced, one chunk ahead.
+//
+// Time against the design before it (every one of the 2 * bits + 1
+// slots evaluated, each with its shuffle and select on the chain; the
+// row read behind the previous pixel's store; branches on the thread),
+// in one call on the 1080p main path's warm-up inputs (L = 48, N =
+// 129,600), NVIDIA H100 80GB HBM3 at 700 W: 29.38 against 90.36 ms
+// (table in shared memory), 34.08 against 96.74 (global), compact 35.96
+// against 96.75 and 39.41 against 104.96.  Tried and dropped on the
+// same inputs (PERF.md): the split as one multiply-add, (rng * m + k) >>
+// 8 with (m, k) = (s, 0) or (256 - s, 255), with or without deferring
+// the renormalisation into the next decision (exact, and 2.4-4.8 ms
+// slower: more instructions per decision for one warp that issues in
+// order); the read ahead from shared memory; a software pipeline that
+// prepares pixel p+1 during pixel p; the row read by every thread as
+// two 16-byte broadcast loads instead of the states' shuffles; a jump
+// table into the mantissa.
+//
+// Table placement: where the lane's state table fits a block's shared
+// memory (context model 0: CC x 32 B = 42,624 B on the 1080p main path),
+// it is staged there at the start and written back at the end (GTAB =
+// false).  Context model 1's table (2 x 7,563 rows, 484,032 B per lane)
+// does not fit, so that instance (GTAB = true) adapts the rows in place
+// in global memory, in states_out, which the wrapper fills with states0
+// (48 lanes = 23.2 MB, resident in the 50 MB L2).  Both instances run the
+// same chain; they differ in where `st` points and in the read ahead
+// (above).  The wrapper picks the instance from the table's size.
 //
 // Output layout: packed int32 stored (L, N, S) (the wrapper returns it
 // viewed as the Pallas contract's (N, S, L)).  An emitting slot holds
@@ -52,8 +90,7 @@
 // popcount the pixel's count; thread r < 4 fetches the r-th emitting
 // slot's value (bits 0..16) by shuffle from its owner, and the warp
 // stores one 32-byte row [slot0..slot3, count, count > 4, 0, 0] per
-// pixel into (L, N, 8) storage (viewed as (N, 8, L)): 8 ints per pixel
-// instead of S, and no per-pixel compaction pass after the scan.
+// pixel into (L, N, 8) storage (viewed as (N, 8, L)).
 //
 // Stage probes (STAGES != ALL_STAGES, 8 bits only, reached through
 // rc_encode_stages_launch and never by the codec) replace the TPU
@@ -63,8 +100,7 @@
 // constant); TRANS: the transition lookup (stubbed: the state stays);
 // WRITE: the adaptation store; CHAIN: the low/range chain and its
 // emissions (stubbed: each slot stores its owner's state, so the reads
-// stay live).  The production instances are ALL_STAGES and compile to
-// the code they had before the parameter existed.
+// stay live).  The production instances are ALL_STAGES.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -76,6 +112,30 @@ enum : int {
   STAGE_WRITE = 4,
   STAGE_CHAIN = 8,
   ALL_STAGES = 15
+};
+
+// The coder state between decisions, renormalised (rng, low); cap_* keep
+// the split of the decision in this thread's slot, before its
+// renormalisation.
+struct Coder {
+  int rng, low;
+  int cap_r, cap_l;
+
+  __device__ __forceinline__ void decide(int s, bool b, int slot, int t) {
+    const int r1 = (rng * s) >> 8;
+    int nr = b ? r1 : rng - r1;
+    int nl = low + (b ? rng - r1 : 0);
+    if (t == slot) {
+      cap_r = nr;
+      cap_l = nl;
+    }
+    if (nr < 0x100) {
+      nl = (nl & 0xFF) << 8;
+      nr <<= 8;
+    }
+    rng = nr;
+    low = nl;
+  }
 };
 
 template <int BITS, bool GTAB, bool COMPACT, int STAGES>
@@ -110,83 +170,120 @@ __global__ void __launch_bounds__(32) rc_encode_kernel(
   }
   __syncwarp();
 
-  int low = low0[lane];
-  int rng = range0[lane];
+  Coder cd{range0[lane], low0[lane], 0, 0};
   const int32_t* c_l = ctx + (size_t)lane * N;
   const int32_t* d_l = diff + (size_t)lane * N;
   const uint8_t* a_l = active + (size_t)lane * N;
   int32_t* out_l = packed + (size_t)lane * N * SOUT;
 
-  int nc = 0, nd = 0, na = 0;
-  if (t < N) { nc = c_l[t]; nd = d_l[t]; na = a_l[t]; }
+  // this thread's pixel of the next chunk: its clamped context, and its
+  // residual with the active flag in bit 0
+  int nc = 0, nva = 0;
+  auto fetch = [&](int i) {
+    if (i < N) {
+      nc = min(max(c_l[i], 0), CC - 1);
+      nva = (d_l[i] << 1) | (a_l[i] != 0);
+    }
+  };
+  fetch(t);
+  int c = __shfl_sync(FULL_MASK, nc, 0);
+  uint8_t* row = st + c * 32;
+  // this thread's byte of a row (a constant in the stage probe no_read)
+  auto read = [&](const uint8_t* r) {
+    if constexpr ((STAGES & STAGE_READ) != 0) {
+      return (int)r[t];
+    } else {
+      return 64 + 4 * t;
+    }
+  };
+  int mys = read(row);
   for (int base = 0; base < N; base += 32) {
-    const int mc = nc, md = nd, ma = na;
-    const int nxt = base + 32 + t;
-    if (nxt < N) { nc = c_l[nxt]; nd = d_l[nxt]; na = a_l[nxt]; }
+    const int mc = nc, mva = nva;
+    fetch(base + 32 + t);
     const int cnt = min(32, N - base);
     for (int j = 0; j < cnt; ++j) {
-      int c = __shfl_sync(FULL_MASK, mc, j);
-      const int v = __shfl_sync(FULL_MASK, md, j);
-      const bool ap = __shfl_sync(FULL_MASK, ma, j) != 0;
-      c = min(max(c, 0), CC - 1);
-      uint8_t* row = st + c * 32;
-      int mys;
-      if constexpr ((STAGES & STAGE_READ) != 0) {
-        mys = row[t];
-      } else {
-        mys = 64 + 4 * t;
-      }
+      const int va = __shfl_sync(FULL_MASK, mva, j);
+      // the next pixel's context (the next chunk's first at j = 31; past
+      // the last pixel some valid row, read and never used)
+      const int cn = __shfl_sync(FULL_MASK, j < 31 ? mc : nc, (j + 1) & 31);
+      uint8_t* row_n = st + cn * 32;
+      // global table: the next pixel's byte read ahead, before this
+      // pixel's store
+      const int mys_n = GTAB ? read(row_n) : 0;
+
+      const int v = va >> 1;
+      const bool ap = (va & 1) != 0;
       const int a = abs(v);
       const int e = 31 - __clz(max(a, 1));
       const bool nz = v != 0;
 
-      // this thread's row position: activity and bit of its decision
-      bool act_t;
-      int bit_t;
-      if (t == 0) {
-        act_t = ap; bit_t = !nz;
-      } else if (t <= 10) {
-        act_t = ap && nz && (t - 1 <= e); bit_t = (t - 1) < e;
-      } else if (t <= 21) {
-        act_t = ap && nz && (t == 11 + e); bit_t = v < 0;
-      } else {
-        act_t = ap && nz && (t - 22 < e); bit_t = (a >> (t - 22)) & 1;
+      // both successors of this thread's byte, in flight during the chain
+      int up = 0, dn = 0;
+      if constexpr ((STAGES & STAGE_TRANS) != 0) {
+        up = one_s[mys];
+        dn = zero_s[mys];
       }
 
       int my_pv = 0;
-      if constexpr ((STAGES & STAGE_CHAIN) == 0) {
-        my_pv = mys | (act_t ? 1 << 20 : 0);
-      } else {
-#pragma unroll
-        for (int k = 0; k < S; ++k) {
-          int p, b;
-          bool act;
-          if (k == 0) {
-            p = 0; act = ap; b = !nz;
-          } else if (k <= E_MAX + 1) {
-            p = k; act = ap && nz && (k - 1 <= e); b = (k - 1) < e;
-          } else if (k < S - 1) {
-            const int m = E_MAX - 1 - (k - (E_MAX + 2));
-            p = 22 + m; act = ap && nz && (m < e); b = (a >> m) & 1;
+      if constexpr ((STAGES & STAGE_CHAIN) != 0) {
+        cd.cap_r = 0x100;             // no decision in this slot yet
+        const int s0 = __shfl_sync(FULL_MASK, mys, 0);
+        if (ap) {
+          if (!nz) {
+            cd.decide(s0, true, 0, t);
           } else {
-            p = 11 + e; act = ap && nz; b = v < 0;
-          }
-          const int s = __shfl_sync(FULL_MASK, mys, p);
-          const int r1 = (rng * s) >> 8;
-          int nr = b ? r1 : rng - r1;
-          int nl = low + (b ? rng - r1 : 0);
-          const bool emit = act && nr < 0x100;
-          if (t == k && emit)
-            my_pv = (nl >> 8) | ((nl & 0xFF) ? (1 << 16) : 0) | (1 << 20);
-          if (emit) {
-            nl = (nl & 0xFF) << 8;
-            nr <<= 8;
-          }
-          if (act) {
-            low = nl;
-            rng = nr;
+            // every state of the pixel before its first decision
+            // sm[i]: the state of mantissa bit e - 1 - i (i < e)
+            int sx[E_MAX + 2], sm[E_MAX > 0 ? E_MAX : 1];
+#pragma unroll
+            for (int k = 1; k <= E_MAX + 1; ++k)
+              sx[k] = __shfl_sync(FULL_MASK, mys, k);
+#pragma unroll
+            for (int i = 0; i < E_MAX; ++i)
+              sm[i] = __shfl_sync(FULL_MASK, mys, 21 + e - i);
+            const int ssg = __shfl_sync(FULL_MASK, mys, 11 + e);
+            cd.decide(s0, false, 0, t);
+            // exponent run: positions 1..e with bit 1, e+1 with bit 0
+#pragma unroll
+            for (int k = 1; k <= E_MAX + 1; ++k) {
+              const bool b = k - 1 < e;
+              cd.decide(sx[k], b, k, t);
+              if (!b) break;
+            }
+            // mantissa bits e-1..0 (bit m in slot 2 * E_MAX + 1 - m)
+#pragma unroll
+            for (int i = 0; i < E_MAX; ++i) {
+              if (i == e) break;
+              const int m = e - 1 - i;
+              cd.decide(sm[i], (a >> m) & 1, 2 * E_MAX + 1 - m, t);
+            }
+            cd.decide(ssg, v < 0, S - 1, t);
           }
         }
+        if (t < S && cd.cap_r < 0x100)
+          my_pv = (cd.cap_l >> 8) | ((cd.cap_l & 0xFF) ? (1 << 16) : 0) |
+                  (1 << 20);
+      }
+      // the row positions the pixel codes and their bits, as masks over
+      // the row (zero flag 0, exponent 1..e+1, sign 11+e, mantissa
+      // 22..21+e), the same in every thread; this thread's from them
+      const unsigned em_e = (2u << e) - 1;      // bits 0..e
+      const unsigned act_m =
+          ap ? (nz ? 1u | (em_e << 1) | (1u << (11 + e)) |
+                         ((em_e >> 1) << 22)
+                   : 1u)
+             : 0u;
+      const unsigned bit_m = (nz ? 0u : 1u) | ((em_e >> 1) << 1) |
+                             ((v < 0 ? 1u : 0u) << (11 + e)) |
+                             (((unsigned)a & (em_e >> 1)) << 22);
+      const bool act_t = (act_m >> t) & 1;
+      const int bit_t = (bit_m >> t) & 1;
+      if constexpr ((STAGES & STAGE_CHAIN) == 0)
+        my_pv = mys | (act_t ? 1 << 20 : 0);
+      // its adapted byte
+      int new_t = mys;
+      if constexpr ((STAGES & STAGE_TRANS) != 0) {
+        if (act_t) new_t = bit_t ? up : dn;
       }
       if constexpr (COMPACT) {
         // emit mask over the slot owners; thread r < 4 takes the r-th
@@ -206,18 +303,24 @@ __global__ void __launch_bounds__(32) rc_encode_kernel(
         if (t < S) out_l[(size_t)(base + j) * S + t] = my_pv;
       }
       if constexpr ((STAGES & STAGE_WRITE) != 0) {
-        if constexpr ((STAGES & STAGE_TRANS) != 0) {
-          if (act_t) row[t] = bit_t ? one_s[mys] : zero_s[mys];
-        } else {
-          if (act_t) row[t] = mys;
-        }
+        if (act_t) row[t] = new_t;
       }
+      // the next pixel's byte: read after the store from shared memory;
+      // from global memory read ahead, or this pixel's adapted byte where
+      // the next pixel shares its row
+      if constexpr (GTAB) {
+        mys = cn == c ? new_t : mys_n;
+      } else {
+        mys = read(row_n);
+      }
+      c = cn;
+      row = row_n;
     }
   }
   __syncwarp();
   if (t == 0) {
-    low_out[lane] = low;
-    range_out[lane] = rng;
+    low_out[lane] = cd.low;
+    range_out[lane] = cd.rng;
   }
   if (!GTAB) {
     uint4* dst = reinterpret_cast<uint4*>(states_out + (size_t)lane * CC * 32);

@@ -10,8 +10,18 @@ context inheritance, ffv1dec.c:376-403).  Each lane's final coder state
 then runs the sentinel + byte-count check (ffv1dec.c:459-467); a slice
 that fails it, or its CRC, is concealed from the stream's previous
 picture (ffv1dec.c:1001-1021).
+
+Every lane decodes at the slice grid's geometry, which no packet can
+change.  A slice header is parsed into a copy of the geometry its last
+header gave, kept per stream and slice for concealment only: the host
+decoder conceals the rect a damaged header parsed to, and so does the
+port.  A slice whose header fails is flagged and keeps its adaptive
+states, as the host's slice aborts before it touches them; its lane is
+decoded with the others all the same, and the result is discarded.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -74,8 +84,9 @@ class TorchFFV1Decoder:
         dev = self.device
         self.one_tab = torch.from_numpy(one).to(dev)
         self.zero_tab = torch.from_numpy(zero).to(dev)
-        self.geoms = slice_grid(width, height, g.num_h_slices,
-                                g.num_v_slices)
+        # the grid every lane decodes at; never handed to a header parse
+        self.geoms = tuple(slice_grid(width, height, g.num_h_slices,
+                                      g.num_v_slices))
         self.n_slices = len(self.geoms)
         self.L = self.n_slices * batch
         self.qts = [torch.from_numpy(np.asarray(q, np.int32)).to(dev)
@@ -91,9 +102,16 @@ class TorchFFV1Decoder:
               g0.height % (1 << g.chroma_v_shift) == 0)))
         if not uniform:
             raise NotImplementedError("only uniform slice grids are ported")
+        self.n_state_planes = 1 + (1 if g.chroma_planes else 0) + \
+            (1 if g.transparency else 0)
         self.key_frame_ok = [False] * batch
         self.last_planes = [None] * batch
         self.slice_damaged = np.zeros((batch, self.n_slices), bool)
+        # per stream and slice, the geometry its last header parsed to
+        # (the host's slice state keeps it): the rect a damaged slice
+        # conceals
+        self.conceal_geoms = [[dataclasses.replace(gm) for gm in self.geoms]
+                              for _ in range(batch)]
         self.states = None
 
     # -------------------------------------------------------------- API
@@ -131,7 +149,8 @@ class TorchFFV1Decoder:
     def _parse_packet(self, bi: int, pkt: bytes):
         """Keyframe bit + slice trailers + CRC + slice headers for one
         stream's packet.  Returns (keyframe, per-slice list of
-        (buf, qidx, low, range, pos))."""
+        (buf, qidx, low, range, pos)); qidx is None for a slice whose
+        header failed to parse."""
         rc = RangeDecoder(pkt, *default_state_tables())
         keystate = np.array([128], dtype=np.uint8)
         keyframe = bool(rc.get_rac(keystate, 0))
@@ -153,13 +172,15 @@ class TorchFFV1Decoder:
             src.set_tables(*self.tables)
             if si == 0:
                 src.low, src.range, src.pos = rc.low, rc.range, rc.pos
+            # the header writes its geometry before it validates it
+            geom = dataclasses.replace(self.conceal_geoms[bi][si])
             try:
-                ss = SliceState(geom=self.geoms[si])
-                qidxs, _ = read_slice_header(self, ss, src)
+                qidxs, _ = read_slice_header(self, SliceState(geom=geom), src)
                 qidx = qidxs[0]
             except (ValueError, IndexError):
                 self.slice_damaged[bi, si] = True
-                qidx = 0
+                qidx = None
+            self.conceal_geoms[bi][si] = geom
             slices.append((buf, qidx, src.low, src.range, src.pos))
         return keyframe, slices
 
@@ -182,13 +203,11 @@ class TorchFFV1Decoder:
         extradata's initial_states for quant table ``qidx``, else 128."""
         g = self.g
         cc = g.context_counts[qidx]
-        n_state_planes = 1 + (1 if g.chroma_planes else 0) + \
-            (1 if g.transparency else 0)
         init = g.initial_states[qidx]
         if init is not None:
             return np.tile(np.asarray(init[:cc], np.uint8),
-                           (n_state_planes, 1))
-        return np.full((n_state_planes * cc, 32), 128, np.uint8)
+                           (self.n_state_planes, 1))
+        return np.full((self.n_state_planes * cc, 32), 128, np.uint8)
 
     def _reset_lane_states(self, keyframes, qidx0):
         """Per-stream keyframe resets of the GOP-persistent state table."""
@@ -201,16 +220,47 @@ class TorchFFV1Decoder:
                             (bi + 1) * self.n_slices] = fresh
         return self.states
 
+    def _header_failed_states(self, parsed, cc):
+        """{lane: its states before this frame} for the lanes whose slice
+        header failed: the host's slice aborts before its keyframe reset
+        and its decode (ffv1dec.c:282-359), so they keep them.  A lane
+        with no states of this table size yet gets the 128s the host
+        allocates at the slice's next parsed header."""
+        rows = self.n_state_planes * cc
+        kept = {}
+        for bi, (_kf, sl) in enumerate(parsed):
+            for si, s in enumerate(sl):
+                if s[1] is not None:
+                    continue
+                lane = bi * self.n_slices + si
+                if self.states is not None and \
+                        self.states.shape[1] == rows:
+                    kept[lane] = self.states[lane].clone()
+                else:
+                    kept[lane] = torch.full((rows, 32), 128,
+                                            dtype=torch.uint8,
+                                            device=self.device)
+        return kept
+
     # ------------------------------------------------------------ decode
 
     def _lane_inputs(self, parsed):
         """Lane-major kernel inputs for parsed packets: (bufs, lows,
         ranges, poss) on the device, per-lane buffer lengths, and the
-        shared quant table index."""
-        qidx0 = parsed[0][1][0][1]
-        if any(s[1] != qidx0 for p in parsed for s in p[1]):
+        quant table index all lanes decode with.
+
+        That is the one the intact slices name.  A slice already flagged
+        damaged is concealed whatever its lane decodes to, so its quant
+        table does not count; where every slice is flagged, the first
+        parsed header's table serves, else the stream's first."""
+        named = [(self.slice_damaged[bi, si], s[1])
+                 for bi, (_kf, sl) in enumerate(parsed)
+                 for si, s in enumerate(sl) if s[1] is not None]
+        intact = {q for damaged, q in named if not damaged}
+        if len(intact) > 1:
             raise NotImplementedError("slices with differing quant tables "
                                       "are not ported")
+        qidx0 = intact.pop() if intact else named[0][1] if named else 0
         maxlen = max(len(s[0]) for p in parsed for s in p[1])
         cap = max(4096, 1 << (maxlen - 1).bit_length())
         bufs = np.zeros((self.L, cap), np.uint8)
@@ -240,10 +290,13 @@ class TorchFFV1Decoder:
         five = bool(g.quant_tables[qidx0][3][127])
         cc = g.context_counts[qidx0]
         specs = tuple((w, h, sp * cc) for (w, h, sp) in self._plane_specs())
+        kept = self._header_failed_states(parsed, cc)
         states0 = self._reset_lane_states(keyframes, qidx0)
         planes_dev, states_out, low, rng, pos = rc_decode_planes(
             bufs, states0, self.one_tab, self.zero_tab, self.qts[qidx0],
             lows, ranges, poss, specs, self.bits, five)
+        for lane, st in kept.items():
+            states_out[lane] = st
         self.states = states_out
 
         # assemble full frames (inverse block reshape) at the wire dtype
@@ -294,7 +347,7 @@ class TorchFFV1Decoder:
             for si in range(self.n_slices):
                 if not self.slice_damaged[bi, si]:
                     continue
-                geom = self.geoms[si]
+                geom = self.conceal_geoms[bi][si]
                 for j, src_p in enumerate(self.last_planes[bi]):
                     if not planes[j].flags.writeable:
                         planes[j] = np.array(planes[j])

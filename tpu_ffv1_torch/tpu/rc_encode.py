@@ -29,6 +29,9 @@ for the other.  The kernel keeps the lane's state table in shared memory
 where it fits a block (context model 0) and in global memory where it
 does not (context model 1: 2 x 7,563 rows, 484 KB per lane); the wrapper
 picks the instance from the table's size (``build.table_in_global``).
+The plain version works slot by slot over all lanes; K1 codes only a
+pixel's active decisions, one warp per lane (csrc/rc_encode.cu, header);
+both give the same outputs.
 
 ``rc_encode_stages`` launches K1's stage probes (csrc/rc_encode.cu
 STAGES): timing instruments with stages stubbed, never called by the
