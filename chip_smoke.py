@@ -27,7 +27,11 @@ exits non-zero without the final result line:
    and held against its plain PyTorch version in phase 6: K1 (8 bits)
    and its global-table form (8 bits, context model 1's 15,126 rows);
    K2 and K2-five (8-bit streams of the port's own encoder at context
-   models 0 and 1); K1-ext and its global-table form at 11, 16 and 17
+   models 0 and 1); all four instances of K2's source (K2, K2-five,
+   and the 5-input context with the table in shared memory, the 3-input
+   one with it in global memory) on random bytes at 8 and 10 bits
+   (planes 40, 33, 2 and 1 wide, every third lane started 8 bytes
+   before its buffer's end); K1-ext and its global-table form at 11, 16 and 17
    bits (random residuals); K2-ext and K2-ext-five on 16-bit streams of
    the port's own encoder and on random bytes at 11, 16 and 17 bits
    (the damaged-stream paths); K1-compact in both placements at 8 bits
@@ -59,9 +63,9 @@ exits non-zero without the final result line:
    step's slices timed alone too) and peak device memory.  Each compact
    path's warm-up launch is held to its raw path's K1 launch: the same
    inputs (SHA-256), cm equal to compact_packed of K1's slots, the same
-   low, range and states; then K1's stage split: each stage probe of K1
-   and of its global form on the 8bit and 8bit_ctx1 warm-up inputs,
-   the median of 5 launches;
+   low, range and states; then K1's and K2's stage split: each stage
+   probe of K1 and of its global form, and of K2 and K2-five, on the
+   8bit and 8bit_ctx1 warm-up inputs, the median of 5 launches;
 6. plain checks: every launch of phase 4, and each kernel's launch on
    its path's warm-up frame (all 48 lanes at full shape; K1-compact's
    through its raw path's K1 launch, phase 5), held exactly
@@ -74,7 +78,7 @@ exits non-zero without the final result line:
    longest first; the workers return digests of their outputs, which
    must equal the digests of the kernel's outputs;
 7. JSON lines: the probes' latencies ("probes"), each path's step and
-   stage times ("steps"), K1's stage split ("stages") and the
+   stage times ("steps"), K1's and K2's stage split ("stages") and the
    per-kernel numbers ("kernels": time, launches, roofline and chain
    bounds, plain version's time, max abs error); then the nvidia-smi
    line, and the result line {"ok": true, "device": {...}} last.
@@ -639,6 +643,37 @@ def check_decode_kernel(dev, context_model):
                               streams[0][0][0][:64, :64])]
 
 
+def check_decode_random_bytes(dev, bits, five, context_model):
+    """One of K2's four instances (``five``: the 5-input context; the
+    context model's table size: 2 x 666 rows in shared memory, or 2 x
+    7,563 in global memory) on random bytes at L=48: garbage symbols
+    (exponents up to the width with no stop decision, clamped contexts),
+    planes 40, 33, 2 and 1 wide (the row borders, the context computed a
+    warp's 32 columns at a time and its edge), and every third lane's
+    coder started 8 bytes before its buffer's end (reads at pos >= cap
+    give 0)."""
+    L, cap = BATCH * SLICES, 4096
+    CC = T.CONTEXT_COUNTS[context_model]
+    r = np.random.RandomState(SEED + 300 + bits + 20 * five +
+                              50 * context_model)
+    one, zero = custom_state_tables(T.VER2_STATE)
+    bufs = r.randint(0, 256, (L, cap)).astype(np.uint8)
+    pos0 = np.where(np.arange(L) % 3 == 2, cap - 8, 2).astype(np.int32)
+    low0 = np.minimum(bufs[np.arange(L), pos0 - 2].astype(np.int32) << 8 |
+                      bufs[np.arange(L), pos0 - 1], 0xFEFF)
+    qt = T.default_quant_tables(bits)[int(five)].astype(np.int32)
+    rnd = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        bufs, r.randint(16, 241, (L, 2 * CC, 32)).astype(np.uint8), one,
+        zero, qt, low0.astype(np.int32), np.full(L, 0xFF00, np.int32),
+        pos0)]
+    specs = ((40, 16, 0), (33, 8, CC), (2, 8, CC), (1, 8, 0))
+    res = check_decode_args((*rnd, specs, bits, five), "random bytes")
+    pos = res[2][1][4].cpu().numpy()
+    check(bool((pos[2::3] >= cap).all()), "the reads near cap did not pass "
+          "the buffer")
+    return res
+
+
 def check_decode_ext_kernel(dev, context_model):
     """K2-ext / K2-ext-five on the port's own 16-bit encode (96x64
     yuv444p16le, 24 slices, 2 streams: 48 lanes of 3 x 16x16), and on
@@ -889,33 +924,48 @@ STAGE_REPLACES = ("scripts/probes/ablate_kernel.py:206, "
 
 
 def stage_split(gpu, recs, reps=5):
-    """K1's stage probes on the 8bit and 8bit_ctx1 warm-up inputs (K1
-    and its global form at 1080p, 48 lanes): ``full`` through the stage
-    entry point equals the production launch; each variant's median of
-    ``reps`` launches, each timed alone with CUDA events.  Returns the
-    rows of the ``stages`` JSON line."""
+    """K1's and K2's stage probes on the 8bit and 8bit_ctx1 warm-up
+    inputs (K1 and its global form, K2 and K2-five, at 1080p, 48 lanes):
+    ``full`` through the stage entry point equals the production launch;
+    each variant's median of ``reps`` launches, each timed alone with
+    CUDA events.  Returns the rows of the ``stages`` JSON line."""
     rows = []
     for path_name, inst in (("8bit", "rc_encode"),
-                            ("8bit_ctx1", "rc_encode_global")):
+                            ("8bit_ctx1", "rc_encode_global"),
+                            ("8bit", "rc_decode"),
+                            ("8bit_ctx1", "rc_decode_five_global")):
         args, out = recs[inst]
-        args = args[:8]
-        full = rc_encode.rc_encode_stages(*args, "full")
-        check(all(torch.equal(a, b) for a, b in zip(full, out)),
+        if inst.startswith("rc_encode"):
+            probe, variants = rc_encode.rc_encode_stages, \
+                rc_encode.STAGE_VARIANTS
+            args = args[:8]
+            L, N = args[0].shape
+            replaces = STAGE_REPLACES
+        else:
+            probe, variants = rc_decode.rc_decode_stages, \
+                rc_decode.STAGE_VARIANTS
+            args = (*args[:9], args[10])           # without bits
+            L, N = args[0].shape[0], sum(w * h for (w, h, _b) in args[8])
+            replaces = None
+
+        def launch(variant):
+            return probe(*args, variant)
+
+        check(all(torch.equal(a, b) for a, b in
+                  zip(flat_outputs(launch("full")), flat_outputs(out))),
               f"{inst}: the stage entry point's full variant differs from "
               f"the production launch")
-        L, N = args[0].shape
         med = {}
-        for variant in rc_encode.STAGE_VARIANTS:
-            rc_encode.rc_encode_stages(*args, variant)
-            times = sorted(launch_ms(
-                lambda: rc_encode.rc_encode_stages(*args, variant))
-                for _ in range(reps))
+        for variant in variants:
+            launch(variant)
+            times = sorted(launch_ms(lambda: launch(variant))
+                           for _ in range(reps))
             med[variant] = times[reps // 2]
         for variant, ms in med.items():
             share = None if variant == "full" else med["full"] - ms
             rows.append(dict(instance=inst, path=path_name, variant=variant,
                              ms=ms, ns_per_pixel=ms * 1e6 / N,
-                             stage_ms=share, replaces=STAGE_REPLACES))
+                             stage_ms=share, replaces=replaces))
         log(f"[stage] {inst} ({path_name} warm-up inputs, L={L}, N={N}, "
             f"median of {reps}, {gpu}): " + ", ".join(
                 f"{v} {ms:.2f} ms ({ms * 1e6 / N:.1f} ns/px" +
@@ -1136,6 +1186,11 @@ KERNELS = {
 }
 
 
+# instances no main path launches (the placement follows the table's size
+# alone: reachable with custom quant tables), checked on random inputs
+OFF_PATH = ("rc_decode_five", "rc_decode_global")
+
+
 def main():
     if not torch.cuda.is_available():
         log("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -1185,6 +1240,9 @@ def main():
 
     random = ([check_encode_kernel(dev, 8, 4096, 0)] +
               check_decode_kernel(dev, 0) +
+              [check_decode_random_bytes(dev, b, five, m) for b in (8, 10)
+               for five, m in ((False, 0), (True, 1), (True, 0),
+                               (False, 1))] +
               [check_encode_kernel(dev, b, 1024, 0) for b in (11, 16, 17)] +
               check_decode_ext_kernel(dev, 0) +
               [check_encode_kernel(dev, 8, 4096, 1)] +
@@ -1195,7 +1253,8 @@ def main():
                for m in (0, 1)] +
               [check_encode_kernel(dev, b, 4096, m, compact=c, edges=True)
                for b in (8, 9, 10) for m in (0, 1) for c in (False, True)])
-    check(sorted({r[0] for r in random}) == sorted(KERNELS),
+    check(sorted({r[0] for r in random}) ==
+          sorted(set(KERNELS) | set(OFF_PATH)),
           "the random checks do not cover every instance")
 
     recorders = dict(packed=LastLaunch(port_encoder, "rc_encode_packed"),

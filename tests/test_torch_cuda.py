@@ -2,7 +2,7 @@
 version on the same CUDA tensors (exact: integer codec), and the slice
 end to end against the host encoder, at context models 0 and 1 (whose
 state table the kernels keep in global memory), in the raw and the
-compact encode form; K1's stage probes and the lookup probes.  Marked ``cuda``; each test skips
+compact encode form; K1's and K2's stage probes and the lookup probes.  Marked ``cuda``; each test skips
 where torch.cuda.is_available() is False (this file imports no jax, so
 it runs on a machine without it: FFV1_TEST_NO_CACHE=1 python -m pytest
 tests/test_torch_cuda.py)."""
@@ -258,16 +258,74 @@ def test_rc_decode_five_kernel_matches_plain(cuda):
     _decode_stream_check(cuda, 1, "rc_decode_five_global")
 
 
-def _random_decode_args(cuda, bits, CC, model):
-    r = np.random.RandomState(bits)
+def _random_decode_args(cuda, bits, CC, model, seed=None, pos0=2):
+    """Random slice bytes, states from 16..240, the coder started at
+    ``pos0`` (by default 2, after the first two bytes; near cap the reads
+    run past the buffer)."""
+    r = np.random.RandomState(bits if seed is None else seed)
     L, cap = 5, 2048
     one, zero = custom_state_tables(T.VER2_STATE)
     bufs = r.randint(0, 256, (L, cap)).astype(np.uint8)
     return [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in (
         bufs, r.randint(16, 241, (L, 2 * CC, 32)).astype(np.uint8), one,
         zero, T.default_quant_tables(bits)[model].astype(np.int32),
-        np.minimum(bufs[:, 0].astype(np.int32) << 8 | bufs[:, 1], 0xFEFF),
-        np.full(L, 0xFF00, np.int32), np.full(L, 2, np.int32))]
+        np.minimum(bufs[:, pos0 - 2].astype(np.int32) << 8 |
+                   bufs[:, pos0 - 1], 0xFEFF),
+        np.full(L, 0xFF00, np.int32), np.full(L, pos0, np.int32))]
+
+
+@pytest.mark.parametrize("width", [1, 2, 31, 32, 33, 40])
+@pytest.mark.parametrize("bits", [8, 9, 10])
+def test_rc_decode_random_bytes_match_plain(cuda, bits, width):
+    """K2 itself, the main path's instance (3-input context, table in
+    shared memory), on random bytes (exponents up to the width with no
+    stop decision, clamped contexts): plane widths 1 and 2 (the x = 0
+    and x = w - 1 borders at once), 31, 32, 33 and 40 (the context
+    computed a warp's 32 columns at a time, and its edge)."""
+    from tpu_ffv1_torch.tpu import rc_decode as K
+    CC = T.CONTEXT_COUNTS[0]
+    half = (width + 1) // 2
+    specs = ((width, 6, 0), (half, 4, CC), (half, 4, CC))
+    _check_decode(K, _random_decode_args(cuda, bits, CC, 0, 10 * bits +
+                                         width), specs, bits, False,
+                  "rc_decode")
+
+
+@pytest.mark.parametrize("bits", [8, 9, 10])
+def test_rc_decode_random_bytes_near_cap_match_plain(cuda, bits):
+    """K2 with the coder started 8 bytes before the buffer's end, within
+    one pixel's worst case of 2 * bits + 1 bytes: reads at pos >= cap
+    give 0."""
+    from tpu_ffv1_torch.tpu import rc_decode as K
+    CC = T.CONTEXT_COUNTS[0]
+    args = _random_decode_args(cuda, bits, CC, 0, 103, pos0=2048 - 8)
+    got = _check_decode(K, args, ((40, 6, 0),), bits, False, "rc_decode")
+    assert (got[4] >= 2048).any(), "no read passed the buffer"
+
+
+@pytest.mark.parametrize("five,model", [(False, 0), (True, 1), (True, 0),
+                                        (False, 1)],
+                         ids=["rc_decode", "five_global", "five",
+                              "global"])
+def test_rc_decode_stages_full_is_the_production_instance(cuda, five,
+                                                          model):
+    """K2's stage entry point: ``full`` equals the production launch, in
+    both contexts and both table placements; every stubbed variant
+    launches (timing only: its outputs are wrong on purpose)."""
+    from tpu_ffv1_torch.tpu import rc_decode as K
+    CC = T.CONTEXT_COUNTS[model]
+    args = _random_decode_args(cuda, 8, CC, int(five))
+    specs = ((40, 6, 0), (20, 6, CC), (20, 6, CC))
+    want = K.rc_decode_planes(*args, specs, 8, five)
+    got = K.rc_decode_stages(*args, specs, five, "full")
+    for a, b in zip(got[0], want[0]):
+        assert torch.equal(a, b)
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a, b)
+    for variant in K.STAGE_VARIANTS:
+        out = K.rc_decode_stages(*args, specs, five, variant)
+        torch.cuda.synchronize()
+        assert out[0][0].shape == want[0][0].shape
 
 
 @pytest.mark.parametrize("bits", [11, 16, 17])

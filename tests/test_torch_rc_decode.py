@@ -218,3 +218,75 @@ def test_ext_matches_xla_lanes_12bit_plain_encoder_stream():
 
 def test_five_ext_matches_xla_lanes_12bit_plain_encoder_stream():
     _plain_12bit(1)
+
+
+def _random_bytes_args(bits, CC, model, seed, L=3, cap=1024, pos0=2):
+    """Random slice bytes (garbage symbols: exponents up to the width with
+    no stop decision, clamped contexts), states from 16..240, and the
+    coder started at ``pos0`` (near ``cap``, the reads run past the
+    buffer and give 0)."""
+    from tpu_ffv1.core import tables as T
+    from tpu_ffv1.core.rac import custom_state_tables
+    r = np.random.RandomState(seed)
+    one, zero = custom_state_tables(T.VER2_STATE)
+    bufs = r.randint(0, 256, (L, cap)).astype(np.uint8)
+    low0 = np.minimum(bufs[:, pos0 - 2].astype(np.int32) << 8 |
+                      bufs[:, pos0 - 1], 0xFEFF)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in (
+        bufs, r.randint(16, 241, (L, 2 * CC, 32)).astype(np.uint8), one,
+        zero, T.default_quant_tables(bits)[model].astype(np.int32),
+        low0.astype(np.int32), np.full(L, 0xFF00, np.int32),
+        np.full(L, pos0, np.int32)))
+
+
+@pytest.mark.parametrize("five", [False, True], ids=["three", "five"])
+@pytest.mark.parametrize("bits", [8, 10])
+@pytest.mark.parametrize("width", [1, 2, 33])
+def test_matches_xla_lanes_on_random_bytes_at_plane_edges(width, bits, five):
+    """Plane widths 1 and 2 (x = 0 is also x = w - 1: the row borders)
+    and 33 (one past a warp's 32 columns), on random bytes, 3-input and
+    5-input contexts."""
+    from tpu_ffv1.core import tables as T
+    CC = T.CONTEXT_COUNTS[int(five)]
+    args = _random_bytes_args(bits, CC, int(five), 7 * width + bits)
+    half = (width + 1) // 2
+    specs = ((width, 5, 0), (half, 3, CC), (half, 3, CC))
+    _compare(args, specs, bits, five)
+
+
+@pytest.mark.parametrize("five", [False, True], ids=["three", "five"])
+@pytest.mark.parametrize("bits", [8, 10])
+def test_matches_xla_lanes_with_pos_near_cap(bits, five):
+    """The coder starts 8 bytes before the buffer's end, within one
+    pixel's worst case of 2 * bits + 1 bytes: reads at pos >= cap give
+    0."""
+    from tpu_ffv1.core import tables as T
+    CC = T.CONTEXT_COUNTS[int(five)]
+    cap = 1024
+    args = _random_bytes_args(bits, CC, int(five), 103, cap=cap,
+                              pos0=cap - 8)
+    got = _compare(args, ((16, 4, 0),), bits, five)
+    assert (got[4] >= cap).all(), "the reads did not pass the buffer"
+
+
+def test_stage_probe_full_is_the_plain_version_on_cpu():
+    """K2's stage probes have a plain version only for ``full`` (the
+    production instance); the stubbed variants time the card."""
+    from tpu_ffv1.core import tables as T
+    from tpu_ffv1_torch.tpu.rc_decode import (STAGE_VARIANTS,
+                                              rc_decode_planes_ref,
+                                              rc_decode_stages)
+    for five in (False, True):
+        CC = T.CONTEXT_COUNTS[int(five)]
+        args = _random_bytes_args(8, CC, int(five), 5)
+        specs = ((9, 3, 0), (5, 2, CC), (5, 2, CC))
+        got = rc_decode_stages(*args, specs, five, "full")
+        want = rc_decode_planes_ref(*args, specs, 8, five)
+        for a, b in zip(got[0], want[0]):
+            assert torch.equal(a, b)
+        for a, b in zip(got[1:], want[1:]):
+            assert torch.equal(a, b)
+        for variant in STAGE_VARIANTS:
+            if variant != "full":
+                with pytest.raises(NotImplementedError):
+                    rc_decode_stages(*args, specs, five, variant)

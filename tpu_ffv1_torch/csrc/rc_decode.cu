@@ -44,18 +44,41 @@
 // 32-byte window held one byte per thread and refreshed before a pixel could
 // run past it; reads at pos >= cap give 0.  The context index is clamped so
 // damaged streams stay inside the table.
+//
+// Stage probes (STAGES != ALL_STAGES, 8 bits only, reached through
+// rc_decode_stages_launch and never by the codec): the same kernel with one
+// stage stubbed, for timing only (their outputs are wrong on purpose).
+// CTX: the context index from the decoded neighbours (stubbed: from the
+// pixel's column, which cuts the val -> context -> row dependency between
+// pixels; the context's sign stays live); READ: the row read (stubbed: a
+// per-thread constant); TRANS: the transition lookup (stubbed: the state
+// stays); WRITE: the adaptation store; REFILL: the renormalisation byte and
+// the window reload (stubbed: a constant byte, no reload); CHAIN: the
+// low/range arithmetic (stubbed: each bit a fixed function of its state,
+// so the loops keep their shape).  The production instances are
+// ALL_STAGES.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define FULL_MASK 0xffffffffu
 #define MAX_PLANES 4
 
+enum : int {
+  STAGE_CTX = 1,
+  STAGE_READ = 2,
+  STAGE_TRANS = 4,
+  STAGE_WRITE = 8,
+  STAGE_REFILL = 16,
+  STAGE_CHAIN = 32,
+  ALL_STAGES = 63
+};
+
 struct PlaneSpecs {
   int n;
   int w[MAX_PLANES], h[MAX_PLANES], pbase[MAX_PLANES], off[MAX_PLANES];
 };
 
-template <int BITS, bool FIVE, bool GTAB>
+template <int BITS, bool FIVE, bool GTAB, int STAGES>
 __global__ void __launch_bounds__(32) rc_decode_kernel(
     const uint8_t* __restrict__ bufs, int cap,
     const uint8_t* __restrict__ states0, const uint8_t* __restrict__ one_tab,
@@ -126,32 +149,54 @@ __global__ void __launch_bounds__(32) rc_decode_kernel(
         }
         const bool csign = ctx < 0;
         if (csign) ctx = -ctx;
-        const int ci = min(max(ctx + pbase, 0), CC - 1);
+        int ci;
+        if constexpr ((STAGES & STAGE_CTX) != 0) {
+          ci = min(max(ctx + pbase, 0), CC - 1);
+        } else {
+          ci = min(x + pbase, CC - 1);
+        }
         uint8_t* row = st + ci * 32;
-        const int mys = row[t];
-        if (pos + MAXDEC > wbase + 32) {
-          wbase = pos;
-          wbyte = (pos + t < cap) ? buf[pos + t] : 0;
+        int mys;
+        if constexpr ((STAGES & STAGE_READ) != 0) {
+          mys = row[t];
+        } else {
+          mys = 64 + 4 * t;
+        }
+        if constexpr ((STAGES & STAGE_REFILL) != 0) {
+          if (pos + MAXDEC > wbase + 32) {
+            wbase = pos;
+            wbyte = (pos + t < cap) ? buf[pos + t] : 0;
+          }
         }
         bool touched = false;
         int tbit = 0;
         // one get_rac decision at row position p
         auto rac = [&](int p) -> int {
           const int s = __shfl_sync(FULL_MASK, mys, p);
-          const int nxt = __shfl_sync(FULL_MASK, wbyte, (pos - wbase) & 31);
-          const int r1 = (rng * s) >> 8;
-          const int r0 = rng - r1;
-          const int bit = low >= r0;
-          if (bit) {
-            low -= r0;
-            rng = r1;
+          int bit;
+          if constexpr ((STAGES & STAGE_CHAIN) != 0) {
+            int nxt;
+            if constexpr ((STAGES & STAGE_REFILL) != 0) {
+              nxt = __shfl_sync(FULL_MASK, wbyte, (pos - wbase) & 31);
+            } else {
+              nxt = 0x5A;
+            }
+            const int r1 = (rng * s) >> 8;
+            const int r0 = rng - r1;
+            bit = low >= r0;
+            if (bit) {
+              low -= r0;
+              rng = r1;
+            } else {
+              rng = r0;
+            }
+            if (rng < 0x100) {
+              low = (low << 8) + nxt;
+              rng <<= 8;
+              ++pos;
+            }
           } else {
-            rng = r0;
-          }
-          if (rng < 0x100) {
-            low = (low << 8) + nxt;
-            rng <<= 8;
-            ++pos;
+            bit = ((unsigned)s * 0x9E3779B1u) >> 31;
           }
           if (t == p) {
             touched = true;
@@ -171,7 +216,15 @@ __global__ void __launch_bounds__(32) rc_decode_kernel(
           const int sbit = rac(11 + min(e, 10));
           diff = sbit ? -a : a;
         }
-        if (touched) row[t] = tbit ? one_s[mys] : zero_s[mys];
+        if constexpr ((STAGES & STAGE_WRITE) != 0) {
+          if (touched) {
+            if constexpr ((STAGES & STAGE_TRANS) != 0) {
+              row[t] = tbit ? one_s[mys] : zero_s[mys];
+            } else {
+              row[t] = mys;
+            }
+          }
+        }
         if (csign) diff = -diff;
         const int m2 = Lv + T - LT;
         const int pred = Lv + m2 + T - min(min(Lv, m2), T) -
@@ -202,7 +255,7 @@ __global__ void __launch_bounds__(32) rc_decode_kernel(
   }
 }
 
-template <int BITS, bool FIVE, bool GTAB>
+template <int BITS, bool FIVE, bool GTAB, int STAGES>
 static int launch(const void* bufs, int cap, const void* states0,
                   const void* one_tab, const void* zero_tab, const void* qt,
                   const void* low0, const void* range0, const void* pos0,
@@ -215,11 +268,11 @@ static int launch(const void* bufs, int cap, const void* states0,
                       2 * (size_t)(wmax + 1) * 4;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        rc_decode_kernel<BITS, FIVE, GTAB>,
+        rc_decode_kernel<BITS, FIVE, GTAB, STAGES>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  rc_decode_kernel<BITS, FIVE, GTAB><<<L, 32, smem, stream>>>(
+  rc_decode_kernel<BITS, FIVE, GTAB, STAGES><<<L, 32, smem, stream>>>(
       (const uint8_t*)bufs, cap, (const uint8_t*)states0,
       (const uint8_t*)one_tab, (const uint8_t*)zero_tab, (const int32_t*)qt,
       (const int32_t*)low0, (const int32_t*)range0, (const int32_t*)pos0,
@@ -229,23 +282,24 @@ static int launch(const void* bufs, int cap, const void* states0,
   return (int)cudaGetLastError();
 }
 
-// Plain C entry point: returns the cudaError_t of the launch (0 = ok).
-// spec is a host array of nplanes x (w, h, pbase) triples; plane k's
-// samples start at column sum_{j<k} w_j * h_j of the (L, out_stride) out.
-// five != 0 selects the 5-input context (qt holds five tables); gtab != 0
-// the table-in-global-memory instance, where states_out must hold a copy
-// of states0.
-extern "C" int rc_decode_launch(
-    const void* bufs, int cap, const void* states0, const void* one_tab,
-    const void* zero_tab, const void* qt, const void* low0,
-    const void* range0, const void* pos0, const int* spec, int nplanes,
-    void* out, int out_stride, void* low_out, void* range_out,
-    void* pos_out, void* states_out, int L, int CC, int bits, int five,
-    int gtab, void* stream) {
-  if (nplanes < 1 || nplanes > MAX_PLANES) return (int)cudaErrorInvalidValue;
-  PlaneSpecs specs;
+#define RC_DEC_PARAMS                                                      \
+  const void *bufs, int cap, const void *states0, const void *one_tab,     \
+      const void *zero_tab, const void *qt, const void *low0,              \
+      const void *range0, const void *pos0, const int *spec, int nplanes,  \
+      void *out, int out_stride, void *low_out, void *range_out,           \
+      void *pos_out, void *states_out, int L, int CC
+#define RC_DEC_ARGS                                                        \
+  bufs, cap, states0, one_tab, zero_tab, qt, low0, range0, pos0, specs,   \
+      out, out_stride, low_out, range_out, pos_out, states_out, L, CC,    \
+      wmax, s
+
+// The plane table of a launch; false if it does not fit out's stride.
+static bool plane_specs(const int* spec, int nplanes, int out_stride,
+                        PlaneSpecs& specs, int& wmax) {
+  if (nplanes < 1 || nplanes > MAX_PLANES) return false;
   specs.n = nplanes;
-  int off = 0, wmax = 1;
+  int off = 0;
+  wmax = 1;
   for (int k = 0; k < nplanes; ++k) {
     specs.w[k] = spec[3 * k];
     specs.h[k] = spec[3 * k + 1];
@@ -254,18 +308,28 @@ extern "C" int rc_decode_launch(
     off += specs.w[k] * specs.h[k];
     wmax = specs.w[k] > wmax ? specs.w[k] : wmax;
   }
-  if (off > out_stride) return (int)cudaErrorInvalidValue;
+  return off <= out_stride;
+}
+
+// Plain C entry point: returns the cudaError_t of the launch (0 = ok).
+// spec is a host array of nplanes x (w, h, pbase) triples; plane k's
+// samples start at column sum_{j<k} w_j * h_j of the (L, out_stride) out.
+// five != 0 selects the 5-input context (qt holds five tables); gtab != 0
+// the table-in-global-memory instance, where states_out must hold a copy
+// of states0.
+extern "C" int rc_decode_launch(RC_DEC_PARAMS, int bits, int five, int gtab,
+                                void* stream) {
+  PlaneSpecs specs;
+  int wmax;
+  if (!plane_specs(spec, nplanes, out_stride, specs, wmax))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-#define RC_DEC_ARGS                                                       \
-  bufs, cap, states0, one_tab, zero_tab, qt, low0, range0, pos0, specs,  \
-      out, out_stride, low_out, range_out, pos_out, states_out, L, CC,   \
-      wmax, s
 #define RC_DEC_CASE(B)                                                    \
   case B:                                                                 \
-    return five ? (gtab ? launch<B, true, true>(RC_DEC_ARGS)              \
-                        : launch<B, true, false>(RC_DEC_ARGS))            \
-                : (gtab ? launch<B, false, true>(RC_DEC_ARGS)             \
-                        : launch<B, false, false>(RC_DEC_ARGS));
+    return five ? (gtab ? launch<B, true, true, ALL_STAGES>(RC_DEC_ARGS)  \
+                        : launch<B, true, false, ALL_STAGES>(RC_DEC_ARGS))\
+                : (gtab ? launch<B, false, true, ALL_STAGES>(RC_DEC_ARGS) \
+                        : launch<B, false, false, ALL_STAGES>(RC_DEC_ARGS));
   switch (bits) {
     RC_DEC_CASE(1) RC_DEC_CASE(2) RC_DEC_CASE(3) RC_DEC_CASE(4)
     RC_DEC_CASE(5) RC_DEC_CASE(6) RC_DEC_CASE(7) RC_DEC_CASE(8)
@@ -274,5 +338,36 @@ extern "C" int rc_decode_launch(
       return (int)cudaErrorInvalidValue;
   }
 #undef RC_DEC_CASE
-#undef RC_DEC_ARGS
+}
+
+// The stage probes: K2 at 8 bits with the stages of the bitmask ``stages``
+// (STAGE_*) kept and the others stubbed, in either context and either
+// table placement; timing only.  The variants: full (ALL_STAGES, the
+// production instance itself), no_ctx, no_read, no_trans, no_write,
+// no_refill and no_chain, each without one stage.
+extern "C" int rc_decode_stages_launch(RC_DEC_PARAMS, int stages, int five,
+                                       int gtab, void* stream) {
+  PlaneSpecs specs;
+  int wmax;
+  if (!plane_specs(spec, nplanes, out_stride, specs, wmax))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define RC_STAGE_CASE(M)                                                  \
+  case M:                                                                 \
+    return five ? (gtab ? launch<8, true, true, M>(RC_DEC_ARGS)           \
+                        : launch<8, true, false, M>(RC_DEC_ARGS))         \
+                : (gtab ? launch<8, false, true, M>(RC_DEC_ARGS)          \
+                        : launch<8, false, false, M>(RC_DEC_ARGS));
+  switch (stages) {
+    RC_STAGE_CASE(ALL_STAGES)
+    RC_STAGE_CASE(ALL_STAGES & ~STAGE_CTX)
+    RC_STAGE_CASE(ALL_STAGES & ~STAGE_READ)
+    RC_STAGE_CASE(ALL_STAGES & ~STAGE_TRANS)
+    RC_STAGE_CASE(ALL_STAGES & ~STAGE_WRITE)
+    RC_STAGE_CASE(ALL_STAGES & ~STAGE_REFILL)
+    RC_STAGE_CASE(ALL_STAGES & ~STAGE_CHAIN)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef RC_STAGE_CASE
 }

@@ -24,6 +24,10 @@ kernel keeps the lane's state table in shared memory where it fits a
 block (context model 0) and in global memory where it does not (context
 model 1); the wrapper picks the instance from the table's size
 (``build.table_in_global``).
+
+``rc_decode_stages`` launches K2's stage probes (csrc/rc_decode.cu
+STAGES): timing instruments with stages stubbed, never called by the
+codec.
 """
 from __future__ import annotations
 
@@ -40,6 +44,12 @@ from ..kernels.build import expect, load, table_in_global
 # _global for the state table in global memory (K2-five is
 # rc_decode_five_global)
 LAUNCHES: dict = {}
+
+# K2's stage probes: the stages each variant keeps (csrc/rc_decode.cu
+# STAGE_CTX 1, STAGE_READ 2, STAGE_TRANS 4, STAGE_WRITE 8, STAGE_REFILL
+# 16, STAGE_CHAIN 32)
+STAGE_VARIANTS = {"full": 63, "no_ctx": 62, "no_read": 61, "no_trans": 59,
+                  "no_write": 55, "no_refill": 47, "no_chain": 31}
 
 
 def instance(bits: int, five: bool, CC: int, wmax: int) -> str:
@@ -181,25 +191,13 @@ def rc_decode_planes_ext_ref(bufs, states, one_tab, zero_tab, qt, low0,
                               range0, pos0, plane_specs, bits, five)
 
 
-def rc_decode_planes(bufs, states, one_tab, zero_tab, qt, low0, range0,
-                     pos0, plane_specs, bits: int, five: bool = False):
-    """Decode all planes of L slice lanes; the CUDA kernel for CUDA
-    tensors (K2 at bits <= 10, K2-ext at 11..17, with the 5-input context
-    if ``five``, the state table in shared or global memory by its
-    size), the plain version for CPU tensors (contract in the module
-    docstring)."""
-    if not 1 <= bits <= 17:
-        raise NotImplementedError("the lane scan covers bits 1..17")
-    ext = bits > 10
-    five = bool(five)
-    plane_specs = tuple(tuple(int(v) for v in s) for s in plane_specs)
+def _launch(name, bufs, states, one_tab, zero_tab, qt, low0, range0,
+            pos0, plane_specs, bits, five, entry=None, code=None):
+    """Check the arguments and launch ``<entry>`` (default
+    ``<lib>_launch``) of csrc/rc_decode.cu or rc_decode_ext.cu for kernel
+    instance ``name`` on the current stream; ``code`` is the int passed
+    in the bits position.  Returns the outputs."""
     dev = bufs.device
-    if dev.type == "cpu":
-        ref = rc_decode_planes_ext_ref if ext else rc_decode_planes_ref
-        return ref(bufs, states, one_tab, zero_tab, qt, low0, range0, pos0,
-                   plane_specs, bits, five)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
     L, cap = bufs.shape
     CC = states.shape[1]
     expect("bufs", bufs, torch.uint8, (L, cap), dev)
@@ -207,16 +205,16 @@ def rc_decode_planes(bufs, states, one_tab, zero_tab, qt, low0, range0,
     expect("one_tab", one_tab, torch.uint8, (256,), dev)
     expect("zero_tab", zero_tab, torch.uint8, (256,), dev)
     expect("qt", qt, torch.int32, (5, 256), dev)
-    for name, t in (("low0", low0), ("range0", range0), ("pos0", pos0)):
-        expect(name, t, torch.int32, (L,), dev)
+    for arg, t in (("low0", low0), ("range0", range0), ("pos0", pos0)):
+        expect(arg, t, torch.int32, (L,), dev)
     if not 1 <= len(plane_specs) <= 4:
         raise ValueError("1..4 planes per call")
     if states.data_ptr() % 16:
         states = states.clone()            # the kernel copies in 16 B words
-    name = instance(bits, five, CC, max(w for (w, _h, _b) in plane_specs))
     gtab = name.endswith("_global")
-    lib = "rc_decode_ext" if ext else "rc_decode"
-    fn = getattr(load(lib), f"{lib}_launch")
+    lib = "rc_decode_ext" if name.startswith("rc_decode_ext") else \
+        "rc_decode"
+    fn = getattr(load(lib), entry or f"{lib}_launch")
     fn.restype = ctypes.c_int
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p, i, p, p, p, p, p, p, p, p, i, p, i, p, p, p, p,
@@ -236,13 +234,67 @@ def rc_decode_planes(bufs, states, one_tab, zero_tab, qt, low0, range0,
              range0.data_ptr(), pos0.data_ptr(),
              ctypes.cast(spec, ctypes.c_void_p), len(plane_specs),
              out.data_ptr(), total, low.data_ptr(), rng.data_ptr(),
-             pos.data_ptr(), states_out.data_ptr(), L, CC, bits, int(five),
-             int(gtab), torch.cuda.current_stream(dev).cuda_stream)
+             pos.data_ptr(), states_out.data_ptr(), L, CC,
+             bits if code is None else code, int(five), int(gtab),
+             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
     planes, off = [], 0
     for (w, h, _b) in plane_specs:
         planes.append(out[:, off:off + w * h].view(L, h, w))
         off += w * h
     return tuple(planes), states_out, low, rng, pos
+
+
+def rc_decode_planes(bufs, states, one_tab, zero_tab, qt, low0, range0,
+                     pos0, plane_specs, bits: int, five: bool = False):
+    """Decode all planes of L slice lanes; the CUDA kernel for CUDA
+    tensors (K2 at bits <= 10, K2-ext at 11..17, with the 5-input context
+    if ``five``, the state table in shared or global memory by its
+    size), the plain version for CPU tensors (contract in the module
+    docstring)."""
+    if not 1 <= bits <= 17:
+        raise NotImplementedError("the lane scan covers bits 1..17")
+    five = bool(five)
+    plane_specs = tuple(tuple(int(v) for v in s) for s in plane_specs)
+    dev = bufs.device
+    if dev.type == "cpu":
+        ref = rc_decode_planes_ext_ref if bits > 10 else \
+            rc_decode_planes_ref
+        return ref(bufs, states, one_tab, zero_tab, qt, low0, range0, pos0,
+                   plane_specs, bits, five)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    name = instance(bits, five, states.shape[1],
+                    max(w for (w, _h, _b) in plane_specs))
+    out = _launch(name, bufs, states, one_tab, zero_tab, qt, low0, range0,
+                  pos0, plane_specs, bits, five)
+    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+    return out
+
+
+def rc_decode_stages(bufs, states, one_tab, zero_tab, qt, low0, range0,
+                     pos0, plane_specs, five: bool, variant: str):
+    """K2 at 8 bits (either context, either table placement, as
+    rc_decode_planes picks them) with the stages of ``variant``
+    (STAGE_VARIANTS) stubbed: a timing instrument whose outputs are
+    wrong on purpose, except ``full``, which is the production instance.
+    CUDA tensors only; on the CPU only ``full`` has a plain version."""
+    stages = STAGE_VARIANTS[variant]
+    five = bool(five)
+    plane_specs = tuple(tuple(int(v) for v in s) for s in plane_specs)
+    dev = bufs.device
+    if dev.type == "cpu":
+        if variant != "full":
+            raise NotImplementedError("a stubbed stage probe has no plain "
+                                      "version: it times the card")
+        return rc_decode_planes_ref(bufs, states, one_tab, zero_tab, qt,
+                                    low0, range0, pos0, plane_specs, 8,
+                                    five)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    name = instance(8, five, states.shape[1],
+                    max(w for (w, _h, _b) in plane_specs))
+    return _launch(name, bufs, states, one_tab, zero_tab, qt, low0, range0,
+                   pos0, plane_specs, 8, five,
+                   entry="rc_decode_stages_launch", code=stages)
