@@ -13,50 +13,94 @@
 // ffv1dec.c:42-63 (get_symbol), :100-181 (decode_line) and
 // rangecoder.h:104-145 (get_rac/refill).
 //
-// What bounds it on the H100: the serial decision chain (each decision needs
-// the previous one's low/range and the pixel's context needs the previous
-// pixel's value), about 5-17 dependent decisions per pixel at 8 bits; bytes
-// are ~1.3 per pixel in and 4 out.  At one lane per SM only L of the 132 SMs
-// work.  With the table in global memory (below) the row read lies on the
-// chain too: a pixel's context needs the pixel just decoded, and its row
-// comes from L1/L2.
+// What bounds it on the H100: the serial chain, one lane per warp and one
+// warp per SM (L = 48 of the 132 SMs on the 1080p main path).  Each decision
+// needs the previous one's low/range, and each pixel's context, so its state
+// row and its first decision, needs the value the pixel before decoded.
+// Bytes are few (~1.3 per pixel in, 4 out), so a pixel costs its decisions'
+// latency plus what its one warp issues in order between them and between
+// the last decision of one pixel and the first of the next.
 //
-// Design: one warp per lane, all planes in one launch.  The lane's state
-// table (CC x 32 B, 42,624 B on the main path), the one/zero tables, the
-// three (FIVE: five) quant tables and two reconstructed rows (previous and
-// current, w + 1 int32 each) live in shared memory.  Context model 1's table
-// (2 x 7,563 rows at 8 bits, 484,032 B) does not fit a block: the GTAB
-// instance keeps it in global memory instead, adapted in place in states_out,
-// which the wrapper fills with states0 (L2-resident: 23.2 MB for 48 lanes);
-// the chain code is the same, only where `st` points differs, and the wrapper
-// picks the instance from the table's size. FIVE adds TT, the stale cur[x] of
-// the 2-row ring (row y-2, zeros for y < 2 since the rows are zeroed per
-// plane), read before thread 0 overwrites it, and LL, the previous pixel's L
-// (0 at x = 0).  Thread t reads and writes only byte t of a row, in either
-// placement, so a pixel sees the bytes the pixels before it adapted.
+// What the design does about it:
 //
-// Thread t owns position t of the context row; every thread runs the decision
-// chain redundantly (the values are identical, so every branch is
-// warp-uniform and the exponent/mantissa loops stop where the symbol ends),
-// reading slot states from their owners with shuffles, and each owner adapts
-// its position after the pixel (positions touched in one pixel are pairwise
-// distinct at bits <= 10).  Slice bytes are read from global memory through a
-// 32-byte window held one byte per thread and refreshed before a pixel could
-// run past it; reads at pos >= cap give 0.  The context index is clamped so
-// damaged streams stay inside the table.
+// - Nothing between two decisions that can wait.  Every thread runs the
+//   chain redundantly (the values are identical, so every branch is
+//   warp-uniform) and holds the pixel's whole state row in registers (two
+//   broadcast 16-byte loads).  The zero flag and the exponent run are
+//   unrolled, left by one uniform branch, their states constant byte
+//   extracts; the mantissa's and the sign's states depend on the exponent
+//   and are gathered during the run (each step that continues shifts the
+//   next mantissa state into a packed register and takes the next sign
+//   state), so they are ready when it ends.  Damaged streams keep their
+//   shape: e reaches E_MAX + 1 with no stop decision, and the mantissa then
+//   has E_MAX decisions at rows 22 + e - 1 - j.
+// - No branch on the thread: in each decision the owner of its position
+//   takes the successor its bit picks by a select; after the pixel every
+//   thread stores its byte.  Both successors of a thread's byte come from
+//   one 16-bit lookup right after the row read, off the chain.
+// - The refill byte: at a pixel's start thread t holds byte pos + t of the
+//   slice (its worst case, 2 * bits + 1 bytes, fits a warp) from a ring of
+//   the slice's bytes in shared memory, and a renormalisation takes its
+//   byte by shuffle from lane pos - pos0.  The ring holds four 128-byte
+//   blocks and is refilled one block ahead from global memory, so no global
+//   load waits on the chain; reads at pos >= cap give 0.
+// - A row-parallel context: at each row's start the warp computes, 32
+//   columns at a time, the part of every pixel's context that does not
+//   depend on the row being decoded (LT - T, T - RT; FIVE: TT - T).  L's
+//   terms (FIVE: and LL's) are looked up in the pixel before, for each
+//   value it can take (pred, pred + a, pred - a) before the decision that
+//   picks one, together with the next pixel's row index and context sign,
+//   so after the sign decision a select picks the next row.
+//
+// Deferred adaptation is valid because at bits <= 10 the positions a pixel
+// touches are pairwise distinct.  Thread t writes only byte t of a row but
+// every thread reads every byte: one __syncwarp orders every thread's row
+// read before the stores, another the stores before the next pixel's read.
+//
+// Time against the design before it (thread t reading only byte t, states by
+// shuffle between decisions, a branch on the thread in each decision, the
+// context and the transition lookup on the pixel-to-pixel path, the refill
+// window reloaded from global memory on the chain), in one call on the 1080p
+// main path's warm-up inputs, NVIDIA H100 80GB HBM3 at 700 W: 29.14 against
+// 57.48 ms (`rc_decode`), 42.25 against 72.59 (`rc_decode_five_global`),
+// 29.66 against 58.83 (5-input context, table in shared memory) and 34.16
+// against 62.81 (3-input, table in global memory).  Tried and dropped on the
+// same inputs (PERF.md): the refill byte from a queue of 32-bit words in
+// registers, shifted by funnel shifts on a renormalisation (exact, 1.35 ms
+// slower: five more instructions per decision, and a dependent decision in
+// that form no faster); the decided positions and bits as two masks
+// over the row, computed after the pixel (1.4 ms slower than the owner's
+// select); L's terms looked up after the value, not for each candidate
+// (0.9 ms); the next pixel's row index computed after its value, not for each
+// candidate (0.7 ms; 3.8 ms faster in the 3-input instance with the table in
+// global memory, which no main path runs).
+//
+// Table placement: the lane's state table (CC x 32 B, 42,624 B on the main
+// path), the transition pairs, the quant tables (three, FIVE: five), the
+// byte ring, two reconstructed rows (previous and current, w + 1 int32 each)
+// and the row's (T, context part) pairs live in shared memory.  Context
+// model 1's table (2 x 7,563 rows at 8 bits, 484,032 B) does not fit a
+// block: the GTAB instance keeps it in global memory instead, adapted in
+// place in states_out, which the wrapper fills with states0 (L2-resident:
+// 23.2 MB for 48 lanes); the chain code is the same, only where `st` points
+// differs, and the wrapper picks the instance from the table's size.  FIVE
+// adds TT, the stale cur[x] of the 2-row ring (row y-2, zeros for y < 2
+// since the rows are zeroed per plane), read in the row pass before the row
+// overwrites it, and LL, the previous pixel's L (0 at x = 0).  The context
+// index is clamped so damaged streams stay inside the table.
 //
 // Stage probes (STAGES != ALL_STAGES, 8 bits only, reached through
 // rc_decode_stages_launch and never by the codec): the same kernel with one
 // stage stubbed, for timing only (their outputs are wrong on purpose).
 // CTX: the context index from the decoded neighbours (stubbed: from the
 // pixel's column, which cuts the val -> context -> row dependency between
-// pixels; the context's sign stays live); READ: the row read (stubbed: a
-// per-thread constant); TRANS: the transition lookup (stubbed: the state
-// stays); WRITE: the adaptation store; REFILL: the renormalisation byte and
-// the window reload (stubbed: a constant byte, no reload); CHAIN: the
-// low/range arithmetic (stubbed: each bit a fixed function of its state,
-// so the loops keep their shape).  The production instances are
-// ALL_STAGES.
+// pixels; the context's sign stays live); READ: the row read (stubbed: the
+// states constants, and the thread's own byte a per-thread constant); TRANS:
+// the transition lookup (stubbed: the state stays); WRITE: the adaptation
+// store; REFILL: the renormalisation byte and the ring (stubbed: a constant
+// byte, no reload); CHAIN: the low/range arithmetic (stubbed: each bit a
+// fixed function of its state, so the loops keep their shape).  The
+// production instances are ALL_STAGES.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -90,18 +134,25 @@ __global__ void __launch_bounds__(32) rc_decode_kernel(
     int32_t* __restrict__ pos_out, uint8_t* __restrict__ states_out,
     int CC, int wmax) {
   constexpr int E_MAX = BITS - 1;
-  constexpr int MAXDEC = 2 * BITS + 1;     // decisions per pixel, at most
   constexpr int MASK_V = (1 << BITS) - 1;
-  constexpr int NQ = FIVE ? 5 : 3;         // quant tables read
+  constexpr int NQ = FIVE ? 5 : 3;               // quant tables read
+  constexpr int PW = (E_MAX + 3) / 4 > 0 ? (E_MAX + 3) / 4 : 1;
+  constexpr bool CTX = (STAGES & STAGE_CTX) != 0;
+  constexpr bool READ = (STAGES & STAGE_READ) != 0;
+  constexpr bool TRANS = (STAGES & STAGE_TRANS) != 0;
+  constexpr bool WRITE = (STAGES & STAGE_WRITE) != 0;
+  constexpr bool REFILL = (STAGES & STAGE_REFILL) != 0;
+  constexpr bool CHAIN = (STAGES & STAGE_CHAIN) != 0;
   extern __shared__ __align__(16) uint8_t smem[];
   const int lane = blockIdx.x;
   const int t = threadIdx.x;
   // CC x 32 state table: shared memory, or the lane's rows of states_out
   uint8_t* st = GTAB ? states_out + (size_t)lane * CC * 32 : smem;
   int32_t* qt_s = reinterpret_cast<int32_t*>(smem + (GTAB ? 0 : CC * 32));
-  uint8_t* one_s = reinterpret_cast<uint8_t*>(qt_s + NQ * 256);
-  uint8_t* zero_s = one_s + 256;
-  int32_t* rowA = reinterpret_cast<int32_t*>(zero_s + 256);
+  uint32_t* ring = reinterpret_cast<uint32_t*>(qt_s + NQ * 256);  // 512 B
+  uint16_t* oz_s = reinterpret_cast<uint16_t*>(ring + 128);       // 512 B
+  int2* tc_s = reinterpret_cast<int2*>(oz_s + 256);   // (T, ctx part)
+  int32_t* rowA = reinterpret_cast<int32_t*>(tc_s + (wmax + 1));
   int32_t* rowB = rowA + (wmax + 1);
 
   if (!GTAB) {
@@ -111,129 +162,205 @@ __global__ void __launch_bounds__(32) rc_decode_kernel(
       reinterpret_cast<uint4*>(st)[i] = src[i];
   }
   for (int i = t; i < NQ * 256; i += 32) qt_s[i] = qt[i];
-  for (int i = t; i < 256; i += 32) {
-    one_s[i] = one_tab[i];
-    zero_s[i] = zero_tab[i];
-  }
+  // both successors of a state in one lookup: one_tab low, zero_tab high
+  for (int i = t; i < 256; i += 32)
+    oz_s[i] = (uint16_t)(one_tab[i] | (zero_tab[i] << 8));
 
   const uint8_t* buf = bufs + (size_t)lane * cap;
+  // word i of the lane's bytes (0 past cap), by bytes: cap need not be a
+  // multiple of 4
+  auto word = [&](int i) -> uint32_t {
+    uint32_t v = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int j = 4 * i + k;
+      v |= (uint32_t)(j < cap ? __ldg(buf + j) : 0) << (8 * k);
+    }
+    return v;
+  };
   int low = low0[lane], rng = range0[lane], pos = pos0[lane];
-  int wbase = pos;
-  int wbyte = (pos + t < cap) ? buf[pos + t] : 0;
+  // the bytes as 128-byte blocks in a ring of four: blocks blk and blk + 1
+  // (every byte a pixel can read from pos) are in the ring, block blk + 2
+  // in flight in `pending`, thread t holding its word t
+  int blk = pos >> 7;
+  ring[(blk & 3) * 32 + t] = word(blk * 32 + t);
+  ring[((blk + 1) & 3) * 32 + t] = word((blk + 1) * 32 + t);
+  uint32_t pending = word((blk + 2) * 32 + t);
   int32_t* out_l = out + (size_t)lane * out_stride;
+  __syncwarp();
 
   for (int pl = 0; pl < specs.n; ++pl) {
     const int w = specs.w[pl], h = specs.h[pl], pbase = specs.pbase[pl];
     int32_t* out_p = out_l + specs.off[pl];
-    for (int i = t; i <= wmax; i += 32) { rowA[i] = 0; rowB[i] = 0; }
+    for (int i = t; i <= wmax; i += 32) {
+      rowA[i] = 0;
+      rowB[i] = 0;
+      tc_s[i] = make_int2(0, 0);     // [w] is read ahead and never used
+    }
     __syncwarp();
     int32_t* cur = rowA;
     int32_t* prev = rowB;
     for (int y = 0; y < h; ++y) {
-      // row borders (ffv1dec.c:202-203): L at x=0 is the previous row's
-      // first sample, LT the first sample of the row before that (the
-      // stale content of the 2-row ring)
+      // the part of each pixel's context that does not depend on the row
+      // being decoded, 32 columns at a time: LT - T and T - RT (FIVE: TT
+      // - T, TT the stale cur[x] of the 2-row ring, row y-2); LT at x = 0
+      // is the stale cur[0] (ffv1dec.c:202-203)
+      for (int x = t; x < w; x += 32) {
+        const int T = prev[x];
+        const int LT = x > 0 ? prev[x - 1] : cur[0];
+        const int RT = prev[min(x + 1, w - 1)];
+        int cp = qt_s[256 + ((LT - T) & 0xFF)] +
+                 qt_s[512 + ((T - RT) & 0xFF)];
+        if (FIVE) cp += qt_s[1024 + ((cur[x] - T) & 0xFF)];
+        tc_s[x] = make_int2(T, cp);
+      }
+      // row borders: L at x=0 is the previous row's first sample, LT the
+      // first sample of the row before that
       int Lv = prev[0];
       int LT = cur[0];
       int LL = 0;
       __syncwarp();
+      int2 tc = tc_s[0];
+      // a context's row index and sign from its part cp and L's terms q
+      auto place = [&](int cp, int q, int& ci, bool& cs) {
+        const int c = cp + q;
+        cs = c < 0;
+        ci = min(max((cs ? -c : c) + pbase, 0), CC - 1);
+      };
+      // the pixel's row and context sign (for x > 0 placed in the pixel
+      // before, for each value that pixel could take)
+      int cin;
+      bool csn;
+      place(tc.y, qt_s[(Lv - LT) & 0xFF] +
+                      (FIVE ? qt_s[768 + ((LL - Lv) & 0xFF)] : 0),
+            cin, csn);
       for (int x = 0; x < w; ++x) {
-        const int T = prev[x];
-        const int RT = prev[min(x + 1, w - 1)];
-        int ctx = qt_s[(Lv - LT) & 0xFF] + qt_s[256 + ((LT - T) & 0xFF)] +
-                  qt_s[512 + ((T - RT) & 0xFF)];
-        if (FIVE) {
-          const int TT = cur[x];          // row y-2, before thread 0 writes
-          ctx += qt_s[768 + ((LL - Lv) & 0xFF)] +
-                 qt_s[1024 + ((TT - T) & 0xFF)];
+        const int T = tc.x;
+        const int2 tc_n = tc_s[x + 1];   // the next pixel's, ahead
+        // the refill bytes: thread t holds byte pos + t, from the ring
+        int wb = 0;
+        const int p0 = pos;
+        if constexpr (REFILL) {
+          if ((pos >> 7) != blk) {         // a new block: keep one ahead
+            ring[((blk + 2) & 3) * 32 + t] = pending;
+            pending = word((blk + 3) * 32 + t);
+            ++blk;
+            __syncwarp();
+          }
+          wb = reinterpret_cast<const uint8_t*>(ring)[(pos + t) & 511];
         }
-        const bool csign = ctx < 0;
-        if (csign) ctx = -ctx;
-        int ci;
-        if constexpr ((STAGES & STAGE_CTX) != 0) {
-          ci = min(max(ctx + pbase, 0), CC - 1);
-        } else {
-          ci = min(x + pbase, CC - 1);
-        }
+        const bool csign = csn;
+        const int ci = CTX ? cin : min(x + pbase, CC - 1);
         uint8_t* row = st + ci * 32;
+        // the row: every thread all 32 states (two broadcast 16-byte
+        // loads), and its own byte with both successors
+        uint32_t R[8];
         int mys;
-        if constexpr ((STAGES & STAGE_READ) != 0) {
+        if constexpr (READ) {
+          const uint4 r0 = reinterpret_cast<const uint4*>(row)[0];
+          const uint4 r1 = reinterpret_cast<const uint4*>(row)[1];
+          R[0] = r0.x; R[1] = r0.y; R[2] = r0.z; R[3] = r0.w;
+          R[4] = r1.x; R[5] = r1.y; R[6] = r1.z; R[7] = r1.w;
           mys = row[t];
         } else {
+#pragma unroll
+          for (int k = 0; k < 8; ++k) R[k] = 0x80706050u + 0x01010101u * k;
           mys = 64 + 4 * t;
         }
-        if constexpr ((STAGES & STAGE_REFILL) != 0) {
-          if (pos + MAXDEC > wbase + 32) {
-            wbase = pos;
-            wbyte = (pos + t < cap) ? buf[pos + t] : 0;
-          }
-        }
-        bool touched = false;
-        int tbit = 0;
-        // one get_rac decision at row position p
-        auto rac = [&](int p) -> int {
-          const int s = __shfl_sync(FULL_MASK, mys, p);
-          int bit;
-          if constexpr ((STAGES & STAGE_CHAIN) != 0) {
-            int nxt;
-            if constexpr ((STAGES & STAGE_REFILL) != 0) {
-              nxt = __shfl_sync(FULL_MASK, wbyte, (pos - wbase) & 31);
-            } else {
-              nxt = 0x5A;
-            }
-            const int r1 = (rng * s) >> 8;
-            const int r0 = rng - r1;
-            bit = low >= r0;
-            if (bit) {
-              low -= r0;
-              rng = r1;
-            } else {
-              rng = r0;
-            }
-            if (rng < 0x100) {
-              low = (low << 8) + nxt;
-              rng <<= 8;
-              ++pos;
-            }
-          } else {
-            bit = ((unsigned)s * 0x9E3779B1u) >> 31;
-          }
-          if (t == p) {
-            touched = true;
-            tbit = bit;
-          }
-          return bit;
+        const int oz = TRANS ? oz_s[mys] : mys | (mys << 8);
+        const int up = oz & 0xFF, dn = oz >> 8;
+        int nb = mys;                      // this thread's adapted byte
+        auto sb = [&](int i) -> int {    // state byte i of the row
+          return (int)__byte_perm(R[i >> 2], 0, 0x4440 | (i & 3));
         };
-        int diff = 0;
-        if (!rac(0)) {                     // nonzero symbol
-          int e = 0;
-          while (e <= E_MAX && rac(1 + e)) ++e;   // unary exponent + stop
-          int a = 1;
-          // e reaches E_MAX + 1 only on damaged streams; the mantissa
-          // then still has E_MAX decisions (dec_scan_lanes.py:171)
-          for (int j = 0; j < min(e, E_MAX); ++j)
-            a = 2 * a + rac(22 + min(max(e - 1 - j, 0), 9));
-          const int sbit = rac(11 + min(e, 10));
-          diff = sbit ? -a : a;
-        }
-        if constexpr ((STAGES & STAGE_WRITE) != 0) {
-          if (touched) {
-            if constexpr ((STAGES & STAGE_TRANS) != 0) {
-              row[t] = tbit ? one_s[mys] : zero_s[mys];
-            } else {
-              row[t] = mys;
-            }
-          }
-        }
-        if (csign) diff = -diff;
         const int m2 = Lv + T - LT;
         const int pred = Lv + m2 + T - min(min(Lv, m2), T) -
                          max(max(Lv, m2), T);
-        const int val = (pred + diff) & MASK_V;
-        if (t == 0) cur[x] = val;
+        // the next pixel's L terms for a value v: qt0[v - T] (FIVE: and
+        // qt3[Lv - v]), looked up before the decision that picks v
+        auto lterms = [&](int v) -> int {
+          int q = qt_s[(v - T) & 0xFF];
+          if (FIVE) q += qt_s[768 + ((Lv - v) & 0xFF)];
+          return q;
+        };
+        int val = pred & MASK_V;          // a zero symbol
+        place(tc_n.y, lterms(val), cin, csn);
+
+        // one decision at row position p; its owner thread takes the
+        // successor its bit picks
+        auto decide = [&](int s, int p) -> int {
+          int bit;
+          if constexpr (CHAIN) {
+            const int r1 = (rng * s) >> 8;
+            const int r0 = rng - r1;
+            bit = low >= r0;
+            low = bit ? low - r0 : low;
+            rng = bit ? r1 : r0;
+            const bool need = rng < 0x100;
+            const int nxt =
+                REFILL ? __shfl_sync(FULL_MASK, wb, pos - p0) : 0x5A;
+            low = need ? (low << 8) | nxt : low;
+            rng = need ? rng << 8 : rng;
+            pos += need;
+          } else {
+            bit = ((unsigned)s * 0x9E3779B1u) >> 31;
+          }
+          nb = t == p ? (bit ? up : dn) : nb;
+          return bit;
+        };
+        if (!decide(sb(0), 0)) {          // nonzero symbol
+          int e = 0;
+          // P: the mantissa's states in coding order for the run so far
+          // (byte j = row[21 + e - j]); ss: the sign's, row[11 + e]
+          uint32_t P[PW];
+#pragma unroll
+          for (int k = 0; k < PW; ++k) P[k] = 0;
+          int ss = sb(11);
+          // unary exponent + stop; e reaches E_MAX + 1 only on damaged
+          // streams, with no stop decision
+#pragma unroll
+          for (int k = 1; k <= E_MAX + 1; ++k) {
+            if (!decide(sb(k), k)) break;
+            e = k;
+#pragma unroll
+            for (int i = PW - 1; i > 0; --i)
+              P[i] = __byte_perm(P[i], P[i - 1], 0x2107);
+            P[0] = __byte_perm(P[0], R[(21 + k) >> 2],
+                               0x2104 + ((21 + k) & 3));
+            ss = sb(11 + min(k, 10));
+          }
+          // mantissa: min(e, E_MAX) decisions, MSB first
+          const int m = min(e, E_MAX);
+          int a = 1;
+#pragma unroll
+          for (int j = 0; j < E_MAX; ++j) {
+            if (j == m) break;
+            a = 2 * a + decide((int)__byte_perm(P[j >> 2], 0,
+                                                 0x4440 | (j & 3)),
+                               21 + e - j);
+          }
+          const int vp = (pred + a) & MASK_V, vm = (pred - a) & MASK_V;
+          int cip, cim;
+          bool csp, csm;
+          place(tc_n.y, lterms(vp), cip, csp);
+          place(tc_n.y, lterms(vm), cim, csm);
+          const int sbit = decide(ss, 11 + e);
+          const bool neg = sbit != (int)csign;
+          val = neg ? vm : vp;
+          cin = neg ? cim : cip;
+          csn = neg ? csm : csp;
+        }
+        // each thread stores its byte of the row, adapted where the pixel
+        // decided at its position: after every thread's row read, before
+        // the next pixel's
+        __syncwarp();
+        if constexpr (WRITE) row[t] = (uint8_t)nb;
+        __syncwarp();
+        cur[x] = val;
         LT = T;
         LL = Lv;
         Lv = val;
+        tc = tc_n;
       }
       __syncwarp();
       for (int x = t; x < w; x += 32) out_p[y * w + x] = cur[x];
@@ -264,8 +391,8 @@ static int launch(const void* bufs, int cap, const void* states0,
                   void* states_out, int L, int CC, int wmax,
                   cudaStream_t stream) {
   const size_t smem = (GTAB ? 0 : (size_t)CC * 32) +
-                      (FIVE ? 5 : 3) * 256 * 4 + 512 +
-                      2 * (size_t)(wmax + 1) * 4;
+                      (FIVE ? 5 : 3) * 256 * 4 + 512 + 512 +
+                      4 * (size_t)(wmax + 1) * 4;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         rc_decode_kernel<BITS, FIVE, GTAB, STAGES>,

@@ -55,8 +55,13 @@ STAGE_VARIANTS = {"full": 63, "no_ctx": 62, "no_read": 61, "no_trans": 59,
 def instance(bits: int, five: bool, CC: int, wmax: int) -> str:
     """The kernel instance rc_decode_planes launches for a coded width,
     the context model's ``five``, a state table of CC rows and planes at
-    most ``wmax`` wide (two int32 rows of w + 1 in shared memory)."""
-    other = (5 if five else 3) * 256 * 4 + 512 + 2 * (wmax + 1) * 4
+    most ``wmax`` wide.  Beside the table, shared memory holds the quant
+    tables, the transition tables (512 B) and int32 columns: K2 also a
+    512-byte ring of the slice's bytes and four int32 per column (two
+    sample rows, each pixel's T and context part), K2-ext two."""
+    cols = 2 if bits > 10 else 4
+    other = (5 if five else 3) * 256 * 4 + 512 + (bits <= 10) * 512 + \
+        cols * (wmax + 1) * 4
     return ("rc_decode_ext" if bits > 10 else "rc_decode") + \
         ("_five" if five else "") + \
         ("_global" if table_in_global(CC * 32, other) else "")
