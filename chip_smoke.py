@@ -11,9 +11,10 @@ exits non-zero without the final result line:
 2. build: the lane-scan kernels (every instance of the four sources:
    K1, K2, K1-ext, K2-ext, each with its state table in shared memory
    and in global memory, the decoders also with the 5-input context,
-   K1 also in its compact form and as stage probes) and the probes from
-   tpu_ffv1_torch/csrc, one nvcc per source, all started together; the
-   registers, spills and SASS instructions of every instance;
+   K1 also in its compact form, K1, K1-ext and K2 as stage probes) and
+   the probes from tpu_ffv1_torch/csrc, one nvcc per source, all
+   started together; the registers, spills and SASS instructions of
+   every instance;
 3. probes: the latency of one dependent range-coder decision on a
    single warp (encode and decode form), the yardstick of the kernels'
    chain bound, the SASS instructions of one decision (cuobjdump of the
@@ -37,11 +38,12 @@ exits non-zero without the final result line:
    (the damaged-stream paths); K1-compact in both placements at 8 bits
    with states from 1..255, so that some pixels overflow its 4 slots;
    and K1's edges at 8, 9 and 10 bits in all four instances (raw and
-   compact, each placement): runs of 2-64 equal contexts, also across a
-   32-pixel chunk boundary (the global-table instances forward the next
-   row's byte past the adaptation store), blocks of inactive pixels and
-   of zero residuals,
-   residuals at +-2^(bits-1);
+   compact, each placement) and K1-ext's at 11, 16 and 17 bits in both
+   placements: runs of 2-64 equal contexts, also across a 32-pixel
+   chunk boundary (the global-table instances forward the next row's
+   byte past the adaptation store; K1-ext's running rows carry from
+   pixel to pixel), blocks of inactive pixels and of zero residuals,
+   residuals at +-2^(bits-1), K1-ext's exponents drawn uniformly;
 5. four main paths through TorchFFV1Encoder / TorchFFV1Decoder
    (batch=2), 24 slices, range coder, 2 streams x (one key frame, one
    non-key warm-up frame, then timed non-key frames): at 1080p with six
@@ -63,9 +65,11 @@ exits non-zero without the final result line:
    step's slices timed alone too) and peak device memory.  Each compact
    path's warm-up launch is held to its raw path's K1 launch: the same
    inputs (SHA-256), cm equal to compact_packed of K1's slots, the same
-   low, range and states; then K1's and K2's stage split: each stage
-   probe of K1 and of its global form, and of K2 and K2-five, on the
-   8bit and 8bit_ctx1 warm-up inputs, the median of 5 launches;
+   low, range and states; then K1's, K1-ext's and K2's stage split:
+   each stage probe of K1 and of its global form, and of K2 and
+   K2-five, on the 8bit and 8bit_ctx1 warm-up inputs, of K1-ext on the
+   16bit ones and of its global form on 16bit_ctx1_540p's, the median
+   of 5 launches;
 6. plain checks: every launch of phase 4, and each kernel's launch on
    its path's warm-up frame (all 48 lanes at full shape; K1-compact's
    through its raw path's K1 launch, phase 5), held exactly
@@ -78,7 +82,7 @@ exits non-zero without the final result line:
    longest first; the workers return digests of their outputs, which
    must equal the digests of the kernel's outputs;
 7. JSON lines: the probes' latencies ("probes"), each path's step and
-   stage times ("steps"), K1's and K2's stage split ("stages") and the
+   stage times ("steps"), the stage splits ("stages") and the
    per-kernel numbers ("kernels": time, launches, roofline and chain
    bounds, plain version's time, max abs error); then the nvidia-smi
    line, and the result line {"ok": true, "device": {...}} last.
@@ -519,20 +523,37 @@ def random_encode_args(dev, bits, L, N, CC, seed, states_lo=16):
                          (np.full(L, 0xFF00), np.int32))]
 
 
+def uniform_exponent_residuals(r, bits, shape):
+    """Residuals whose exponent e = floor(log2 |v|) is drawn uniformly
+    from 0..bits-1 (random lower bits and sign), 10% of them zero: above
+    10 bits e = 8, 9 and 10, where the running rows 10 and 31 begin, are
+    as common as any other."""
+    e = r.randint(0, bits, shape)
+    a = (1 << e) | (r.randint(0, 1 << 30, shape) & ((1 << e) - 1))
+    v = np.where(r.rand(*shape) < 0.5, -a, a)
+    return np.where(r.rand(*shape) < 0.1, 0, v)
+
+
 def edge_encode_args(dev, bits, L, N, CC, seed):
-    """K1 inputs that reach the edges of its design: runs of 2-64 equal
-    contexts (the global-table read-ahead's forwarding), one across the
-    chunk boundary at pixel 32 in every lane, blocks of inactive pixels,
-    blocks of zero residuals (the zero flag alone), residuals at
-    +-2^(bits-1) (the longest exponent run and mantissa) alone and in
-    runs of one context; between them codec-like residuals; states from
-    1..255."""
+    """K1 / K1-ext inputs that reach the edges of their design: runs of
+    2-64 equal contexts (the global-table read-ahead's forwarding; above
+    10 bits the running rows 10 and 31 carried from pixel to pixel), one
+    across the chunk boundary at pixel 32 in every lane, blocks of
+    inactive pixels, blocks of zero residuals (the zero flag alone),
+    residuals at +-2^(bits-1) (the longest exponent run and mantissa)
+    alone and in runs of one context; between them codec-like residuals
+    (above 10 bits exponents drawn uniformly, uniform_exponent_residuals);
+    states from 1..255."""
     r = np.random.RandomState(seed)
     half = 1 << (bits - 1)
     one, zero = custom_state_tables(T.VER2_STATE)
     ctx = r.randint(0, CC, (L, N))
-    diff = np.where(r.rand(L, N) < 0.1, r.randint(-half, half + 1, (L, N)),
-                    r.randint(-4, 5, (L, N)))
+    if bits > 10:
+        diff = uniform_exponent_residuals(r, bits, (L, N))
+    else:
+        diff = np.where(r.rand(L, N) < 0.1,
+                        r.randint(-half, half + 1, (L, N)),
+                        r.randint(-4, 5, (L, N)))
     act = r.rand(L, N) < 0.97
     for lane in range(L):
         p = 0
@@ -563,7 +584,8 @@ def check_encode_kernel(dev, bits, N, context_model, compact=False,
     from 1..255 so that some pixels emit more than 4 bytes) on random
     codec-like inputs at L=48 and the two state planes of the context
     model (CC = 1,332 or 15,126: the table in shared or in global
-    memory), timed; with ``edges``, on ``edge_encode_args`` instead.
+    memory), timed; with ``edges``, on ``edge_encode_args`` instead (K1
+    at 8-10 bits, K1-ext at 11, 16 and 17).
     Returns (instance, its numbers, the launch's (args, outputs)) for
     the plain check (``plain_checks``)."""
     L = BATCH * SLICES
@@ -924,20 +946,26 @@ STAGE_REPLACES = ("scripts/probes/ablate_kernel.py:206, "
 
 
 def stage_split(gpu, recs, reps=5):
-    """K1's and K2's stage probes on the 8bit and 8bit_ctx1 warm-up
-    inputs (K1 and its global form, K2 and K2-five, at 1080p, 48 lanes):
-    ``full`` through the stage entry point equals the production launch;
-    each variant's median of ``reps`` launches, each timed alone with
-    CUDA events.  Returns the rows of the ``stages`` JSON line."""
+    """K1's, K1-ext's and K2's stage probes on their paths' warm-up
+    inputs (K1 and its global form, K2 and K2-five on the 8bit and
+    8bit_ctx1 inputs at 1080p; K1-ext on the 16bit inputs at 1080p and
+    its global form on 16bit_ctx1_540p's; 48 lanes): ``full`` through
+    the stage entry point equals the production launch; each variant's
+    median of ``reps`` launches, each timed alone with CUDA events.
+    Returns the rows of the ``stages`` JSON line."""
     rows = []
     for path_name, inst in (("8bit", "rc_encode"),
                             ("8bit_ctx1", "rc_encode_global"),
+                            ("16bit", "rc_encode_ext"),
+                            ("16bit_ctx1_540p", "rc_encode_ext_global"),
                             ("8bit", "rc_decode"),
                             ("8bit_ctx1", "rc_decode_five_global")):
         args, out = recs[inst]
         if inst.startswith("rc_encode"):
-            probe, variants = rc_encode.rc_encode_stages, \
-                rc_encode.STAGE_VARIANTS
+            probe, variants = (rc_encode.rc_encode_ext_stages,
+                               rc_encode.EXT_STAGE_VARIANTS) \
+                if inst.startswith("rc_encode_ext") else \
+                (rc_encode.rc_encode_stages, rc_encode.STAGE_VARIANTS)
             args = args[:8]
             L, N = args[0].shape
             replaces = STAGE_REPLACES
@@ -1252,7 +1280,9 @@ def main():
               [check_encode_kernel(dev, 8, 4096, m, compact=True)
                for m in (0, 1)] +
               [check_encode_kernel(dev, b, 4096, m, compact=c, edges=True)
-               for b in (8, 9, 10) for m in (0, 1) for c in (False, True)])
+               for b in (8, 9, 10) for m in (0, 1) for c in (False, True)] +
+              [check_encode_kernel(dev, b, 4096, m, edges=True)
+               for b in (11, 16, 17) for m in (0, 1)])
     check(sorted({r[0] for r in random}) ==
           sorted(set(KERNELS) | set(OFF_PATH)),
           "the random checks do not cover every instance")

@@ -2,7 +2,8 @@
 version on the same CUDA tensors (exact: integer codec), and the slice
 end to end against the host encoder, at context models 0 and 1 (whose
 state table the kernels keep in global memory), in the raw and the
-compact encode form; K1's and K2's stage probes and the lookup probes.  Marked ``cuda``; each test skips
+compact encode form; K1's, K1-ext's and K2's stage probes and the lookup
+probes.  Marked ``cuda``; each test skips
 where torch.cuda.is_available() is False (this file imports no jax, so
 it runs on a machine without it: FFV1_TEST_NO_CACHE=1 python -m pytest
 tests/test_torch_cuda.py)."""
@@ -108,17 +109,27 @@ def test_rc_encode_compact_kernel_matches_plain(cuda, model):
 
 
 def _edge_args(cuda, bits, CC):
-    """K1 inputs at its design's edges: runs of 2-64 equal contexts
-    (the global-table instances forward the adapted byte), one across
-    the 32-pixel chunk boundary, blocks of inactive pixels and of zero
-    residuals, residuals at +-2^(bits-1), states from 1..255."""
+    """K1 / K1-ext inputs at their design's edges: runs of 2-64 equal
+    contexts (the global-table instances forward the adapted byte; above
+    10 bits the running rows 10 and 31 carry), one across the 32-pixel
+    chunk boundary, blocks of inactive pixels and of zero residuals,
+    residuals at +-2^(bits-1), states from 1..255; above 10 bits the
+    other residuals' exponents drawn uniformly over 0..bits-1, 10% of
+    them zero."""
     r = np.random.RandomState(100 + bits)
     L, N = 5, 700
     half = 1 << (bits - 1)
     one, zero = custom_state_tables(T.VER2_STATE)
     ctx = r.randint(0, CC, (L, N))
-    diff = np.where(r.rand(L, N) < 0.1, r.randint(-half, half + 1, (L, N)),
-                    r.randint(-3, 4, (L, N)))
+    if bits > 10:
+        e = r.randint(0, bits, (L, N))
+        a = (1 << e) | (r.randint(0, 1 << 30, (L, N)) & ((1 << e) - 1))
+        diff = np.where(r.rand(L, N) < 0.5, -a, a)
+        diff = np.where(r.rand(L, N) < 0.1, 0, diff)
+    else:
+        diff = np.where(r.rand(L, N) < 0.1,
+                        r.randint(-half, half + 1, (L, N)),
+                        r.randint(-3, 4, (L, N)))
     act = r.rand(L, N) < 0.95
     for lane in range(L):
         p = 0
@@ -143,16 +154,21 @@ def _edge_args(cuda, bits, CC):
                          (r.randint(0x100, 0x10000, L), np.int32))]
 
 
-@pytest.mark.parametrize("bits", [8, 9, 10])
+@pytest.mark.parametrize("bits,compact", [
+    (b, c) for b in (8, 9, 10) for c in (False, True)] + [
+    (b, False) for b in (11, 16, 17)],
+    ids=lambda v: ("compact" if v else "raw") if isinstance(v, bool)
+    else str(v))
 @pytest.mark.parametrize("model", [0, 1], ids=["shared", "global"])
-@pytest.mark.parametrize("compact", [False, True], ids=["raw", "compact"])
 def test_rc_encode_edges_match_plain(cuda, bits, model, compact):
-    """All four K1 instances at the edges of their design."""
+    """All four K1 instances and both K1-ext instances at the edges of
+    their design."""
     from tpu_ffv1_torch.tpu import rc_encode as K
     CC = 2 * T.CONTEXT_COUNTS[model]
     args = _edge_args(cuda, bits, CC)
     fn = K.rc_encode_compact if compact else K.rc_encode_packed
-    ref = K.rc_encode_compact_ref if compact else K.rc_encode_packed_ref
+    ref = K.rc_encode_compact_ref if compact else \
+        K.rc_encode_packed_ext_ref if bits > 10 else K.rc_encode_packed_ref
     name = K.instance(bits, CC, compact)
     before = K.LAUNCHES.get(name, 0)
     got = fn(*args, bits)
@@ -174,6 +190,23 @@ def test_rc_encode_stages_full_is_the_production_instance(cuda, model):
         assert torch.equal(a, b)
     for variant in K.STAGE_VARIANTS:
         out = K.rc_encode_stages(*args, variant)
+        torch.cuda.synchronize()
+        assert out[0].shape == want[0].shape
+
+
+@pytest.mark.parametrize("model", [0, 1], ids=["shared", "global"])
+def test_rc_encode_ext_stages_full_is_the_production_instance(cuda, model):
+    """K1-ext's stage entry point at 16 bits: ``full`` equals the
+    production instance in both placements; every stubbed variant
+    launches (timing only: its outputs are wrong on purpose)."""
+    from tpu_ffv1_torch.tpu import rc_encode as K
+    args = _edge_args(cuda, 16, 2 * T.CONTEXT_COUNTS[model])
+    want = K.rc_encode_packed(*args, 16)
+    got = K.rc_encode_ext_stages(*args, "full")
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for variant in K.EXT_STAGE_VARIANTS:
+        out = K.rc_encode_ext_stages(*args, variant)
         torch.cuda.synchronize()
         assert out[0].shape == want[0].shape
 

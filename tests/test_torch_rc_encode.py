@@ -198,3 +198,65 @@ def test_five_input_ext_matches_xla_ext_scan():
     assert np.array_equal(tl.numpy(), np.asarray(l0))
     assert np.array_equal(tr.numpy(), np.asarray(r0))
     assert np.array_equal(ts.numpy(), np.asarray(s0))
+
+
+def _uniform_exponent_args(L, N, bits, seed):
+    """K1-ext inputs where the running rows carry: exponents drawn
+    uniformly over 0..bits-1 (so e = 8, 9 and 10, where rows 10 and 31
+    begin, are common), about 10% zero residuals, and four contexts per
+    lane, so rows 10 and 31 carry from pixel to pixel."""
+    r = np.random.RandomState(seed)
+    args = list(_inputs(L, N, bits, seed, "custom"))
+    e = r.randint(0, bits, (L, N))
+    a = (1 << e) | (r.randint(0, 1 << 30, (L, N)) & ((1 << e) - 1))
+    diff = np.where(r.rand(L, N) < 0.5, -a, a)
+    diff = np.where(r.rand(L, N) < 0.1, 0, diff)
+    pool = r.randint(0, T.CONTEXT_COUNTS[0], (L, 4))
+    args[0] = pool[np.arange(L)[:, None], r.randint(0, 4, (L, N))] \
+        .astype(np.int32)
+    args[1] = diff.astype(np.int32)
+    return args
+
+
+@pytest.mark.parametrize("bits", [11, 16, 17])
+def test_ext_plain_matches_xla_ext_scan_uniform_exponents(bits):
+    """rc_encode_packed_ext_ref against rc_encode_scan_lanes_ext where
+    the running rows carry across pixels (_uniform_exponent_args): emit
+    flags everywhere, values where a slot emits, low, range, states."""
+    L, N = 3, 384
+    args = _uniform_exponent_args(L, N, bits, 60 + bits)
+    e = np.floor(np.log2(np.maximum(np.abs(args[1]), 1)))
+    assert all(((e == k) & (args[1] != 0)).sum() > L * N // (2 * bits)
+               for k in (8, 9, 10))
+    p0, v0, l0, r0, s0 = rc_encode_scan_lanes_ext(
+        *[jnp.asarray(a) for a in args], bits)
+    pk = np.moveaxis(np.asarray(p0) + (np.asarray(v0).astype(np.int32) << 20),
+                     1, 2)
+    tp, tl, tr, ts = rc_encode_packed_ext_ref(*_torch(args), bits)
+    tp = tp.numpy()
+    assert tp.shape == pk.shape == (N, 2 * bits + 1, L)
+    emit = (pk >> 20) & 1
+    assert emit.sum() > 0
+    assert np.array_equal((tp >> 20) & 1, emit)
+    assert np.array_equal(tp, np.where(emit == 1, pk, 0))
+    assert np.array_equal(tl.numpy(), np.asarray(l0))
+    assert np.array_equal(tr.numpy(), np.asarray(r0))
+    assert np.array_equal(ts.numpy(), np.asarray(s0))
+
+
+def test_ext_stage_probe_full_is_the_plain_version_on_cpu():
+    """K1-ext's stage probes have a plain version only for ``full`` at
+    16 bits (the production instance); the stubbed variants time the
+    card, and the probes are built at 16 bits only."""
+    args = _torch(_uniform_exponent_args(2, 96, 16, 7))
+    got = tenc.rc_encode_ext_stages(*args, "full")
+    want = rc_encode_packed_ext_ref(*args, 16)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for variant in tenc.EXT_STAGE_VARIANTS:
+        if variant != "full":
+            with pytest.raises(NotImplementedError):
+                tenc.rc_encode_ext_stages(*args, variant)
+    for bits in (8, 10, 11):
+        with pytest.raises(NotImplementedError):
+            tenc.rc_encode_ext_stages(*args, "full", bits)

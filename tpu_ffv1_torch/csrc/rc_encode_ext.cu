@@ -46,12 +46,32 @@
 // Output layout: packed int32 stored (L, N, S) (the wrapper returns it
 // viewed as the Pallas contract's (N, S, L)).  An emitting slot holds
 // (low >> 8) | (low & 0xFF ? 1 << 16 : 0) | 1 << 20, a silent slot 0.
+//
+// Stage probes (STAGES != ALL_STAGES, 16 bits only, reached through
+// rc_encode_ext_stages_launch and never by the codec): the same kernel
+// with one stage stubbed, for timing only (their outputs are wrong on
+// purpose), as K1's (csrc/rc_encode.cu).  READ: the row read (stubbed: a
+// per-thread constant); TRANS: the single-touch transitions (stubbed:
+// the state stays); WRITE: the adaptation store; CHAIN: the low/range
+// chain and its emissions (stubbed: each active slot stores its state,
+// so the shuffles stay live); RUN: the running rows' lookups after each
+// decision on rows 10 and 31 (stubbed: s10 and s31 stay).  The
+// production instances are ALL_STAGES.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define FULL_MASK 0xffffffffu
 
-template <int BITS, bool GTAB>
+enum : int {
+  STAGE_READ = 1,
+  STAGE_TRANS = 2,
+  STAGE_WRITE = 4,
+  STAGE_CHAIN = 8,
+  STAGE_RUN = 16,
+  ALL_STAGES = 31
+};
+
+template <int BITS, bool GTAB, int STAGES>
 __global__ void __launch_bounds__(32) rc_encode_ext_kernel(
     const int32_t* __restrict__ ctx, const int32_t* __restrict__ diff,
     const uint8_t* __restrict__ active, const uint8_t* __restrict__ states0,
@@ -106,7 +126,7 @@ __global__ void __launch_bounds__(32) rc_encode_ext_kernel(
       const bool ap = __shfl_sync(FULL_MASK, ma, j) != 0;
       c = min(max(c, 0), CC - 1);
       uint8_t* row = st + c * 32;
-      const int mys = row[t];
+      const int mys = (STAGES & STAGE_READ) != 0 ? (int)row[t] : 64 + 4 * t;
       const int a = abs(v);
       const int e = 31 - __clz(max(a, 1));
       const bool nz = v != 0;
@@ -158,25 +178,38 @@ __global__ void __launch_bounds__(32) rc_encode_ext_kernel(
           act = ap && nz; b = v < 0;
           s = __shfl_sync(FULL_MASK, mys, sign_p);
         }
-        const int r1 = (rng * s) >> 8;
-        int nr = b ? r1 : rng - r1;
-        int nl = low + (b ? rng - r1 : 0);
-        const bool emit = act && nr < 0x100;
-        if (emit) {
-          const int pv = (nl >> 8) | ((nl & 0xFF) ? (1 << 16) : 0) | (1 << 20);
+        int nr = rng, nl = low;
+        if constexpr ((STAGES & STAGE_CHAIN) != 0) {
+          const int r1 = (rng * s) >> 8;
+          nr = b ? r1 : rng - r1;
+          nl = low + (b ? rng - r1 : 0);
+          const bool emit = act && nr < 0x100;
+          if (emit) {
+            const int pv =
+                (nl >> 8) | ((nl & 0xFF) ? (1 << 16) : 0) | (1 << 20);
+            if (k < 32) {
+              if (t == k) my_pv0 = pv;
+            } else {
+              if (t == k - 32) my_pv1 = pv;
+            }
+            nl = (nl & 0xFF) << 8;
+            nr <<= 8;
+          }
+        } else if (act) {
+          const int pv = s | (1 << 20);
           if (k < 32) {
             if (t == k) my_pv0 = pv;
           } else {
             if (t == k - 32) my_pv1 = pv;
           }
-          nl = (nl & 0xFF) << 8;
-          nr <<= 8;
         }
         if (act) {
           low = nl;
           rng = nr;
-          if (run == 10) s10 = b ? one_s[s10] : zero_s[s10];
-          if (run == 31) s31 = b ? one_s[s31] : zero_s[s31];
+          if constexpr ((STAGES & STAGE_RUN) != 0) {
+            if (run == 10) s10 = b ? one_s[s10] : zero_s[s10];
+            if (run == 31) s31 = b ? one_s[s31] : zero_s[s31];
+          }
         }
       }
       int32_t* px = out_l + (size_t)(base + j) * S;
@@ -184,12 +217,18 @@ __global__ void __launch_bounds__(32) rc_encode_ext_kernel(
       if (t + 32 < S) px[t + 32] = my_pv1;
       // thread t only ever touches position t of a row, so the next
       // pixel's read of it needs no barrier
-      if (t == 10) {
-        row[t] = (uint8_t)s10;
-      } else if (t == 31) {
-        row[t] = (uint8_t)s31;
-      } else if (act_t) {
-        row[t] = bit_t ? one_s[mys] : zero_s[mys];
+      if constexpr ((STAGES & STAGE_WRITE) != 0) {
+        if (t == 10) {
+          row[t] = (uint8_t)s10;
+        } else if (t == 31) {
+          row[t] = (uint8_t)s31;
+        } else if (act_t) {
+          if constexpr ((STAGES & STAGE_TRANS) != 0) {
+            row[t] = bit_t ? one_s[mys] : zero_s[mys];
+          } else {
+            row[t] = mys;
+          }
+        }
       }
     }
   }
@@ -205,7 +244,7 @@ __global__ void __launch_bounds__(32) rc_encode_ext_kernel(
   }
 }
 
-template <int BITS, bool GTAB>
+template <int BITS, bool GTAB, int STAGES>
 static int launch(const void* ctx, const void* diff, const void* active,
                   const void* states0, const void* one_tab,
                   const void* zero_tab, const void* low0,
@@ -215,11 +254,11 @@ static int launch(const void* ctx, const void* diff, const void* active,
   const size_t smem = (GTAB ? 0 : (size_t)CC * 32) + 512;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        rc_encode_ext_kernel<BITS, GTAB>,
+        rc_encode_ext_kernel<BITS, GTAB, STAGES>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  rc_encode_ext_kernel<BITS, GTAB><<<L, 32, smem, stream>>>(
+  rc_encode_ext_kernel<BITS, GTAB, STAGES><<<L, 32, smem, stream>>>(
       (const int32_t*)ctx, (const int32_t*)diff, (const uint8_t*)active,
       (const uint8_t*)states0, (const uint8_t*)one_tab,
       (const uint8_t*)zero_tab, (const int32_t*)low0,
@@ -228,25 +267,25 @@ static int launch(const void* ctx, const void* diff, const void* active,
   return (int)cudaGetLastError();
 }
 
+#define RC_ENC_EXT_ARGS                                                    \
+  ctx, diff, active, states0, one_tab, zero_tab, low0, range0, packed,     \
+      low_out, range_out, states_out, L, N, CC
+#define RC_ENC_EXT_PARAMS                                                  \
+  const void *ctx, const void *diff, const void *active,                   \
+      const void *states0, const void *one_tab, const void *zero_tab,      \
+      const void *low0, const void *range0, void *packed, void *low_out,   \
+      void *range_out, void *states_out, int L, int N, int CC
+
 // Plain C entry point: returns the cudaError_t of the launch (0 = ok).
 // gtab != 0 selects the table-in-global-memory instance; states_out must
 // then hold a copy of states0.
-extern "C" int rc_encode_ext_launch(
-    const void* ctx, const void* diff, const void* active,
-    const void* states0, const void* one_tab, const void* zero_tab,
-    const void* low0, const void* range0, void* packed, void* low_out,
-    void* range_out, void* states_out, int L, int N, int CC, int bits,
-    int gtab, void* stream) {
+extern "C" int rc_encode_ext_launch(RC_ENC_EXT_PARAMS, int bits, int gtab,
+                                    void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
 #define RC_ENC_EXT_CASE(B)                                                 \
   case B:                                                                  \
-    return gtab ? launch<B, true>(ctx, diff, active, states0, one_tab,    \
-                                  zero_tab, low0, range0, packed, low_out, \
-                                  range_out, states_out, L, N, CC, s)      \
-                : launch<B, false>(ctx, diff, active, states0, one_tab,   \
-                                   zero_tab, low0, range0, packed,        \
-                                   low_out, range_out, states_out, L, N,  \
-                                   CC, s);
+    return gtab ? launch<B, true, ALL_STAGES>(RC_ENC_EXT_ARGS, s)          \
+                : launch<B, false, ALL_STAGES>(RC_ENC_EXT_ARGS, s);
   switch (bits) {
     RC_ENC_EXT_CASE(11) RC_ENC_EXT_CASE(12) RC_ENC_EXT_CASE(13)
     RC_ENC_EXT_CASE(14) RC_ENC_EXT_CASE(15) RC_ENC_EXT_CASE(16)
@@ -255,4 +294,29 @@ extern "C" int rc_encode_ext_launch(
       return (int)cudaErrorInvalidValue;
   }
 #undef RC_ENC_EXT_CASE
+}
+
+// The stage probes: K1-ext at 16 bits with the stages of the bitmask
+// ``stages`` (STAGE_*) kept and the others stubbed; timing only.  The
+// variants: full (ALL_STAGES, the production instance itself), no_read,
+// no_trans, no_write, no_chain, no_run and loops_only (READ | WRITE).
+extern "C" int rc_encode_ext_stages_launch(RC_ENC_EXT_PARAMS, int stages,
+                                           int gtab, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+#define RC_STAGE_CASE(M)                                                   \
+  case M:                                                                  \
+    return gtab ? launch<16, true, M>(RC_ENC_EXT_ARGS, s)                  \
+                : launch<16, false, M>(RC_ENC_EXT_ARGS, s);
+  switch (stages) {
+    RC_STAGE_CASE(ALL_STAGES)
+    RC_STAGE_CASE(ALL_STAGES & ~STAGE_READ)
+    RC_STAGE_CASE(ALL_STAGES & ~STAGE_TRANS)
+    RC_STAGE_CASE(ALL_STAGES & ~STAGE_WRITE)
+    RC_STAGE_CASE(ALL_STAGES & ~STAGE_CHAIN)
+    RC_STAGE_CASE(ALL_STAGES & ~STAGE_RUN)
+    RC_STAGE_CASE(STAGE_READ | STAGE_WRITE)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef RC_STAGE_CASE
 }

@@ -33,9 +33,9 @@ The plain version works slot by slot over all lanes; K1 codes only a
 pixel's active decisions, one warp per lane (csrc/rc_encode.cu, header);
 both give the same outputs.
 
-``rc_encode_stages`` launches K1's stage probes (csrc/rc_encode.cu
-STAGES): timing instruments with stages stubbed, never called by the
-codec.
+``rc_encode_stages`` and ``rc_encode_ext_stages`` launch K1's and
+K1-ext's stage probes (csrc/rc_encode.cu and rc_encode_ext.cu STAGES):
+timing instruments with stages stubbed, never called by the codec.
 """
 from __future__ import annotations
 
@@ -60,6 +60,11 @@ LAUNCHES: dict = {}
 # variants of scripts/probes/ablate_kernel.py
 STAGE_VARIANTS = {"full": 15, "no_read": 14, "no_trans": 13,
                   "no_write": 11, "no_chain": 7, "loops_only": 5}
+# K1-ext's (csrc/rc_encode_ext.cu: the same bits, and STAGE_RUN 16, the
+# running rows' lookups)
+EXT_STAGE_VARIANTS = {"full": 31, "no_read": 30, "no_trans": 29,
+                      "no_write": 27, "no_chain": 23, "no_run": 15,
+                      "loops_only": 5}
 
 
 def instance(bits: int, CC: int, compact: bool = False) -> str:
@@ -291,12 +296,13 @@ def rc_encode_compact_ref(ctx, diff, active, states0, one_tab, zero_tab,
 
 
 def _launch(name, gtab, ctx, diff, active, states0, one_tab, zero_tab,
-            low0, range0, bits, entry=None, code=None, width=None):
+            low0, range0, bits, entry=None, code=None, width=None, lib=None):
     """Check the arguments and launch ``<entry>`` (default
-    ``<name>_launch``) from csrc/<name>.cu on the current stream, with
-    the state table in global memory if ``gtab``; ``code`` is the int
-    passed in the bits position, ``width`` the ints stored per pixel
-    (default 2 * bits + 1).  Returns the outputs."""
+    ``<name>_launch``) from csrc/<name>.cu (or the loaded library
+    ``lib``, a build of another copy of the source) on the current
+    stream, with the state table in global memory if ``gtab``; ``code``
+    is the int passed in the bits position, ``width`` the ints stored per
+    pixel (default 2 * bits + 1).  Returns the outputs."""
     dev = ctx.device
     L, N = ctx.shape
     CC = states0.shape[1]
@@ -311,7 +317,7 @@ def _launch(name, gtab, ctx, diff, active, states0, one_tab, zero_tab,
     expect("range0", range0, torch.int32, (L,), dev)
     if states0.data_ptr() % 16:
         states0 = states0.clone()          # the kernel copies in 16 B words
-    fn = getattr(load(name), entry or f"{name}_launch")
+    fn = getattr(lib or load(name), entry or f"{name}_launch")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + \
         [ctypes.c_void_p]
@@ -398,3 +404,29 @@ def rc_encode_stages(ctx, diff, active, states0, one_tab, zero_tab, low0,
     return _launch("rc_encode", gtab, ctx, diff, active, states0, one_tab,
                    zero_tab, low0, range0, 8,
                    entry="rc_encode_stages_launch", code=stages)
+
+
+def rc_encode_ext_stages(ctx, diff, active, states0, one_tab, zero_tab,
+                         low0, range0, variant: str, bits: int = 16):
+    """K1-ext at 16 bits with the stages of ``variant``
+    (EXT_STAGE_VARIANTS) stubbed: a timing instrument whose outputs are
+    wrong on purpose, except ``full``, which is the production instance.
+    The probes are built at 16 bits only; on the CPU only ``full`` has a
+    plain version."""
+    stages = EXT_STAGE_VARIANTS[variant]
+    if bits != 16:
+        raise NotImplementedError("K1-ext's stage probes are built at 16 "
+                                  "bits")
+    dev = ctx.device
+    if dev.type == "cpu":
+        if variant != "full":
+            raise NotImplementedError("a stubbed stage probe has no plain "
+                                      "version: it times the card")
+        return rc_encode_packed_ext_ref(ctx, diff, active, states0, one_tab,
+                                        zero_tab, low0, range0, bits)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    gtab = instance(bits, states0.shape[1]).endswith("_global")
+    return _launch("rc_encode_ext", gtab, ctx, diff, active, states0,
+                   one_tab, zero_tab, low0, range0, bits,
+                   entry="rc_encode_ext_stages_launch", code=stages)
