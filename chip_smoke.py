@@ -1158,20 +1158,16 @@ def kernel_bounds(name, rec, ns_per_decision, ops_per_decision,
     global memory also waits on one dependent row read from L2 per pixel
     (``row_ns``), since each pixel's context needs the pixel before.
     The encoder's contexts are known in advance, so its row reads are
-    not on the chain.  Operations: K1 (and K1-compact) codes only its
-    active decisions, ``ops_per_decision`` each, plus ``extra_ops`` per
-    pixel; K1-ext evaluates every slot of every pixel."""
+    not on the chain.  Operations: K1, K1-compact and K1-ext code only
+    their active decisions, ``ops_per_decision`` each, plus
+    ``extra_ops`` per pixel."""
     args, out = rec
     if name.startswith("rc_encode"):
         L, N = args[0].shape
         CC, S_out = args[3].shape[1], out[0].shape[1]
         nbytes = L * N * 9 + 2 * L * CC * 32 + 512 + 16 * L + \
             L * N * S_out * 4
-        if name.startswith("rc_encode_ext"):
-            nops = L * N * (2 * args[8] + 1) * ops_per_decision
-        else:
-            nops = int(decisions.sum()) * ops_per_decision + \
-                L * N * extra_ops
+        nops = int(decisions.sum()) * ops_per_decision + L * N * extra_ops
         px = 0
     else:
         planes, states_out, _low, _rng, pos = out
@@ -1355,16 +1351,20 @@ def main():
             ns, ops = (ns_enc, ops_enc) if name.startswith("rc_encode") \
                 else (ns_dec, ops_dec)
             extra = 0
-            if name.startswith("rc_encode") and \
-                    not name.startswith("rc_encode_ext"):
-                # K1's instructions per pixel beside its decisions: its
-                # pixel loop's (8 bits) less the loop's S + 1 decision
-                # bodies (the zero flag's twice: with a zero residual and
-                # a nonzero one); the compact form's compaction is in it
-                g = int(name.endswith("_global"))
-                extra = max(0, pixel_loop_count(funcs["rc_encode"][
-                    f"rc_encode_kernel<8,{g},{int(name in compact_sec)},15>"])
-                    - 18 * ops_enc)
+            if name.startswith("rc_encode"):
+                # K1's and K1-ext's instructions per pixel beside their
+                # decisions: the pixel loop's, less the loop's S + 1
+                # decision bodies (the zero flag's twice: with a zero
+                # residual and a nonzero one); the compact form's
+                # compaction is in it
+                bits, g = recs[name][0][8], int(name.endswith("_global"))
+                lib = "rc_encode_ext" if name.startswith("rc_encode_ext") \
+                    else "rc_encode"
+                targs = f"{bits},{g},31" if lib == "rc_encode_ext" else \
+                    f"{bits},{g},{int(name in compact_sec)},15"
+                extra = max(0, pixel_loop_count(
+                    funcs[lib][f"{lib}_kernel<{targs}>"]) -
+                    (2 * bits + 2) * ops_enc)
             bound, term, chain = kernel_bounds(name, recs[name], ns, ops,
                                                decisions, row_ns, extra)
             row = name.startswith("rc_decode") and name.endswith("_global")

@@ -3,9 +3,9 @@ version on the same CUDA tensors (exact: integer codec), and the slice
 end to end against the host encoder, at context models 0 and 1 (whose
 state table the kernels keep in global memory), in the raw and the
 compact encode form; K1's, K1-ext's and K2's stage probes and the lookup
-probes.  Marked ``cuda``; each test skips
-where torch.cuda.is_available() is False (this file imports no jax, so
-it runs on a machine without it: FFV1_TEST_NO_CACHE=1 python -m pytest
+probes.  Marked ``cuda``; each test skips where
+torch.cuda.is_available() is False (this file imports no jax, so it runs
+on a machine without it: FFV1_TEST_NO_CACHE=1 python -m pytest
 tests/test_torch_cuda.py)."""
 import numpy as np
 import pytest

@@ -56,6 +56,16 @@ def test_chip_smoke_never_imports_jax():
     assert bad == "", f"chip_smoke pulled in jax / tpu_ffv1: {bad}"
 
 
+@pytest.mark.parametrize("tool", ["scan_variants", "warp_emu"])
+def test_tools_never_import_jax(tool):
+    """The port's tools (tools/: the kernel-variant comparison on the
+    card, the host warp emulation) import the port and chip_smoke.py,
+    never jax or tpu_ffv1."""
+    bad = _jax_modules_after(f"sys.path.insert(0, 'tools')\n"
+                             f"import {tool}\n")
+    assert bad == "", f"tools/{tool} pulled in jax / tpu_ffv1: {bad}"
+
+
 @pytest.mark.parametrize("cls", ["encoder", "decoder"])
 def test_cuda_request_without_cuda_raises(cls):
     if torch.cuda.is_available():

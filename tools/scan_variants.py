@@ -28,8 +28,7 @@ checks that every production instance of the tree's source has the
 same SASS as PATH's instance of the same width and placement
 (``cuobjdump -sass``).
 
-Prints one JSON line with every number, and writes it to
-``chiprun_out/scan_variants.json``.
+Prints one JSON line with every number, last.
 """
 from __future__ import annotations
 
@@ -209,12 +208,7 @@ def main():
                        f"{v} {ms:.2f} ms" + ("" if v == "full" else
                                              f" ({split['full'] - ms:.2f})")
                        for v, ms in split.items()))
-    line = json.dumps(result)
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "scan_variants.json"),
-              "w") as f:
-        f.write(line + "\n")
-    print(line, flush=True)
+    print(json.dumps(result), flush=True)
     return 0
 
 

@@ -41,8 +41,6 @@ inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(int x) { return __builtin_ffs(x); }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
-inline unsigned min(unsigned a, unsigned b) { return a < b ? a : b; }
-inline long long min(long long a, long long b) { return a < b ? a : b; }
 
 inline void __syncwarp(unsigned = 0xffffffffu) {
   emu_blk->nsync[threadIdx.x]++;

@@ -29,9 +29,9 @@ for the other.  The kernel keeps the lane's state table in shared memory
 where it fits a block (context model 0) and in global memory where it
 does not (context model 1: 2 x 7,563 rows, 484 KB per lane); the wrapper
 picks the instance from the table's size (``build.table_in_global``).
-The plain version works slot by slot over all lanes; K1 codes only a
-pixel's active decisions, one warp per lane (csrc/rc_encode.cu, header);
-both give the same outputs.
+The plain version works slot by slot over all lanes; K1 and K1-ext code
+only a pixel's active decisions, one warp per lane (csrc/rc_encode.cu
+and rc_encode_ext.cu, headers); both give the same outputs.
 
 ``rc_encode_stages`` and ``rc_encode_ext_stages`` launch K1's and
 K1-ext's stage probes (csrc/rc_encode.cu and rc_encode_ext.cu STAGES):
@@ -67,13 +67,21 @@ EXT_STAGE_VARIANTS = {"full": 31, "no_read": 30, "no_trans": 29,
                       "loops_only": 5}
 
 
+def other_smem_bytes(bits: int) -> int:
+    """Shared memory a lane scan uses beside the state table: one_tab and
+    zero_tab, and at bits > 10 K1-ext's one_pow (one_tab applied 1..bits
+    - 10 times, csrc/rc_encode_ext.cu)."""
+    return 512 + 256 * max(0, bits - 10)
+
+
 def instance(bits: int, CC: int, compact: bool = False) -> str:
     """The kernel instance rc_encode_packed (or, with ``compact``,
     rc_encode_compact) launches for a coded width and a state table of
     CC rows."""
     name = "rc_encode_ext" if bits > 10 else \
         "rc_encode_compact" if compact else "rc_encode"
-    return name + ("_global" if table_in_global(CC * 32, 512) else "")
+    return name + ("_global" if table_in_global(
+        CC * 32, other_smem_bytes(bits)) else "")
 
 
 def floor_log2(a: torch.Tensor) -> torch.Tensor:
