@@ -70,8 +70,12 @@
 // inputs (PERF.md): the adaptation store and the next row's read placed
 // before the first decision (145.20 and 35.47 ms: the transition and
 // running-row lookups then stand in front of the chain), or after the
-// exponent run (145.52 and 38.16).  The running rows' lookups cost 1.8
-// ms in the stage split, so no multi-bit step table for row 31.
+// exponent run (145.52 and 38.16); in another call against 139.82 and
+// 36.32, the zero flag's state read by every thread as a broadcast
+// byte after a __syncwarp instead of shuffled (140.52 and 36.30), the
+// masks computed before the chain (142.80 and 35.93), both (141.53 and
+// 36.00).  The running rows' lookups cost 1.8 ms in the stage split, so
+// no multi-bit step table for row 31.
 //
 // Table placement: as K1's.  Where the lane's state table fits a block's
 // shared memory (context model 0: CC x 32 B = 42,624 B on the 1080p
