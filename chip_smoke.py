@@ -11,7 +11,8 @@ exits non-zero without the final result line:
 2. build: the lane-scan kernels (every instance of the four sources:
    K1, K2, K1-ext, K2-ext, each with its state table in shared memory
    and in global memory, the decoders also with the 5-input context,
-   K1 also in its compact form, K1, K1-ext and K2 as stage probes) and
+   K1 also in its compact form, K1, K1-ext, K2 and K2-ext as stage
+   probes) and
    the probes from tpu_ffv1_torch/csrc, one nvcc per source, all
    started together; the registers, spills and SASS instructions of
    every instance;
@@ -35,7 +36,10 @@ exits non-zero without the final result line:
    before its buffer's end); K1-ext and its global-table form at 11, 16 and 17
    bits (random residuals); K2-ext and K2-ext-five on 16-bit streams of
    the port's own encoder and on random bytes at 11, 16 and 17 bits
-   (the damaged-stream paths); K1-compact in both placements at 8 bits
+   (the damaged-stream paths), and K2-ext's two other instances (the
+   5-input context with the table in shared memory, the 3-input one
+   with it in global memory) on random bytes at 11, 16 and 17 bits as
+   K2's; K1-compact in both placements at 8 bits
    with states from 1..255, so that some pixels overflow its 4 slots;
    and K1's edges at 8, 9 and 10 bits in all four instances (raw and
    compact, each placement) and K1-ext's at 11, 16 and 17 bits in both
@@ -65,11 +69,11 @@ exits non-zero without the final result line:
    step's slices timed alone too) and peak device memory.  Each compact
    path's warm-up launch is held to its raw path's K1 launch: the same
    inputs (SHA-256), cm equal to compact_packed of K1's slots, the same
-   low, range and states; then K1's, K1-ext's and K2's stage split:
-   each stage probe of K1 and of its global form, and of K2 and
-   K2-five, on the 8bit and 8bit_ctx1 warm-up inputs, of K1-ext on the
-   16bit ones and of its global form on 16bit_ctx1_540p's, the median
-   of 5 launches;
+   low, range and states; then K1's, K1-ext's, K2's and K2-ext's stage
+   split: each stage probe of K1 and of its global form, and of K2 and
+   K2-five, on the 8bit and 8bit_ctx1 warm-up inputs, of K1-ext and
+   K2-ext on the 16bit ones and of their global forms (K2-ext-five) on
+   16bit_ctx1_540p's, the median of 5 launches;
 6. plain checks: every launch of phase 4, and each kernel's launch on
    its path's warm-up frame (all 48 lanes at full shape; K1-compact's
    through its raw path's K1 launch, phase 5), held exactly
@@ -666,7 +670,8 @@ def check_decode_kernel(dev, context_model):
 
 
 def check_decode_random_bytes(dev, bits, five, context_model):
-    """One of K2's four instances (``five``: the 5-input context; the
+    """One of K2's (bits <= 10) or K2-ext's four instances (``five``: the
+    5-input context; the
     context model's table size: 2 x 666 rows in shared memory, or 2 x
     7,563 in global memory) on random bytes at L=48: garbage symbols
     (exponents up to the width with no stop decision, clamped contexts),
@@ -946,10 +951,11 @@ STAGE_REPLACES = ("scripts/probes/ablate_kernel.py:206, "
 
 
 def stage_split(gpu, recs, reps=5):
-    """K1's, K1-ext's and K2's stage probes on their paths' warm-up
-    inputs (K1 and its global form, K2 and K2-five on the 8bit and
-    8bit_ctx1 inputs at 1080p; K1-ext on the 16bit inputs at 1080p and
-    its global form on 16bit_ctx1_540p's; 48 lanes): ``full`` through
+    """K1's, K1-ext's, K2's and K2-ext's stage probes on their paths'
+    warm-up inputs (K1 and its global form, K2 and K2-five on the 8bit
+    and 8bit_ctx1 inputs at 1080p; K1-ext and K2-ext on the 16bit inputs
+    at 1080p, K1-ext's global form and K2-ext-five on 16bit_ctx1_540p's;
+    48 lanes): ``full`` through
     the stage entry point equals the production launch; each variant's
     median of ``reps`` launches, each timed alone with CUDA events.
     Returns the rows of the ``stages`` JSON line."""
@@ -959,7 +965,10 @@ def stage_split(gpu, recs, reps=5):
                             ("16bit", "rc_encode_ext"),
                             ("16bit_ctx1_540p", "rc_encode_ext_global"),
                             ("8bit", "rc_decode"),
-                            ("8bit_ctx1", "rc_decode_five_global")):
+                            ("8bit_ctx1", "rc_decode_five_global"),
+                            ("16bit", "rc_decode_ext"),
+                            ("16bit_ctx1_540p",
+                             "rc_decode_ext_five_global")):
         args, out = recs[inst]
         if inst.startswith("rc_encode"):
             probe, variants = (rc_encode.rc_encode_ext_stages,
@@ -970,8 +979,10 @@ def stage_split(gpu, recs, reps=5):
             L, N = args[0].shape
             replaces = STAGE_REPLACES
         else:
-            probe, variants = rc_decode.rc_decode_stages, \
-                rc_decode.STAGE_VARIANTS
+            probe, variants = (rc_decode.rc_decode_ext_stages,
+                               rc_decode.EXT_STAGE_VARIANTS) \
+                if inst.startswith("rc_decode_ext") else \
+                (rc_decode.rc_decode_stages, rc_decode.STAGE_VARIANTS)
             args = (*args[:9], args[10])           # without bits
             L, N = args[0].shape[0], sum(w * h for (w, h, _b) in args[8])
             replaces = None
@@ -1212,7 +1223,8 @@ KERNELS = {
 
 # instances no main path launches (the placement follows the table's size
 # alone: reachable with custom quant tables), checked on random inputs
-OFF_PATH = ("rc_decode_five", "rc_decode_global")
+OFF_PATH = ("rc_decode_five", "rc_decode_global", "rc_decode_ext_five",
+            "rc_decode_ext_global")
 
 
 def main():
@@ -1269,6 +1281,8 @@ def main():
                                (False, 1))] +
               [check_encode_kernel(dev, b, 1024, 0) for b in (11, 16, 17)] +
               check_decode_ext_kernel(dev, 0) +
+              [check_decode_random_bytes(dev, b, five, m)
+               for b in (11, 16, 17) for five, m in ((True, 0), (False, 1))] +
               [check_encode_kernel(dev, 8, 4096, 1)] +
               check_decode_kernel(dev, 1) +
               [check_encode_kernel(dev, b, 1024, 1) for b in (11, 16, 17)] +

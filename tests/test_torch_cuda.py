@@ -2,8 +2,8 @@
 version on the same CUDA tensors (exact: integer codec), and the slice
 end to end against the host encoder, at context models 0 and 1 (whose
 state table the kernels keep in global memory), in the raw and the
-compact encode form; K1's, K1-ext's and K2's stage probes and the lookup
-probes.  Marked ``cuda``; each test skips where
+compact encode form; K1's, K1-ext's, K2's and K2-ext's stage probes and
+the lookup probes.  Marked ``cuda``; each test skips where
 torch.cuda.is_available() is False (this file imports no jax, so it runs
 on a machine without it: FFV1_TEST_NO_CACHE=1 python -m pytest
 tests/test_torch_cuda.py)."""
@@ -371,6 +371,48 @@ def test_rc_decode_ext_kernel_matches_plain(cuda, bits):
     specs = ((40, 6, 0), (20, 6, CC), (20, 6, CC))
     _check_decode(K, _random_decode_args(cuda, bits, CC, 0), specs, bits,
                   False, "rc_decode_ext")
+
+
+@pytest.mark.parametrize("width", [1, 2, 31, 32, 33, 40])
+@pytest.mark.parametrize("bits", [11, 16, 17])
+def test_rc_decode_ext_random_bytes_match_plain(cuda, bits, width):
+    """K2-ext, the 16-bit path's instance (3-input context, table in
+    shared memory), on random bytes (exponents past the width with no
+    stop decision, so the running rows 10 and 31 take their longest
+    runs; clamped contexts): plane widths 1 and 2 (the x = 0 and x = w -
+    1 borders at once), 31, 32, 33 and 40 (the context computed a warp's
+    32 columns at a time, and its edge)."""
+    from tpu_ffv1_torch.tpu import rc_decode as K
+    CC = T.CONTEXT_COUNTS[0]
+    half = (width + 1) // 2
+    specs = ((width, 6, 0), (half, 4, CC), (half, 4, CC))
+    _check_decode(K, _random_decode_args(cuda, bits, CC, 0, 10 * bits +
+                                         width), specs, bits, False,
+                  "rc_decode_ext")
+
+
+@pytest.mark.parametrize("five,model", [(False, 0), (True, 1)],
+                         ids=["shared", "global"])
+def test_rc_decode_ext_stages_full_is_the_production_instance(cuda, five,
+                                                              model):
+    """K2-ext's stage entry point at 16 bits: ``full`` equals the
+    production launch in both placements (rc_decode_ext and
+    rc_decode_ext_five_global); every stubbed variant launches (timing
+    only: its outputs are wrong on purpose)."""
+    from tpu_ffv1_torch.tpu import rc_decode as K
+    CC = T.CONTEXT_COUNTS[model]
+    args = _random_decode_args(cuda, 16, CC, int(five))
+    specs = ((40, 6, 0), (20, 6, CC), (20, 6, CC))
+    want = K.rc_decode_planes(*args, specs, 16, five)
+    got = K.rc_decode_ext_stages(*args, specs, five, "full")
+    for a, b in zip(got[0], want[0]):
+        assert torch.equal(a, b)
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a, b)
+    for variant in K.EXT_STAGE_VARIANTS:
+        out = K.rc_decode_ext_stages(*args, specs, five, variant)
+        torch.cuda.synchronize()
+        assert out[0][0].shape == want[0][0].shape
 
 
 @pytest.mark.parametrize("bits", [8, 11, 16, 17])

@@ -290,3 +290,28 @@ def test_stage_probe_full_is_the_plain_version_on_cpu():
             if variant != "full":
                 with pytest.raises(NotImplementedError):
                     rc_decode_stages(*args, specs, five, variant)
+
+
+@pytest.mark.parametrize("five", [False, True], ids=["three", "five"])
+def test_ext_stage_probe_full_is_the_plain_version_on_cpu(five):
+    """K2-ext's stage probes (built at 16 bits only) have a plain version
+    only for ``full`` (the production instance); the stubbed variants
+    time the card, and another width has no probes."""
+    from tpu_ffv1.core import tables as T
+    from tpu_ffv1_torch.tpu.rc_decode import (EXT_STAGE_VARIANTS,
+                                              rc_decode_ext_stages)
+    CC = T.CONTEXT_COUNTS[int(five)]
+    args = _random_bytes_args(16, CC, int(five), 9)
+    specs = ((9, 3, 0), (5, 2, CC), (5, 2, CC))
+    got = rc_decode_ext_stages(*args, specs, five, "full")
+    want = rc_decode_planes(*args, specs, 16, five)
+    for a, b in zip(got[0], want[0]):
+        assert torch.equal(a, b)
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a, b)
+    for variant in EXT_STAGE_VARIANTS:
+        if variant != "full":
+            with pytest.raises(NotImplementedError):
+                rc_decode_ext_stages(*args, specs, five, variant)
+    with pytest.raises(NotImplementedError):
+        rc_decode_ext_stages(*args, specs, five, "full", bits=12)

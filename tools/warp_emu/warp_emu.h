@@ -22,7 +22,9 @@ typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
        cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
-struct uint4 { unsigned x, y, z, w; };
+struct alignas(16) uint4 { unsigned x, y, z, w; };
+struct alignas(8) int2 { int x, y; };
+inline int2 make_int2(int x, int y) { return int2{x, y}; }
 struct Dim { unsigned x, y, z; };
 extern thread_local Dim threadIdx, blockIdx;
 
@@ -40,6 +42,15 @@ inline int __clz(int x) { return x == 0 ? 32 : __builtin_clz((unsigned)x); }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(int x) { return __builtin_ffs(x); }
 inline int min(int a, int b) { return a < b ? a : b; }
+template <class T> inline T __ldg(const T* p) { return *p; }
+// byte n of the result is byte (s >> 4n) & 7 of the pair {y, x}
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const unsigned long long v = (unsigned long long)y << 32 | x;
+  unsigned r = 0;
+  for (int n = 0; n < 4; ++n)
+    r |= (unsigned)((v >> (8 * ((s >> (4 * n)) & 7))) & 0xFF) << (8 * n);
+  return r;
+}
 inline int max(int a, int b) { return a > b ? a : b; }
 
 inline void __syncwarp(unsigned = 0xffffffffu) {

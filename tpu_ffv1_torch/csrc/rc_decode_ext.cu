@@ -41,6 +41,18 @@
 // register o >> 5), refreshed before a pixel could run past it.  Reads at pos
 // >= cap give 0 and the context index is clamped, so damaged streams stay in
 // bounds.
+//
+// Stage probes (STAGES != ALL_STAGES, 16 bits only, reached through
+// rc_decode_ext_stages_launch and never by the codec): the same kernel
+// with one stage stubbed, for timing only (their outputs are wrong on
+// purpose), as K2's.  CTX: the context index (stubbed: from the pixel's
+// column; the context's sign stays live); READ: the row read (stubbed: a
+// per-thread constant); TRANS: the single-touch transition lookup
+// (stubbed: the state stays); WRITE: the adaptation store; REFILL: the
+// byte window (stubbed: a constant byte, no reload); CHAIN: the
+// low/range arithmetic (stubbed: each bit a fixed function of its state,
+// so the loops keep their shape); RUN: the rows 10/31 lookups (stubbed:
+// s10 and s31 stay).  The production instances are ALL_STAGES.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -48,12 +60,23 @@
 #define MAX_PLANES 4
 #define WIN 64
 
+enum : int {
+  STAGE_CTX = 1,
+  STAGE_READ = 2,
+  STAGE_TRANS = 4,
+  STAGE_WRITE = 8,
+  STAGE_REFILL = 16,
+  STAGE_CHAIN = 32,
+  STAGE_RUN = 64,
+  ALL_STAGES = 127
+};
+
 struct PlaneSpecs {
   int n;
   int w[MAX_PLANES], h[MAX_PLANES], pbase[MAX_PLANES], off[MAX_PLANES];
 };
 
-template <int BITS, bool FIVE, bool GTAB>
+template <int BITS, bool FIVE, bool GTAB, int STAGES>
 __global__ void __launch_bounds__(32) rc_decode_ext_kernel(
     const uint8_t* __restrict__ bufs, int cap,
     const uint8_t* __restrict__ states0, const uint8_t* __restrict__ one_tab,
@@ -69,6 +92,13 @@ __global__ void __launch_bounds__(32) rc_decode_ext_kernel(
   constexpr int MASK_V = (1 << BITS) - 1;
   static_assert(MAXDEC <= WIN, "a pixel must fit the byte window");
   constexpr int NQ = FIVE ? 5 : 3;         // quant tables read
+  constexpr bool CTX = (STAGES & STAGE_CTX) != 0;
+  constexpr bool READ = (STAGES & STAGE_READ) != 0;
+  constexpr bool TRANS = (STAGES & STAGE_TRANS) != 0;
+  constexpr bool WRITE = (STAGES & STAGE_WRITE) != 0;
+  constexpr bool REFILL = (STAGES & STAGE_REFILL) != 0;
+  constexpr bool CHAIN = (STAGES & STAGE_CHAIN) != 0;
+  constexpr bool RUN = (STAGES & STAGE_RUN) != 0;
   extern __shared__ __align__(16) uint8_t smem[];
   const int lane = blockIdx.x;
   const int t = threadIdx.x;
@@ -126,10 +156,11 @@ __global__ void __launch_bounds__(32) rc_decode_ext_kernel(
         }
         const bool csign = ctx < 0;
         if (csign) ctx = -ctx;
-        const int ci = min(max(ctx + pbase, 0), CC - 1);
+        const int ci = CTX ? min(max(ctx + pbase, 0), CC - 1)
+                           : min(x + pbase, CC - 1);
         uint8_t* row = st + ci * 32;
-        const int mys = row[t];
-        if (pos + MAXDEC > wbase + WIN) {
+        const int mys = READ ? row[t] : 64 + 4 * t;
+        if (REFILL && pos + MAXDEC > wbase + WIN) {
           wbase = pos;
           wb0 = (pos + t < cap) ? buf[pos + t] : 0;
           wb1 = (pos + 32 + t < cap) ? buf[pos + 32 + t] : 0;
@@ -141,23 +172,29 @@ __global__ void __launch_bounds__(32) rc_decode_ext_kernel(
         // one get_rac decision on state s; returns the bit and leaves the
         // range coder advanced (the caller adapts the state)
         auto decide = [&](int s) -> int {
-          const int o = pos - wbase;      // warp-uniform, < WIN
-          const int nxt = __shfl_sync(FULL_MASK, o < 32 ? wb0 : wb1, o & 31);
-          const int r1 = (rng * s) >> 8;
-          const int r0 = rng - r1;
-          const int bit = low >= r0;
-          if (bit) {
-            low -= r0;
-            rng = r1;
+          if constexpr (!CHAIN) {
+            return ((unsigned)s * 0x9E3779B1u) >> 31;
           } else {
-            rng = r0;
+            const int o = pos - wbase;    // warp-uniform, < WIN
+            const int nxt = REFILL ? __shfl_sync(FULL_MASK,
+                                                 o < 32 ? wb0 : wb1, o & 31)
+                                   : 0x5A;
+            const int r1 = (rng * s) >> 8;
+            const int r0 = rng - r1;
+            const int bit = low >= r0;
+            if (bit) {
+              low -= r0;
+              rng = r1;
+            } else {
+              rng = r0;
+            }
+            if (rng < 0x100) {
+              low = (low << 8) + nxt;
+              rng <<= 8;
+              ++pos;
+            }
+            return bit;
           }
-          if (rng < 0x100) {
-            low = (low << 8) + nxt;
-            rng <<= 8;
-            ++pos;
-          }
-          return bit;
         };
         // a decision at single-touch position p (its owner adapts it)
         auto rac = [&](int p) -> int {
@@ -171,7 +208,7 @@ __global__ void __launch_bounds__(32) rc_decode_ext_kernel(
         // a decision on a running row (10 or 31)
         auto rac_run = [&](int& s) -> int {
           const int bit = decide(s);
-          s = bit ? one_s[s] : zero_s[s];
+          if constexpr (RUN) s = bit ? one_s[s] : zero_s[s];
           return bit;
         };
         int diff = 0;
@@ -189,12 +226,14 @@ __global__ void __launch_bounds__(32) rc_decode_ext_kernel(
           const int sbit = rac(11 + min(e, 10));
           diff = sbit ? -a : a;
         }
-        if (t == 10) {
-          row[t] = (uint8_t)s10;
-        } else if (t == 31) {
-          row[t] = (uint8_t)s31;
-        } else if (touched) {
-          row[t] = tbit ? one_s[mys] : zero_s[mys];
+        if constexpr (WRITE) {
+          if (t == 10) {
+            row[t] = (uint8_t)s10;
+          } else if (t == 31) {
+            row[t] = (uint8_t)s31;
+          } else if (touched) {
+            row[t] = TRANS ? (tbit ? one_s[mys] : zero_s[mys]) : mys;
+          }
         }
         if (csign) diff = -diff;
         const int m2 = Lv + T - LT;
@@ -228,7 +267,7 @@ __global__ void __launch_bounds__(32) rc_decode_ext_kernel(
   }
 }
 
-template <int BITS, bool FIVE, bool GTAB>
+template <int BITS, bool FIVE, bool GTAB, int STAGES>
 static int launch(const void* bufs, int cap, const void* states0,
                   const void* one_tab, const void* zero_tab, const void* qt,
                   const void* low0, const void* range0, const void* pos0,
@@ -241,11 +280,11 @@ static int launch(const void* bufs, int cap, const void* states0,
                       2 * (size_t)(wmax + 1) * 4;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        rc_decode_ext_kernel<BITS, FIVE, GTAB>,
+        rc_decode_ext_kernel<BITS, FIVE, GTAB, STAGES>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  rc_decode_ext_kernel<BITS, FIVE, GTAB><<<L, 32, smem, stream>>>(
+  rc_decode_ext_kernel<BITS, FIVE, GTAB, STAGES><<<L, 32, smem, stream>>>(
       (const uint8_t*)bufs, cap, (const uint8_t*)states0,
       (const uint8_t*)one_tab, (const uint8_t*)zero_tab, (const int32_t*)qt,
       (const int32_t*)low0, (const int32_t*)range0, (const int32_t*)pos0,
@@ -255,23 +294,24 @@ static int launch(const void* bufs, int cap, const void* states0,
   return (int)cudaGetLastError();
 }
 
-// Plain C entry point: returns the cudaError_t of the launch (0 = ok).
-// spec is a host array of nplanes x (w, h, pbase) triples; plane k's
-// samples start at column sum_{j<k} w_j * h_j of the (L, out_stride) out.
-// five != 0 selects the 5-input context (qt holds five tables); gtab != 0
-// the table-in-global-memory instance, where states_out must hold a copy
-// of states0.
-extern "C" int rc_decode_ext_launch(
-    const void* bufs, int cap, const void* states0, const void* one_tab,
-    const void* zero_tab, const void* qt, const void* low0,
-    const void* range0, const void* pos0, const int* spec, int nplanes,
-    void* out, int out_stride, void* low_out, void* range_out,
-    void* pos_out, void* states_out, int L, int CC, int bits, int five,
-    int gtab, void* stream) {
-  if (nplanes < 1 || nplanes > MAX_PLANES) return (int)cudaErrorInvalidValue;
-  PlaneSpecs specs;
+#define RC_DEC_PARAMS                                                      \
+  const void *bufs, int cap, const void *states0, const void *one_tab,     \
+      const void *zero_tab, const void *qt, const void *low0,              \
+      const void *range0, const void *pos0, const int *spec, int nplanes,  \
+      void *out, int out_stride, void *low_out, void *range_out,           \
+      void *pos_out, void *states_out, int L, int CC
+#define RC_DEC_ARGS                                                        \
+  bufs, cap, states0, one_tab, zero_tab, qt, low0, range0, pos0, specs,   \
+      out, out_stride, low_out, range_out, pos_out, states_out, L, CC,    \
+      wmax, s
+
+// The plane table of a launch; false if it does not fit out's stride.
+static bool plane_specs(const int* spec, int nplanes, int out_stride,
+                        PlaneSpecs& specs, int& wmax) {
+  if (nplanes < 1 || nplanes > MAX_PLANES) return false;
   specs.n = nplanes;
-  int off = 0, wmax = 1;
+  int off = 0;
+  wmax = 1;
   for (int k = 0; k < nplanes; ++k) {
     specs.w[k] = spec[3 * k];
     specs.h[k] = spec[3 * k + 1];
@@ -280,18 +320,28 @@ extern "C" int rc_decode_ext_launch(
     off += specs.w[k] * specs.h[k];
     wmax = specs.w[k] > wmax ? specs.w[k] : wmax;
   }
-  if (off > out_stride) return (int)cudaErrorInvalidValue;
+  return off <= out_stride;
+}
+
+// Plain C entry point: returns the cudaError_t of the launch (0 = ok).
+// spec is a host array of nplanes x (w, h, pbase) triples; plane k's
+// samples start at column sum_{j<k} w_j * h_j of the (L, out_stride) out.
+// five != 0 selects the 5-input context (qt holds five tables); gtab != 0
+// the table-in-global-memory instance, where states_out must hold a copy
+// of states0.
+extern "C" int rc_decode_ext_launch(RC_DEC_PARAMS, int bits, int five,
+                                    int gtab, void* stream) {
+  PlaneSpecs specs;
+  int wmax;
+  if (!plane_specs(spec, nplanes, out_stride, specs, wmax))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-#define RC_DEC_ARGS                                                       \
-  bufs, cap, states0, one_tab, zero_tab, qt, low0, range0, pos0, specs,  \
-      out, out_stride, low_out, range_out, pos_out, states_out, L, CC,   \
-      wmax, s
-#define RC_DEC_EXT_CASE(B)                                                \
-  case B:                                                                 \
-    return five ? (gtab ? launch<B, true, true>(RC_DEC_ARGS)              \
-                        : launch<B, true, false>(RC_DEC_ARGS))            \
-                : (gtab ? launch<B, false, true>(RC_DEC_ARGS)             \
-                        : launch<B, false, false>(RC_DEC_ARGS));
+#define RC_DEC_EXT_CASE(B)                                                 \
+  case B:                                                                  \
+    return five ? (gtab ? launch<B, true, true, ALL_STAGES>(RC_DEC_ARGS)   \
+                        : launch<B, true, false, ALL_STAGES>(RC_DEC_ARGS)) \
+                : (gtab ? launch<B, false, true, ALL_STAGES>(RC_DEC_ARGS)  \
+                        : launch<B, false, false, ALL_STAGES>(RC_DEC_ARGS));
   switch (bits) {
     RC_DEC_EXT_CASE(11) RC_DEC_EXT_CASE(12) RC_DEC_EXT_CASE(13)
     RC_DEC_EXT_CASE(14) RC_DEC_EXT_CASE(15) RC_DEC_EXT_CASE(16)
@@ -300,5 +350,38 @@ extern "C" int rc_decode_ext_launch(
       return (int)cudaErrorInvalidValue;
   }
 #undef RC_DEC_EXT_CASE
-#undef RC_DEC_ARGS
+}
+
+// The stage probes: K2-ext at 16 bits with the stages of the bitmask
+// ``stages`` (STAGE_*) kept and the others stubbed, in either context and
+// either table placement; timing only.  The variants: full (ALL_STAGES,
+// the production instance itself), no_ctx, no_read, no_trans, no_write,
+// no_refill, no_chain and no_run, each without one stage.
+extern "C" int rc_decode_ext_stages_launch(RC_DEC_PARAMS, int stages,
+                                           int five, int gtab,
+                                           void* stream) {
+  PlaneSpecs specs;
+  int wmax;
+  if (!plane_specs(spec, nplanes, out_stride, specs, wmax))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define RC_STAGE_CASE(M)                                                   \
+  case M:                                                                  \
+    return five ? (gtab ? launch<16, true, true, M>(RC_DEC_ARGS)           \
+                        : launch<16, true, false, M>(RC_DEC_ARGS))         \
+                : (gtab ? launch<16, false, true, M>(RC_DEC_ARGS)          \
+                        : launch<16, false, false, M>(RC_DEC_ARGS));
+  switch (stages) {
+    RC_STAGE_CASE(ALL_STAGES)
+    RC_STAGE_CASE(ALL_STAGES & ~STAGE_CTX)
+    RC_STAGE_CASE(ALL_STAGES & ~STAGE_READ)
+    RC_STAGE_CASE(ALL_STAGES & ~STAGE_TRANS)
+    RC_STAGE_CASE(ALL_STAGES & ~STAGE_WRITE)
+    RC_STAGE_CASE(ALL_STAGES & ~STAGE_REFILL)
+    RC_STAGE_CASE(ALL_STAGES & ~STAGE_CHAIN)
+    RC_STAGE_CASE(ALL_STAGES & ~STAGE_RUN)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef RC_STAGE_CASE
 }

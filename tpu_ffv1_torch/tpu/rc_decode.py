@@ -25,9 +25,9 @@ block (context model 0) and in global memory where it does not (context
 model 1); the wrapper picks the instance from the table's size
 (``build.table_in_global``).
 
-``rc_decode_stages`` launches K2's stage probes (csrc/rc_decode.cu
-STAGES): timing instruments with stages stubbed, never called by the
-codec.
+``rc_decode_stages`` and ``rc_decode_ext_stages`` launch K2's and
+K2-ext's stage probes (csrc/rc_decode.cu and rc_decode_ext.cu STAGES):
+timing instruments with stages stubbed, never called by the codec.
 """
 from __future__ import annotations
 
@@ -50,6 +50,11 @@ LAUNCHES: dict = {}
 # 16, STAGE_CHAIN 32)
 STAGE_VARIANTS = {"full": 63, "no_ctx": 62, "no_read": 61, "no_trans": 59,
                   "no_write": 55, "no_refill": 47, "no_chain": 31}
+# K2-ext's (csrc/rc_decode_ext.cu: the same stages, and STAGE_RUN 64, the
+# running rows 10/31)
+EXT_STAGE_VARIANTS = {"full": 127, "no_ctx": 126, "no_read": 125,
+                      "no_trans": 123, "no_write": 119, "no_refill": 111,
+                      "no_chain": 95, "no_run": 63}
 
 
 def instance(bits: int, five: bool, CC: int, wmax: int) -> str:
@@ -197,9 +202,10 @@ def rc_decode_planes_ext_ref(bufs, states, one_tab, zero_tab, qt, low0,
 
 
 def _launch(name, bufs, states, one_tab, zero_tab, qt, low0, range0,
-            pos0, plane_specs, bits, five, entry=None, code=None):
+            pos0, plane_specs, bits, five, entry=None, code=None, lib=None):
     """Check the arguments and launch ``<entry>`` (default
-    ``<lib>_launch``) of csrc/rc_decode.cu or rc_decode_ext.cu for kernel
+    ``<lib>_launch``) of csrc/rc_decode.cu or rc_decode_ext.cu (or of the
+    loaded library ``lib``, a build of a copy of that source) for kernel
     instance ``name`` on the current stream; ``code`` is the int passed
     in the bits position.  Returns the outputs."""
     dev = bufs.device
@@ -217,9 +223,9 @@ def _launch(name, bufs, states, one_tab, zero_tab, qt, low0, range0,
     if states.data_ptr() % 16:
         states = states.clone()            # the kernel copies in 16 B words
     gtab = name.endswith("_global")
-    lib = "rc_decode_ext" if name.startswith("rc_decode_ext") else \
+    src = "rc_decode_ext" if name.startswith("rc_decode_ext") else \
         "rc_decode"
-    fn = getattr(load(lib), entry or f"{lib}_launch")
+    fn = getattr(lib or load(src), entry or f"{src}_launch")
     fn.restype = ctypes.c_int
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p, i, p, p, p, p, p, p, p, p, i, p, i, p, p, p, p,
@@ -303,3 +309,35 @@ def rc_decode_stages(bufs, states, one_tab, zero_tab, qt, low0, range0,
     return _launch(name, bufs, states, one_tab, zero_tab, qt, low0, range0,
                    pos0, plane_specs, 8, five,
                    entry="rc_decode_stages_launch", code=stages)
+
+
+def rc_decode_ext_stages(bufs, states, one_tab, zero_tab, qt, low0,
+                         range0, pos0, plane_specs, five: bool,
+                         variant: str, bits: int = 16):
+    """K2-ext at 16 bits (either context, either table placement, as
+    rc_decode_planes picks them) with the stages of ``variant``
+    (EXT_STAGE_VARIANTS) stubbed: a timing instrument whose outputs are
+    wrong on purpose, except ``full``, which is the production instance.
+    The probes are built at 16 bits only; on the CPU only ``full`` has a
+    plain version."""
+    stages = EXT_STAGE_VARIANTS[variant]
+    if bits != 16:
+        raise NotImplementedError("K2-ext's stage probes are built at 16 "
+                                  "bits")
+    five = bool(five)
+    plane_specs = tuple(tuple(int(v) for v in s) for s in plane_specs)
+    dev = bufs.device
+    if dev.type == "cpu":
+        if variant != "full":
+            raise NotImplementedError("a stubbed stage probe has no plain "
+                                      "version: it times the card")
+        return rc_decode_planes_ext_ref(bufs, states, one_tab, zero_tab, qt,
+                                        low0, range0, pos0, plane_specs, 16,
+                                        five)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    name = instance(16, five, states.shape[1],
+                    max(w for (w, _h, _b) in plane_specs))
+    return _launch(name, bufs, states, one_tab, zero_tab, qt, low0, range0,
+                   pos0, plane_specs, 16, five,
+                   entry="rc_decode_ext_stages_launch", code=stages)
