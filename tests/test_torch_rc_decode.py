@@ -315,3 +315,30 @@ def test_ext_stage_probe_full_is_the_plain_version_on_cpu(five):
                 rc_decode_ext_stages(*args, specs, five, variant)
     with pytest.raises(NotImplementedError):
         rc_decode_ext_stages(*args, specs, five, "full", bits=12)
+
+
+@pytest.mark.parametrize("five", [False, True], ids=["three", "five"])
+def test_ext_instance_counts_its_shared_memory(five):
+    """K2-ext's placement counts what its launcher puts in shared memory
+    beside the table (csrc/rc_decode_ext.cu launch): at 16 bits and
+    planes 320 wide, the quant tables (3 or 5 x 1 KB), the byte ring and
+    the transition pairs (512 B each), one_pow (7 x 256 B) and four int32
+    per column.  A table that would fit beside the design before (two
+    int32 per column, no ring, no one_pow) but not beside these goes to
+    global memory; the largest that fits stays in shared memory."""
+    from tpu_ffv1_torch.kernels.build import SMEM_PER_BLOCK
+    from tpu_ffv1_torch.tpu.rc_decode import instance
+    q = (5 if five else 3) * 1024
+    other = q + 512 + 512 + 256 * 7 + 4 * 321 * 4
+    before = q + 512 + 2 * 321 * 4
+    fit = (SMEM_PER_BLOCK - other) // 32
+    name = "rc_decode_ext_five" if five else "rc_decode_ext"
+    assert instance(16, five, fit, 320) == name
+    assert instance(16, five, fit + 1, 320) == name + "_global"
+    only_before = (SMEM_PER_BLOCK - before) // 32
+    assert only_before > fit + 1
+    assert instance(16, five, only_before, 320) == name + "_global"
+    # K2's count at 8 bits stays as it was
+    k2 = q + 512 + 512 + 4 * 321 * 4
+    assert instance(8, five, (SMEM_PER_BLOCK - k2) // 32, 320) == \
+        ("rc_decode_five" if five else "rc_decode")

@@ -59,13 +59,13 @@ from tpu_ffv1_torch.tpu import rc_decode, rc_encode  # noqa: E402
 
 VARIANT_DIR = os.path.join(build.BUILD_DIR, "variants")
 # per source: the paths whose warm-up inputs it runs and the instance
-# each launches, the production instances' STAGES, the stage variants
+# each launches; its stage variants ("full": the production instances'
+# STAGES)
 INPUTS = {"rc_encode_ext": (("16bit", "rc_encode_ext"),
                             ("16bit_ctx1_540p", "rc_encode_ext_global")),
           "rc_decode_ext": (("16bit", "rc_decode_ext"),
                             ("16bit_ctx1_540p",
                              "rc_decode_ext_five_global"))}
-ALL_STAGES = {"rc_encode_ext": 31, "rc_decode_ext": 127}
 STAGE_VARIANTS = {"rc_encode_ext": rc_encode.EXT_STAGE_VARIANTS,
                   "rc_decode_ext": rc_decode.EXT_STAGE_VARIANTS}
 
@@ -107,7 +107,7 @@ def same_sass(name, tree_dir, other_dir):
     instructions of an instance that differs are printed."""
     mine = cs.sass_functions(name, tree_dir)
     theirs = cs.sass_functions(name, other_dir)
-    full = str(ALL_STAGES[name])
+    full = str(STAGE_VARIANTS[name]["full"])
     n_tree = len(re.match(r".*<(.*)>", next(iter(mine)))[1].split(","))
     res = []
     for label, ins in sorted(theirs.items()):
@@ -184,8 +184,7 @@ def main():
     cs.log(f"[build] {len(built)} sources in "
            f"{time.perf_counter() - t0:.1f} s")
     result = dict(gpu=gpu, source=name, reps=opt.reps, resources={},
-                  sass=None,
-                  ms={}, stages={})
+                  sass=None, ms={}, stages={})
     for tag, (_d, log) in built.items():
         result["resources"][tag] = resources(log)
         cs.log(f"[build] {tag}: " + "; ".join(resources(log)))

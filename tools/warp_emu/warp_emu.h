@@ -22,8 +22,8 @@ typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
        cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
-struct alignas(16) uint4 { unsigned x, y, z, w; };
-struct alignas(8) int2 { int x, y; };
+struct uint4 { unsigned x, y, z, w; };
+struct int2 { int x, y; };
 inline int2 make_int2(int x, int y) { return int2{x, y}; }
 struct Dim { unsigned x, y, z; };
 extern thread_local Dim threadIdx, blockIdx;

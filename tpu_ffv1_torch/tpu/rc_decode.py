@@ -61,12 +61,12 @@ def instance(bits: int, five: bool, CC: int, wmax: int) -> str:
     """The kernel instance rc_decode_planes launches for a coded width,
     the context model's ``five``, a state table of CC rows and planes at
     most ``wmax`` wide.  Beside the table, shared memory holds the quant
-    tables, the transition tables (512 B) and int32 columns: K2 also a
-    512-byte ring of the slice's bytes and four int32 per column (two
-    sample rows, each pixel's T and context part), K2-ext two."""
-    cols = 2 if bits > 10 else 4
-    other = (5 if five else 3) * 256 * 4 + 512 + (bits <= 10) * 512 + \
-        cols * (wmax + 1) * 4
+    tables, the transition pairs (512 B), a 512-byte ring of the slice's
+    bytes and four int32 per column (two sample rows, each pixel's T and
+    context part); K2-ext also one_pow (256 * (bits - 9) B), as its
+    launcher counts them (csrc/rc_decode_ext.cu)."""
+    other = (5 if five else 3) * 256 * 4 + 512 + 512 + 4 * (wmax + 1) * 4 + \
+        (256 * (bits - 9) if bits > 10 else 0)
     return ("rc_decode_ext" if bits > 10 else "rc_decode") + \
         ("_five" if five else "") + \
         ("_global" if table_in_global(CC * 32, other) else "")
@@ -284,6 +284,28 @@ def rc_decode_planes(bufs, states, one_tab, zero_tab, qt, low0, range0,
     return out
 
 
+def _stage_probe(args, plane_specs, five, variant, bits, variants, entry,
+                 ref):
+    """Launch ``entry`` (a stage entry point) for ``variant`` of
+    ``variants`` on the instance rc_decode_planes picks; on the CPU the
+    plain version ``ref`` for ``full``."""
+    stages = variants[variant]
+    five = bool(five)
+    plane_specs = tuple(tuple(int(v) for v in s) for s in plane_specs)
+    dev = args[0].device
+    if dev.type == "cpu":
+        if variant != "full":
+            raise NotImplementedError("a stubbed stage probe has no plain "
+                                      "version: it times the card")
+        return ref(*args, plane_specs, bits, five)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    name = instance(bits, five, args[1].shape[1],
+                    max(w for (w, _h, _b) in plane_specs))
+    return _launch(name, *args, plane_specs, bits, five, entry=entry,
+                   code=stages)
+
+
 def rc_decode_stages(bufs, states, one_tab, zero_tab, qt, low0, range0,
                      pos0, plane_specs, five: bool, variant: str):
     """K2 at 8 bits (either context, either table placement, as
@@ -291,24 +313,10 @@ def rc_decode_stages(bufs, states, one_tab, zero_tab, qt, low0, range0,
     (STAGE_VARIANTS) stubbed: a timing instrument whose outputs are
     wrong on purpose, except ``full``, which is the production instance.
     CUDA tensors only; on the CPU only ``full`` has a plain version."""
-    stages = STAGE_VARIANTS[variant]
-    five = bool(five)
-    plane_specs = tuple(tuple(int(v) for v in s) for s in plane_specs)
-    dev = bufs.device
-    if dev.type == "cpu":
-        if variant != "full":
-            raise NotImplementedError("a stubbed stage probe has no plain "
-                                      "version: it times the card")
-        return rc_decode_planes_ref(bufs, states, one_tab, zero_tab, qt,
-                                    low0, range0, pos0, plane_specs, 8,
-                                    five)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    name = instance(8, five, states.shape[1],
-                    max(w for (w, _h, _b) in plane_specs))
-    return _launch(name, bufs, states, one_tab, zero_tab, qt, low0, range0,
-                   pos0, plane_specs, 8, five,
-                   entry="rc_decode_stages_launch", code=stages)
+    return _stage_probe((bufs, states, one_tab, zero_tab, qt, low0, range0,
+                         pos0), plane_specs, five, variant, 8,
+                        STAGE_VARIANTS, "rc_decode_stages_launch",
+                        rc_decode_planes_ref)
 
 
 def rc_decode_ext_stages(bufs, states, one_tab, zero_tab, qt, low0,
@@ -320,24 +328,10 @@ def rc_decode_ext_stages(bufs, states, one_tab, zero_tab, qt, low0,
     wrong on purpose, except ``full``, which is the production instance.
     The probes are built at 16 bits only; on the CPU only ``full`` has a
     plain version."""
-    stages = EXT_STAGE_VARIANTS[variant]
     if bits != 16:
         raise NotImplementedError("K2-ext's stage probes are built at 16 "
                                   "bits")
-    five = bool(five)
-    plane_specs = tuple(tuple(int(v) for v in s) for s in plane_specs)
-    dev = bufs.device
-    if dev.type == "cpu":
-        if variant != "full":
-            raise NotImplementedError("a stubbed stage probe has no plain "
-                                      "version: it times the card")
-        return rc_decode_planes_ext_ref(bufs, states, one_tab, zero_tab, qt,
-                                        low0, range0, pos0, plane_specs, 16,
-                                        five)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    name = instance(16, five, states.shape[1],
-                    max(w for (w, _h, _b) in plane_specs))
-    return _launch(name, bufs, states, one_tab, zero_tab, qt, low0, range0,
-                   pos0, plane_specs, 16, five,
-                   entry="rc_decode_ext_stages_launch", code=stages)
+    return _stage_probe((bufs, states, one_tab, zero_tab, qt, low0, range0,
+                         pos0), plane_specs, five, variant, 16,
+                        EXT_STAGE_VARIANTS, "rc_decode_ext_stages_launch",
+                        rc_decode_planes_ext_ref)
