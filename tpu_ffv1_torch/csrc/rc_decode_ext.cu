@@ -22,8 +22,8 @@
 // at 16 bits; 17.1 on the 16-bit path's content).  Each pixel's context,
 // so its state row and its first decision, needs the value the pixel
 // before decoded.  Bytes are few (~3 per pixel in, 4 out), so a pixel
-// costs its decisions' latency plus what its one warp issues in order
-// between them.
+// costs its decisions' latency plus the instructions its one warp runs
+// in order between them.
 //
 // What the design does about it (K2's design, and the running rows):
 //
@@ -39,13 +39,13 @@
 // - Row 10 (the exponent, j >= 9) off the chain: every continuing decision
 //   on it has bit 1, so its k-th state is one^k(s10), one independent
 //   lookup each in one_pow (one_tab applied k = 1..BITS-9 times, built in
-//   shared memory at the start), issued when the run reaches row 10.  The
+//   shared memory at the start), started when the run reaches row 10.  The
 //   final is zero[one^k(s10)] after a stop at the k-th decision, looked up
 //   after the stop, or one^(BITS-9)(s10) when a damaged stream runs e to
 //   BITS with no stop decision.
 // - Row 31 (mantissa bits i >= 9, up to BITS - 9 decisions) depends on the
 //   bits being decoded: both successors of its state come from one 16-bit
-//   lookup issued before the decision that uses it, so the next state is a
+//   lookup started before the decision that uses it, so the next state is a
 //   select on the bit.
 // - No branch on the thread: in each decision at a single-touch position
 //   (0, 1..9, 11..30) its owner takes the successor its bit picks by a
@@ -100,19 +100,21 @@
 // the exponent's and the mantissa's successors picked after the run from
 // e and a instead of by owner selects in the decisions (164.45 against
 // 161.34), and with it the window's bytes read counted instead of pos
-// (167.06).  The decisions are bound by what the warp issues, not by
-// their chain's latency alone, and fewer instructions did not pay either.
+// (167.06).  The decisions are bound by the instructions the warp runs,
+// not by their chain's latency alone, and fewer instructions did not pay
+// either.
 //
 // Table placement: the lane's state table (CC x 32 B, 23,360 B on the
-// 16-bit path: 2 x 365 rows), the quant tables (three, FIVE: five), the byte ring
-// (512 B), the transition pairs (512 B), one_pow (256 * (BITS - 9) B),
-// two reconstructed rows (previous and current, w + 1 int32 each) and the
-// row's (T, context part) pairs live in shared memory (rc_decode.py:
-// instance counts the same bytes).  Context model 1's table (2 x 5,063
-// rows from the 16-bit extradata, 324,032 B) does not fit a block: the
-// GTAB instance keeps it in global memory instead, adapted in place in
-// states_out, which the wrapper fills with states0; the chain code is the
-// same, and the wrapper picks the instance from the table's size.  FIVE
+// 16-bit path: 2 x 365 rows), the quant tables (three, FIVE: five), the
+// byte ring (512 B), the transition pairs (512 B), one_pow (256 * (BITS
+// - 9) B), two reconstructed rows (previous and current, w + 1 int32
+// each) and the row's (T, context part) pairs live in shared memory
+// (rc_decode.py: instance counts the same bytes).  Context model 1's
+// table (2 x 5,063 rows from the 16-bit extradata, 324,032 B) does not
+// fit a block: the GTAB instance keeps it in global memory instead,
+// adapted in place in states_out, which the wrapper fills with states0;
+// the chain code is the same, and the wrapper picks the instance from
+// the table's size.  FIVE
 // adds TT, the stale cur[x] of the 2-row ring (row y-2), and LL, the
 // previous pixel's L (0 at x = 0), both int16-wrapped at 16 bits like
 // every stored sample.  The context index is clamped so damaged streams
