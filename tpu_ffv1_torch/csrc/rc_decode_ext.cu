@@ -100,9 +100,12 @@
 // the exponent's and the mantissa's successors picked after the run from
 // e and a instead of by owner selects in the decisions (164.45 against
 // 161.34), and with it the window's bytes read counted instead of pos
-// (167.06).  The decisions are bound by the instructions the warp runs,
-// not by their chain's latency alone, and fewer instructions did not pay
-// either.
+// (167.06); row 10 by a dependent lookup after each of its decisions
+// instead of one_pow (163.63 against 161.40; row 31's lookup placed after
+// its decision was equal, 161.40: on that content 0.23% of the pixels
+// reach row 10).  The decisions are bound by the instructions the warp
+// runs, not by their chain's latency alone, and fewer instructions did
+// not pay either.
 //
 // Table placement: the lane's state table (CC x 32 B, 23,360 B on the
 // 16-bit path: 2 x 365 rows), the quant tables (three, FIVE: five), the
