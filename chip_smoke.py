@@ -8,11 +8,12 @@ exits non-zero without the final result line:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions; fails when torch.cuda.is_available() is False;
-2. build: the lane-scan kernels (every instance of the four sources:
+2. build: the lane-scan kernels (every instance of the six sources:
    K1, K2, K1-ext, K2-ext, each with its state table in shared memory
    and in global memory, the decoders also with the 5-input context,
    K1 also in its compact form, K1, K1-ext, K2 and K2-ext as stage
-   probes) and
+   probes; G1 and G2, the Golomb-Rice scans, with the VLC table in
+   shared and in global memory, G2 also with the 5-input context) and
    the probes from tpu_ffv1_torch/csrc, one nvcc per source, all
    started together; the registers, spills and SASS instructions of
    every instance;
@@ -48,8 +49,15 @@ exits non-zero without the final result line:
    byte past the adaptation store; K1-ext's running rows carry from
    pixel to pixel), blocks of inactive pixels and of zero residuals,
    residuals at +-2^(bits-1), K1-ext's exponents drawn uniformly;
-5. four main paths through TorchFFV1Encoder / TorchFFV1Decoder
-   (batch=2), 24 slices, range coder, 2 streams x (one key frame, one
+   G1 in both placements (context models 0 and 1) on its edge inputs:
+   runs of the plane's context 0 (run chunks, breaks, the line-end
+   flush), zero residuals, escapes, inactive blocks, carried VLC states,
+   once more with an output cap below the counts; G2's four instances
+   (the 3- or 5-input context, each placement) on random bytes, planes
+   40, 33, 2 and 1 wide, every third lane started 8 bytes before its
+   buffer's end;
+5. five main paths through TorchFFV1Encoder / TorchFFV1Decoder
+   (batch=2), 24 slices, 2 streams x (one key frame, one
    non-key warm-up frame, then timed non-key frames): at 1080p with six
    timed frames the 8-bit path (yuv420p; K1, K2), the 16-bit archival
    path (yuv444p16le, the extended schedule; K1-ext, K2-ext) and the
@@ -57,7 +65,10 @@ exits non-zero without the final result line:
    (8bit_ctx1; K1's global-table form, K2-five); and the 16-bit path at
    context model 1 cut to 960x540 with two timed frames to stay inside
    the script's time (16bit_ctx1_540p; K1-ext's global-table form,
-   K2-ext-five); then the 8-bit and 8bit_ctx1 paths again, encode only,
+   K2-ext-five), all four with the range coder; the 8-bit path's
+   configuration and content with FFV1's default coder, Golomb-Rice
+   (8bit_golomb; G1, G2); then the 8-bit and 8bit_ctx1 paths again,
+   encode only,
    in the compact form (TorchFFV1Encoder(compact=True): K1-compact and
    finalize_compact; 8bit_compact, 8bit_ctx1_compact).  Each path runs
    with the launch counters set to 0 just before it and read just
@@ -80,8 +91,10 @@ exits non-zero without the final result line:
    (integer codec) against its plain version, run on CPU copies of the
    same inputs (the plain versions are per-pixel loops of small tensor
    ops, faster on the host than as per-op card launches).  Each
-   main-path launch is split into segments whose start states come from
-   the kernel relaunched on the prefix (the scans are causal); all
+   range-coder main-path launch is split into segments whose start
+   states come from the kernel relaunched on the prefix (the scans are
+   causal), each Golomb-Rice one into groups of its independent lanes;
+   all
    segments run in parallel worker processes, one per core, the
    longest first; the workers return digests of their outputs, which
    must equal the digests of the kernel's outputs;
@@ -121,7 +134,9 @@ from tpu_ffv1_torch.core.rac import custom_state_tables
 from tpu_ffv1_torch.kernels import build, probes
 from tpu_ffv1_torch.tpu import decoder as port_decoder
 from tpu_ffv1_torch.tpu import encoder as port_encoder
-from tpu_ffv1_torch.tpu import rc_decode, rc_encode
+from tpu_ffv1_torch.tpu import (golomb_decode, golomb_encode, rc_decode,
+                                 rc_encode)
+from tpu_ffv1_torch.tpu.encoder import PREFIX_CAP
 from tpu_ffv1_torch.tpu.finalize import (compact_packed, finalize_compact,
                                          finalize_packed)
 
@@ -212,6 +227,7 @@ class MainPath(NamedTuple):
     kernels: tuple         # (encode instance, decode instance or None)
     compact: bool = False  # the compact encode form, encode only
     golden: str = ""       # the path whose golden digests it must match
+    coder: int = 2         # 2: range coder (custom table), 0: Golomb-Rice
 
     @property
     def frames(self):
@@ -240,6 +256,11 @@ PATHS = {
     "8bit_ctx1_compact": MainPath("yuv420p", synthetic_streams, SEED, 1, W,
                                   H, TIMED, ("rc_encode_compact_global",
                                              None), True, "8bit_ctx1"),
+    # BASELINE config 2 with the reference's default coder, Golomb-Rice
+    # (ffmpeg -c:v ffv1 -level 3 -slices 24 -slicecrc 1)
+    "8bit_golomb": MainPath("yuv420p", synthetic_streams, SEED, 0, W, H,
+                            TIMED, ("golomb_encode", "golomb_decode"),
+                            coder=0),
 }
 _STREAMS: dict = {}
 
@@ -248,7 +269,7 @@ def params_kw(name):
     """EncoderParams fields of a main path."""
     p = PATHS[name]
     return dict(width=p.width, height=p.height, pix_fmt=p.pix_fmt, level=3,
-                coder=2, slices=SLICES, context_model=p.context_model)
+                coder=p.coder, slices=SLICES, context_model=p.context_model)
 
 
 def path_streams(name):
@@ -450,17 +471,20 @@ def sass_functions(name, build_dir=None):
     return res
 
 
-def pixel_loop_count(ins):
+def pixel_loop_count(ins, marker="SHFL"):
     """SASS instructions (branches and NOPs left out) of a lane scan's
     per-pixel loop: of the spans from a backward branch's target to the
-    branch, the innermost of those with the most shuffles."""
-    best = (0, 0, 0)                  # (shuffles, -span, instructions)
+    branch, the innermost of those with the most instructions named
+    ``marker`` (shuffles in the range-coder scans, whose pixels take
+    their bytes by shuffle; FLO, the leading-zero count of the Golomb
+    parameter, in the Golomb-Rice scans)."""
+    best = (0, 0, 0)                  # (markers, -span, instructions)
     for addr, text in ins:
         m = re.search(r"\bBRA\S*\s+0x([0-9a-f]+)", text)
         if not m or int(m.group(1), 16) >= addr:
             continue
         body = [t for a, t in ins if int(m.group(1), 16) <= a <= addr]
-        best = max(best, (sum("SHFL" in t for t in body), -len(body),
+        best = max(best, (sum(marker in t for t in body), -len(body),
                           sum(1 for t in body
                               if not re.search(r"\b(BRA|NOP)\b", t))))
     return best[2]
@@ -742,6 +766,142 @@ def check_decode_ext_kernel(dev, context_model):
     return res
 
 
+# ------------------------------------- Golomb-Rice kernel checks, random
+
+
+def random_vlc_states(r, L, rows):
+    """VlcStates a running stream can hold: counts 1..128 (5% at 128, where
+    the next update halves), error sums up to 0xFFFF (30% below 8: a small
+    k, under which large residuals escape), drifts in (-count, 0], biases
+    -128..127."""
+    count = np.where(r.rand(L, rows) < 0.05, 128, r.randint(1, 129, (L, rows)))
+    esum = np.where(r.rand(L, rows) < 0.3, r.randint(0, 8, (L, rows)),
+                    r.randint(0, 0x10000, (L, rows)))
+    drift = -(r.rand(L, rows) * count).astype(np.int64)
+    return np.ascontiguousarray(np.stack(
+        [drift, esum, r.randint(-128, 128, (L, rows)), count],
+        -1).astype(np.int32))
+
+
+def golomb_encode_edge_inputs(L, dims, cc, seed):
+    """G1 inputs (numpy: ctx, diff, active, flags, vlc0, prefixes, plens)
+    that reach the edges of its design, for planes ``dims`` ((w, h,
+    state_plane), ...) and ``cc`` contexts a state plane: runs of the
+    plane's context 0 with zero residuals of 2-80 pixels (run chunks
+    completing, runs across line ends: the line-end flush), breaks,
+    blocks of zero residuals, of inactive pixels and of large residuals
+    (+-96..128: escapes under the states' small k), codec-like residuals
+    between them, carried VLC states (random_vlc_states) and prefixes of
+    0..PREFIX_CAP bytes."""
+    r = np.random.RandomState(seed)
+    flags = golomb_encode.make_flags(dims)
+    N = flags.shape[0]
+    rows = (max(sp for (_w, _h, sp) in dims) + 1) * cc
+    pbase = (flags >> golomb_encode.FLAG_SPLANE_SHIFT) * cc
+    ctx = pbase + np.where(r.rand(L, N) < 0.3, 0, r.randint(1, cc, (L, N)))
+    diff = np.where(r.rand(L, N) < 0.3, 0, r.randint(-4, 5, (L, N)))
+    act = r.rand(L, N) < 0.98
+    for lane in range(L):
+        p = 0
+        while p < N:
+            q = min(N, p + r.randint(2, 81))
+            kind = r.randint(6)
+            if kind in (0, 1):
+                ctx[lane, p:q] = pbase[p:q]
+                diff[lane, p:q] = 0
+            elif kind == 2:
+                act[lane, p:q] = False
+            elif kind == 3:
+                diff[lane, p:q] = 0
+            elif kind == 4:
+                diff[lane, p:q] = r.choice([-1, 1], q - p) * \
+                    r.randint(96, 129, q - p)
+            p = q
+    return [np.ascontiguousarray(a) for a in (
+        ctx.astype(np.int32), diff.astype(np.int32), act, flags,
+        random_vlc_states(r, L, rows),
+        r.randint(0, 256, (L, PREFIX_CAP)).astype(np.int32),
+        r.randint(0, PREFIX_CAP + 1, L).astype(np.int32))]
+
+
+def golomb_decode_random_inputs(L, cap, cc, five, seed):
+    """G2 inputs (numpy: bufs, vlc0, qt, pos0) on random bytes: garbage
+    symbols; every fourth lane from lane 1 mostly 0xFF bytes (long runs:
+    refill bits of 1), from lane 3 mostly zero bytes (escapes, and reads
+    of zeros); carried VLC states (random_vlc_states) for two state
+    planes of ``cc`` contexts; the quant tables of the context (context
+    model 1's with ``five``); every third lane's reader started 8 bytes
+    before its buffer's end (reads at bytes >= cap give 0)."""
+    r = np.random.RandomState(seed)
+    bufs = r.randint(0, 256, (L, cap))
+    bufs[1::4] = np.where(r.rand(*bufs[1::4].shape) < 0.8, 0xFF,
+                          bufs[1::4])
+    bufs[3::4] = np.where(r.rand(*bufs[3::4].shape) < 0.8, 0, bufs[3::4])
+    pos0 = np.where(np.arange(L) % 3 == 2, cap - 8, 2)
+    qt = T.default_quant_tables(8)[int(five)]
+    return [np.ascontiguousarray(a) for a in (
+        bufs.astype(np.uint8), random_vlc_states(r, L, 2 * cc),
+        qt.astype(np.int32), pos0.astype(np.int32))]
+
+
+def check_golomb_encode_kernel(dev, context_model):
+    """G1 on golomb_encode_edge_inputs at L=48, 64x32 luma and two 32x16
+    chroma planes, the context model's two state planes (CC = 1,332 or
+    15,126 rows: the table in shared or in global memory), timed; twice,
+    the second with an output cap below the lanes' counts (the bytes past
+    it are not written).  Returns [(instance, its numbers, the launch's
+    (args, outputs))] for the plain check."""
+    L = BATCH * SLICES
+    cc = T.CONTEXT_COUNTS[context_model]
+    dims = ((64, 32, 0), (32, 16, 1), (32, 16, 1))
+    arrs = golomb_encode_edge_inputs(L, dims, cc, SEED + 700 +
+                                     context_model)
+    t = [torch.from_numpy(a).to(dev) for a in arrs]
+    name = golomb_encode.instance(2 * cc)
+    res = []
+    for cap in (None, 600):
+        args = (*t, 8, cc, cap)
+        got = golomb_encode.golomb_encode_lanes(*args)
+        counts = got[1].cpu().numpy()
+        check(int((counts - arrs[6]).min()) > 0, "G1 emitted nothing")
+        check(cap is None or int(counts.max()) > cap,
+              "no lane passed the output cap")
+        ms = cuda_time_ms(lambda: golomb_encode.golomb_encode_lanes(*args), 5)
+        shape = (f"L={L} N={arrs[0].shape[1]} CC={2 * cc} "
+                 f"T={got[0].shape[1]}")
+        label = ("edge inputs" + ("" if cap is None else
+                                  ", output cap below the counts"))
+        log(f"[kernels] {name} {shape} {label}: kernel {ms:.3f} ms")
+        res.append((name, dict(check_ms=ms, check_shape=shape,
+                               label=label), (args, got)))
+    return res
+
+
+def check_golomb_decode_kernel(dev, five, context_model):
+    """One of G2's four instances (``five``: the 5-input context; the
+    context model's table size: 2 x 666 rows in shared memory, or 2 x
+    7,563 in global memory) on golomb_decode_random_inputs at L=48, planes
+    40, 33, 2 and 1 wide (the row borders, the context computed a warp's
+    32 columns at a time and its edge), timed.  Returns (instance, its
+    numbers, the launch's (args, outputs))."""
+    L, cap = BATCH * SLICES, 4096
+    cc = T.CONTEXT_COUNTS[context_model]
+    arrs = golomb_decode_random_inputs(L, cap, cc, five, SEED + 800 +
+                                       10 * five + context_model)
+    specs = ((40, 16, 0), (33, 8, cc), (2, 8, cc), (1, 8, 0))
+    args = (*[torch.from_numpy(a).to(dev) for a in arrs], specs, 8, five)
+    name = golomb_decode.instance(five, 2 * cc, 40)
+    got = golomb_decode.golomb_decode_planes(*args)
+    bitpos = got[2].cpu().numpy()
+    check(bool((bitpos[2::3] >= 8 * cap).all()), "the reads near cap did "
+          "not pass the buffer")
+    ms = cuda_time_ms(lambda: golomb_decode.golomb_decode_planes(*args), 5)
+    shape = f"L={L} CC={2 * cc} planes={specs}"
+    log(f"[kernels] {name} {shape} random bytes: kernel {ms:.3f} ms")
+    return name, dict(check_ms=ms, check_shape=shape,
+                      label="random bytes"), (args, got)
+
+
 # ---------------------------------------------------------- main path
 
 
@@ -757,27 +917,36 @@ def step_stats(tag, name, steps_s, mpix, gpu):
 
 
 def reset_counts():
-    rc_encode.LAUNCHES.clear()
-    rc_decode.LAUNCHES.clear()
+    for mod in (rc_encode, rc_decode, golomb_encode, golomb_decode):
+        mod.LAUNCHES.clear()
+
+
+def all_launches():
+    return {**rc_encode.LAUNCHES, **rc_decode.LAUNCHES,
+            **golomb_encode.LAUNCHES, **golomb_decode.LAUNCHES}
 
 
 def main_path(dev, gpu, name, recorders):
     """One main path: 24 slices, 2 streams x its frames through the port,
     held against the golden digests.  ``recorders``: the LastLaunch of
     each lane-scan wrapper the encoder and decoder call ("packed",
-    "compact", "decode").  Returns the launch counts of its kernels,
-    their main-path times and the recorded warm-up launches."""
+    "compact", "decode", "golomb_encode", "golomb_decode").  Returns the
+    launch counts of its kernels, their main-path times and the recorded
+    warm-up launches."""
     path = PATHS[name]
     pix_fmt, w, h, frames = path.pix_fmt, path.width, path.height, \
         path.frames
     tag = f"main {name}"
     k_enc, k_dec = path.kernels
-    rec_enc = recorders["compact" if path.compact else "packed"]
-    rec_dec = recorders["decode"]
+    golomb = path.coder == 0
+    rec_enc = recorders["golomb_encode" if golomb else
+                        "compact" if path.compact else "packed"]
+    rec_dec = recorders["golomb_decode" if golomb else "decode"]
     t0 = time.perf_counter()
     streams = path_streams(name)
     golden = load_goldens()[path.golden or name]
-    log(f"[{tag}] {w}x{h} {pix_fmt}, context model {path.context_model}"
+    log(f"[{tag}] {w}x{h} {pix_fmt}, context model {path.context_model}, "
+        f"{'Golomb-Rice' if golomb else 'range coder'}"
         f"{', compact encode form, encode only' if path.compact else ''} "
         f"content: {BATCH}x{frames} frames in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -791,6 +960,7 @@ def main_path(dev, gpu, name, recorders):
     check(enc.bits == (16 if pix_fmt.endswith("16le") else 8),
           "coded width")
     check(enc.compact == path.compact, "compact form")
+    check(enc.golomb == dec.golomb == golomb, "coder")
 
     enc_s, dec_s, peak = [], [], []
     reset_counts()
@@ -836,7 +1006,7 @@ def main_path(dev, gpu, name, recorders):
             f"memory {peak[-1]:.2f} GiB over the {base / 2**30:.2f} GiB held "
             f"({gpu})")
     rec_enc.armed = rec_dec.armed = False
-    launches = {**rc_encode.LAUNCHES, **rc_decode.LAUNCHES}
+    launches = all_launches()
     log(f"[{tag}] kernel launches in this path's {frames} steps: "
         f"{launches}")
     want = {k: frames for k in path.kernels if k is not None}
@@ -857,23 +1027,29 @@ def main_path(dev, gpu, name, recorders):
     up_ms, planes = host_time_ms(lambda: enc._upload(frame))
     st_ms = cuda_time_ms(lambda: enc._streams_uniform(planes), 3)
     k1_args = enc_rec[0]
-    scan = rc_encode.rc_encode_compact if path.compact else \
+    scan = golomb_encode.golomb_encode_lanes if golomb else \
+        rc_encode.rc_encode_compact if path.compact else \
         rc_encode.rc_encode_packed
     k1_ms = cuda_time_ms(lambda: scan(*k1_args), 3)
-    slots, low, rng, _st = enc_rec[1]
-    _l, _r, prefixes, plens = enc._prefix_arrays(False)
-    torch.cuda.synchronize()
-    fbase = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    if path.compact:
-        fin_name = "finalize_compact"
-        fin_ms = cuda_time_ms(lambda: finalize_compact(
-            slots, low, rng, prefixes, plens), 3)
+    slots = enc_rec[1][0]
+    if golomb:
+        # G1 writes the final bytes: there is no finalize
+        fin_name, fin_ms, fin_peak = None, 0.0, 0.0
     else:
-        fin_name = f"finalize s2={enc.s2}"
-        fin_ms = cuda_time_ms(lambda: finalize_packed(
-            slots, low, rng, prefixes, plens, enc.s2), 3)
-    fin_peak = (torch.cuda.max_memory_allocated() - fbase) / 2**30
+        slots, low, rng, _st = enc_rec[1]
+        _l, _r, prefixes, plens = enc._prefix_arrays(False)
+        torch.cuda.synchronize()
+        fbase = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        if path.compact:
+            fin_name = "finalize_compact"
+            fin_ms = cuda_time_ms(lambda: finalize_compact(
+                slots, low, rng, prefixes, plens), 3)
+        else:
+            fin_name = f"finalize s2={enc.s2}"
+            fin_ms = cuda_time_ms(lambda: finalize_packed(
+                slots, low, rng, prefixes, plens, enc.s2), 3)
+        fin_peak = (torch.cuda.max_memory_allocated() - fbase) / 2**30
     pkts = [r[0] for r in res]                  # the last frame's packets
     # the host CRC-32 alone over the step's slices: the encoder's over
     # each slice up to its CRC, the decoder's over each whole slice
@@ -882,11 +1058,14 @@ def main_path(dev, gpu, name, recorders):
         lambda: [crc32_ieee(p[a:b - 4]) for p, a, b in spans])
     L, n = k1_args[0].shape
     rest = enc_ms - up_ms - st_ms - k1_ms - fin_ms
+    slots_gib = slots.numel() * slots.element_size() / 2**30
+    fin_text = (f"no finalize (G1's byte rows {slots_gib:.3f} GiB)"
+                if golomb else
+                f"{fin_name} {fin_ms:.2f} (peak {fin_peak:.2f} GiB over its "
+                f"{slots_gib:.2f} GiB input)")
     log(f"[{tag}] encode stages (ms, L={L}, {n} px/lane, each timed alone, "
         f"{gpu}): upload {up_ms:.2f}, stencil {st_ms:.2f}, {k_enc} "
-        f"{k1_ms:.2f}, {fin_name} {fin_ms:.2f} (peak "
-        f"{fin_peak:.2f} GiB over its {slots.numel() * 4 / 2**30:.2f} GiB "
-        f"input); the median step minus these "
+        f"{k1_ms:.2f}, {fin_text}; the median step minus these "
         f"{rest:.2f}, of which the "
         f"slices' CRC-32 alone takes {crc_enc_ms:.2f} ({len(spans)} slices, "
         f"{sum(b - a for _p, a, b in spans)} B); encode step peak "
@@ -897,8 +1076,7 @@ def main_path(dev, gpu, name, recorders):
                    upload=up_ms, stencil=st_ms, scan=k1_ms, finalize=fin_ms,
                    rest=rest, crc=crc_enc_ms,
                    step_peak_gib=max(peak[1 + WARM:]),
-                   finalize_peak_gib=fin_peak,
-                   slots_gib=slots.numel() * 4 / 2**30))
+                   finalize_peak_gib=fin_peak, slots_gib=slots_gib))
     if k_dec is None:
         return res
     dec_ms = step_stats(tag, "decode", dec_s[1 + WARM:], mpix, gpu)
@@ -907,7 +1085,9 @@ def main_path(dev, gpu, name, recorders):
     crc_dec_ms, _x = host_time_ms(
         lambda: [crc32_ieee(p[a:b]) for p, a, b in spans])
     k2_args = dec_rec[0]
-    k2_ms = cuda_time_ms(lambda: rc_decode.rc_decode_planes(*k2_args), 3)
+    dscan = golomb_decode.golomb_decode_planes if golomb else \
+        rc_decode.rc_decode_planes
+    k2_ms = cuda_time_ms(lambda: dscan(*k2_args), 3)
     log(f"[{tag}] decode stages (ms, each timed alone, {gpu}): parse+upload "
         f"{parse_ms:.2f}, of which the slices' CRC-32 alone takes "
         f"{crc_dec_ms:.2f}; {k_dec} {k2_ms:.2f}; the median step minus "
@@ -915,6 +1095,7 @@ def main_path(dev, gpu, name, recorders):
     res["ms"][k_dec] = k2_ms
     res["recs"][k_dec] = dec_rec
     res["dec_ms"] = dec_ms
+    res["stages"].update(parse=parse_ms, crc_dec=crc_dec_ms, dscan=k2_ms)
     return res
 
 
@@ -1030,6 +1211,10 @@ def output_digests(out):
 
 def plain_version(name):
     """The plain PyTorch version of kernel instance ``name``."""
+    if name.startswith("golomb_encode"):
+        return golomb_encode.golomb_encode_lanes_ref
+    if name.startswith("golomb_decode"):
+        return golomb_decode.golomb_decode_planes_ref
     if name.startswith("rc_encode_compact"):
         return rc_encode.rc_encode_compact_ref
     if name.startswith("rc_encode"):
@@ -1065,7 +1250,30 @@ def segments(name, args, out):
     ends in.  By induction over the segments the plain version run on
     the whole launch would give the main-path launch's outputs.  The
     encoder splits its pixel stream in equal parts, the decoder at its
-    plane boundaries (each plane starts from zeroed rows)."""
+    plane boundaries (each plane starts from zeroed rows).
+
+    The Golomb-Rice lanes (G1, G2) are independent and carry their state
+    from pixel to pixel (bit accumulator, run state): they split by lanes,
+    in GOLOMB_LANE_GROUPS groups, each held to the launch's outputs for
+    its lanes."""
+    if name.startswith("golomb"):
+        L = args[0].shape[0]
+        cuts = [L * i // GOLOMB_LANE_GROUPS
+                for i in range(GOLOMB_LANE_GROUPS + 1)]
+        segs = []
+        for a, b in zip(cuts, cuts[1:]):
+            if name.startswith("golomb_encode"):
+                ctx, diff, act, flags, vlc0, pre, plens = args[:7]
+                seg = (ctx[a:b], diff[a:b], act[a:b], flags, vlc0[a:b],
+                       pre[a:b], plens[a:b], *args[7:])
+                want = tuple(o[a:b] for o in out)
+            else:
+                bufs, vlc0, qt, pos0 = args[:4]
+                seg = (bufs[a:b], vlc0[a:b], qt, pos0[a:b], *args[4:])
+                want = (tuple(p[a:b] for p in out[0]), out[1][a:b],
+                        out[2][a:b])
+            segs.append((seg, want))
+        return segs
     if name.startswith("rc_encode"):
         ctx, diff, act, st0, one, zero, low0, rng0, bits = args
         packed, low, rng, st = out
@@ -1107,6 +1315,12 @@ def segments(name, args, out):
 
 def launch_shape(name, args, out):
     """A main-path launch's shape, for the log and the JSON line."""
+    if name.startswith("golomb_encode"):
+        return (f"L={args[0].shape[0]} N={args[0].shape[1]} "
+                f"CC={args[4].shape[1]} T={out[0].shape[1]} bits={args[7]}")
+    if name.startswith("golomb_decode"):
+        return (f"L={args[0].shape[0]} CC={args[1].shape[1]} "
+                f"planes={args[4]} bits={args[5]} five={args[6]}")
     if name.startswith("rc_encode"):
         return (f"L={args[0].shape[0]} N={args[0].shape[1]} "
                 f"CC={args[3].shape[1]} S={out[0].shape[1]} bits={args[8]}")
@@ -1117,7 +1331,12 @@ def launch_shape(name, args, out):
 def plain_cost(name, args):
     """A rough relative cost of the plain version on ``args`` (lanes x
     pixels x slots, the decoder's loop about twice the encoder's per
-    decision), to start the longest worker jobs first."""
+    decision; the Golomb-Rice scans' loops cost about the same per pixel
+    whatever their lanes), to start the longest worker jobs first."""
+    if name.startswith("golomb_encode"):
+        return 600 * args[0].shape[1]
+    if name.startswith("golomb_decode"):
+        return 700 * sum(w * h for (w, h, _b) in args[4])
     if name.startswith("rc_encode"):
         return args[0].numel() * (2 * args[8] + 1)
     return 2 * args[0].shape[0] * (2 * args[9] + 1) * \
@@ -1196,6 +1415,34 @@ def kernel_bounds(name, rec, ns_per_decision, ops_per_decision,
     return bound, term, chain
 
 
+def golomb_bounds(name, rec, step_ns, ops_per_pixel):
+    """(roofline bound ms, its term, chain bound ms, the longest lane's
+    pixels) of a Golomb-Rice launch.  Bytes: G1 reads ctx and diff (8 B)
+    and active (1 B) per pixel, the flags (4 B a pixel, shared by the
+    lanes) and the prefixes, reads and writes each lane's VLC table once
+    and writes the bytes it counts; G2 reads the bytes its readers
+    consumed and the quant tables, reads and writes the VLC tables and
+    writes 4 B a pixel.  Operations: ``ops_per_pixel`` for every pixel
+    of every lane (the pixel loop's SASS instructions: every branch of it,
+    so more than a pixel runs).  Chain: every lane has the same pixels,
+    each one dependent step (``step_ns``) after the one before."""
+    args, out = rec
+    if name.startswith("golomb_encode"):
+        L, px = args[0].shape
+        CC, pcap, T = args[4].shape[1], args[5].shape[1], out[0].shape[1]
+        nbytes = L * px * 9 + px * 4 + 2 * L * CC * 16 + L * pcap * 4 + \
+            12 * L + int(out[1].clamp(max=T).sum())
+    else:
+        planes, _vlc, bitpos = out
+        L, CC = args[1].shape[0], args[1].shape[1]
+        px = sum(p.shape[1] * p.shape[2] for p in planes)
+        consumed = int(((bitpos.long() + 7) // 8 - args[3].long()).sum())
+        nq = 5 if args[6] else 3
+        nbytes = consumed + 2 * L * CC * 16 + nq * 1024 + 8 * L + L * px * 4
+    bound, term = roofline_ms(nbytes, L * px * ops_per_pixel)
+    return bound, term, px * step_ns * 1e-6, px
+
+
 # kernel instance -> (source, the TPU kernel it replaces)
 KERNELS = {
     "rc_encode": ("tpu_ffv1_torch/csrc/rc_encode.cu",
@@ -1218,13 +1465,55 @@ KERNELS = {
                           "tpu_ffv1/tpu/rc_pallas.py:419"),
     "rc_encode_compact_global": ("tpu_ffv1_torch/csrc/rc_encode.cu",
                                  "tpu_ffv1/tpu/rc_pallas.py:419"),
+    # no Pallas kernel: XLA lax.scans of the JAX package
+    "golomb_encode": ("tpu_ffv1_torch/csrc/golomb_encode.cu",
+                      "tpu_ffv1/tpu/golomb_scan.py:86"),
+    "golomb_decode": ("tpu_ffv1_torch/csrc/golomb_decode.cu",
+                      "tpu_ffv1/tpu/golomb_dec_lanes.py:33"),
 }
 
 
 # instances no main path launches (the placement follows the table's size
 # alone: reachable with custom quant tables), checked on random inputs
 OFF_PATH = ("rc_decode_five", "rc_decode_global", "rc_decode_ext_five",
-            "rc_decode_ext_global")
+            "rc_decode_ext_global", "golomb_encode_global",
+            "golomb_decode_five_global", "golomb_decode_five",
+            "golomb_decode_global")
+# the lane groups a Golomb-Rice main-path launch's plain check splits into
+GOLOMB_LANE_GROUPS = 2
+
+
+def golomb_row(name, path_name, p, rec, mp, checks, funcs, step_ns, gpu):
+    """The ``kernels`` JSON row of G1 or G2 on its main path: its time,
+    launches, roofline bound (golomb_bounds, the operations from the pixel
+    loop's SASS) and chain bound, the longest lane's pixels x one
+    dependent pixel step, for which the dependent 32-byte row read in
+    shared memory stands (the shared-memory probe: a pixel's VlcState
+    row may be the one the pixel before adapted)."""
+    src, replaces = KERNELS[name]
+    lib = "golomb_encode" if name.startswith("golomb_encode") else \
+        "golomb_decode"
+    targs = str(int(name.endswith("_global"))) if lib == "golomb_encode" \
+        else f"{int('_five' in name)},{int(name.endswith('_global'))}"
+    ops = pixel_loop_count(funcs[lib][f"{lib}_kernel<{targs}>"], "FLO")
+    check(ops > 0, f"{name}: no pixel loop found in the SASS")
+    bound, term, chain, px = golomb_bounds(name, rec, step_ns, ops)
+    log(f"[bound] {name} ({path_name}, {gpu}): {p['ms'][name]:.2f} ms at "
+        f"the main path's shape; roofline bound {bound:.3f} ms ({term}, "
+        f"{ops} SASS instructions in the pixel loop); chain bound "
+        f"{chain:.2f} ms ({px} pixels on the longest lane x {step_ns:.2f} "
+        f"ns)")
+    return dict(
+        name=name, route="cuda", source=src, replaces=replaces,
+        main_path=path_name, launches=p["launches"][name],
+        launches_per_step=p["launches"][name] / p["steps"], max_abs_err=0,
+        ms=p["ms"][name], plain_ms=mp["plain_ms"], plain_device="cpu",
+        bound_ms=bound, bound_by=term, chain_bound_ms=chain,
+        chain_pixels_max_lane=px, ns_per_pixel_step=step_ns,
+        ops_per_pixel=ops, library_ms=None,
+        main_path_shape=mp["main_path_shape"],
+        checks=[{k: c[k] for k in ("check_shape", "check_ms",
+                                   "check_plain_ms")} for c in checks])
 
 
 def main():
@@ -1238,7 +1527,7 @@ def main():
     t_start = time.perf_counter()
 
     libs = ("rc_encode", "rc_decode", "rc_encode_ext", "rc_decode_ext",
-            "chain_probe")
+            "golomb_encode", "golomb_decode", "chain_probe")
     t0 = time.perf_counter()
     build.build_all(libs)
     log(f"[build] " + ", ".join(f"{n} {build.BUILD_SECONDS[n]:.1f} s"
@@ -1292,14 +1581,22 @@ def main():
               [check_encode_kernel(dev, b, 4096, m, compact=c, edges=True)
                for b in (8, 9, 10) for m in (0, 1) for c in (False, True)] +
               [check_encode_kernel(dev, b, 4096, m, edges=True)
-               for b in (11, 16, 17) for m in (0, 1)])
+               for b in (11, 16, 17) for m in (0, 1)] +
+              [r for m in (0, 1) for r in check_golomb_encode_kernel(dev, m)] +
+              [check_golomb_decode_kernel(dev, five, m)
+               for five, m in ((False, 0), (True, 1), (True, 0),
+                               (False, 1))])
     check(sorted({r[0] for r in random}) ==
           sorted(set(KERNELS) | set(OFF_PATH)),
           "the random checks do not cover every instance")
 
     recorders = dict(packed=LastLaunch(port_encoder, "rc_encode_packed"),
                      compact=LastLaunch(port_encoder, "rc_encode_compact"),
-                     decode=LastLaunch(port_decoder, "rc_decode_planes"))
+                     decode=LastLaunch(port_decoder, "rc_decode_planes"),
+                     golomb_encode=LastLaunch(port_encoder,
+                                              "golomb_encode_lanes"),
+                     golomb_decode=LastLaunch(port_decoder,
+                                              "golomb_decode_planes"))
     paths = {name: main_path(dev, gpu, name, recorders) for name in PATHS}
     recs = {k: v for p in paths.values() for k, v in p["recs"].items()}
     check(sorted(recs) == sorted(KERNELS),
@@ -1361,6 +1658,11 @@ def main():
         # encode
         decisions = decisions_per_lane(enc_args[1], enc_args[2])
         for name in filter(None, path.kernels):
+            if name.startswith("golomb"):
+                kernels.append(golomb_row(name, path_name, p, recs[name],
+                                          mp[name], checks[name], funcs,
+                                          smem_row_ns, gpu))
+                continue
             src, replaces = KERNELS[name]
             ns, ops = (ns_enc, ops_enc) if name.startswith("rc_encode") \
                 else (ns_dec, ops_dec)

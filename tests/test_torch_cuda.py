@@ -2,11 +2,15 @@
 version on the same CUDA tensors (exact: integer codec), and the slice
 end to end against the host encoder, at context models 0 and 1 (whose
 state table the kernels keep in global memory), in the raw and the
-compact encode form; K1's, K1-ext's, K2's and K2-ext's stage probes and
+compact encode form, with the range coder and with Golomb-Rice (G1, G2
+in every instance); K1's, K1-ext's, K2's and K2-ext's stage probes and
 the lookup probes.  Marked ``cuda``; each test skips where
 torch.cuda.is_available() is False (this file imports no jax, so it runs
 on a machine without it: FFV1_TEST_NO_CACHE=1 python -m pytest
 tests/test_torch_cuda.py)."""
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +18,9 @@ import torch
 from tpu_ffv1 import EncoderParams, FFV1Encoder
 from tpu_ffv1.core import tables as T
 from tpu_ffv1.core.rac import custom_state_tables
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke  # noqa: E402  (the Golomb-Rice kernels' inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -493,3 +500,67 @@ def test_rc_decode_other_placements_match_plain(cuda, bits, five):
         ("_five" if five else "_global")
     _check_decode(K, _random_decode_args(cuda, bits, CC, int(five)), specs,
                   bits, five, name)
+
+
+@pytest.mark.parametrize("cap", [None, 200], ids=["full", "capped"])
+@pytest.mark.parametrize("model", [0, 1], ids=["shared", "global"])
+def test_golomb_encode_kernel_matches_plain(cuda, model, cap):
+    """G1 in both table placements on chip_smoke's edge inputs, with all
+    bytes kept and with an output cap below the counts."""
+    from tpu_ffv1_torch.tpu import golomb_encode as G
+    cc = T.CONTEXT_COUNTS[model]
+    arrs = chip_smoke.golomb_encode_edge_inputs(
+        5, ((64, 12, 0), (32, 6, 1), (32, 6, 1)), cc, 3 + model)
+    args = [torch.from_numpy(a) for a in arrs]
+    want_instance = "golomb_encode" + ("_global" if model else "")
+    assert G.instance(2 * cc) == want_instance
+    before = G.LAUNCHES.get(want_instance, 0)
+    got = G.golomb_encode_lanes(*[a.to(cuda) for a in args], 8, cc, cap)
+    assert G.LAUNCHES[want_instance] == before + 1
+    want = G.golomb_encode_lanes(*args, 8, cc, cap)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("five,model", [(False, 0), (True, 1), (True, 0),
+                                        (False, 1)],
+                         ids=["three_shared", "five_global", "five_shared",
+                              "three_global"])
+def test_golomb_decode_kernel_matches_plain(cuda, five, model):
+    """G2's four instances on random bytes (long runs, escapes, reads past
+    cap), planes 40, 33, 2 and 1 wide."""
+    from tpu_ffv1_torch.tpu import golomb_decode as G
+    cc = T.CONTEXT_COUNTS[model]
+    arrs = chip_smoke.golomb_decode_random_inputs(5, 1024, cc, five,
+                                                        7 + model + five)
+    args = [torch.from_numpy(a) for a in arrs]
+    specs = ((40, 6, 0), (33, 4, cc), (2, 4, cc), (1, 4, 0))
+    got = G.golomb_decode_planes(*[a.to(cuda) for a in args], specs, 8, five)
+    want = G.golomb_decode_planes(*args, specs, 8, five)
+    for a, b in zip(got[0], want[0]):
+        assert torch.equal(a.cpu(), b)
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("context_model", [0, 1])
+def test_golomb_slice_on_cuda_matches_host(cuda, context_model):
+    """Golomb-Rice (coder 0) through G1 and G2: the host encoder's
+    packets, a lossless decode."""
+    from tpu_ffv1_torch import TorchFFV1Decoder, TorchFFV1Encoder
+    w, h = 96, 64
+    params = EncoderParams(width=w, height=h, pix_fmt="yuv420p", level=3,
+                           coder=0, slices=4, gop_size=2,
+                           context_model=context_model)
+    streams = [_frames(w, h, 3, 20 + b) for b in range(2)]
+    port = TorchFFV1Encoder(params, batch=2, device=cuda)
+    dec = TorchFFV1Decoder(w, h, port.extradata, batch=2, device=cuda)
+    hosts = [FFV1Encoder(params) for _ in range(2)]
+    for t in range(3):
+        res = port.encode_frames([streams[b][t] for b in range(2)])
+        for b in range(2):
+            assert res[b] == hosts[b].encode_frame(streams[b][t])
+        out = dec.decode_frames([r[0] for r in res])
+        for b in range(2):
+            for x, y in zip(out[b][0], streams[b][t]):
+                assert np.array_equal(x, y)

@@ -35,6 +35,15 @@ def test_tables_match():
         assert getattr(tT, name) == getattr(jT, name), name
 
 
+def test_log2_run_matches():
+    """The Golomb-Rice run-length table (ff_log2_run), as the JAX
+    package's tables and its Golomb scan hold it."""
+    from tpu_ffv1.tpu.golomb_scan import LOG2_RUN
+    assert tT.LOG2_RUN.dtype == np.int32
+    assert np.array_equal(tT.LOG2_RUN, jT.LOG2_RUN)
+    assert np.array_equal(tT.LOG2_RUN, LOG2_RUN)
+
+
 def test_state_tables_match():
     for a, b in zip(trac.build_rac_states(), jrac.build_rac_states()):
         assert np.array_equal(a, b)

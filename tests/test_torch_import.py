@@ -14,6 +14,8 @@ MODULES = ["tpu_ffv1_torch", "tpu_ffv1_torch.device",
            "tpu_ffv1_torch.kernels.probes", "tpu_ffv1_torch.tpu.schedule",
            "tpu_ffv1_torch.tpu.residual", "tpu_ffv1_torch.tpu.rc_encode",
            "tpu_ffv1_torch.tpu.finalize", "tpu_ffv1_torch.tpu.rc_decode",
+           "tpu_ffv1_torch.tpu.golomb_encode",
+           "tpu_ffv1_torch.tpu.golomb_decode",
            "tpu_ffv1_torch.tpu.encoder", "tpu_ffv1_torch.tpu.decoder",
            "tpu_ffv1_torch.tpu.state", "tpu_ffv1_torch.core.tables",
            "tpu_ffv1_torch.core.rac", "tpu_ffv1_torch.core.crc",

@@ -1,6 +1,7 @@
 """The CUDA sources of the lane scans (csrc/rc_encode.cu, K1 and
 K1-compact; csrc/rc_encode_ext.cu, K1-ext; csrc/rc_decode.cu, K2 and
-K2-five; csrc/rc_decode_ext.cu, K2-ext and K2-ext-five), compiled for
+K2-five; csrc/rc_decode_ext.cu, K2-ext and K2-ext-five;
+csrc/golomb_encode.cu, G1; csrc/golomb_decode.cu, G2), compiled for
 the host under the warp emulation of tools/warp_emu (32 threads per
 block, a barrier per warp primitive), against their plain PyTorch
 versions on the same inputs, in every table placement (and for the
@@ -13,7 +14,11 @@ symbols whose exponents run past the width (e = bits with no stop
 decision), clamped contexts, planes 40, 33, 2 and 1 wide (the row
 borders, the context a warp's 32 columns at a time and its edge), and
 one lane started 8 bytes before its buffer's end (reads at pos >= cap
-give 0)."""
+give 0).  The Golomb-Rice scans run on chip_smoke.py's phase-4 inputs:
+G1 on its edge inputs (run chunks, breaks, the line-end flush, zero
+residuals, escapes, inactive blocks, carried VLC states, and an output
+cap below the counts), G2 on random bytes (long runs, escapes, reads
+past cap) in all four instances."""
 import concurrent.futures
 import ctypes
 import os
@@ -25,11 +30,15 @@ import torch
 
 from tpu_ffv1_torch.core import tables as T
 from tpu_ffv1_torch.core.rac import custom_state_tables
+from tpu_ffv1_torch.tpu import golomb_decode as GD
+from tpu_ffv1_torch.tpu import golomb_encode as GE
 from tpu_ffv1_torch.tpu import rc_decode as D
 from tpu_ffv1_torch.tpu import rc_encode as K
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tools"))
+sys.path.insert(0, REPO)
+import chip_smoke  # noqa: E402  (the Golomb-Rice phase-4 inputs)
 import warp_emu  # noqa: E402
 
 CSRC = os.path.join(REPO, "tpu_ffv1_torch", "csrc")
@@ -41,7 +50,8 @@ def libs(tmp_path_factory):
     if warp_emu.compiler() is None:
         pytest.skip("needs a host C++ compiler (g++) for the warp emulation")
     out = str(tmp_path_factory.mktemp("warp_emu"))
-    names = ("rc_encode", "rc_encode_ext", "rc_decode", "rc_decode_ext")
+    names = ("rc_encode", "rc_encode_ext", "rc_decode", "rc_decode_ext",
+             "golomb_encode", "golomb_decode")
     # one g++ per source, all at once
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         paths = list(pool.map(lambda name: warp_emu.build(
@@ -265,3 +275,77 @@ def test_rc_decode_ext_source_long_pixels_match_plain(libs, bits, gtab):
         assert torch.equal(a, b)
     for a, b in zip(got[1:], want[1:]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("cap", [None, 120], ids=["full", "capped"])
+@pytest.mark.parametrize("model", [0, 1], ids=["shared", "global"])
+def test_golomb_encode_source_matches_plain(libs, model, cap):
+    """G1 with the VLC table in shared memory (2 x 666 rows) or in global
+    memory (2 x 7,563), on the edge inputs, with all bytes kept or an
+    output cap below the lanes' counts."""
+    cc = T.CONTEXT_COUNTS[model]
+    dims = ((40, 6, 0), (20, 3, 1), (20, 3, 1))
+    args = chip_smoke.golomb_encode_edge_inputs(L, dims, cc, 90 + model)
+    ctx, diff, act, flags, vlc0, pre, plens = args
+    N, CC, pcap = ctx.shape[1], vlc0.shape[1], pre.shape[1]
+    Tc = GE.default_out_cap(N, pcap) if cap is None else cap
+    out = np.zeros((L, Tc), np.uint8)
+    counts, run_index = np.zeros(L, np.int32), np.zeros(L, np.int32)
+    vlc = vlc0.copy() if model == 1 else np.zeros_like(vlc0)
+    lib = libs["golomb_encode"]
+    fn = lib.golomb_encode_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + \
+        [ctypes.c_void_p]
+    act8 = act.astype(np.uint8)
+    err = fn(*[a.ctypes.data for a in (ctx, diff, act8, flags, vlc0, pre,
+                                       plens, out, counts, vlc,
+                                       run_index)],
+             L, N, CC, pcap, Tc, 8, cc, model, None)
+    assert err == 0
+    assert lib.emu_fault_count() == 0, "warp primitives under a divergent " \
+        "branch"
+    want = GE.golomb_encode_lanes_ref(*[torch.from_numpy(a) for a in args],
+                                      8, cc, cap)
+    assert cap is None or int(want[1].max()) > cap
+    for got, w in zip((out, counts, vlc, run_index), want):
+        assert np.array_equal(got, w.numpy())
+
+
+@pytest.mark.parametrize("five,model", DECODE_INSTANCES, ids=DECODE_IDS)
+def test_golomb_decode_source_matches_plain(libs, five, model):
+    """G2's four instances: the 3- or 5-input context, the VLC table in
+    shared memory (2 x 666 rows) or in global memory (2 x 7,563)."""
+    cc = T.CONTEXT_COUNTS[model]
+    cap = 512
+    bufs, vlc0, qt, pos0 = chip_smoke.golomb_decode_random_inputs(
+        L, cap, cc, five, 95 + 2 * model + five)
+    specs = ((40, 3, 0), (33, 2, cc), (2, 2, cc), (1, 2, 0))
+    total = sum(w * h for (w, h, _b) in specs)
+    out = np.full((L, total), 0x5A5A5A5A, np.int32)
+    bitpos = np.zeros(L, np.int32)
+    vlc = vlc0.copy() if model == 1 else np.zeros_like(vlc0)
+    spec = (ctypes.c_int * (3 * len(specs)))(*[v for s in specs for v in s])
+    lib = libs["golomb_decode"]
+    fn = lib.golomb_decode_launch
+    fn.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, i, p, p, p, p, i, p, i, p, p, i, i, i, i, i, p]
+    err = fn(bufs.ctypes.data, cap, vlc0.ctypes.data, qt.ctypes.data,
+             pos0.ctypes.data, ctypes.cast(spec, p), len(specs),
+             out.ctypes.data, total, bitpos.ctypes.data, vlc.ctypes.data, L,
+             vlc0.shape[1], 8, int(five), model, None)
+    assert err == 0
+    assert lib.emu_fault_count() == 0, "warp primitives under a divergent " \
+        "branch"
+    want = GD.golomb_decode_planes_ref(
+        *[torch.from_numpy(a) for a in (bufs, vlc0, qt, pos0)], specs, 8,
+        five)
+    off = 0
+    for (w, h, _b), plane in zip(specs, want[0]):
+        assert np.array_equal(out[:, off:off + w * h].reshape(L, h, w),
+                              plane.numpy())
+        off += w * h
+    assert np.array_equal(vlc, want[1].numpy())
+    assert np.array_equal(bitpos, want[2].numpy())
+    assert int(bitpos[2]) >= 8 * cap, "lane 2 did not read past its buffer"

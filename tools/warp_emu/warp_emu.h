@@ -25,6 +25,8 @@ enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
 struct uint4 { unsigned x, y, z, w; };
 struct int2 { int x, y; };
 inline int2 make_int2(int x, int y) { return int2{x, y}; }
+struct alignas(16) int4 { int x, y, z, w; };
+inline int4 make_int4(int x, int y, int z, int w) { return int4{x, y, z, w}; }
 struct Dim { unsigned x, y, z; };
 extern thread_local Dim threadIdx, blockIdx;
 

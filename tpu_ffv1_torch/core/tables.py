@@ -5,8 +5,7 @@ the version-2+ default state-transition table).  They are re-derived from
 their mathematical structure where possible; the state-transition table is
 normative opaque data from the FFV1 specification.
 
-The port's copy of ``tpu_ffv1/core/tables.py`` (the Golomb-Rice run-length
-table is left out: the port has no Golomb path yet).
+The port's copy of ``tpu_ffv1/core/tables.py``.
 
 Behavioral parity references (reference tree, read-only):
   - quant tables:       libavcodec/ffv1enc.c:44-118 (quant5/quant5_10bit/
@@ -14,6 +13,7 @@ Behavioral parity references (reference tree, read-only):
   - ver2 state table:   libavcodec/ffv1enc.c:120-137 (also normative in the
                         IETF FFV1 spec, "default state transition")
   - context counts:     libavcodec/ffv1enc.c:868-869
+  - log2 run table:     libavcodec/bitstream.c:40-48 (ff_log2_run)
 """
 from __future__ import annotations
 
@@ -105,3 +105,16 @@ VER2_STATE = np.array([
     226, 224, 227, 229, 240, 230, 231, 232, 233, 234, 235, 236, 238, 239, 237, 242,
     241, 243, 242, 244, 245, 246, 247, 248, 249, 250, 251, 252, 252, 253, 254, 255,
 ], dtype=np.uint8)
+
+
+def _log2_run() -> np.ndarray:
+    """Run-length code table (bitstream.c:40-48): geometric ramp of run
+    exponents: 4x{0,1,2,3}, 2x{4..7}, then 8..24."""
+    out = [v for v in range(4) for _ in range(4)]
+    out += [v for v in range(4, 8) for _ in range(2)]
+    out += list(range(8, 25))
+    return np.array(out, dtype=np.int32)
+
+
+LOG2_RUN = _log2_run()
+assert LOG2_RUN.shape == (41,)

@@ -1,15 +1,21 @@
-"""PyTorch FFV1 decoder (version 3, range coder, planar YUV/gray).
+"""PyTorch FFV1 decoder (version 3, range coder or Golomb-Rice, planar
+YUV/gray).
 
-Port of the fused planar range-coder path of ``tpu_ffv1/tpu/decoder.py``
-(``TPUFFV1Decoder``).  The host parses the packet structure (keyframe
-bit, slice size trailers, CRCs, slice headers); all slices of a frame,
-and a ``batch`` of independent streams, decode as lanes of one lane
-scan (rc_decode.py: the CUDA kernel on a CUDA device, its plain version
-on the CPU).  Adaptive states stay on the device across frames (GOP
+Port of the fused planar range-coder and Golomb-Rice paths of
+``tpu_ffv1/tpu/decoder.py`` (``TPUFFV1Decoder``).  The host parses the
+packet structure (keyframe bit, slice size trailers, CRCs, slice
+headers); all slices of a frame, and a ``batch`` of independent
+streams, decode as lanes of one lane scan (rc_decode.py: the CUDA
+kernel on a CUDA device, its plain version on the CPU).  Adaptive states stay on the device across frames (GOP
 context inheritance, ffv1dec.c:376-403).  Each lane's final coder state
 then runs the sentinel + byte-count check (ffv1dec.c:459-467); a slice
 that fails it, or its CRC, is concealed from the stream's previous
-picture (ffv1dec.c:1001-1021).
+picture (ffv1dec.c:1001-1021).  Golomb-Rice streams (coder 0) decode
+through golomb_decode.py (G2 on a CUDA device): each lane's bit reader
+starts at the byte after its range-coded slice header and the v3.2
+sentinel (ffv1dec.c:427-434), its VLC states carry across the GOP, and
+there is no sentinel check (the reference validates only the range
+coder's); the CRC still flags slices.
 
 Every lane decodes at the slice grid's geometry, which no packet can
 change.  A slice header is parsed into a copy of the geometry its last
@@ -35,6 +41,8 @@ from ..core.intmath import ceil_rshift
 from ..core.rac import (RangeDecoder, custom_state_tables,
                         default_state_tables)
 from ..device import resolve_device
+from .golomb_decode import golomb_decode_planes
+from .golomb_encode import fresh_vlc_states
 from .rc_decode import rc_decode_planes
 
 
@@ -50,8 +58,7 @@ class TorchFFV1Decoder:
                  batch: int = 1, device="cuda"):
         self.device = resolve_device(device)
         g = read_extra_header(extradata)
-        if g.ac == T.AC_GOLOMB_RICE:
-            raise NotImplementedError("Golomb-Rice decode is not ported yet")
+        self.golomb = g.ac == T.AC_GOLOMB_RICE
         if g.colorspace != 0:
             raise NotImplementedError("only planar YUV/gray is ported")
         if g.version != 3:
@@ -113,6 +120,7 @@ class TorchFFV1Decoder:
         self.conceal_geoms = [[dataclasses.replace(gm) for gm in self.geoms]
                               for _ in range(batch)]
         self.states = None
+        self.vlc_states = None
 
     # -------------------------------------------------------------- API
 
@@ -123,6 +131,7 @@ class TorchFFV1Decoder:
         self.last_planes = [None] * self.batch
         self.slice_damaged[:] = False
         self.states = None
+        self.vlc_states = None
 
     def decode_frame(self, pkt: bytes):
         if self.batch != 1:
@@ -150,7 +159,8 @@ class TorchFFV1Decoder:
         """Keyframe bit + slice trailers + CRC + slice headers for one
         stream's packet.  Returns (keyframe, per-slice list of
         (buf, qidx, low, range, pos)); qidx is None for a slice whose
-        header failed to parse."""
+        header failed to parse.  A Golomb-Rice slice gives low = range =
+        0 and pos the byte its bit reader starts at."""
         rc = RangeDecoder(pkt, *default_state_tables())
         keystate = np.array([128], dtype=np.uint8)
         keyframe = bool(rc.get_rac(keystate, 0))
@@ -177,11 +187,19 @@ class TorchFFV1Decoder:
             try:
                 qidxs, _ = read_slice_header(self, SliceState(geom=geom), src)
                 qidx = qidxs[0]
+                if self.golomb and (self.version > 3 or (
+                        self.version == 3 and self.g.micro_version > 1)):
+                    sentinel = np.array([129], dtype=np.uint8)
+                    src.get_rac(sentinel, 0)
             except (ValueError, IndexError):
                 self.slice_damaged[bi, si] = True
                 qidx = None
             self.conceal_geoms[bi][si] = geom
-            slices.append((buf, qidx, src.low, src.range, src.pos))
+            if self.golomb:
+                # the bit reader starts at ac_byte_count (ffv1dec.c:427-434)
+                slices.append((buf, qidx, 0, 0, max(src.pos - 1, 0)))
+            else:
+                slices.append((buf, qidx, src.low, src.range, src.pos))
         return keyframe, slices
 
     def _plane_specs(self):
@@ -209,33 +227,49 @@ class TorchFFV1Decoder:
                            (self.n_state_planes, 1))
         return np.full((self.n_state_planes * cc, 32), 128, np.uint8)
 
-    def _reset_lane_states(self, keyframes, qidx0):
-        """Per-stream keyframe resets of the GOP-persistent state table."""
-        fresh = torch.from_numpy(self._fresh_states(qidx0)).to(self.device)
-        if self.states is None or self.states.shape[1] != fresh.shape[0]:
-            self.states = fresh[None].repeat(self.L, 1, 1)
+    def _reset_lanes(self, table, fresh, keyframes):
+        """A GOP-persistent per-lane table with each keyframe stream's
+        lanes reset to ``fresh`` (one lane's rows), and every lane where
+        the table's size changes."""
+        if table is None or table.shape[1] != fresh.shape[0]:
+            table = fresh[None].repeat(self.L, 1, 1)
         for bi, kf in enumerate(keyframes):
             if kf:
-                self.states[bi * self.n_slices:
-                            (bi + 1) * self.n_slices] = fresh
+                table[bi * self.n_slices:(bi + 1) * self.n_slices] = fresh
+        return table
+
+    def _reset_lane_states(self, keyframes, qidx0):
+        """Per-stream keyframe resets of the range coder's states."""
+        fresh = torch.from_numpy(self._fresh_states(qidx0)).to(self.device)
+        self.states = self._reset_lanes(self.states, fresh, keyframes)
         return self.states
+
+    def _reset_lane_vlc(self, keyframes, rows):
+        """Per-stream keyframe resets of the Golomb-Rice VLC states."""
+        fresh = fresh_vlc_states(1, rows, self.device)[0]
+        self.vlc_states = self._reset_lanes(self.vlc_states, fresh,
+                                            keyframes)
+        return self.vlc_states
 
     def _header_failed_states(self, parsed, cc):
         """{lane: its states before this frame} for the lanes whose slice
         header failed: the host's slice aborts before its keyframe reset
-        and its decode (ffv1dec.c:282-359), so they keep them.  A lane
-        with no states of this table size yet gets the 128s the host
-        allocates at the slice's next parsed header."""
+        and its decode (ffv1dec.c:282-359), so they keep them (the VLC
+        states on a Golomb-Rice stream).  A lane with no states of this
+        table size yet gets those the host allocates at the slice's next
+        parsed header: 128s, or fresh VLC states."""
         rows = self.n_state_planes * cc
+        table = self.vlc_states if self.golomb else self.states
         kept = {}
         for bi, (_kf, sl) in enumerate(parsed):
             for si, s in enumerate(sl):
                 if s[1] is not None:
                     continue
                 lane = bi * self.n_slices + si
-                if self.states is not None and \
-                        self.states.shape[1] == rows:
-                    kept[lane] = self.states[lane].clone()
+                if table is not None and table.shape[1] == rows:
+                    kept[lane] = table[lane].clone()
+                elif self.golomb:
+                    kept[lane] = fresh_vlc_states(1, rows, self.device)[0]
                 else:
                     kept[lane] = torch.full((rows, 32), 128,
                                             dtype=torch.uint8,
@@ -291,13 +325,21 @@ class TorchFFV1Decoder:
         cc = g.context_counts[qidx0]
         specs = tuple((w, h, sp * cc) for (w, h, sp) in self._plane_specs())
         kept = self._header_failed_states(parsed, cc)
-        states0 = self._reset_lane_states(keyframes, qidx0)
-        planes_dev, states_out, low, rng, pos = rc_decode_planes(
-            bufs, states0, self.one_tab, self.zero_tab, self.qts[qidx0],
-            lows, ranges, poss, specs, self.bits, five)
-        for lane, st in kept.items():
-            states_out[lane] = st
-        self.states = states_out
+        if self.golomb:
+            vlc0 = self._reset_lane_vlc(keyframes, self.n_state_planes * cc)
+            planes_dev, vlc_out, _bitpos = golomb_decode_planes(
+                bufs, vlc0, self.qts[qidx0], poss, specs, self.bits, five)
+            for lane, st in kept.items():
+                vlc_out[lane] = st
+            self.vlc_states = vlc_out
+        else:
+            states0 = self._reset_lane_states(keyframes, qidx0)
+            planes_dev, states_out, low, rng, pos = rc_decode_planes(
+                bufs, states0, self.one_tab, self.zero_tab,
+                self.qts[qidx0], lows, ranges, poss, specs, self.bits, five)
+            for lane, st in kept.items():
+                states_out[lane] = st
+            self.states = states_out
 
         # assemble full frames (inverse block reshape) at the wire dtype
         nh, nv = g.num_h_slices, g.num_v_slices
@@ -312,8 +354,10 @@ class TorchFFV1Decoder:
                 # 0x7FFF), as the reference's int16_t rows hold them
                 planes_full.append((x & 0xFFFF).cpu().numpy()
                                    .astype(np.uint16))
-        self._validate(parsed, torch.stack([low, rng, pos]).cpu().numpy(),
-                       buflens)
+        if not self.golomb:
+            self._validate(parsed,
+                           torch.stack([low, rng, pos]).cpu().numpy(),
+                           buflens)
         return [(self._conceal(bi, [fp[bi] for fp in planes_full]),
                  keyframes[bi]) for bi in range(self.batch)]
 

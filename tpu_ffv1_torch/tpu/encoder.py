@@ -1,7 +1,8 @@
-"""PyTorch FFV1 encoder: stencil -> range-coder lane scan -> finalize.
+"""PyTorch FFV1 encoder: stencil -> range-coder lane scan -> finalize, or
+stencil -> Golomb-Rice lane scan.
 
-Port of the planar range-coder path of ``tpu_ffv1/tpu/encoder.py``
-(``TPUFFV1Encoder``).  Per frame step:
+Port of the planar range-coder and Golomb-Rice paths of
+``tpu_ffv1/tpu/encoder.py`` (``TPUFFV1Encoder``).  Per frame step:
 
   host:   keyframe bit + slice headers -> provisional prefixes (cached)
   device: residual/context stencil (residual.py, torch ops)
@@ -9,6 +10,13 @@ Port of the planar range-coder path of ``tpu_ffv1/tpu/encoder.py``
           kernel on a CUDA device, its plain version on the CPU)
           sentinel/terminate/carry-resolve/compaction (finalize.py)
   host:   per-slice size trailer + CRC, packet concatenation
+
+Golomb-Rice (coder 0, and coder -1 at 8 bits: FFV1's default coder) takes
+the same stencil, then the Golomb-Rice lane scan (golomb_encode.py: G1 on
+a CUDA device), which writes each lane's final bytes behind its prefix,
+the slice header range-coded and terminated after the v3 sentinel
+(ffv1enc.c:1176-1183); its VLC states carry across the GOP as the range
+coder's states do.
 
 With ``compact=True`` (the counterpart of the JAX package's
 ``FFV1_PALLAS_COMPACT=1``) coded widths <= 10 run the compact form:
@@ -40,10 +48,11 @@ from ..codec.params import EncoderParams, resolve
 from ..core import tables as T
 from ..core.crc import crc32_ieee
 from ..core.intmath import ceil_rshift
-from ..core.rac import (ProvisionalRangeEncoder, custom_state_tables,
-                        default_state_tables)
+from ..core.rac import (ProvisionalRangeEncoder, RangeEncoder,
+                        custom_state_tables, default_state_tables)
 from ..device import resolve_device
 from .finalize import finalize_compact, finalize_packed, finalize_packed_full
+from .golomb_encode import fresh_vlc_states, golomb_encode_lanes, make_flags
 from .rc_encode import rc_encode_compact, rc_encode_packed
 from .residual import load_plane, residuals_and_contexts
 
@@ -51,7 +60,8 @@ PREFIX_CAP = 96
 
 
 class TorchFFV1Encoder:
-    """Device FFV1 encoder (version 3, range coder, planar).
+    """Device FFV1 encoder (version 3, range coder or Golomb-Rice,
+    planar).
 
     ``batch`` > 1 encodes that many independent streams in lockstep:
     lanes = batch x slices, lane index = stream * n_slices + slice.  Use
@@ -67,9 +77,7 @@ class TorchFFV1Encoder:
                                       "yet; use the host encoder")
         self.device = resolve_device(device)
         self.rp = rp = resolve(params)
-        if rp.ac == T.AC_GOLOMB_RICE:
-            raise NotImplementedError("Golomb-Rice is not ported yet; use "
-                                      "coder=1/2 or the host encoder")
+        self.golomb = rp.ac == T.AC_GOLOMB_RICE
         if rp.version != 3:
             raise NotImplementedError("only version 3 is ported")
         if rp.colorspace != 0 or rp.fmt.interleaved:
@@ -119,24 +127,40 @@ class TorchFFV1Encoder:
         self.L = self.n_slices * batch
         self.n_max = self._stream_len(g0)
         # output cap per lane: the codeable worst case is ~2.2 B/pixel at
-        # 8 bits, more at the extended widths
-        self.out_cap = self.n_max * (3 if self.bits <= 10 else 4) + 4096
+        # 8 bits for the range coder, more at the extended widths, and
+        # (12 + bits) / 8 for the Golomb escape
+        self.out_cap = self.n_max * (3 if self.bits <= 10 and
+                                     not self.golomb else 4) + 4096
         self.states = torch.full((self.L, self.total_cc, 32), 128,
                                  dtype=torch.uint8, device=dev)
         self.picture_number = 0
         self._prefix_cache = {}
+        if self.golomb:
+            # the line/plane flags of a slice's coding order, shared by all
+            # lanes (uniform grids), and the GOP's VLC states
+            self.gflags = torch.from_numpy(
+                make_flags(self._plane_dims(g0))).to(dev)
+            assert self.gflags.numel() == self.n_max
+            self.vlc_states = fresh_vlc_states(self.L, self.total_cc, dev)
 
     # -----------------------------------------------------------------
 
-    def _stream_len(self, geom):
+    def _plane_dims(self, geom):
+        """(w, h, state_plane) of each coded plane of a slice, in coding
+        order."""
         rp = self.rp
-        n = geom.width * geom.height
+        dims = [(geom.width, geom.height, 0)]
         if rp.chroma_planes:
-            n += 2 * ceil_rshift(geom.width, rp.chroma_h_shift) * \
-                ceil_rshift(geom.height, rp.chroma_v_shift)
+            cw = ceil_rshift(geom.width, rp.chroma_h_shift)
+            ch = ceil_rshift(geom.height, rp.chroma_v_shift)
+            dims += [(cw, ch, 1)] * 2
         if rp.transparency:
-            n += geom.width * geom.height
-        return n
+            dims.append((geom.width, geom.height,
+                         2 if rp.chroma_planes else 1))
+        return dims
+
+    def _stream_len(self, geom):
+        return sum(w * h for (w, h, _sp) in self._plane_dims(geom))
 
     def _prefix_arrays(self, keyframe: bool):
         """Per-lane host-prefix arrays (keyframe bit + slice headers),
@@ -159,6 +183,52 @@ class TorchFFV1Encoder:
                 for a in (lows, ranges, prefixes, plens))
         return self._prefix_cache[keyframe]
 
+    def _prefix_arrays_golomb(self, keyframe: bool):
+        """Per-lane Golomb prefixes (the terminated slice headers, cached
+        per keyframe flag): (prefixes int32 (L, PREFIX_CAP), plens)."""
+        key = ("golomb", keyframe)
+        if key not in self._prefix_cache:
+            prefixes = np.zeros((self.L, PREFIX_CAP), np.int32)
+            plens = np.zeros(self.L, np.int32)
+            for si in range(self.n_slices):
+                pb = np.frombuffer(self._host_prefix_golomb(si, keyframe),
+                                   np.uint8)
+                for bi in range(self.batch):
+                    lane = bi * self.n_slices + si
+                    prefixes[lane, :len(pb)] = pb
+                    plens[lane] = len(pb)
+            dev = self.device
+            self._prefix_cache[key] = (torch.from_numpy(prefixes).to(dev),
+                                       torch.from_numpy(plens).to(dev))
+        return self._prefix_cache[key]
+
+    def _host_prefix_golomb(self, si: int, keyframe: bool) -> bytes:
+        """Terminated range-coded slice header for the Golomb path: the
+        header is always range coded, the coder terminated after a v3
+        sentinel bit, and the bit writer starts at the byte after it
+        (ffv1enc.c:1176-1183)."""
+        enc = RangeEncoder(*default_state_tables())
+        if si == 0:
+            keystate = np.array([128], dtype=np.uint8)
+            enc.put_rac(keystate, 0, 1 if keyframe else 0)
+        write_slice_header(self.rp, self._slice_state(si), enc)
+        if self.rp.version > 2:
+            sentinel = np.array([129], dtype=np.uint8)
+            enc.put_rac(sentinel, 0, 0)
+        return enc.terminate()
+
+    def _slice_state(self, si: int):
+        """The slice fields write_slice_header reads (version 3: no
+        per-slice RCT or coding mode)."""
+        class _SS:
+            pass
+
+        ss = _SS()
+        ss.geom = self.geoms[si]
+        ss.slice_coding_mode = 0
+        ss.slice_rct_by_coef, ss.slice_rct_ry_coef = 1, 1
+        return ss
+
     def _host_prefix(self, si: int, keyframe: bool):
         rp = self.rp
         enc = ProvisionalRangeEncoder(*default_state_tables())
@@ -167,15 +237,7 @@ class TorchFFV1Encoder:
             enc.put_rac(keystate, 0, 1 if keyframe else 0)
         if rp.ac == T.AC_RANGE_CUSTOM_TAB:
             enc.set_tables(*custom_state_tables(rp.state_transition))
-
-        class _SS:
-            pass
-
-        ss = _SS()
-        ss.geom = self.geoms[si]
-        ss.slice_coding_mode = 0
-        ss.slice_rct_by_coef, ss.slice_rct_ry_coef = 1, 1
-        write_slice_header(rp, ss, enc)
+        write_slice_header(rp, self._slice_state(si), enc)
         return enc.low, enc.range, enc.prov
 
     # -----------------------------------------------------------------
@@ -267,6 +329,9 @@ class TorchFFV1Encoder:
         """Flush analog (avcodec_flush_buffers): the next frame starts a
         fresh GOP."""
         self.states.fill_(128)
+        if self.golomb:
+            self.vlc_states = fresh_vlc_states(self.L, self.total_cc,
+                                               self.device)
         self.picture_number = 0
 
     def encode_frame(self, planes):
@@ -284,8 +349,11 @@ class TorchFFV1Encoder:
         rp = self.rp
         keyframe = (rp.gop_size == 0 or
                     self.picture_number % rp.gop_size == 0)
-        lows, ranges, prefixes, plens = self._prefix_arrays(keyframe)
         planes = self._upload(streams)
+        if self.golomb:
+            out, counts = self._encode_golomb(planes, keyframe)
+            return self._packets(out, counts, keyframe)
+        lows, ranges, prefixes, plens = self._prefix_arrays(keyframe)
         states0 = torch.full_like(self.states, 128) if keyframe \
             else self.states
         out, counts, states_out, overflow, packed, low, rng = \
@@ -306,6 +374,23 @@ class TorchFFV1Encoder:
             # the finalize at full slot width from the raw scan output
             out, counts = finalize_packed_full(packed, low, rng, prefixes,
                                                plens)
+        return self._packets(out, counts, keyframe)
+
+    def _encode_golomb(self, planes, keyframe: bool):
+        """Stencil -> G1 for one frame step; the VLC states start fresh on a
+        keyframe and carry on otherwise.  Returns (bytes, counts)."""
+        prefixes, plens = self._prefix_arrays_golomb(keyframe)
+        vlc0 = fresh_vlc_states(self.L, self.total_cc, self.device) \
+            if keyframe else self.vlc_states
+        ctxs, diffs, acts = self._streams_uniform(planes)
+        out, counts, self.vlc_states, _ri = golomb_encode_lanes(
+            ctxs, diffs, acts, self.gflags, vlc0, prefixes, plens,
+            self.bits, self.cc, self.out_cap)
+        self.picture_number += 1
+        return out, counts
+
+    def _packets(self, out, counts, keyframe: bool):
+        """Fetch the lanes' bytes and assemble each stream's packet."""
         counts_np = counts.cpu().numpy().astype(np.int64)
         if counts_np.max() > self.out_cap:
             raise RuntimeError("encoded slice exceeded output cap (the "
