@@ -14,7 +14,8 @@ exits non-zero without the final result line:
    K1 also in its compact form, K1, K1-ext, K2 and K2-ext as stage
    probes; G1 and G2, the Golomb-Rice scans, with the VLC table in
    shared and in global memory, G2 also with the 5-input context) and
-   the probes from tpu_ffv1_torch/csrc, one nvcc per source, all
+   the probes (chain_probe.cu, golomb_probe.cu) from
+   tpu_ffv1_torch/csrc, one nvcc per source, all
    started together; the registers, spills and SASS instructions of
    every instance;
 3. probes: the latency of one dependent range-coder decision on a
@@ -24,8 +25,11 @@ exits non-zero without the final result line:
    of one dependent 32-byte row read from L2 on one warp, which the
    global-table decoders add to their chain per pixel, and the
    shared-memory lookups of the lane scans (a 32-byte row read from
-   context model 0's table, a transition-table byte), each held against
-   its plain loop;
+   context model 0's table, a transition-table byte), and one VLC-coded
+   pixel's dependent step of the Golomb-Rice scans (encode form, G1's;
+   decode form, G2's) with the SASS instructions of its loop, the
+   yardstick of their chain bound and the operations term of their
+   roofline bound, each held against its plain loop;
 4. kernel launches on random codec-like inputs, each instance timed
    and held against its plain PyTorch version in phase 6: K1 (8 bits)
    and its global-table form (8 bits, context model 1's 15,126 rows);
@@ -449,6 +453,48 @@ def smem_probe_ns(dev, mode, n=1 << 20):
         1e6 / n
 
 
+def golomb_step_ns(dev, mode, n=1 << 20):
+    """ns per VLC-coded pixel's dependent step on one warp (mode
+    "encode", G1's; "decode", G2's): probes.golomb_step
+    (csrc/golomb_probe.cu) on context model 0's table (1,332 rows), timed
+    with CUDA events.  A launch of 4,096 pixels is held against the plain
+    loop first."""
+    host = probes.golomb_step_inputs(2 * T.CONTEXT_COUNTS[0], mode,
+                                     SEED + 4 + (mode == "decode"))
+    args = [torch.from_numpy(a).to(dev) for a in host]
+    got = probes.golomb_step(*args, 4096, mode)
+    check(torch.equal(got.cpu(), probes.golomb_step_ref(*host, 4096, mode)),
+          f"Golomb-Rice {mode} step probe differs from its plain loop")
+    return cuda_time_ms(lambda: probes.golomb_step(*args, n, mode), 3) * \
+        1e6 / n
+
+
+def golomb_vlc_pixels(ctx, diff, active, flags, cc):
+    """int64 (L,): the VLC-coded pixels of each lane of a G1 launch, and of
+    the G2 launch that decodes its bytes (the same decisions).  A pixel is
+    in a run when the last pixel of its line up to it (itself included)
+    whose context is its plane's context 0 lies after the last one before
+    it with a nonzero residual (csrc/golomb_encode.cu's run machine:
+    inactive pixels change nothing, a line start ends the run); a run
+    pixel with a zero residual costs the run's count, any other active
+    pixel (the break's pixel too) a VLC symbol."""
+    c, d = ctx.cpu().numpy(), diff.cpu().numpy()
+    a, f = active.cpu().numpy().astype(bool), flags.cpu().numpy()
+    pos = np.arange(c.shape[1])
+
+    def last(mask):                # the last position <= i where mask
+        return np.maximum.accumulate(np.where(mask, pos, -1), axis=-1)
+
+    start = last((f & golomb_encode.FLAG_LINE_START) != 0)
+    base = ((f & 0xFFFF) >> golomb_encode.FLAG_SPLANE_SHIFT) * cc
+    enter = last(a & (c == base))
+    brk = last(a & (d != 0))
+    brk_before = np.concatenate([np.full((c.shape[0], 1), -1),
+                                 brk[:, :-1]], axis=1)
+    in_run = (enter >= 0) & (enter >= start) & (enter > brk_before)
+    return torch.from_numpy((a & ~(in_run & (d == 0))).sum(1))
+
+
 def sass_functions(name, build_dir=None):
     """{kernel instance: [(address, SASS instruction)]} of lib<name>.so,
     from ``cuobjdump -sass``; an instance is named by its function and
@@ -477,7 +523,7 @@ def pixel_loop_count(ins, marker="SHFL"):
     branch, the innermost of those with the most instructions named
     ``marker`` (shuffles in the range-coder scans, whose pixels take
     their bytes by shuffle; FLO, the leading-zero count of the Golomb
-    parameter, in the Golomb-Rice scans)."""
+    parameter, in the Golomb-Rice step probe)."""
     best = (0, 0, 0)                  # (markers, -span, instructions)
     for addr, text in ins:
         m = re.search(r"\bBRA\S*\s+0x([0-9a-f]+)", text)
@@ -1415,17 +1461,19 @@ def kernel_bounds(name, rec, ns_per_decision, ops_per_decision,
     return bound, term, chain
 
 
-def golomb_bounds(name, rec, step_ns, ops_per_pixel):
-    """(roofline bound ms, its term, chain bound ms, the longest lane's
-    pixels) of a Golomb-Rice launch.  Bytes: G1 reads ctx and diff (8 B)
-    and active (1 B) per pixel, the flags (4 B a pixel, shared by the
-    lanes) and the prefixes, reads and writes each lane's VLC table once
-    and writes the bytes it counts; G2 reads the bytes its readers
-    consumed and the quant tables, reads and writes the VLC tables and
-    writes 4 B a pixel.  Operations: ``ops_per_pixel`` for every pixel
-    of every lane (the pixel loop's SASS instructions: every branch of it,
-    so more than a pixel runs).  Chain: every lane has the same pixels,
-    each one dependent step (``step_ns``) after the one before."""
+def golomb_bounds(name, rec, step_ns, step_ops, vlc_px):
+    """(roofline bound ms, its term, chain bound ms) of a Golomb-Rice
+    launch whose lanes code ``vlc_px`` (L,) VLC symbols (golomb_vlc_pixels).
+    Bytes: G1 reads ctx and diff (8 B) and active (1 B) per pixel, the
+    flags (4 B a pixel, shared by the lanes) and the prefixes, reads and
+    writes each lane's VLC table once and writes the bytes it counts; G2
+    reads the bytes its readers consumed and the quant tables, reads and
+    writes the VLC tables and writes 4 B a pixel.  Operations:
+    ``step_ops`` per VLC-coded pixel (the step probe's pixel loop: one
+    symbol as the kernels code it), none for a pixel a run codes.  Chain:
+    the longest lane's VLC-coded pixels, each one dependent step
+    (``step_ns``, the step probe) after the one before; a run's pixels
+    are left out of both, so both bounds are below what the lanes need."""
     args, out = rec
     if name.startswith("golomb_encode"):
         L, px = args[0].shape
@@ -1439,8 +1487,8 @@ def golomb_bounds(name, rec, step_ns, ops_per_pixel):
         consumed = int(((bitpos.long() + 7) // 8 - args[3].long()).sum())
         nq = 5 if args[6] else 3
         nbytes = consumed + 2 * L * CC * 16 + nq * 1024 + 8 * L + L * px * 4
-    bound, term = roofline_ms(nbytes, L * px * ops_per_pixel)
-    return bound, term, px * step_ns * 1e-6, px
+    bound, term = roofline_ms(nbytes, int(vlc_px.sum()) * step_ops)
+    return bound, term, int(vlc_px.max()) * step_ns * 1e-6
 
 
 # kernel instance -> (source, the TPU kernel it replaces)
@@ -1483,34 +1531,29 @@ OFF_PATH = ("rc_decode_five", "rc_decode_global", "rc_decode_ext_five",
 GOLOMB_LANE_GROUPS = 2
 
 
-def golomb_row(name, path_name, p, rec, mp, checks, funcs, step_ns, gpu):
+def golomb_row(name, path_name, p, rec, mp, checks, step, vlc_px, gpu):
     """The ``kernels`` JSON row of G1 or G2 on its main path: its time,
-    launches, roofline bound (golomb_bounds, the operations from the pixel
-    loop's SASS) and chain bound, the longest lane's pixels x one
-    dependent pixel step, for which the dependent 32-byte row read in
-    shared memory stands (the shared-memory probe: a pixel's VlcState
-    row may be the one the pixel before adapted)."""
+    launches, roofline bound and chain bound (golomb_bounds), from the
+    step probe of its direction (``step``: ns and SASS instructions of one
+    VLC-coded pixel) and the lanes' VLC-coded pixels."""
     src, replaces = KERNELS[name]
-    lib = "golomb_encode" if name.startswith("golomb_encode") else \
-        "golomb_decode"
-    targs = str(int(name.endswith("_global"))) if lib == "golomb_encode" \
-        else f"{int('_five' in name)},{int(name.endswith('_global'))}"
-    ops = pixel_loop_count(funcs[lib][f"{lib}_kernel<{targs}>"], "FLO")
-    check(ops > 0, f"{name}: no pixel loop found in the SASS")
-    bound, term, chain, px = golomb_bounds(name, rec, step_ns, ops)
+    step_ns, step_ops = step
+    bound, term, chain = golomb_bounds(name, rec, step_ns, step_ops, vlc_px)
     log(f"[bound] {name} ({path_name}, {gpu}): {p['ms'][name]:.2f} ms at "
         f"the main path's shape; roofline bound {bound:.3f} ms ({term}, "
-        f"{ops} SASS instructions in the pixel loop); chain bound "
-        f"{chain:.2f} ms ({px} pixels on the longest lane x {step_ns:.2f} "
-        f"ns)")
+        f"{int(vlc_px.sum())} VLC-coded pixels x {step_ops} SASS "
+        f"instructions of the step probe); chain bound {chain:.2f} ms "
+        f"({int(vlc_px.max())} VLC-coded pixels on the longest lane x "
+        f"{step_ns:.2f} ns)")
     return dict(
         name=name, route="cuda", source=src, replaces=replaces,
         main_path=path_name, launches=p["launches"][name],
         launches_per_step=p["launches"][name] / p["steps"], max_abs_err=0,
         ms=p["ms"][name], plain_ms=mp["plain_ms"], plain_device="cpu",
         bound_ms=bound, bound_by=term, chain_bound_ms=chain,
-        chain_pixels_max_lane=px, ns_per_pixel_step=step_ns,
-        ops_per_pixel=ops, library_ms=None,
+        chain_vlc_pixels_max_lane=int(vlc_px.max()),
+        vlc_pixels=int(vlc_px.sum()), ns_per_vlc_pixel=step_ns,
+        ops_per_vlc_pixel=step_ops, library_ms=None,
         main_path_shape=mp["main_path_shape"],
         checks=[{k: c[k] for k in ("check_shape", "check_ms",
                                    "check_plain_ms")} for c in checks])
@@ -1527,7 +1570,7 @@ def main():
     t_start = time.perf_counter()
 
     libs = ("rc_encode", "rc_decode", "rc_encode_ext", "rc_decode_ext",
-            "golomb_encode", "golomb_decode", "chain_probe")
+            "golomb_encode", "golomb_decode", "chain_probe", "golomb_probe")
     t0 = time.perf_counter()
     build.build_all(libs)
     log(f"[build] " + ", ".join(f"{n} {build.BUILD_SECONDS[n]:.1f} s"
@@ -1554,14 +1597,23 @@ def main():
     row_ns = row_probe_ns(dev)
     smem_row_ns = smem_probe_ns(dev, "row")
     smem_byte_ns = smem_probe_ns(dev, "byte")
+    golomb_step = {m: (golomb_step_ns(dev, m), pixel_loop_count(
+        funcs["golomb_probe"][f"golomb_step_kernel<{i}>"], "FLO"))
+        for i, m in enumerate(("encode", "decode"))}
+    check(all(ops > 0 for _ns, ops in golomb_step.values()),
+          "no pixel loop found in the Golomb-Rice step probe's SASS")
     log(f"[probe] one dependent decision on one warp ({gpu}): encode form "
         f"{ns_enc:.2f} ns, decode form {ns_dec:.2f} ns; SASS instructions "
         f"of one decision: encode form {ops_enc:.2f}, decode form "
         f"{ops_dec:.2f}; one dependent 32-byte row read from L2 "
         f"{row_ns:.2f} ns; from shared memory (1,332 rows) "
         f"{smem_row_ns:.2f} ns; one dependent transition-table byte "
-        f"lookup in shared memory {smem_byte_ns:.2f} ns (each held "
-        f"against its plain loop)")
+        f"lookup in shared memory {smem_byte_ns:.2f} ns; one VLC-coded "
+        f"pixel's dependent step: encode form (G1) "
+        f"{golomb_step['encode'][0]:.2f} ns, {golomb_step['encode'][1]} SASS "
+        f"instructions, decode form (G2) {golomb_step['decode'][0]:.2f} ns, "
+        f"{golomb_step['decode'][1]} SASS instructions (each held against "
+        f"its plain loop)")
 
     random = ([check_encode_kernel(dev, 8, 4096, 0)] +
               check_decode_kernel(dev, 0) +
@@ -1659,9 +1711,12 @@ def main():
         decisions = decisions_per_lane(enc_args[1], enc_args[2])
         for name in filter(None, path.kernels):
             if name.startswith("golomb"):
-                kernels.append(golomb_row(name, path_name, p, recs[name],
-                                          mp[name], checks[name], funcs,
-                                          smem_row_ns, gpu))
+                # G1's inputs: the warm-up frame's decode makes the same
+                # decisions
+                vlc_px = golomb_vlc_pixels(*enc_args[:4], enc_args[8])
+                kernels.append(golomb_row(
+                    name, path_name, p, recs[name], mp[name], checks[name],
+                    golomb_step[name.split("_")[1]], vlc_px, gpu))
                 continue
             src, replaces = KERNELS[name]
             ns, ops = (ns_enc, ops_enc) if name.startswith("rc_encode") \
@@ -1712,7 +1767,9 @@ def main():
     log(json.dumps({"probes": dict(
         decision_encode_ns=ns_enc, decision_decode_ns=ns_dec,
         l2_row_ns=row_ns, smem_row_ns=smem_row_ns,
-        smem_byte_ns=smem_byte_ns)}))
+        smem_byte_ns=smem_byte_ns,
+        golomb_step_encode_ns=golomb_step["encode"][0],
+        golomb_step_decode_ns=golomb_step["decode"][0])}))
     log(json.dumps({"steps": {name: dict(encode_ms=p["enc_ms"],
                                          decode_ms=p["dec_ms"], **p["stages"])
                               for name, p in paths.items()}}))

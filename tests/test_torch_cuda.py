@@ -3,8 +3,8 @@ version on the same CUDA tensors (exact: integer codec), and the slice
 end to end against the host encoder, at context models 0 and 1 (whose
 state table the kernels keep in global memory), in the raw and the
 compact encode form, with the range coder and with Golomb-Rice (G1, G2
-in every instance); K1's, K1-ext's, K2's and K2-ext's stage probes and
-the lookup probes.  Marked ``cuda``; each test skips where
+in every instance); K1's, K1-ext's, K2's and K2-ext's stage probes,
+the lookup probes and the Golomb-Rice pixel-step probe.  Marked ``cuda``; each test skips where
 torch.cuda.is_available() is False (this file imports no jax, so it runs
 on a machine without it: FFV1_TEST_NO_CACHE=1 python -m pytest
 tests/test_torch_cuda.py)."""
@@ -229,6 +229,15 @@ def test_lookup_probes_match_plain_loops(cuda, mode):
     got = probes.smem_probe(torch.from_numpy(table).to(cuda), n, mode)
     want = probes.smem_probe(torch.from_numpy(table), n, mode)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("mode", ["encode", "decode"])
+def test_golomb_step_probe_matches_plain_loop(cuda, mode):
+    from tpu_ffv1_torch.kernels import probes
+    host = probes.golomb_step_inputs(2 * T.CONTEXT_COUNTS[0], mode, 7)
+    got = probes.golomb_step(*[torch.from_numpy(a).to(cuda) for a in host],
+                             5000, mode)
+    assert torch.equal(got.cpu(), probes.golomb_step_ref(*host, 5000, mode))
 
 
 @pytest.mark.parametrize("context_model", [0, 1])

@@ -66,6 +66,35 @@ def test_vlc_k_closed_form_matches_loop():
     assert torch.equal(E.vlc_k(count, esum), k)
 
 
+@pytest.mark.parametrize("cc", [666, 7563])
+def test_vlc_pixel_count_follows_the_run_machine(cc):
+    """chip_smoke.golomb_vlc_pixels (the bounds' count of VLC-coded pixels,
+    vectorised) against the run machine of ffv1enc.c:326-367 pixel by
+    pixel, on G1's edge inputs (runs across line ends, breaks, inactive
+    blocks)."""
+    dims = ((40, 6, 0), (20, 3, 1), (20, 3, 1))
+    ctx, diff, act, flags = chip_smoke.golomb_encode_edge_inputs(
+        4, dims, cc, 17)[:4]
+    want = []
+    for c, d, a in zip(ctx, diff, act):
+        run_mode, n = 0, 0
+        for ci, di, ai, f in zip(c, d, a, flags):
+            if f & E.FLAG_LINE_START:
+                run_mode = 0
+            if not ai:
+                continue
+            if ci == ((f & 0xFFFF) >> E.FLAG_SPLANE_SHIFT) * cc:
+                run_mode = 1
+            if run_mode and di != 0:
+                run_mode = 0                  # the break's pixel: a symbol
+            n += run_mode == 0
+        want.append(n)
+    got = chip_smoke.golomb_vlc_pixels(*[torch.from_numpy(x) for x in (
+        ctx, diff, act, flags)], cc)
+    assert got.tolist() == want
+    assert 0 < min(want) and max(want) < ctx.shape[1]
+
+
 ENCODE_CASES = [
     # (label, lanes, planes (w, h, state_plane), contexts a plane, fresh)
     ("ctx0_yuv420p", 3, ((40, 6, 0), (20, 3, 1), (20, 3, 1)), 666, False),

@@ -18,7 +18,8 @@ give 0).  The Golomb-Rice scans run on chip_smoke.py's phase-4 inputs:
 G1 on its edge inputs (run chunks, breaks, the line-end flush, zero
 residuals, escapes, inactive blocks, carried VLC states, and an output
 cap below the counts), G2 on random bytes (long runs, escapes, reads
-past cap) in all four instances."""
+past cap) in all four instances.  Their pixel-step probe
+(csrc/golomb_probe.cu, both modes) runs against its plain loop."""
 import concurrent.futures
 import ctypes
 import os
@@ -30,6 +31,7 @@ import torch
 
 from tpu_ffv1_torch.core import tables as T
 from tpu_ffv1_torch.core.rac import custom_state_tables
+from tpu_ffv1_torch.kernels import probes
 from tpu_ffv1_torch.tpu import golomb_decode as GD
 from tpu_ffv1_torch.tpu import golomb_encode as GE
 from tpu_ffv1_torch.tpu import rc_decode as D
@@ -51,7 +53,7 @@ def libs(tmp_path_factory):
         pytest.skip("needs a host C++ compiler (g++) for the warp emulation")
     out = str(tmp_path_factory.mktemp("warp_emu"))
     names = ("rc_encode", "rc_encode_ext", "rc_decode", "rc_decode_ext",
-             "golomb_encode", "golomb_decode")
+             "golomb_encode", "golomb_decode", "golomb_probe")
     # one g++ per source, all at once
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         paths = list(pool.map(lambda name: warp_emu.build(
@@ -349,3 +351,26 @@ def test_golomb_decode_source_matches_plain(libs, five, model):
     assert np.array_equal(vlc, want[1].numpy())
     assert np.array_equal(bitpos, want[2].numpy())
     assert int(bitpos[2]) >= 8 * cap, "lane 2 did not read past its buffer"
+
+
+@pytest.mark.parametrize("mode", ["encode", "decode"])
+def test_golomb_step_probe_source_matches_plain(libs, mode):
+    """The Golomb-Rice pixel-step probe on context model 0's table (1,332
+    rows): the chain's final state, the adapted table and the ring."""
+    rows, n = 2 * T.CONTEXT_COUNTS[0], 3000
+    vlc0, pix, data, qt = probes.golomb_step_inputs(rows, mode, 11)
+    out = np.zeros(4 + 4 * rows + probes.GOLOMB_RING, np.int32)
+    lib = libs["golomb_probe"]
+    fn = lib.golomb_step_launch
+    fn.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, i, p, p, p, i, i, p, p]
+    err = fn(vlc0.ctypes.data, rows, pix.ctypes.data, data.ctypes.data,
+             qt.ctypes.data, n, probes.GOLOMB_MODES[mode], out.ctypes.data,
+             None)
+    assert err == 0
+    assert lib.emu_fault_count() == 0, "warp primitives under a divergent " \
+        "branch"
+    want = probes.golomb_step_ref(vlc0, pix, data, qt, n, mode)
+    assert int(want[0]) > 0
+    assert np.array_equal(out, want.numpy())

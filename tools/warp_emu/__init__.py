@@ -48,7 +48,8 @@ def transform(text: str) -> str:
 
 def build(src: str, out_dir: str) -> str:
     """Compile ``src`` for the emulation into ``out_dir``; returns the
-    shared library's path."""
+    shared library's path.  The source's own directory is on the include
+    path, for the headers it shares with its siblings."""
     name = os.path.basename(src)[:-3]
     os.makedirs(out_dir, exist_ok=True)
     cpp = os.path.join(out_dir, f"{name}_emu.cpp")
@@ -56,6 +57,7 @@ def build(src: str, out_dir: str) -> str:
         g.write(transform(f.read()))
     lib = os.path.join(out_dir, f"lib{name}_emu.so")
     subprocess.run([compiler() or "g++", "-std=c++20", "-O1", "-pthread",
-                    "-shared", "-fPIC", "-w", "-I", HERE, "-o", lib, cpp,
+                    "-shared", "-fPIC", "-w", "-I", HERE, "-I",
+                    os.path.dirname(os.path.abspath(src)), "-o", lib, cpp,
                     os.path.join(HERE, "warp_emu.cpp")], check=True)
     return lib

@@ -36,8 +36,8 @@
 //   at a time, the part of every pixel's context that does not depend on the
 //   row being decoded (LT - T, T - RT; FIVE: TT - T, TT the stale entry of
 //   the 2-row ring, row y-2); the chain adds L's terms (L - LT; FIVE: LL - L).
-// - The Golomb parameter k and ff_log2_run in closed form (as G1,
-//   csrc/golomb_encode.cu).
+// - The Golomb parameter k, ff_log2_run and the VlcState update are G1's
+//   (csrc/golomb_vlc.cuh).
 //
 // Table placement: the lane's VLC table (CC rows of 16 B: 21,312 B at context
 // model 0), the quant tables (three, FIVE: five), the byte ring, two
@@ -49,27 +49,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "golomb_vlc.cuh"  // log2_run, vlc_k, update_vlc
+
 #define MAX_PLANES 4
 
 struct PlaneSpecs {
   int n;
   int w[MAX_PLANES], h[MAX_PLANES], pbase[MAX_PLANES], off[MAX_PLANES];
 };
-
-// ff_log2_run (bitstream.c:40-48): 4 x {0..3}, 2 x {4..7}, then 8..24; 0 past
-// index 40
-__device__ __forceinline__ int log2_run(int i) {
-  return i < 16 ? i >> 2 : i < 24 ? 4 + ((i - 16) >> 1) : i < 41 ? i - 16 : 0;
-}
-
-// the smallest k <= 17 with count << k >= error_sum (17 steps of doubling)
-__device__ __forceinline__ int vlc_k(int count, int esum) {
-  if (count == 0) return esum > 0 ? 17 : 0;
-  const int a = 32 - __clz(count), b = 32 - __clz(esum);
-  int k = max(b - a, 0);
-  k += (count << k) < esum;
-  return min(k, 17);
-}
 
 template <bool FIVE, bool GTAB>
 __global__ void __launch_bounds__(32) golomb_decode_kernel(
@@ -221,30 +208,11 @@ __global__ void __launch_bounds__(32) golomb_decode_kernel(
           int sv = (v >> 1) ^ -(v & 1);
           if (2 * drift + count < 0) sv = ~sv;
           diff = ((sv + bias + half) & mask_v) - half;
-          // update_vlc_state (ffv1.h:192-224)
-          int nesum = (esum + (sv < 0 ? -sv : sv)) & 0xFFFF;
-          int ndrift = drift + sv;
-          int ncount = count;
-          if (ncount == 128) {
-            ncount = 64;
-            ndrift >>= 1;
-            nesum >>= 1;
-          }
-          ++ncount;
-          int nbias = bias;
-          if (ndrift <= -ncount) {
-            if (bias > -128) --nbias;
-            ndrift += ncount;
-            if (ndrift <= -ncount) ndrift = 1 - ncount;
-          } else if (ndrift > 0) {
-            if (bias < 127) ++nbias;
-            ndrift -= ncount;
-            if (ndrift > 0) ndrift = 0;
-          }
+          const int4 nrow = update_vlc(row, sv);
           // every thread read the row before any writes it (each thread writes
           // the same values, and reads back what it wrote)
           __syncwarp();
-          *rowp = make_int4(ndrift, nesum, nbias, ncount);
+          *rowp = nrow;
           if (ended && diff >= 0) ++diff;
         }
         if (csign) diff = -diff;

@@ -41,6 +41,8 @@
 //   lengths of count and error_sum (held to the loop over every count 0..129
 //   and error_sum 0..0xFFFF in tests/test_torch_golomb.py); ff_log2_run is a
 //   closed form too, 0 at indices >= 41 as the JAX scan's one-hot gives.
+//   Both, and the VlcState update, are in csrc/golomb_vlc.cuh, which G2 and
+//   the pixel-step probe share.
 //
 // Table placement: the lane's VLC table (CC rows of 16 B: 21,312 B at context
 // model 0) and the ring live in shared memory.  Context model 1's table (2 x
@@ -50,6 +52,8 @@
 // table.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "golomb_vlc.cuh"  // log2_run, vlc_k, update_vlc
 
 #define FULL_MASK 0xffffffffu
 
@@ -62,21 +66,6 @@ enum : int {
   FLAG_ACTIVE = 1 << 16,   // the pixel's active bit, beside its flags
   RING = 512               // output byte ring
 };
-
-// ff_log2_run (bitstream.c:40-48): 4 x {0..3}, 2 x {4..7}, then 8..24; 0 past
-// index 40
-__device__ __forceinline__ int log2_run(int i) {
-  return i < 16 ? i >> 2 : i < 24 ? 4 + ((i - 16) >> 1) : i < 41 ? i - 16 : 0;
-}
-
-// the smallest k <= 17 with count << k >= error_sum (17 steps of doubling)
-__device__ __forceinline__ int vlc_k(int count, int esum) {
-  if (count == 0) return esum > 0 ? 17 : 0;
-  const int a = 32 - __clz(count), b = 32 - __clz(esum);
-  int k = max(b - a, 0);
-  k += (count << k) < esum;
-  return min(k, 17);
-}
 
 template <bool GTAB>
 __global__ void __launch_bounds__(32) golomb_encode_kernel(
@@ -174,30 +163,11 @@ __global__ void __launch_bounds__(32) golomb_encode_kernel(
         else
           put((code2 >> k) + k + 1,
               (1u << k) + (unsigned)(code2 & ((1 << k) - 1)));
-        // update_vlc_state (ffv1.h:192-224)
-        int nesum = (esum + (vf < 0 ? -vf : vf)) & 0xFFFF;
-        int ndrift = drift + vf;
-        int ncount = count;
-        if (ncount == 128) {
-          ncount = 64;
-          ndrift >>= 1;
-          nesum >>= 1;
-        }
-        ++ncount;
-        int nbias = bias;
-        if (ndrift <= -ncount) {
-          if (bias > -128) --nbias;
-          ndrift += ncount;
-          if (ndrift <= -ncount) ndrift = 1 - ncount;
-        } else if (ndrift > 0) {
-          if (bias < 127) ++nbias;
-          ndrift -= ncount;
-          if (ndrift > 0) ndrift = 0;
-        }
+        const int4 nrow = update_vlc(row, vf);
         // every thread read the row before any writes it (each thread writes
         // the same values, and reads back what it wrote)
         __syncwarp();
-        *rowp = make_int4(ndrift, nesum, nbias, ncount);
+        *rowp = nrow;
       } else if ((f & FLAG_LINE_END) && run_mode == 1 && run_count > 0 && a) {
         put(1, 1);                     // the line ends inside a run
       }

@@ -3,8 +3,8 @@ check the tensors their wrappers pass.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for Hopper (sm_90a) into ``tpu_ffv1_torch/_build/lib<name>.so``,
-then loaded with ``ctypes``.  A library is rebuilt when its source is
-newer than it; ``build_all`` compiles several sources in parallel.
+then loaded with ``ctypes``.  A library is rebuilt when its source, or
+a header of ``csrc`` (``*.cuh``), is newer than it; ``build_all`` compiles several sources in parallel.
 Nothing here falls back: a missing ``nvcc`` or a failed build raises.
 """
 from __future__ import annotations
@@ -68,8 +68,10 @@ def table_in_global(table_bytes: int, other_smem_bytes: int) -> bool:
 def _stale(name: str) -> bool:
     src = os.path.join(CSRC, f"{name}.cu")
     out = os.path.join(BUILD_DIR, f"lib{name}.so")
+    deps = [src] + [os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                    if f.endswith(".cuh")]
     return not os.path.exists(out) or \
-        os.path.getmtime(out) < os.path.getmtime(src)
+        os.path.getmtime(out) < max(map(os.path.getmtime, deps))
 
 
 def build_all(names) -> None:
