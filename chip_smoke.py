@@ -10,7 +10,8 @@ exits non-zero without the final result line:
    CUDA versions; fails when torch.cuda.is_available() is False;
 2. build: the lane-scan kernels (every instance of the six sources:
    K1, K2, K1-ext, K2-ext, each with its state table in shared memory
-   and in global memory, the decoders also with the 5-input context,
+   and in global memory, the decoders also with the 5-input context and
+   in their line-interleaved RGB form, B1 and B1-ext,
    K1 also in its compact form, K1, K1-ext, K2 and K2-ext as stage
    probes; G1 and G2, the Golomb-Rice scans, with the VLC table in
    shared and in global memory, G2 also with the 5-input context) and
@@ -59,7 +60,11 @@ exits non-zero without the final result line:
    once more with an output cap below the counts; G2's four instances
    (the 3- or 5-input context, each placement) on random bytes, planes
    40, 33, 2 and 1 wide, every third lane started 8 bytes before its
-   buffer's end;
+   buffer's end; B1's four instances at coded widths 9 and 10 and
+   B1-ext's at 11, 13 and 15 on random bytes, 3 and 4 planes 40, 33, 2
+   and 1 wide, every third lane started 4 bytes before its buffer's
+   end, and both on the port's own RGB encode (bgr0, gbrp14le) at
+   context model 1 (the 5-input global-table instances);
 5. five main paths through TorchFFV1Encoder / TorchFFV1Decoder
    (batch=2), 24 slices, 2 streams x (one key frame, one
    non-key warm-up frame, then timed non-key frames): at 1080p with six
@@ -71,8 +76,10 @@ exits non-zero without the final result line:
    the script's time (16bit_ctx1_540p; K1-ext's global-table form,
    K2-ext-five), all four with the range coder; the 8-bit path's
    configuration and content with FFV1's default coder, Golomb-Rice
-   (8bit_golomb; G1, G2); then the 8-bit and 8bit_ctx1 paths again,
-   encode only,
+   (8bit_golomb; G1, G2); RGB: 1080p bgr0, six timed frames (rgb8;
+   K1 at coded width 9, B1) and 960x540 gbrp14le, two timed frames
+   (rgb14_540p; K1-ext at 15, B1-ext); then the 8-bit and 8bit_ctx1
+   paths again, encode only,
    in the compact form (TorchFFV1Encoder(compact=True): K1-compact and
    finalize_compact; 8bit_compact, 8bit_ctx1_compact).  Each path runs
    with the launch counters set to 0 just before it and read just
@@ -97,7 +104,9 @@ exits non-zero without the final result line:
    ops, faster on the host than as per-op card launches).  Each
    range-coder main-path launch is split into segments whose start
    states come from the kernel relaunched on the prefix (the scans are
-   causal), each Golomb-Rice one into groups of its independent lanes;
+   causal; B1's at rows, with the two rows above each segment from the
+   launch's output), each Golomb-Rice one into groups of its
+   independent lanes;
    all
    segments run in parallel worker processes, one per core, the
    longest first; the workers return digests of their outputs, which
@@ -143,6 +152,7 @@ from tpu_ffv1_torch.tpu import (golomb_decode, golomb_encode, rc_decode,
 from tpu_ffv1_torch.tpu.encoder import PREFIX_CAP
 from tpu_ffv1_torch.tpu.finalize import (compact_packed, finalize_compact,
                                          finalize_packed)
+from tpu_ffv1_torch.tpu.residual import rct_transform
 
 W, H, SLICES, BATCH = 1920, 1080, 24, 2
 WARM, TIMED = 1, 6                  # non-key frames after the key frame
@@ -220,6 +230,48 @@ def synthetic_streams16(n_streams, n_frames, width, height, seed):
     return out
 
 
+def synthetic_streams_bgr0(n_streams, n_frames, width, height, seed):
+    """bgr0 frames, each [one (H, W, 4) uint8 array]: in B, G and R the
+    8-bit path's gradient, noise and a checker moving 5 px/frame (each
+    channel's shifted), the pad byte 0."""
+    r = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:height, 0:width]
+    grad = xx * 160 // width + yy * 40 // height
+    out = []
+    for s in range(n_streams):
+        frames = []
+        for t in range(n_frames):
+            f = np.zeros((height, width, 4), np.uint8)
+            for c in range(3):
+                sh = 5 * t + 17 * s + 8 * c
+                pat = ((((xx + sh) // 24) + (yy // 24)) % 2) * 60
+                f[..., c] = np.clip(grad + 20 * c + pat +
+                                    r.randint(0, 12, (height, width)),
+                                    0, 255)
+            frames.append([f])
+        out.append(frames)
+    return out
+
+
+def synthetic_streams_gbrp14(n_streams, n_frames, width, height, seed):
+    """gbrp14le frames: the RGB archival leg's content (bench.py
+    bench_rgb14_archival: a diagonal ramp of step 129 mod 2^14, offset
+    per frame and plane, plus 6-bit noise, masked to 14 bits), each
+    stream's frames from frame 3 * stream on."""
+    r = np.random.RandomState(seed)
+    base = np.add.outer(np.arange(height), np.arange(width)) * 129 % 16384
+    out = []
+    for s in range(n_streams):
+        frames = []
+        for t in range(n_frames):
+            frames.append([
+                ((((base + (t + 3 * s) * 1031 + k * 4099) % 16384) +
+                  r.randint(0, 63, (height, width))) & 0x3FFF)
+                .astype(np.uint16) for k in range(3)])
+        out.append(frames)
+    return out
+
+
 class MainPath(NamedTuple):
     pix_fmt: str
     gen: Callable          # content generator
@@ -232,6 +284,7 @@ class MainPath(NamedTuple):
     compact: bool = False  # the compact encode form, encode only
     golden: str = ""       # the path whose golden digests it must match
     coder: int = 2         # 2: range coder (custom table), 0: Golomb-Rice
+    bits: int = 8          # the coded width (RGB: one above the samples)
 
     @property
     def frames(self):
@@ -244,14 +297,15 @@ PATHS = {
     "8bit": MainPath("yuv420p", synthetic_streams, SEED, 0, W, H, TIMED,
                      ("rc_encode", "rc_decode")),
     "16bit": MainPath("yuv444p16le", synthetic_streams16, SEED + 16, 0, W,
-                      H, TIMED, ("rc_encode_ext", "rc_decode_ext")),
+                      H, TIMED, ("rc_encode_ext", "rc_decode_ext"),
+                      bits=16),
     "8bit_ctx1": MainPath("yuv420p", synthetic_streams, SEED, 1, W, H,
                           TIMED, ("rc_encode_global",
                                   "rc_decode_five_global")),
     "16bit_ctx1_540p": MainPath("yuv444p16le", synthetic_streams16,
                                 SEED + 16, 1, W // 2, H // 2, 2,
                                 ("rc_encode_ext_global",
-                                 "rc_decode_ext_five_global")),
+                                 "rc_decode_ext_five_global"), bits=16),
     # the compact encode form of 8bit and 8bit_ctx1 (the same frames and
     # bytes), after them: their warm-up launches are held to those paths'
     "8bit_compact": MainPath("yuv420p", synthetic_streams, SEED, 0, W, H,
@@ -265,6 +319,16 @@ PATHS = {
     "8bit_golomb": MainPath("yuv420p", synthetic_streams, SEED, 0, W, H,
                             TIMED, ("golomb_encode", "golomb_decode"),
                             coder=0),
+    # RGB (colorspace 1): FATE's ffv1-v3-bgr0 configuration at BASELINE
+    # config 2's size (coded width 9: K1, B1), and the RGB archival
+    # config (bench.py:538-563, 960x540 gbrp14le; coded width 15:
+    # K1-ext, B1-ext) with chip_smoke's slices and batch, two timed
+    # frames as 16bit_ctx1_540p
+    "rgb8": MainPath("bgr0", synthetic_streams_bgr0, SEED + 8, 0, W, H,
+                     TIMED, ("rc_encode", "rc_decode_rgb"), bits=9),
+    "rgb14_540p": MainPath("gbrp14le", synthetic_streams_gbrp14, SEED + 14,
+                           0, W // 2, H // 2, 2,
+                           ("rc_encode_ext", "rc_decode_ext_rgb"), bits=15),
 }
 _STREAMS: dict = {}
 
@@ -812,6 +876,111 @@ def check_decode_ext_kernel(dev, context_model):
     return res
 
 
+# ----------------------------------------- RGB decode checks, random
+
+# (plane width, planes) of B1's random-bytes launches
+RGB_RANDOM_SHAPES = ((40, 3), (33, 4), (2, 3), (1, 4))
+
+
+def rgb_decode_random_inputs(L, cap, bits, five, cc, nplanes, seed):
+    """B1 / B1-ext inputs (numpy: bufs, states, one, zero, qt, low0,
+    range0, pos0) on random bytes: garbage symbols (exponents up to the
+    width with no stop decision, clamped contexts), states 16..240 for
+    RGB's state planes (2, with alpha 3, x ``cc``), the quant tables of
+    the context (context model 1's with ``five``), every third lane's
+    coder started 4 bytes before its buffer's end (reads at pos >= cap
+    give 0)."""
+    r = np.random.RandomState(seed)
+    one, zero = custom_state_tables(T.VER2_STATE)
+    bufs = r.randint(0, 256, (L, cap)).astype(np.uint8)
+    pos0 = np.where(np.arange(L) % 3 == 2, cap - 4, 2).astype(np.int32)
+    low0 = np.minimum(bufs[np.arange(L), pos0 - 2].astype(np.int32) << 8 |
+                      bufs[np.arange(L), pos0 - 1], 0xFEFF)
+    CC = (2 + (nplanes == 4)) * cc
+    return [np.ascontiguousarray(a) for a in (
+        bufs, r.randint(16, 241, (L, CC, 32)).astype(np.uint8), one, zero,
+        T.default_quant_tables(bits)[int(five)].astype(np.int32),
+        low0.astype(np.int32), np.full(L, 0xFF00, np.int32), pos0)]
+
+
+def check_rgb_args(args, label, lossless=None):
+    """B1 / B1-ext on ``args`` (rc_decode_rgb's), timed, lane 0's
+    RCT-domain planes held to ``lossless`` where given; returns
+    (instance, its numbers, the launch's (args, outputs)) for the plain
+    check."""
+    states = args[1]
+    w, h, P, cc, bits, five = args[8:]
+    name = rc_decode.instance(bits, five, states.shape[1], w, P)
+    got = rc_decode.rc_decode_rgb(*args)
+    if lossless is not None:
+        check(np.array_equal(got[0][:, 0].cpu().numpy(), lossless),
+              f"{name} decode of lane 0 is not lossless ({label})")
+    ms = cuda_time_ms(lambda: rc_decode.rc_decode_rgb(*args), 5)
+    shape = (f"bits={bits} L={states.shape[0]} CC={states.shape[1]} {P} "
+             f"planes of {w}x{h}")
+    log(f"[kernels] {name} {shape} {label}: kernel {ms:.3f} ms")
+    return name, dict(check_ms=ms, check_shape=shape, label=label), \
+        (args, got)
+
+
+def check_rgb_decode_random_bytes(dev, bits, five, context_model):
+    """One of B1's (bits 9, 10) or B1-ext's (11, 13, 15) four instances
+    (``five``: the 5-input context; the context model's table size:
+    shared or global memory) on rgb_decode_random_inputs at L=48, once
+    per RGB_RANDOM_SHAPES entry: planes 40, 33, 2 and 1 wide (the row
+    borders, the context a warp's 32 columns at a time and its edge), 3
+    and 4 planes (alpha on the third state plane).  Returns [(instance,
+    its numbers, the launch's (args, outputs))]."""
+    L, cap = BATCH * SLICES, 4096
+    cc = T.CONTEXT_COUNTS[context_model]
+    res = []
+    for k, (w, P) in enumerate(RGB_RANDOM_SHAPES):
+        arrs = rgb_decode_random_inputs(
+            L, cap, bits, five, cc, P,
+            SEED + 900 + 10 * bits + 4 * k + 2 * five + context_model)
+        args = (*[torch.from_numpy(a).to(dev) for a in arrs], w,
+                6 if w > 2 else 96, P, cc, bits, five)
+        r = check_rgb_args(args, "random bytes")
+        pos = r[2][1][4].cpu().numpy()
+        check(bool((pos[2::3] >= cap).all()), "the reads near cap did not "
+              "pass the buffer")
+        res.append(r)
+    return res
+
+
+def check_rgb_decode_kernel(dev, pix_fmt, context_model):
+    """B1 (bgr0, coded width 9) or B1-ext (gbrp14le, 15) on the port's own
+    encode of 384x256, 24 slices, 2 streams (48 lanes of 3 x 64x64), at
+    ``context_model`` (1: the 5-input context, the table in global
+    memory); lane 0 held to its source crop through the forward RCT."""
+    w, h = 384, 256
+    params = EncoderParams(width=w, height=h, pix_fmt=pix_fmt, level=3,
+                           coder=2, slices=SLICES,
+                           context_model=context_model)
+    gen = synthetic_streams_bgr0 if pix_fmt == "bgr0" else \
+        synthetic_streams_gbrp14
+    streams = gen(BATCH, 1, w, h, SEED + 3)
+    enc = TorchFFV1Encoder(params, batch=BATCH, device=dev)
+    pkts = [p for p, _kf in enc.encode_frames([s[0] for s in streams])]
+    dec = TorchFFV1Decoder(w, h, enc.extradata, batch=BATCH, device=dev)
+    parsed = [dec._parse_packet(bi, p) for bi, p in enumerate(pkts)]
+    (bufs, lows, ranges, poss), _lens, q = dec._lane_inputs(parsed)
+    specs = dec._plane_specs()
+    sw, sh = specs[0][0], specs[0][1]
+    args = (bufs, dec._reset_lane_states([True] * BATCH, q).clone(),
+            dec.one_tab, dec.zero_tab, dec.qts[q], lows, ranges, poss, sw,
+            sh, len(specs), dec.g.context_counts[q], dec.coded_bits,
+            bool(dec.g.quant_tables[q][3][127]))
+    src = streams[0][0]
+    bgr = [src[0][:sh, :sw, c] for c in range(3)] if pix_fmt == "bgr0" \
+        else [p[:sh, :sw] for p in src]
+    g, b, r = rct_transform(*(torch.from_numpy(x.astype(np.int32))
+                              for x in (bgr[1], bgr[0], bgr[2])),
+                            dec.bits)
+    return check_rgb_args(args, f"port-encoded {pix_fmt}, context model "
+                          f"{context_model}", torch.stack([g, b, r]).numpy())
+
+
 # ------------------------------------- Golomb-Rice kernel checks, random
 
 
@@ -987,7 +1156,9 @@ def main_path(dev, gpu, name, recorders):
     golomb = path.coder == 0
     rec_enc = recorders["golomb_encode" if golomb else
                         "compact" if path.compact else "packed"]
-    rec_dec = recorders["golomb_decode" if golomb else "decode"]
+    rgb = pix_fmt.startswith(("bgr", "gbrp"))
+    rec_dec = recorders["golomb_decode" if golomb else
+                        "decode_rgb" if rgb else "decode"]
     t0 = time.perf_counter()
     streams = path_streams(name)
     golden = load_goldens()[path.golden or name]
@@ -1003,8 +1174,7 @@ def main_path(dev, gpu, name, recorders):
     dec = TorchFFV1Decoder(w, h, enc.extradata, batch=BATCH, device=dev)
     check(enc.L == SLICES * BATCH and enc.n_slices == SLICES,
           "expected 48 lanes")
-    check(enc.bits == (16 if pix_fmt.endswith("16le") else 8),
-          "coded width")
+    check(enc.bits == path.bits, "coded width")
     check(enc.compact == path.compact, "compact form")
     check(enc.golomb == dec.golomb == golomb, "coder")
 
@@ -1036,7 +1206,8 @@ def main_path(dev, gpu, name, recorders):
             for b in range(BATCH):
                 planes, kf = out[b]
                 check(kf == (t == 0), "keyframe flag")
-                for k in range(3):
+                check(len(planes) == len(frame[b]), "plane count")
+                for k in range(len(frame[b])):
                     check(planes[k].dtype == frame[b][k].dtype and
                           np.array_equal(planes[k], frame[b][k]),
                           f"{name} stream {b} frame {t} plane {k}: decode "
@@ -1132,7 +1303,7 @@ def main_path(dev, gpu, name, recorders):
         lambda: [crc32_ieee(p[a:b]) for p, a, b in spans])
     k2_args = dec_rec[0]
     dscan = golomb_decode.golomb_decode_planes if golomb else \
-        rc_decode.rc_decode_planes
+        rc_decode.rc_decode_rgb if rgb else rc_decode.rc_decode_planes
     k2_ms = cuda_time_ms(lambda: dscan(*k2_args), 3)
     log(f"[{tag}] decode stages (ms, each timed alone, {gpu}): parse+upload "
         f"{parse_ms:.2f}, of which the slices' CRC-32 alone takes "
@@ -1267,6 +1438,8 @@ def plain_version(name):
         return rc_encode.rc_encode_packed_ext_ref \
             if name.startswith("rc_encode_ext") else \
             rc_encode.rc_encode_packed_ref
+    if "_rgb" in name:
+        return rc_decode.rc_decode_rgb_ref
     return rc_decode.rc_decode_planes_ext_ref \
         if name.startswith("rc_decode_ext") else rc_decode.rc_decode_planes_ref
 
@@ -1295,8 +1468,12 @@ def segments(name, args, out):
     outputs on it and the state the next prefix run (or the full run)
     ends in.  By induction over the segments the plain version run on
     the whole launch would give the main-path launch's outputs.  The
-    encoder splits its pixel stream in equal parts, the decoder at its
-    plane boundaries (each plane starts from zeroed rows).
+    encoder splits its pixel stream in equal parts (two per 129,600
+    pixels, three above 10 bits), the planar decoder at its plane
+    boundaries (each plane starts from zeroed rows), the RGB decoder
+    (B1, B1-ext) at rows: a segment starts from the coder and states a
+    relaunch on the rows before it ends in, and from each plane's two
+    rows above it in the launch's output (rc_decode_rgb_ref's rows0).
 
     The Golomb-Rice lanes (G1, G2) are independent and carry their state
     from pixel to pixel (bit accumulator, run state): they split by lanes,
@@ -1324,7 +1501,7 @@ def segments(name, args, out):
         ctx, diff, act, st0, one, zero, low0, rng0, bits = args
         packed, low, rng, st = out
         N = ctx.shape[1]
-        nseg = 3 if bits > 10 else 2
+        nseg = (3 if bits > 10 else 2) * -(-N // 129_600)
         cuts = [N * i // nseg for i in range(nseg + 1)]
         ends = []
         for c in cuts[1:-1]:
@@ -1341,6 +1518,8 @@ def segments(name, args, out):
                   l0, r0, bits), (packed[a:b], *ends[i]))
                 for i, (a, b, (l0, r0, s0)) in enumerate(
                     zip(cuts, cuts[1:], starts))]
+    if "_rgb" in name:
+        return rgb_segments(name, args, out)
     bufs, st0, one, zero, qt, low0, rng0, pos0, specs, bits, five = args
     planes, st, low, rng, pos = out
     ends = []
@@ -1359,6 +1538,48 @@ def segments(name, args, out):
             for k, (s0, l0, r0, p0) in enumerate(starts)]
 
 
+# B1's plain version per segment: about this many decisions' worth of
+# pixels (P x rows x w x (2 bits + 1)), some 40 s on one core
+RGB_SEGMENT_COST = 3 * 34 * 320 * 19
+
+
+def rgb_segments(name, args, out):
+    """A B1 / B1-ext launch cut at rows (see ``segments``)."""
+    bufs, st0, one, zero, qt, low0, rng0, pos0, w, h, P, cc, bits, five = \
+        args
+    planes, st, low, rng, pos = out
+    nseg = max(1, min(h, -(-(P * h * w * (2 * bits + 1)) //
+                             RGB_SEGMENT_COST)))
+    cuts = [h * i // nseg for i in range(nseg + 1)]
+    ends = []
+    for c in cuts[1:-1]:
+        pl, s, lo, ra, po = rc_decode.rc_decode_rgb(
+            bufs, st0, one, zero, qt, low0, rng0, pos0, w, c, P, cc, bits,
+            five)
+        check(torch.equal(pl, planes[:, :, :c]),
+              f"{name} relaunched on {c} rows is not the main-path "
+              f"launch's prefix")
+        ends.append((s, lo, ra, po))
+    ends.append((st, low, rng, pos))
+    starts = [(st0, low0, rng0, pos0)] + ends[:-1]
+    segs = []
+    for k, (a, b) in enumerate(zip(cuts, cuts[1:])):
+        s0, l0, r0, p0 = starts[k]
+        rows0 = torch.zeros((P, planes.shape[1], 2, w), dtype=torch.int32,
+                            device=planes.device)
+        if a:
+            rows0[:, :, 2 - min(a, 2):] = planes[:, :, max(a - 2, 0):a]
+        segs.append(((bufs, s0, one, zero, qt, l0, r0, p0, w, b - a, P, cc,
+                      bits, five, rows0),
+                     (planes[:, :, a:b], *ends[k])))
+    return segs
+
+
+def decode_five(args):
+    """The ``five`` of a decode launch's arguments (planar or RGB)."""
+    return args[13] if len(args) >= 14 else args[10]
+
+
 def launch_shape(name, args, out):
     """A main-path launch's shape, for the log and the JSON line."""
     if name.startswith("golomb_encode"):
@@ -1370,6 +1591,10 @@ def launch_shape(name, args, out):
     if name.startswith("rc_encode"):
         return (f"L={args[0].shape[0]} N={args[0].shape[1]} "
                 f"CC={args[3].shape[1]} S={out[0].shape[1]} bits={args[8]}")
+    if "_rgb" in name:
+        return (f"L={args[0].shape[0]} CC={args[1].shape[1]} "
+                f"{args[10]} planes of {args[8]}x{args[9]} bits={args[12]} "
+                f"five={args[13]}")
     return (f"L={args[0].shape[0]} CC={args[1].shape[1]} planes={args[8]} "
             f"bits={args[9]} five={args[10]}")
 
@@ -1385,6 +1610,9 @@ def plain_cost(name, args):
         return 700 * sum(w * h for (w, h, _b) in args[4])
     if name.startswith("rc_encode"):
         return args[0].numel() * (2 * args[8] + 1)
+    if "_rgb" in name:
+        return 2 * args[0].shape[0] * (2 * args[12] + 1) * \
+            args[8] * args[9] * args[10]
     return 2 * args[0].shape[0] * (2 * args[9] + 1) * \
         sum(w * h for (w, h, _b) in args[8])
 
@@ -1450,7 +1678,7 @@ def kernel_bounds(name, rec, ns_per_decision, ops_per_decision,
         L, CC = args[1].shape[0], args[1].shape[1]
         consumed = int((pos.long() - args[7].long()).sum())
         px = sum(p.shape[1] * p.shape[2] for p in planes)
-        nq = 5 if args[10] else 3
+        nq = 5 if decode_five(args) else 3
         nbytes = consumed + 2 * L * CC * 32 + 512 + nq * 1024 + 24 * L + \
             L * px * 4
         nops = int(decisions.sum()) * ops_per_decision
@@ -1518,6 +1746,10 @@ KERNELS = {
                       "tpu_ffv1/tpu/golomb_scan.py:86"),
     "golomb_decode": ("tpu_ffv1_torch/csrc/golomb_decode.cu",
                       "tpu_ffv1/tpu/golomb_dec_lanes.py:33"),
+    "rc_decode_rgb": ("tpu_ffv1_torch/csrc/rc_decode.cu",
+                      "tpu_ffv1/tpu/dec_scan_lanes.py:266"),
+    "rc_decode_ext_rgb": ("tpu_ffv1_torch/csrc/rc_decode_ext.cu",
+                          "tpu_ffv1/tpu/dec_scan_lanes.py:266"),
 }
 
 
@@ -1526,7 +1758,9 @@ KERNELS = {
 OFF_PATH = ("rc_decode_five", "rc_decode_global", "rc_decode_ext_five",
             "rc_decode_ext_global", "golomb_encode_global",
             "golomb_decode_five_global", "golomb_decode_five",
-            "golomb_decode_global")
+            "golomb_decode_global") + tuple(
+                f"rc_decode{e}_rgb{i}" for e in ("", "_ext")
+                for i in ("_five", "_global", "_five_global"))
 # the lane groups a Golomb-Rice main-path launch's plain check splits into
 GOLOMB_LANE_GROUPS = 2
 
@@ -1637,7 +1871,13 @@ def main():
               [r for m in (0, 1) for r in check_golomb_encode_kernel(dev, m)] +
               [check_golomb_decode_kernel(dev, five, m)
                for five, m in ((False, 0), (True, 1), (True, 0),
-                               (False, 1))])
+                               (False, 1))] +
+              [r for b in rc_decode.RGB_BITS
+               for five, m in ((False, 0), (True, 1), (True, 0),
+                               (False, 1))
+               for r in check_rgb_decode_random_bytes(dev, b, five, m)] +
+              [check_rgb_decode_kernel(dev, f, 1)
+               for f in ("bgr0", "gbrp14le")])
     check(sorted({r[0] for r in random}) ==
           sorted(set(KERNELS) | set(OFF_PATH)),
           "the random checks do not cover every instance")
@@ -1645,12 +1885,19 @@ def main():
     recorders = dict(packed=LastLaunch(port_encoder, "rc_encode_packed"),
                      compact=LastLaunch(port_encoder, "rc_encode_compact"),
                      decode=LastLaunch(port_decoder, "rc_decode_planes"),
+                     decode_rgb=LastLaunch(port_decoder, "rc_decode_rgb"),
                      golomb_encode=LastLaunch(port_encoder,
                                               "golomb_encode_lanes"),
                      golomb_decode=LastLaunch(port_decoder,
                                               "golomb_decode_planes"))
     paths = {name: main_path(dev, gpu, name, recorders) for name in PATHS}
-    recs = {k: v for p in paths.values() for k, v in p["recs"].items()}
+    # each instance's launch on the first path that ran it (K1 and K1-ext
+    # also run on the RGB paths: their stage splits and compact checks
+    # take the planar paths' launches)
+    recs = {}
+    for p in paths.values():
+        for k, v in p["recs"].items():
+            recs.setdefault(k, v)
     check(sorted(recs) == sorted(KERNELS),
           f"the main paths ran {sorted(recs)}, not every instance")
     # each compact launch against its raw path's K1 launch; the raw
@@ -1674,9 +1921,11 @@ def main():
 
     # phase 6: every launch above against its plain version
     t0 = time.perf_counter()
-    main_recs = {k: v for k, v in recs.items() if k not in compact_sec}
+    # every main-path launch but the compact ones, by (path, instance)
+    main_recs = {(pn, k): v for pn, p in paths.items()
+                 for k, v in p["recs"].items() if k not in compact_sec}
     launches = [(name, rec, False) for name, _info, rec in random] + \
-        [(name, rec, True) for name, rec in main_recs.items()]
+        [(name, rec, True) for (_pn, name), rec in main_recs.items()]
     secs, workers = plain_checks(launches)
     checks = {}
     for (name, info, _rec), segs in zip(random, secs):
@@ -1686,18 +1935,21 @@ def main():
             f"match (equal SHA-256 of every output); plain version on the "
             f"host CPU {segs[0]:.1f} s")
     mp = {}
-    for name, segs in zip(main_recs, secs[len(random):]):
-        shape = launch_shape(name, *recs[name])
-        mp[name] = dict(plain_ms=sum(segs) * 1e3, main_path_shape=shape)
-        log(f"[check] {name}, main path's warm-up frame ({shape}): exact "
+    for (pn, name), segs in zip(main_recs, secs[len(random):]):
+        shape = launch_shape(name, *main_recs[(pn, name)])
+        mp[(pn, name)] = dict(plain_ms=sum(segs) * 1e3, main_path_shape=shape)
+        log(f"[check] {name}, {pn} path's warm-up frame ({shape}): exact "
             f"match in {len(segs)} segments (equal SHA-256 of every "
             f"output); plain version on the host CPU "
             f"{' + '.join(f'{x:.1f}' for x in segs)} = {sum(segs):.1f} s")
-    for name, sec in compact_sec.items():
-        # its plain version is the raw one's, then compact_packed
-        raw = name.replace("_compact", "")
-        mp[name] = dict(plain_ms=mp[raw]["plain_ms"] + sec * 1e3,
-                        main_path_shape=launch_shape(name, *recs[name]))
+    for pn, path in PATHS.items():
+        name = path.kernels[0]
+        if name in compact_sec:
+            # its plain version is the raw one's, then compact_packed
+            raw = (path.golden, name.replace("_compact", ""))
+            mp[(pn, name)] = dict(
+                plain_ms=mp[raw]["plain_ms"] + compact_sec[name] * 1e3,
+                main_path_shape=launch_shape(name, *recs[name]))
     log(f"[check] all plain checks in {time.perf_counter() - t0:.1f} s "
         f"({workers} worker processes, {sum(map(sum, secs)):.1f} s of "
         f"plain version in all)")
@@ -1710,12 +1962,13 @@ def main():
         # encode
         decisions = decisions_per_lane(enc_args[1], enc_args[2])
         for name in filter(None, path.kernels):
+            rec, m = p["recs"][name], mp[(path_name, name)]
             if name.startswith("golomb"):
                 # G1's inputs: the warm-up frame's decode makes the same
                 # decisions
                 vlc_px = golomb_vlc_pixels(*enc_args[:4], enc_args[8])
                 kernels.append(golomb_row(
-                    name, path_name, p, recs[name], mp[name], checks[name],
+                    name, path_name, p, rec, m, checks[name],
                     golomb_step[name.split("_")[1]], vlc_px, gpu))
                 continue
             src, replaces = KERNELS[name]
@@ -1728,7 +1981,7 @@ def main():
                 # decision bodies (the zero flag's twice: with a zero
                 # residual and a nonzero one); the compact form's
                 # compaction is in it
-                bits, g = recs[name][0][8], int(name.endswith("_global"))
+                bits, g = rec[0][8], int(name.endswith("_global"))
                 lib = "rc_encode_ext" if name.startswith("rc_encode_ext") \
                     else "rc_encode"
                 targs = f"{bits},{g},31" if lib == "rc_encode_ext" else \
@@ -1736,7 +1989,7 @@ def main():
                 extra = max(0, pixel_loop_count(
                     funcs[lib][f"{lib}_kernel<{targs}>"]) -
                     (2 * bits + 2) * ops_enc)
-            bound, term, chain = kernel_bounds(name, recs[name], ns, ops,
+            bound, term, chain = kernel_bounds(name, rec, ns, ops,
                                                decisions, row_ns, extra)
             row = name.startswith("rc_decode") and name.endswith("_global")
             kernels.append(dict(
@@ -1744,13 +1997,13 @@ def main():
                 main_path=path_name, launches=p["launches"][name],
                 launches_per_step=p["launches"][name] / p["steps"],
                 max_abs_err=0, ms=p["ms"][name],
-                plain_ms=mp[name]["plain_ms"], plain_device="cpu",
+                plain_ms=m["plain_ms"], plain_device="cpu",
                 bound_ms=bound, bound_by=term, chain_bound_ms=chain,
                 chain_decisions_max_lane=int(decisions.max()),
                 ns_per_decision=ns, ops_per_decision=ops,
                 extra_ops_per_pixel=extra,
                 row_read_ns=row_ns if row else None, library_ms=None,
-                main_path_shape=mp[name]["main_path_shape"],
+                main_path_shape=m["main_path_shape"],
                 checks=[{k: c[k] for k in ("check_shape", "check_ms",
                                            "check_plain_ms")}
                         for c in checks[name]]))

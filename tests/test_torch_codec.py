@@ -372,7 +372,7 @@ def test_16bit_flipped_byte_flags_slice_and_conceals():
     dict(pix_fmt="bgr0", coder=0),                       # Golomb-Rice, RGB
     dict(pix_fmt="yuv420p", coder=0, slices=6),          # Golomb, non-unif.
     dict(pix_fmt="yuv420p16le", coder=2, level=1),       # 16 bits, v1
-    dict(pix_fmt="bgr0", coder=2),                       # RGB
+    dict(pix_fmt="bgr0", coder=2, level=4, strict=-2),   # RGB, v4
     dict(pix_fmt="yuv420p", coder=2, slices=6),          # non-uniform
     dict(pix_fmt="yuv420p", coder=2, pass1=True),        # two-pass, 1st
     dict(pix_fmt="yuv420p", coder=2, stats_in=""),       # two-pass, 2nd

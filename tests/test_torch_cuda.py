@@ -3,8 +3,10 @@ version on the same CUDA tensors (exact: integer codec), and the slice
 end to end against the host encoder, at context models 0 and 1 (whose
 state table the kernels keep in global memory), in the raw and the
 compact encode form, with the range coder and with Golomb-Rice (G1, G2
-in every instance); K1's, K1-ext's, K2's and K2-ext's stage probes,
-the lookup probes and the Golomb-Rice pixel-step probe.  Marked ``cuda``; each test skips where
+in every instance), and RGB (bgr0 and gbrp14le through B1 and B1-ext,
+every instance of both on random bytes); K1's, K1-ext's, K2's and
+K2-ext's stage probes, the lookup probes and the Golomb-Rice pixel-step
+probe.  Marked ``cuda``; each test skips where
 torch.cuda.is_available() is False (this file imports no jax, so it runs
 on a machine without it: FFV1_TEST_NO_CACHE=1 python -m pytest
 tests/test_torch_cuda.py)."""
@@ -573,3 +575,58 @@ def test_golomb_slice_on_cuda_matches_host(cuda, context_model):
         for b in range(2):
             for x, y in zip(out[b][0], streams[b][t]):
                 assert np.array_equal(x, y)
+
+
+@pytest.mark.parametrize("five,model", [(False, 0), (True, 1), (True, 0),
+                                        (False, 1)],
+                         ids=["three_shared", "five_global", "five_shared",
+                              "three_global"])
+@pytest.mark.parametrize("bits", [9, 10, 11, 13, 15])
+def test_rc_decode_rgb_kernels_match_plain(cuda, bits, five, model):
+    """B1's (9, 10 bits) and B1-ext's (11, 13, 15) four instances on
+    chip_smoke's random inputs, 3 and 4 planes 40, 33, 2 and 1 wide,
+    against the plain version; one launch counted each."""
+    from tpu_ffv1_torch.tpu import rc_decode as K
+    cc = T.CONTEXT_COUNTS[model]
+    for w, P in chip_smoke.RGB_RANDOM_SHAPES:
+        arrs = chip_smoke.rgb_decode_random_inputs(6, 1024, bits, five, cc,
+                                                   P, 40 + bits + w)
+        h = 4 if w > 2 else 48
+        name = K.instance(bits, five, arrs[1].shape[1], w, P)
+        assert name.startswith("rc_decode_ext_rgb" if bits > 10 else
+                               "rc_decode_rgb")
+        before = K.LAUNCHES.get(name, 0)
+        got = K.rc_decode_rgb(*[torch.from_numpy(a).to(cuda) for a in arrs],
+                              w, h, P, cc, bits, five)
+        assert K.LAUNCHES[name] == before + 1
+        want = K.rc_decode_rgb_ref(*[torch.from_numpy(a) for a in arrs], w,
+                                   h, P, cc, bits, five)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("context_model", [0, 1])
+@pytest.mark.parametrize("pix_fmt", ["bgr0", "gbrp14le"])
+def test_rgb_slice_on_cuda_matches_host(cuda, pix_fmt, context_model):
+    """RGB through K1 / K1-ext and B1 / B1-ext: the host encoder's
+    packets, a lossless decode in the host decoder's layout."""
+    from tpu_ffv1_torch import TorchFFV1Decoder, TorchFFV1Encoder
+    w, h = 96, 64
+    params = EncoderParams(width=w, height=h, pix_fmt=pix_fmt, level=3,
+                           coder=2, slices=4, gop_size=2,
+                           context_model=context_model)
+    gen = chip_smoke.synthetic_streams_bgr0 if pix_fmt == "bgr0" else \
+        chip_smoke.synthetic_streams_gbrp14
+    streams = gen(2, 3, w, h, 30 + context_model)
+    port = TorchFFV1Encoder(params, batch=2, device=cuda)
+    dec = TorchFFV1Decoder(w, h, port.extradata, batch=2, device=cuda)
+    hosts = [FFV1Encoder(params) for _ in range(2)]
+    for t in range(3):
+        res = port.encode_frames([streams[b][t] for b in range(2)])
+        for b in range(2):
+            assert res[b] == hosts[b].encode_frame(streams[b][t])
+        out = dec.decode_frames([r[0] for r in res])
+        for b in range(2):
+            assert len(out[b][0]) == len(streams[b][t])
+            for x, y in zip(out[b][0], streams[b][t]):
+                assert x.dtype == y.dtype and np.array_equal(x, y)

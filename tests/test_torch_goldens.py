@@ -4,8 +4,10 @@ encoder's: regenerated here from chip_smoke's seeded content generators
 with tpu_ffv1.FFV1Encoder(engine="native") on the CPU, every packet of
 every main path (2 streams x 8 frames of 1080p yuv420p and of 1080p
 yuv444p16le at context model 0, of 1080p yuv420p at context model 1,
-and 2 x 4 frames of 960x540 yuv444p16le at context model 1), and
-compared with the committed file exactly.  The compact-form paths
+with Golomb-Rice, and of 1080p bgr0; 2 x 4 frames of 960x540
+yuv444p16le at context model 1 and of 960x540 gbrp14le), and compared
+with the committed file exactly (RGB from the C encoder's RGB coder,
+ffv1n_encode_rgb).  The compact-form paths
 (8bit_compact, 8bit_ctx1_compact) have no digests of their own: the
 host encoder on their content and configuration must give those of the
 path they name (their packets are the raw form's, byte for byte).

@@ -1,6 +1,7 @@
 """The CUDA sources of the lane scans (csrc/rc_encode.cu, K1 and
-K1-compact; csrc/rc_encode_ext.cu, K1-ext; csrc/rc_decode.cu, K2 and
-K2-five; csrc/rc_decode_ext.cu, K2-ext and K2-ext-five;
+K1-compact; csrc/rc_encode_ext.cu, K1-ext; csrc/rc_decode.cu, K2,
+K2-five and B1, the line-interleaved RGB decode; csrc/rc_decode_ext.cu,
+K2-ext, K2-ext-five and B1-ext;
 csrc/golomb_encode.cu, G1; csrc/golomb_decode.cu, G2), compiled for
 the host under the warp emulation of tools/warp_emu (32 threads per
 block, a barrier per warp primitive), against their plain PyTorch
@@ -14,7 +15,8 @@ symbols whose exponents run past the width (e = bits with no stop
 decision), clamped contexts, planes 40, 33, 2 and 1 wide (the row
 borders, the context a warp's 32 columns at a time and its edge), and
 one lane started 8 bytes before its buffer's end (reads at pos >= cap
-give 0).  The Golomb-Rice scans run on chip_smoke.py's phase-4 inputs:
+give 0); B1's and B1-ext's on chip_smoke.py's phase-4 inputs, 3 and 4
+planes 40, 33, 2 and 1 wide.  The Golomb-Rice scans run on chip_smoke.py's phase-4 inputs:
 G1 on its edge inputs (run chunks, breaks, the line-end flush, zero
 residuals, escapes, inactive blocks, carried VLC states, and an output
 cap below the counts), G2 on random bytes (long runs, escapes, reads
@@ -223,6 +225,35 @@ def test_rc_decode_sources_match_plain(libs, bits, five, model):
         assert torch.equal(a, b)
     assert int(got[4][-1]) >= args[0].shape[1], "lane L - 1 did not read " \
         "past its buffer"
+
+
+RGB_COMBOS = [(b, i) for b in (9, 10, 11, 13, 15) for i in range(4)]
+
+
+@pytest.mark.parametrize("bits,inst", RGB_COMBOS,
+                         ids=[f"{b}-{DECODE_IDS[i]}" for b, i in RGB_COMBOS])
+def test_rc_decode_rgb_sources_match_plain(libs, bits, inst):
+    """B1's four instances (csrc/rc_decode.cu, rc_decode_rgb_launch) at 9
+    and 10 bits, B1-ext's (csrc/rc_decode_ext.cu) at 11, 13 and 15: the
+    3- or 5-input context, the table in shared or global memory; each
+    instance over the bits meets every (plane width, planes) of
+    chip_smoke.RGB_RANDOM_SHAPES."""
+    five, model = DECODE_INSTANCES[inst]
+    cc = T.CONTEXT_COUNTS[model]
+    k = (chip_smoke.rc_decode.RGB_BITS.index(bits) + inst) % 4
+    w, P = chip_smoke.RGB_RANDOM_SHAPES[k]
+    h = 3 if w > 2 else 48
+    args = chip_smoke.rgb_decode_random_inputs(L, 512, bits, five, cc, P,
+                                               130 + bits + 7 * inst)
+    name = "rc_decode_ext" if bits > 10 else "rc_decode"
+    got = _emulate_decode(libs[name], f"{name}_rgb_launch", args,
+                          D.rgb_specs(w, h, P, cc), bits, five, model == 1)
+    want = D.rc_decode_rgb_ref(*[torch.from_numpy(a) for a in args], w, h,
+                               P, cc, bits, five)
+    assert torch.equal(torch.stack(got[0]), want[0])
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a, b)
+    assert int(got[4][2]) >= 512, "lane 2 did not read past its buffer"
 
 
 def _long_pixel_args(bits, CC):

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Compare copies of the 16-bit lane scans' sources on the card: K1-ext
-(csrc/rc_encode_ext.cu) or K2-ext (csrc/rc_decode_ext.cu).
+"""Compare copies of a lane scan's source on the card: K1-ext
+(csrc/rc_encode_ext.cu), K2 (csrc/rc_decode.cu) or K2-ext
+(csrc/rc_decode_ext.cu).
 
-    python3 tools/scan_variants.py [--source rc_encode_ext|rc_decode_ext]
+    python3 tools/scan_variants.py
+        [--source rc_encode_ext|rc_decode|rc_decode_ext]
         [--variant TAG=PATH ...] [--reps 5] [--stages]
         [--sass-against PATH]
 
@@ -15,8 +17,9 @@ package's nvcc flags into its own directory under
 spills are printed.  Then, on the warm-up inputs of chip_smoke.py's
 ``16bit`` path (1080p yuv444p16le, 48 lanes: K1-ext's and K2-ext's
 shared-memory instances) and ``16bit_ctx1_540p`` path (K1-ext's
-global-memory instance, K2-ext-five), recorded from the port's encoder
-or decoder exactly as chip_smoke.py records them:
+global-memory instance, K2-ext-five), or for K2 of its ``8bit`` and
+``8bit_ctx1`` paths (K2, K2-five), recorded from the port's encoder or
+decoder exactly as chip_smoke.py records them:
 
 - each variant's outputs must equal the tree's production launch (which
   chip_smoke.py holds to the plain version);
@@ -63,10 +66,13 @@ VARIANT_DIR = os.path.join(build.BUILD_DIR, "variants")
 # STAGES)
 INPUTS = {"rc_encode_ext": (("16bit", "rc_encode_ext"),
                             ("16bit_ctx1_540p", "rc_encode_ext_global")),
+          "rc_decode": (("8bit", "rc_decode"),
+                        ("8bit_ctx1", "rc_decode_five_global")),
           "rc_decode_ext": (("16bit", "rc_decode_ext"),
                             ("16bit_ctx1_540p",
                              "rc_decode_ext_five_global"))}
 STAGE_VARIANTS = {"rc_encode_ext": rc_encode.EXT_STAGE_VARIANTS,
+                  "rc_decode": rc_decode.STAGE_VARIANTS,
                   "rc_decode_ext": rc_decode.EXT_STAGE_VARIANTS}
 
 
@@ -130,9 +136,9 @@ def same_sass(name, tree_dir, other_dir):
 
 def warmup_inputs(dev, source):
     """{path: (args, outputs)} of the encoder's (rc_encode_ext) or the
-    decoder's (rc_decode_ext) lane-scan launch on each path's warm-up
-    frame (frames 0 and 1 of chip_smoke.py's content)."""
-    decode = source == "rc_decode_ext"
+    decoder's (rc_decode, rc_decode_ext) lane-scan launch on each path's
+    warm-up frame (frames 0 and 1 of chip_smoke.py's content)."""
+    decode = source.startswith("rc_decode")
     rec = cs.LastLaunch(port_decoder, "rc_decode_planes") if decode else \
         cs.LastLaunch(port_encoder, "rc_encode_packed")
     res = {}
@@ -201,7 +207,7 @@ def main():
     stage_entry = f"{name}_stages_launch"
     for path, inst in INPUTS[name]:
         args, want = inputs[path]
-        if name == "rc_decode_ext":
+        if name.startswith("rc_decode"):
             L = args[0].shape[0]
             N = sum(w * h for (w, h, _b) in args[8])
             bits = args[9]

@@ -89,6 +89,19 @@
 // overwrites it, and LL, the previous pixel's L (0 at x = 0).  The context
 // index is clamped so damaged streams stay inside the table.
 //
+// RGB (B1: this kernel with RGB = true, reached through
+// rc_decode_rgb_launch at coded widths 9 (bgr0, bgra) and 10 (gbrp9); it
+// replaces the XLA scan tpu_ffv1/tpu/dec_scan_lanes.py:266
+// rc_decode_rgb_lanes, ffv1dec.c:226-255): each row of a slice decodes a
+// line of every plane G, B, R(, A) in turn from the one coder, plane p on
+// state plane (p + 1) / 2 (its pbase), each plane from its own 2-row ring.
+// The per-pixel code is the planar kernel's; only the line order and the
+// rings differ.  The rings are zeroed once per slice, not per plane: a
+// plane's row y-1 is the line it decoded P lines before.  The row pass
+// (LT - T, T - RT; FIVE: TT - T with TT the stale cur[x], row y-2 of the
+// same plane) runs once per line, from that plane's ring, before the line
+// overwrites it.  Shared memory holds 2P ring rows instead of two.
+//
 // Stage probes (STAGES != ALL_STAGES, 8 bits only, reached through
 // rc_decode_stages_launch and never by the codec): the same kernel with one
 // stage stubbed, for timing only (their outputs are wrong on purpose).
@@ -122,7 +135,7 @@ struct PlaneSpecs {
   int w[MAX_PLANES], h[MAX_PLANES], pbase[MAX_PLANES], off[MAX_PLANES];
 };
 
-template <int BITS, bool FIVE, bool GTAB, int STAGES>
+template <int BITS, bool FIVE, bool GTAB, bool RGB, int STAGES>
 __global__ void __launch_bounds__(32) rc_decode_kernel(
     const uint8_t* __restrict__ bufs, int cap,
     const uint8_t* __restrict__ states0, const uint8_t* __restrict__ one_tab,
@@ -152,8 +165,9 @@ __global__ void __launch_bounds__(32) rc_decode_kernel(
   uint32_t* ring = reinterpret_cast<uint32_t*>(qt_s + NQ * 256);  // 512 B
   uint16_t* oz_s = reinterpret_cast<uint16_t*>(ring + 128);       // 512 B
   int2* tc_s = reinterpret_cast<int2*>(oz_s + 256);   // (T, ctx part)
-  int32_t* rowA = reinterpret_cast<int32_t*>(tc_s + (wmax + 1));
-  int32_t* rowB = rowA + (wmax + 1);
+  // the 2-row rings of reconstructed samples: one, or with RGB one per
+  // plane
+  int32_t* rings = reinterpret_cast<int32_t*>(tc_s + (wmax + 1));
 
   if (!GTAB) {
     const uint4* src = reinterpret_cast<const uint4*>(
@@ -189,18 +203,32 @@ __global__ void __launch_bounds__(32) rc_decode_kernel(
   int32_t* out_l = out + (size_t)lane * out_stride;
   __syncwarp();
 
-  for (int pl = 0; pl < specs.n; ++pl) {
-    const int w = specs.w[pl], h = specs.h[pl], pbase = specs.pbase[pl];
-    int32_t* out_p = out_l + specs.off[pl];
+  // planar: the planes one after the other, each from zeroed rows.  RGB
+  // (line-interleaved, ffv1dec.c:226-255): all planes have the slice's
+  // size, row y decodes a line of every plane in order, and each plane's
+  // ring, zeroed once per slice, carries from its row y-1 to its row y
+  const int nring = RGB ? specs.n : 1;
+  for (int pl = 0; pl < (RGB ? 1 : specs.n); ++pl) {
+    const int w = specs.w[pl], h = specs.h[pl];
+    const int pbase_pl = specs.pbase[pl];
+    int32_t* out_pl = out_l + specs.off[pl];
     for (int i = t; i <= wmax; i += 32) {
-      rowA[i] = 0;
-      rowB[i] = 0;
+      for (int r = 0; r < 2 * nring; ++r) rings[r * (wmax + 1) + i] = 0;
       tc_s[i] = make_int2(0, 0);     // [w] is read ahead and never used
     }
     __syncwarp();
-    int32_t* cur = rowA;
-    int32_t* prev = rowB;
-    for (int y = 0; y < h; ++y) {
+    int32_t* cur = rings;
+    int32_t* prev = rings + (wmax + 1);
+    for (int yl = 0; yl < h * nring; ++yl) {
+      // line yl: row y of plane p (planar: the plane's row yl)
+      const int y = RGB ? yl / nring : yl;
+      const int p = RGB ? yl - y * nring : pl;
+      const int pbase = RGB ? specs.pbase[p] : pbase_pl;
+      int32_t* out_p = RGB ? out_l + specs.off[p] : out_pl;
+      if constexpr (RGB) {        // the plane's ring
+        cur = rings + (2 * p + (y & 1)) * (wmax + 1);
+        prev = rings + (2 * p + (~y & 1)) * (wmax + 1);
+      }
       // the part of each pixel's context that does not depend on the row
       // being decoded, 32 columns at a time: LT - T and T - RT (FIVE: TT
       // - T, TT the stale cur[x] of the 2-row ring, row y-2); LT at x = 0
@@ -364,9 +392,11 @@ __global__ void __launch_bounds__(32) rc_decode_kernel(
       }
       __syncwarp();
       for (int x = t; x < w; x += 32) out_p[y * w + x] = cur[x];
-      int32_t* tmp = cur;
-      cur = prev;
-      prev = tmp;
+      if constexpr (!RGB) {
+        int32_t* tmp = cur;
+        cur = prev;
+        prev = tmp;
+      }
       __syncwarp();
     }
   }
@@ -382,7 +412,7 @@ __global__ void __launch_bounds__(32) rc_decode_kernel(
   }
 }
 
-template <int BITS, bool FIVE, bool GTAB, int STAGES>
+template <int BITS, bool FIVE, bool GTAB, int STAGES, bool RGB = false>
 static int launch(const void* bufs, int cap, const void* states0,
                   const void* one_tab, const void* zero_tab, const void* qt,
                   const void* low0, const void* range0, const void* pos0,
@@ -392,14 +422,14 @@ static int launch(const void* bufs, int cap, const void* states0,
                   cudaStream_t stream) {
   const size_t smem = (GTAB ? 0 : (size_t)CC * 32) +
                       (FIVE ? 5 : 3) * 256 * 4 + 512 + 512 +
-                      4 * (size_t)(wmax + 1) * 4;
+                      (2 + 2 * (RGB ? specs.n : 1)) * (size_t)(wmax + 1) * 4;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        rc_decode_kernel<BITS, FIVE, GTAB, STAGES>,
+        rc_decode_kernel<BITS, FIVE, GTAB, RGB, STAGES>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  rc_decode_kernel<BITS, FIVE, GTAB, STAGES><<<L, 32, smem, stream>>>(
+  rc_decode_kernel<BITS, FIVE, GTAB, RGB, STAGES><<<L, 32, smem, stream>>>(
       (const uint8_t*)bufs, cap, (const uint8_t*)states0,
       (const uint8_t*)one_tab, (const uint8_t*)zero_tab, (const int32_t*)qt,
       (const int32_t*)low0, (const int32_t*)range0, (const int32_t*)pos0,
@@ -438,6 +468,13 @@ static bool plane_specs(const int* spec, int nplanes, int out_stride,
   return off <= out_stride;
 }
 
+// Whether every plane of a launch has the first one's size (RGB).
+static bool same_size(const PlaneSpecs& specs) {
+  for (int k = 1; k < specs.n; ++k)
+    if (specs.w[k] != specs.w[0] || specs.h[k] != specs.h[0]) return false;
+  return true;
+}
+
 // Plain C entry point: returns the cudaError_t of the launch (0 = ok).
 // spec is a host array of nplanes x (w, h, pbase) triples; plane k's
 // samples start at column sum_{j<k} w_j * h_j of the (L, out_stride) out.
@@ -465,6 +502,34 @@ extern "C" int rc_decode_launch(RC_DEC_PARAMS, int bits, int five, int gtab,
       return (int)cudaErrorInvalidValue;
   }
 #undef RC_DEC_CASE
+}
+
+// B1 (rc_decode_rgb_launch): the line-interleaved RGB decode at coded
+// widths 9 (bgr0, bgra) and 10 (gbrp9), the same arguments and instances
+// as rc_decode_launch.  Every plane has the slice's width and height, and
+// plane k (G, B, R, A) names its state plane in its pbase: (k + 1) / 2 x
+// the context count.
+extern "C" int rc_decode_rgb_launch(RC_DEC_PARAMS, int bits, int five,
+                                    int gtab, void* stream) {
+  PlaneSpecs specs;
+  int wmax;
+  if (!plane_specs(spec, nplanes, out_stride, specs, wmax) ||
+      !same_size(specs))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define RC_DEC_RGB_CASE(B)                                                 \
+  case B:                                                                  \
+    return five                                                            \
+        ? (gtab ? launch<B, true, true, ALL_STAGES, true>(RC_DEC_ARGS)     \
+                : launch<B, true, false, ALL_STAGES, true>(RC_DEC_ARGS))   \
+        : (gtab ? launch<B, false, true, ALL_STAGES, true>(RC_DEC_ARGS)    \
+                : launch<B, false, false, ALL_STAGES, true>(RC_DEC_ARGS));
+  switch (bits) {
+    RC_DEC_RGB_CASE(9) RC_DEC_RGB_CASE(10)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef RC_DEC_RGB_CASE
 }
 
 // The stage probes: K2 at 8 bits with the stages of the bitmask ``stages``

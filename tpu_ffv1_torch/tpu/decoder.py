@@ -1,5 +1,5 @@
-"""PyTorch FFV1 decoder (version 3, range coder or Golomb-Rice, planar
-YUV/gray).
+"""PyTorch FFV1 decoder (version 3: planar YUV/gray with the range coder
+or Golomb-Rice, RGB with the range coder).
 
 Port of the fused planar range-coder and Golomb-Rice paths of
 ``tpu_ffv1/tpu/decoder.py`` (``TPUFFV1Decoder``).  The host parses the
@@ -15,7 +15,14 @@ through golomb_decode.py (G2 on a CUDA device): each lane's bit reader
 starts at the byte after its range-coded slice header and the v3.2
 sentinel (ffv1dec.c:427-434), its VLC states carry across the GOP, and
 there is no sentinel check (the reference validates only the range
-coder's); the CRC still flags slices.
+coder's); the CRC still flags slices.  RGB streams (colorspace 1) decode
+through rc_decode_rgb (B1 / B1-ext on a CUDA device): each slice row
+holds a line of every plane G, B, R(, A) at the coded width (9 for
+8-bit samples, bits + 1 above); the inverse colour transform, the grid
+assembly and the output packing run as torch ops (ffv1dec.c:264-272).
+Output as the host decoder's: 8-bit RGB one (H, W, 4) uint8 array in
+memory order B, G, R, A (A = 0 for bgr0), deeper RGB three uint16
+planes in the format's order.
 
 Every lane decodes at the slice grid's geometry, which no packet can
 change.  A slice header is parsed into a copy of the geometry its last
@@ -43,7 +50,7 @@ from ..core.rac import (RangeDecoder, custom_state_tables,
 from ..device import resolve_device
 from .golomb_decode import golomb_decode_planes
 from .golomb_encode import fresh_vlc_states
-from .rc_decode import rc_decode_planes
+from .rc_decode import RGB_BITS, rc_decode_planes, rc_decode_rgb
 
 
 class TorchFFV1Decoder:
@@ -59,8 +66,13 @@ class TorchFFV1Decoder:
         self.device = resolve_device(device)
         g = read_extra_header(extradata)
         self.golomb = g.ac == T.AC_GOLOMB_RICE
-        if g.colorspace != 0:
-            raise NotImplementedError("only planar YUV/gray is ported")
+        self.rgb = g.colorspace == 1
+        if g.colorspace not in (0, 1):
+            raise NotImplementedError("only planar YUV/gray and RGB are "
+                                      "ported")
+        if self.rgb and self.golomb:
+            raise NotImplementedError("RGB needs the range coder, as in "
+                                      "the reference")
         if g.version != 3:
             raise NotImplementedError("only version 3 is ported")
         self.g = g
@@ -75,12 +87,19 @@ class TorchFFV1Decoder:
         self.quant_table_count = g.quant_table_count
         self.ec = g.ec
         self.bits = 8 if g.bits_per_raw_sample <= 8 else g.bits_per_raw_sample
-        if self.bits > 17:
-            raise NotImplementedError("no coded width above 17 bits exists")
+        # the coded width: RGB's residuals are one bit wider than its
+        # samples (ffv1dec.c:252-255)
+        self.coded_bits = (9 if self.bits <= 8 else self.bits + 1) \
+            if self.rgb else self.bits
+        if self.coded_bits > 17 or \
+                (self.rgb and self.coded_bits not in RGB_BITS):
+            raise NotImplementedError(f"no {'RGB ' if self.rgb else ''}"
+                                      f"format codes at {self.coded_bits} "
+                                      f"bits")
         self.pix_fmt = reconstruct_pix_fmt(
             g.colorspace, g.bits_per_raw_sample or 8, g.chroma_planes,
             g.chroma_h_shift, g.chroma_v_shift, g.transparency)
-        if g.transparency and not g.chroma_planes:
+        if not self.rgb and g.transparency and not g.chroma_planes:
             raise NotImplementedError("ya8 (interleaved alpha) is not "
                                       "ported")
         if g.ac == T.AC_RANGE_CUSTOM_TAB:
@@ -109,7 +128,10 @@ class TorchFFV1Decoder:
               g0.height % (1 << g.chroma_v_shift) == 0)))
         if not uniform:
             raise NotImplementedError("only uniform slice grids are ported")
-        self.n_state_planes = 1 + (1 if g.chroma_planes else 0) + \
+        # RGB plane p codes on state plane (p + 1) / 2: G 0, B and R 1,
+        # A 2 (ffv1dec.c:253)
+        self.n_state_planes = (2 if self.rgb else
+                               1 + (1 if g.chroma_planes else 0)) + \
             (1 if g.transparency else 0)
         self.key_frame_ok = [False] * batch
         self.last_planes = [None] * batch
@@ -203,10 +225,14 @@ class TorchFFV1Decoder:
         return keyframe, slices
 
     def _plane_specs(self):
-        """(w, h, state_plane) per coded plane of a slice."""
+        """(w, h, state_plane) per coded plane of a slice (RGB: G, B, R(,
+        A), whose lines interleave row by row)."""
         g = self.g
         g0 = self.geoms[0]
         sw, sh = g0.width, g0.height
+        if self.rgb:
+            return [(sw, sh, (p + 1) // 2)
+                    for p in range(3 + (1 if g.transparency else 0))]
         specs = [(sw, sh, 0)]
         if g.chroma_planes:
             cw = ceil_rshift(sw, g.chroma_h_shift)
@@ -334,32 +360,70 @@ class TorchFFV1Decoder:
             self.vlc_states = vlc_out
         else:
             states0 = self._reset_lane_states(keyframes, qidx0)
-            planes_dev, states_out, low, rng, pos = rc_decode_planes(
-                bufs, states0, self.one_tab, self.zero_tab,
-                self.qts[qidx0], lows, ranges, poss, specs, self.bits, five)
+            if self.rgb:
+                planes_dev, states_out, low, rng, pos = rc_decode_rgb(
+                    bufs, states0, self.one_tab, self.zero_tab,
+                    self.qts[qidx0], lows, ranges, poss, specs[0][0],
+                    specs[0][1], len(specs), cc, self.coded_bits, five)
+            else:
+                planes_dev, states_out, low, rng, pos = rc_decode_planes(
+                    bufs, states0, self.one_tab, self.zero_tab,
+                    self.qts[qidx0], lows, ranges, poss, specs, self.bits,
+                    five)
             for lane, st in kept.items():
                 states_out[lane] = st
             self.states = states_out
-
-        # assemble full frames (inverse block reshape) at the wire dtype
-        nh, nv = g.num_h_slices, g.num_v_slices
-        planes_full = []
-        for k, (w, h, _sp) in enumerate(specs):
-            x = planes_dev[k].reshape(self.batch, nv, nh, h, w)
-            x = x.permute(0, 1, 3, 2, 4).reshape(self.batch, nv * h, nh * w)
-            if self.bits <= 8:
-                planes_full.append(x.to(torch.uint8).cpu().numpy())
-            else:
-                # 16-bit samples come back int16-wrapped (negative above
-                # 0x7FFF), as the reference's int16_t rows hold them
-                planes_full.append((x & 0xFFFF).cpu().numpy()
-                                   .astype(np.uint16))
+        planes_full = self._rgb_output(planes_dev) if self.rgb else \
+            self._planar_output(planes_dev)
         if not self.golomb:
             self._validate(parsed,
                            torch.stack([low, rng, pos]).cpu().numpy(),
                            buflens)
         return [(self._conceal(bi, [fp[bi] for fp in planes_full]),
                  keyframes[bi]) for bi in range(self.batch)]
+
+    def _assemble(self, lanes):
+        """Lane-major slice planes (L, h, w) -> full frames (batch, H, W)
+        (the inverse block reshape of the uniform grid)."""
+        nh, nv = self.g.num_h_slices, self.g.num_v_slices
+        _L, h, w = lanes.shape
+        x = lanes.reshape(self.batch, nv, nh, h, w)
+        return x.permute(0, 1, 3, 2, 4).reshape(self.batch, nv * h, nh * w)
+
+    def _planar_output(self, planes_dev):
+        """Lane-major planes -> per plane a (batch, Hk, Wk) numpy array
+        at the wire dtype."""
+        out = []
+        for plane in planes_dev:
+            x = self._assemble(plane)
+            if self.bits <= 8:
+                out.append(x.to(torch.uint8).cpu().numpy())
+            else:
+                # 16-bit samples come back int16-wrapped (negative above
+                # 0x7FFF), as the reference's int16_t rows hold them
+                out.append((x & 0xFFFF).cpu().numpy().astype(np.uint16))
+        return out
+
+    def _rgb_output(self, samples):
+        """RCT-domain samples (P, L, h, w) -> the host decoder's output
+        layout: the inverse colour transform at version 3's coefficients
+        (ffv1dec.c:264-269), the grid assembly and the packing
+        (ffv1dec.c:272); per plane a (batch, ...) numpy array."""
+        offset = 1 << self.bits
+        b = samples[1] - offset
+        r = samples[2] - offset
+        g = samples[0] - ((b + r) >> 2)
+        b = b + g
+        r = r + g
+        if self.bits <= 8:
+            a = samples[3] if len(samples) == 4 else torch.zeros_like(b)
+            # one uint32 b | g << 8 | r << 16 | a << 24 per pixel, little
+            # endian: the bytes B, G, R, A
+            full = torch.stack([self._assemble(c) & 0xFF
+                                for c in (b, g, r, a)], dim=-1)
+            return [full.to(torch.uint8).cpu().numpy()]
+        return [(self._assemble(c) & 0xFFFF).cpu().numpy().astype(np.uint16)
+                for c in (b, g, r)]
 
     def _validate(self, parsed, lrp, buflens):
         """Sentinel + byte-count check per lane (ffv1dec.c:459-467)."""
@@ -387,6 +451,9 @@ class TorchFFV1Decoder:
         (ffv1dec.c:1001-1021); damage persists until the next keyframe."""
         g = self.g
         if self.last_planes[bi] is not None:
+            # YUV's chroma planes are subsampled; RGB's planes (or its
+            # one B, G, R, A array) are not
+            sub = g.chroma_planes and not self.rgb
             hs, vs = g.chroma_h_shift, g.chroma_v_shift
             for si in range(self.n_slices):
                 if not self.slice_damaged[bi, si]:
@@ -395,8 +462,8 @@ class TorchFFV1Decoder:
                 for j, src_p in enumerate(self.last_planes[bi]):
                     if not planes[j].flags.writeable:
                         planes[j] = np.array(planes[j])
-                    sh = hs if j in (1, 2) and g.chroma_planes else 0
-                    sv = vs if j in (1, 2) and g.chroma_planes else 0
+                    sh = hs if j in (1, 2) and sub else 0
+                    sv = vs if j in (1, 2) and sub else 0
                     ys, xs = geom.y >> sv, geom.x >> sh
                     he = ceil_rshift(geom.y + geom.height, sv)
                     we = ceil_rshift(geom.x + geom.width, sh)

@@ -1,8 +1,9 @@
 """PyTorch FFV1 encoder: stencil -> range-coder lane scan -> finalize, or
 stencil -> Golomb-Rice lane scan.
 
-Port of the planar range-coder and Golomb-Rice paths of
-``tpu_ffv1/tpu/encoder.py`` (``TPUFFV1Encoder``).  Per frame step:
+Port of the planar range-coder and Golomb-Rice paths and the RGB path
+(colorspace 1, range coder) of ``tpu_ffv1/tpu/encoder.py``
+(``TPUFFV1Encoder``).  Per frame step:
 
   host:   keyframe bit + slice headers -> provisional prefixes (cached)
   device: residual/context stencil (residual.py, torch ops)
@@ -28,14 +29,23 @@ finalize_packed_full if that overflows too.  Wider coded widths take the
 extended raw scan, as in the reference, whose compact form is fast-path
 only.  The packets are the same bytes either way.
 
+RGB (bgr0, bgra, gbrp9/10/12/14le; range coder only, as in the
+reference) runs the reversible colour transform on the full frame
+(RCT coefficients fixed at (1, 1) at version 3), then the stencil on
+each transformed plane at the coded width, one bit wider than the
+samples (9 at 8 bits), and codes each slice row as its G, B, R(, A)
+lines in turn (ffv1enc.c:428-470) on state planes 0, 1, 1(, 2): the
+same lane scans, at coded width 9 or 10 through K1, 11..15 through
+K1-ext.
+
 Adaptive states stay on the device across frames (GOP context
 carry-over, ffv1enc.c:1171-1172): keyframes reset them to 128, other
 frames continue from the previous frame's states.  Covered: version 3,
 range coder, planar YUV/gray at every coded width (<= 10 bits through
-the fast schedule, 11..16 through the extended one), context models 0
-and 1 (the 5-input context, whose 2 x 7,563-row state table the lane
-scan keeps in global memory), uniform slice grids; everything else
-raises NotImplementedError.
+the fast schedule, 11..16 through the extended one) and RGB, context
+models 0 and 1 (the 5-input context, whose 2 x 7,563-row state table the
+lane scan keeps in global memory), uniform slice grids; Golomb-Rice for
+planar YUV/gray; everything else raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -54,18 +64,20 @@ from ..device import resolve_device
 from .finalize import finalize_compact, finalize_packed, finalize_packed_full
 from .golomb_encode import fresh_vlc_states, golomb_encode_lanes, make_flags
 from .rc_encode import rc_encode_compact, rc_encode_packed
-from .residual import load_plane, residuals_and_contexts
+from .residual import load_plane, rct_transform, residuals_and_contexts
 
 PREFIX_CAP = 96
 
 
 class TorchFFV1Encoder:
-    """Device FFV1 encoder (version 3, range coder or Golomb-Rice,
-    planar).
+    """Device FFV1 encoder (version 3; planar YUV/gray with the range
+    coder or Golomb-Rice, RGB with the range coder).
 
     ``batch`` > 1 encodes that many independent streams in lockstep:
     lanes = batch x slices, lane index = stream * n_slices + slice.  Use
-    encode_frames([stream0_planes, stream1_planes, ...]).  ``compact``
+    encode_frames([stream0_planes, stream1_planes, ...]); a bgr0 or bgra
+    frame is one (H, W, 4) uint8 array, a gbrp frame three uint16 planes
+    in the format's order (G, B, R).  ``compact``
     selects the compact lane-scan form at coded widths <= 10 (see the
     module docstring); the bytes do not change.
     """
@@ -78,14 +90,23 @@ class TorchFFV1Encoder:
         self.device = resolve_device(device)
         self.rp = rp = resolve(params)
         self.golomb = rp.ac == T.AC_GOLOMB_RICE
+        self.rgb = rp.colorspace == 1
         if rp.version != 3:
             raise NotImplementedError("only version 3 is ported")
-        if rp.colorspace != 0 or rp.fmt.interleaved:
-            raise NotImplementedError("only planar YUV/gray is ported")
+        if rp.colorspace not in (0, 1) or \
+                (rp.colorspace == 0 and rp.fmt.interleaved):
+            raise NotImplementedError("only planar YUV/gray and RGB are "
+                                      "ported")
+        if self.rgb and self.golomb:
+            raise NotImplementedError("RGB needs the range coder (coder 1 "
+                                      "or 2), as in the reference")
         if rp.context_model not in (0, 1):
             raise NotImplementedError("context models 0 and 1 exist")
-        self.bits = 8 if rp.bits_per_raw_sample <= 8 else \
+        self.raw_bits = 8 if rp.bits_per_raw_sample <= 8 else \
             rp.bits_per_raw_sample
+        # the coded width: RGB's residuals are one bit wider than its
+        # samples (ffv1enc.c:464-467)
+        self.bits = self.raw_bits + 1 if self.rgb else self.raw_bits
         if self.bits > 17:
             raise NotImplementedError("no coded width above 17 bits exists")
         # 11..17-bit coded widths ride the extended schedule (K1-ext),
@@ -117,8 +138,13 @@ class TorchFFV1Encoder:
         self.one_tab = torch.from_numpy(one).to(dev)
         self.zero_tab = torch.from_numpy(zero).to(dev)
         self.cc = cc = rp.context_counts[rp.context_model]
-        n_state_planes = 1 + (1 if rp.chroma_planes else 0) + \
-            (1 if rp.transparency else 0)
+        if self.rgb:
+            # RGB plane p codes on state plane (p + 1) / 2: G 0, B and R
+            # 1, A 2 (ffv1enc.c:461-467)
+            n_state_planes = 2 + (1 if rp.transparency else 0)
+        else:
+            n_state_planes = 1 + (1 if rp.chroma_planes else 0) + \
+                (1 if rp.transparency else 0)
         self.total_cc = n_state_planes * cc
         qt = np.asarray(rp.quant_tables[rp.context_model])
         self.qt = torch.from_numpy(qt.astype(np.int32)).to(dev)
@@ -160,6 +186,8 @@ class TorchFFV1Encoder:
         return dims
 
     def _stream_len(self, geom):
+        if self.rgb:
+            return geom.width * geom.height * (3 + self.rp.transparency)
         return sum(w * h for (w, h, _sp) in self._plane_dims(geom))
 
     def _prefix_arrays(self, keyframe: bool):
@@ -253,9 +281,12 @@ class TorchFFV1Encoder:
 
     def _streams_uniform(self, streams):
         """(ctx, diff, active) lane streams, each (L, n_max), for a tuple
-        of per-plane (batch, Hk, Wk) integer tensors."""
+        of per-plane (batch, Hk, Wk) integer tensors (bgr0/bgra: one
+        (batch, H, W, 4) uint8 tensor)."""
         rp = self.rp
         nh, nv = rp.num_h_slices, rp.num_v_slices
+        if self.rgb:
+            return self._streams_uniform_rgb(streams)
         parts_ctx, parts_diff = [], []
 
         def add(stack, state_plane):
@@ -277,9 +308,46 @@ class TorchFFV1Encoder:
         acts = torch.ones_like(ctxs, dtype=torch.bool)
         return ctxs, diffs, acts
 
+    def _split_rgb(self, streams):
+        """(b, g, r, a or None) int32 (batch, H, W) full frames, bound as
+        the reference binds them: packed bgr0/bgra by its memory order
+        B, G, R, A (ffv1enc.c:433-439); planar gbrp's plane 0 to "b" and
+        plane 1 to "g" (ffv1enc.c:441-444), as the host encoder codes
+        them."""
+        if self.rp.fmt.interleaved:
+            x = streams[0].to(torch.int32)
+            b, g, r = x[..., 0], x[..., 1], x[..., 2]
+            return b, g, r, x[..., 3] if self.rp.transparency else None
+        b, g, r = (p.to(torch.int32) for p in streams[:3])
+        return b, g, r, None
+
+    def _streams_uniform_rgb(self, streams):
+        """(ctx, diff, active) lane streams for RGB: the RCT on the full
+        frame (version 3's fixed coefficients; pixel-local, so the same
+        as per slice), each plane's slice crops through the stencil at
+        the coded width, and each slice row's G, B, R(, A) lines in turn
+        (ffv1enc.c:428-470), on state planes 0, 1, 1(, 2)."""
+        rp = self.rp
+        nh, nv = rp.num_h_slices, rp.num_v_slices
+        b, g, r, a = self._split_rgb(streams)
+        g, b, r = rct_transform(g, b, r, self.raw_bits)
+        offs = (0, self.cc, self.cc, 2 * self.cc)
+        ctx_p, diff_p = [], []
+        for k, plane in enumerate([g, b, r] + ([a] if a is not None
+                                               else [])):
+            c, d = residuals_and_contexts(
+                self._crops_uniform(plane, nh, nv), self.qt, self.bits,
+                self.five_input)                     # (L, h, w)
+            ctx_p.append(c + offs[k])
+            diff_p.append(d)
+        ctxs = torch.stack(ctx_p, dim=2).reshape(self.L, -1)
+        diffs = torch.stack(diff_p, dim=2).reshape(self.L, -1)
+        return ctxs, diffs, torch.ones_like(ctxs, dtype=torch.bool)
+
     def _upload(self, streams):
         """Per-plane (batch, Hk, Wk) tensors on the device (8-bit planes
-        travel as uint8, deeper ones as int32)."""
+        travel as uint8, deeper ones as int32; a bgr0/bgra frame as one
+        (batch, H, W, 4) uint8 tensor)."""
         planes = [[np.asarray(p) for p in
                    (s if isinstance(s, (list, tuple)) else [s])]
                   for s in streams]

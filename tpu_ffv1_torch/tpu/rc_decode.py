@@ -1,5 +1,6 @@
-"""Decode lane scan: the CUDA kernels (csrc/rc_decode.cu, bits <= 10;
-csrc/rc_decode_ext.cu, bits 11..17) and their plain PyTorch versions.
+"""Decode lane scans: the CUDA kernels (csrc/rc_decode.cu, bits <= 10;
+csrc/rc_decode_ext.cu, bits 11..17) and their plain PyTorch versions,
+planar (K2, K2-ext) and line-interleaved RGB (B1, B1-ext).
 
 Port of ``tpu_ffv1/tpu/rc_dec_pallas.py`` (``rc_decode_planes_pallas``,
 3-input context, and with ``five`` the 5-input one of context model 1:
@@ -25,6 +26,13 @@ block (context model 0) and in global memory where it does not (context
 model 1); the wrapper picks the instance from the table's size
 (``build.table_in_global``).
 
+``rc_decode_rgb`` (B1 at coded widths 9 and 10, B1-ext at 11, 13 and
+15; the counterpart of dec_scan_lanes.rc_decode_rgb_lanes, which the
+JAX package runs as an XLA scan) decodes RGB's line-interleaved planes:
+row y decodes a line of each plane G, B, R(, A) in turn from one coder,
+each plane from its own 2-row ring; the samples stay in the RCT domain.
+Its plain version shares the planar one's pixel step (``_LaneScan``).
+
 ``rc_decode_stages`` and ``rc_decode_ext_stages`` launch K2's and
 K2-ext's stage probes (csrc/rc_decode.cu and rc_decode_ext.cu STAGES):
 timing instruments with stages stubbed, never called by the codec.
@@ -38,11 +46,12 @@ import torch.nn.functional as F
 
 from ..kernels.build import expect, load, table_in_global
 
-# kernel launches made by rc_decode_planes, by kernel instance (read by
-# chip_smoke.py): rc_decode (K2, bits <= 10) and rc_decode_ext (K2-ext,
-# bits 11..17), each with the suffix _five for the 5-input context and
-# _global for the state table in global memory (K2-five is
-# rc_decode_five_global)
+# kernel launches made by rc_decode_planes and rc_decode_rgb, by kernel
+# instance (read by chip_smoke.py): rc_decode (K2, bits <= 10) and
+# rc_decode_ext (K2-ext, bits 11..17), rc_decode_rgb and
+# rc_decode_ext_rgb (B1, B1-ext), each with the suffix _five for the
+# 5-input context and _global for the state table in global memory
+# (K2-five is rc_decode_five_global)
 LAUNCHES: dict = {}
 
 # K2's stage probes: the stages each variant keeps (csrc/rc_decode.cu
@@ -57,124 +66,159 @@ EXT_STAGE_VARIANTS = {"full": 127, "no_ctx": 126, "no_read": 125,
                       "no_chain": 95, "no_run": 63}
 
 
-def instance(bits: int, five: bool, CC: int, wmax: int) -> str:
-    """The kernel instance rc_decode_planes launches for a coded width,
-    the context model's ``five``, a state table of CC rows and planes at
-    most ``wmax`` wide.  Beside the table, shared memory holds the quant
-    tables, the transition pairs (512 B), a 512-byte ring of the slice's
-    bytes and four int32 per column (two sample rows, each pixel's T and
-    context part); K2-ext also one_pow (256 * (bits - 9) B), as its
-    launcher counts them (csrc/rc_decode_ext.cu)."""
-    other = (5 if five else 3) * 256 * 4 + 512 + 512 + 4 * (wmax + 1) * 4 + \
+def instance(bits: int, five: bool, CC: int, wmax: int,
+             rgb_planes: int = 0) -> str:
+    """The kernel instance rc_decode_planes (or, with ``rgb_planes`` P >
+    0, rc_decode_rgb: B1 / B1-ext over P line-interleaved planes)
+    launches for a coded width, the context model's ``five``, a state
+    table of CC rows and planes at most ``wmax`` wide.  Beside the
+    table, shared memory holds the quant tables, the transition pairs
+    (512 B), a 512-byte ring of the slice's bytes and per column a (T,
+    context part) pair and two sample rows (RGB: two per plane), int32
+    each; the ext instances also one_pow (256 * (bits - 9) B), as the
+    launchers count them (csrc/rc_decode.cu, rc_decode_ext.cu)."""
+    rings = max(rgb_planes, 1)
+    other = (5 if five else 3) * 256 * 4 + 512 + 512 + \
+        (2 + 2 * rings) * (wmax + 1) * 4 + \
         (256 * (bits - 9) if bits > 10 else 0)
     return ("rc_decode_ext" if bits > 10 else "rc_decode") + \
-        ("_five" if five else "") + \
+        ("_rgb" if rgb_planes else "") + ("_five" if five else "") + \
         ("_global" if table_in_global(CC * 32, other) else "")
 
 
-def _decode_planes_ref(bufs, states, one_tab, zero_tab, qt, low0, range0,
-                       pos0, plane_specs, bits: int, five: bool):
-    """A loop over pixels, vectorised over lanes (the semantics of
-    dec_scan_lanes.rc_decode_planes_lanes at any coded width).  Every
-    decision adapts its state at once, so the repeated rows 10 and 31 of
-    the extended widths chain sequentially.  With ``five`` the context
-    adds LL (the previous pixel's L, 0 at x = 0) and TT (the sample two
-    rows up, 0 for y < 2)."""
-    L, cap = bufs.shape
-    CC = states.shape[1]
-    dev = bufs.device
-    e_max = bits - 1
-    mask_v = (1 << bits) - 1
-    lanes = torch.arange(L, device=dev)
-    # flat bytes with one zero past each lane's end: pos >= cap reads 0
-    buf = F.pad(bufs.to(torch.int64), (0, 1)).reshape(-1)
-    buf_base = lanes * (cap + 1)
-    # transition rows: [keep | zero | one] (an inactive lane keeps its
-    # state)
-    trans = torch.cat([torch.arange(256, device=dev),
-                       zero_tab.to(dev, torch.int64),
-                       one_tab.to(dev, torch.int64)])
-    q0, q1, q2, q3, q4 = (qt[k].to(dev, torch.int64) for k in range(5))
-    st = states.reshape(-1).to(torch.int64)                # (L*CC*32,)
-    st_base = lanes * (CC * 32)
-    low = low0.to(torch.int64)
-    rng = range0.to(torch.int64)
-    pos = pos0.to(torch.int64)
-    ones = torch.ones((L,), dtype=torch.bool, device=dev)
-    planes = []
+class _LaneScan:
+    """The plain decode machinery over L lanes, vectorised over lanes (the
+    semantics of dec_scan_lanes._machinery at any coded width): the
+    lanes' coder (low, range, pos), their state tables and the pixel
+    step, one line at a time.  Shared by the planar scan
+    (``_decode_planes_ref``) and the line-interleaved RGB scan
+    (``rc_decode_rgb_ref``).  Every decision adapts its state at once,
+    so the repeated rows 10 and 31 of the extended widths chain
+    sequentially."""
 
-    def rac(at, act):
+    def __init__(self, bufs, states, one_tab, zero_tab, qt, low0, range0,
+                 pos0, bits: int, five: bool):
+        L, cap = bufs.shape
+        self.L, self.cap = L, cap
+        self.CC = states.shape[1]
+        dev = self.dev = bufs.device
+        self.bits, self.five = bits, five
+        lanes = torch.arange(L, device=dev)
+        # flat bytes with one zero past each lane's end: pos >= cap reads 0
+        self.buf = F.pad(bufs.to(torch.int64), (0, 1)).reshape(-1)
+        self.buf_base = lanes * (cap + 1)
+        # transition rows: [keep | zero | one] (an inactive lane keeps its
+        # state)
+        self.trans = torch.cat([torch.arange(256, device=dev),
+                                zero_tab.to(dev, torch.int64),
+                                one_tab.to(dev, torch.int64)])
+        self.q = [qt[k].to(dev, torch.int64) for k in range(5)]
+        self.st = states.reshape(-1).to(torch.int64)         # (L*CC*32,)
+        self.st_base = lanes * (self.CC * 32)
+        self.low = low0.to(torch.int64)
+        self.rng = range0.to(torch.int64)
+        self.pos = pos0.to(torch.int64)
+
+    def rac(self, at, act):
         """One get_rac at flat state index ``at`` for the lanes in act;
         returns the decided bit (False where inactive)."""
-        nonlocal low, rng, pos
+        st, low, rng = self.st, self.low, self.rng
         s = st[at]
         r1 = (rng * s) >> 8
         r0 = rng - r1
         bit = (low >= r0) & act
-        st[at] = trans[s + torch.where(bit, 512, 256) * act]
+        st[at] = self.trans[s + torch.where(bit, 512, 256) * act]
         low = low - r0 * bit
         rng = torch.where(act, torch.where(bit, r1, r0), rng)
         need = act & (rng < 0x100)
-        nxt = buf[buf_base + pos.clamp(max=cap)]
-        low = torch.where(need, (low << 8) + nxt, low)
-        rng = torch.where(need, rng << 8, rng)
-        pos = pos + need
+        nxt = self.buf[self.buf_base + self.pos.clamp(max=self.cap)]
+        self.low = torch.where(need, (low << 8) + nxt, low)
+        self.rng = torch.where(need, rng << 8, rng)
+        self.pos = self.pos + need
         return bit
 
+    def line(self, prev, prev2, pbase: int):
+        """Decode one line of every lane from its plane's previous row
+        ``prev`` and the row before it ``prev2`` (int64 (L, w), zeros
+        above the plane), with the context's state rows from plane base
+        ``pbase``; returns the line, int64 (L, w).  The x = 0 borders: L
+        is prev[0], LT prev2[0] (ffv1dec.c:202-203); with ``five`` the
+        context adds LL (the previous pixel's L, 0 at x = 0) and TT
+        (prev2[x])."""
+        L, w, dev, bits = self.L, prev.shape[1], self.dev, self.bits
+        q0, q1, q2, q3, q4 = self.q
+        e_max = bits - 1
+        mask_v = (1 << bits) - 1
+        ones = torch.ones((L,), dtype=torch.bool, device=dev)
+        cur = torch.zeros((L, w), dtype=torch.int64, device=dev)
+        Lv = prev[:, 0]
+        LT = prev2[:, 0]
+        LL = torch.zeros_like(Lv)
+        for x in range(w):
+            T = prev[:, x]
+            RT = prev[:, min(x + 1, w - 1)]
+            ctx = (q0[(Lv - LT) & 0xFF] + q1[(LT - T) & 0xFF] +
+                   q2[(T - RT) & 0xFF])
+            if self.five:
+                ctx = ctx + q3[(LL - Lv) & 0xFF] + \
+                    q4[(prev2[:, x] - T) & 0xFF]
+            csign = ctx < 0
+            row = self.st_base + \
+                ((ctx.abs() + pbase).clamp(0, self.CC - 1) << 5)
+            nz = ~self.rac(row, ones)
+            e = torch.zeros((L,), dtype=torch.int64, device=dev)
+            done = ~nz
+            for j in range(e_max + 1):       # exponent unary + stop
+                if bool(done.all()):
+                    break
+                bit = self.rac(row + (1 + min(j, 9)), ~done)
+                e = e + bit
+                done = done | ~bit
+            a = torch.ones((L,), dtype=torch.int64, device=dev)
+            for j in range(e_max):           # mantissa MSB -> LSB
+                act = nz & (j < e)
+                if not bool(act.any()):
+                    break
+                bit = self.rac(row + 22 + (e - 1 - j).clamp(0, 9), act)
+                a = torch.where(act, a + a + bit, a)
+            sbit = self.rac(row + 11 + e.clamp(max=10), nz)
+            diff = torch.where(nz, torch.where(sbit, -a, a), 0)
+            diff = torch.where(csign, -diff, diff)
+            m = Lv + T - LT
+            pred = (Lv + m + T) - torch.minimum(torch.minimum(Lv, m), T) \
+                - torch.maximum(torch.maximum(Lv, m), T)
+            val = (pred + diff) & mask_v
+            if bits == 16:
+                # int16_t sample-row storage wrap: the median predictor
+                # compares 16-bit samples signed
+                val = ((val + 0x8000) & 0xFFFF) - 0x8000
+            cur[:, x] = val
+            LT = T
+            LL = Lv
+            Lv = val
+        return cur
+
+    def outputs(self):
+        """(states_out uint8 (L, CC, 32), low, range, pos int32 (L,))."""
+        return (self.st.to(torch.uint8).view(self.L, self.CC, 32),
+                self.low.to(torch.int32), self.rng.to(torch.int32),
+                self.pos.to(torch.int32))
+
+
+def _decode_planes_ref(bufs, states, one_tab, zero_tab, qt, low0, range0,
+                       pos0, plane_specs, bits: int, five: bool):
+    """The planar scan: each plane's lines in turn, from zeroed rows
+    (the semantics of dec_scan_lanes.rc_decode_planes_lanes)."""
+    scan = _LaneScan(bufs, states, one_tab, zero_tab, qt, low0, range0,
+                     pos0, bits, five)
+    planes = []
     for (w, h, pbase) in plane_specs:
-        plane = torch.zeros((L, h, w), dtype=torch.int64, device=dev)
-        zrow = torch.zeros((L, w), dtype=torch.int64, device=dev)
-        for y in range(h):
-            prev = plane[:, y - 1] if y >= 1 else zrow
-            # x = 0 borders: L = previous row's [0], LT = the [0] of the
-            # row before that (ffv1dec.c:202-203)
-            Lv = prev[:, 0]
-            LT = plane[:, y - 2, 0] if y >= 2 else zrow[:, 0]
-            LL = zrow[:, 0]
-            for x in range(w):
-                T = prev[:, x]
-                RT = prev[:, min(x + 1, w - 1)]
-                ctx = (q0[(Lv - LT) & 0xFF] + q1[(LT - T) & 0xFF] +
-                       q2[(T - RT) & 0xFF])
-                if five:
-                    TT = plane[:, y - 2, x] if y >= 2 else zrow[:, x]
-                    ctx = ctx + q3[(LL - Lv) & 0xFF] + q4[(TT - T) & 0xFF]
-                csign = ctx < 0
-                row = st_base + ((ctx.abs() + pbase).clamp(0, CC - 1) << 5)
-                nz = ~rac(row, ones)
-                e = torch.zeros((L,), dtype=torch.int64, device=dev)
-                done = ~nz
-                for j in range(e_max + 1):   # exponent unary + stop
-                    if bool(done.all()):
-                        break
-                    bit = rac(row + (1 + min(j, 9)), ~done)
-                    e = e + bit
-                    done = done | ~bit
-                a = torch.ones((L,), dtype=torch.int64, device=dev)
-                for j in range(e_max):       # mantissa MSB -> LSB
-                    act = nz & (j < e)
-                    if not bool(act.any()):
-                        break
-                    bit = rac(row + 22 + (e - 1 - j).clamp(0, 9), act)
-                    a = torch.where(act, a + a + bit, a)
-                sbit = rac(row + 11 + e.clamp(max=10), nz)
-                diff = torch.where(nz, torch.where(sbit, -a, a), 0)
-                diff = torch.where(csign, -diff, diff)
-                m = Lv + T - LT
-                pred = (Lv + m + T) - torch.minimum(torch.minimum(Lv, m), T) \
-                    - torch.maximum(torch.maximum(Lv, m), T)
-                val = (pred + diff) & mask_v
-                if bits == 16:
-                    # int16_t sample-row storage wrap: the median
-                    # predictor compares 16-bit samples signed
-                    val = ((val + 0x8000) & 0xFFFF) - 0x8000
-                plane[:, y, x] = val
-                LT = T
-                LL = Lv
-                Lv = val
-        planes.append(plane.to(torch.int32))
-    return (tuple(planes), st.to(torch.uint8).view(L, CC, 32),
-            low.to(torch.int32), rng.to(torch.int32), pos.to(torch.int32))
+        zrow = torch.zeros((scan.L, w), dtype=torch.int64, device=scan.dev)
+        rows = [zrow, zrow]
+        for _y in range(h):
+            rows.append(scan.line(rows[-1], rows[-2], pbase))
+        planes.append(torch.stack(rows[2:], dim=1).to(torch.int32))
+    return (tuple(planes), *scan.outputs())
 
 
 def rc_decode_planes_ref(bufs, states, one_tab, zero_tab, qt, low0,
@@ -199,6 +243,46 @@ def rc_decode_planes_ext_ref(bufs, states, one_tab, zero_tab, qt, low0,
         raise ValueError("the extended schedule covers bits 11..17")
     return _decode_planes_ref(bufs, states, one_tab, zero_tab, qt, low0,
                               range0, pos0, plane_specs, bits, five)
+
+
+def rgb_specs(w: int, h: int, nplanes: int, cc: int):
+    """The plane specs of a line-interleaved RGB slice: planes G, B, R(,
+    A), each w x h, on state planes (p + 1) / 2 (ffv1dec.c:253)."""
+    return tuple((w, h, (p + 1) // 2 * cc) for p in range(nplanes))
+
+
+def rc_decode_rgb_ref(bufs, states, one_tab, zero_tab, qt, low0, range0,
+                      pos0, w: int, h: int, nplanes: int, cc: int,
+                      bits: int, five: bool = False, rows0=None):
+    """Plain PyTorch version of B1 and B1-ext: the line-interleaved RGB
+    decode (dec_scan_lanes.rc_decode_rgb_lanes, ffv1dec.c:226-255).  Row
+    y decodes a line of every plane p = 0..nplanes-1 (G, B, R, A) in
+    turn from the same coder, on state plane (p + 1) / 2, each plane
+    from its own two previous rows; ``bits`` is the coded width.
+
+    ``rows0``: optional int32 (nplanes, L, 2, w), each plane's two rows
+    above the first decoded one (row y0 - 2, then y0 - 1), for a decode
+    that resumes at a row y0 from the coder and states a decode of rows
+    0..y0-1 ended in; zeros (a slice's start) by default.  Returns
+    (RCT-domain samples int32 (nplanes, L, h, w), states_out, low,
+    range, pos)."""
+    scan = _LaneScan(bufs, states, one_tab, zero_tab, qt, low0, range0,
+                     pos0, bits, five)
+    specs = rgb_specs(w, h, nplanes, cc)
+    if rows0 is None:
+        rows = [[torch.zeros((scan.L, w), dtype=torch.int64,
+                             device=scan.dev)] * 2 for _ in specs]
+    else:
+        rows = [[rows0[p, :, k].to(torch.int64) for k in (0, 1)]
+                for p in range(nplanes)]
+    for _y in range(h):
+        for p, (_w, _h, pbase) in enumerate(specs):
+            rows[p].append(scan.line(rows[p][-1], rows[p][-2], pbase))
+    planes = torch.stack([torch.stack(r[2:], dim=1) for r in rows]) \
+        .to(torch.int32) if h else \
+        torch.zeros((nplanes, scan.L, 0, w), dtype=torch.int32,
+                    device=scan.dev)
+    return (planes, *scan.outputs())
 
 
 def _launch(name, bufs, states, one_tab, zero_tab, qt, low0, range0,
@@ -282,6 +366,43 @@ def rc_decode_planes(bufs, states, one_tab, zero_tab, qt, low0, range0,
                   pos0, plane_specs, bits, five)
     LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
     return out
+
+
+# the coded widths of the RGB formats: bgr0 and bgra 9, gbrp9 10, gbrp10
+# 11, gbrp12 13, gbrp14 15 (B1 at 9 and 10, B1-ext above)
+RGB_BITS = (9, 10, 11, 13, 15)
+
+
+def rc_decode_rgb(bufs, states, one_tab, zero_tab, qt, low0, range0, pos0,
+                  w: int, h: int, nplanes: int, cc: int, bits: int,
+                  five: bool = False):
+    """Decode the line-interleaved RGB planes of L slice lanes (each
+    w x h, ``nplanes`` 3 or 4, state plane (p + 1) / 2 x ``cc``) at
+    coded width ``bits``; the CUDA kernel for CUDA tensors (B1 at 9 and
+    10 bits, B1-ext at 11, 13 and 15, with the 5-input context if
+    ``five``, the state table in shared or global memory by its size),
+    the plain version (``rc_decode_rgb_ref``) for CPU tensors.  Returns
+    (RCT-domain samples int32 (nplanes, L, h, w), states_out, low,
+    range, pos)."""
+    if bits not in RGB_BITS:
+        raise NotImplementedError(f"no RGB format codes at {bits} bits")
+    if nplanes not in (3, 4):
+        raise ValueError("RGB has 3 planes, or 4 with alpha")
+    five = bool(five)
+    dev = bufs.device
+    if dev.type == "cpu":
+        return rc_decode_rgb_ref(bufs, states, one_tab, zero_tab, qt, low0,
+                                 range0, pos0, w, h, nplanes, cc, bits,
+                                 five)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    name = instance(bits, five, states.shape[1], w, nplanes)
+    src = "rc_decode_ext" if bits > 10 else "rc_decode"
+    planes, *rest = _launch(name, bufs, states, one_tab, zero_tab, qt, low0,
+                            range0, pos0, rgb_specs(w, h, nplanes, cc),
+                            bits, five, entry=f"{src}_rgb_launch")
+    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+    return (torch.stack(planes), *rest)
 
 
 def _stage_probe(args, plane_specs, five, variant, bits, variants, entry,

@@ -77,6 +77,20 @@ def residuals_and_contexts(s: torch.Tensor, quant_table: torch.Tensor,
     return ctx, _fold(diff, bits)
 
 
+def rct_transform(g, b, r, bits: int, by: int = 1, ry: int = 1):
+    """Forward reversible colour transform (ffv1enc.c:447-453): b -= g;
+    r -= g; g += (b * by + r * ry) >> 2; b and r offset by 1 << bits
+    (``bits``: the samples' width).  ``by``/``ry`` are the slice's RCT
+    coefficients, (1, 1) at version 3.  Integer tensors of one shape in,
+    int32 (g, b, r) out."""
+    g = g.to(torch.int32)
+    b = b.to(torch.int32) - g
+    r = r.to(torch.int32) - g
+    g = g + ((b * by + r * ry) >> 2)
+    offset = 1 << bits
+    return g, b + offset, r + offset
+
+
 def wrap_int16(v):
     """int16_t storage wrap (sample buffers are int16 in the reference)."""
     return ((v + 0x8000) & 0xFFFF) - 0x8000
