@@ -78,8 +78,14 @@ exits non-zero without the final result line:
    configuration and content with FFV1's default coder, Golomb-Rice
    (8bit_golomb; G1, G2); RGB: 1080p bgr0, six timed frames (rgb8;
    K1 at coded width 9, B1) and 960x540 gbrp14le, two timed frames
-   (rgb14_540p; K1-ext at 15, B1-ext); then the 8-bit and 8bit_ctx1
-   paths again, encode only,
+   (rgb14_540p; K1-ext at 15, B1-ext); version 4 (level 4: each slice's
+   RCT coefficients searched on the card, the row budget read from the
+   raw slots): 1080p bgr0, the rgb8 path's content, six timed frames
+   (rgb8_v4; K1 at coded width 9, B1, the inverse RCT per lane) and
+   960x540 yuv444p16le, two timed frames (16bit_v4_540p; K1-ext,
+   K2-ext), each printing its lanes' (by, ry) histogram and failing if
+   every lane kept (1, 1); then the 8-bit and 8bit_ctx1 paths again,
+   encode only,
    in the compact form (TorchFFV1Encoder(compact=True): K1-compact and
    finalize_compact; 8bit_compact, 8bit_ctx1_compact).  Each path runs
    with the launch counters set to 0 just before it and read just
@@ -91,7 +97,16 @@ exits non-zero without the final result line:
    step's slices timed alone too) and peak device memory.  Each compact
    path's warm-up launch is held to its raw path's K1 launch: the same
    inputs (SHA-256), cm equal to compact_packed of K1's slots, the same
-   low, range and states; then K1's, K1-ext's, K2's and K2-ext's stage
+   low, range and states; the version-4 paths also time the search, the
+   slice headers' build (cold and cached) and the row-byte reduction;
+   then v4_pcm: 512x4 yuv444p16le at version 4, batch 2, GOP 3 over
+   three frames, one stream of 16-bit noise (its slices overflow the
+   row budget and retry as PCM in frames 0 and 2; frame 1 codes from the
+   reset states) beside a smooth one that never retries: its packets
+   must equal the JAX package's TPUFFV1Encoder's on the CPU (the host
+   encoder has no PCM retry), its slices' coding modes that pattern, and
+   each frame's row bytes the plain computation on a host copy of the
+   same raw slots; then K1's, K1-ext's, K2's and K2-ext's stage
    split: each stage probe of K1 and of its global form, and of K2 and
    K2-five, on the 8bit and 8bit_ctx1 warm-up inputs, of K1-ext and
    K2-ext on the 16bit ones and of their global forms (K2-ext-five) on
@@ -124,6 +139,7 @@ content generators below with the JAX package's host C encoder.
 """
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import ctypes
 import hashlib
@@ -149,7 +165,7 @@ from tpu_ffv1_torch.tpu import decoder as port_decoder
 from tpu_ffv1_torch.tpu import encoder as port_encoder
 from tpu_ffv1_torch.tpu import (golomb_decode, golomb_encode, rc_decode,
                                  rc_encode)
-from tpu_ffv1_torch.tpu.encoder import PREFIX_CAP
+from tpu_ffv1_torch.tpu.encoder import PREFIX_CAP, row_bytes
 from tpu_ffv1_torch.tpu.finalize import (compact_packed, finalize_compact,
                                          finalize_packed)
 from tpu_ffv1_torch.tpu.residual import rct_transform
@@ -285,6 +301,7 @@ class MainPath(NamedTuple):
     golden: str = ""       # the path whose golden digests it must match
     coder: int = 2         # 2: range coder (custom table), 0: Golomb-Rice
     bits: int = 8          # the coded width (RGB: one above the samples)
+    level: int = 3         # the FFV1 version (4: strict -2)
 
     @property
     def frames(self):
@@ -329,6 +346,16 @@ PATHS = {
     "rgb14_540p": MainPath("gbrp14le", synthetic_streams_gbrp14, SEED + 14,
                            0, W // 2, H // 2, 2,
                            ("rc_encode_ext", "rc_decode_ext_rgb"), bits=15),
+    # version 4 (the per-slice RCT search, the row budget): bench.py:806's
+    # bgr0_v4 leg at BASELINE config 2's size with rgb8's content, and
+    # the 16-bit archival content at 540p as 16bit_ctx1_540p, for time
+    "rgb8_v4": MainPath("bgr0", synthetic_streams_bgr0, SEED + 8, 0, W, H,
+                        TIMED, ("rc_encode", "rc_decode_rgb"), bits=9,
+                        level=4),
+    "16bit_v4_540p": MainPath("yuv444p16le", synthetic_streams16, SEED + 16,
+                              0, W // 2, H // 2, 2,
+                              ("rc_encode_ext", "rc_decode_ext"), bits=16,
+                              level=4),
 }
 _STREAMS: dict = {}
 
@@ -336,8 +363,41 @@ _STREAMS: dict = {}
 def params_kw(name):
     """EncoderParams fields of a main path."""
     p = PATHS[name]
-    return dict(width=p.width, height=p.height, pix_fmt=p.pix_fmt, level=3,
-                coder=p.coder, slices=SLICES, context_model=p.context_model)
+    return dict(width=p.width, height=p.height, pix_fmt=p.pix_fmt,
+                level=p.level, coder=p.coder, slices=SLICES,
+                context_model=p.context_model,
+                **({"strict": -2} if p.level > 3 else {}))
+
+
+# v4_pcm: version 4's PCM retry on the card (see pcm_phase)
+PCM_W, PCM_H, PCM_FRAMES, PCM_SEED = 512, 4, 3, SEED + 4
+
+
+def pcm_kw():
+    """EncoderParams fields of v4_pcm: 512x4 yuv444p16le in a 2 x 2 grid,
+    each slice's budget 10,240 bytes against w * 35 = 8,960 at its line
+    starts."""
+    return dict(width=PCM_W, height=PCM_H, pix_fmt="yuv444p16le", level=4,
+                strict=-2, coder=2, slices=4, gop_size=3)
+
+
+def synthetic_streams_pcm():
+    """v4_pcm's content, 2 streams x 3 frames: stream 0 16-bit noise, a
+    smooth ramp, noise (its slices overflow the row budget in frames 0
+    and 2); stream 1 the ramp in every frame."""
+    r = np.random.RandomState(PCM_SEED)
+    yy, xx = np.mgrid[0:PCM_H, 0:PCM_W]
+
+    def ramp(t):
+        return [((xx * 16 + yy * 3 + 100 * t + 7 * k) % 65536)
+                .astype(np.uint16) for k in range(3)]
+
+    def noise():
+        return [r.randint(0, 65536, (PCM_H, PCM_W)).astype(np.uint16)
+                for _ in range(3)]
+
+    return [[noise() if t != 1 else ramp(t) for t in range(PCM_FRAMES)],
+            [ramp(t) for t in range(PCM_FRAMES)]]
 
 
 def path_streams(name):
@@ -1177,8 +1237,10 @@ def main_path(dev, gpu, name, recorders):
     check(enc.bits == path.bits, "coded width")
     check(enc.compact == path.compact, "compact form")
     check(enc.golomb == dec.golomb == golomb, "coder")
+    check(enc.rct_search == (path.level > 3), "the version-4 RCT search")
 
     enc_s, dec_s, peak = [], [], []
+    hist = collections.Counter()          # (by, ry) over lanes and frames
     reset_counts()
     for t in range(frames):
         # keep the kernels' inputs and outputs of the warm-up frame
@@ -1191,6 +1253,8 @@ def main_path(dev, gpu, name, recorders):
         res = enc.encode_frames(frame)
         enc_s.append(time.perf_counter() - t0)
         peak.append((torch.cuda.max_memory_allocated() - base) / 2**30)
+        if enc.rct_search:
+            hist.update(enc.rct_coefs)
         for b in range(BATCH):
             want = golden["packets"][b][t]
             check(digest(res[b][0]) == {"sha256": want["sha256"],
@@ -1230,6 +1294,12 @@ def main_path(dev, gpu, name, recorders):
     check(launches == want,
           f"expected {' and '.join(want)} launched once per step, and no "
           f"other kernel: {launches}")
+    if enc.rct_search:
+        log(f"[{tag}] searched (by, ry) over {frames} frames x {enc.L} "
+            f"lanes: " + ", ".join(f"{k}: {v}"
+                                   for k, v in sorted(hist.items())))
+        check(set(hist) - {(1, 1)}, "every lane kept (1, 1): the search "
+              "picked no other pair")
     enc_rec = rec_enc.take()
     dec_rec = rec_dec.take() if k_dec is not None else None
     check(enc_rec[1] is not None and
@@ -1242,7 +1312,20 @@ def main_path(dev, gpu, name, recorders):
     # stage times at the main path's shapes (launches not counted above)
     frame = [streams[b][frames - 1] for b in range(BATCH)]
     up_ms, planes = host_time_ms(lambda: enc._upload(frame))
-    st_ms = cuda_time_ms(lambda: enc._streams_uniform(planes), 3)
+    rct, v4 = None, {}
+    if enc.rct_search:
+        # the search (with the fetch of its (L, 15) sums and the pick),
+        # the slice headers built cold and from the cache
+        v4["rct_search"], coefs = host_time_ms(lambda: enc._rct_coefs(planes))
+        enc._header_cache.clear()
+        v4["header_cold"], _x = host_time_ms(
+            lambda: enc._prefix_arrays_rct(False, coefs))
+        v4["header"], _x = host_time_ms(
+            lambda: enc._prefix_arrays_rct(False, coefs))
+        if enc.rgb:
+            c = torch.tensor(coefs, dtype=torch.int32, device=dev)
+            rct = (c[:, 0], c[:, 1])
+    st_ms = cuda_time_ms(lambda: enc._streams_uniform(planes, rct), 3)
     k1_args = enc_rec[0]
     scan = golomb_encode.golomb_encode_lanes if golomb else \
         rc_encode.rc_encode_compact if path.compact else \
@@ -1267,6 +1350,9 @@ def main_path(dev, gpu, name, recorders):
             fin_ms = cuda_time_ms(lambda: finalize_packed(
                 slots, low, rng, prefixes, plens, enc.s2), 3)
         fin_peak = (torch.cuda.max_memory_allocated() - fbase) / 2**30
+    if path.level > 3:
+        v4["rowbytes"] = cuda_time_ms(lambda: row_bytes(slots, enc.row_offs),
+                                      3)
     pkts = [r[0] for r in res]                  # the last frame's packets
     # the host CRC-32 alone over the step's slices: the encoder's over
     # each slice up to its CRC, the decoder's over each whole slice
@@ -1274,14 +1360,20 @@ def main_path(dev, gpu, name, recorders):
     crc_enc_ms, _x = host_time_ms(
         lambda: [crc32_ieee(p[a:b - 4]) for p, a, b in spans])
     L, n = k1_args[0].shape
-    rest = enc_ms - up_ms - st_ms - k1_ms - fin_ms
+    rest = enc_ms - up_ms - st_ms - k1_ms - fin_ms - sum(
+        v4.get(k, 0.0) for k in ("rct_search", "header", "rowbytes"))
     slots_gib = slots.numel() * slots.element_size() / 2**30
     fin_text = (f"no finalize (G1's byte rows {slots_gib:.3f} GiB)"
                 if golomb else
                 f"{fin_name} {fin_ms:.2f} (peak {fin_peak:.2f} GiB over its "
                 f"{slots_gib:.2f} GiB input)")
+    v4_text = "" if not v4 else (
+        (f"RCT search {v4['rct_search']:.2f} (its sums' fetch and the pick "
+         f"included), slice headers {v4['header']:.2f} (cached; "
+         f"{v4['header_cold']:.2f} cold), " if "rct_search" in v4 else "") +
+        f"row bytes {v4['rowbytes']:.2f}, ")
     log(f"[{tag}] encode stages (ms, L={L}, {n} px/lane, each timed alone, "
-        f"{gpu}): upload {up_ms:.2f}, stencil {st_ms:.2f}, {k_enc} "
+        f"{gpu}): upload {up_ms:.2f}, {v4_text}stencil {st_ms:.2f}, {k_enc} "
         f"{k1_ms:.2f}, {fin_text}; the median step minus these "
         f"{rest:.2f}, of which the "
         f"slices' CRC-32 alone takes {crc_enc_ms:.2f} ({len(spans)} slices, "
@@ -1293,7 +1385,7 @@ def main_path(dev, gpu, name, recorders):
                    upload=up_ms, stencil=st_ms, scan=k1_ms, finalize=fin_ms,
                    rest=rest, crc=crc_enc_ms,
                    step_peak_gib=max(peak[1 + WARM:]),
-                   finalize_peak_gib=fin_peak, slots_gib=slots_gib))
+                   finalize_peak_gib=fin_peak, slots_gib=slots_gib, **v4))
     if k_dec is None:
         return res
     dec_ms = step_stats(tag, "decode", dec_s[1 + WARM:], mpix, gpu)
@@ -1314,6 +1406,74 @@ def main_path(dev, gpu, name, recorders):
     res["dec_ms"] = dec_ms
     res["stages"].update(parse=parse_ms, crc_dec=crc_dec_ms, dscan=k2_ms)
     return res
+
+
+def pcm_phase(dev, gpu, rec):
+    """v4_pcm: version 4's PCM retry on the card (``pcm_kw``,
+    ``synthetic_streams_pcm``), batch 2, GOP 3 over three frames.  Its
+    packets must equal the golden digests of the JAX package's
+    TPUFFV1Encoder on the CPU (tests/test_torch_goldens.py; the host
+    encoder has no PCM retry), stream 0's slices be PCM in frames 0 and 2
+    and no other slice, K1-ext launch once per frame and no other kernel,
+    and each frame's row bytes (``row_bytes`` on the card) equal the
+    plain computation on a host copy of the same raw slots.  ``rec``:
+    the LastLaunch of rc_encode_packed.  Returns its numbers."""
+    tag = "v4_pcm"
+    golden = load_goldens()["v4_pcm"]
+    streams = synthetic_streams_pcm()
+    enc = TorchFFV1Encoder(EncoderParams(**pcm_kw()), batch=BATCH,
+                           device=dev)
+    check(digest(enc.extradata) == golden["extradata"],
+          "v4_pcm: extradata differs from the golden")
+    # parses the slice headers on the host (no decode: the port's decoder
+    # refuses PCM slices, as the JAX package's does)
+    parser = TorchFFV1Decoder(PCM_W, PCM_H, enc.extradata, batch=BATCH,
+                              device="cpu")
+    enc_ms, rb_ms, modes = [], [], []
+    reset_counts()
+    for t in range(PCM_FRAMES):
+        frame = [streams[b][t] for b in range(BATCH)]
+        rec.armed = True
+        ms, res = host_time_ms(lambda: enc.encode_frames(frame))
+        rec.armed = False
+        enc_ms.append(ms)
+        for b in range(BATCH):
+            want = golden["packets"][b][t]
+            check(digest(res[b][0]) == {"sha256": want["sha256"],
+                                        "len": want["len"]} and
+                  res[b][1] == want["key"],
+                  f"v4_pcm stream {b} frame {t}: packet differs from the "
+                  f"golden ({len(res[b][0])} vs {want['len']} B)")
+        packed = rec.take()[1][0]
+        rb_ms.append(cuda_time_ms(lambda: row_bytes(packed, enc.row_offs),
+                                  3))
+        got = row_bytes(packed, enc.row_offs).cpu().numpy()
+        offs = enc.row_offs.cpu().numpy()
+        cum = np.cumsum(((packed.cpu().numpy() >> 20) & 1).sum(axis=1),
+                        axis=0)
+        plain = np.where(offs[:, None] == 0, 0, cum[np.maximum(offs - 1, 0)])
+        check(np.array_equal(got, plain),
+              f"v4_pcm frame {t}: row bytes differ from the plain "
+              f"computation")
+        modes.append([[e[2] for e in parser._parse_packet(b, res[b][0])[2]]
+                      for b in range(BATCH)])
+    launches = all_launches()
+    check(launches == {"rc_encode_ext": PCM_FRAMES},
+          f"expected rc_encode_ext launched once per step, and no other "
+          f"kernel: {launches}")
+    want_modes = [[[int(t != 1)] * 4, [0] * 4] for t in range(PCM_FRAMES)]
+    check(modes == want_modes, f"v4_pcm: slice coding modes {modes}, "
+          f"expected {want_modes}")
+    log(f"[{tag}] {PCM_W}x{PCM_H} yuv444p16le, version 4, {BATCH} streams x "
+        f"{PCM_FRAMES} frames (GOP 3): packets equal to the golden digests "
+        f"(TPUFFV1Encoder); slice coding modes per frame and stream "
+        f"{modes} (1: PCM); row bytes equal to the plain computation in "
+        f"every frame ({enc.row_offs.numel()} line starts x {enc.L} lanes, "
+        f"{', '.join(f'{x:.3f}' for x in rb_ms)} ms); encode steps "
+        f"{', '.join(f'{x:.2f}' for x in enc_ms)} ms, the PCM slices coded "
+        f"on the host ({gpu}); launches {launches}")
+    return dict(encode_ms=enc_ms, rowbytes_ms=rb_ms, modes=modes,
+                launches=launches)
 
 
 def check_compact_launch(name, rec, raw_name, raw_rec):
@@ -1891,6 +2051,7 @@ def main():
                      golomb_decode=LastLaunch(port_decoder,
                                               "golomb_decode_planes"))
     paths = {name: main_path(dev, gpu, name, recorders) for name in PATHS}
+    pcm = pcm_phase(dev, gpu, recorders["packed"])
     # each instance's launch on the first path that ran it (K1 and K1-ext
     # also run on the RGB paths: their stage splits and compact checks
     # take the planar paths' launches)
@@ -2026,6 +2187,7 @@ def main():
     log(json.dumps({"steps": {name: dict(encode_ms=p["enc_ms"],
                                          decode_ms=p["dec_ms"], **p["stages"])
                               for name, p in paths.items()}}))
+    log(json.dumps({"v4_pcm": pcm}))
     log(json.dumps({"stages": stages}))
     log(json.dumps({"kernels": kernels}))
     log(gpu)

@@ -372,14 +372,16 @@ def test_16bit_flipped_byte_flags_slice_and_conceals():
     dict(pix_fmt="bgr0", coder=0),                       # Golomb-Rice, RGB
     dict(pix_fmt="yuv420p", coder=0, slices=6),          # Golomb, non-unif.
     dict(pix_fmt="yuv420p16le", coder=2, level=1),       # 16 bits, v1
-    dict(pix_fmt="bgr0", coder=2, level=4, strict=-2),   # RGB, v4
+    dict(pix_fmt="yuv444p16le", coder=2, level=4, strict=-2, slices=4,
+         width=101, height=34),                          # v4, non-uniform
+    dict(pix_fmt="yuv420p", coder=2, level=2, strict=-2),  # version 2
     dict(pix_fmt="yuv420p", coder=2, slices=6),          # non-uniform
     dict(pix_fmt="yuv420p", coder=2, pass1=True),        # two-pass, 1st
     dict(pix_fmt="yuv420p", coder=2, stats_in=""),       # two-pass, 2nd
-], ids=["golomb_rgb", "golomb_nonuniform", "16bit", "rgb", "nonuniform",
-        "pass1", "stats_in"])
+], ids=["golomb_rgb", "golomb_nonuniform", "16bit", "v4_nonuniform", "v2",
+        "nonuniform", "pass1", "stats_in"])
 def test_outside_the_slice_raises(kw):
-    params = EncoderParams(width=50, height=40, **{"level": 3, **kw})
+    params = EncoderParams(**{"width": 50, "height": 40, "level": 3, **kw})
     with pytest.raises(NotImplementedError):
         TorchFFV1Encoder(params, device="cpu")
 

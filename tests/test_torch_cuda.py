@@ -4,7 +4,8 @@ end to end against the host encoder, at context models 0 and 1 (whose
 state table the kernels keep in global memory), in the raw and the
 compact encode form, with the range coder and with Golomb-Rice (G1, G2
 in every instance), and RGB (bgr0 and gbrp14le through B1 and B1-ext,
-every instance of both on random bytes); K1's, K1-ext's, K2's and
+every instance of both on random bytes), version 4 (the RCT search,
+the per-lane RCT, the row bytes, the PCM retry); K1's, K1-ext's, K2's and
 K2-ext's stage probes, the lookup probes and the Golomb-Rice pixel-step
 probe.  Marked ``cuda``; each test skips where
 torch.cuda.is_available() is False (this file imports no jax, so it runs
@@ -630,3 +631,69 @@ def test_rgb_slice_on_cuda_matches_host(cuda, pix_fmt, context_model):
             assert len(out[b][0]) == len(streams[b][t])
             for x, y in zip(out[b][0], streams[b][t]):
                 assert x.dtype == y.dtype and np.array_equal(x, y)
+
+
+@pytest.mark.parametrize("pix_fmt", ["bgr0", "gbrp14le", "yuv444p16le"])
+def test_v4_slice_on_cuda_matches_host(cuda, pix_fmt):
+    """Version 4 on the card: the RCT search, the per-lane RCT (RGB), the
+    row bytes; the host encoder's packets, a lossless decode, and some
+    lane with a pair other than (1, 1)."""
+    from tpu_ffv1_torch import TorchFFV1Decoder, TorchFFV1Encoder
+    w, h = 96, 64
+    params = EncoderParams(width=w, height=h, pix_fmt=pix_fmt, level=4,
+                           strict=-2, coder=2, slices=4, gop_size=2)
+    gen = {"bgr0": chip_smoke.synthetic_streams_bgr0,
+           "gbrp14le": chip_smoke.synthetic_streams_gbrp14,
+           "yuv444p16le": chip_smoke.synthetic_streams16}[pix_fmt]
+    streams = gen(2, 3, w, h, 40)
+    port = TorchFFV1Encoder(params, batch=2, device=cuda)
+    dec = TorchFFV1Decoder(w, h, port.extradata, batch=2, device=cuda)
+    hosts = [FFV1Encoder(params) for _ in range(2)]
+    picks = set()
+    for t in range(3):
+        res = port.encode_frames([streams[b][t] for b in range(2)])
+        picks |= set(port.rct_coefs)
+        for b in range(2):
+            assert res[b] == hosts[b].encode_frame(streams[b][t])
+        out = dec.decode_frames([r[0] for r in res])
+        for b in range(2):
+            for x, y in zip(out[b][0], streams[b][t]):
+                assert x.dtype == y.dtype and np.array_equal(x, y)
+    assert picks - {(1, 1)}
+
+
+def test_v4_pcm_retry_on_cuda_matches_plain_row_bytes(cuda):
+    """chip_smoke's v4_pcm content on the card: stream 0's slices retry as
+    PCM in frames 0 and 2 (the host decoder reads them losslessly), and
+    row_bytes on the card equals a numpy count of the emit flags (bit 20)
+    of a host copy of the slots, summed per pixel and over the lane's
+    pixels before each line start."""
+    from tpu_ffv1 import FFV1Decoder
+    from tpu_ffv1_torch import TorchFFV1Encoder
+    from tpu_ffv1_torch.tpu import encoder as E
+    params = EncoderParams(**chip_smoke.pcm_kw())
+    streams = chip_smoke.synthetic_streams_pcm()
+    port = TorchFFV1Encoder(params, batch=2, device=cuda)
+    hosts = [FFV1Decoder(params.width, params.height, port.extradata)
+             for _ in range(2)]
+    for t in range(chip_smoke.PCM_FRAMES):
+        frame = [s[t] for s in streams]
+        planes = port._upload(frame)
+        ctx, diff, act = port._streams_uniform(planes)
+        packed = E.rc_encode_packed(
+            ctx, diff, act, port.states, port.one_tab, port.zero_tab,
+            *port._prefix_arrays_rct(t == 0, port._rct_coefs(planes))[:2],
+            port.bits)[0]
+        offs = port.row_offs.cpu().numpy()
+        cum = np.cumsum(((packed.cpu().numpy() >> 20) & 1).sum(axis=1),
+                        axis=0)                           # (N, L)
+        plain = np.where(offs[:, None] == 0, 0, cum[np.maximum(offs - 1, 0)])
+        assert np.array_equal(E.row_bytes(packed, port.row_offs).cpu()
+                              .numpy(), plain)
+        res = port.encode_frames(frame)
+        for b in range(2):
+            out, _ = hosts[b].decode_frame(res[b][0])
+            assert all(np.array_equal(np.asarray(x), y)
+                       for x, y in zip(out, frame[b]))
+            assert [s.slice_coding_mode for s in hosts[b].slices] == \
+                [int(b == 0 and t != 1)] * 4

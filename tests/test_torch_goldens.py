@@ -4,10 +4,14 @@ encoder's: regenerated here from chip_smoke's seeded content generators
 with tpu_ffv1.FFV1Encoder(engine="native") on the CPU, every packet of
 every main path (2 streams x 8 frames of 1080p yuv420p and of 1080p
 yuv444p16le at context model 0, of 1080p yuv420p at context model 1,
-with Golomb-Rice, and of 1080p bgr0; 2 x 4 frames of 960x540
-yuv444p16le at context model 1 and of 960x540 gbrp14le), and compared
-with the committed file exactly (RGB from the C encoder's RGB coder,
-ffv1n_encode_rgb).  The compact-form paths
+with Golomb-Rice, and of 1080p bgr0 at versions 3 and 4; 2 x 4 frames
+of 960x540 yuv444p16le at context model 1 and at version 4 and of
+960x540 gbrp14le), and compared with the committed file exactly (RGB
+from the C encoder's RGB coder, ffv1n_encode_rgb; version 4's RCT
+search from the host engine's choose_rct_params).  The v4_pcm phase's
+digests (2 x 3 frames of 512x4 yuv444p16le at version 4, whose slices
+retry as PCM) are TPUFFV1Encoder's on the CPU: the host encoder has no
+PCM retry.  The compact-form paths
 (8bit_compact, 8bit_ctx1_compact) have no digests of their own: the
 host encoder on their content and configuration must give those of the
 path they name (their packets are the raw form's, byte for byte).
@@ -26,6 +30,7 @@ sys.path.insert(0, REPO)
 
 import chip_smoke  # noqa: E402
 from tpu_ffv1 import EncoderParams, FFV1Encoder, native  # noqa: E402
+from tpu_ffv1.tpu.encoder import TPUFFV1Encoder  # noqa: E402
 
 
 def golden_path(name):
@@ -48,6 +53,27 @@ def golden_path(name):
             "packets": packets}
 
 
+def golden_pcm():
+    """Digests of v4_pcm's packets under TPUFFV1Encoder (batch 2)."""
+    enc = TPUFFV1Encoder(EncoderParams(**chip_smoke.pcm_kw()),
+                         batch=chip_smoke.BATCH)
+    streams = chip_smoke.synthetic_streams_pcm()
+    packets = [[] for _ in streams]
+    for t in range(chip_smoke.PCM_FRAMES):
+        res = enc.encode_frames([s[t] for s in streams])
+        for b, (pkt, key) in enumerate(res):
+            packets[b].append(dict(chip_smoke.digest(pkt), key=bool(key)))
+    return {"pix_fmt": "yuv444p16le", "width": chip_smoke.PCM_W,
+            "height": chip_smoke.PCM_H, "seed": chip_smoke.PCM_SEED,
+            "frames": chip_smoke.PCM_FRAMES,
+            "extradata": chip_smoke.digest(enc.extradata),
+            "packets": packets}
+
+
+def test_pcm_goldens_match_jax_encoder():
+    assert golden_pcm() == chip_smoke.load_goldens()["v4_pcm"]
+
+
 @pytest.mark.parametrize("name", sorted(chip_smoke.PATHS))
 def test_goldens_match_host_c_encoder(name):
     assert native.available(), \
@@ -59,6 +85,7 @@ def test_goldens_match_host_c_encoder(name):
 if __name__ == "__main__":
     out = {name: golden_path(name) for name in sorted(chip_smoke.PATHS)
            if not chip_smoke.PATHS[name].golden}
+    out["v4_pcm"] = golden_pcm()
     with open(chip_smoke.GOLDENS, "w") as f:
         json.dump(out, f, indent=1)
         f.write("\n")

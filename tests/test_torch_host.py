@@ -161,3 +161,60 @@ def test_slice_headers_round_trip(pix):
                          dec.range))
         assert read[0] == read[1]
         assert read[0][2] == {**vars(geom), "sx": 0, "sy": 0}
+
+
+@pytest.mark.parametrize("pix,w,h", [
+    ("yuv444p16le", 9, 3), ("yuv420p10le", 7, 4), ("yuv420p", 6, 2),
+    ("gray16le", 5, 3), ("yuva420p10le", 6, 4),
+    ("bgr0", 5, 3), ("bgra", 4, 2), ("gbrp14le", 6, 3)])
+def test_pcm_slice_codec_matches(pix, w, h):
+    """codec/slice_codec.py (the PCM retry's lines: encode_plane_pcm,
+    encode_rgb_pcm) against the JAX package's slice codec in
+    slice_coding_mode 1 (encode_plane, encode_rgb_frame): the same bytes
+    for one PCM slice, its header included, at both context models."""
+    from tpu_ffv1.codec import slice_codec as jsc
+    from tpu_ffv1_torch.codec import slice_codec as tsc
+    r = np.random.RandomState(w * h)
+    for cm in (0, 1):
+        kw = dict(width=w, height=h, pix_fmt=pix, level=4, strict=-2,
+                  coder=2, context_model=cm)
+        rp, jrp = tp.resolve(tp.EncoderParams(**kw)), \
+            jp.resolve(jp.EncoderParams(**kw))
+        fmt = jpix.get_pix_fmt(pix)
+        geom = tctx.slice_grid(w, h, 1, 1)[0]
+        bits = max(8, fmt.bits)
+        if fmt.colorspace == 1 and fmt.bits <= 8:
+            planes = r.randint(0, 256, (h, w, 4)).astype(np.uint8)
+        elif fmt.colorspace == 1:
+            planes = [r.randint(0, 1 << fmt.bits, (h, w)).astype(np.uint16)
+                      for _ in range(3)]
+        else:
+            sub = fmt.chroma_h_shift
+            dims = [(h, w)] + [(-(-h >> sub), -(-w >> sub))] * (
+                2 * rp.chroma_planes) + [(h, w)] * rp.transparency
+            planes = [r.randint(0, 1 << fmt.bits, d).astype(
+                np.uint8 if fmt.bits <= 8 else np.uint16) for d in dims]
+        # (plane, plane index) in the reference's order: luma, chroma, alpha
+        idx = [0] + [1, 1] * rp.chroma_planes + [2] * rp.transparency
+        out = []
+        for rac, hmod, ss, params in (
+                (trac, th, tctx.SliceState(geom=geom, slice_coding_mode=1),
+                 rp),
+                (jrac, jh, jctx.alloc_slice_state(jrp, geom), jrp)):
+            ss.slice_coding_mode = 1
+            enc = rac.RangeEncoder(*rac.custom_state_tables(jT.VER2_STATE))
+            hmod.write_slice_header(params, ss, enc)
+            if rac is trac and fmt.colorspace == 1:
+                tsc.encode_rgb_pcm(enc, planes, bits, rp.transparency)
+            elif rac is trac:
+                for src in planes:
+                    tsc.encode_plane_pcm(enc, src, bits, rp.packed_at_lsb)
+            elif fmt.colorspace == 1:
+                jsc.encode_rgb_frame(params, ss, (enc, None), planes, w, h)
+            else:
+                for src, k in zip(planes, idx):
+                    ph, pw = src.shape
+                    jsc.encode_plane(params, ss, (enc, None), src, pw, ph, k,
+                                     bits)
+            out.append(enc.terminate())
+        assert out[0] == out[1], cm

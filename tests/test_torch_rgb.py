@@ -231,8 +231,10 @@ def test_rgb_gop_begun_in_jax_continues_in_port():
     dict(pix_fmt="bgr0", coder=0),                        # Golomb-Rice
     dict(pix_fmt="bgr0", coder=-1),                       # the default
     dict(pix_fmt="bgra", coder=2, slices=6),              # non-uniform
-    dict(pix_fmt="gbrp10le", coder=2, level=4, strict=-2),  # version 4
-], ids=["golomb", "default_coder", "nonuniform", "version4"])
+    dict(pix_fmt="gbrp10le", coder=2, level=4, strict=-2,
+         slices=6),                                       # v4, non-uniform
+    dict(pix_fmt="gbrp10le", coder=2, level=2, strict=-2),  # version 2
+], ids=["golomb", "default_coder", "nonuniform", "version4", "version2"])
 def test_outside_the_rgb_slice_raises(kw):
     p = EncoderParams(width=50, height=40, **{"level": 3, **kw})
     with pytest.raises(NotImplementedError):

@@ -1,5 +1,5 @@
-"""PyTorch FFV1 decoder (version 3: planar YUV/gray with the range coder
-or Golomb-Rice, RGB with the range coder).
+"""PyTorch FFV1 decoder (versions 3 and 4: planar YUV/gray with the range
+coder or Golomb-Rice, RGB with the range coder).
 
 Port of the fused planar range-coder and Golomb-Rice paths of
 ``tpu_ffv1/tpu/decoder.py`` (``TPUFFV1Decoder``).  The host parses the
@@ -23,6 +23,13 @@ assembly and the output packing run as torch ops (ffv1dec.c:264-272).
 Output as the host decoder's: 8-bit RGB one (H, W, 4) uint8 array in
 memory order B, G, R, A (A = 0 for bgr0), deeper RGB three uint16
 planes in the format's order.
+
+Version 4's slice headers add each slice's RCT coefficients, coding mode
+and slice_reset_contexts (ffv1dec.c:345-356): RGB's inverse transform
+runs per lane with its slice's (by, ry); a slice with reset_contexts
+starts from fresh states (ffv1dec.c:419-420); a PCM slice (coding mode
+1) raises NotImplementedError, as the JAX package's class does
+(decoder.py:411-421 there): the host decoder reads it.
 
 Every lane decodes at the slice grid's geometry, which no packet can
 change.  A slice header is parsed into a copy of the geometry its last
@@ -73,8 +80,8 @@ class TorchFFV1Decoder:
         if self.rgb and self.golomb:
             raise NotImplementedError("RGB needs the range coder, as in "
                                       "the reference")
-        if g.version != 3:
-            raise NotImplementedError("only version 3 is ported")
+        if g.version not in (3, 4):
+            raise NotImplementedError("only versions 3 and 4 are ported")
         self.g = g
         self.width = width
         self.height = height
@@ -180,9 +187,11 @@ class TorchFFV1Decoder:
     def _parse_packet(self, bi: int, pkt: bytes):
         """Keyframe bit + slice trailers + CRC + slice headers for one
         stream's packet.  Returns (keyframe, per-slice list of
-        (buf, qidx, low, range, pos)); qidx is None for a slice whose
-        header failed to parse.  A Golomb-Rice slice gives low = range =
-        0 and pos the byte its bit reader starts at."""
+        (buf, qidx, low, range, pos), per-slice list of (rct_by, rct_ry,
+        coding_mode, reset_contexts)); qidx is None for a slice whose
+        header failed to parse, and its extras are (1, 1, 0, 0), as below
+        version 4.  A Golomb-Rice slice gives low = range = 0 and pos the
+        byte its bit reader starts at."""
         rc = RangeDecoder(pkt, *default_state_tables())
         keystate = np.array([128], dtype=np.uint8)
         keyframe = bool(rc.get_rac(keystate, 0))
@@ -193,7 +202,7 @@ class TorchFFV1Decoder:
         bounds = self._split_slices(pkt)
         if len(bounds) != len(self.geoms):
             raise ValueError("slice count mismatch")
-        slices = []
+        slices, extras = [], []
         for si, (start, end) in enumerate(bounds):
             if keyframe:
                 self.slice_damaged[bi, si] = False
@@ -207,8 +216,11 @@ class TorchFFV1Decoder:
             # the header writes its geometry before it validates it
             geom = dataclasses.replace(self.conceal_geoms[bi][si])
             try:
-                qidxs, _ = read_slice_header(self, SliceState(geom=geom), src)
+                ss = SliceState(geom=geom)
+                qidxs, _ = read_slice_header(self, ss, src)
                 qidx = qidxs[0]
+                ex = (ss.slice_rct_by_coef, ss.slice_rct_ry_coef,
+                      ss.slice_coding_mode, ss.slice_reset_contexts)
                 if self.golomb and (self.version > 3 or (
                         self.version == 3 and self.g.micro_version > 1)):
                     sentinel = np.array([129], dtype=np.uint8)
@@ -216,13 +228,15 @@ class TorchFFV1Decoder:
             except (ValueError, IndexError):
                 self.slice_damaged[bi, si] = True
                 qidx = None
+                ex = (1, 1, 0, 0)
+            extras.append(ex)
             self.conceal_geoms[bi][si] = geom
             if self.golomb:
                 # the bit reader starts at ac_byte_count (ffv1dec.c:427-434)
                 slices.append((buf, qidx, 0, 0, max(src.pos - 1, 0)))
             else:
                 slices.append((buf, qidx, src.low, src.range, src.pos))
-        return keyframe, slices
+        return keyframe, slices, extras
 
     def _plane_specs(self):
         """(w, h, state_plane) per coded plane of a slice (RGB: G, B, R(,
@@ -253,29 +267,51 @@ class TorchFFV1Decoder:
                            (self.n_state_planes, 1))
         return np.full((self.n_state_planes * cc, 32), 128, np.uint8)
 
-    def _reset_lanes(self, table, fresh, keyframes):
+    def _reset_lanes(self, table, fresh, keyframes, resets=None):
         """A GOP-persistent per-lane table with each keyframe stream's
-        lanes reset to ``fresh`` (one lane's rows), and every lane where
-        the table's size changes."""
+        lanes reset to ``fresh`` (one lane's rows), each lane whose slice
+        header sets reset_contexts (``resets``, bool (L,), version 4) too,
+        and every lane where the table's size changes."""
         if table is None or table.shape[1] != fresh.shape[0]:
             table = fresh[None].repeat(self.L, 1, 1)
         for bi, kf in enumerate(keyframes):
             if kf:
                 table[bi * self.n_slices:(bi + 1) * self.n_slices] = fresh
+        if resets is not None and resets.any():
+            table[torch.from_numpy(resets).to(table.device)] = fresh
         return table
 
-    def _reset_lane_states(self, keyframes, qidx0):
-        """Per-stream keyframe resets of the range coder's states."""
+    def _reset_lane_states(self, keyframes, qidx0, resets=None):
+        """Per-stream keyframe resets and per-lane reset_contexts of the
+        range coder's states (decoder.py:343-362 of the JAX package)."""
         fresh = torch.from_numpy(self._fresh_states(qidx0)).to(self.device)
-        self.states = self._reset_lanes(self.states, fresh, keyframes)
+        self.states = self._reset_lanes(self.states, fresh, keyframes,
+                                        resets)
         return self.states
 
-    def _reset_lane_vlc(self, keyframes, rows):
-        """Per-stream keyframe resets of the Golomb-Rice VLC states."""
+    def _reset_lane_vlc(self, keyframes, rows, resets=None):
+        """Per-stream keyframe resets and per-lane reset_contexts of the
+        Golomb-Rice VLC states."""
         fresh = fresh_vlc_states(1, rows, self.device)[0]
         self.vlc_states = self._reset_lanes(self.vlc_states, fresh,
-                                            keyframes)
+                                            keyframes, resets)
         return self.vlc_states
+
+    def _lane_extras(self, parsed):
+        """Version 4's per-slice extras as lane arrays: RGB's (by, ry)
+        int32 tensors (L,) on the device (None below version 4 and for
+        YUV, which carries them in its headers only) and reset_contexts
+        bool (L,) on the host.  A PCM slice raises: the host decoder
+        reads it."""
+        ex = np.array([e for p in parsed for e in p[2]], np.int32)
+        if (ex[:, 2] != 0).any():
+            raise NotImplementedError("version 4 PCM slices are decoded on "
+                                      "the host only; use FFV1Decoder")
+        by = ry = None
+        if self.rgb and self.version > 3:
+            by, ry = torch.from_numpy(np.ascontiguousarray(ex[:, :2].T)).to(
+                self.device)
+        return by, ry, ex[:, 3] != 0
 
     def _header_failed_states(self, parsed, cc):
         """{lane: its states before this frame} for the lanes whose slice
@@ -287,7 +323,7 @@ class TorchFFV1Decoder:
         rows = self.n_state_planes * cc
         table = self.vlc_states if self.golomb else self.states
         kept = {}
-        for bi, (_kf, sl) in enumerate(parsed):
+        for bi, (_kf, sl, _ex) in enumerate(parsed):
             for si, s in enumerate(sl):
                 if s[1] is not None:
                     continue
@@ -314,7 +350,7 @@ class TorchFFV1Decoder:
         table does not count; where every slice is flagged, the first
         parsed header's table serves, else the stream's first."""
         named = [(self.slice_damaged[bi, si], s[1])
-                 for bi, (_kf, sl) in enumerate(parsed)
+                 for bi, (_kf, sl, _ex) in enumerate(parsed)
                  for si, s in enumerate(sl) if s[1] is not None]
         intact = {q for damaged, q in named if not damaged}
         if len(intact) > 1:
@@ -326,7 +362,7 @@ class TorchFFV1Decoder:
         bufs = np.zeros((self.L, cap), np.uint8)
         lrp = np.zeros((3, self.L), np.int32)
         buflens = np.zeros(self.L, np.int64)
-        for bi, (_kf, sl) in enumerate(parsed):
+        for bi, (_kf, sl, _ex) in enumerate(parsed):
             for si, (buf, _q, lo, ra, po) in enumerate(sl):
                 lane = bi * self.n_slices + si
                 bufs[lane, :len(buf)] = np.frombuffer(buf, np.uint8)
@@ -351,15 +387,17 @@ class TorchFFV1Decoder:
         cc = g.context_counts[qidx0]
         specs = tuple((w, h, sp * cc) for (w, h, sp) in self._plane_specs())
         kept = self._header_failed_states(parsed, cc)
+        by, ry, resets = self._lane_extras(parsed)
         if self.golomb:
-            vlc0 = self._reset_lane_vlc(keyframes, self.n_state_planes * cc)
+            vlc0 = self._reset_lane_vlc(keyframes, self.n_state_planes * cc,
+                                        resets)
             planes_dev, vlc_out, _bitpos = golomb_decode_planes(
                 bufs, vlc0, self.qts[qidx0], poss, specs, self.bits, five)
             for lane, st in kept.items():
                 vlc_out[lane] = st
             self.vlc_states = vlc_out
         else:
-            states0 = self._reset_lane_states(keyframes, qidx0)
+            states0 = self._reset_lane_states(keyframes, qidx0, resets)
             if self.rgb:
                 planes_dev, states_out, low, rng, pos = rc_decode_rgb(
                     bufs, states0, self.one_tab, self.zero_tab,
@@ -373,8 +411,8 @@ class TorchFFV1Decoder:
             for lane, st in kept.items():
                 states_out[lane] = st
             self.states = states_out
-        planes_full = self._rgb_output(planes_dev) if self.rgb else \
-            self._planar_output(planes_dev)
+        planes_full = self._rgb_output(planes_dev, by, ry) if self.rgb \
+            else self._planar_output(planes_dev)
         if not self.golomb:
             self._validate(parsed,
                            torch.stack([low, rng, pos]).cpu().numpy(),
@@ -404,15 +442,21 @@ class TorchFFV1Decoder:
                 out.append((x & 0xFFFF).cpu().numpy().astype(np.uint16))
         return out
 
-    def _rgb_output(self, samples):
+    def _rgb_output(self, samples, by, ry):
         """RCT-domain samples (P, L, h, w) -> the host decoder's output
-        layout: the inverse colour transform at version 3's coefficients
-        (ffv1dec.c:264-269), the grid assembly and the packing
-        (ffv1dec.c:272); per plane a (batch, ...) numpy array."""
+        layout: the inverse colour transform (ffv1dec.c:264-269) with each
+        lane's coefficients (``by``, ``ry``: int32 (L,); None below
+        version 4, whose coefficients are (1, 1)), the grid assembly and
+        the packing (ffv1dec.c:272); per plane a (batch, ...) numpy
+        array."""
         offset = 1 << self.bits
         b = samples[1] - offset
         r = samples[2] - offset
-        g = samples[0] - ((b + r) >> 2)
+        if by is not None:
+            g = samples[0] - ((b * by[:, None, None] +
+                               r * ry[:, None, None]) >> 2)
+        else:
+            g = samples[0] - ((b + r) >> 2)
         b = b + g
         r = r + g
         if self.bits <= 8:
@@ -428,7 +472,7 @@ class TorchFFV1Decoder:
     def _validate(self, parsed, lrp, buflens):
         """Sentinel + byte-count check per lane (ffv1dec.c:459-467)."""
         low, rng, pos = lrp
-        for bi, (_kf, sl) in enumerate(parsed):
+        for bi, (_kf, sl, _ex) in enumerate(parsed):
             for si, (buf, *_rest) in enumerate(sl):
                 lane = bi * self.n_slices + si
                 src = RangeDecoder(buf)

@@ -38,22 +38,50 @@ lines in turn (ffv1enc.c:428-470) on state planes 0, 1, 1(, 2): the
 same lane scans, at coded width 9 or 10 through K1, 11..15 through
 K1-ext.
 
+Version 4 (``level=4, strict=-2``; encoder.py:87-91, 408-441, 588-670,
+1164-1346 of the JAX package) adds three things per frame step:
+
+  device: the per-slice RCT search (rct_search.py) on the uploaded
+          samples, for RGB and for 4:4:4 YUV above 8 bits; only the
+          (L, 15) cost sums cross to the host, which picks each lane's
+          (by, ry) and writes them into its slice header (headers cached
+          per slice, keyframe flag and pair).  RGB then runs the RCT per
+          slice crop with its lane's pair; YUV carries the pair in the
+          headers only.
+  device: each lane's emitted bytes at every coded line start (bit 20
+          of the raw slots, ``row_bytes``), fetched as one (R, L) array.
+  host:   the reference's budget check (ffv1enc.c:283-287): a slice
+          whose remaining budget falls below w * 35 bytes at a line
+          start, or whose bytes pass the output cap, is re-encoded as
+          PCM (slice_coding_mode 1, ffv1enc.c:1207-1217) from the host
+          samples (codec/slice_codec.py), and its lane's states restart
+          at 128.
+
+The compact form drops the emit flags the budget reads, so version 4
+runs the raw form, as the reference does.  Golomb-Rice at version 4
+writes the v4 header fields with (1, 1) and has no budget check, as in
+the reference.
+
 Adaptive states stay on the device across frames (GOP context
 carry-over, ffv1enc.c:1171-1172): keyframes reset them to 128, other
-frames continue from the previous frame's states.  Covered: version 3,
-range coder, planar YUV/gray at every coded width (<= 10 bits through
-the fast schedule, 11..16 through the extended one) and RGB, context
-models 0 and 1 (the 5-input context, whose 2 x 7,563-row state table the
-lane scan keeps in global memory), uniform slice grids; Golomb-Rice for
-planar YUV/gray; everything else raises NotImplementedError.
+frames continue from the previous frame's states.  Covered: versions 3
+and 4, range coder, planar YUV/gray at every coded width (<= 10 bits
+through the fast schedule, 11..16 through the extended one) and RGB,
+context models 0 and 1 (the 5-input context, whose 2 x 7,563-row state
+table the lane scan keeps in global memory), uniform slice grids;
+Golomb-Rice for planar YUV/gray; everything else raises
+NotImplementedError.
 """
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
 
 from ..bitstream.headers import write_extradata, write_slice_header
-from ..codec.context import slice_grid
+from ..codec.context import SliceState, slice_grid
+from ..codec.slice_codec import encode_plane_pcm, encode_rgb_pcm
 from ..codec.params import EncoderParams, resolve
 from ..core import tables as T
 from ..core.crc import crc32_ieee
@@ -64,22 +92,38 @@ from ..device import resolve_device
 from .finalize import finalize_compact, finalize_packed, finalize_packed_full
 from .golomb_encode import fresh_vlc_states, golomb_encode_lanes, make_flags
 from .rc_encode import rc_encode_compact, rc_encode_packed
+from .rct_search import pick_rct_coefs, rct_cost_pairs
 from .residual import load_plane, rct_transform, residuals_and_contexts
 
 PREFIX_CAP = 96
 
 
+def row_bytes(packed, offs):
+    """Bytes each lane emitted before each coded line start: packed int32
+    (N, S, L) raw slots (bit 20 the emit flag), offs int64 (R,) the
+    lines' stream offsets -> int32 (R, L) (encoder.py:662-668 of the JAX
+    package).  The sums run in the lane-major order the kernels write
+    (L, N, S), so the prefix sum runs along each lane's contiguous row:
+    along N of an (N, L) array, torch's scan runs each lane serially."""
+    emit = packed.permute(2, 0, 1) >> 20                  # (L, N, S)
+    emit &= 1
+    cum = emit.sum(dim=2, dtype=torch.int32).contiguous().cumsum(
+        dim=1, dtype=torch.int32)                         # (L, N)
+    gathered = cum[:, (offs - 1).clamp(min=0)]            # (L, R)
+    return torch.where(offs[None, :] == 0, 0, gathered).T
+
+
 class TorchFFV1Encoder:
-    """Device FFV1 encoder (version 3; planar YUV/gray with the range
-    coder or Golomb-Rice, RGB with the range coder).
+    """Device FFV1 encoder (versions 3 and 4; planar YUV/gray with the
+    range coder or Golomb-Rice, RGB with the range coder).
 
     ``batch`` > 1 encodes that many independent streams in lockstep:
     lanes = batch x slices, lane index = stream * n_slices + slice.  Use
     encode_frames([stream0_planes, stream1_planes, ...]); a bgr0 or bgra
     frame is one (H, W, 4) uint8 array, a gbrp frame three uint16 planes
     in the format's order (G, B, R).  ``compact``
-    selects the compact lane-scan form at coded widths <= 10 (see the
-    module docstring); the bytes do not change.
+    selects the compact lane-scan form at coded widths <= 10 and version
+    3 (see the module docstring); the bytes do not change.
     """
 
     def __init__(self, params: EncoderParams, batch: int = 1,
@@ -91,8 +135,10 @@ class TorchFFV1Encoder:
         self.rp = rp = resolve(params)
         self.golomb = rp.ac == T.AC_GOLOMB_RICE
         self.rgb = rp.colorspace == 1
-        if rp.version != 3:
-            raise NotImplementedError("only version 3 is ported")
+        if rp.version not in (3, 4):
+            raise NotImplementedError("only versions 3 and 4 are ported "
+                                      "(version 2's output is unreadable "
+                                      "in the reference)")
         if rp.colorspace not in (0, 1) or \
                 (rp.colorspace == 0 and rp.fmt.interleaved):
             raise NotImplementedError("only planar YUV/gray and RGB are "
@@ -113,8 +159,24 @@ class TorchFFV1Encoder:
         # which chains put_symbol's repeated rows 10/31; their finalize
         # compacts to 6 slots per pixel (encoder.py of the JAX package)
         self.s2 = 4 if self.bits <= 10 else 6
+        # version 4 searches each slice's RCT coefficients wherever the
+        # reference does: RGB, and 4:4:4 YUV above 8 bits, whose planes
+        # its unguarded call reads as b, g, r (encoder.py:87-91 of the
+        # JAX package)
+        self.rct_search = rp.version > 3 and (
+            self.rgb or
+            (rp.colorspace == 0 and rp.chroma_planes and
+             rp.bits_per_raw_sample > 8 and
+             rp.chroma_h_shift == 0 and rp.chroma_v_shift == 0))
+        if compact and rp.version > 3:
+            # the compact slots carry no emit flag, and the v4 row budget
+            # reads it: the raw form runs, with the same bytes
+            # (encoder.py:194-201 of the JAX package)
+            warnings.warn("compact=True is off at version 4: the row "
+                          "budget reads the raw form's emit flags")
         # the compact form is fast-path only (rc_pallas.py:500)
-        self.compact = bool(compact) and self.bits <= 10
+        self.compact = bool(compact) and self.bits <= 10 and \
+            rp.version <= 3
         self.batch = batch
         self.extradata = write_extradata(rp)
         self.geoms = slice_grid(rp.width, rp.height,
@@ -161,6 +223,16 @@ class TorchFFV1Encoder:
                                  dtype=torch.uint8, device=dev)
         self.picture_number = 0
         self._prefix_cache = {}
+        # (slice, keyframe, (by, ry)) -> (low, range, provisional bytes)
+        self._header_cache = {}
+        # the last frame's searched (by, ry) per lane (version 4)
+        self.rct_coefs = None
+        if rp.version > 3 and not self.golomb:
+            # the line starts at which the reference checks its budget
+            rows = self._row_offsets(g0)
+            self.row_offs = torch.tensor([o for o, _w in rows],
+                                         dtype=torch.long, device=dev)
+            self.row_widths = np.array([w for _o, w in rows], np.int64)
         if self.golomb:
             # the line/plane flags of a slice's coding order, shared by all
             # lanes (uniform grids), and the GOP's VLC states
@@ -191,25 +263,33 @@ class TorchFFV1Encoder:
         return sum(w * h for (w, h, _sp) in self._plane_dims(geom))
 
     def _prefix_arrays(self, keyframe: bool):
-        """Per-lane host-prefix arrays (keyframe bit + slice headers),
-        static per (geometry, keyframe), so cached."""
+        """Per-lane host-prefix arrays (keyframe bit + slice headers with
+        the RCT coefficients (1, 1)), static per (geometry, keyframe), so
+        cached."""
         if keyframe not in self._prefix_cache:
-            lows = np.zeros(self.L, np.int32)
-            ranges = np.zeros(self.L, np.int32)
-            prefixes = np.zeros((self.L, PREFIX_CAP), np.int32)
-            plens = np.zeros(self.L, np.int32)
-            for si in range(self.n_slices):
-                lo, ra, prov = self._host_prefix(si, keyframe)
-                for bi in range(self.batch):
-                    lane = bi * self.n_slices + si
-                    lows[lane], ranges[lane] = lo, ra
-                    prefixes[lane, :len(prov)] = prov
-                    plens[lane] = len(prov)
-            dev = self.device
-            self._prefix_cache[keyframe] = tuple(
-                torch.from_numpy(a).to(dev)
-                for a in (lows, ranges, prefixes, plens))
+            self._prefix_cache[keyframe] = self._prefix_arrays_rct(
+                keyframe, [(1, 1)] * self.L)
         return self._prefix_cache[keyframe]
+
+    def _prefix_arrays_rct(self, keyframe: bool, coefs):
+        """Per-lane host-prefix arrays (lows, ranges, prefixes int32 (L,
+        PREFIX_CAP), plens) with each lane's RCT coefficients ``coefs``, a
+        list of (by, ry) per lane (encoder.py:427-441 of the JAX package,
+        which rebuilds every header every frame; here each header is
+        built once per slice, keyframe flag and pair)."""
+        lows = np.zeros(self.L, np.int32)
+        ranges = np.zeros(self.L, np.int32)
+        prefixes = np.zeros((self.L, PREFIX_CAP), np.int32)
+        plens = np.zeros(self.L, np.int32)
+        for lane in range(self.L):
+            lo, ra, prov = self._host_prefix(lane % self.n_slices, keyframe,
+                                             tuple(coefs[lane]))
+            lows[lane], ranges[lane] = lo, ra
+            prefixes[lane, :len(prov)] = prov
+            plens[lane] = len(prov)
+        dev = self.device
+        return tuple(torch.from_numpy(a).to(dev)
+                     for a in (lows, ranges, prefixes, plens))
 
     def _prefix_arrays_golomb(self, keyframe: bool):
         """Per-lane Golomb prefixes (the terminated slice headers, cached
@@ -245,28 +325,107 @@ class TorchFFV1Encoder:
             enc.put_rac(sentinel, 0, 0)
         return enc.terminate()
 
-    def _slice_state(self, si: int):
-        """The slice fields write_slice_header reads (version 3: no
-        per-slice RCT or coding mode)."""
-        class _SS:
-            pass
+    def _slice_state(self, si: int, coefs=(1, 1)):
+        """The slice fields write_slice_header reads: coding mode 0 and
+        the RCT coefficients (by, ry) (written at version 4 only)."""
+        return SliceState(geom=self.geoms[si], slice_rct_by_coef=coefs[0],
+                          slice_rct_ry_coef=coefs[1])
 
-        ss = _SS()
-        ss.geom = self.geoms[si]
-        ss.slice_coding_mode = 0
-        ss.slice_rct_by_coef, ss.slice_rct_ry_coef = 1, 1
-        return ss
+    def _host_prefix(self, si: int, keyframe: bool, coefs=(1, 1)):
+        """(low, range, provisional bytes) of the keyframe bit (slice 0)
+        and slice ``si``'s header, cached per (slice, keyframe, coefs)."""
+        key = (si, keyframe, coefs)
+        if key not in self._header_cache:
+            rp = self.rp
+            enc = ProvisionalRangeEncoder(*default_state_tables())
+            if si == 0:
+                keystate = np.array([128], dtype=np.uint8)
+                enc.put_rac(keystate, 0, 1 if keyframe else 0)
+            if rp.ac == T.AC_RANGE_CUSTOM_TAB:
+                enc.set_tables(*custom_state_tables(rp.state_transition))
+            write_slice_header(rp, self._slice_state(si, coefs), enc)
+            self._header_cache[key] = (enc.low, enc.range, list(enc.prov))
+        return self._header_cache[key]
 
-    def _host_prefix(self, si: int, keyframe: bool):
+    def _slice_budget(self) -> int:
+        """Per-slice output budget at version 4, as the reference's: the
+        packet is allocated at 16384 + w * h * 12 bytes (ffv1enc.c:
+        1281-1282) and carved evenly across slices (ffv1enc.c:1306-1311;
+        encoder.py:1256-1263 of the JAX package)."""
         rp = self.rp
-        enc = ProvisionalRangeEncoder(*default_state_tables())
-        if si == 0:
-            keystate = np.array([128], dtype=np.uint8)
-            enc.put_rac(keystate, 0, 1 if keyframe else 0)
+        return (16384 + rp.width * rp.height * 12) // self.n_slices
+
+    def _row_offsets(self, geom):
+        """(stream_offset, row_width) of every coded line of a slice in
+        planar order: the points where the reference checks its remaining
+        budget (encode_line, ffv1enc.c:283-287; encoder.py:1265-1287 of
+        the JAX package, whose offsets RGB shares)."""
+        rp = self.rp
+        out = []
+        pos = 0
+
+        def plane(w, h):
+            nonlocal pos
+            for _ in range(h):
+                out.append((pos, w))
+                pos += w
+
+        plane(geom.width, geom.height)
+        if rp.chroma_planes:
+            cw = ceil_rshift(geom.width, rp.chroma_h_shift)
+            ch = ceil_rshift(geom.height, rp.chroma_v_shift)
+            plane(cw, ch)
+            plane(cw, ch)
+        if rp.transparency:
+            plane(geom.width, geom.height)
+        return out
+
+    def _encode_slice_pcm(self, si: int, planes_np, keyframe: bool) -> bytes:
+        """Slice ``si`` of one stream re-encoded in PCM (slice_coding_mode
+        1) on the host: the reference's retry when the range-coded slice
+        would overflow its budget (ffv1enc.c:1207-1217; encoder.py:
+        1289-1346 of the JAX package).  Raw samples ride fresh 128 states
+        (ffv1enc.c:294-303); the header sets slice_reset_contexts."""
+        rp = self.rp
+        geom = self.geoms[si]
         if rp.ac == T.AC_RANGE_CUSTOM_TAB:
-            enc.set_tables(*custom_state_tables(rp.state_transition))
-        write_slice_header(rp, self._slice_state(si), enc)
-        return enc.low, enc.range, enc.prov
+            slice_tables = custom_state_tables(rp.state_transition)
+        else:
+            slice_tables = default_state_tables()
+        if si == 0:
+            rc = RangeEncoder(*default_state_tables())
+            keystate = np.array([128], dtype=np.uint8)
+            rc.put_rac(keystate, 0, 1 if keyframe else 0)
+            if rp.ac == T.AC_RANGE_CUSTOM_TAB:
+                rc.set_tables(*slice_tables)
+        else:
+            rc = RangeEncoder(*slice_tables)
+        ss = SliceState(geom=geom, slice_coding_mode=1)
+        write_slice_header(rp, ss, rc)
+
+        x, y, w, h = geom.x, geom.y, geom.width, geom.height
+        bits, lsb = self.raw_bits, rp.packed_at_lsb
+        if self.rgb:
+            if rp.fmt.interleaved:
+                sp = planes_np[0][y:y + h, x:x + w]
+            else:
+                sp = [p[y:y + h, x:x + w] for p in planes_np]
+            encode_rgb_pcm(rc, sp, bits, rp.transparency)
+        else:
+            encode_plane_pcm(rc, planes_np[0][y:y + h, x:x + w], bits, lsb)
+            if rp.chroma_planes:
+                hs, vs = rp.chroma_h_shift, rp.chroma_v_shift
+                cx, cy = x >> hs, y >> vs
+                cw, ch = ceil_rshift(w, hs), ceil_rshift(h, vs)
+                for k in (1, 2):
+                    encode_plane_pcm(
+                        rc, planes_np[k][cy:cy + ch, cx:cx + cw], bits, lsb)
+            if rp.transparency:
+                encode_plane_pcm(rc, planes_np[-1][y:y + h, x:x + w], bits,
+                                 lsb)
+        sentinel = np.array([129], dtype=np.uint8)
+        rc.put_rac(sentinel, 0, 0)
+        return rc.terminate()
 
     # -----------------------------------------------------------------
 
@@ -279,14 +438,15 @@ class TorchFFV1Encoder:
         c = stack.reshape(B, nv, h, nh, w)
         return c.permute(0, 1, 3, 2, 4).reshape(B * nv * nh, h, w)
 
-    def _streams_uniform(self, streams):
+    def _streams_uniform(self, streams, rct=None):
         """(ctx, diff, active) lane streams, each (L, n_max), for a tuple
         of per-plane (batch, Hk, Wk) integer tensors (bgr0/bgra: one
-        (batch, H, W, 4) uint8 tensor)."""
+        (batch, H, W, 4) uint8 tensor).  ``rct``: RGB's per-lane (by, ry)
+        int32 (L,) tensors at version 4, else None."""
         rp = self.rp
         nh, nv = rp.num_h_slices, rp.num_v_slices
         if self.rgb:
-            return self._streams_uniform_rgb(streams)
+            return self._streams_uniform_rgb(streams, rct)
         parts_ctx, parts_diff = [], []
 
         def add(stack, state_plane):
@@ -321,36 +481,50 @@ class TorchFFV1Encoder:
         b, g, r = (p.to(torch.int32) for p in streams[:3])
         return b, g, r, None
 
-    def _streams_uniform_rgb(self, streams):
-        """(ctx, diff, active) lane streams for RGB: the RCT on the full
-        frame (version 3's fixed coefficients; pixel-local, so the same
-        as per slice), each plane's slice crops through the stencil at
-        the coded width, and each slice row's G, B, R(, A) lines in turn
-        (ffv1enc.c:428-470), on state planes 0, 1, 1(, 2)."""
+    def _streams_uniform_rgb(self, streams, rct=None):
+        """(ctx, diff, active) lane streams for RGB: the RCT, each
+        plane's slice crops through the stencil at the coded width, and
+        each slice row's G, B, R(, A) lines in turn (ffv1enc.c:428-470),
+        on state planes 0, 1, 1(, 2).  Version 3's fixed coefficients
+        transform the full frame (pixel-local, so the same as per slice);
+        version 4's per-lane ``rct`` = (by, ry) transform each lane's
+        crops (encoder.py:561-575 of the JAX package)."""
         rp = self.rp
         nh, nv = rp.num_h_slices, rp.num_v_slices
         b, g, r, a = self._split_rgb(streams)
-        g, b, r = rct_transform(g, b, r, self.raw_bits)
+        if rct is None:
+            g, b, r = rct_transform(g, b, r, self.raw_bits)
+            crops = [self._crops_uniform(p, nh, nv) for p in (g, b, r)]
+        else:
+            by, ry = (c[:, None, None] for c in rct)
+            crops = list(rct_transform(
+                *(self._crops_uniform(p, nh, nv) for p in (g, b, r)),
+                self.raw_bits, by, ry))
+        if a is not None:
+            crops.append(self._crops_uniform(a, nh, nv))
         offs = (0, self.cc, self.cc, 2 * self.cc)
         ctx_p, diff_p = [], []
-        for k, plane in enumerate([g, b, r] + ([a] if a is not None
-                                               else [])):
-            c, d = residuals_and_contexts(
-                self._crops_uniform(plane, nh, nv), self.qt, self.bits,
-                self.five_input)                     # (L, h, w)
+        for k, plane in enumerate(crops):
+            c, d = residuals_and_contexts(plane, self.qt, self.bits,
+                                          self.five_input)   # (L, h, w)
             ctx_p.append(c + offs[k])
             diff_p.append(d)
         ctxs = torch.stack(ctx_p, dim=2).reshape(self.L, -1)
         diffs = torch.stack(diff_p, dim=2).reshape(self.L, -1)
         return ctxs, diffs, torch.ones_like(ctxs, dtype=torch.bool)
 
+    @staticmethod
+    def _host_planes(stream):
+        """One stream's frame as a list of numpy planes (a bgr0/bgra frame
+        may come as its one array)."""
+        return [np.asarray(p) for p in
+                (stream if isinstance(stream, (list, tuple)) else [stream])]
+
     def _upload(self, streams):
         """Per-plane (batch, Hk, Wk) tensors on the device (8-bit planes
         travel as uint8, deeper ones as int32; a bgr0/bgra frame as one
         (batch, H, W, 4) uint8 tensor)."""
-        planes = [[np.asarray(p) for p in
-                   (s if isinstance(s, (list, tuple)) else [s])]
-                  for s in streams]
+        planes = [self._host_planes(s) for s in streams]
         out = []
         for k in range(len(planes[0])):
             a = np.stack([pl[k] for pl in planes])
@@ -359,14 +533,27 @@ class TorchFFV1Encoder:
             out.append(torch.from_numpy(a).to(self.device))
         return tuple(out)
 
+    def _rct_coefs(self, planes):
+        """Version 4's search on the uploaded samples (int32 above 8 bits,
+        not the stencil's loaded planes): each lane's (by, ry), from the
+        (L, 15) cost sums of its slice crops of b, g, r (RGB bound as
+        ``_split_rgb`` binds them, YUV's planes 0, 1, 2; encoder.py:
+        588-619 of the JAX package)."""
+        rp = self.rp
+        nh, nv = rp.num_h_slices, rp.num_v_slices
+        bgr = self._split_rgb(planes)[:3] if self.rgb else planes[:3]
+        totals = rct_cost_pairs(*(self._crops_uniform(p, nh, nv)
+                                  for p in bgr))
+        return pick_rct_coefs(totals.cpu().numpy())
+
     def _frame_pipeline(self, streams, states0, lows, ranges, prefixes,
-                        plens, compact=None):
+                        plens, compact=None, rct=None):
         """Stencil -> lane scan -> finalize for one frame step, in the
         compact form if ``compact`` (default: the encoder's).  Returns
         (bytes, counts, states, overflow, packed, low, range); packed is
         None in the compact form, whose raw slots never exist."""
         compact = self.compact if compact is None else compact
-        ctxs, diffs, acts = self._streams_uniform(streams)
+        ctxs, diffs, acts = self._streams_uniform(streams, rct)
         if compact:
             cm, low, rng, states_out = rc_encode_compact(
                 ctxs, diffs, acts, states0, self.one_tab, self.zero_tab,
@@ -421,12 +608,21 @@ class TorchFFV1Encoder:
         if self.golomb:
             out, counts = self._encode_golomb(planes, keyframe)
             return self._packets(out, counts, keyframe)
-        lows, ranges, prefixes, plens = self._prefix_arrays(keyframe)
+        rct = None
+        if self.rct_search:
+            coefs = self.rct_coefs = self._rct_coefs(planes)
+            lows, ranges, prefixes, plens = self._prefix_arrays_rct(
+                keyframe, coefs)
+            if self.rgb:
+                c = torch.tensor(coefs, dtype=torch.int32).to(self.device)
+                rct = (c[:, 0], c[:, 1])
+        else:
+            lows, ranges, prefixes, plens = self._prefix_arrays(keyframe)
         states0 = torch.full_like(self.states, 128) if keyframe \
             else self.states
         out, counts, states_out, overflow, packed, low, rng = \
             self._frame_pipeline(planes, states0, lows, ranges, prefixes,
-                                 plens)
+                                 plens, rct=rct)
         self.states = states_out
         self.picture_number += 1
         if bool(overflow.any()) and packed is None:
@@ -436,13 +632,19 @@ class TorchFFV1Encoder:
             # equal the compact launch's, which stay
             out, counts, _st, overflow, packed, low, rng = \
                 self._frame_pipeline(planes, states0, lows, ranges,
-                                     prefixes, plens, compact=False)
+                                     prefixes, plens, compact=False,
+                                     rct=rct)
         if bool(overflow.any()):
             # a pixel emitted > s2 slots (or a 16-pixel group > 24): redo
             # the finalize at full slot width from the raw scan output
             out, counts = finalize_packed_full(packed, low, rng, prefixes,
                                                plens)
-        return self._packets(out, counts, keyframe)
+        rowpos = None
+        if self.rp.version > 3:
+            # each lane's provisional byte position at its line starts
+            rowpos = (row_bytes(packed, self.row_offs) +
+                      plens[None, :]).cpu().numpy()
+        return self._packets(out, counts, keyframe, rowpos, streams)
 
     def _encode_golomb(self, planes, keyframe: bool):
         """Stencil -> G1 for one frame step; the VLC states start fresh on a
@@ -457,15 +659,40 @@ class TorchFFV1Encoder:
         self.picture_number += 1
         return out, counts
 
-    def _packets(self, out, counts, keyframe: bool):
-        """Fetch the lanes' bytes and assemble each stream's packet."""
+    def _packets(self, out, counts, keyframe: bool, rowpos=None,
+                 streams=None):
+        """Fetch the lanes' bytes and assemble each stream's packet.  At
+        version 4 (range coder) ``rowpos`` (R, L) holds each lane's byte
+        position at its line starts, and a slice that fails the budget
+        check, or passes the output cap, is re-encoded in PCM from
+        ``streams`` (encoder.py:1164-1248 of the JAX package)."""
         counts_np = counts.cpu().numpy().astype(np.int64)
-        if counts_np.max() > self.out_cap:
-            raise RuntimeError("encoded slice exceeded output cap (the "
-                               "reference errors here too: ffv1enc.c:1210)")
+        pcm = np.zeros(self.L, bool)
+        if rowpos is not None:
+            # remaining budget below w * 35 at any line start
+            # (ffv1enc.c:283-287)
+            pcm = ((self._slice_budget() - rowpos) <
+                   self.row_widths[:, None] * 35).any(axis=0)
+        over = counts_np > self.out_cap
+        if over.any():
+            if rowpos is None:
+                raise RuntimeError("encoded slice exceeded output cap (the "
+                                   "reference errors here too: "
+                                   "ffv1enc.c:1210)")
+            pcm |= over
+        counts_np[pcm] = 0
         out_np = out[:, :int(counts_np.max())].cpu().numpy()
         payloads = [out_np[li, :counts_np[li]].tobytes()
                     for li in range(self.L)]
+        for li in np.nonzero(pcm)[0]:
+            bi, si = divmod(int(li), self.n_slices)
+            payloads[li] = self._encode_slice_pcm(
+                si, self._host_planes(streams[bi]), keyframe)
+        if pcm.any():
+            # a PCM slice's header sets slice_reset_contexts, which clears
+            # the lane's contexts on both sides (ffv1enc.c:1054-1056,
+            # ffv1dec.c:419-420)
+            self.states[torch.from_numpy(pcm).to(self.device)] = 128
         return [(self._assemble(payloads[bi * self.n_slices:
                                          (bi + 1) * self.n_slices]),
                  keyframe)
