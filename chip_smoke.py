@@ -106,14 +106,31 @@ exits non-zero without the final result line:
    must equal the JAX package's TPUFFV1Encoder's on the CPU (the host
    encoder has no PCM retry), its slices' coding modes that pattern, and
    each frame's row bytes the plain computation on a host copy of the
-   same raw slots; then K1's, K1-ext's, K2's and K2-ext's stage
-   split: each stage probe of K1 and of its global form, and of K2 and
+   same raw slots; then two main paths on non-uniform grids, each
+   at FFmpeg's -slices 24 (6 x 4) with six timed frames: 720p
+   (1280x720 yuv420p, context model 0: slices 213 and 214 wide, so K1
+   over lanes of two lengths and two K2 launches of 24 lanes per step)
+   and ntsc10_ctx1 (720x486 yuv422p10le at context model 1, the SD tape
+   transfer recipe: slices 121 and 122 high, K1's global form at 10
+   bits, two K2-five launches per step), each decode launch timed
+   alone; mixed_q: the 8bit and 8bit_ctx1 paths' packets spliced (even
+   slices from the first, odd ones from the second:
+   splice_packets) and decoded, K2 and K2-five in one group of 24
+   lanes each per step, lossless to their source with no slice
+   flagged; nonuniform_ext: 203x69 yuv444p16le at version 4 on a 2 x 2
+   grid of four slice sizes, batch 2, GOP 2, three frames (the RCT
+   search per slice size, K1-ext over four lane lengths, four K2-ext
+   launches per step), its packets equal to TPUFFV1Encoder's digests on
+   the CPU and its decode lossless; then K1's, K1-ext's, K2's and
+   K2-ext's stage split: each stage probe of K1 and of its global form, and of K2 and
    K2-five, on the 8bit and 8bit_ctx1 warm-up inputs, of K1-ext and
    K2-ext on the 16bit ones and of their global forms (K2-ext-five) on
    16bit_ctx1_540p's, the median of 5 launches;
 6. plain checks: every launch of phase 4, and each kernel's launch on
-   its path's warm-up frame (all 48 lanes at full shape; K1-compact's
-   through its raw path's K1 launch, phase 5), held exactly
+   its path's warm-up frame (all 48 lanes at full shape; a grouped
+   decode's every launch on its own lanes, nonuniform_ext's too;
+   K1-compact's through its raw path's K1 launch, phase 5; mixed_q's
+   two launches on their own 24 lanes each), held exactly
    (integer codec) against its plain version, run on CPU copies of the
    same inputs (the plain versions are per-pixel loops of small tensor
    ops, faster on the host than as per-op card launches).  Each
@@ -127,9 +144,11 @@ exits non-zero without the final result line:
    longest first; the workers return digests of their outputs, which
    must equal the digests of the kernel's outputs;
 7. JSON lines: the probes' latencies ("probes"), each path's step and
-   stage times ("steps"), the stage splits ("stages") and the
+   stage times ("steps"), mixed_q's and nonuniform_ext's steps, the
+   stage splits ("stages") and the
    per-kernel numbers ("kernels": time, launches, roofline and chain
-   bounds, plain version's time, max abs error); then the nvidia-smi
+   bounds, plain version's time, max abs error; a grouped decode's row
+   sums its launches and lists each under "groups"); then the nvidia-smi
    line, and the result line {"ok": true, "device": {...}} last.
 
 Imports nothing of JAX and nothing of the JAX package (tpu_ffv1);
@@ -246,6 +265,30 @@ def synthetic_streams16(n_streams, n_frames, width, height, seed):
     return out
 
 
+def synthetic_streams_422p10(n_streams, n_frames, width, height, seed):
+    """yuv422p10le frames: the 8-bit path's gradient, noise and a checker
+    moving 5 px/frame, at 10 bits (a tape transfer's range), the chroma
+    planes half width."""
+    r = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:height, 0:width]
+    cw = (width + 1) // 2
+    cy, cx = yy[:, :cw], xx[:, :cw]
+    out = []
+    for s in range(n_streams):
+        frames = []
+        for t in range(n_frames):
+            sh = 5 * t + 17 * s
+            pat = ((((xx + sh) // 24) + (yy // 24)) % 2) * 240
+            y = (xx * 640 // width + yy * 160 // height + pat +
+                 r.randint(0, 48, (height, width)))
+            u = 384 + (cx + sh) % 256 + r.randint(0, 16, cx.shape)
+            v = 640 - (cy + sh // 2) % 192 + r.randint(0, 16, cy.shape)
+            frames.append([np.clip(p, 0, 1023).astype(np.uint16)
+                           for p in (y, u, v)])
+        out.append(frames)
+    return out
+
+
 def synthetic_streams_bgr0(n_streams, n_frames, width, height, seed):
     """bgr0 frames, each [one (H, W, 4) uint8 array]: in B, G and R the
     8-bit path's gradient, noise and a checker moving 5 px/frame (each
@@ -288,6 +331,23 @@ def synthetic_streams_gbrp14(n_streams, n_frames, width, height, seed):
     return out
 
 
+def splice_packets(dec, pkt_a, pkt_b):
+    """A packet of the same frame's slices from two streams of one
+    extradata: the even slices from ``pkt_a``, the odd ones from
+    ``pkt_b`` (each slice with its size trailer and CRC; slice 0 from the
+    packet's start, with its keyframe bit).  Two encoders at context
+    models 0 and 1 write equal extradata, so the result is a valid
+    stream whose slices name different quant tables.  ``dec``: a
+    TorchFFV1Decoder of that extradata (its slice-trailer walk)."""
+    out = bytearray()
+    for si, bounds in enumerate(zip(dec._split_slices(pkt_a),
+                                    dec._split_slices(pkt_b))):
+        pkt = pkt_a if si % 2 == 0 else pkt_b
+        start, end = bounds[si % 2]
+        out += pkt[:end] if si == 0 else pkt[start:end]
+    return bytes(out)
+
+
 class MainPath(NamedTuple):
     pix_fmt: str
     gen: Callable          # content generator
@@ -302,6 +362,8 @@ class MainPath(NamedTuple):
     coder: int = 2         # 2: range coder (custom table), 0: Golomb-Rice
     bits: int = 8          # the coded width (RGB: one above the samples)
     level: int = 3         # the FFV1 version (4: strict -2)
+    dec_groups: int = 1    # decode launches per step (non-uniform grids:
+    #                        one per slice size)
 
     @property
     def frames(self):
@@ -356,7 +418,39 @@ PATHS = {
                               0, W // 2, H // 2, 2,
                               ("rc_encode_ext", "rc_decode_ext"), bits=16,
                               level=4),
+    # non-uniform grids at FFmpeg's -slices 24 (6 x 4): 720p masters
+    # (1280 = 6 x 213.3: slices 213 and 214 wide, two lane lengths, two
+    # K2 launches per step), and the archival recipe for SD tape
+    # transfers (-c:v ffv1 -level 3 -context 1 -slices 24 -slicecrc 1)
+    # at NTSC's 720x486 in 10-bit 4:2:2 (486 = 4 x 121.5: slices 121
+    # and 122 high; two K2-five launches per step)
+    "720p": MainPath("yuv420p", synthetic_streams, SEED + 72, 0, 1280, 720,
+                     TIMED, ("rc_encode", "rc_decode"), dec_groups=2),
+    "ntsc10_ctx1": MainPath("yuv422p10le", synthetic_streams_422p10,
+                            SEED + 10, 1, 720, 486, TIMED,
+                            ("rc_encode_global", "rc_decode_five_global"),
+                            bits=10, dec_groups=2),
 }
+# mixed_q: the packets of these two paths spliced (splice_packets), a
+# decode-only phase (see mixed_q_phase)
+MIXED_Q = ("8bit", "8bit_ctx1")
+# nonuniform_ext: version 4 on a grid of four slice sizes (see
+# nonuniform_phase)
+NU_W, NU_H, NU_FRAMES, NU_SEED = 203, 69, 3, SEED + 203
+
+
+def nonuniform_kw():
+    """EncoderParams fields of nonuniform_ext: 203x69 yuv444p16le at
+    version 4 in a 2 x 2 grid (widths 101 and 102, heights 34 and 35:
+    four lane lengths), GOP 2."""
+    return dict(width=NU_W, height=NU_H, pix_fmt="yuv444p16le", level=4,
+                strict=-2, coder=2, slices=4, gop_size=2)
+
+
+def synthetic_streams_nonuniform():
+    """nonuniform_ext's content, 2 streams x 3 frames: the 16-bit
+    archival content at its size."""
+    return synthetic_streams16(BATCH, NU_FRAMES, NU_W, NU_H, NU_SEED)
 _STREAMS: dict = {}
 
 
@@ -487,23 +581,28 @@ class LastLaunch:
         self.module, self.name = module, name
         self.fn = getattr(module, name)
         self.armed = False
-        self.args = self.out = None
+        self.calls = []
         setattr(module, name, self)
 
     def __call__(self, *args):
         if self.armed:
-            self.args = tuple(a.clone() if isinstance(a, torch.Tensor)
+            args_kept = tuple(a.clone() if isinstance(a, torch.Tensor)
                               else a for a in args)
         out = self.fn(*args)
         if self.armed:
-            self.out = out
+            self.calls.append((args_kept, out))
         return out
 
     def take(self):
-        """(args, out) of the recorded call; forgets them."""
-        rec = (self.args, self.out)
-        self.args = self.out = None
-        return rec
+        """(args, out) of the last recorded call, (None, None) if none;
+        forgets every recorded call."""
+        calls = self.take_all()
+        return calls[-1] if calls else (None, None)
+
+    def take_all(self):
+        """[(args, out)] of the recorded calls in order; forgets them."""
+        calls, self.calls = self.calls, []
+        return calls
 
 
 # ------------------------------------------------------- chain probe
@@ -816,7 +915,7 @@ def decode_args_from_packets(dec, pkts, bits):
     (bufs, lows, ranges, poss), _lens, q = dec._lane_inputs(parsed)
     cc = dec.g.context_counts[q]
     specs = tuple((pw, ph, sp * cc) for (pw, ph, sp) in dec._plane_specs())
-    states = dec._reset_lane_states([True] * dec.batch, q).clone()
+    states = dec._fresh(q)[None].repeat(dec.L, 1, 1)
     five = bool(dec.g.quant_tables[q][3][127])
     return (bufs, states, dec.one_tab, dec.zero_tab, dec.qts[q], lows,
             ranges, poss, specs, bits, five)
@@ -1027,7 +1126,7 @@ def check_rgb_decode_kernel(dev, pix_fmt, context_model):
     (bufs, lows, ranges, poss), _lens, q = dec._lane_inputs(parsed)
     specs = dec._plane_specs()
     sw, sh = specs[0][0], specs[0][1]
-    args = (bufs, dec._reset_lane_states([True] * BATCH, q).clone(),
+    args = (bufs, dec._fresh(q)[None].repeat(dec.L, 1, 1),
             dec.one_tab, dec.zero_tab, dec.qts[q], lows, ranges, poss, sw,
             sh, len(specs), dec.g.context_counts[q], dec.coded_bits,
             bool(dec.g.quant_tables[q][3][127]))
@@ -1239,8 +1338,9 @@ def main_path(dev, gpu, name, recorders):
     check(enc.golomb == dec.golomb == golomb, "coder")
     check(enc.rct_search == (path.level > 3), "the version-4 RCT search")
 
-    enc_s, dec_s, peak = [], [], []
+    enc_s, dec_s, peak, packets = [], [], [], []
     hist = collections.Counter()          # (by, ry) over lanes and frames
+    groups = None                         # the warm-up decode's lane groups
     reset_counts()
     for t in range(frames):
         # keep the kernels' inputs and outputs of the warm-up frame
@@ -1255,6 +1355,8 @@ def main_path(dev, gpu, name, recorders):
         peak.append((torch.cuda.max_memory_allocated() - base) / 2**30)
         if enc.rct_search:
             hist.update(enc.rct_coefs)
+        if name in MIXED_Q:
+            packets.append([r[0] for r in res])
         for b in range(BATCH):
             want = golden["packets"][b][t]
             check(digest(res[b][0]) == {"sha256": want["sha256"],
@@ -1277,6 +1379,8 @@ def main_path(dev, gpu, name, recorders):
                           f"{name} stream {b} frame {t} plane {k}: decode "
                           f"not lossless")
             check(not dec.slice_damaged.any(), "slice flagged damaged")
+            if t == 1 and not golomb and not rgb:
+                groups = [lanes for lanes, _d, _q in dec.last_groups]
             decoded = (f"decode lossless; decode {dec_s[-1] * 1e3:.2f} ms, "
                        f"")
         kind = "key" if t == 0 else "non-key, warm-up" if t <= WARM \
@@ -1291,9 +1395,11 @@ def main_path(dev, gpu, name, recorders):
     log(f"[{tag}] kernel launches in this path's {frames} steps: "
         f"{launches}")
     want = {k: frames for k in path.kernels if k is not None}
+    if k_dec is not None:
+        want[k_dec] = frames * path.dec_groups
     check(launches == want,
-          f"expected {' and '.join(want)} launched once per step, and no "
-          f"other kernel: {launches}")
+          f"expected {want} launches ({path.dec_groups} decode launches "
+          f"per step), and no other kernel: {launches}")
     if enc.rct_search:
         log(f"[{tag}] searched (by, ry) over {frames} frames x {enc.L} "
             f"lanes: " + ", ".join(f"{k}: {v}"
@@ -1301,10 +1407,15 @@ def main_path(dev, gpu, name, recorders):
         check(set(hist) - {(1, 1)}, "every lane kept (1, 1): the search "
               "picked no other pair")
     enc_rec = rec_enc.take()
-    dec_rec = rec_dec.take() if k_dec is not None else None
+    dec_recs = rec_dec.take_all() if k_dec is not None else []
     check(enc_rec[1] is not None and
-          (k_dec is None or dec_rec[1] is not None),
+          (k_dec is None or len(dec_recs) == path.dec_groups),
           "the warm-up frame's kernel calls were not recorded")
+    if len(set(enc.stream_lens)) > 1:
+        log(f"[{tag}] lanes of unequal length: stream lengths "
+            f"{sorted(set(enc.stream_lens))} px (n_max {enc.n_max}); decode "
+            f"groups of the warm-up frame: "
+            f"{[len(g) for g in groups]} lanes")
 
     mpix = BATCH * w * h / 1e6
     enc_ms = step_stats(tag, "encode", enc_s[1 + WARM:], mpix, gpu)
@@ -1325,7 +1436,7 @@ def main_path(dev, gpu, name, recorders):
         if enc.rgb:
             c = torch.tensor(coefs, dtype=torch.int32, device=dev)
             rct = (c[:, 0], c[:, 1])
-    st_ms = cuda_time_ms(lambda: enc._streams_uniform(planes, rct), 3)
+    st_ms = cuda_time_ms(lambda: enc._streams(planes, rct), 3)
     k1_args = enc_rec[0]
     scan = golomb_encode.golomb_encode_lanes if golomb else \
         rc_encode.rc_encode_compact if path.compact else \
@@ -1380,7 +1491,8 @@ def main_path(dev, gpu, name, recorders):
         f"{sum(b - a for _p, a, b in spans)} B); encode step peak "
         f"{max(peak[1 + WARM:]):.2f} GiB")
     res = dict(launches=launches, ms={k_enc: k1_ms},
-               recs={k_enc: enc_rec}, steps=frames, enc_ms=enc_ms,
+               recs={k_enc: enc_rec}, group_recs=dec_recs, groups=groups,
+               group_ms=None, packets=packets, steps=frames, enc_ms=enc_ms,
                dec_ms=None, stages=dict(
                    upload=up_ms, stencil=st_ms, scan=k1_ms, finalize=fin_ms,
                    rest=rest, crc=crc_enc_ms,
@@ -1389,20 +1501,26 @@ def main_path(dev, gpu, name, recorders):
     if k_dec is None:
         return res
     dec_ms = step_stats(tag, "decode", dec_s[1 + WARM:], mpix, gpu)
-    parse_ms, _x = host_time_ms(lambda: dec._lane_inputs(
+    parse_ms, _x = host_time_ms(lambda: dec._lane_buffers(
         [dec._parse_packet(b, p) for b, p in enumerate(pkts)]))
     crc_dec_ms, _x = host_time_ms(
         lambda: [crc32_ieee(p[a:b]) for p, a, b in spans])
-    k2_args = dec_rec[0]
     dscan = golomb_decode.golomb_decode_planes if golomb else \
         rc_decode.rc_decode_rgb if rgb else rc_decode.rc_decode_planes
-    k2_ms = cuda_time_ms(lambda: dscan(*k2_args), 3)
+    # each decode launch of the step (one per lane group on a
+    # non-uniform grid), timed alone; their sum is the step's scan time
+    group_ms = [cuda_time_ms(lambda a=a: dscan(*a), 3) for a, _o in dec_recs]
+    k2_ms = sum(group_ms)
+    groups_text = "" if len(group_ms) == 1 else (
+        f" in {len(group_ms)} launches of " + " + ".join(
+            f"{ms:.2f} ({len(g)} lanes)" for ms, g in zip(group_ms, groups)))
     log(f"[{tag}] decode stages (ms, each timed alone, {gpu}): parse+upload "
         f"{parse_ms:.2f}, of which the slices' CRC-32 alone takes "
-        f"{crc_dec_ms:.2f}; {k_dec} {k2_ms:.2f}; the median step minus "
-        f"these {dec_ms - parse_ms - k2_ms:.2f}")
+        f"{crc_dec_ms:.2f}; {k_dec} {k2_ms:.2f}{groups_text}; the median "
+        f"step minus these {dec_ms - parse_ms - k2_ms:.2f}")
     res["ms"][k_dec] = k2_ms
-    res["recs"][k_dec] = dec_rec
+    res["group_ms"] = group_ms
+    res["recs"][k_dec] = dec_recs[0]
     res["dec_ms"] = dec_ms
     res["stages"].update(parse=parse_ms, crc_dec=crc_dec_ms, dscan=k2_ms)
     return res
@@ -1474,6 +1592,136 @@ def pcm_phase(dev, gpu, rec):
         f"on the host ({gpu}); launches {launches}")
     return dict(encode_ms=enc_ms, rowbytes_ms=rb_ms, modes=modes,
                 launches=launches)
+
+
+def mixed_q_phase(dev, gpu, rec, paths):
+    """mixed_q: the 8bit path's and the 8bit_ctx1 path's packets spliced
+    (``splice_packets``: even slices at quant table 0, odd at table 1)
+    through one TorchFFV1Decoder (batch 2), every frame: two lane groups
+    of 24 per step, K2 and K2-five-global.  Each frame must decode
+    losslessly to the paths' source (the host decoder reads a valid
+    stream losslessly; tests/test_torch_mixed_q.py holds the splice to
+    FFV1Decoder on the CPU), with no slice flagged, and each kernel
+    launch once per step.  ``rec``: the LastLaunch of rc_decode_planes.
+    Returns its numbers and the warm-up frame's launches."""
+    tag = "mixed_q"
+    a, b = MIXED_Q
+    goldens = load_goldens()
+    check(goldens[a]["extradata"] == goldens[b]["extradata"],
+          "mixed_q: the two paths' extradata differ")
+    streams = path_streams(a)
+    frames = PATHS[a].frames
+    enc = TorchFFV1Encoder(EncoderParams(**params_kw(a)), batch=BATCH,
+                           device=dev)
+    dec = TorchFFV1Decoder(W, H, enc.extradata, batch=BATCH, device=dev)
+    pkts = [[splice_packets(dec, pa, pb) for pa, pb in zip(fa, fb)]
+            for fa, fb in zip(paths[a]["packets"], paths[b]["packets"])]
+    dec_s, groups = [], None
+    reset_counts()
+    for t in range(frames):
+        rec.armed = t == 1
+        t0 = time.perf_counter()
+        out = dec.decode_frames(pkts[t])
+        dec_s.append(time.perf_counter() - t0)
+        rec.armed = False
+        for bi in range(BATCH):
+            planes, kf = out[bi]
+            check(kf == (t == 0), "keyframe flag")
+            for k, p in enumerate(planes):
+                check(np.array_equal(p, streams[bi][t][k]),
+                      f"mixed_q stream {bi} frame {t} plane {k}: decode "
+                      f"not lossless")
+        check(not dec.slice_damaged.any(), "mixed_q: slice flagged damaged")
+        if t == 1:
+            groups = [(lanes, q) for lanes, _d, q in dec.last_groups]
+    launches = all_launches()
+    want = {"rc_decode": frames, "rc_decode_five_global": frames}
+    check(launches == want, f"mixed_q: expected {want}, got {launches}")
+    recs = rec.take_all()
+    check([decode_instance(a) for a, _o in recs] ==
+          ["rc_decode", "rc_decode_five_global"] and
+          [q for _l, q in groups] == [0, 1],
+          f"mixed_q: the warm-up frame's groups {groups}")
+    group_ms = [cuda_time_ms(lambda a=a: rc_decode.rc_decode_planes(*a), 3)
+                for a, _o in recs]
+    dec_ms = step_stats(tag, "decode", dec_s[1 + WARM:], BATCH * W * H / 1e6,
+                        gpu)
+    log(f"[{tag}] {W}x{H} yuv420p, {BATCH} streams x {frames} frames, the "
+        f"even slices of {a}'s packets and the odd ones of {b}'s: decode "
+        f"lossless, no slice flagged; per step rc_decode "
+        f"{group_ms[0]:.2f} ms ({len(groups[0][0])} lanes, table 0) + "
+        f"rc_decode_five_global {group_ms[1]:.2f} ({len(groups[1][0])} "
+        f"lanes, table 1), each timed alone ({gpu}); launches {launches}")
+    return dict(launches=launches, dec_ms=dec_ms, group_ms=group_ms,
+                steps=frames, groups=[lanes for lanes, _q in groups],
+                recs=recs)
+
+
+def nonuniform_phase(dev, gpu, rec_enc, rec_dec):
+    """nonuniform_ext: version 4 on a grid of four slice sizes
+    (``nonuniform_kw``, ``synthetic_streams_nonuniform``), batch 2, GOP 2
+    over three frames: the RCT search per slice size, K1-ext over lanes
+    of four lengths, and four K2-ext launches per step.  Its packets
+    must equal the golden digests of the JAX package's TPUFFV1Encoder on
+    the CPU (tests/test_torch_goldens.py), its decode be lossless, and
+    each kernel launch as many times as that.  ``rec_enc`` and
+    ``rec_dec``: the LastLaunch of rc_encode_packed and rc_decode_planes.
+    Returns its numbers and the warm-up frame's launches."""
+    tag = "nonuniform_ext"
+    golden = load_goldens()[tag]
+    streams = synthetic_streams_nonuniform()
+    enc = TorchFFV1Encoder(EncoderParams(**nonuniform_kw()), batch=BATCH,
+                           device=dev)
+    check(digest(enc.extradata) == golden["extradata"],
+          "nonuniform_ext: extradata differs from the golden")
+    dec = TorchFFV1Decoder(NU_W, NU_H, enc.extradata, batch=BATCH,
+                           device=dev)
+    check(not enc.uniform and len(set(enc.stream_lens)) == 4,
+          f"nonuniform_ext: lane lengths {sorted(set(enc.stream_lens))}")
+    enc_ms, dec_ms, coefs = [], [], collections.Counter()
+    reset_counts()
+    for t in range(NU_FRAMES):
+        frame = [streams[b][t] for b in range(BATCH)]
+        rec_enc.armed = rec_dec.armed = t == 1
+        ms, res = host_time_ms(lambda: enc.encode_frames(frame))
+        enc_ms.append(ms)
+        coefs.update(enc.rct_coefs)
+        for b in range(BATCH):
+            want = golden["packets"][b][t]
+            check(digest(res[b][0]) == {"sha256": want["sha256"],
+                                        "len": want["len"]} and
+                  res[b][1] == want["key"],
+                  f"nonuniform_ext stream {b} frame {t}: packet differs "
+                  f"from the golden ({len(res[b][0])} vs {want['len']} B)")
+        ms, out = host_time_ms(
+            lambda: dec.decode_frames([r[0] for r in res]))
+        dec_ms.append(ms)
+        rec_enc.armed = rec_dec.armed = False
+        for b in range(BATCH):
+            for k, p in enumerate(out[b][0]):
+                check(np.array_equal(p, frame[b][k]),
+                      f"nonuniform_ext stream {b} frame {t} plane {k}: "
+                      f"decode not lossless")
+        check(not dec.slice_damaged.any(),
+              "nonuniform_ext: slice flagged damaged")
+    launches = all_launches()
+    want = {"rc_encode_ext": NU_FRAMES, "rc_decode_ext": 4 * NU_FRAMES}
+    check(launches == want, f"nonuniform_ext: expected {want}, got "
+          f"{launches}")
+    enc_rec = rec_enc.take()
+    dec_recs = rec_dec.take_all()
+    check(len(dec_recs) == 4, "nonuniform_ext: the warm-up decode's four "
+          "launches were not recorded")
+    log(f"[{tag}] {NU_W}x{NU_H} yuv444p16le, version 4, 2 x 2 slices of "
+        f"four sizes, {BATCH} streams x {NU_FRAMES} frames (GOP 2): packets "
+        f"equal to the golden digests (TPUFFV1Encoder), decode lossless; "
+        f"searched (by, ry) {dict(sorted(coefs.items()))}; encode steps "
+        f"{', '.join(f'{x:.2f}' for x in enc_ms)} ms, decode steps "
+        f"{', '.join(f'{x:.2f}' for x in dec_ms)} ms ({gpu}); launches "
+        f"{launches}")
+    return dict(launches=launches, encode_ms=enc_ms, decode_ms=dec_ms,
+                steps=NU_FRAMES, enc_rec=enc_rec, recs=dec_recs,
+                groups=[lanes for lanes, _d, _q in dec.last_groups])
 
 
 def check_compact_launch(name, rec, raw_name, raw_rec):
@@ -1953,6 +2201,71 @@ def golomb_row(name, path_name, p, rec, mp, checks, step, vlc_px, gpu):
                                    "check_plain_ms")} for c in checks])
 
 
+def rc_row(name, path_name, recs, ms, plain_ms, lanes, launches, steps,
+           decisions, probe, funcs, compact_sec, shape, checks, gpu):
+    """The ``kernels`` JSON row of a range-coder kernel on a path: its
+    launches of one step (``recs``; a grouped decode has one per lane
+    group, run one after another, each over ``lanes``), their times
+    ``ms`` and plain versions' ``plain_ms``, and the roofline and chain
+    bounds (kernel_bounds) summed over the launches.  ``decisions``: the
+    binary decisions of every lane of the step; ``probe``: the decision
+    probe's (encode ns, encode ops, decode ns, decode ops, L2 row ns)."""
+    src, replaces = KERNELS[name]
+    ns_enc, ops_enc, ns_dec, ops_dec, row_ns = probe
+    enc = name.startswith("rc_encode")
+    ns, ops = (ns_enc, ops_enc) if enc else (ns_dec, ops_dec)
+    extra = 0
+    if enc:
+        # K1's and K1-ext's instructions per pixel beside their
+        # decisions: the pixel loop's, less the loop's S + 1 decision
+        # bodies (the zero flag's twice: with a zero residual and a
+        # nonzero one); the compact form's compaction is in it
+        bits, g = recs[0][0][8], int(name.endswith("_global"))
+        lib = "rc_encode_ext" if name.startswith("rc_encode_ext") \
+            else "rc_encode"
+        targs = f"{bits},{g},31" if lib == "rc_encode_ext" else \
+            f"{bits},{g},{int(name in compact_sec)},15"
+        extra = max(0, pixel_loop_count(
+            funcs[lib][f"{lib}_kernel<{targs}>"]) - (2 * bits + 2) * ops_enc)
+    bounds = [kernel_bounds(name, rec, ns, ops, decisions[ln], row_ns, extra)
+              for rec, ln in zip(recs, lanes)]
+    bound = sum(b for b, _t, _c in bounds)
+    term = max(bounds)[1]
+    chain = sum(c for _b, _t, c in bounds)
+    longest = [int(decisions[ln].max()) for ln in lanes]
+    row = name.startswith("rc_decode") and name.endswith("_global")
+    out = dict(
+        name=name, route="cuda", source=src, replaces=replaces,
+        main_path=path_name, launches=launches,
+        launches_per_step=launches / steps, max_abs_err=0, ms=sum(ms),
+        plain_ms=sum(plain_ms), plain_device="cpu", bound_ms=bound,
+        bound_by=term, chain_bound_ms=chain,
+        chain_decisions_max_lane=max(longest), ns_per_decision=ns,
+        ops_per_decision=ops, extra_ops_per_pixel=extra,
+        row_read_ns=row_ns if row else None, library_ms=None,
+        main_path_shape=shape,
+        checks=[{k: c[k] for k in ("check_shape", "check_ms",
+                                   "check_plain_ms")} for c in checks])
+    if len(recs) > 1:
+        out["groups"] = [dict(lanes=len(ln), shape=launch_shape(name, *rec),
+                              ms=t, plain_ms=pm, bound_ms=b[0],
+                              chain_bound_ms=b[2],
+                              chain_decisions_max_lane=mx)
+                         for rec, ln, t, pm, b, mx in zip(
+                             recs, lanes, ms, plain_ms, bounds, longest)]
+    log(f"[bound] {name} ({path_name}, {gpu}): {sum(ms):.2f} ms at the "
+        f"path's shape" +
+        (f" in {len(recs)} launches ({' + '.join(f'{t:.2f}' for t in ms)})"
+         if len(recs) > 1 else "") +
+        f"; roofline bound {bound:.3f} ms ({term}, {ops:.2f} instructions "
+        f"per decision" + (f" + {extra:.0f} per pixel" if extra else "") +
+        f"); chain bound {chain:.2f} ms ({' + '.join(map(str, longest))} "
+        f"decisions on the longest lane{'s' if len(recs) > 1 else ''} x "
+        f"{ns:.2f} ns" + (f", plus a {row_ns:.2f} ns row read per pixel)"
+                          if row else ")"))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         log("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -1989,6 +2302,7 @@ def main():
     ns_dec = chain_probe_ns(dev, 1)
     ops_enc, ops_dec = probe_sass_ops()
     row_ns = row_probe_ns(dev)
+    probe = (ns_enc, ops_enc, ns_dec, ops_dec, row_ns)
     smem_row_ns = smem_probe_ns(dev, "row")
     smem_byte_ns = smem_probe_ns(dev, "byte")
     golomb_step = {m: (golomb_step_ns(dev, m), pixel_loop_count(
@@ -2044,7 +2358,7 @@ def main():
 
     recorders = dict(packed=LastLaunch(port_encoder, "rc_encode_packed"),
                      compact=LastLaunch(port_encoder, "rc_encode_compact"),
-                     decode=LastLaunch(port_decoder, "rc_decode_planes"),
+                     decode=LastLaunch(rc_decode, "rc_decode_planes"),
                      decode_rgb=LastLaunch(port_decoder, "rc_decode_rgb"),
                      golomb_encode=LastLaunch(port_encoder,
                                               "golomb_encode_lanes"),
@@ -2052,6 +2366,9 @@ def main():
                                               "golomb_decode_planes"))
     paths = {name: main_path(dev, gpu, name, recorders) for name in PATHS}
     pcm = pcm_phase(dev, gpu, recorders["packed"])
+    mixed = mixed_q_phase(dev, gpu, recorders["decode"], paths)
+    nonuni = nonuniform_phase(dev, gpu, recorders["packed"],
+                              recorders["decode"])
     # each instance's launch on the first path that ran it (K1 and K1-ext
     # also run on the RGB paths: their stage splits and compact checks
     # take the planar paths' launches)
@@ -2082,11 +2399,26 @@ def main():
 
     # phase 6: every launch above against its plain version
     t0 = time.perf_counter()
-    # every main-path launch but the compact ones, by (path, instance)
-    main_recs = {(pn, k): v for pn, p in paths.items()
-                 for k, v in p["recs"].items() if k not in compact_sec}
+    # every main-path launch but the compact ones, by (path, instance,
+    # launch in the step): a grouped decode's launches each on its own
+    # inputs, and those of mixed_q and nonuniform_ext
+    main_recs = {}
+    for pn, p in paths.items():
+        for k, v in p["recs"].items():
+            if k in compact_sec:
+                continue
+            if k == PATHS[pn].kernels[1] and len(p["group_recs"]) > 1:
+                for gi, rec in enumerate(p["group_recs"]):
+                    main_recs[(pn, k, gi)] = rec
+            else:
+                main_recs[(pn, k, 0)] = v
+    for gi, rec in enumerate(mixed["recs"]):
+        main_recs[("mixed_q", decode_instance(rec[0]), gi)] = rec
+    main_recs[("nonuniform_ext", "rc_encode_ext", 0)] = nonuni["enc_rec"]
+    for gi, rec in enumerate(nonuni["recs"]):
+        main_recs[("nonuniform_ext", "rc_decode_ext", gi)] = rec
     launches = [(name, rec, False) for name, _info, rec in random] + \
-        [(name, rec, True) for (_pn, name), rec in main_recs.items()]
+        [(name, rec, True) for (_pn, name, _g), rec in main_recs.items()]
     secs, workers = plain_checks(launches)
     checks = {}
     for (name, info, _rec), segs in zip(random, secs):
@@ -2095,12 +2427,16 @@ def main():
         log(f"[check] {name} {info['check_shape']} {info['label']}: exact "
             f"match (equal SHA-256 of every output); plain version on the "
             f"host CPU {segs[0]:.1f} s")
-    mp = {}
-    for (pn, name), segs in zip(main_recs, secs[len(random):]):
-        shape = launch_shape(name, *main_recs[(pn, name)])
-        mp[(pn, name)] = dict(plain_ms=sum(segs) * 1e3, main_path_shape=shape)
-        log(f"[check] {name}, {pn} path's warm-up frame ({shape}): exact "
-            f"match in {len(segs)} segments (equal SHA-256 of every "
+    mp, group_plain = {}, {}
+    for (pn, name, gi), segs in zip(main_recs, secs[len(random):]):
+        shape = launch_shape(name, *main_recs[(pn, name, gi)])
+        group_plain[(pn, name, gi)] = sum(segs) * 1e3
+        m = mp.setdefault((pn, name), dict(plain_ms=0.0,
+                                           main_path_shape=shape))
+        m["plain_ms"] += sum(segs) * 1e3
+        log(f"[check] {name}, {pn} path's warm-up frame"
+            f"{f', launch {gi + 1} of the step' if gi else ''} ({shape}): "
+            f"exact match in {len(segs)} segments (equal SHA-256 of every "
             f"output); plain version on the host CPU "
             f"{' + '.join(f'{x:.1f}' for x in segs)} = {sum(segs):.1f} s")
     for pn, path in PATHS.items():
@@ -2132,51 +2468,52 @@ def main():
                     name, path_name, p, rec, m, checks[name],
                     golomb_step[name.split("_")[1]], vlc_px, gpu))
                 continue
-            src, replaces = KERNELS[name]
-            ns, ops = (ns_enc, ops_enc) if name.startswith("rc_encode") \
-                else (ns_dec, ops_dec)
-            extra = 0
-            if name.startswith("rc_encode"):
-                # K1's and K1-ext's instructions per pixel beside their
-                # decisions: the pixel loop's, less the loop's S + 1
-                # decision bodies (the zero flag's twice: with a zero
-                # residual and a nonzero one); the compact form's
-                # compaction is in it
-                bits, g = rec[0][8], int(name.endswith("_global"))
-                lib = "rc_encode_ext" if name.startswith("rc_encode_ext") \
-                    else "rc_encode"
-                targs = f"{bits},{g},31" if lib == "rc_encode_ext" else \
-                    f"{bits},{g},{int(name in compact_sec)},15"
-                extra = max(0, pixel_loop_count(
-                    funcs[lib][f"{lib}_kernel<{targs}>"]) -
-                    (2 * bits + 2) * ops_enc)
-            bound, term, chain = kernel_bounds(name, rec, ns, ops,
-                                               decisions, row_ns, extra)
-            row = name.startswith("rc_decode") and name.endswith("_global")
-            kernels.append(dict(
-                name=name, route="cuda", source=src, replaces=replaces,
-                main_path=path_name, launches=p["launches"][name],
-                launches_per_step=p["launches"][name] / p["steps"],
-                max_abs_err=0, ms=p["ms"][name],
-                plain_ms=m["plain_ms"], plain_device="cpu",
-                bound_ms=bound, bound_by=term, chain_bound_ms=chain,
-                chain_decisions_max_lane=int(decisions.max()),
-                ns_per_decision=ns, ops_per_decision=ops,
-                extra_ops_per_pixel=extra,
-                row_read_ns=row_ns if row else None, library_ms=None,
-                main_path_shape=m["main_path_shape"],
-                checks=[{k: c[k] for k in ("check_shape", "check_ms",
-                                           "check_plain_ms")}
-                        for c in checks[name]]))
-            log(f"[bound] {name} ({path_name}, {gpu}): {p['ms'][name]:.2f} "
-                f"ms at the main path's shape; roofline bound {bound:.3f} "
-                f"ms ({term}, {ops:.2f} instructions per decision" +
-                (f" + {extra:.0f} per pixel" if extra else "") +
-                f"); chain "
-                f"bound {chain:.2f} ms ({int(decisions.max())} decisions "
-                f"on the longest lane x {ns:.2f} ns" +
-                (f", plus a {row_ns:.2f} ns row read per pixel)" if row
-                 else ")"))
+            grouped = name == path.kernels[1] and len(p["group_recs"]) > 1
+            recs_g = p["group_recs"] if grouped else [rec]
+            kernels.append(rc_row(
+                name, path_name, recs_g,
+                p["group_ms"] if grouped else [p["ms"][name]],
+                [group_plain[(path_name, name, gi)]
+                 for gi in range(len(recs_g))] if grouped
+                else [m["plain_ms"]],
+                p["groups"] if grouped else [list(range(len(decisions)))],
+                p["launches"][name], p["steps"], decisions, probe,
+                funcs, compact_sec, m["main_path_shape"], checks[name], gpu))
+    # mixed_q: the 8bit path's decisions on even slices, 8bit_ctx1's on
+    # odd ones (the same frames' encodes)
+    dec8 = decisions_per_lane(*paths["8bit"]["recs"]["rc_encode"][0][1:3])
+    dec1 = decisions_per_lane(
+        *paths["8bit_ctx1"]["recs"]["rc_encode_global"][0][1:3])
+    odd = (torch.arange(len(dec8), device=dec8.device) % SLICES) % 2 == 1
+    mixed_dec = torch.where(odd, dec1, dec8)
+    for gi, rec in enumerate(mixed["recs"]):
+        name = decode_instance(rec[0])
+        kernels.append(rc_row(
+            name, "mixed_q", [rec], [mixed["group_ms"][gi]],
+            [group_plain[("mixed_q", name, gi)]], [mixed["groups"][gi]],
+            mixed["launches"][name], mixed["steps"], mixed_dec, probe,
+            funcs, compact_sec, mp[("mixed_q", name)]["main_path_shape"],
+            checks[name], gpu))
+    nu_dec = decisions_per_lane(*nonuni["enc_rec"][0][1:3])
+    nu_ms = [cuda_time_ms(lambda a=a: rc_encode.rc_encode_packed(*a), 3)
+             for a in (nonuni["enc_rec"][0],)] + \
+        [cuda_time_ms(lambda a=a: rc_decode.rc_decode_planes(*a), 3)
+         for a, _o in nonuni["recs"]]
+    kernels.append(rc_row(
+        "rc_encode_ext", "nonuniform_ext", [nonuni["enc_rec"]], nu_ms[:1],
+        [group_plain[("nonuniform_ext", "rc_encode_ext", 0)]],
+        [list(range(len(nu_dec)))], nonuni["launches"]["rc_encode_ext"],
+        nonuni["steps"], nu_dec, probe, funcs, compact_sec,
+        mp[("nonuniform_ext", "rc_encode_ext")]["main_path_shape"],
+        checks["rc_encode_ext"], gpu))
+    kernels.append(rc_row(
+        "rc_decode_ext", "nonuniform_ext", nonuni["recs"], nu_ms[1:],
+        [group_plain[("nonuniform_ext", "rc_decode_ext", gi)]
+         for gi in range(len(nonuni["recs"]))], nonuni["groups"],
+        nonuni["launches"]["rc_decode_ext"], nonuni["steps"], nu_dec, probe,
+        funcs, compact_sec,
+        mp[("nonuniform_ext", "rc_decode_ext")]["main_path_shape"],
+        checks["rc_decode_ext"], gpu))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"probes": dict(
         decision_encode_ns=ns_enc, decision_decode_ns=ns_dec,
@@ -2188,6 +2525,10 @@ def main():
                                          decode_ms=p["dec_ms"], **p["stages"])
                               for name, p in paths.items()}}))
     log(json.dumps({"v4_pcm": pcm}))
+    log(json.dumps({"mixed_q": {k: mixed[k] for k in (
+        "launches", "dec_ms", "group_ms", "steps")},
+        "nonuniform_ext": {k: nonuni[k] for k in (
+            "launches", "encode_ms", "decode_ms", "steps")}}))
     log(json.dumps({"stages": stages}))
     log(json.dumps({"kernels": kernels}))
     log(gpu)

@@ -291,7 +291,7 @@ def _decode_stream_check(cuda, context_model, want_instance):
     (bufs, lows, ranges, poss), _lens, q = dec._lane_inputs(parsed)
     cc = dec.g.context_counts[q]
     specs = tuple((pw, ph, sp * cc) for (pw, ph, sp) in dec._plane_specs())
-    states = dec._reset_lane_states([True], q)
+    states = dec._fresh(q)[None].repeat(dec.L, 1, 1)
     args = (bufs, states, dec.one_tab, dec.zero_tab, dec.qts[q], lows,
             ranges, poss)
     five = bool(dec.g.quant_tables[q][3][127])
@@ -697,3 +697,77 @@ def test_v4_pcm_retry_on_cuda_matches_plain_row_bytes(cuda):
                        for x, y in zip(out, frame[b]))
             assert [s.slice_coding_mode for s in hosts[b].slices] == \
                 [int(b == 0 and t != 1)] * 4
+
+
+def test_k1_lanes_of_unequal_length_matches_plain(cuda):
+    """A non-uniform grid (50x40 yuv420p, 6 slices of two sizes, batch
+    2): K1 over lanes of unequal length (the active mask ends each lane
+    at its own stream length) against its plain version on the same
+    CUDA tensors, and the encoder's packets against the host's."""
+    from tpu_ffv1_torch import TorchFFV1Encoder
+    from tpu_ffv1_torch.tpu import rc_encode as K
+    params = EncoderParams(width=50, height=40, pix_fmt="yuv420p", level=3,
+                           coder=2, slices=6, gop_size=2)
+    streams = [_frames(50, 40, 2, 90 + b) for b in range(2)]
+    port = TorchFFV1Encoder(params, batch=2, device=cuda)
+    assert not port.uniform and len(set(port.stream_lens)) > 1
+    planes = port._upload([s[0] for s in streams])
+    ctx, diff, act = port._streams(planes)
+    assert not bool(act.all())
+    lows, ranges, _p, _n = port._prefix_arrays(True)
+    args = (ctx, diff, act, torch.full_like(port.states, 128), port.one_tab,
+            port.zero_tab, lows, ranges, port.bits)
+    got = K.rc_encode_packed(*args)
+    assert K.LAUNCHES.get("rc_encode")
+    want = K.rc_encode_packed_ref(*args)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    hosts = [FFV1Encoder(params) for _ in range(2)]
+    for t in range(2):
+        res = port.encode_frames([s[t] for s in streams])
+        for b in range(2):
+            assert res[b] == hosts[b].encode_frame(streams[b][t])
+
+
+def test_grouped_decode_matches_plain(cuda):
+    """rc_decode_groups on the card (K2 and K2-five-global groups, one per
+    plane geometry and quant table: a non-uniform 50x40 yuv420p grid of
+    6 slices whose even slices name table 0 and odd ones table 1) against
+    the same grouping on CPU copies (the plain versions), and the
+    decoder's frame against the source."""
+    from tpu_ffv1_torch.tpu import rc_decode as K
+    from tpu_ffv1_torch.tpu.decoder import TorchFFV1Decoder
+    frame = _frames(50, 40, 1, 91)[0]
+    pk = []
+    for cm in (0, 1):
+        enc = FFV1Encoder(EncoderParams(
+            width=50, height=40, pix_fmt="yuv420p", level=3, coder=2,
+            slices=6, context_model=cm))
+        pk.append(enc.encode_frame(frame)[0])
+    decs = [TorchFFV1Decoder(50, 40, enc.extradata, device=d)
+            for d in (cuda, "cpu")]
+    pkt = chip_smoke.splice_packets(decs[1], *pk)
+    outs = []
+    for dec in decs:
+        parsed = [dec._parse_packet(0, pkt)]
+        (bufs, lows, ranges, poss), _n = dec._lane_buffers(parsed)
+        lane_q = [s[1] for s in parsed[0][1]]
+        dec._prepare_states(lane_q, [True], np.zeros(dec.L, bool))
+        groups = dec._lane_groups(lane_q)
+        assert len(groups) == 4
+        K.LAUNCHES.clear()
+        outs.append(K.rc_decode_groups(bufs, dec.states, dec.one_tab,
+                                       dec.zero_tab, dec.quant, lows,
+                                       ranges, poss, groups, 8))
+        if dec.device.type == "cuda":
+            assert K.LAUNCHES == {"rc_decode": 2,
+                                  "rc_decode_five_global": 2}
+    (pg, *rest), (pg_ref, *rest_ref) = outs
+    for planes, planes_ref in zip(pg, pg_ref):
+        for a, b in zip(planes, planes_ref):
+            assert torch.equal(a.cpu(), b)
+    for a, b in zip(rest, rest_ref):
+        assert torch.equal(a.cpu(), b)
+    got, _kf = decs[0].decode_frame(pkt)
+    for a, b in zip(got, frame):
+        assert np.array_equal(a, b)

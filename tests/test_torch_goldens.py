@@ -11,7 +11,11 @@ from the C encoder's RGB coder, ffv1n_encode_rgb; version 4's RCT
 search from the host engine's choose_rct_params).  The v4_pcm phase's
 digests (2 x 3 frames of 512x4 yuv444p16le at version 4, whose slices
 retry as PCM) are TPUFFV1Encoder's on the CPU: the host encoder has no
-PCM retry.  The compact-form paths
+PCM retry; so are the nonuniform_ext phase's (2 x 3 frames of 203x69
+yuv444p16le at version 4 on a grid of four slice sizes).  The
+non-uniform main paths (720p: 1280x720 yuv420p; ntsc10_ctx1: 720x486
+yuv422p10le at context model 1; 2 x 8 frames each) are the host C
+encoder's, as every main path's.  The compact-form paths
 (8bit_compact, 8bit_ctx1_compact) have no digests of their own: the
 host encoder on their content and configuration must give those of the
 path they name (their packets are the raw form's, byte for byte).
@@ -70,8 +74,33 @@ def golden_pcm():
             "packets": packets}
 
 
+def golden_nonuniform():
+    """Digests of nonuniform_ext's packets under TPUFFV1Encoder (batch 2):
+    version 4 on a grid of four slice sizes, whose packets the JAX
+    package's fused path gives as the host encoder does
+    (test_torch_nonuniform.py)."""
+    enc = TPUFFV1Encoder(EncoderParams(**chip_smoke.nonuniform_kw()),
+                         batch=chip_smoke.BATCH)
+    streams = chip_smoke.synthetic_streams_nonuniform()
+    packets = [[] for _ in streams]
+    for t in range(chip_smoke.NU_FRAMES):
+        res = enc.encode_frames([s[t] for s in streams])
+        for b, (pkt, key) in enumerate(res):
+            packets[b].append(dict(chip_smoke.digest(pkt), key=bool(key)))
+    return {"pix_fmt": "yuv444p16le", "width": chip_smoke.NU_W,
+            "height": chip_smoke.NU_H, "seed": chip_smoke.NU_SEED,
+            "frames": chip_smoke.NU_FRAMES,
+            "extradata": chip_smoke.digest(enc.extradata),
+            "packets": packets}
+
+
 def test_pcm_goldens_match_jax_encoder():
     assert golden_pcm() == chip_smoke.load_goldens()["v4_pcm"]
+
+
+def test_nonuniform_goldens_match_jax_encoder():
+    assert golden_nonuniform() == \
+        chip_smoke.load_goldens()["nonuniform_ext"]
 
 
 @pytest.mark.parametrize("name", sorted(chip_smoke.PATHS))
@@ -86,6 +115,7 @@ if __name__ == "__main__":
     out = {name: golden_path(name) for name in sorted(chip_smoke.PATHS)
            if not chip_smoke.PATHS[name].golden}
     out["v4_pcm"] = golden_pcm()
+    out["nonuniform_ext"] = golden_nonuniform()
     with open(chip_smoke.GOLDENS, "w") as f:
         json.dump(out, f, indent=1)
         f.write("\n")

@@ -38,7 +38,7 @@ def _lane_args(dec, pkts, states):
     cc = dec.g.context_counts[q]
     specs = tuple((w, h, sp * cc) for (w, h, sp) in dec._plane_specs())
     if states is None:
-        states = dec._reset_lane_states([True] * dec.batch, q)
+        states = dec._fresh(q)[None].repeat(dec.L, 1, 1)
     return (bufs, states, dec.one_tab, dec.zero_tab, dec.qts[q], lows,
             ranges, poss), specs
 

@@ -245,9 +245,10 @@ def test_pcm_retry_in_some_lanes_continues_the_gop():
 
 
 def test_reset_contexts_lane_reset_matches_jax():
-    """_reset_lane_states with a keyframe stream and a reset_contexts mask
-    equals TPUFFV1Decoder._reset_lane_states on the same states (and the
-    VLC states of a Golomb-Rice stream reset on the same lanes)."""
+    """_prepare_states (the range coder's per-lane state rules, planar
+    and RGB) with a keyframe stream and a reset_contexts mask equals
+    TPUFFV1Decoder._reset_lane_states on the same states (and the VLC
+    states of a Golomb-Rice stream reset on the same lanes)."""
     p = v4_params("yuv444p16le")
     extradata = FFV1Encoder(p).extradata
     jaxd = TPUFFV1Decoder(W, H, extradata, batch=3)
@@ -262,8 +263,9 @@ def test_reset_contexts_lane_reset_matches_jax():
     want = np.asarray(jaxd._reset_lane_states(keyframes, resets, 0,
                                               total_cc))
     decoder_state_from_numpy(port, st, [True] * 3)
-    got = port._reset_lane_states(keyframes, 0, resets)
-    assert np.array_equal(got.numpy(), want)
+    port._prepare_states([0] * port.L, keyframes, resets)
+    assert np.array_equal(port.states.numpy(), want)
+    assert list(port.lane_rows) == [total_cc] * port.L
     assert not np.array_equal(want, st)
 
     g = TorchFFV1Decoder(W, H, FFV1Encoder(v4_params(

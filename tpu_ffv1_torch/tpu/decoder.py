@@ -31,13 +31,26 @@ starts from fresh states (ffv1dec.c:419-420); a PCM slice (coding mode
 1) raises NotImplementedError, as the JAX package's class does
 (decoder.py:411-421 there): the host decoder reads it.
 
+Planar YUV/gray with the range coder decodes on any slice grid and any
+mix of quant tables (the reference's per-slice fallback, decoder.py:
+708-782 there, whose per-slice scans run here as grouped lane scans):
+the lanes are grouped by (plane geometry, quant table), one K2-family
+launch per group (rc_decode.rc_decode_groups); each lane keeps its own
+state rows, by the host decoder's rules (a table of another context
+count starts from 128s); the frame is placed slice after slice, so a
+later slice's samples win where neighbouring chroma crops share a
+column or a row.  RGB and Golomb-Rice need a uniform grid and one quant
+table per packet, as in the reference; a slice whose planes name
+different tables raises (the reference reads only the first).
+
 Every lane decodes at the slice grid's geometry, which no packet can
 change.  A slice header is parsed into a copy of the geometry its last
 header gave, kept per stream and slice for concealment only: the host
 decoder conceals the rect a damaged header parsed to, and so does the
 port.  A slice whose header fails is flagged and keeps its adaptive
-states, as the host's slice aborts before it touches them; its lane is
-decoded with the others all the same, and the result is discarded.
+states, as the host's slice aborts before it touches them; on the
+planar range-coder path its lane is not decoded, elsewhere it is decoded
+with the others all the same, and the result is discarded.
 """
 from __future__ import annotations
 
@@ -57,7 +70,7 @@ from ..core.rac import (RangeDecoder, custom_state_tables,
 from ..device import resolve_device
 from .golomb_decode import golomb_decode_planes
 from .golomb_encode import fresh_vlc_states
-from .rc_decode import RGB_BITS, rc_decode_planes, rc_decode_rgb
+from .rc_decode import RGB_BITS, rc_decode_groups, rc_decode_rgb
 
 
 class TorchFFV1Decoder:
@@ -126,20 +139,34 @@ class TorchFFV1Decoder:
                     for q in g.quant_tables]
         g0 = self.geoms[0]
         nh, nv = g.num_h_slices, g.num_v_slices
-        uniform = (
+        self.uniform = (
             all(gm.width == g0.width and gm.height == g0.height
                 for gm in self.geoms) and
             width % nh == 0 and height % nv == 0 and
             (not g.chroma_planes or
              (g0.width % (1 << g.chroma_h_shift) == 0 and
               g0.height % (1 << g.chroma_v_shift) == 0)))
-        if not uniform:
-            raise NotImplementedError("only uniform slice grids are ported")
+        if not self.uniform and (self.rgb or self.golomb):
+            raise NotImplementedError(
+                f"{'RGB' if self.rgb else 'Golomb-Rice'} needs a uniform "
+                f"slice grid, as in the reference")
         # RGB plane p codes on state plane (p + 1) / 2: G 0, B and R 1,
         # A 2 (ffv1dec.c:253)
         self.n_state_planes = (2 if self.rgb else
                                1 + (1 if g.chroma_planes else 0)) + \
             (1 if g.transparency else 0)
+        # each slice's coded planes, (w, h, state_plane) in coding order
+        self.slice_dims = [tuple(self._plane_specs(gm)) for gm in self.geoms]
+        # per quant table index: (qt, context count, the 5-input context)
+        self.quant = [(qt, cc, bool(q[3][127])) for qt, cc, q in
+                      zip(self.qts, g.context_counts, g.quant_tables)]
+        # the range coder's per-lane state rows (n_state_planes x the
+        # context count of the table its slice last named; 0: none yet),
+        # None while they follow the table's width (see _lane_rows), and
+        # the grid's frame-placement maps (_place_maps, built once)
+        self.lane_rows = None
+        self._place_static = None
+        self._fresh_cache = {}
         self.key_frame_ok = [False] * batch
         self.last_planes = [None] * batch
         self.slice_damaged = np.zeros((batch, self.n_slices), bool)
@@ -160,6 +187,7 @@ class TorchFFV1Decoder:
         self.last_planes = [None] * self.batch
         self.slice_damaged[:] = False
         self.states = None
+        self.lane_rows = None
         self.vlc_states = None
 
     def decode_frame(self, pkt: bytes):
@@ -219,6 +247,13 @@ class TorchFFV1Decoder:
                 ss = SliceState(geom=geom)
                 qidxs, _ = read_slice_header(self, ss, src)
                 qidx = qidxs[0]
+                if len(set(qidxs)) > 1 and not self.slice_damaged[bi, si]:
+                    # the reference reads only the first index
+                    # (decoder.py:288-289 of the JAX package); FFmpeg's
+                    # encoders write one index for every plane
+                    raise NotImplementedError(
+                        "a slice whose planes name different quant tables "
+                        "is not ported; use FFV1Decoder")
                 ex = (ss.slice_rct_by_coef, ss.slice_rct_ry_coef,
                       ss.slice_coding_mode, ss.slice_reset_contexts)
                 if self.golomb and (self.version > 3 or (
@@ -238,11 +273,12 @@ class TorchFFV1Decoder:
                 slices.append((buf, qidx, src.low, src.range, src.pos))
         return keyframe, slices, extras
 
-    def _plane_specs(self):
-        """(w, h, state_plane) per coded plane of a slice (RGB: G, B, R(,
-        A), whose lines interleave row by row)."""
+    def _plane_specs(self, geom=None):
+        """(w, h, state_plane) per coded plane of a slice of ``geom``
+        (default: the grid's first; RGB: G, B, R(, A), whose lines
+        interleave row by row)."""
         g = self.g
-        g0 = self.geoms[0]
+        g0 = geom or self.geoms[0]
         sw, sh = g0.width, g0.height
         if self.rgb:
             return [(sw, sh, (p + 1) // 2)
@@ -267,35 +303,21 @@ class TorchFFV1Decoder:
                            (self.n_state_planes, 1))
         return np.full((self.n_state_planes * cc, 32), 128, np.uint8)
 
-    def _reset_lanes(self, table, fresh, keyframes, resets=None):
-        """A GOP-persistent per-lane table with each keyframe stream's
-        lanes reset to ``fresh`` (one lane's rows), each lane whose slice
-        header sets reset_contexts (``resets``, bool (L,), version 4) too,
-        and every lane where the table's size changes."""
-        if table is None or table.shape[1] != fresh.shape[0]:
+    def _reset_lane_vlc(self, keyframes, rows, resets=None):
+        """Per-stream keyframe resets and per-lane reset_contexts of the
+        Golomb-Rice VLC states (a GOP-persistent per-lane table, fresh on
+        every lane where its size changes)."""
+        fresh = fresh_vlc_states(1, rows, self.device)[0]
+        table = self.vlc_states
+        if table is None or table.shape[1] != rows:
             table = fresh[None].repeat(self.L, 1, 1)
         for bi, kf in enumerate(keyframes):
             if kf:
                 table[bi * self.n_slices:(bi + 1) * self.n_slices] = fresh
         if resets is not None and resets.any():
             table[torch.from_numpy(resets).to(table.device)] = fresh
+        self.vlc_states = table
         return table
-
-    def _reset_lane_states(self, keyframes, qidx0, resets=None):
-        """Per-stream keyframe resets and per-lane reset_contexts of the
-        range coder's states (decoder.py:343-362 of the JAX package)."""
-        fresh = torch.from_numpy(self._fresh_states(qidx0)).to(self.device)
-        self.states = self._reset_lanes(self.states, fresh, keyframes,
-                                        resets)
-        return self.states
-
-    def _reset_lane_vlc(self, keyframes, rows, resets=None):
-        """Per-stream keyframe resets and per-lane reset_contexts of the
-        Golomb-Rice VLC states."""
-        fresh = fresh_vlc_states(1, rows, self.device)[0]
-        self.vlc_states = self._reset_lanes(self.vlc_states, fresh,
-                                            keyframes, resets)
-        return self.vlc_states
 
     def _lane_extras(self, parsed):
         """Version 4's per-slice extras as lane arrays: RGB's (by, ry)
@@ -313,15 +335,14 @@ class TorchFFV1Decoder:
                 self.device)
         return by, ry, ex[:, 3] != 0
 
-    def _header_failed_states(self, parsed, cc):
-        """{lane: its states before this frame} for the lanes whose slice
-        header failed: the host's slice aborts before its keyframe reset
-        and its decode (ffv1dec.c:282-359), so they keep them (the VLC
-        states on a Golomb-Rice stream).  A lane with no states of this
-        table size yet gets those the host allocates at the slice's next
-        parsed header: 128s, or fresh VLC states."""
-        rows = self.n_state_planes * cc
-        table = self.vlc_states if self.golomb else self.states
+    def _header_failed_vlc(self, parsed, rows):
+        """{lane: its VLC states before this frame} for the lanes of a
+        Golomb-Rice stream whose slice header failed: the host's slice
+        aborts before its keyframe reset and its decode (ffv1dec.c:
+        282-359), so they keep them.  A lane with no states of this table
+        size yet gets the fresh ones the host allocates at the slice's
+        next parsed header."""
+        table = self.vlc_states
         kept = {}
         for bi, (_kf, sl, _ex) in enumerate(parsed):
             for si, s in enumerate(sl):
@@ -330,33 +351,38 @@ class TorchFFV1Decoder:
                 lane = bi * self.n_slices + si
                 if table is not None and table.shape[1] == rows:
                     kept[lane] = table[lane].clone()
-                elif self.golomb:
-                    kept[lane] = fresh_vlc_states(1, rows, self.device)[0]
                 else:
-                    kept[lane] = torch.full((rows, 32), 128,
-                                            dtype=torch.uint8,
-                                            device=self.device)
+                    kept[lane] = fresh_vlc_states(1, rows, self.device)[0]
         return kept
 
     # ------------------------------------------------------------ decode
 
     def _lane_inputs(self, parsed):
-        """Lane-major kernel inputs for parsed packets: (bufs, lows,
-        ranges, poss) on the device, per-lane buffer lengths, and the
-        quant table index all lanes decode with.
+        """Lane-major kernel inputs for parsed packets of the Golomb-Rice
+        and RGB paths: ``_lane_buffers``' and the quant table index all
+        lanes decode with.
 
         That is the one the intact slices name.  A slice already flagged
         damaged is concealed whatever its lane decodes to, so its quant
         table does not count; where every slice is flagged, the first
-        parsed header's table serves, else the stream's first."""
+        parsed header's table serves, else the stream's first.  Intact
+        slices that name different tables raise, as the reference's
+        fallback has no Golomb-Rice or RGB branch (decoder.py:377-383
+        there)."""
         named = [(self.slice_damaged[bi, si], s[1])
                  for bi, (_kf, sl, _ex) in enumerate(parsed)
                  for si, s in enumerate(sl) if s[1] is not None]
         intact = {q for damaged, q in named if not damaged}
         if len(intact) > 1:
-            raise NotImplementedError("slices with differing quant tables "
-                                      "are not ported")
+            raise NotImplementedError(
+                f"{'RGB' if self.rgb else 'Golomb-Rice'} slices with "
+                f"differing quant tables are not ported; use FFV1Decoder")
         qidx0 = intact.pop() if intact else named[0][1] if named else 0
+        return (*self._lane_buffers(parsed), qidx0)
+
+    def _lane_buffers(self, parsed):
+        """Lane-major kernel inputs for parsed packets: (bufs, lows,
+        ranges, poss) on the device, and per-lane buffer lengths."""
         maxlen = max(len(s[0]) for p in parsed for s in p[1])
         cap = max(4096, 1 << (maxlen - 1).bit_length())
         bufs = np.zeros((self.L, cap), np.uint8)
@@ -371,7 +397,7 @@ class TorchFFV1Decoder:
         dev = self.device
         lrp_t = torch.from_numpy(lrp).to(dev)
         return (torch.from_numpy(bufs).to(dev), lrp_t[0], lrp_t[1],
-                lrp_t[2]), buflens, qidx0
+                lrp_t[2]), buflens
 
     def decode_frames(self, pkts):
         """Decode one packet of each of ``batch`` streams."""
@@ -381,44 +407,210 @@ class TorchFFV1Decoder:
         g = self.g
         parsed = [self._parse_packet(bi, pkt) for bi, pkt in enumerate(pkts)]
         keyframes = [p[0] for p in parsed]
+        if not (self.golomb or self.rgb):
+            planes_full, lrp, buflens = self._decode_planar(parsed,
+                                                            keyframes)
+            self._validate(parsed, lrp, buflens)
+            return [(self._conceal(bi, [fp[bi] for fp in planes_full]),
+                     keyframes[bi]) for bi in range(self.batch)]
         (bufs, lows, ranges, poss), buflens, qidx0 = \
             self._lane_inputs(parsed)
         five = bool(g.quant_tables[qidx0][3][127])
         cc = g.context_counts[qidx0]
         specs = tuple((w, h, sp * cc) for (w, h, sp) in self._plane_specs())
-        kept = self._header_failed_states(parsed, cc)
         by, ry, resets = self._lane_extras(parsed)
+        rows = self.n_state_planes * cc
         if self.golomb:
-            vlc0 = self._reset_lane_vlc(keyframes, self.n_state_planes * cc,
-                                        resets)
+            kept = self._header_failed_vlc(parsed, rows)
+            vlc0 = self._reset_lane_vlc(keyframes, rows, resets)
             planes_dev, vlc_out, _bitpos = golomb_decode_planes(
                 bufs, vlc0, self.qts[qidx0], poss, specs, self.bits, five)
             for lane, st in kept.items():
                 vlc_out[lane] = st
             self.vlc_states = vlc_out
+            planes_full = self._planar_output([self._assemble(p)
+                                               for p in planes_dev])
         else:
-            states0 = self._reset_lane_states(keyframes, qidx0, resets)
-            if self.rgb:
-                planes_dev, states_out, low, rng, pos = rc_decode_rgb(
-                    bufs, states0, self.one_tab, self.zero_tab,
-                    self.qts[qidx0], lows, ranges, poss, specs[0][0],
-                    specs[0][1], len(specs), cc, self.coded_bits, five)
-            else:
-                planes_dev, states_out, low, rng, pos = rc_decode_planes(
-                    bufs, states0, self.one_tab, self.zero_tab,
-                    self.qts[qidx0], lows, ranges, poss, specs, self.bits,
-                    five)
-            for lane, st in kept.items():
-                states_out[lane] = st
-            self.states = states_out
-        planes_full = self._rgb_output(planes_dev, by, ry) if self.rgb \
-            else self._planar_output(planes_dev)
-        if not self.golomb:
+            # every lane decodes at qidx0, by the planar path's state
+            # rules; a lane whose header failed keeps its states
+            lane_q = [None if s[1] is None else qidx0
+                      for p in parsed for s in p[1]]
+            self._prepare_states(lane_q, keyframes, resets)
+            self._grow_states(rows)
+            planes_dev, states_out, low, rng, pos = rc_decode_rgb(
+                bufs, self.states[:, :rows].contiguous(), self.one_tab,
+                self.zero_tab, self.qts[qidx0], lows, ranges, poss,
+                specs[0][0], specs[0][1], len(specs), cc, self.coded_bits,
+                five)
+            done = torch.tensor([lane for lane, q in enumerate(lane_q)
+                                 if q is not None], dtype=torch.long,
+                                device=self.device)
+            self.states[done, :rows] = states_out[done]
+            planes_full = self._rgb_output(planes_dev, by, ry)
             self._validate(parsed,
                            torch.stack([low, rng, pos]).cpu().numpy(),
                            buflens)
         return [(self._conceal(bi, [fp[bi] for fp in planes_full]),
                  keyframes[bi]) for bi in range(self.batch)]
+
+    # ------------------------------------------ planar range coder (B2)
+
+    def _lane_rows(self):
+        """int64 (L,): each lane's state rows in ``self.states``; a table
+        installed whole (``decoder_state_from_numpy``) serves every lane
+        at its width."""
+        if self.lane_rows is None:
+            rows = 0 if self.states is None else self.states.shape[1]
+            self.lane_rows = np.full(self.L, rows, np.int64)
+        return self.lane_rows
+
+    def _fresh(self, qidx: int):
+        """One lane's fresh rows for quant table ``qidx`` on the device."""
+        if qidx not in self._fresh_cache:
+            self._fresh_cache[qidx] = torch.from_numpy(
+                self._fresh_states(qidx)).to(self.device)
+        return self._fresh_cache[qidx]
+
+    def _grow_states(self, rows: int):
+        """``self.states`` (L, R, 32) widened to at least ``rows`` rows, the
+        new ones 128."""
+        if self.states is None or self.states.shape[1] < rows:
+            grown = torch.full((self.L, rows, 32), 128, dtype=torch.uint8,
+                               device=self.device)
+            if self.states is not None:
+                grown[:, :self.states.shape[1]] = self.states
+            self.states = grown
+
+    def _prepare_states(self, lane_q, keyframes, resets):
+        """The host decoder's state rules per lane (codec/decoder.py:
+        238-276 of the JAX package) before a range-coder decode:
+        a lane whose slice names a table of another context count than
+        its states hold starts from 128s; a keyframe's lanes, and those
+        whose header sets reset_contexts, from the table's initial
+        states (the extradata's, else 128).  A lane whose header failed
+        (``lane_q`` None) keeps its states, as the host's slice aborts
+        before it touches them."""
+        rows_now = self._lane_rows()
+        nsp = self.n_state_planes
+        want = np.array([rows_now[lane] if q is None else
+                         nsp * self.quant[q][1]
+                         for lane, q in enumerate(lane_q)], np.int64)
+        self._grow_states(int(want.max()))
+        dev = self.device
+        changed = np.nonzero(want != rows_now)[0]
+        if changed.size:
+            self.states[torch.from_numpy(changed).to(dev)] = 128
+        fresh = {}
+        for lane, q in enumerate(lane_q):
+            if q is not None and (keyframes[lane // self.n_slices] or
+                                  resets[lane]):
+                fresh.setdefault(q, []).append(lane)
+        for q, lanes in fresh.items():
+            rows = self._fresh(q)
+            self.states[torch.tensor(lanes, device=dev),
+                        :rows.shape[0]] = rows
+        self.lane_rows = want
+
+    def _decode_planar(self, parsed, keyframes):
+        """Planar YUV/gray with the range coder on any grid and any mix of
+        quant tables: the lanes grouped by (plane geometry, quant table),
+        one K2-family launch per group (``rc_decode_groups``), the frame
+        placed from the groups' planes.  A lane whose header failed is
+        not decoded: it is flagged, and its rect is concealed.  Returns
+        (per plane a (batch, Hk, Wk) numpy array, the lanes' (low, range,
+        pos) on the host, the buffer lengths)."""
+        (bufs, lows, ranges, poss), buflens = self._lane_buffers(parsed)
+        _by, _ry, resets = self._lane_extras(parsed)
+        lane_q = [s[1] for p in parsed for s in p[1]]
+        self._prepare_states(lane_q, keyframes, resets)
+        # the groups of this frame (read by chip_smoke.py)
+        self.last_groups = self._lane_groups(lane_q)
+        planes_g, self.states, low, rng, pos = rc_decode_groups(
+            bufs, self.states, self.one_tab, self.zero_tab, self.quant,
+            lows, ranges, poss, self.last_groups, self.bits)
+        full = self._place(self.last_groups, planes_g)
+        return (self._planar_output(full),
+                torch.stack([low, rng, pos]).cpu().numpy(), buflens)
+
+    def _lane_groups(self, lane_q):
+        """[(lanes, dims, qidx)]: the lanes whose slice names quant table
+        ``lane_q[lane]`` (None: not decoded), grouped by their slice's
+        plane geometry and that table, in the order of their first
+        lane."""
+        by_key = {}
+        for lane, q in enumerate(lane_q):
+            if q is not None:
+                by_key.setdefault((self.slice_dims[lane % self.n_slices], q),
+                                  []).append(lane)
+        return [(lanes, dims, q) for (dims, q), lanes in by_key.items()]
+
+    def _place(self, groups, planes_g):
+        """The groups' slice planes -> full frames, per plane a (batch,
+        Hk, Wk) tensor.  One group of every lane on a uniform grid is the
+        grid's inverse block reshape; otherwise one gather per plane from
+        the groups' planes of that kind, flattened in group order, with
+        zeros past their end: each pixel reads the lane that the grid's
+        map (``_place_maps``) gives it, at that lane's offset in this
+        frame's groups plus the pixel's offset in its slice.  A lane that
+        is not decoded (a failed header's) and a pixel no slice covers
+        read 0, as the host's fresh frame holds."""
+        if self.uniform and len(groups) == 1 and \
+                list(groups[0][0]) == list(range(self.L)):
+            return [self._assemble(p) for p in planes_g[0]]
+        if self._place_static is None:
+            self._place_static = self._place_maps()
+        dev = self.device
+        out = []
+        for j, (lane_map, offset) in enumerate(self._place_static):
+            # each lane's first sample in the flattened groups; L and
+            # the lanes of no group point past their end
+            base = np.full(self.L + 1, -1, np.int32)
+            total = 0
+            for lanes, dims, _q in groups:
+                w, h, _sp = dims[j]
+                base[list(lanes)] = total + w * h * np.arange(len(lanes))
+                total += len(lanes) * w * h
+            base[base < 0] = total
+            pad = max(w * h for w, h, _sp in
+                      (dims[j] for dims in self.slice_dims))
+            src = torch.cat([p[j].reshape(-1) for p in planes_g] +
+                            [torch.zeros(pad, dtype=torch.int32,
+                                         device=dev)])
+            index = torch.from_numpy(base).to(dev).index_select(
+                0, lane_map.reshape(-1)) + offset.reshape(-1)
+            out.append(src.index_select(0, index).reshape(lane_map.shape))
+        return out
+
+    def _place_maps(self):
+        """Per plane (lane, offset), each int32 (batch, Hk, Wk): the lane
+        whose slice writes the pixel last, in slice order (L where no
+        slice covers it), and the pixel's offset in that slice's plane.
+        Slices write at their offsets (chroma at (x >> hs, y >> vs)) one
+        after another, so a later slice's samples win where neighbouring
+        chroma crops share a column or a row, as the reference writes
+        (decoder.py:759-773 of the JAX package).  The grid fixes both
+        maps; the frame's groups only move each lane's base."""
+        g = self.g
+        hs, vs = g.chroma_h_shift, g.chroma_v_shift
+        maps = []
+        for j in range(len(self.slice_dims[0])):
+            sub = g.chroma_planes and j in (1, 2)
+            sh, sv = (hs, vs) if sub else (0, 0)
+            shape = (self.batch, ceil_rshift(self.height, sv),
+                     ceil_rshift(self.width, sh))
+            lane_map = np.full(shape, self.L, np.int32)
+            offset = np.zeros(shape, np.int32)
+            for lane in range(self.L):
+                bi, si = divmod(lane, self.n_slices)
+                geom = self.geoms[si]
+                w, h, _sp = self.slice_dims[si][j]
+                y, x = geom.y >> sv, geom.x >> sh
+                lane_map[bi, y:y + h, x:x + w] = lane
+                offset[bi, y:y + h, x:x + w] = \
+                    np.arange(h * w).reshape(h, w)
+            maps.append(tuple(torch.from_numpy(m).to(self.device)
+                              for m in (lane_map, offset)))
+        return maps
 
     def _assemble(self, lanes):
         """Lane-major slice planes (L, h, w) -> full frames (batch, H, W)
@@ -428,12 +620,11 @@ class TorchFFV1Decoder:
         x = lanes.reshape(self.batch, nv, nh, h, w)
         return x.permute(0, 1, 3, 2, 4).reshape(self.batch, nv * h, nh * w)
 
-    def _planar_output(self, planes_dev):
-        """Lane-major planes -> per plane a (batch, Hk, Wk) numpy array
-        at the wire dtype."""
+    def _planar_output(self, frames):
+        """Full planes, each (batch, Hk, Wk) on the device -> per plane a
+        numpy array at the wire dtype."""
         out = []
-        for plane in planes_dev:
-            x = self._assemble(plane)
+        for x in frames:
             if self.bits <= 8:
                 out.append(x.to(torch.uint8).cpu().numpy())
             else:

@@ -62,15 +62,26 @@ runs the raw form, as the reference does.  Golomb-Rice at version 4
 writes the v4 header fields with (1, 1) and has no budget check, as in
 the reference.
 
+Slice grids that the frame does not divide (slice_grid's slices then
+differ by a column or a row, and neighbouring 4:2:0 chroma crops may
+share one) run the same fused path as in the JAX package
+(encoder.py:636-651 there): each lane holds its slice's stream at its
+own length, the lanes grouped by slice size (at most 4 groups) for one
+crop gather and one stencil per group and plane, the rest of the lane
+inactive; the scans and finalize take the active mask as they are.
+Version 4 searches each group's crops on the card, and off uniform
+grids the reference has no row budget: a slice retries as PCM only when
+its bytes pass the output cap, taken at the reference's padded length.
+
 Adaptive states stay on the device across frames (GOP context
 carry-over, ffv1enc.c:1171-1172): keyframes reset them to 128, other
 frames continue from the previous frame's states.  Covered: versions 3
 and 4, range coder, planar YUV/gray at every coded width (<= 10 bits
-through the fast schedule, 11..16 through the extended one) and RGB,
-context models 0 and 1 (the 5-input context, whose 2 x 7,563-row state
-table the lane scan keeps in global memory), uniform slice grids;
-Golomb-Rice for planar YUV/gray; everything else raises
-NotImplementedError.
+through the fast schedule, 11..16 through the extended one) on any slice
+grid, and RGB on uniform grids, context models 0 and 1 (the 5-input
+context, whose 2 x 7,563-row state table the lane scan keeps in global
+memory); Golomb-Rice for planar YUV/gray on uniform grids; everything
+else raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -190,8 +201,10 @@ class TorchFFV1Encoder:
             (not rp.chroma_planes or
              (g0.width % (1 << rp.chroma_h_shift) == 0 and
               g0.height % (1 << rp.chroma_v_shift) == 0)))
-        if not self.uniform:
-            raise NotImplementedError("only uniform slice grids are ported")
+        if not self.uniform and (self.rgb or self.golomb):
+            raise NotImplementedError(
+                f"{'RGB' if self.rgb else 'Golomb-Rice'} needs a uniform "
+                f"slice grid, as in the reference")
         if rp.ac == T.AC_RANGE_CUSTOM_TAB:
             one, zero = custom_state_tables(rp.state_transition)
         else:
@@ -213,12 +226,22 @@ class TorchFFV1Encoder:
         self.five_input = bool(qt[3][127])
         self.n_slices = len(self.geoms)
         self.L = self.n_slices * batch
-        self.n_max = self._stream_len(g0)
+        # each lane's stream length (slices of a non-uniform grid differ
+        # by a row or a column) and the longest, the lane arrays' width
+        self.stream_lens = [self._stream_len(g) for g in self.geoms]
+        self.n_max = max(self.stream_lens)
         # output cap per lane: the codeable worst case is ~2.2 B/pixel at
         # 8 bits for the range coder, more at the extended widths, and
-        # (12 + bits) / 8 for the Golomb escape
-        self.out_cap = self.n_max * (3 if self.bits <= 10 and
-                                     not self.golomb else 4) + 4096
+        # (12 + bits) / 8 for the Golomb escape.  Off uniform grids the
+        # cap is version 4's only PCM trigger, so it takes the reference's
+        # length there: n_max padded to its scan chunk (pallas_chunk x
+        # unroll 2, encoder.py:205-209, 231-232 of the JAX package)
+        cap_len = self.n_max
+        if not self.uniform:
+            pad = 2 * max(48, (216 // batch) // 8 * 8)
+            cap_len = -(-self.n_max // pad) * pad
+        self.out_cap = cap_len * (3 if self.bits <= 10 and
+                                  not self.golomb else 4) + 4096
         self.states = torch.full((self.L, self.total_cc, 32), 128,
                                  dtype=torch.uint8, device=dev)
         self.picture_number = 0
@@ -227,8 +250,11 @@ class TorchFFV1Encoder:
         self._header_cache = {}
         # the last frame's searched (by, ry) per lane (version 4)
         self.rct_coefs = None
-        if rp.version > 3 and not self.golomb:
+        if not self.uniform:
+            self.groups, self.active = self._lane_groups()
+        if rp.version > 3 and not self.golomb and self.uniform:
             # the line starts at which the reference checks its budget
+            # (off uniform grids it has no row budget: encoder.py:662)
             rows = self._row_offsets(g0)
             self.row_offs = torch.tensor([o for o, _w in rows],
                                          dtype=torch.long, device=dev)
@@ -347,6 +373,29 @@ class TorchFFV1Encoder:
             self._header_cache[key] = (enc.low, enc.range, list(enc.prov))
         return self._header_cache[key]
 
+    def _pcm_lanes(self, counts_np, rowpos=None):
+        """bool (L,): the lanes whose slice retries as PCM.  On a uniform
+        grid at version 4 (range coder) ``rowpos`` (R, L) holds each
+        lane's byte position at its line starts, checked against the
+        budget; off uniform grids the reference has no row budget
+        (encoder.py:662 of the JAX package) and its output cap is the only
+        trigger.  A count past the cap raises at version 3 and in
+        Golomb-Rice, as the reference does (ffv1enc.c:1210)."""
+        pcm = np.zeros(self.L, bool)
+        if rowpos is not None:
+            # remaining budget below w * 35 at any line start
+            # (ffv1enc.c:283-287)
+            pcm = ((self._slice_budget() - rowpos) <
+                   self.row_widths[:, None] * 35).any(axis=0)
+        over = counts_np > self.out_cap
+        if over.any():
+            if self.rp.version <= 3 or self.golomb:
+                raise RuntimeError("encoded slice exceeded output cap (the "
+                                   "reference errors here too: "
+                                   "ffv1enc.c:1210)")
+            pcm |= over
+        return pcm
+
     def _slice_budget(self) -> int:
         """Per-slice output budget at version 4, as the reference's: the
         packet is allocated at 16384 + w * h * 12 bytes (ffv1enc.c:
@@ -437,6 +486,87 @@ class TorchFFV1Encoder:
         h, w = H // nv, W // nh
         c = stack.reshape(B, nv, h, nh, w)
         return c.permute(0, 1, 3, 2, 4).reshape(B * nv * nh, h, w)
+
+    def _lane_groups(self):
+        """Non-uniform grids: the lanes grouped by slice size (at most 4
+        groups: slice_grid's widths differ by at most one, and so do its
+        heights), each group's gather indices of its crops and its lanes'
+        stream length; and the (L, n_max) active mask (True on each lane's
+        stream)."""
+        rp = self.rp
+        hs, vs = rp.chroma_h_shift, rp.chroma_v_shift
+        by_size = {}
+        for bi in range(self.batch):
+            for si, g in enumerate(self.geoms):
+                by_size.setdefault((g.width, g.height), []).append(
+                    (bi * self.n_slices + si, bi, g))
+        dev = self.device
+
+        def index(members, sh, sv, w, h):
+            """(stream, row, column) gather indices of the members' crops
+            of a plane subsampled by (sh, sv): each crop starts at (x >>
+            sh, y >> sv) and is ceil_rshift(w, sh) x ceil_rshift(h, sv)
+            (encoder.py:311-316 of the JAX package; neighbouring chroma
+            crops may share a column or a row)."""
+            cw, ch = ceil_rshift(w, sh), ceil_rshift(h, sv)
+            b = torch.tensor([bi for _l, bi, _g in members], device=dev)
+            y = torch.tensor([g.y >> sv for _l, _b, g in members],
+                             device=dev)
+            x = torch.tensor([g.x >> sh for _l, _b, g in members],
+                             device=dev)
+            return (b[:, None, None],
+                    y[:, None, None] + torch.arange(ch, device=dev)[:, None],
+                    x[:, None, None] + torch.arange(cw, device=dev))
+
+        groups = []
+        for (w, h), members in by_size.items():
+            lanes = torch.tensor([li for li, _b, _g in members], device=dev)
+            groups.append(dict(
+                lanes=lanes, n=self._stream_len(members[0][2]),
+                luma=index(members, 0, 0, w, h),
+                chroma=index(members, hs, vs, w, h) if rp.chroma_planes
+                else None))
+        act = np.zeros((self.L, self.n_max), bool)
+        for lane in range(self.L):
+            act[lane, :self.stream_lens[lane % self.n_slices]] = True
+        return groups, torch.from_numpy(act).to(dev)
+
+    def _streams(self, streams, rct=None):
+        """(ctx, diff, active) lane streams, each (L, n_max): the uniform
+        grid's block reshape, or one crop gather per slice size."""
+        if self.uniform:
+            return self._streams_uniform(streams, rct)
+        return self._streams_nonuniform(streams)
+
+    def _streams_nonuniform(self, streams):
+        """(ctx, diff, active) lane streams, each (L, n_max), for a tuple
+        of per-plane (batch, Hk, Wk) integer tensors on a non-uniform grid
+        (planar YUV/gray; the same streams as the JAX package's per-lane
+        _slice_stream, encoder.py:298, 636-651): per slice size the crops
+        of all its lanes go through the stencil as one stack, and their
+        rows are scattered into the lanes; past a lane's stream length
+        the pixels are inactive."""
+        rp = self.rp
+        ctxs = torch.zeros((self.L, self.n_max), dtype=torch.int32,
+                           device=self.device)
+        diffs = torch.zeros_like(ctxs)
+        planes = [(streams[0], "luma", 0)]
+        if rp.chroma_planes:
+            planes += [(streams[1], "chroma", 1), (streams[2], "chroma", 1)]
+        if rp.transparency:
+            planes.append((streams[-1], "luma", 2 if rp.chroma_planes else 1))
+        for grp in self.groups:
+            parts_ctx, parts_diff = [], []
+            for stack, kind, state_plane in planes:
+                s = load_plane(stack[grp[kind]], self.bits, rp.packed_at_lsb)
+                c, d = residuals_and_contexts(s, self.qt, self.bits,
+                                              self.five_input)
+                parts_ctx.append(c.flatten(1) + state_plane * self.cc)
+                parts_diff.append(d.flatten(1))
+            n = grp["n"]
+            ctxs[grp["lanes"], :n] = torch.cat(parts_ctx, dim=1)
+            diffs[grp["lanes"], :n] = torch.cat(parts_diff, dim=1)
+        return ctxs, diffs, self.active
 
     def _streams_uniform(self, streams, rct=None):
         """(ctx, diff, active) lane streams, each (L, n_max), for a tuple
@@ -542,8 +672,19 @@ class TorchFFV1Encoder:
         rp = self.rp
         nh, nv = rp.num_h_slices, rp.num_v_slices
         bgr = self._split_rgb(planes)[:3] if self.rgb else planes[:3]
-        totals = rct_cost_pairs(*(self._crops_uniform(p, nh, nv)
-                                  for p in bgr))
+        if self.uniform:
+            totals = rct_cost_pairs(*(self._crops_uniform(p, nh, nv)
+                                      for p in bgr))
+        else:
+            # 4:4:4 YUV only (RGB needs a uniform grid): one search per
+            # slice size, its sums put back in lane order (the JAX
+            # package searches these grids on the host pixels,
+            # _rct_coefs_host, with the same picks)
+            totals = torch.empty((self.L, 15), dtype=torch.int64,
+                                 device=self.device)
+            for grp in self.groups:
+                totals[grp["lanes"]] = rct_cost_pairs(
+                    *(p[grp["luma"]] for p in bgr))
         return pick_rct_coefs(totals.cpu().numpy())
 
     def _frame_pipeline(self, streams, states0, lows, ranges, prefixes,
@@ -553,7 +694,7 @@ class TorchFFV1Encoder:
         (bytes, counts, states, overflow, packed, low, range); packed is
         None in the compact form, whose raw slots never exist."""
         compact = self.compact if compact is None else compact
-        ctxs, diffs, acts = self._streams_uniform(streams, rct)
+        ctxs, diffs, acts = self._streams(streams, rct)
         if compact:
             cm, low, rng, states_out = rc_encode_compact(
                 ctxs, diffs, acts, states0, self.one_tab, self.zero_tab,
@@ -640,7 +781,7 @@ class TorchFFV1Encoder:
             out, counts = finalize_packed_full(packed, low, rng, prefixes,
                                                plens)
         rowpos = None
-        if self.rp.version > 3:
+        if self.rp.version > 3 and self.uniform:
             # each lane's provisional byte position at its line starts
             rowpos = (row_bytes(packed, self.row_offs) +
                       plens[None, :]).cpu().numpy()
@@ -662,24 +803,11 @@ class TorchFFV1Encoder:
     def _packets(self, out, counts, keyframe: bool, rowpos=None,
                  streams=None):
         """Fetch the lanes' bytes and assemble each stream's packet.  At
-        version 4 (range coder) ``rowpos`` (R, L) holds each lane's byte
-        position at its line starts, and a slice that fails the budget
-        check, or passes the output cap, is re-encoded in PCM from
-        ``streams`` (encoder.py:1164-1248 of the JAX package)."""
+        version 4 (range coder) a slice that fails the budget check or
+        passes the output cap is re-encoded in PCM from ``streams``
+        (``_pcm_lanes``; encoder.py:1164-1248 of the JAX package)."""
         counts_np = counts.cpu().numpy().astype(np.int64)
-        pcm = np.zeros(self.L, bool)
-        if rowpos is not None:
-            # remaining budget below w * 35 at any line start
-            # (ffv1enc.c:283-287)
-            pcm = ((self._slice_budget() - rowpos) <
-                   self.row_widths[:, None] * 35).any(axis=0)
-        over = counts_np > self.out_cap
-        if over.any():
-            if rowpos is None:
-                raise RuntimeError("encoded slice exceeded output cap (the "
-                                   "reference errors here too: "
-                                   "ffv1enc.c:1210)")
-            pcm |= over
+        pcm = self._pcm_lanes(counts_np, rowpos)
         counts_np[pcm] = 0
         out_np = out[:, :int(counts_np.max())].cpu().numpy()
         payloads = [out_np[li, :counts_np[li]].tobytes()

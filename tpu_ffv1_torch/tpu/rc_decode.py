@@ -33,6 +33,12 @@ row y decodes a line of each plane G, B, R(, A) in turn from one coder,
 each plane from its own 2-row ring; the samples stay in the RCT domain.
 Its plain version shares the planar one's pixel step (``_LaneScan``).
 
+``rc_decode_groups`` (B2, the counterpart of the per-slice
+dec_scan.rc_decode_plane the JAX package's fallback runs as XLA scans)
+decodes lanes of unequal plane geometry or quant table: one
+``rc_decode_planes`` launch per group of lanes that share both, one
+after another; no kernel of its own.
+
 ``rc_decode_stages`` and ``rc_decode_ext_stages`` launch K2's and
 K2-ext's stage probes (csrc/rc_decode.cu and rc_decode_ext.cu STAGES):
 timing instruments with stages stubbed, never called by the codec.
@@ -366,6 +372,43 @@ def rc_decode_planes(bufs, states, one_tab, zero_tab, qt, low0, range0,
                   pos0, plane_specs, bits, five)
     LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
     return out
+
+
+def rc_decode_groups(bufs, states, one_tab, zero_tab, quant, low0, range0,
+                     pos0, groups, bits: int):
+    """Decode lanes of unequal plane geometry or quant table: one
+    ``rc_decode_planes`` launch per group (K2, K2-five, K2-ext or
+    K2-ext-five, whichever the group needs), one after another on the
+    current stream.  The port of the JAX package's per-slice fallback
+    (decoder.py:708-782 there, dec_scan.rc_decode_plane per slice and
+    plane), whose lanes run here in groups.
+
+    ``states`` uint8 (L, R, 32): each lane's table in its first rows.
+    ``quant``: per quant table index (qt int32 (5, 256), context count,
+    five).  ``groups``: [(lanes, dims, qidx)], the lanes (ints) that
+    share the planes ``dims`` ((w, h, state_plane), ...) in coding order
+    and quant table ``qidx``; a group decodes the first
+    ``len(states planes) x cc`` rows of its lanes' tables, so the kernel
+    instance (shared or global table) follows the group's own context
+    count.  A lane in no group keeps its states and coder state.
+    Returns (per group its planes, a tuple of int32 (n, h, w); states_out
+    uint8 (L, R, 32); low, range, pos int32 (L,))."""
+    dev = bufs.device
+    states_out = states.clone()
+    low, rng, pos = low0.clone(), range0.clone(), pos0.clone()
+    out = []
+    for lanes, dims, q in groups:
+        qt, cc, five = quant[q]
+        rows = (max(sp for _w, _h, sp in dims) + 1) * cc
+        idx = torch.tensor(list(lanes), dtype=torch.long, device=dev)
+        planes, st, lo, ra, po = rc_decode_planes(
+            bufs[idx], states[idx, :rows].contiguous(), one_tab, zero_tab,
+            qt, low0[idx], range0[idx], pos0[idx],
+            tuple((w, h, sp * cc) for (w, h, sp) in dims), bits, five)
+        states_out[idx, :rows] = st
+        low[idx], rng[idx], pos[idx] = lo, ra, po
+        out.append(planes)
+    return out, states_out, low, rng, pos
 
 
 # the coded widths of the RGB formats: bgr0 and bgra 9, gbrp9 10, gbrp10

@@ -63,6 +63,8 @@ def decoder_state_from_numpy(dec, states, key_frame_ok, vlc_states=None):
         dec.states = None
     else:
         dec.states = _states_tensor(dec, states, np.asarray(states).shape[1])
+    # every lane's table at the installed width
+    dec.lane_rows = None
     if dec.golomb:
         dec.vlc_states = None if vlc_states is None else \
             _vlc_tensor(dec, vlc_states, np.asarray(vlc_states).shape[1])
