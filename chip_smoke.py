@@ -121,7 +121,21 @@ exits non-zero without the final result line:
    grid of four slice sizes, batch 2, GOP 2, three frames (the RCT
    search per slice size, K1-ext over four lane lengths, four K2-ext
    launches per step), its packets equal to TPUFFV1Encoder's digests on
-   the CPU and its decode lossless; then K1's, K1-ext's, K2's and
+   the CPU and its decode lossless; then three FFV1-P paths through
+   TorchFFV1PEncoder / TorchFFV1PDecoder (12 slices, GOP 12, batch 2:
+   BASELINE config 4's configuration, bench.py:660-717; a keyframe, a
+   warm-up P frame, then timed P frames, the streams in bench's frame
+   order): pframe_720p (1280x720 yuv420p, bench's pan, full search,
+   six timed frames: K1 at 9 bits, K2 at 9 bits, the MV sections
+   parsed on the host), pframe_720p_epzs (the same with the EPZS
+   search, two timed frames, encode only) and pframe_422p10_540p
+   (960x540
+   yuv422p10le, 240x180 slices padded to 192 rows of blocks, two timed
+   frames, encode only: K1-ext at 11 bits), each held to the host
+   FFV1PEncoder's golden digests, its decode lossless, each lane scan
+   launched once per frame, with stage times (search, OBMC + residual
+   + stencil, scan, finalize; parse, MV parse, scan, OBMC); then K1's,
+   K1-ext's, K2's and
    K2-ext's stage split: each stage probe of K1 and of its global form, and of K2 and
    K2-five, on the 8bit and 8bit_ctx1 warm-up inputs, of K1-ext and
    K2-ext on the 16bit ones and of their global forms (K2-ext-five) on
@@ -130,7 +144,8 @@ exits non-zero without the final result line:
    its path's warm-up frame (all 48 lanes at full shape; a grouped
    decode's every launch on its own lanes, nonuniform_ext's too;
    K1-compact's through its raw path's K1 launch, phase 5; mixed_q's
-   two launches on their own 24 lanes each), held exactly
+   two launches on their own 24 lanes each; each P path's warm-up P
+   frame's, 24 lanes), held exactly
    (integer codec) against its plain version, run on CPU copies of the
    same inputs (the plain versions are per-pixel loops of small tensor
    ops, faster on the host than as per-op card launches).  Each
@@ -144,8 +159,9 @@ exits non-zero without the final result line:
    longest first; the workers return digests of their outputs, which
    must equal the digests of the kernel's outputs;
 7. JSON lines: the probes' latencies ("probes"), each path's step and
-   stage times ("steps"), mixed_q's and nonuniform_ext's steps, the
-   stage splits ("stages") and the
+   stage times ("steps"), mixed_q's and nonuniform_ext's steps, the P
+   paths' steps and stages ("pframe"), the stage splits ("stages") and
+   the
    per-kernel numbers ("kernels": time, launches, roofline and chain
    bounds, plain version's time, max abs error; a grouped decode's row
    sums its launches and lists each under "groups"); then the nvidia-smi
@@ -175,7 +191,8 @@ import numpy as np
 import torch
 
 import tpu_ffv1_torch
-from tpu_ffv1_torch import EncoderParams, TorchFFV1Decoder, TorchFFV1Encoder
+from tpu_ffv1_torch import (EncoderParams, TorchFFV1Decoder, TorchFFV1Encoder,
+                            TorchFFV1PDecoder, TorchFFV1PEncoder)
 from tpu_ffv1_torch.core import tables as T
 from tpu_ffv1_torch.core.crc import crc32_ieee
 from tpu_ffv1_torch.core.rac import custom_state_tables
@@ -451,6 +468,109 @@ def synthetic_streams_nonuniform():
     """nonuniform_ext's content, 2 streams x 3 frames: the 16-bit
     archival content at its size."""
     return synthetic_streams16(BATCH, NU_FRAMES, NU_W, NU_H, NU_SEED)
+
+
+# FFV1-P, the fork's inter codec (see pframe_phase): BASELINE config 4's
+# configuration (bench.py:660-717: 12 slices, GOP 12), batch 2
+P_SLICES, P_GOP = 12, 12
+
+
+def pan_order(frames, n_streams, n_frames):
+    """bench.py bench_pframe_720p's frame order over its eight frames:
+    stream s keys on frames[s % 8], then takes frames[1 + (s + k) % 7]
+    at P step k, so the streams' lanes see different motion."""
+    return [[frames[s % 8]] + [frames[1 + (s + k) % 7]
+                               for k in range(n_frames - 1)]
+            for s in range(n_streams)]
+
+
+def synthetic_streams_pan(n_streams, n_frames, width, height, seed):
+    """yuv420p: bench_pframe_720p's pan, a diagonal ramp mod 256 moving
+    by (2t, 3t) per frame plus noise 0-7, chroma 100 and 160 plus noise
+    0-7, in bench's order (``pan_order``)."""
+    r = np.random.RandomState(seed)
+    base = np.add.outer(np.arange(height + 64), np.arange(width + 64)) % 256
+    frames = []
+    for t in range(8):
+        y = base[2 * t:2 * t + height, 3 * t:3 * t + width] + \
+            r.randint(0, 8, (height, width))
+        u = r.randint(0, 8, (height // 2, width // 2)) + 100
+        v = r.randint(0, 8, (height // 2, width // 2)) + 160
+        frames.append([p.astype(np.uint8) for p in (y, u, v)])
+    return pan_order(frames, n_streams, n_frames)
+
+
+def synthetic_streams_pan10(n_streams, n_frames, width, height, seed):
+    """yuv422p10le: the 10-bit 4:2:2 P content of tests/test_pframe_tpu.py
+    (test_tpu_pframe_10bit_422) at size, a ramp of step 9 mod 1024
+    moving by (t, 2t) per frame plus noise 0-23, chroma noise 0-39 over
+    300 and 600 at half width, in bench's order (``pan_order``)."""
+    r = np.random.RandomState(seed)
+    base = np.add.outer(np.arange(height + 32), np.arange(width + 32)) * 9 \
+        % 1024
+    frames = []
+    for t in range(8):
+        y = (base[t:t + height, 2 * t:2 * t + width] +
+             r.randint(0, 24, (height, width))) & 1023
+        u = r.randint(0, 40, (height, width // 2)) + 300
+        v = r.randint(0, 40, (height, width // 2)) + 600
+        frames.append([p.astype(np.uint16) for p in (y, u, v)])
+    return pan_order(frames, n_streams, n_frames)
+
+
+class PPath(NamedTuple):
+    pix_fmt: str
+    gen: Callable          # content generator
+    seed: int
+    width: int
+    height: int
+    timed: int             # timed P frames after the warm-up
+    me: str                # the motion search
+    kernels: tuple         # (P encode instance, P decode instance or None)
+    key_kernel: str        # the keyframe's encode instance
+    p_bits: int            # the residuals' coded width
+
+    @property
+    def frames(self):
+        return 1 + WARM + self.timed
+
+
+P_PATHS = {
+    # BASELINE config 4: 720p P frames (bench.py:660-717), full search
+    "pframe_720p": PPath("yuv420p", synthetic_streams_pan, SEED + 41, 1280,
+                         720, TIMED, "full", ("rc_encode", "rc_decode"),
+                         "rc_encode", 9),
+    # the same with the predictor-seeded search (FFV1_BENCH_ME=epzs),
+    # encode only: the decoder does not see the search, and its K2 launch
+    # is pframe_720p's at the same shape (a plain check of 173 s saved)
+    "pframe_720p_epzs": PPath("yuv420p", synthetic_streams_pan, SEED + 41,
+                              1280, 720, 2, "epzs", ("rc_encode", None),
+                              "rc_encode", 9),
+    # config 5's codec shape on one card (tests/test_pframe_tpu.py:170-200):
+    # 240x180 slices (pad_h 12); encode only, as the P decoder refuses
+    # more than 8 bits
+    "pframe_422p10_540p": PPath("yuv422p10le", synthetic_streams_pan10,
+                                SEED + 42, 960, 540, 2, "full",
+                                ("rc_encode_ext", None), "rc_encode", 11),
+}
+
+
+def p_params_kw(name):
+    """EncoderParams fields of a P path."""
+    p = P_PATHS[name]
+    return dict(width=p.width, height=p.height, pix_fmt=p.pix_fmt, level=3,
+                coder=2, slices=P_SLICES, gop_size=P_GOP)
+
+
+def p_streams(name):
+    """A P path's content, made once per generator, seed and size."""
+    p = P_PATHS[name]
+    key = (p.gen, p.seed, p.width, p.height, p.frames)
+    if key not in _STREAMS:
+        _STREAMS[key] = p.gen(BATCH, p.frames, p.width, p.height, p.seed)
+    return _STREAMS[key]
+
+
 _STREAMS: dict = {}
 
 
@@ -1724,6 +1844,182 @@ def nonuniform_phase(dev, gpu, rec_enc, rec_dec):
                 groups=[lanes for lanes, _d, _q in dec.last_groups])
 
 
+def median(xs):
+    xs = sorted(xs)
+    n = len(xs)
+    return xs[n // 2] if n % 2 else (xs[n // 2 - 1] + xs[n // 2]) / 2
+
+
+def keep_args(obj, meth, kept):
+    """Wrap ``obj.meth`` so that each call leaves its arguments in
+    ``kept[meth]``; returns the unwrapped method."""
+    fn = getattr(obj, meth)
+
+    def wrapped(*args):
+        kept[meth] = args
+        return fn(*args)
+
+    setattr(obj, meth, wrapped)
+    return fn
+
+
+def pframe_phase(dev, gpu, name, recorders):
+    """One P path (``P_PATHS``): 12 slices, 2 streams x (a keyframe, a
+    warm-up P frame, timed P frames) through TorchFFV1PEncoder and, where
+    the path decodes, TorchFFV1PDecoder.  Each packet must equal the
+    golden digests of the JAX package's host FFV1PEncoder
+    (tests/test_torch_goldens.py),
+    the decode be lossless with no slice flagged, and the lane scans
+    launch once per frame: the keyframe's at its coded width, each P
+    frame's at bits + 1, no other kernel.  Stage times (each alone, on
+    the last frame's inputs): upload, search, OBMC + residual + stencil
+    (with the MV section), lane scan, finalize and the rest (encode);
+    the packet parse and the MV sections' parse on the host (the
+    decoder's own clock in each step), lane scan, OBMC reconstruction
+    and the rest (decode).  ``recorders``: the LastLaunch of
+    rc_encode_packed and rc_decode_planes.  Returns its numbers and the
+    warm-up P frame's launches."""
+    path = P_PATHS[name]
+    w, h, frames = path.width, path.height, path.frames
+    tag = f"main {name}"
+    k_enc, k_dec = path.kernels
+    streams = p_streams(name)
+    golden = load_goldens()[name]
+    enc = TorchFFV1PEncoder(EncoderParams(**p_params_kw(name)), batch=BATCH,
+                            me=path.me, experimental=True, device=dev)
+    check(digest(enc.extradata) == golden["extradata"],
+          f"{name}: extradata differs from the golden")
+    check(enc.L == P_SLICES * BATCH and enc.p_bits == path.p_bits,
+          f"{name}: lanes {enc.L}, residual width {enc.p_bits}")
+    dec = TorchFFV1PDecoder(w, h, enc.extradata, batch=BATCH, device=dev) \
+        if k_dec else None
+    rec_enc, rec_dec = recorders["packed"], recorders["decode"]
+    kept = {}
+    search = keep_args(enc, "_search", kept)
+    residual = keep_args(enc, "_residual_streams", kept)
+    recon = keep_args(dec, "_reconstruct", kept) if dec else None
+    log(f"[{tag}] {w}x{h} {path.pix_fmt}, {P_SLICES} slices of "
+        f"{enc.geoms[0].width}x{enc.geoms[0].height} ({enc.bh}x{enc.bw} "
+        f"blocks, pad {enc.pad_h}x{enc.pad_w}), GOP {P_GOP}, me={path.me} "
+        f"radius {enc.radius}; residuals at {enc.p_bits} bits, lane length "
+        f"{enc.mv_cap} MV slots + {enc.stream_lens[0]} px = p_n_max "
+        f"{enc.p_n_max}; {BATCH}x{frames} frames"
+        f"{'' if dec else ', encode only'}")
+    enc_s, dec_s, peak, parse_ms, mv_ms, sizes = [], [], [], [], [], []
+    reset_counts()
+    for t in range(frames):
+        # the warm-up P frame's launches (plain checks) and the last
+        # frame's (stage times)
+        rec_enc.armed = rec_dec.armed = t in (1, frames - 1)
+        frame = [streams[b][t] for b in range(BATCH)]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = enc.encode_frames(frame)
+        enc_s.append(time.perf_counter() - t0)
+        peak.append((torch.cuda.max_memory_allocated() - base) / 2**30)
+        sizes.append(sum(len(r[0]) for r in res))
+        for b in range(BATCH):
+            want = golden["packets"][b][t]
+            check(digest(res[b][0]) == {"sha256": want["sha256"],
+                                        "len": want["len"]} and
+                  res[b][1] == want["key"],
+                  f"{name} stream {b} frame {t}: packet differs from the "
+                  f"golden ({len(res[b][0])} vs {want['len']} B)")
+        decoded = ""
+        if dec:
+            t0 = time.perf_counter()
+            out = dec.decode_frames([r[0] for r in res])
+            dec_s.append(time.perf_counter() - t0)
+            for b in range(BATCH):
+                planes, kf = out[b]
+                check(kf == (t == 0), "keyframe flag")
+                for k in range(len(frame[b])):
+                    check(np.array_equal(planes[k], frame[b][k]),
+                          f"{name} stream {b} frame {t} plane {k}: decode "
+                          f"not lossless")
+            check(not dec.slice_damaged.any(), "slice flagged damaged")
+            if t:
+                parse_ms.append(dec.stage_ms["parse"])
+                mv_ms.append(dec.stage_ms["mv_parse"])
+            decoded = (f"decode lossless, {dec_s[-1] * 1e3:.2f} ms"
+                       + (f" (MV parse {mv_ms[-1]:.2f})" if t else "") +
+                       "; ")
+        kind = "key" if t == 0 else "P, warm-up" if t <= WARM else "P"
+        log(f"[{tag}] frame {t} ({kind}): {sizes[-1]} B, equal to the golden "
+            f"digests; {decoded}encode {enc_s[-1] * 1e3:.2f} ms; peak device "
+            f"memory {peak[-1]:.2f} GiB over the {base / 2**30:.2f} GiB held "
+            f"({gpu})")
+    rec_enc.armed = rec_dec.armed = False
+    launches = all_launches()
+    log(f"[{tag}] kernel launches in this path's {frames} steps: {launches}")
+    want = collections.Counter({path.key_kernel: 1})
+    want[k_enc] += frames - 1
+    if k_dec:
+        want[k_dec] += frames
+    check(launches == dict(want), f"{name}: expected {dict(want)} launches "
+          f"(one per frame and lane scan), and no other kernel: {launches}")
+    enc_recs = rec_enc.take_all()
+    dec_recs = rec_dec.take_all() if dec else []
+    check(len(enc_recs) == 2 and len(dec_recs) == (2 if dec else 0) and
+          enc_recs[0][0][8] == path.p_bits,
+          f"{name}: the P frames' kernel calls were not recorded")
+
+    mpix = BATCH * w * h / 1e6
+    enc_ms = step_stats(tag, "encode", enc_s[1 + WARM:], mpix, gpu)
+    up_ms, _x = host_time_ms(lambda: enc._upload(frame))
+    search_ms = cuda_time_ms(lambda: search(*kept["_search"]), 3)
+    res_ms = cuda_time_ms(lambda: residual(*kept["_residual_streams"]), 3)
+    (k1_args, (packed, low, rng, _st)) = enc_recs[1]
+    k1_ms = cuda_time_ms(lambda: rc_encode.rc_encode_packed(*k1_args), 3)
+    _l, _r, prefixes, plens = enc._prefix_arrays(False)
+    s2 = 4 if enc.p_bits <= 10 else 6
+    fin_ms = cuda_time_ms(lambda: finalize_packed(packed, low, rng, prefixes,
+                                                  plens, s2), 3)
+    enc_rest = enc_ms - up_ms - search_ms - res_ms - k1_ms - fin_ms
+    intra = int((k1_args[1][:, :enc.mv_cap:3] == 0).sum())
+    log(f"[{tag}] encode stages (ms, L={enc.L}, each timed alone on the last "
+        f"frame's inputs, {gpu}): upload {up_ms:.2f}, search ({path.me}) "
+        f"{search_ms:.2f}, OBMC + residual + stencil {res_ms:.2f}, {k_enc} "
+        f"(bits {enc.p_bits}) {k1_ms:.2f}, finalize s2={s2} {fin_ms:.2f}; the "
+        f"median step minus these {enc_rest:.2f}; step peak "
+        f"{max(peak[1 + WARM:]):.2f} GiB; P frames {sizes[1 + WARM:]} B "
+        f"(keyframe {sizes[0]}); intra blocks in the last frame {intra} of "
+        f"{enc.L * enc.bh * enc.bw}")
+    result = dict(launches=launches, recs={k_enc: enc_recs[0]},
+                  ms={k_enc: k1_ms}, p_launches={k_enc: frames - 1},
+                  p_steps=frames - 1, mv_cap=enc.mv_cap, enc_ms=enc_ms,
+                  dec_ms=None, p_frame_bytes=sizes[1:], key_bytes=sizes[0],
+                  stages=dict(upload=up_ms, search=search_ms,
+                              obmc_residual_stencil=res_ms, scan=k1_ms,
+                              finalize=fin_ms, rest=enc_rest,
+                              step_peak_gib=max(peak[1 + WARM:])))
+    if not dec:
+        return result
+    dec_ms = step_stats(tag, "decode", dec_s[1 + WARM:], mpix, gpu)
+    k2_args = dec_recs[1][0]
+    k2_ms = cuda_time_ms(lambda: rc_decode.rc_decode_planes(*k2_args), 3)
+    obmc_ms = cuda_time_ms(lambda: recon(*kept["_reconstruct"]), 3)
+    parse = median(parse_ms[WARM:])
+    mvp = median(mv_ms[WARM:])
+    dec_rest = dec_ms - parse - mvp - k2_ms - obmc_ms
+    log(f"[{tag}] decode stages (ms, {gpu}): parse {parse:.2f} and MV "
+        f"sections {mvp:.2f} ({mvp / dec_ms * 100:.1f}% of the step; the "
+        f"median of the decoder's own host clock over the timed steps: "
+        f"{', '.join(f'{x:.2f}' for x in mv_ms[WARM:])}), {k_dec} (bits "
+        f"{dec.p_bits}) {k2_ms:.2f}, OBMC reconstruction {obmc_ms:.2f} (each "
+        f"timed alone on the last frame's inputs); the median step minus "
+        f"these {dec_rest:.2f}")
+    result["recs"][k_dec] = dec_recs[0]
+    result["ms"][k_dec] = k2_ms
+    result["p_launches"][k_dec] = frames - 1
+    result["dec_ms"] = dec_ms
+    result["stages"].update(parse=parse, mv_parse=mvp, dscan=k2_ms,
+                            obmc=obmc_ms, dec_rest=dec_rest)
+    return result
+
+
 def check_compact_launch(name, rec, raw_name, raw_rec):
     """A compact path's warm-up launch against its raw path's K1 launch
     on the same frame: the same inputs (SHA-256 of every input tensor),
@@ -1854,13 +2150,16 @@ def plain_version(name):
 
 def plain_worker(name, args):
     """Worker process: the plain version of kernel instance ``name`` on
-    CPU tensors; returns (seconds, output digests)."""
+    CPU tensors; returns (seconds, output digests).  Under
+    inference_mode, which skips autograd's bookkeeping on each of the
+    plain versions' many small tensor ops; the outputs are the same."""
     torch.set_num_threads(1)
     fn = plain_version(name)
     targs = [torch.from_numpy(a) if isinstance(a, np.ndarray) else a
              for a in args]
     t0 = time.perf_counter()
-    out = fn(*targs)
+    with torch.inference_mode():
+        out = fn(*targs)
     return time.perf_counter() - t0, output_digests(out)
 
 
@@ -2369,6 +2668,8 @@ def main():
     mixed = mixed_q_phase(dev, gpu, recorders["decode"], paths)
     nonuni = nonuniform_phase(dev, gpu, recorders["packed"],
                               recorders["decode"])
+    ppaths = {name: pframe_phase(dev, gpu, name, recorders)
+              for name in P_PATHS}
     # each instance's launch on the first path that ran it (K1 and K1-ext
     # also run on the RGB paths: their stage splits and compact checks
     # take the planar paths' launches)
@@ -2417,6 +2718,9 @@ def main():
     main_recs[("nonuniform_ext", "rc_encode_ext", 0)] = nonuni["enc_rec"]
     for gi, rec in enumerate(nonuni["recs"]):
         main_recs[("nonuniform_ext", "rc_decode_ext", gi)] = rec
+    for pn, p in ppaths.items():
+        for k, rec in p["recs"].items():
+            main_recs[(pn, k, 0)] = rec
     launches = [(name, rec, False) for name, _info, rec in random] + \
         [(name, rec, True) for (_pn, name, _g), rec in main_recs.items()]
     secs, workers = plain_checks(launches)
@@ -2514,6 +2818,20 @@ def main():
         funcs, compact_sec,
         mp[("nonuniform_ext", "rc_decode_ext")]["main_path_shape"],
         checks["rc_decode_ext"], gpu))
+    for pn, p in ppaths.items():
+        # the warm-up P frame's decisions: the encode's over its whole
+        # stream, the decode's over the residual planes (the MV section is
+        # parsed on the host)
+        ctx, diff, act = p["recs"][P_PATHS[pn].kernels[0]][0][:3]
+        for name in filter(None, P_PATHS[pn].kernels):
+            cut = 0 if name.startswith("rc_encode") else p["mv_cap"]
+            decisions = decisions_per_lane(diff[:, cut:], act[:, cut:])
+            kernels.append(rc_row(
+                name, pn, [p["recs"][name]], [p["ms"][name]],
+                [group_plain[(pn, name, 0)]], [list(range(len(decisions)))],
+                p["p_launches"][name], p["p_steps"], decisions, probe, funcs,
+                compact_sec, mp[(pn, name)]["main_path_shape"],
+                checks[name], gpu))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"probes": dict(
         decision_encode_ns=ns_enc, decision_decode_ns=ns_dec,
@@ -2529,6 +2847,11 @@ def main():
         "launches", "dec_ms", "group_ms", "steps")},
         "nonuniform_ext": {k: nonuni[k] for k in (
             "launches", "encode_ms", "decode_ms", "steps")}}))
+    log(json.dumps({"pframe": {name: dict(
+        encode_ms=p["enc_ms"], decode_ms=p["dec_ms"],
+        launches=p["launches"], p_frame_bytes=p["p_frame_bytes"],
+        key_bytes=p["key_bytes"], **p["stages"])
+        for name, p in ppaths.items()}}))
     log(json.dumps({"stages": stages}))
     log(json.dumps({"kernels": kernels}))
     log(gpu)

@@ -771,3 +771,45 @@ def test_grouped_decode_matches_plain(cuda):
     got, _kf = decs[0].decode_frame(pkt)
     for a, b in zip(got, frame):
         assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("pix_fmt,me", [("yuv420p", "full"),
+                                        ("yuv420p", "epzs"),
+                                        ("yuv422p10le", "full")])
+def test_pframe_on_cuda_matches_cpu(cuda, pix_fmt, me):
+    """FFV1-P on the card (K1 at 9 bits, K1-ext at 11, K2 at 9) against
+    the port on the CPU (the plain versions, held to the host
+    FFV1PEncoder in tests/test_torch_pframe.py): the same packets, a
+    lossless decode at 8 bits, one launch per frame and lane scan; 64x48
+    in 4 slices of 32x24 (8 rows of block padding), GOP 3."""
+    from tpu_ffv1_torch import EncoderParams as TorchEncoderParams
+    from tpu_ffv1_torch import TorchFFV1PDecoder, TorchFFV1PEncoder
+    from tpu_ffv1_torch.tpu import rc_decode, rc_encode
+    w, h, n = 64, 48, 5
+    gen = chip_smoke.synthetic_streams_pan if pix_fmt == "yuv420p" else \
+        chip_smoke.synthetic_streams_pan10
+    frames = gen(1, n, w, h, 7)[0]
+    params = TorchEncoderParams(width=w, height=h, pix_fmt=pix_fmt, level=3,
+                                coder=2, slices=4, gop_size=3)
+    encs = [TorchFFV1PEncoder(params, experimental=True, me=me, device=d)
+            for d in (cuda, "cpu")]
+    rc_encode.LAUNCHES.clear()
+    pkts = []
+    for f in frames:
+        got, want = (e.encode_frames([f])[0] for e in encs)
+        assert got == want
+        pkts.append(got[0])
+    p_inst = "rc_encode" if pix_fmt == "yuv420p" else "rc_encode_ext"
+    want = {"rc_encode": n} if p_inst == "rc_encode" else \
+        {"rc_encode": 2, "rc_encode_ext": n - 2}
+    assert rc_encode.LAUNCHES == want
+    if pix_fmt != "yuv420p":
+        return
+    dec = TorchFFV1PDecoder(w, h, encs[0].extradata, device=cuda)
+    rc_decode.LAUNCHES.clear()
+    for pkt, f in zip(pkts, frames):
+        planes, _kf = dec.decode_frame(pkt)
+        for a, b in zip(planes, f):
+            assert np.array_equal(a, b)
+    assert rc_decode.LAUNCHES == {"rc_decode": n}
+    assert not dec.slice_damaged.any()

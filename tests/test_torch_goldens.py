@@ -15,7 +15,12 @@ PCM retry; so are the nonuniform_ext phase's (2 x 3 frames of 203x69
 yuv444p16le at version 4 on a grid of four slice sizes).  The
 non-uniform main paths (720p: 1280x720 yuv420p; ntsc10_ctx1: 720x486
 yuv422p10le at context model 1; 2 x 8 frames each) are the host C
-encoder's, as every main path's.  The compact-form paths
+encoder's, as every main path's.  The FFV1-P paths' (pframe_720p:
+1280x720 yuv420p, 2 x 8 frames, full search; pframe_720p_epzs: the same
+content, 2 x 4 frames, the EPZS search; pframe_422p10_540p: 960x540
+yuv422p10le, 2 x 4 frames) are the JAX package's host FFV1PEncoder's,
+which the JAX package's device P encoder matches byte for byte
+(tests/test_pframe_tpu.py).  The compact-form paths
 (8bit_compact, 8bit_ctx1_compact) have no digests of their own: the
 host encoder on their content and configuration must give those of the
 path they name (their packets are the raw form's, byte for byte).
@@ -94,6 +99,32 @@ def golden_nonuniform():
             "packets": packets}
 
 
+def golden_pframe(name):
+    """Digests of a P path's packets under the host FFV1PEncoder, one
+    encoder per stream."""
+    from tpu_ffv1.pframe.codec import FFV1PEncoder
+    path = chip_smoke.P_PATHS[name]
+    params = EncoderParams(**chip_smoke.p_params_kw(name))
+    encs = [FFV1PEncoder(params, experimental=True, me=path.me)
+            for _ in range(chip_smoke.BATCH)]
+    packets = []
+    for enc, frames in zip(encs, chip_smoke.p_streams(name)):
+        packets.append([])
+        for f in frames:
+            pkt, key = enc.encode_frame(f)
+            packets[-1].append(dict(chip_smoke.digest(pkt), key=bool(key)))
+    return {"pix_fmt": path.pix_fmt, "width": path.width,
+            "height": path.height, "me": path.me, "seed": path.seed,
+            "frames": path.frames,
+            "extradata": chip_smoke.digest(encs[0].extradata),
+            "packets": packets}
+
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.P_PATHS))
+def test_pframe_goldens_match_host_p_encoder(name):
+    assert golden_pframe(name) == chip_smoke.load_goldens()[name]
+
+
 def test_pcm_goldens_match_jax_encoder():
     assert golden_pcm() == chip_smoke.load_goldens()["v4_pcm"]
 
@@ -116,6 +147,7 @@ if __name__ == "__main__":
            if not chip_smoke.PATHS[name].golden}
     out["v4_pcm"] = golden_pcm()
     out["nonuniform_ext"] = golden_nonuniform()
+    out.update((name, golden_pframe(name)) for name in chip_smoke.P_PATHS)
     with open(chip_smoke.GOLDENS, "w") as f:
         json.dump(out, f, indent=1)
         f.write("\n")

@@ -218,3 +218,21 @@ def test_pcm_slice_codec_matches(pix, w, h):
                                      bits)
             out.append(enc.terminate())
         assert out[0] == out[1], cm
+
+
+def test_pframe_codec_matches():
+    """The P stream's constants and extradata marker
+    (tpu_ffv1_torch/pframe/codec.py), errors included."""
+    from tpu_ffv1.pframe import codec as jcodec
+    from tpu_ffv1_torch.pframe import codec as tcodec
+    for name in ("BLOCK", "LAMBDA", "P_MAGIC", "P_FORMAT_VERSION"):
+        assert getattr(tcodec, name) == getattr(jcodec, name)
+    base = b"\x01\x02\x03"
+    assert tcodec.p_extradata(base) == jcodec.p_extradata(base)
+    assert tcodec.split_p_extradata(jcodec.p_extradata(base)) == base
+    for bad in (base, base + b"FFV1P\x02", b""):
+        with pytest.raises(ValueError) as want:
+            jcodec.split_p_extradata(bad)
+        with pytest.raises(ValueError) as got:
+            tcodec.split_p_extradata(bad)
+        assert str(got.value) == str(want.value)

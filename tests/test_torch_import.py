@@ -24,7 +24,9 @@ MODULES = ["tpu_ffv1_torch", "tpu_ffv1_torch.device",
            "tpu_ffv1_torch.codec.params", "tpu_ffv1_torch.codec.context",
            "tpu_ffv1_torch.codec.slice_codec",
            "tpu_ffv1_torch.bitstream.symbols",
-           "tpu_ffv1_torch.bitstream.headers"]
+           "tpu_ffv1_torch.bitstream.headers",
+           "tpu_ffv1_torch.pframe", "tpu_ffv1_torch.pframe.codec",
+           "tpu_ffv1_torch.pframe.motion", "tpu_ffv1_torch.pframe.tpu"]
 
 
 def _jax_modules_after(imports: str) -> str:
@@ -49,6 +51,7 @@ def test_port_never_imports_jax():
         "    __import__(m)\n"
         "import tpu_ffv1_torch\n"
         "tpu_ffv1_torch.TorchFFV1Encoder, tpu_ffv1_torch.TorchFFV1Decoder\n"
+        "tpu_ffv1_torch.TorchFFV1PEncoder, tpu_ffv1_torch.TorchFFV1PDecoder\n"
         "tpu_ffv1_torch.EncoderParams\n")
     assert bad == "", f"port pulled in jax / tpu_ffv1: {bad}"
 
@@ -60,7 +63,8 @@ def test_chip_smoke_never_imports_jax():
     assert bad == "", f"chip_smoke pulled in jax / tpu_ffv1: {bad}"
 
 
-@pytest.mark.parametrize("tool", ["scan_variants", "warp_emu"])
+@pytest.mark.parametrize("tool", ["scan_variants", "warp_emu",
+                                  "pframe_smoke"])
 def test_tools_never_import_jax(tool):
     """The port's tools (tools/: the kernel-variant comparison on the
     card, the host warp emulation) import the port and chip_smoke.py,
@@ -70,19 +74,28 @@ def test_tools_never_import_jax(tool):
     assert bad == "", f"tools/{tool} pulled in jax / tpu_ffv1: {bad}"
 
 
-@pytest.mark.parametrize("cls", ["encoder", "decoder"])
+@pytest.mark.parametrize("cls", ["encoder", "decoder", "p_encoder",
+                                 "p_decoder"])
 def test_cuda_request_without_cuda_raises(cls):
     if torch.cuda.is_available():
         pytest.skip("CUDA is available here; nothing to refuse")
     from tpu_ffv1 import EncoderParams, FFV1Encoder
-    from tpu_ffv1_torch import TorchFFV1Decoder, TorchFFV1Encoder
+    from tpu_ffv1_torch import (TorchFFV1Decoder, TorchFFV1Encoder,
+                                TorchFFV1PDecoder, TorchFFV1PEncoder)
     from tpu_ffv1_torch.device import resolve_device
+    from tpu_ffv1_torch.pframe.codec import p_extradata
     params = EncoderParams(width=16, height=16, pix_fmt="yuv420p", level=3,
-                           coder=2)
+                           coder=2, gop_size=12)
     with pytest.raises(RuntimeError, match="cuda"):
         resolve_device("cuda")
     with pytest.raises(RuntimeError, match="cuda"):
+        # the device defaults to "cuda"
         if cls == "encoder":
-            TorchFFV1Encoder(params)          # device defaults to "cuda"
-        else:
+            TorchFFV1Encoder(params)
+        elif cls == "decoder":
             TorchFFV1Decoder(16, 16, FFV1Encoder(params).extradata)
+        elif cls == "p_encoder":
+            TorchFFV1PEncoder(params, experimental=True)
+        else:
+            TorchFFV1PDecoder(16, 16,
+                              p_extradata(FFV1Encoder(params).extradata))

@@ -170,6 +170,9 @@ class TorchFFV1Decoder:
         self.key_frame_ok = [False] * batch
         self.last_planes = [None] * batch
         self.slice_damaged = np.zeros((batch, self.n_slices), bool)
+        # the slices whose CRC failed in the last parse of their stream
+        # (the P decoder skips them, as the host's does)
+        self.crc_failed = np.zeros((batch, self.n_slices), bool)
         # per stream and slice, the geometry its last header parsed to
         # (the host's slice state keeps it): the rect a damaged slice
         # conceals
@@ -234,7 +237,9 @@ class TorchFFV1Decoder:
         for si, (start, end) in enumerate(bounds):
             if keyframe:
                 self.slice_damaged[bi, si] = False
-            if self.ec and crc32_ieee(pkt[start:end]) != 0:
+            self.crc_failed[bi, si] = bool(
+                self.ec and crc32_ieee(pkt[start:end]) != 0)
+            if self.crc_failed[bi, si]:
                 self.slice_damaged[bi, si] = True
             buf = pkt[start:end] if si else pkt[:end]
             src = RangeDecoder(buf)

@@ -373,21 +373,22 @@ class TorchFFV1Encoder:
             self._header_cache[key] = (enc.low, enc.range, list(enc.prov))
         return self._header_cache[key]
 
-    def _pcm_lanes(self, counts_np, rowpos=None):
+    def _pcm_lanes(self, counts_np, rowpos=None, cap=None):
         """bool (L,): the lanes whose slice retries as PCM.  On a uniform
         grid at version 4 (range coder) ``rowpos`` (R, L) holds each
         lane's byte position at its line starts, checked against the
         budget; off uniform grids the reference has no row budget
         (encoder.py:662 of the JAX package) and its output cap is the only
-        trigger.  A count past the cap raises at version 3 and in
-        Golomb-Rice, as the reference does (ffv1enc.c:1210)."""
+        trigger.  A count past the cap (default ``out_cap``) raises at
+        version 3 and in Golomb-Rice, as the reference does (ffv1enc.c:
+        1210)."""
         pcm = np.zeros(self.L, bool)
         if rowpos is not None:
             # remaining budget below w * 35 at any line start
             # (ffv1enc.c:283-287)
             pcm = ((self._slice_budget() - rowpos) <
                    self.row_widths[:, None] * 35).any(axis=0)
-        over = counts_np > self.out_cap
+        over = counts_np > (self.out_cap if cap is None else cap)
         if over.any():
             if self.rp.version <= 3 or self.golomb:
                 raise RuntimeError("encoded slice exceeded output cap (the "
@@ -695,18 +696,28 @@ class TorchFFV1Encoder:
         None in the compact form, whose raw slots never exist."""
         compact = self.compact if compact is None else compact
         ctxs, diffs, acts = self._streams(streams, rct)
+        return self._scan_finalize(ctxs, diffs, acts, states0, lows, ranges,
+                                   prefixes, plens, self.bits, compact)
+
+    def _scan_finalize(self, ctxs, diffs, acts, states0, lows, ranges,
+                       prefixes, plens, bits: int, compact: bool = False):
+        """Lane scan -> finalize at coded width ``bits`` (the P pipeline
+        codes its residuals at bits + 1, pframe/tpu.py; encoder.py:686 of
+        the JAX package), in the compact form if ``compact``.  Returns
+        (bytes, counts, states, overflow, packed, low, range); packed is
+        None in the compact form, whose raw slots never exist."""
         if compact:
             cm, low, rng, states_out = rc_encode_compact(
                 ctxs, diffs, acts, states0, self.one_tab, self.zero_tab,
-                lows, ranges, self.bits)
+                lows, ranges, bits)
             out, counts, overflow = finalize_compact(cm, low, rng, prefixes,
                                                      plens)
             return out, counts, states_out, overflow, None, low, rng
         packed, low, rng, states_out = rc_encode_packed(
             ctxs, diffs, acts, states0, self.one_tab, self.zero_tab,
-            lows, ranges, self.bits)
-        out, counts, overflow = finalize_packed(packed, low, rng,
-                                                prefixes, plens, self.s2)
+            lows, ranges, bits)
+        out, counts, overflow = finalize_packed(packed, low, rng, prefixes,
+                                                plens, 4 if bits <= 10 else 6)
         return out, counts, states_out, overflow, packed, low, rng
 
     def _assemble(self, payloads):
@@ -801,13 +812,14 @@ class TorchFFV1Encoder:
         return out, counts
 
     def _packets(self, out, counts, keyframe: bool, rowpos=None,
-                 streams=None):
+                 streams=None, cap=None):
         """Fetch the lanes' bytes and assemble each stream's packet.  At
         version 4 (range coder) a slice that fails the budget check or
-        passes the output cap is re-encoded in PCM from ``streams``
-        (``_pcm_lanes``; encoder.py:1164-1248 of the JAX package)."""
+        passes the output cap (default ``out_cap``) is re-encoded in PCM
+        from ``streams`` (``_pcm_lanes``; encoder.py:1164-1248 of the JAX
+        package)."""
         counts_np = counts.cpu().numpy().astype(np.int64)
-        pcm = self._pcm_lanes(counts_np, rowpos)
+        pcm = self._pcm_lanes(counts_np, rowpos, cap)
         counts_np[pcm] = 0
         out_np = out[:, :int(counts_np.max())].cpu().numpy()
         payloads = [out_np[li, :counts_np[li]].tobytes()
