@@ -134,7 +134,18 @@ exits non-zero without the final result line:
    frames, encode only: K1-ext at 11 bits), each held to the host
    FFV1PEncoder's golden digests, its decode lossless, each lane scan
    launched once per frame, with stage times (search, OBMC + residual
-   + stencil, scan, finalize; parse, MV parse, scan, OBMC); then K1's,
+   + stencil, scan, finalize; parse, MV parse, scan, OBMC); then the
+   pipelined phases (pipeline_phase): 8bit_pipe and 16bit_pipe, those
+   cells' frames encoded and decoded at depth 1 and at depth 2 (two
+   submits, then a collect before each further submit), every submit
+   under torch.cuda.set_sync_debug_mode("error"), the packets equal to
+   the goldens, the decodes lossless, each kernel launched once per
+   frame; transcode_8bit and transcode_16bit, their packets through
+   TorchFFV1Decoder(device_out=True) into submit_device_frames of an
+   encoder with the same parameters, the packets again the goldens and
+   only (low, range, pos) and the byte slab copied to the host; and
+   pframe_720p_pipe, the P cell at depth 2; each with its median step at
+   depth 1 and at depth 2; then K1's,
    K1-ext's, K2's and
    K2-ext's stage split: each stage probe of K1 and of its global form, and of K2 and
    K2-five, on the 8bit and 8bit_ctx1 warm-up inputs, of K1-ext and
@@ -160,7 +171,8 @@ exits non-zero without the final result line:
    must equal the digests of the kernel's outputs;
 7. JSON lines: the probes' latencies ("probes"), each path's step and
    stage times ("steps"), mixed_q's and nonuniform_ext's steps, the P
-   paths' steps and stages ("pframe"), the stage splits ("stages") and
+   paths' steps and stages ("pframe"), the pipelined phases' steps at
+   depth 1 and 2 ("pipeline"), the stage splits ("stages") and
    the
    per-kernel numbers ("kernels": time, launches, roofline and chain
    bounds, plain version's time, max abs error; a grouped decode's row
@@ -2020,6 +2032,270 @@ def pframe_phase(dev, gpu, name, recorders):
     return result
 
 
+def strict(fn):
+    """``fn`` run under torch.cuda.set_sync_debug_mode("error"): any call
+    in it that waits for the card raises."""
+    def call(*args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return call
+
+
+def pipelined(submit, collect, steps, on_result):
+    """Depth 2: two submits, then a collect before each further submit
+    (each submit strict).  Calls ``on_result(t, result)`` per frame and
+    returns the host-clock time from each collect's return to the next
+    (the first: from the first submit), s."""
+    submit = strict(submit)
+    t_prev = time.perf_counter()
+    submit(steps[0])
+    times = []
+    for t in range(len(steps)):
+        if t + 1 < len(steps):
+            submit(steps[t + 1])
+        res = collect()
+        now = time.perf_counter()
+        times.append(now - t_prev)
+        t_prev = now
+        on_result(t, res)
+    return times
+
+
+# the intra paths pipelined (8bit_pipe, 16bit_pipe) and transcoded
+# (transcode_8bit, transcode_16bit), and the P path pipelined
+# (pframe_720p_pipe): frames, parameters and goldens of their cells
+PIPE_PATHS = ("8bit", "16bit")
+P_PIPE_PATH = "pframe_720p"
+
+
+def pipeline_phase(dev, gpu, name):
+    """<name>_pipe and transcode_<bits>: the cell's frames through
+    TorchFFV1Encoder and TorchFFV1Decoder at depth 1 (encode_frames,
+    decode_frames) and at depth 2 (``pipelined``, every submit under
+    set_sync_debug_mode("error")); the packets equal the cell's goldens,
+    the decodes lossless, each kernel launched once per frame at depth 2.
+    Then the transcode: the depth-2 packets into
+    TorchFFV1Decoder(device_out=True) and its planes into
+    submit_device_frames of an encoder with the same parameters, both
+    pipelined (and at depth 1 for the time), the packets again the
+    goldens, and only (low, range, pos) and the byte slab fetched.
+    Prints the median step at depth 1 and 2 (ms, host clock) and the
+    slab's device-to-host time; returns the figures."""
+    path = PATHS[name]
+    w, h, frames = path.width, path.height, path.frames
+    k_enc, k_dec = path.kernels
+    streams = path_streams(name)
+    golden = load_goldens()[name]
+    steps = [[streams[b][t] for b in range(BATCH)] for t in range(frames)]
+    bits = 8 if path.bits <= 8 else 16
+    mpix = BATCH * w * h / 1e6
+
+    def enc_new():
+        return TorchFFV1Encoder(EncoderParams(**params_kw(name)),
+                                batch=BATCH, device=dev)
+
+    def packets_ok(label):
+        def on_result(t, res):
+            for b in range(BATCH):
+                want = golden["packets"][b][t]
+                check(digest(res[b][0]) == {"sha256": want["sha256"],
+                                            "len": want["len"]} and
+                      res[b][1] == want["key"],
+                      f"{label} stream {b} frame {t}: packet differs from "
+                      f"the golden")
+        return on_result
+
+    def lossless(label):
+        def on_result(t, res):
+            for b in range(BATCH):
+                planes, kf = res[b]
+                check(kf == (t == 0) and all(
+                    a.dtype == f.dtype and np.array_equal(a, f)
+                    for a, f in zip(planes, steps[t][b])),
+                    f"{label} stream {b} frame {t}: decode not lossless")
+        return on_result
+
+    def launches_ok(label, want):
+        got = all_launches()
+        check(got == want, f"{label}: expected {want} launches, got {got}")
+        return got
+
+    tag = f"{name}_pipe"
+    enc1 = enc_new()
+    keep = {}
+    fin = port_encoder.finalize_packed
+
+    def finalize_kept(*args):
+        out = fin(*args)
+        keep["out"] = out[0]
+        return out
+    d1_enc = []
+    for t, step in enumerate(steps):
+        if t == frames - 1:
+            port_encoder.finalize_packed = finalize_kept
+        t0 = time.perf_counter()
+        res = enc1.encode_frames(step)
+        d1_enc.append(time.perf_counter() - t0)
+        port_encoder.finalize_packed = fin
+        packets_ok(f"{tag} depth 1")(t, res)
+    slab = keep["out"][:, :enc1.out_cap]
+    host_slab = torch.empty(slab.shape, dtype=slab.dtype, pin_memory=True)
+    d2h_ms = cuda_time_ms(lambda: host_slab.copy_(slab, non_blocking=True),
+                          3)
+    enc2 = enc_new()
+    reset_counts()
+    packets = []
+
+    def keep_packets(t, res):
+        packets_ok(f"{tag} depth 2")(t, res)
+        packets.append([r[0] for r in res])
+    d2_enc = pipelined(enc2.submit_frames, enc2.collect_frames, steps,
+                       keep_packets)
+    enc_launches = launches_ok(f"{tag} encode", {k_enc: frames})
+    dec1 = TorchFFV1Decoder(w, h, enc1.extradata, batch=BATCH, device=dev)
+    d1_dec = []
+    for t, pk in enumerate(packets):
+        t0 = time.perf_counter()
+        res = dec1.decode_frames(pk)
+        d1_dec.append(time.perf_counter() - t0)
+        lossless(f"{tag} depth 1")(t, res)
+    dec2 = TorchFFV1Decoder(w, h, enc1.extradata, batch=BATCH, device=dev)
+    reset_counts()
+    d2_dec = pipelined(dec2.submit_frames, dec2.collect_frames, packets,
+                       lossless(f"{tag} depth 2"))
+    check(not dec2.slice_damaged.any(), f"{tag}: slice flagged damaged")
+    dec_launches = launches_ok(f"{tag} decode", {k_dec: frames})
+    med = {k: median([1e3 * x for x in v[1 + WARM:]])
+           for k, v in (("enc_d1", d1_enc), ("enc_d2", d2_enc),
+                        ("dec_d1", d1_dec), ("dec_d2", d2_dec))}
+    log(f"[{tag}] {w}x{h} {path.pix_fmt}, batch {BATCH}, {frames} frames, "
+        f"every submit under set_sync_debug_mode(\"error\"): packets equal "
+        f"to the goldens, decodes lossless; launches at depth 2: encode "
+        f"{enc_launches}, decode {dec_launches}; median step over the "
+        f"{frames - 1 - WARM} timed frames ({gpu}): encode depth 1 "
+        f"{med['enc_d1']:.2f} ms ({mpix / med['enc_d1'] * 1e3:.2f} Mpix/s), "
+        f"depth 2 {med['enc_d2']:.2f} ms "
+        f"({mpix / med['enc_d2'] * 1e3:.2f} Mpix/s); decode depth 1 "
+        f"{med['dec_d1']:.2f} ms ({mpix / med['dec_d1'] * 1e3:.2f} "
+        f"Mpix/s), depth 2 {med['dec_d2']:.2f} ms "
+        f"({mpix / med['dec_d2'] * 1e3:.2f} Mpix/s); the byte slab "
+        f"{tuple(slab.shape)} to pinned memory {d2h_ms:.2f} ms (CUDA "
+        f"events, alone)")
+
+    # the transcode: no plane reaches the host
+    ttag = f"transcode_{bits}bit"
+    tdec = TorchFFV1Decoder(w, h, enc1.extradata, batch=BATCH, device=dev,
+                            device_out=True)
+    tenc = enc_new()
+    d1_tr = []
+    for t, pk in enumerate(packets):
+        t0 = time.perf_counter()
+        planes, _kf = tdec.decode_frames(pk)
+        tenc.submit_device_frames(planes)
+        res = tenc.collect_frames()
+        d1_tr.append(time.perf_counter() - t0)
+        packets_ok(f"{ttag} depth 1")(t, res)
+    tdec = TorchFFV1Decoder(w, h, enc1.extradata, batch=BATCH, device=dev,
+                            device_out=True)
+    tenc = enc_new()
+    reset_counts()
+    tdec_submit = strict(tdec.submit_frames)
+    tenc_submit = strict(tenc.submit_device_frames)
+    d2_tr = []
+    t_prev = time.perf_counter()
+    tdec_submit(packets[0])
+    for t in range(frames):
+        if t + 1 < frames:
+            tdec_submit(packets[t + 1])
+        planes, keyframes = tdec.collect_frames()
+        check(keyframes == [t == 0] * BATCH and all(
+            p.dtype == (torch.uint8 if bits == 8 else torch.int32) and
+            p.device == dev for p in planes),
+            f"{ttag}: device_out planes")
+        tenc_submit(planes)
+        if t:
+            packets_ok(f"{ttag} depth 2")(t - 1, tenc.collect_frames())
+            now = time.perf_counter()
+            d2_tr.append(now - t_prev)
+            t_prev = now
+    packets_ok(f"{ttag} depth 2")(frames - 1, tenc.collect_frames())
+    d2_tr.append(time.perf_counter() - t_prev)
+    tr_launches = launches_ok(ttag, {k_enc: frames, k_dec: frames})
+    d2h = (tdec.pipe.fetched_bytes + tenc.pipe.fetched_bytes) / frames
+    check(tdec.pipe.fetched_bytes == frames * 3 * tdec.L * 4,
+          f"{ttag}: the decoder fetched more than (low, range, pos)")
+    med["tr_d1"] = median([1e3 * x for x in d1_tr[1 + WARM:]])
+    med["tr_d2"] = median([1e3 * x for x in d2_tr[1 + WARM:]])
+    log(f"[{ttag}] {name}'s packets -> TorchFFV1Decoder(device_out=True) "
+        f"-> submit_device_frames, every submit strict: packets equal to "
+        f"the goldens; launches {tr_launches}; bytes copied to the host "
+        f"per frame {d2h:.0f} (the decoder's (low, range, pos) "
+        f"{tdec.pipe.fetched_bytes // frames}, the encoder's counts, "
+        f"overflow flags and byte slab {tenc.pipe.fetched_bytes // frames}; "
+        f"no plane); median ms per frame ({gpu}): depth 1 "
+        f"{med['tr_d1']:.2f}, depth 2 {med['tr_d2']:.2f}")
+    return dict(med, slab_d2h_ms=d2h_ms, transcode_d2h_bytes=d2h,
+                launches=dict(encode=enc_launches, decode=dec_launches,
+                              transcode=tr_launches))
+
+
+def pframe_pipeline_phase(dev, gpu):
+    """pframe_720p_pipe: the P cell's frames through TorchFFV1PEncoder at
+    depth 1 and at depth 2 (every submit strict), the packets equal to
+    its goldens, each lane scan launched once per frame at depth 2;
+    prints the median step at each depth."""
+    name = P_PIPE_PATH
+    path = P_PATHS[name]
+    frames = path.frames
+    streams = p_streams(name)
+    golden = load_goldens()[name]
+    steps = [[streams[b][t] for b in range(BATCH)] for t in range(frames)]
+    tag = f"{name}_pipe"
+
+    def enc_new():
+        return TorchFFV1PEncoder(EncoderParams(**p_params_kw(name)),
+                                 batch=BATCH, me=path.me, experimental=True,
+                                 device=dev)
+
+    def packets_ok(t, res):
+        for b in range(BATCH):
+            want = golden["packets"][b][t]
+            check(digest(res[b][0]) == {"sha256": want["sha256"],
+                                        "len": want["len"]} and
+                  res[b][1] == want["key"],
+                  f"{tag} stream {b} frame {t}: packet differs from the "
+                  f"golden")
+    enc = enc_new()
+    d1 = []
+    for t, step in enumerate(steps):
+        t0 = time.perf_counter()
+        res = enc.encode_frames(step)
+        d1.append(time.perf_counter() - t0)
+        packets_ok(t, res)
+    enc = enc_new()
+    reset_counts()
+    d2 = pipelined(enc.submit_frames, enc.collect_frames, steps, packets_ok)
+    want = collections.Counter({path.key_kernel: 1})
+    want[path.kernels[0]] += frames - 1
+    launches = all_launches()
+    check(launches == dict(want), f"{tag}: expected {dict(want)} launches, "
+          f"got {launches}")
+    mpix = BATCH * path.width * path.height / 1e6
+    med = {k: median([1e3 * x for x in v[1 + WARM:]])
+           for k, v in (("enc_d1", d1), ("enc_d2", d2))}
+    log(f"[{tag}] {path.width}x{path.height} {path.pix_fmt}, batch {BATCH}, "
+        f"{frames} frames, every submit strict: packets equal to the "
+        f"goldens; launches at depth 2 {launches}; median step over the "
+        f"{frames - 1 - WARM} timed P frames ({gpu}): depth 1 "
+        f"{med['enc_d1']:.2f} ms ({mpix / med['enc_d1'] * 1e3:.2f} Mpix/s), "
+        f"depth 2 {med['enc_d2']:.2f} ms "
+        f"({mpix / med['enc_d2'] * 1e3:.2f} Mpix/s)")
+    return dict(med, launches=launches)
+
+
 def check_compact_launch(name, rec, raw_name, raw_rec):
     """A compact path's warm-up launch against its raw path's K1 launch
     on the same frame: the same inputs (SHA-256 of every input tensor),
@@ -2670,6 +2946,12 @@ def main():
                               recorders["decode"])
     ppaths = {name: pframe_phase(dev, gpu, name, recorders)
               for name in P_PATHS}
+    t0 = time.perf_counter()
+    pipes = {f"{name}_pipe": pipeline_phase(dev, gpu, name)
+             for name in PIPE_PATHS}
+    pipes[f"{P_PIPE_PATH}_pipe"] = pframe_pipeline_phase(dev, gpu)
+    log(f"[pipe] the pipelined and transcode phases in "
+        f"{time.perf_counter() - t0:.1f} s")
     # each instance's launch on the first path that ran it (K1 and K1-ext
     # also run on the RGB paths: their stage splits and compact checks
     # take the planar paths' launches)
@@ -2852,6 +3134,7 @@ def main():
         launches=p["launches"], p_frame_bytes=p["p_frame_bytes"],
         key_bytes=p["key_bytes"], **p["stages"])
         for name, p in ppaths.items()}}))
+    log(json.dumps({"pipeline": pipes}))
     log(json.dumps({"stages": stages}))
     log(json.dumps({"kernels": kernels}))
     log(gpu)

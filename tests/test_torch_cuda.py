@@ -813,3 +813,95 @@ def test_pframe_on_cuda_matches_cpu(cuda, pix_fmt, me):
             assert np.array_equal(a, b)
     assert rc_decode.LAUNCHES == {"rc_decode": n}
     assert not dec.slice_damaged.any()
+
+
+def _pipelined(enc_or_dec, steps, submit="submit_frames"):
+    """Two submits, then a collect before each further submit."""
+    getattr(enc_or_dec, submit)(steps[0])
+    got = []
+    for step in steps[1:] + [None]:
+        if step is not None:
+            getattr(enc_or_dec, submit)(step)
+        got.append(enc_or_dec.collect_frames())
+    return got
+
+
+@pytest.mark.parametrize("pix", ["yuv420p", "yuv444p16le"])
+def test_pipelined_paths_on_cuda_match_cpu(cuda, pix):
+    """Depth-2 encode and decode on the card (batch 2, 64x48, GOP 2 over
+    3 frames: the pinned staging, the copy streams, the events) against
+    encode_frames / decode_frames on the CPU, and the transcode chain
+    (device_out into submit_device_frames) against the same packets, no
+    plane fetched."""
+    from tpu_ffv1_torch import TorchFFV1Decoder, TorchFFV1Encoder
+    from .util import synth_frames
+    w, h = 64, 48
+    params = EncoderParams(width=w, height=h, pix_fmt=pix, level=3,
+                           coder=2, slices=4, gop_size=2)
+    streams = [synth_frames(pix, w, h, 3, seed=120 + b) for b in range(2)]
+    steps = [[s[t] for s in streams] for t in range(3)]
+    cpu = TorchFFV1Encoder(params, batch=2, device="cpu")
+    want = [cpu.encode_frames(s) for s in steps]
+    enc = TorchFFV1Encoder(params, batch=2, device=cuda)
+    assert _pipelined(enc, steps) == want
+    pkts = [[p for p, _k in res] for res in want]
+    cpu_dec = TorchFFV1Decoder(w, h, cpu.extradata, batch=2, device="cpu")
+    dec_want = [cpu_dec.decode_frames(p) for p in pkts]
+    dec = TorchFFV1Decoder(w, h, cpu.extradata, batch=2, device=cuda)
+    for got, exp in zip(_pipelined(dec, pkts), dec_want):
+        for (gp, gk), (ep, ek) in zip(got, exp):
+            assert gk == ek and all(np.array_equal(a, b)
+                                    for a, b in zip(gp, ep))
+    dev_dec = TorchFFV1Decoder(w, h, cpu.extradata, batch=2, device=cuda,
+                               device_out=True)
+    frames = [dev_dec.decode_frames(p)[0] for p in pkts]
+    trans = TorchFFV1Encoder(params, batch=2, device=cuda)
+    assert _pipelined(trans, frames, "submit_device_frames") == want
+    assert dev_dec.pipe.fetched_bytes == 3 * 3 * dev_dec.L * 4
+
+
+def test_submits_make_no_synchronising_call(cuda):
+    """Every submit of the intra encoder, the decoder (host and device
+    output), the device-source encoder and the P encoder, from the first
+    frame of a fresh instance on (the kernels loaded beforehand), runs
+    under torch.cuda.set_sync_debug_mode("error"), which raises on any
+    call that waits for the card."""
+    from tpu_ffv1_torch import (TorchFFV1Decoder, TorchFFV1Encoder,
+                                TorchFFV1PEncoder)
+    w, h = 64, 48
+    params = EncoderParams(width=w, height=h, pix_fmt="yuv420p", level=3,
+                           coder=2, slices=4, gop_size=2)
+    frames = _frames(w, h, 3, 130)
+    warm = TorchFFV1Encoder(params, device=cuda)
+    pkts = [warm.encode_frame(f)[0] for f in frames]
+    TorchFFV1Decoder(w, h, warm.extradata, device=cuda).decode_frame(pkts[0])
+
+    def strict(fn):
+        def call(*a):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return call
+
+    enc = TorchFFV1Encoder(params, device=cuda)
+    enc.submit_frames = strict(enc.submit_frames)
+    assert [r[0] for r in _pipelined(enc, [[f] for f in frames])] == \
+        [(p, t == 0 or t == 2) for t, p in enumerate(pkts)]
+    for device_out in (False, True):
+        dec = TorchFFV1Decoder(w, h, warm.extradata, device=cuda,
+                               device_out=device_out)
+        dec.submit_frames = strict(dec.submit_frames)
+        out = _pipelined(dec, [[p] for p in pkts])
+    trans = TorchFFV1Encoder(params, device=cuda)
+    trans.submit_device_frames = strict(trans.submit_device_frames)
+    assert [r[0][0] for r in _pipelined(
+        trans, [planes for planes, _k in out], "submit_device_frames")] == \
+        pkts
+    penc = TorchFFV1PEncoder(EncoderParams(width=w, height=h,
+                                           pix_fmt="yuv420p", level=3,
+                                           coder=2, slices=4, gop_size=3),
+                             experimental=True, device=cuda)
+    penc.submit_frames = strict(penc.submit_frames)
+    assert len(_pipelined(penc, [[f] for f in frames])) == 3

@@ -18,6 +18,7 @@ MODULES = ["tpu_ffv1_torch", "tpu_ffv1_torch.device",
            "tpu_ffv1_torch.tpu.golomb_decode",
            "tpu_ffv1_torch.tpu.encoder", "tpu_ffv1_torch.tpu.decoder",
            "tpu_ffv1_torch.tpu.state", "tpu_ffv1_torch.tpu.rct_search",
+           "tpu_ffv1_torch.tpu.pipeline",
            "tpu_ffv1_torch.core.tables",
            "tpu_ffv1_torch.core.rac", "tpu_ffv1_torch.core.crc",
            "tpu_ffv1_torch.core.intmath", "tpu_ffv1_torch.codec.pixfmt",

@@ -30,6 +30,9 @@ from tpu_ffv1_torch.tpu.state import (decoder_state_from_numpy,
                                       encoder_state_from_numpy)
 
 W, H = 48, 32
+# the frame size of check_encode, check_decode and the GOP hand-over: 16x8
+# slices
+CW, CH = 32, 16
 
 
 def rgb_frames(pix_fmt, n, seed, w=W, h=H):
@@ -67,8 +70,8 @@ def params(pix_fmt, context_model=0, gop=2, **kw):
 def check_encode(pix_fmt, context_model, compact=False):
     """Two streams (batch 2) through the port: each packet equal to the
     host encoder's and TPUFFV1Encoder's (batch 2 too)."""
-    streams = [rgb_frames(pix_fmt, 3, 10 + b) for b in range(2)]
-    p = params(pix_fmt, context_model)
+    streams = [rgb_frames(pix_fmt, 3, 10 + b, CW, CH) for b in range(2)]
+    p = params(pix_fmt, context_model, width=CW, height=CH)
     hosts = [FFV1Encoder(p) for _ in range(2)]
     jaxe = TPUFFV1Encoder(p, batch=2)
     port = TorchFFV1Encoder(p, batch=2, device="cpu", compact=compact)
@@ -86,11 +89,12 @@ def check_decode(pix_fmt, context_model):
     TorchFFV1Decoder(batch=2): every frame equal to the host decoder's,
     in layout (one B, G, R, A uint8 array at 8 bits, three uint16 planes
     above) and values, and to the source."""
-    streams = [rgb_frames(pix_fmt, 3, 20 + b) for b in range(2)]
-    p = params(pix_fmt, context_model)
+    streams = [rgb_frames(pix_fmt, 3, 20 + b, CW, CH) for b in range(2)]
+    p = params(pix_fmt, context_model, width=CW, height=CH)
     hosts = [FFV1Encoder(p) for _ in range(2)]
-    hdecs = [FFV1Decoder(W, H, hosts[0].extradata) for _ in range(2)]
-    port = TorchFFV1Decoder(W, H, hosts[0].extradata, batch=2, device="cpu")
+    hdecs = [FFV1Decoder(CW, CH, hosts[0].extradata) for _ in range(2)]
+    port = TorchFFV1Decoder(CW, CH, hosts[0].extradata, batch=2,
+                            device="cpu")
     assert port.rgb
     for t in range(3):
         pkts = [hosts[b].encode_frame(streams[b][t])[0] for b in range(2)]
@@ -204,8 +208,8 @@ def test_rgb_gop_begun_in_jax_continues_in_port():
     encoder_state_from_numpy (RGB's 2 x 666 state rows): the bytes of the
     host encoder alone; the decoder likewise from TPUFFV1Decoder after
     frame 0."""
-    p = params("bgr0", gop=4)
-    frames = rgb_frames("bgr0", 4, 7)
+    p = params("bgr0", gop=4, width=CW, height=CH)
+    frames = rgb_frames("bgr0", 4, 7, CW, CH)
     host = FFV1Encoder(p)
     want = [host.encode_frame(f) for f in frames]
     jaxe = TPUFFV1Encoder(p)
@@ -217,9 +221,9 @@ def test_rgb_gop_begun_in_jax_continues_in_port():
     got += [port.encode_frame(f) for f in frames[2:]]
     assert got == want and not want[2][1]
 
-    jaxd = TPUFFV1Decoder(W, H, host.extradata)
+    jaxd = TPUFFV1Decoder(CW, CH, host.extradata)
     jaxd.decode_frame(want[0][0])
-    portd = TorchFFV1Decoder(W, H, host.extradata, device="cpu")
+    portd = TorchFFV1Decoder(CW, CH, host.extradata, device="cpu")
     decoder_state_from_numpy(portd, np.asarray(jaxd.states),
                              jaxd.key_frame_ok)
     for (pkt, _kf), f in zip(want[1:], frames[1:]):

@@ -33,6 +33,8 @@ from tpu_ffv1_torch.tpu.state import (decoder_state_from_numpy,
                                       encoder_state_from_numpy)
 
 W, H = 64, 32
+# the frame size of check_encode and the GOP hand-over: 16x8 slices
+CW, CH = 32, 16
 
 
 def textured(r, shape, hi, tilt):
@@ -79,15 +81,15 @@ def check_encode(pix_fmt, context_model, coder=2, decode=False):
     search runs, some slice picks a pair other than (1, 1).  With
     ``decode``, TorchFFV1Decoder(batch=2) decodes the port's packets to
     the host decoder's planes, in layout and values, and the source."""
-    streams = [v4_frames(pix_fmt, 3, 10 + b) for b in range(2)]
-    p = v4_params(pix_fmt, context_model, coder)
+    streams = [v4_frames(pix_fmt, 3, 10 + b, CW, CH) for b in range(2)]
+    p = v4_params(pix_fmt, context_model, coder, w=CW, h=CH)
     hosts = [FFV1Encoder(p) for _ in range(2)]
     jaxe = TPUFFV1Encoder(p, batch=2)
     port = TorchFFV1Encoder(p, batch=2, device="cpu")
     assert port.rp.version == 4 and port.rct_search == jaxe.rct_search
     assert port.extradata == hosts[0].extradata == jaxe.extradata
-    hdecs = [FFV1Decoder(W, H, port.extradata) for _ in range(2)]
-    pdec = TorchFFV1Decoder(W, H, port.extradata, batch=2, device="cpu")
+    hdecs = [FFV1Decoder(CW, CH, port.extradata) for _ in range(2)]
+    pdec = TorchFFV1Decoder(CW, CH, port.extradata, batch=2, device="cpu")
     picks = set()
     for t in range(3):
         frame = [streams[b][t] for b in range(2)]
@@ -342,8 +344,8 @@ def test_v4_gop_begun_in_jax_continues_in_port():
     """bgr0 at version 4, frames 0-1 in TPUFFV1Encoder, frames 2-3 in the
     port after encoder_state_from_numpy: the host encoder's bytes; the
     decoder likewise from TPUFFV1Decoder after frame 0."""
-    p = v4_params("bgr0", gop=4)
-    frames = v4_frames("bgr0", 4, 7)
+    p = v4_params("bgr0", gop=4, w=CW, h=CH)
+    frames = v4_frames("bgr0", 4, 7, CW, CH)
     host = FFV1Encoder(p)
     want = [host.encode_frame(f) for f in frames]
     jaxe = TPUFFV1Encoder(p)
@@ -354,9 +356,9 @@ def test_v4_gop_begun_in_jax_continues_in_port():
     got += [port.encode_frame(f) for f in frames[2:]]
     assert got == want and not want[2][1]
 
-    jaxd = TPUFFV1Decoder(W, H, host.extradata)
+    jaxd = TPUFFV1Decoder(CW, CH, host.extradata)
     jaxd.decode_frame(want[0][0])
-    portd = TorchFFV1Decoder(W, H, host.extradata, device="cpu")
+    portd = TorchFFV1Decoder(CW, CH, host.extradata, device="cpu")
     decoder_state_from_numpy(portd, np.asarray(jaxd.states),
                              jaxd.key_frame_ok)
     for (pkt, _kf), f in zip(want[1:], frames[1:]):

@@ -119,7 +119,9 @@ def block_motion_search_cost(cur, ref, prev_mvs, block: int = 16,
                    radius + dx:radius + dx + W]
         sad = _block_sad(cur, sh, block)
         best.add(sad, sad + pen_y[dy + radius] + pen_x[dx + radius], i)
-    table = torch.tensor(cands, dtype=torch.int32, device=dev)
+    # non-blocking from pageable memory: staged before the call returns,
+    # with no wait on the card
+    table = torch.tensor(cands, dtype=torch.int32).to(dev, non_blocking=True)
     return table[best.mv.long()], best.sad, best.cost
 
 
@@ -129,8 +131,10 @@ def _sad_cost_at(cur, ref_flat, prev_mvs, mvb, block: int, lam: int):
     gather)."""
     L, H, W = cur.shape
     dev = cur.device
-    dy = mvb[..., 0].repeat_interleave(block, 1).repeat_interleave(block, 2)
-    dx = mvb[..., 1].repeat_interleave(block, 1).repeat_interleave(block, 2)
+    bh, bw = mvb.shape[1], mvb.shape[2]
+    per_px = mvb[:, :, None, :, None, :].expand(
+        L, bh, block, bw, block, 2).reshape(L, H, W, 2)
+    dy, dx = per_px[..., 0], per_px[..., 1]
     ys = (torch.arange(H, device=dev)[:, None] + dy).clamp_(0, H - 1)
     xs = (torch.arange(W, device=dev)[None, :] + dx).clamp_(0, W - 1)
     idx = (ys * W + xs).view(L, -1).long()
@@ -166,7 +170,7 @@ def block_motion_search_epzs(cur, ref, prev_mvs, block: int = 16,
     table = torch.tensor(
         [(dy, dx) for dy in pts for dx in pts] +
         [(dy, dx) for dy in range(-r2, r2 + 1) for dx in range(-r2, r2 + 1)],
-        dtype=torch.int32, device=dev)
+        dtype=torch.int32).to(dev, non_blocking=True)
     n1 = len(pts) ** 2
     cands = [table[i].expand(L, bh, bw, 2) for i in range(n1)]
     for dy, dx in ((0, 0), (0, -1), (0, 1), (-1, 0), (1, 0)):

@@ -49,7 +49,6 @@ from ..core.rac import RangeDecoder, default_state_tables
 from ..tpu import rc_decode
 from ..tpu.decoder import TorchFFV1Decoder
 from ..tpu.encoder import TorchFFV1Encoder
-from ..tpu.finalize import finalize_packed_full
 from ..tpu.residual import load_plane, residuals_and_contexts
 from .codec import BLOCK, LAMBDA, p_extradata, split_p_extradata
 from .motion import SEARCH_FNS
@@ -83,7 +82,9 @@ def _taps(H, W, by, bx, device):
         for dx in (0, 1):
             ix = np.clip(tx + dx, 0, bw - 1)
             wx = 2 * bx - wx1 if dx == 0 else wx1
-            taps.append(tuple(torch.from_numpy(a).to(device) for a in (
+            taps.append(tuple(torch.from_numpy(a).to(device,
+                                                     non_blocking=True)
+                              for a in (
                 iy.astype(np.int64), ix.astype(np.int64),
                 np.outer(wy, wx).astype(np.int32))))
     return tuple(taps)
@@ -309,14 +310,13 @@ class TorchFFV1PEncoder(TorchFFV1Encoder):
         self.ref_dev = None
         self.prev_mvs.zero_()
 
-    def encode_frames(self, streams):
-        """Encode one frame from each of ``batch`` streams; returns a list
-        of (packet, keyframe) per stream."""
-        if len(streams) != self.batch:
-            raise ValueError(f"expected {self.batch} streams, "
-                             f"got {len(streams)}")
-        keyframe = self.picture_number % self.rp.gop_size == 0
-        planes = self._upload(streams)
+    def _submit(self, planes, streams):
+        """One frame step (``TorchFFV1Encoder.submit_frames``; pframe/tpu.py:
+        379-483 of the JAX package): a keyframe codes as the intra
+        encoder's and resets the P chain's states and MV predictors; a P
+        frame runs ``_frame_pipeline_p`` against the last submitted planes.
+        The collect cuts a P frame's slab at ``p_out_cap``."""
+        keyframe = self._keyframe()
         lows, ranges, prefixes, plens = self._prefix_arrays(keyframe)
         if keyframe:
             out, counts, _st, overflow, packed, low, rng = \
@@ -335,12 +335,9 @@ class TorchFFV1PEncoder(TorchFFV1Encoder):
             cap = self.p_out_cap
         self.ref_dev = planes
         self.picture_number += 1
-        if bool(overflow.any()):
-            # a pixel emitted > s2 slots (or a 16-pixel group > 24): redo
-            # the finalize at full slot width from the raw scan output
-            out, counts = finalize_packed_full(packed, low, rng, prefixes,
-                                               plens)
-        return self._packets(out, counts, keyframe, cap=cap)
+        self._fetch(dict(out=out, counts=counts, overflow=overflow), keyframe,
+                    cap, planes, streams, packed=packed, low=low, rng=rng,
+                    lows=lows, ranges=ranges, prefixes=prefixes, plens=plens)
 
 
 class TorchFFV1PDecoder:

@@ -70,19 +70,31 @@ from ..core.rac import (RangeDecoder, custom_state_tables,
 from ..device import resolve_device
 from .golomb_decode import golomb_decode_planes
 from .golomb_encode import fresh_vlc_states
+from .pipeline import FramePipeline
 from .rc_decode import RGB_BITS, rc_decode_groups, rc_decode_rgb
+from .residual import wrap_int16
 
 
 class TorchFFV1Decoder:
     """Device FFV1 decoder.
 
     ``batch`` > 1 decodes that many independent streams in lockstep
-    (lanes = batch x slices).  Use decode_frames([pkt0, pkt1, ...]);
-    each result is (planes, keyframe) with host numpy planes.
+    (lanes = batch x slices).  Use decode_frames([pkt0, pkt1, ...]), or
+    submit_frames / collect_frames to keep a frame in flight; each
+    result is (planes, keyframe) with host numpy planes.
+
+    ``device_out``: collect_frames returns (planes, keyframes), the
+    planes stacked (batch, Hk, Wk) tensors on the device in the dtype
+    ``TorchFFV1Encoder.submit_device_frames`` takes (uint8 at 8 bits,
+    int32 above), so a transcode keeps every pixel on the card;
+    concealment needs the previous picture on the host, so a damaged
+    slice raises RuntimeError instead (decoder.py:91-97, 683-695 of the
+    JAX package).  Planar YUV/gray with the range coder on a uniform
+    grid only, as there.
     """
 
     def __init__(self, width: int, height: int, extradata: bytes,
-                 batch: int = 1, device="cuda"):
+                 batch: int = 1, device="cuda", device_out: bool = False):
         self.device = resolve_device(device)
         g = read_extra_header(extradata)
         self.golomb = g.ac == T.AC_GOLOMB_RICE
@@ -150,6 +162,12 @@ class TorchFFV1Decoder:
             raise NotImplementedError(
                 f"{'RGB' if self.rgb else 'Golomb-Rice'} needs a uniform "
                 f"slice grid, as in the reference")
+        if device_out and (self.golomb or self.rgb or not self.uniform):
+            raise NotImplementedError(
+                "device_out requires the fused planar range-coder decode "
+                "path (uniform grid), as in the reference")
+        self.device_out = device_out
+        self.pipe = FramePipeline(dev)
         # RGB plane p codes on state plane (p + 1) / 2: G 0, B and R 1,
         # A 2 (ffv1dec.c:253)
         self.n_state_planes = (2 if self.rgb else
@@ -185,7 +203,9 @@ class TorchFFV1Decoder:
 
     def reset(self):
         """Flush analog (avcodec_flush_buffers): forget GOP contexts,
-        concealment reference and keyframe gate."""
+        concealment reference and keyframe gate; frames in flight are
+        dropped."""
+        self.pipe.drain()
         self.key_frame_ok = [False] * self.batch
         self.last_planes = [None] * self.batch
         self.slice_damaged[:] = False
@@ -215,14 +235,22 @@ class TorchFFV1Decoder:
         bounds.reverse()
         return bounds
 
-    def _parse_packet(self, bi: int, pkt: bytes):
+    def _parse_packet(self, bi: int, pkt: bytes, damaged=None):
         """Keyframe bit + slice trailers + CRC + slice headers for one
         stream's packet.  Returns (keyframe, per-slice list of
         (buf, qidx, low, range, pos), per-slice list of (rct_by, rct_ry,
         coding_mode, reset_contexts)); qidx is None for a slice whose
         header failed to parse, and its extras are (1, 1, 0, 0), as below
         version 4.  A Golomb-Rice slice gives low = range = 0 and pos the
-        byte its bit reader starts at."""
+        byte its bit reader starts at.
+
+        ``damaged``: bool (n_slices,), the stream's damage flags as this
+        frame finds them, updated in place as the host's parse updates
+        them (a keyframe clears them, a failed CRC or header sets them);
+        default a copy of ``_known_damage``.  The stream's own flags move
+        only in the collect, in frame order."""
+        if damaged is None:
+            damaged = self._known_damage(bi).copy()
         rc = RangeDecoder(pkt, *default_state_tables())
         keystate = np.array([128], dtype=np.uint8)
         keyframe = bool(rc.get_rac(keystate, 0))
@@ -236,11 +264,11 @@ class TorchFFV1Decoder:
         slices, extras = [], []
         for si, (start, end) in enumerate(bounds):
             if keyframe:
-                self.slice_damaged[bi, si] = False
+                damaged[si] = False
             self.crc_failed[bi, si] = bool(
                 self.ec and crc32_ieee(pkt[start:end]) != 0)
             if self.crc_failed[bi, si]:
-                self.slice_damaged[bi, si] = True
+                damaged[si] = True
             buf = pkt[start:end] if si else pkt[:end]
             src = RangeDecoder(buf)
             src.set_tables(*self.tables)
@@ -252,7 +280,7 @@ class TorchFFV1Decoder:
                 ss = SliceState(geom=geom)
                 qidxs, _ = read_slice_header(self, ss, src)
                 qidx = qidxs[0]
-                if len(set(qidxs)) > 1 and not self.slice_damaged[bi, si]:
+                if len(set(qidxs)) > 1 and not damaged[si]:
                     # the reference reads only the first index
                     # (decoder.py:288-289 of the JAX package); FFmpeg's
                     # encoders write one index for every plane
@@ -266,7 +294,7 @@ class TorchFFV1Decoder:
                     sentinel = np.array([129], dtype=np.uint8)
                     src.get_rac(sentinel, 0)
             except (ValueError, IndexError):
-                self.slice_damaged[bi, si] = True
+                damaged[si] = True
                 qidx = None
                 ex = (1, 1, 0, 0)
             extras.append(ex)
@@ -277,6 +305,17 @@ class TorchFFV1Decoder:
             else:
                 slices.append((buf, qidx, src.low, src.range, src.pos))
         return keyframe, slices, extras
+
+    def _known_damage(self, bi: int):
+        """Stream ``bi``'s damage flags as a frame submitted now finds
+        them: the last frame in flight's, else the stream's own.  A frame
+        still in flight has not run its sentinel check, so at depth 2 a
+        slice that fails only that check is known one frame later (it
+        matters only to which quant tables count as intact on the RGB and
+        Golomb-Rice paths, ``_lane_inputs``)."""
+        if self.pipe.pending:
+            return self.pipe.pending[-1].meta["damaged"][bi]
+        return self.slice_damaged[bi]
 
     def _plane_specs(self, geom=None):
         """(w, h, state_plane) per coded plane of a slice of ``geom``
@@ -320,7 +359,7 @@ class TorchFFV1Decoder:
             if kf:
                 table[bi * self.n_slices:(bi + 1) * self.n_slices] = fresh
         if resets is not None and resets.any():
-            table[torch.from_numpy(resets).to(table.device)] = fresh
+            table[self.pipe.put(np.nonzero(resets)[0])] = fresh
         self.vlc_states = table
         return table
 
@@ -336,8 +375,7 @@ class TorchFFV1Decoder:
                                       "the host only; use FFV1Decoder")
         by = ry = None
         if self.rgb and self.version > 3:
-            by, ry = torch.from_numpy(np.ascontiguousarray(ex[:, :2].T)).to(
-                self.device)
+            by, ry = self.pipe.put(np.ascontiguousarray(ex[:, :2].T))
         return by, ry, ex[:, 3] != 0
 
     def _header_failed_vlc(self, parsed, rows):
@@ -362,10 +400,11 @@ class TorchFFV1Decoder:
 
     # ------------------------------------------------------------ decode
 
-    def _lane_inputs(self, parsed):
+    def _lane_inputs(self, parsed, damaged=None):
         """Lane-major kernel inputs for parsed packets of the Golomb-Rice
         and RGB paths: ``_lane_buffers``' and the quant table index all
-        lanes decode with.
+        lanes decode with; ``damaged`` (batch, n_slices) the flags the
+        frame's parse left (default the streams' own).
 
         That is the one the intact slices name.  A slice already flagged
         damaged is concealed whatever its lane decodes to, so its quant
@@ -374,7 +413,8 @@ class TorchFFV1Decoder:
         slices that name different tables raise, as the reference's
         fallback has no Golomb-Rice or RGB branch (decoder.py:377-383
         there)."""
-        named = [(self.slice_damaged[bi, si], s[1])
+        damaged = self.slice_damaged if damaged is None else damaged
+        named = [(damaged[bi, si], s[1])
                  for bi, (_kf, sl, _ex) in enumerate(parsed)
                  for si, s in enumerate(sl) if s[1] is not None]
         intact = {q for damaged, q in named if not damaged}
@@ -390,73 +430,149 @@ class TorchFFV1Decoder:
         ranges, poss) on the device, and per-lane buffer lengths."""
         maxlen = max(len(s[0]) for p in parsed for s in p[1])
         cap = max(4096, 1 << (maxlen - 1).bit_length())
-        bufs = np.zeros((self.L, cap), np.uint8)
+        # written straight into the pipeline's pinned staging
+        bufs = self.pipe.staging((self.L, cap), np.uint8)
         lrp = np.zeros((3, self.L), np.int32)
         buflens = np.zeros(self.L, np.int64)
         for bi, (_kf, sl, _ex) in enumerate(parsed):
             for si, (buf, _q, lo, ra, po) in enumerate(sl):
                 lane = bi * self.n_slices + si
                 bufs[lane, :len(buf)] = np.frombuffer(buf, np.uint8)
+                bufs[lane, len(buf):] = 0
                 lrp[:, lane] = (lo, ra, po)
                 buflens[lane] = len(buf)
-        dev = self.device
-        lrp_t = torch.from_numpy(lrp).to(dev)
-        return (torch.from_numpy(bufs).to(dev), lrp_t[0], lrp_t[1],
-                lrp_t[2]), buflens
+        bufs_t, lrp_t = self.pipe.upload([bufs, lrp])
+        return (bufs_t, lrp_t[0], lrp_t[1], lrp_t[2]), buflens
 
     def decode_frames(self, pkts):
         """Decode one packet of each of ``batch`` streams."""
+        self.submit_frames(pkts)
+        return self.collect_frames()
+
+    def submit_frames(self, pkts):
+        """The device half of ``decode_frames``: parse one packet of each
+        of ``batch`` streams, stage the lane buffers, enqueue the lane
+        scans and the frame's assembly, and start the copies of the planes
+        (unless ``device_out``) and of each lane's (low, range, pos),
+        without waiting for the card.  Pair each submit with a later
+        ``collect_frames`` (decoder.py:365-553 of the JAX package).  The
+        adaptive states chain on the device in submit order; each frame
+        keeps its own damage flags and concealment rects until its
+        collect."""
         if len(pkts) != self.batch:
             raise ValueError(f"expected {self.batch} packets, "
                              f"got {len(pkts)}")
         g = self.g
-        parsed = [self._parse_packet(bi, pkt) for bi, pkt in enumerate(pkts)]
+        damaged = np.stack([self._known_damage(bi)
+                            for bi in range(self.batch)])
+        parsed = [self._parse_packet(bi, pkt, damaged[bi])
+                  for bi, pkt in enumerate(pkts)]
         keyframes = [p[0] for p in parsed]
+        meta = dict(parsed=parsed, keyframes=keyframes, damaged=damaged,
+                    geoms=[list(row) for row in self.conceal_geoms])
+        fetch = {}
         if not (self.golomb or self.rgb):
-            planes_full, lrp, buflens = self._decode_planar(parsed,
-                                                            keyframes)
-            self._validate(parsed, lrp, buflens)
-            return [(self._conceal(bi, [fp[bi] for fp in planes_full]),
-                     keyframes[bi]) for bi in range(self.batch)]
-        (bufs, lows, ranges, poss), buflens, qidx0 = \
-            self._lane_inputs(parsed)
-        five = bool(g.quant_tables[qidx0][3][127])
-        cc = g.context_counts[qidx0]
-        specs = tuple((w, h, sp * cc) for (w, h, sp) in self._plane_specs())
-        by, ry, resets = self._lane_extras(parsed)
-        rows = self.n_state_planes * cc
-        if self.golomb:
-            kept = self._header_failed_vlc(parsed, rows)
-            vlc0 = self._reset_lane_vlc(keyframes, rows, resets)
-            planes_dev, vlc_out, _bitpos = golomb_decode_planes(
-                bufs, vlc0, self.qts[qidx0], poss, specs, self.bits, five)
-            for lane, st in kept.items():
-                vlc_out[lane] = st
-            self.vlc_states = vlc_out
-            planes_full = self._planar_output([self._assemble(p)
-                                               for p in planes_dev])
+            planes, lrp, meta["buflens"] = self._decode_planar(parsed,
+                                                               keyframes)
+            fetch["lrp"] = lrp
+            if self.device_out:
+                meta["planes"] = tuple(
+                    x.to(torch.uint8) if self.bits <= 8 else x & 0xFFFF
+                    for x in planes)
+                self.pipe.fetch(fetch, meta)
+                return
+            planes = self._narrow(planes)
         else:
-            # every lane decodes at qidx0, by the planar path's state
-            # rules; a lane whose header failed keeps its states
-            lane_q = [None if s[1] is None else qidx0
-                      for p in parsed for s in p[1]]
-            self._prepare_states(lane_q, keyframes, resets)
-            self._grow_states(rows)
-            planes_dev, states_out, low, rng, pos = rc_decode_rgb(
-                bufs, self.states[:, :rows].contiguous(), self.one_tab,
-                self.zero_tab, self.qts[qidx0], lows, ranges, poss,
-                specs[0][0], specs[0][1], len(specs), cc, self.coded_bits,
-                five)
-            done = torch.tensor([lane for lane, q in enumerate(lane_q)
-                                 if q is not None], dtype=torch.long,
-                                device=self.device)
-            self.states[done, :rows] = states_out[done]
-            planes_full = self._rgb_output(planes_dev, by, ry)
-            self._validate(parsed,
-                           torch.stack([low, rng, pos]).cpu().numpy(),
-                           buflens)
-        return [(self._conceal(bi, [fp[bi] for fp in planes_full]),
-                 keyframes[bi]) for bi in range(self.batch)]
+            (bufs, lows, ranges, poss), meta["buflens"], qidx0 = \
+                self._lane_inputs(parsed, damaged)
+            five = bool(g.quant_tables[qidx0][3][127])
+            cc = g.context_counts[qidx0]
+            specs = tuple((w, h, sp * cc)
+                          for (w, h, sp) in self._plane_specs())
+            by, ry, resets = self._lane_extras(parsed)
+            rows = self.n_state_planes * cc
+            if self.golomb:
+                planes = self._decode_golomb(parsed, keyframes, bufs, poss,
+                                             qidx0, specs, rows, resets,
+                                             five)
+            else:
+                planes, fetch["lrp"] = self._decode_rgb(
+                    parsed, keyframes, bufs, lows, ranges, poss, qidx0,
+                    specs, rows, resets, five, by, ry)
+        fetch.update((f"plane{k}", x) for k, x in enumerate(planes))
+        self.pipe.fetch(fetch, meta,
+                        owned=[f"plane{k}" for k in range(len(planes))])
+
+    def _decode_golomb(self, parsed, keyframes, bufs, poss, qidx0, specs,
+                       rows, resets, five):
+        """G2 over all lanes; a lane whose header failed keeps its VLC
+        states.  Returns the output planes on the device."""
+        kept = self._header_failed_vlc(parsed, rows)
+        vlc0 = self._reset_lane_vlc(keyframes, rows, resets)
+        planes_dev, vlc_out, _bitpos = golomb_decode_planes(
+            bufs, vlc0, self.qts[qidx0], poss, specs, self.bits, five)
+        for lane, st in kept.items():
+            vlc_out[lane] = st
+        self.vlc_states = vlc_out
+        return self._narrow([self._assemble(p) for p in planes_dev])
+
+    def _decode_rgb(self, parsed, keyframes, bufs, lows, ranges, poss,
+                    qidx0, specs, rows, resets, five, by, ry):
+        """B1 / B1-ext over all lanes at quant table ``qidx0``, by the
+        planar path's state rules; a lane whose header failed keeps its
+        states.  Returns (the output planes, (low, range, pos)) on the
+        device."""
+        g = self.g
+        cc = g.context_counts[qidx0]
+        lane_q = [None if s[1] is None else qidx0
+                  for p in parsed for s in p[1]]
+        self._prepare_states(lane_q, keyframes, resets)
+        self._grow_states(rows)
+        planes_dev, states_out, low, rng, pos = rc_decode_rgb(
+            bufs, self.states[:, :rows].contiguous(), self.one_tab,
+            self.zero_tab, self.qts[qidx0], lows, ranges, poss,
+            specs[0][0], specs[0][1], len(specs), cc, self.coded_bits, five)
+        done = self.pipe.put(np.array([lane for lane, q in enumerate(lane_q)
+                                       if q is not None], np.int64))
+        self.states[done, :rows] = states_out[done]
+        return self._rgb_output(planes_dev, by, ry), \
+            torch.stack([low, rng, pos])
+
+    def collect_frames(self):
+        """The host half of ``decode_frames`` for the oldest frame in
+        flight: wait for its copies, merge its damage flags into the
+        streams' in frame order, run the sentinel check (range coder) and
+        conceal damaged slices from each stream's previous picture
+        (decoder.py:650-706 of the JAX package).  Returns a list of
+        (planes, keyframe) per stream; with ``device_out``, (planes,
+        keyframes) with the planes on the device, or RuntimeError on a
+        damaged slice."""
+        rec = self.pipe.pop()
+        m = rec.meta
+        try:
+            for bi, kf in enumerate(m["keyframes"]):
+                if kf:
+                    self.slice_damaged[bi] = False
+            self.slice_damaged |= m["damaged"]
+            if "lrp" in rec.host:
+                self._validate(m["parsed"], self.pipe.host(rec, "lrp"),
+                               m["buflens"])
+            if self.device_out:
+                if self.slice_damaged.any():
+                    raise RuntimeError(
+                        "damaged slice in device_out mode; decode with "
+                        "device_out=False to conceal from the previous "
+                        "frame")
+                return m["planes"], m["keyframes"]
+            planes = [self.pipe.host(rec, k) for k in rec.host
+                      if k.startswith("plane")]
+            if self.bits > 8:
+                planes = [p.view(np.uint16) for p in planes]
+            return [(self._conceal(bi, [p[bi] for p in planes],
+                                   m["geoms"][bi]), kf)
+                    for bi, kf in enumerate(m["keyframes"])]
+        finally:
+            self.pipe.release(rec)
 
     # ------------------------------------------ planar range coder (B2)
 
@@ -472,8 +588,7 @@ class TorchFFV1Decoder:
     def _fresh(self, qidx: int):
         """One lane's fresh rows for quant table ``qidx`` on the device."""
         if qidx not in self._fresh_cache:
-            self._fresh_cache[qidx] = torch.from_numpy(
-                self._fresh_states(qidx)).to(self.device)
+            self._fresh_cache[qidx] = self.pipe.put(self._fresh_states(qidx))
         return self._fresh_cache[qidx]
 
     def _grow_states(self, rows: int):
@@ -501,10 +616,11 @@ class TorchFFV1Decoder:
                          nsp * self.quant[q][1]
                          for lane, q in enumerate(lane_q)], np.int64)
         self._grow_states(int(want.max()))
-        dev = self.device
         changed = np.nonzero(want != rows_now)[0]
         if changed.size:
-            self.states[torch.from_numpy(changed).to(dev)] = 128
+            # index_fill_ takes the value as a number: an assignment of
+            # 128 would copy it to the card and wait
+            self.states.index_fill_(0, self.pipe.put(changed), 128)
         fresh = {}
         for lane, q in enumerate(lane_q):
             if q is not None and (keyframes[lane // self.n_slices] or
@@ -512,7 +628,7 @@ class TorchFFV1Decoder:
                 fresh.setdefault(q, []).append(lane)
         for q, lanes in fresh.items():
             rows = self._fresh(q)
-            self.states[torch.tensor(lanes, device=dev),
+            self.states[self.pipe.put(np.asarray(lanes, np.int64)),
                         :rows.shape[0]] = rows
         self.lane_rows = want
 
@@ -522,8 +638,8 @@ class TorchFFV1Decoder:
         one K2-family launch per group (``rc_decode_groups``), the frame
         placed from the groups' planes.  A lane whose header failed is
         not decoded: it is flagged, and its rect is concealed.  Returns
-        (per plane a (batch, Hk, Wk) numpy array, the lanes' (low, range,
-        pos) on the host, the buffer lengths)."""
+        (per plane a (batch, Hk, Wk) int32 tensor, the lanes' (low, range,
+        pos) int32 (3, L), both on the device, the buffer lengths)."""
         (bufs, lows, ranges, poss), buflens = self._lane_buffers(parsed)
         _by, _ry, resets = self._lane_extras(parsed)
         lane_q = [s[1] for p in parsed for s in p[1]]
@@ -534,8 +650,7 @@ class TorchFFV1Decoder:
             bufs, self.states, self.one_tab, self.zero_tab, self.quant,
             lows, ranges, poss, self.last_groups, self.bits)
         full = self._place(self.last_groups, planes_g)
-        return (self._planar_output(full),
-                torch.stack([low, rng, pos]).cpu().numpy(), buflens)
+        return full, torch.stack([low, rng, pos]), buflens
 
     def _lane_groups(self, lane_q):
         """[(lanes, dims, qidx)]: the lanes whose slice names quant table
@@ -581,7 +696,7 @@ class TorchFFV1Decoder:
             src = torch.cat([p[j].reshape(-1) for p in planes_g] +
                             [torch.zeros(pad, dtype=torch.int32,
                                          device=dev)])
-            index = torch.from_numpy(base).to(dev).index_select(
+            index = self.pipe.put(base).index_select(
                 0, lane_map.reshape(-1)) + offset.reshape(-1)
             out.append(src.index_select(0, index).reshape(lane_map.shape))
         return out
@@ -613,8 +728,7 @@ class TorchFFV1Decoder:
                 lane_map[bi, y:y + h, x:x + w] = lane
                 offset[bi, y:y + h, x:x + w] = \
                     np.arange(h * w).reshape(h, w)
-            maps.append(tuple(torch.from_numpy(m).to(self.device)
-                              for m in (lane_map, offset)))
+            maps.append(self.pipe.upload([lane_map, offset]))
         return maps
 
     def _assemble(self, lanes):
@@ -625,26 +739,22 @@ class TorchFFV1Decoder:
         x = lanes.reshape(self.batch, nv, nh, h, w)
         return x.permute(0, 1, 3, 2, 4).reshape(self.batch, nv * h, nh * w)
 
-    def _planar_output(self, frames):
-        """Full planes, each (batch, Hk, Wk) on the device -> per plane a
-        numpy array at the wire dtype."""
-        out = []
-        for x in frames:
-            if self.bits <= 8:
-                out.append(x.to(torch.uint8).cpu().numpy())
-            else:
-                # 16-bit samples come back int16-wrapped (negative above
-                # 0x7FFF), as the reference's int16_t rows hold them
-                out.append((x & 0xFFFF).cpu().numpy().astype(np.uint16))
-        return out
+    def _narrow(self, frames):
+        """Full planes, each (batch, Hk, Wk) int32 on the device -> the
+        wire dtype's bits, still on the device: uint8 at 8 bits, int16
+        above (16-bit samples come back int16-wrapped, as the reference's
+        int16_t rows hold them; the host views them as uint16)."""
+        if self.bits <= 8:
+            return [x.to(torch.uint8) for x in frames]
+        return [wrap_int16(x).to(torch.int16) for x in frames]
 
     def _rgb_output(self, samples, by, ry):
         """RCT-domain samples (P, L, h, w) -> the host decoder's output
         layout: the inverse colour transform (ffv1dec.c:264-269) with each
         lane's coefficients (``by``, ``ry``: int32 (L,); None below
         version 4, whose coefficients are (1, 1)), the grid assembly and
-        the packing (ffv1dec.c:272); per plane a (batch, ...) numpy
-        array."""
+        the packing (ffv1dec.c:272); per plane a (batch, ...) tensor on
+        the device, in ``_narrow``'s dtypes."""
         offset = 1 << self.bits
         b = samples[1] - offset
         r = samples[2] - offset
@@ -661,9 +771,8 @@ class TorchFFV1Decoder:
             # endian: the bytes B, G, R, A
             full = torch.stack([self._assemble(c) & 0xFF
                                 for c in (b, g, r, a)], dim=-1)
-            return [full.to(torch.uint8).cpu().numpy()]
-        return [(self._assemble(c) & 0xFFFF).cpu().numpy().astype(np.uint16)
-                for c in (b, g, r)]
+            return [full.to(torch.uint8)]
+        return self._narrow([self._assemble(c) for c in (b, g, r)])
 
     def _validate(self, parsed, lrp, buflens):
         """Sentinel + byte-count check per lane (ffv1dec.c:459-467)."""
@@ -686,10 +795,13 @@ class TorchFFV1Decoder:
                 except (ValueError, IndexError):
                     self.slice_damaged[bi, si] = True
 
-    def _conceal(self, bi: int, planes):
+    def _conceal(self, bi: int, planes, geoms=None):
         """Copy damaged slice rects from the stream's previous picture
-        (ffv1dec.c:1001-1021); damage persists until the next keyframe."""
+        (ffv1dec.c:1001-1021); damage persists until the next keyframe.
+        ``geoms``: the rect of each slice as the frame's parse left them
+        (default the stream's latest)."""
         g = self.g
+        geoms = self.conceal_geoms[bi] if geoms is None else geoms
         if self.last_planes[bi] is not None:
             # YUV's chroma planes are subsampled; RGB's planes (or its
             # one B, G, R, A array) are not
@@ -698,7 +810,7 @@ class TorchFFV1Decoder:
             for si in range(self.n_slices):
                 if not self.slice_damaged[bi, si]:
                     continue
-                geom = self.conceal_geoms[bi][si]
+                geom = geoms[si]
                 for j, src_p in enumerate(self.last_planes[bi]):
                     if not planes[j].flags.writeable:
                         planes[j] = np.array(planes[j])

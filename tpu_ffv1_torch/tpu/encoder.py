@@ -102,6 +102,7 @@ from ..core.rac import (ProvisionalRangeEncoder, RangeEncoder,
 from ..device import resolve_device
 from .finalize import finalize_compact, finalize_packed, finalize_packed_full
 from .golomb_encode import fresh_vlc_states, golomb_encode_lanes, make_flags
+from .pipeline import FramePipeline
 from .rc_encode import rc_encode_compact, rc_encode_packed
 from .rct_search import pick_rct_coefs, rct_cost_pairs
 from .residual import load_plane, rct_transform, residuals_and_contexts
@@ -210,6 +211,7 @@ class TorchFFV1Encoder:
         else:
             one, zero = default_state_tables()
         dev = self.device
+        self.pipe = FramePipeline(dev)
         self.one_tab = torch.from_numpy(one).to(dev)
         self.zero_tab = torch.from_numpy(zero).to(dev)
         self.cc = cc = rp.context_counts[rp.context_model]
@@ -313,9 +315,7 @@ class TorchFFV1Encoder:
             lows[lane], ranges[lane] = lo, ra
             prefixes[lane, :len(prov)] = prov
             plens[lane] = len(prov)
-        dev = self.device
-        return tuple(torch.from_numpy(a).to(dev)
-                     for a in (lows, ranges, prefixes, plens))
+        return self.pipe.upload([lows, ranges, prefixes, plens])
 
     def _prefix_arrays_golomb(self, keyframe: bool):
         """Per-lane Golomb prefixes (the terminated slice headers, cached
@@ -331,9 +331,7 @@ class TorchFFV1Encoder:
                     lane = bi * self.n_slices + si
                     prefixes[lane, :len(pb)] = pb
                     plens[lane] = len(pb)
-            dev = self.device
-            self._prefix_cache[key] = (torch.from_numpy(prefixes).to(dev),
-                                       torch.from_numpy(plens).to(dev))
+            self._prefix_cache[key] = self.pipe.upload([prefixes, plens])
         return self._prefix_cache[key]
 
     def _host_prefix_golomb(self, si: int, keyframe: bool) -> bytes:
@@ -654,22 +652,59 @@ class TorchFFV1Encoder:
     def _upload(self, streams):
         """Per-plane (batch, Hk, Wk) tensors on the device (8-bit planes
         travel as uint8, deeper ones as int32; a bgr0/bgra frame as one
-        (batch, H, W, 4) uint8 tensor)."""
+        (batch, H, W, 4) uint8 tensor), staged through the pipeline's
+        pinned ring with no wait on the host: uint16 samples cross as
+        their int16 bits and widen to int32 on the device, at half the
+        bytes."""
         planes = [self._host_planes(s) for s in streams]
-        out = []
+        stacks, wide = [], []
         for k in range(len(planes[0])):
-            a = np.stack([pl[k] for pl in planes])
-            if a.dtype != np.uint8:
-                a = a.astype(np.int32)
-            out.append(torch.from_numpy(a).to(self.device))
-        return tuple(out)
+            col = [pl[k] for pl in planes]
+            wide.append(col[0].dtype == np.uint16)
+            if wide[-1]:
+                col = [x.view(np.int16) for x in col]
+            elif col[0].dtype != np.uint8:
+                col = [x.astype(np.int32) for x in col]
+            stacks.append(col)
+        return tuple(x.to(torch.int32) & 0xFFFF if w else x
+                     for x, w in zip(self.pipe.upload(stacks), wide))
+
+    def _device_planes(self, planes):
+        """``submit_device_frames``' planes checked: per plane (batch, Hk,
+        Wk) on this encoder's device (bgr0/bgra: one (batch, H, W, 4)),
+        uint8 at 8 bits, int32 or uint16 (widened here) above."""
+        rp = self.rp
+        planes = tuple(planes)
+        if self.rgb and rp.fmt.interleaved:
+            shapes = [(self.batch, rp.height, rp.width, 4)]
+        else:
+            hs, vs = rp.chroma_h_shift, rp.chroma_v_shift
+            luma = (self.batch, rp.height, rp.width)
+            chroma = (self.batch, ceil_rshift(rp.height, vs),
+                      ceil_rshift(rp.width, hs))
+            n = 3 if self.rgb else 1 + 2 * bool(rp.chroma_planes)
+            shapes = [luma if self.rgb or k == 0 else chroma
+                      for k in range(n)] + [luma] * bool(rp.transparency)
+        dtypes = (torch.uint8,) if self.raw_bits <= 8 else \
+            (torch.int32, torch.uint16)
+        if len(planes) != len(shapes) or any(
+                p.device != self.device or tuple(p.shape) != s or
+                p.dtype not in dtypes for p, s in zip(planes, shapes)):
+            raise ValueError(
+                f"expected {len(shapes)} planes of shapes {shapes} and dtype "
+                f"{' or '.join(map(str, dtypes))} on {self.device}, got "
+                f"{[(tuple(p.shape), p.dtype, str(p.device)) for p in planes]}")
+        return tuple(p.to(torch.int32) if p.dtype == torch.uint16 else p
+                     for p in planes)
 
     def _rct_coefs(self, planes):
         """Version 4's search on the uploaded samples (int32 above 8 bits,
         not the stencil's loaded planes): each lane's (by, ry), from the
         (L, 15) cost sums of its slice crops of b, g, r (RGB bound as
         ``_split_rgb`` binds them, YUV's planes 0, 1, 2; encoder.py:
-        588-619 of the JAX package)."""
+        588-619 of the JAX package).  The picks go into the frame's slice
+        headers, so the sums' fetch is the one wait on the card inside a
+        version-4 submit, as the reference searches inside its worker."""
         rp = self.rp
         nh, nv = rp.num_h_slices, rp.num_v_slices
         bgr = self._split_rgb(planes)[:3] if self.rgb else planes[:3]
@@ -734,7 +769,8 @@ class TorchFFV1Encoder:
 
     def reset(self):
         """Flush analog (avcodec_flush_buffers): the next frame starts a
-        fresh GOP."""
+        fresh GOP; frames in flight are dropped."""
+        self.pipe.drain()
         self.states.fill_(128)
         if self.golomb:
             self.vlc_states = fresh_vlc_states(self.L, self.total_cc,
@@ -750,23 +786,62 @@ class TorchFFV1Encoder:
     def encode_frames(self, streams):
         """Encode one frame from each of ``batch`` independent streams;
         returns a list of (packet, keyframe) per stream."""
+        self.submit_frames(streams)
+        return self.collect_frames()
+
+    def submit_frames(self, streams):
+        """The device half of ``encode_frames``: upload one frame of each
+        of ``batch`` streams, enqueue its stencil, lane scan and finalize,
+        and start the copies of its counts, overflow flags and byte slab
+        to the host, without waiting for the card (version 4's search
+        aside: ``_rct_coefs``).  Pair each submit with a later
+        ``collect_frames``; frame t + 1 may be submitted before frame t
+        is collected.  The adaptive states chain on the device in submit
+        order (encoder.py:835-904 of the JAX package)."""
         if len(streams) != self.batch:
             raise ValueError(f"expected {self.batch} streams, "
                              f"got {len(streams)}")
+        self._submit(self._upload(streams), streams)
+
+    def submit_device_frames(self, planes):
+        """``submit_frames`` for a source already on the device: ``planes``
+        is a tuple of per-plane (batch, Hk, Wk) tensors (bgr0/bgra: one
+        (batch, H, W, 4)) on this encoder's device, uint8 at 8 bits, int32
+        or uint16 above: a decoder's ``device_out`` frames, for a
+        transcode whose pixels never reach the host.  Only the byte slab
+        crosses; a PCM retry at version 4 fetches the failing stream's
+        planes (encoder.py:906-934 of the JAX package)."""
+        if self.golomb:
+            raise NotImplementedError(
+                "device-source submit requires the fused range-coder "
+                "pipeline, as in the reference")
+        if self.rct_search and not self.uniform:
+            raise NotImplementedError(
+                "device-source v4 search needs a uniform slice grid, as in "
+                "the reference (its non-uniform search reads host pixels)")
+        self._submit(self._device_planes(planes), None)
+
+    def _keyframe(self) -> bool:
         rp = self.rp
-        keyframe = (rp.gop_size == 0 or
-                    self.picture_number % rp.gop_size == 0)
-        planes = self._upload(streams)
+        return rp.gop_size == 0 or self.picture_number % rp.gop_size == 0
+
+    def _submit(self, planes, streams):
+        """Enqueue one frame step on ``planes`` (device tensors; the host
+        ``streams`` too where they exist, for a PCM retry) and queue what
+        its collect reads."""
+        keyframe = self._keyframe()
         if self.golomb:
             out, counts = self._encode_golomb(planes, keyframe)
-            return self._packets(out, counts, keyframe)
+            self._fetch(dict(out=out, counts=counts), keyframe, self.out_cap,
+                        planes, streams)
+            return
         rct = None
         if self.rct_search:
             coefs = self.rct_coefs = self._rct_coefs(planes)
             lows, ranges, prefixes, plens = self._prefix_arrays_rct(
                 keyframe, coefs)
             if self.rgb:
-                c = torch.tensor(coefs, dtype=torch.int32).to(self.device)
+                c = self.pipe.put(np.asarray(coefs, np.int32))
                 rct = (c[:, 0], c[:, 1])
         else:
             lows, ranges, prefixes, plens = self._prefix_arrays(keyframe)
@@ -777,26 +852,64 @@ class TorchFFV1Encoder:
                                  plens, rct=rct)
         self.states = states_out
         self.picture_number += 1
-        if bool(overflow.any()) and packed is None:
-            # the compact form dropped a pixel's slots past the fourth:
-            # redo the frame on the raw scan from the same start states
-            # (the stencil recomputed from the kept planes); its states
-            # equal the compact launch's, which stay
-            out, counts, _st, overflow, packed, low, rng = \
-                self._frame_pipeline(planes, states0, lows, ranges,
-                                     prefixes, plens, compact=False,
-                                     rct=rct)
-        if bool(overflow.any()):
-            # a pixel emitted > s2 slots (or a 16-pixel group > 24): redo
-            # the finalize at full slot width from the raw scan output
-            out, counts = finalize_packed_full(packed, low, rng, prefixes,
-                                               plens)
-        rowpos = None
+        fetch = dict(out=out, counts=counts, overflow=overflow)
         if self.rp.version > 3 and self.uniform:
             # each lane's provisional byte position at its line starts
-            rowpos = (row_bytes(packed, self.row_offs) +
-                      plens[None, :]).cpu().numpy()
-        return self._packets(out, counts, keyframe, rowpos, streams)
+            fetch["rowpos"] = row_bytes(packed, self.row_offs) + \
+                plens[None, :]
+        # the compact form's redo reads the frame's planes and start states
+        redo = dict(states0=states0, rct=rct) if self.compact else {}
+        self._fetch(fetch, keyframe, self.out_cap, planes, streams,
+                    packed=packed, low=low, rng=rng, lows=lows, ranges=ranges,
+                    prefixes=prefixes, plens=plens, **redo)
+
+    def _fetch(self, tensors, keyframe: bool, cap: int, planes, streams,
+               **meta):
+        """Start the copies a collect reads: ``tensors``, the byte slab
+        ``out`` cut to ``cap``, the widest a kept lane can be (a count past
+        it raises or retries as PCM)."""
+        tensors["out"] = tensors["out"][:, :cap]
+        self.pipe.fetch(tensors, dict(meta, keyframe=keyframe, cap=cap,
+                                      planes=planes, streams=streams))
+
+    def collect_frames(self):
+        """The host half of ``encode_frames`` for the oldest frame in
+        flight: wait for its copies, redo an overflowing finalize, run the
+        version-4 budget check and PCM retry, and assemble each stream's
+        packet (encoder.py:1105-1248 of the JAX package).  Returns a list
+        of (packet, keyframe) per stream."""
+        pipe = self.pipe
+        rec = pipe.pop()
+        m = rec.meta
+        counts = pipe.host(rec, "counts").astype(np.int64)
+        out_np = pipe.host(rec, "out")
+        if "overflow" in rec.host and pipe.host(rec, "overflow").any():
+            out, counts_t = self._redo(m)
+            counts = counts_t.cpu().numpy().astype(np.int64)
+            out_np = out[:, :m["cap"]].cpu().numpy()
+        rowpos = pipe.host(rec, "rowpos") if "rowpos" in rec.host else None
+        try:
+            return self._packets(out_np, counts, m, rowpos)
+        finally:
+            pipe.release(rec)
+
+    def _redo(self, m):
+        """A frame some pixel of which emitted more slots than finalize
+        keeps: the compact form redoes the frame on the raw scan from the
+        same start states (the stencil recomputed from the kept planes;
+        its states equal the compact launch's, which stay), then, as the
+        raw form does, finalizes at full slot width.  Returns (bytes,
+        counts) on the device."""
+        packed, low, rng = m["packed"], m["low"], m["rng"]
+        args = (m["lows"], m["ranges"], m["prefixes"], m["plens"])
+        if packed is None:
+            out, counts, _st, overflow, packed, low, rng = \
+                self._frame_pipeline(m["planes"], m["states0"], *args,
+                                     compact=False, rct=m["rct"])
+            if not bool(overflow.any()):
+                return out, counts
+        return finalize_packed_full(packed, low, rng, m["prefixes"],
+                                    m["plens"])
 
     def _encode_golomb(self, planes, keyframe: bool):
         """Stencil -> G1 for one frame step; the VLC states start fresh on a
@@ -811,23 +924,32 @@ class TorchFFV1Encoder:
         self.picture_number += 1
         return out, counts
 
-    def _packets(self, out, counts, keyframe: bool, rowpos=None,
-                 streams=None, cap=None):
-        """Fetch the lanes' bytes and assemble each stream's packet.  At
-        version 4 (range coder) a slice that fails the budget check or
-        passes the output cap (default ``out_cap``) is re-encoded in PCM
-        from ``streams`` (``_pcm_lanes``; encoder.py:1164-1248 of the JAX
-        package)."""
-        counts_np = counts.cpu().numpy().astype(np.int64)
-        pcm = self._pcm_lanes(counts_np, rowpos, cap)
-        counts_np[pcm] = 0
-        out_np = out[:, :int(counts_np.max())].cpu().numpy()
+    def _packets(self, out_np, counts_np, m, rowpos=None):
+        """Each stream's packet from the lanes' bytes ``out_np`` (L, >=
+        counts) and counts on the host.  At version 4 (range coder) a slice
+        that fails the budget check or passes the output cap is re-encoded
+        in PCM (``_pcm_lanes``; encoder.py:1164-1248 of the JAX package)
+        from the frame's host planes, or from its device planes fetched
+        per stream; with frames still in flight that raises, as the
+        reference does, since the retry resets lanes of the states the
+        next frame already read."""
+        keyframe = m["keyframe"]
+        pcm = self._pcm_lanes(counts_np, rowpos, m["cap"])
+        if pcm.any() and self.pipe.pending:
+            raise RuntimeError(
+                "PCM fallback with frames in flight would corrupt the GOP "
+                "context chain; use encode_frames() (depth 1) for version-4 "
+                "content that may overflow")
         payloads = [out_np[li, :counts_np[li]].tobytes()
                     for li in range(self.L)]
+        fetched = {}
         for li in np.nonzero(pcm)[0]:
             bi, si = divmod(int(li), self.n_slices)
-            payloads[li] = self._encode_slice_pcm(
-                si, self._host_planes(streams[bi]), keyframe)
+            if bi not in fetched:
+                fetched[bi] = self._host_planes(m["streams"][bi]) \
+                    if m["streams"] is not None else \
+                    [p[bi].cpu().numpy() for p in m["planes"]]
+            payloads[li] = self._encode_slice_pcm(si, fetched[bi], keyframe)
         if pcm.any():
             # a PCM slice's header sets slice_reset_contexts, which clears
             # the lane's contexts on both sides (ffv1enc.c:1054-1056,

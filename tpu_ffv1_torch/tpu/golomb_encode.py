@@ -88,8 +88,9 @@ def make_flags(plane_dims) -> np.ndarray:
 
 def fresh_vlc_states(L: int, rows: int, device) -> torch.Tensor:
     """int32 (L, rows, 4) VlcStates as a stream starts them."""
-    return torch.tensor(VLC_FRESH, dtype=torch.int32,
-                        device=device).repeat(L, rows, 1)
+    # non-blocking from pageable memory: no wait on the card
+    return torch.tensor(VLC_FRESH, dtype=torch.int32).to(
+        device, non_blocking=True).repeat(L, rows, 1)
 
 
 def instance(CC: int) -> str:

@@ -400,7 +400,11 @@ def rc_decode_groups(bufs, states, one_tab, zero_tab, quant, low0, range0,
     for lanes, dims, q in groups:
         qt, cc, five = quant[q]
         rows = (max(sp for _w, _h, sp in dims) + 1) * cc
-        idx = torch.tensor(list(lanes), dtype=torch.long, device=dev)
+        # every lane in order: no gather; else an index staged from
+        # pageable memory, with no wait on the card
+        idx = slice(None) if list(lanes) == list(range(len(low0))) else \
+            torch.tensor(list(lanes), dtype=torch.long).to(
+                dev, non_blocking=True)
         planes, st, lo, ra, po = rc_decode_planes(
             bufs[idx], states[idx, :rows].contiguous(), one_tab, zero_tab,
             qt, low0[idx], range0[idx], pos0[idx],
