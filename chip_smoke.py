@@ -145,7 +145,20 @@ exits non-zero without the final result line:
    encoder with the same parameters, the packets again the goldens and
    only (low, range, pos) and the byte slab copied to the host; and
    pframe_720p_pipe, the P cell at depth 2; each with its median step at
-   depth 1 and at depth 2; then K1's,
+   depth 1 and at depth 2; then ya8 and ya8_golomb (ya8_phase): 1080p
+   gray + alpha, batch 2, 3 frames at GOP 2, range coder and
+   Golomb-Rice, each (H, W, 2) frame split into a luma and an alpha
+   plane that ride K1 / K2 (G1 / G2) at the 8bit (8bit_golomb) path's
+   shapes (N = 172,800), at depth 1 and at depth 2, the packets equal to
+   the host C encoder's golden digests, the decodes one (H, W, 2) array
+   equal to the source, each kernel once per frame, the depth-1 warm-up
+   frame's launches kept for phase 6; and cli
+   (cli_phase): the port's command line, python -m tpu_ffv1_torch, run
+   in this process on the card: 8bit's stream 0 from a y4m in a
+   temporary directory to an avi whose packets equal the 8bit golden
+   digests of stream 0, then back to a y4m equal to the source, with
+   its wall time and -benchmark Mpix/s, each run's frame-1 launch (24
+   lanes) kept for phase 6; then K1's,
    K1-ext's, K2's and
    K2-ext's stage split: each stage probe of K1 and of its global form, and of K2 and
    K2-five, on the 8bit and 8bit_ctx1 warm-up inputs, of K1-ext and
@@ -156,23 +169,27 @@ exits non-zero without the final result line:
    decode's every launch on its own lanes, nonuniform_ext's too;
    K1-compact's through its raw path's K1 launch, phase 5; mixed_q's
    two launches on their own 24 lanes each; each P path's warm-up P
-   frame's, 24 lanes), held exactly
+   frame's, 24 lanes; ya8's and ya8_golomb's at two planes a lane,
+   48 lanes; cli's frame-1 launches, 24 lanes), held exactly
    (integer codec) against its plain version, run on CPU copies of the
    same inputs (the plain versions are per-pixel loops of small tensor
    ops, faster on the host than as per-op card launches).  Each
    range-coder main-path launch is split into segments whose start
    states come from the kernel relaunched on the prefix (the scans are
    causal; B1's at rows, with the two rows above each segment from the
-   launch's output), each Golomb-Rice one into groups of its
-   independent lanes;
-   all
+   launch's output), each Golomb-Rice one whole; launches of one
+   range-coder instance that differ only in their lanes (8bit's,
+   mixed_q's and cli's K2; 8bit's and cli's K1; the rgb8 paths'; the
+   full and EPZS P paths' K1) share one plain run over their lanes side
+   by side (``merge_launches``), each launch's outputs held exactly; all
    segments run in parallel worker processes, one per core, the
    longest first; the workers return digests of their outputs, which
    must equal the digests of the kernel's outputs;
 7. JSON lines: the probes' latencies ("probes"), each path's step and
    stage times ("steps"), mixed_q's and nonuniform_ext's steps, the P
    paths' steps and stages ("pframe"), the pipelined phases' steps at
-   depth 1 and 2 ("pipeline"), the stage splits ("stages") and
+   depth 1 and 2 ("pipeline"), the ya8 and cli phases' steps and times
+   ("ya8", "cli"), the stage splits ("stages") and
    the
    per-kernel numbers ("kernels": time, launches, roofline and chain
    bounds, plain version's time, max abs error; a grouped decode's row
@@ -188,14 +205,18 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import ctypes
+import filecmp
 import hashlib
+import io
 import json
 import multiprocessing
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from typing import Callable, NamedTuple
 
@@ -205,9 +226,12 @@ import torch
 import tpu_ffv1_torch
 from tpu_ffv1_torch import (EncoderParams, TorchFFV1Decoder, TorchFFV1Encoder,
                             TorchFFV1PDecoder, TorchFFV1PEncoder)
+from tpu_ffv1_torch.cli import main as port_cli
 from tpu_ffv1_torch.core import tables as T
 from tpu_ffv1_torch.core.crc import crc32_ieee
 from tpu_ffv1_torch.core.rac import custom_state_tables
+from tpu_ffv1_torch.io.avi import read_avi
+from tpu_ffv1_torch.io.y4m import read_y4m, write_y4m
 from tpu_ffv1_torch.kernels import build, probes
 from tpu_ffv1_torch.tpu import decoder as port_decoder
 from tpu_ffv1_torch.tpu import encoder as port_encoder
@@ -624,6 +648,54 @@ def synthetic_streams_pcm():
 
     return [[noise() if t != 1 else ramp(t) for t in range(PCM_FRAMES)],
             [ramp(t) for t in range(PCM_FRAMES)]]
+
+
+# ya8: gray + alpha at 1080p, both coders (see ya8_phase)
+YA8_FRAMES, YA8_GOP, YA8_SEED = 3, 2, SEED + 88
+# path -> (coder, (encode instance, decode instance))
+YA8 = {"ya8": (2, ("rc_encode", "rc_decode")),
+       "ya8_golomb": (0, ("golomb_encode", "golomb_decode"))}
+
+
+def ya8_kw(name):
+    """EncoderParams fields of a ya8 path: 1080p ya8, 24 slices, GOP 2."""
+    return dict(width=W, height=H, pix_fmt="ya8", level=3,
+                coder=YA8[name][0], slices=SLICES, gop_size=YA8_GOP)
+
+
+def synthetic_streams_ya8(n_streams, n_frames, width, height, seed):
+    """ya8 frames, each [one (H, W, 2) uint8 array]: in luma the 8-bit
+    path's gradient, noise and checker moving 5 px/frame; in alpha a
+    key's matte, a disc moving 7 px/frame (opaque inside, clear outside)
+    with a soft, noisy edge 24 px wide."""
+    r = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:height, 0:width]
+    out = []
+    for s in range(n_streams):
+        frames = []
+        for t in range(n_frames):
+            sh = 5 * t + 17 * s
+            pat = ((((xx + sh) // 24) + (yy // 24)) % 2) * 60
+            f = np.empty((height, width, 2), np.uint8)
+            f[..., 0] = np.clip(xx * 160 // width + yy * 40 // height + pat +
+                                r.randint(0, 12, (height, width)), 0, 255)
+            dist = np.hypot(xx - width // 2 - 7 * t - 31 * s,
+                            yy - height // 2)
+            edge = (height // 3 + 12 - dist) * (255 / 24)
+            f[..., 1] = np.clip(edge + r.randint(-6, 7, (height, width)),
+                                0, 255)
+            frames.append([f])
+        out.append(frames)
+    return out
+
+
+def ya8_streams():
+    """The ya8 paths' content, made once."""
+    key = ("ya8", YA8_SEED)
+    if key not in _STREAMS:
+        _STREAMS[key] = synthetic_streams_ya8(BATCH, YA8_FRAMES, W, H,
+                                              YA8_SEED)
+    return _STREAMS[key]
 
 
 def path_streams(name):
@@ -2296,6 +2368,240 @@ def pframe_pipeline_phase(dev, gpu):
     return dict(med, launches=launches)
 
 
+def ya8_phase(dev, gpu, name, recorders):
+    """ya8 and ya8_golomb: 1080p gray + alpha (``ya8_kw``,
+    ``synthetic_streams_ya8``), batch 2, 3 frames at GOP 2, through
+    TorchFFV1Encoder and TorchFFV1Decoder at depth 1 and at depth 2
+    (``pipelined``): the encoder splits each (H, W, 2) frame into a luma
+    and an alpha plane, which ride K1 and K2 (G1 and G2) at the 8bit
+    (8bit_golomb) path's shapes, two 320x270 planes a slice (N = 172,800);
+    the packets equal the host C encoder's golden digests, each decode
+    one (H, W, 2) array equal to the source, each kernel launched once
+    per frame at each depth.  ``recorders``: the LastLaunch of the lane
+    scans; frame 1's launches, from a third, untimed run, are kept for
+    phase 6 and timed alone.  Prints the encode and decode ms of each
+    step; returns the figures (``recs``: the kept launches)."""
+    coder, (k_enc, k_dec) = YA8[name]
+    rec_enc = recorders["packed" if coder else "golomb_encode"]
+    rec_dec = recorders["decode" if coder else "golomb_decode"]
+    streams = ya8_streams()
+    golden = load_goldens()[name]
+    steps = [[streams[b][t] for b in range(BATCH)]
+             for t in range(YA8_FRAMES)]
+    mpix = BATCH * W * H / 1e6
+    params = EncoderParams(**ya8_kw(name))
+
+    def packets_ok(label):
+        def on_result(t, res):
+            for b in range(BATCH):
+                want = golden["packets"][b][t]
+                check(digest(res[b][0]) == {"sha256": want["sha256"],
+                                            "len": want["len"]} and
+                      res[b][1] == want["key"],
+                      f"{label} stream {b} frame {t}: packet differs from "
+                      f"the golden")
+        return on_result
+
+    def lossless(label):
+        def on_result(t, res):
+            for b in range(BATCH):
+                planes, kf = res[b]
+                check(kf == (t % YA8_GOP == 0) and len(planes) == 1 and
+                      planes[0].dtype == np.uint8 and
+                      np.array_equal(planes[0], steps[t][b][0]),
+                      f"{label} stream {b} frame {t}: decode not lossless")
+        return on_result
+
+    def launches_ok(label):
+        got = all_launches()
+        want = {k_enc: YA8_FRAMES, k_dec: YA8_FRAMES}
+        check(got == want, f"{label}: expected {want} launches, got {got}")
+        return got
+
+    enc = TorchFFV1Encoder(params, batch=BATCH, device=dev)
+    dec = TorchFFV1Decoder(W, H, enc.extradata, batch=BATCH, device=dev)
+    check(digest(enc.extradata) == golden["extradata"],
+          f"{name}: extradata differs from the golden")
+    check(enc.ya and dec.ya and enc.L == SLICES * BATCH and enc.bits == 8 and
+          enc.n_max == 2 * (W // 6) * (H // 4) and
+          dec.slice_dims[0] == ((W // 6, H // 4, 0), (W // 6, H // 4, 1)),
+          f"{name}: expected 48 lanes of two {W // 6}x{H // 4} planes at 8 "
+          f"bits")
+    tag = name
+    reset_counts()
+    d1_enc, d1_dec, packets = [], [], []
+    for t, step in enumerate(steps):
+        ms, res = host_time_ms(lambda: enc.encode_frames(step))
+        d1_enc.append(ms)
+        packets_ok(f"{tag} depth 1")(t, res)
+        packets.append([r[0] for r in res])
+        ms, out = host_time_ms(lambda: dec.decode_frames(packets[-1]))
+        d1_dec.append(ms)
+        lossless(f"{tag} depth 1")(t, out)
+    launches = launches_ok(f"{tag} depth 1")
+    enc2 = TorchFFV1Encoder(params, batch=BATCH, device=dev)
+    reset_counts()
+    d2_enc = pipelined(enc2.submit_frames, enc2.collect_frames, steps,
+                       packets_ok(f"{tag} depth 2"))
+    dec2 = TorchFFV1Decoder(W, H, enc.extradata, batch=BATCH, device=dev)
+    d2_dec = pipelined(dec2.submit_frames, dec2.collect_frames, packets,
+                       lossless(f"{tag} depth 2"))
+    check(not dec.slice_damaged.any() and not dec2.slice_damaged.any(),
+          f"{tag}: slice flagged damaged")
+    launches_ok(f"{tag} depth 2")
+    # phase 6's launches: frame 1 of a fresh depth-1 run that stops
+    # there, untimed and uncounted (frame 2 is a keyframe, whose reset of
+    # the decoder's VLC table in place would change a recorded output)
+    enc3 = TorchFFV1Encoder(params, batch=BATCH, device=dev)
+    dec3 = TorchFFV1Decoder(W, H, enc.extradata, batch=BATCH, device=dev)
+    for t in range(2):
+        rec_enc.armed = rec_dec.armed = (t == 1)
+        pkts = [r[0] for r in enc3.encode_frames(steps[t])]
+        check(pkts == packets[t], f"{tag}: the recording run's packets")
+        dec3.decode_frames(pkts)
+    rec_enc.armed = rec_dec.armed = False
+    recs = {k_enc: rec_enc.take_all(), k_dec: rec_dec.take_all()}
+    check(all(len(v) == 1 for v in recs.values()),
+          f"{tag}: the warm-up frame's kernel calls were not recorded")
+    recs = {k: v[0] for k, v in recs.items()}
+    res = dict(enc_d1=d1_enc, dec_d1=d1_dec,
+               enc_d2=[1e3 * x for x in d2_enc],
+               dec_d2=[1e3 * x for x in d2_dec], launches=launches,
+               steps=YA8_FRAMES, recs=recs, ms=scan_ms(recs))
+    log(f"[{tag}] {W}x{H} ya8, {'range coder' if coder else 'Golomb-Rice'}, "
+        f"batch {BATCH}, {YA8_FRAMES} frames at GOP {YA8_GOP} (luma and "
+        f"alpha planes, {enc.n_max} px a lane): packets equal to the "
+        f"goldens, decodes lossless at depth 1 and 2, every submit strict; "
+        f"launches per depth {launches}; ms a step ({gpu}), frames "
+        f"{', '.join(map(str, range(YA8_FRAMES)))}: depth 1 encode "
+        + ", ".join(f"{x:.2f}" for x in d1_enc) + " (frames 1-2 median "
+        f"{median(d1_enc[1:]):.2f} = "
+        f"{mpix / median(d1_enc[1:]) * 1e3:.2f} Mpix/s), decode "
+        + ", ".join(f"{x:.2f}" for x in d1_dec) + " (frames 1-2 median "
+        f"{median(d1_dec[1:]):.2f} = "
+        f"{mpix / median(d1_dec[1:]) * 1e3:.2f} Mpix/s); depth 2 encode "
+        + ", ".join(f"{x:.2f}" for x in res["enc_d2"]) + ", decode "
+        + ", ".join(f"{x:.2f}" for x in res["dec_d2"]) + "; the warm-up "
+        f"frame's launches alone: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in res["ms"].items()))
+    return res
+
+
+SCANS = {"rc_encode": lambda: rc_encode.rc_encode_packed,
+         "rc_decode": lambda: rc_decode.rc_decode_planes,
+         "golomb_encode": lambda: golomb_encode.golomb_encode_lanes,
+         "golomb_decode": lambda: golomb_decode.golomb_decode_planes}
+
+
+def scan_ms(recs):
+    """{instance: ms} of each recorded launch run again alone."""
+    return {k: cuda_time_ms(lambda k=k, a=a: SCANS[k]()(*a), 3)
+            for k, (a, _o) in recs.items()}
+
+
+CLI_PATH = "8bit"
+
+
+def cli_phase(dev, gpu, recorders):
+    """cli: the 8bit path's stream 0 (8 frames of 1080p yuv420p) written to
+    a y4m in a temporary directory, then the port's command line run in
+    this process on the card (``python -m tpu_ffv1_torch``'s ``run``,
+    default device cuda) with the path's parameters, ``-c:v ffv1 -level 3
+    -coder 2 -slices 24 -benchmark`` into an avi: every packet of the
+    file (demuxed with the port's avi reader) equal to the 8bit golden
+    digests of stream 0, K1 launched once per frame; then the file
+    decoded back through the command line to a y4m, equal to the source,
+    K2 once per frame.  ``recorders``: the LastLaunch of K1 and K2; each
+    run is made again, untimed, for its frame-1 launch (batch 1, L=24),
+    kept for phase 6 and timed alone.  Prints each run's wall time and its -benchmark Mpix/s;
+    returns the figures (``recs``: the kept launches)."""
+    frames = [s for s in path_streams(CLI_PATH)[0]]
+    n = len(frames)
+    golden = load_goldens()[CLI_PATH]
+    k_enc, k_dec = PATHS[CLI_PATH].kernels
+    out = {}
+    recs = {}
+
+    def cli(label, args, kernel):
+        err = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = port_cli.run(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        said = err.getvalue()
+        check(rc == 0, f"cli {label}: exit code {rc}: {said}")
+        launches = all_launches()
+        check(launches == {kernel: n},
+              f"cli {label}: expected {{{kernel!r}: {n}}} launches, got "
+              f"{launches}")
+        bench = re.search(r"bench: ([\d.]+)s\s+([\d.]+) Mpixel/s", said)
+        check(bench is not None, f"cli {label}: no -benchmark line: {said}")
+        out[label] = dict(wall_s=wall, bench_s=float(bench.group(1)),
+                          bench_mpix_s=float(bench.group(2)),
+                          launches=launches)
+        # phase 6's launch: frame 1 of the same run made again, untimed
+        # and uncounted, into a file of its own
+        rec = recorders["packed" if kernel == k_enc else "decode"]
+        again = args[:-1] + [os.path.join(os.path.dirname(args[-1]),
+                                          "again_" +
+                                          os.path.basename(args[-1]))]
+        rec.armed = True
+        try:
+            with contextlib.redirect_stderr(io.StringIO()):
+                rc = port_cli.run(again)
+        finally:
+            rec.armed = False
+        calls = rec.take_all()
+        same = rc == 0 and filecmp.cmp(args[-1], again[-1], shallow=False)
+        check(same and len(calls) == n,
+              f"cli {label}: the recording run's exit code {rc}, its "
+              f"{len(calls)} calls of {kernel}, or its file")
+        recs[kernel] = calls[1]           # submitted in frame order
+        return said.strip().splitlines()[0]
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as d:
+        src, avi, back = (os.path.join(d, f) for f in
+                          ("in.y4m", "out.avi", "back.y4m"))
+        write_y4m(src, frames, "yuv420p", W, H)
+        line_enc = cli("encode", ["-i", src, "-c:v", "ffv1", "-level", "3",
+                                  "-coder", "2", "-context", "0",
+                                  "-slices", str(SLICES), "-benchmark",
+                                  avi], k_enc)
+        st = read_avi(avi)
+        check((st.width, st.height, len(st.packets)) == (W, H, n) and
+              digest(st.extradata) == golden["extradata"],
+              "cli: the avi's geometry, frame count or extradata")
+        for t, (pkt, key) in enumerate(zip(st.packets, st.keyflags)):
+            want = golden["packets"][0][t]
+            check(digest(pkt) == {"sha256": want["sha256"],
+                                  "len": want["len"]} and
+                  bool(key) == want["key"],
+                  f"cli frame {t}: packet differs from the golden")
+        line_dec = cli("decode", ["-i", avi, "-benchmark", back], k_dec)
+        got, fmt, w, h, _fps = read_y4m(back)
+        check(fmt == "yuv420p" and (w, h) == (W, H) and len(got) == n and
+              all(np.array_equal(a, b) for fa, fb in zip(got, frames)
+                  for a, b in zip(fa, fb)),
+              "cli: the decoded y4m differs from the source")
+    out.update(recs=recs, ms=scan_ms(recs), steps=n,
+               launches={k: out[lab]["launches"][k] for lab, k in
+                         (("encode", k_enc), ("decode", k_dec))})
+    log(f"[cli] python -m tpu_ffv1_torch on the card ({gpu}), {CLI_PATH}'s "
+        f"stream 0, {n} frames {W}x{H} yuv420p, y4m -> avi -> y4m: "
+        f"\"{line_enc}\", every packet equal to the golden digests; "
+        f"\"{line_dec}\", equal to the source; encode wall "
+        f"{out['encode']['wall_s']:.3f} s (-benchmark "
+        f"{out['encode']['bench_mpix_s']:.2f} Mpix/s), decode wall "
+        f"{out['decode']['wall_s']:.3f} s (-benchmark "
+        f"{out['decode']['bench_mpix_s']:.2f} Mpix/s); launches "
+        f"{out['encode']['launches']}, {out['decode']['launches']}; the "
+        f"frame-1 launches alone: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in out["ms"].items()))
+    return out
+
+
 def check_compact_launch(name, rec, raw_name, raw_rec):
     """A compact path's warm-up launch against its raw path's K1 launch
     on the same frame: the same inputs (SHA-256 of every input tensor),
@@ -2458,28 +2764,12 @@ def segments(name, args, out):
     relaunch on the rows before it ends in, and from each plane's two
     rows above it in the launch's output (rc_decode_rgb_ref's rows0).
 
-    The Golomb-Rice lanes (G1, G2) are independent and carry their state
-    from pixel to pixel (bit accumulator, run state): they split by lanes,
-    in GOLOMB_LANE_GROUPS groups, each held to the launch's outputs for
-    its lanes."""
+    The Golomb-Rice scans (G1, G2) carry their state from pixel to pixel
+    (bit accumulator, run state) and run whole: their plain versions loop
+    over every pixel of a lane, so a split by lanes would only repeat the
+    loop (the checks are CPU-bound)."""
     if name.startswith("golomb"):
-        L = args[0].shape[0]
-        cuts = [L * i // GOLOMB_LANE_GROUPS
-                for i in range(GOLOMB_LANE_GROUPS + 1)]
-        segs = []
-        for a, b in zip(cuts, cuts[1:]):
-            if name.startswith("golomb_encode"):
-                ctx, diff, act, flags, vlc0, pre, plens = args[:7]
-                seg = (ctx[a:b], diff[a:b], act[a:b], flags, vlc0[a:b],
-                       pre[a:b], plens[a:b], *args[7:])
-                want = tuple(o[a:b] for o in out)
-            else:
-                bufs, vlc0, qt, pos0 = args[:4]
-                seg = (bufs[a:b], vlc0[a:b], qt, pos0[a:b], *args[4:])
-                want = (tuple(p[a:b] for p in out[0]), out[1][a:b],
-                        out[2][a:b])
-            segs.append((seg, want))
-        return segs
+        return [(args, out)]
     if name.startswith("rc_encode"):
         ctx, diff, act, st0, one, zero, low0, rng0, bits = args
         packed, low, rng, st = out
@@ -2598,6 +2888,102 @@ def plain_cost(name, args):
             args[8] * args[9] * args[10]
     return 2 * args[0].shape[0] * (2 * args[9] + 1) * \
         sum(w * h for (w, h, _b) in args[8])
+
+
+def lane_layout(name):
+    """The lane axes of a range-coder launch's arguments and outputs:
+    (argument index -> axis, output index -> axis, the plane outputs'
+    axis or None); the other arguments are shared by every lane.
+    None for Golomb-Rice, whose launches run alone."""
+    if name.startswith("golomb"):
+        return None
+    if name.startswith("rc_encode"):
+        # ctx, diff, active, states0, low0, range0; packed (N, S, L), low,
+        # range, states
+        return {0: 0, 1: 0, 2: 0, 3: 0, 6: 0, 7: 0}, \
+            {0: 2, 1: 0, 2: 0, 3: 0}, None
+    # bufs, states0, low0, range0, pos0; planes (a tuple of (L, h, w), or
+    # RGB's (P, L, h, w)), states, low, range, pos
+    return {0: 0, 1: 0, 5: 0, 6: 0, 7: 0}, {1: 0, 2: 0, 3: 0, 4: 0}, \
+        1 if "_rgb" in name else 0
+
+
+def same_value(a, b):
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor) \
+            and a.shape == b.shape and a.dtype == b.dtype and \
+            torch.equal(a, b)
+    return a == b
+
+
+def mergeable(name, rec_a, rec_b):
+    """Whether two launches of instance ``name`` differ only in their
+    lanes: the same shared arguments and the same shapes along every
+    other axis (a decoder's byte slabs may differ in length)."""
+    lay = lane_layout(name)
+    if lay is None:
+        return False
+    (args_a, out_a), (args_b, out_b) = rec_a, rec_b
+    arg_axes, out_axes, _p = lay
+    for i, (a, b) in enumerate(zip(args_a, args_b)):
+        if i not in arg_axes:
+            if not same_value(a, b):
+                return False
+        elif (i > 0 or name.startswith("rc_encode")) and \
+                a.shape[1:] != b.shape[1:]:
+            return False
+    for i in out_axes:
+        sa, sb = list(out_a[i].shape), list(out_b[i].shape)
+        sa.pop(out_axes[i])
+        sb.pop(out_axes[i])
+        if sa != sb:
+            return False
+    return True
+
+
+def cat_lanes(name, recs):
+    """One launch record whose lanes are those of ``recs`` side by side
+    (mergeable launches of instance ``name``); byte slabs are padded
+    with zeros to the longest, which the scans read as the bytes past a
+    lane's end."""
+    arg_axes, out_axes, plane_axis = lane_layout(name)
+    args, out = list(recs[0][0]), list(recs[0][1])
+    for i, ax in arg_axes.items():
+        parts = [r[0][i] for r in recs]
+        if i == 0 and not name.startswith("rc_encode"):
+            cap = max(t.shape[1] for t in parts)
+            parts = [torch.nn.functional.pad(t, (0, cap - t.shape[1]))
+                     for t in parts]
+        args[i] = torch.cat(parts, ax)
+    for i, ax in out_axes.items():
+        out[i] = torch.cat([r[1][i] for r in recs], ax)
+    if plane_axis is not None:
+        planes = [r[1][0] for r in recs]
+        out[0] = torch.cat(planes, plane_axis) if plane_axis else \
+            tuple(torch.cat(ps, 0) for ps in zip(*planes))
+    return tuple(args), tuple(out)
+
+
+def merge_launches(recs):
+    """Main-path launches grouped for phase 6: [(instance, launch record,
+    keys)], one entry per group of launches of one instance that differ
+    only in their lanes (``mergeable``), with their lanes side by side
+    (``cat_lanes``).  The plain versions are loops over pixels,
+    vectorised over lanes that never mix, so one plain run holds every
+    launch of a group on its own inputs at about the cost of one."""
+    groups = []
+    for key, rec in recs.items():
+        name = key[1]
+        for g in groups:
+            if g[0] == name and mergeable(name, g[2][0], rec):
+                g[1].append(key)
+                g[2].append(rec)
+                break
+        else:
+            groups.append((name, [key], [rec]))
+    return [(name, recs_g[0] if len(recs_g) == 1 else
+             cat_lanes(name, recs_g), keys)
+            for name, keys, recs_g in groups]
 
 
 def plain_checks(launches):
@@ -2744,8 +3130,6 @@ OFF_PATH = ("rc_decode_five", "rc_decode_global", "rc_decode_ext_five",
             "golomb_decode_global") + tuple(
                 f"rc_decode{e}_rgb{i}" for e in ("", "_ext")
                 for i in ("_five", "_global", "_five_global"))
-# the lane groups a Golomb-Rice main-path launch's plain check splits into
-GOLOMB_LANE_GROUPS = 2
 
 
 def golomb_row(name, path_name, p, rec, mp, checks, step, vlc_px, gpu):
@@ -2952,6 +3336,14 @@ def main():
     pipes[f"{P_PIPE_PATH}_pipe"] = pframe_pipeline_phase(dev, gpu)
     log(f"[pipe] the pipelined and transcode phases in "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ya8 = {name: ya8_phase(dev, gpu, name, recorders) for name in YA8}
+    cli = cli_phase(dev, gpu, recorders)
+    # the ya8 and cli paths' launches: their own shapes (ya8 L=48 at two
+    # planes a lane, cli L=24), each held to its plain version in phase 6
+    side = dict(ya8, cli=cli)
+    log(f"[ya8+cli] the ya8 and cli phases in "
+        f"{time.perf_counter() - t0:.1f} s")
     # each instance's launch on the first path that ran it (K1 and K1-ext
     # also run on the RGB paths: their stage splits and compact checks
     # take the planar paths' launches)
@@ -3003,8 +3395,12 @@ def main():
     for pn, p in ppaths.items():
         for k, rec in p["recs"].items():
             main_recs[(pn, k, 0)] = rec
+    for pn, p in side.items():
+        for k, rec in p["recs"].items():
+            main_recs[(pn, k, 0)] = rec
+    merged = merge_launches(main_recs)
     launches = [(name, rec, False) for name, _info, rec in random] + \
-        [(name, rec, True) for (_pn, name, _g), rec in main_recs.items()]
+        [(name, rec, True) for name, rec, _keys in merged]
     secs, workers = plain_checks(launches)
     checks = {}
     for (name, info, _rec), segs in zip(random, secs):
@@ -3014,17 +3410,24 @@ def main():
             f"match (equal SHA-256 of every output); plain version on the "
             f"host CPU {segs[0]:.1f} s")
     mp, group_plain = {}, {}
-    for (pn, name, gi), segs in zip(main_recs, secs[len(random):]):
-        shape = launch_shape(name, *main_recs[(pn, name, gi)])
-        group_plain[(pn, name, gi)] = sum(segs) * 1e3
-        m = mp.setdefault((pn, name), dict(plain_ms=0.0,
-                                           main_path_shape=shape))
-        m["plain_ms"] += sum(segs) * 1e3
-        log(f"[check] {name}, {pn} path's warm-up frame"
-            f"{f', launch {gi + 1} of the step' if gi else ''} ({shape}): "
-            f"exact match in {len(segs)} segments (equal SHA-256 of every "
-            f"output); plain version on the host CPU "
-            f"{' + '.join(f'{x:.1f}' for x in segs)} = {sum(segs):.1f} s")
+    for (name, rec, keys), segs in zip(merged, secs[len(random):]):
+        lanes = [main_recs[k][0][0].shape[0] for k in keys]
+        shared = "" if len(keys) == 1 else (
+            f"; one plain run over the {sum(lanes)} lanes of " + ", ".join(
+                f"{pn}{f' launch {gi + 1}' if gi else ''} ({n})"
+                for (pn, _n, gi), n in zip(keys, lanes)) + " side by side")
+        for pn, _name, gi in keys:
+            shape = launch_shape(name, *main_recs[(pn, name, gi)])
+            group_plain[(pn, name, gi)] = sum(segs) * 1e3
+            m = mp.setdefault((pn, name), dict(plain_ms=0.0,
+                                               main_path_shape=shape))
+            m["plain_ms"] += sum(segs) * 1e3
+            log(f"[check] {name}, {pn} path's warm-up frame"
+                f"{f', launch {gi + 1} of the step' if gi else ''} "
+                f"({shape}): exact match in {len(segs)} segments (equal "
+                f"SHA-256 of every output){shared}; plain version on the "
+                f"host CPU {' + '.join(f'{x:.1f}' for x in segs)} = "
+                f"{sum(segs):.1f} s")
     for pn, path in PATHS.items():
         name = path.kernels[0]
         if name in compact_sec:
@@ -3114,6 +3517,23 @@ def main():
                 p["p_launches"][name], p["p_steps"], decisions, probe, funcs,
                 compact_sec, mp[(pn, name)]["main_path_shape"],
                 checks[name], gpu))
+    for pn, p in side.items():
+        k_enc = YA8[pn][1][0] if pn in YA8 else PATHS[CLI_PATH].kernels[0]
+        enc_args = p["recs"][k_enc][0]
+        for name, rec in p["recs"].items():
+            m = mp[(pn, name)]
+            if name.startswith("golomb"):
+                vlc_px = golomb_vlc_pixels(*enc_args[:4], enc_args[8])
+                kernels.append(golomb_row(
+                    name, pn, p, rec, m, checks[name],
+                    golomb_step[name.split("_")[1]], vlc_px, gpu))
+                continue
+            decisions = decisions_per_lane(enc_args[1], enc_args[2])
+            kernels.append(rc_row(
+                name, pn, [rec], [p["ms"][name]], [m["plain_ms"]],
+                [list(range(len(decisions)))], p["launches"][name],
+                p["steps"], decisions, probe, funcs, compact_sec,
+                m["main_path_shape"], checks[name], gpu))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"probes": dict(
         decision_encode_ns=ns_enc, decision_decode_ns=ns_dec,
@@ -3135,6 +3555,10 @@ def main():
         key_bytes=p["key_bytes"], **p["stages"])
         for name, p in ppaths.items()}}))
     log(json.dumps({"pipeline": pipes}))
+    shown = {pn: {k: v for k, v in p.items() if k != "recs"}
+             for pn, p in side.items()}
+    log(json.dumps({"ya8": {pn: shown[pn] for pn in YA8},
+                    "cli": shown["cli"]}))
     log(json.dumps({"stages": stages}))
     log(json.dumps({"kernels": kernels}))
     log(gpu)

@@ -20,7 +20,11 @@ encoder's, as every main path's.  The FFV1-P paths' (pframe_720p:
 content, 2 x 4 frames, the EPZS search; pframe_422p10_540p: 960x540
 yuv422p10le, 2 x 4 frames) are the JAX package's host FFV1PEncoder's,
 which the JAX package's device P encoder matches byte for byte
-(tests/test_pframe_tpu.py).  The compact-form paths
+(tests/test_pframe_tpu.py).  The ya8 phase's (ya8, ya8_golomb: 2 x 3
+frames of 1080p ya8 at GOP 2, range coder and Golomb-Rice) are the host
+C encoder's, which codes ya8 as a luma and an alpha plane
+(codec/encoder.py of the JAX package, engine="native").  The
+compact-form paths
 (8bit_compact, 8bit_ctx1_compact) have no digests of their own: the
 host encoder on their content and configuration must give those of the
 path they name (their packets are the raw form's, byte for byte).
@@ -120,6 +124,33 @@ def golden_pframe(name):
             "packets": packets}
 
 
+def golden_ya8(name):
+    """Digests of a ya8 path's packets under the host C encoder, one
+    encoder per stream."""
+    params = EncoderParams(**chip_smoke.ya8_kw(name))
+    encs = [FFV1Encoder(params, engine="native")
+            for _ in range(chip_smoke.BATCH)]
+    assert all(e.engine == "native" for e in encs)
+    packets = []
+    for enc, frames in zip(encs, chip_smoke.ya8_streams()):
+        packets.append([])
+        for f in frames:
+            pkt, key = enc.encode_frame(f)
+            packets[-1].append(dict(chip_smoke.digest(pkt), key=bool(key)))
+    return {"pix_fmt": "ya8", "width": chip_smoke.W, "height": chip_smoke.H,
+            "coder": chip_smoke.YA8[name][0], "seed": chip_smoke.YA8_SEED,
+            "frames": chip_smoke.YA8_FRAMES,
+            "extradata": chip_smoke.digest(encs[0].extradata),
+            "packets": packets}
+
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.YA8))
+def test_ya8_goldens_match_host_c_encoder(name):
+    assert native.available(), \
+        "the host C encoder (native/) must build to check the goldens"
+    assert golden_ya8(name) == chip_smoke.load_goldens()[name]
+
+
 @pytest.mark.parametrize("name", sorted(chip_smoke.P_PATHS))
 def test_pframe_goldens_match_host_p_encoder(name):
     assert golden_pframe(name) == chip_smoke.load_goldens()[name]
@@ -148,6 +179,7 @@ if __name__ == "__main__":
     out["v4_pcm"] = golden_pcm()
     out["nonuniform_ext"] = golden_nonuniform()
     out.update((name, golden_pframe(name)) for name in chip_smoke.P_PATHS)
+    out.update((name, golden_ya8(name)) for name in chip_smoke.YA8)
     with open(chip_smoke.GOLDENS, "w") as f:
         json.dump(out, f, indent=1)
         f.write("\n")

@@ -236,3 +236,149 @@ def test_pframe_codec_matches():
         with pytest.raises(ValueError) as got:
             tcodec.split_p_extradata(bad)
         assert str(got.value) == str(want.value)
+
+
+# ------------------------------------------------- the command line's I/O
+
+def _frame(pix_fmt, w, h, seed):
+    """One frame of random samples in the format's storage convention."""
+    from tpu_ffv1.io.rawvideo import frame_shape
+    r = np.random.RandomState(seed)
+    hi = 1 << jpix.get_pix_fmt(pix_fmt).bits
+    return [r.randint(0, min(hi, 256) if dt == np.uint8 else hi,
+                      shape).astype(dt)
+            for shape, dt in frame_shape(pix_fmt, w, h)]
+
+
+def _same_frames(a, b):
+    assert len(a) == len(b)
+    for fa, fb in zip(a, b):
+        fa = fa if isinstance(fa, (list, tuple)) else [fa]
+        fb = fb if isinstance(fb, (list, tuple)) else [fb]
+        assert len(fa) == len(fb)
+        for pa, pb in zip(fa, fb):
+            pa, pb = np.asarray(pa), np.asarray(pb)
+            assert pa.dtype == pb.dtype and np.array_equal(pa, pb)
+
+
+@pytest.mark.parametrize("pix", ["yuv420p", "yuv422p10le", "gray16le",
+                                 "ya8", "bgr0", "gbrp14le", "yuva444p"])
+def test_rawvideo_and_y4m_match(pix, tmp_path):
+    """io/rawvideo.py and io/y4m.py: plane shapes, frame sizes, the bytes
+    each writes and the frames each reads back, against the JAX package's
+    (y4m where it carries the format)."""
+    from tpu_ffv1.io import rawvideo as jraw
+    from tpu_ffv1.io import y4m as jy4m
+    from tpu_ffv1_torch.io import rawvideo as traw
+    from tpu_ffv1_torch.io import y4m as ty4m
+    w, h = 13, 7
+    frames = [_frame(pix, w, h, seed) for seed in range(3)]
+    assert traw.frame_shape(pix, w, h) == jraw.frame_shape(pix, w, h)
+    assert traw.frame_size_bytes(pix, w, h) == \
+        jraw.frame_size_bytes(pix, w, h)
+    pt, pj = tmp_path / "t.raw", tmp_path / "j.raw"
+    traw.write_frames(str(pt), frames)
+    jraw.write_frames(str(pj), frames)
+    assert pt.read_bytes() == pj.read_bytes()
+    _same_frames(traw.read_frames(str(pj), pix, w, h),
+                 jraw.read_frames(str(pj), pix, w, h))
+    if pix not in jy4m._WRITE_TAGS:
+        with pytest.raises(ValueError) as want:
+            jy4m.write_y4m(str(tmp_path / "j.y4m"), frames, pix, w, h)
+        with pytest.raises(ValueError) as got:
+            ty4m.write_y4m(str(tmp_path / "t.y4m"), frames, pix, w, h)
+        assert str(got.value) == str(want.value)
+        return
+    yt, yj = tmp_path / "t.y4m", tmp_path / "j.y4m"
+    ty4m.write_y4m(str(yt), frames, pix, w, h, fps=(30000, 1001))
+    jy4m.write_y4m(str(yj), frames, pix, w, h, fps=(30000, 1001))
+    assert yt.read_bytes() == yj.read_bytes()
+    got, want = ty4m.read_y4m(str(yj)), jy4m.read_y4m(str(yj))
+    assert got[1:] == want[1:]
+    _same_frames(got[0], want[0])
+
+
+@pytest.mark.parametrize("container", ["avi", "mkv", "nut"])
+def test_containers_match(container, tmp_path):
+    """io/avi.py, io/mkv.py and io/nut.py: the bytes each muxer writes for
+    the same stream, and the stream each demuxer reads back."""
+    import importlib
+    jmod = importlib.import_module(f"tpu_ffv1.io.{container}")
+    tmod = importlib.import_module(f"tpu_ffv1_torch.io.{container}")
+    cls = {"avi": "AviStream", "mkv": "MkvStream", "nut": "NutStream"}
+    r = np.random.RandomState(7)
+    kw = dict(width=36, height=20, fps=(24000, 1001),
+              extradata=r.randint(0, 256, 41).astype(np.uint8).tobytes(),
+              packets=[r.randint(0, 256, n).astype(np.uint8).tobytes()
+                       for n in (300, 17, 1, 4096, 65)],
+              keyflags=[True, False, False, True, False])
+    pt, pj = tmp_path / f"t.{container}", tmp_path / f"j.{container}"
+    getattr(tmod, f"write_{container}")(
+        str(pt), getattr(tmod, cls[container])(**kw))
+    getattr(jmod, f"write_{container}")(
+        str(pj), getattr(jmod, cls[container])(**kw))
+    assert pt.read_bytes() == pj.read_bytes()
+    got = vars(getattr(tmod, f"read_{container}")(str(pj)))
+    assert got == vars(getattr(jmod, f"read_{container}")(str(pj)))
+    assert got["packets"] == kw["packets"]
+
+
+SWS_PAIRS = [("yuv420p", "yuv444p"), ("yuv444p", "yuv420p"),
+             ("yuv422p", "yuv410p"), ("yuv420p", "yuv420p10le"),
+             ("yuv420p10le", "yuv420p"), ("yuv444p16le", "yuv422p10le"),
+             ("gray", "gray16le"), ("yuv420p", "gray"),
+             ("gray", "yuv420p"), ("bgr0", "yuv420p"),
+             ("yuv420p", "bgr0"), ("gbrp10le", "yuv444p"),
+             ("yuva420p", "yuv420p")]
+
+
+@pytest.mark.parametrize("src,dst", SWS_PAIRS,
+                         ids=[f"{a}->{b}" for a, b in SWS_PAIRS])
+def test_swscale_matches(src, dst):
+    """swscale.py: convert and scale_convert (resize + convert in one
+    pass) give the JAX package's samples exactly, or its error."""
+    from tpu_ffv1 import swscale as jsws
+    from tpu_ffv1_torch import swscale as tsws
+    w, h = 22, 14
+    frame = _frame(src, w, h, seed=len(src) + len(dst))
+    if jpix.get_pix_fmt(src).interleaved:
+        frame = frame[0]        # a packed frame is its one array
+    for call in (lambda m: m.convert(frame, src, dst, w, h),
+                 lambda m: m.scale_convert(frame, src, dst, w, h, 15, 9)):
+        try:
+            want = call(jsws)
+        except ValueError as e:
+            with pytest.raises(ValueError) as got:
+                call(tsws)
+            assert str(got.value) == str(e)
+            continue
+        _same_frames([call(tsws)], [want])
+
+
+VF_CHAINS = [("null", "yuv420p", None), ("copy,null", "yuv422p", None),
+             ("scale=24:16", "yuv420p", None),
+             ("scale=24:-1", "yuv444p16le", "yuv420p"),
+             ("format=yuv422p", "yuv420p", None),
+             ("scale=20:12,format=yuv444p", "yuv420p10le", None),
+             ("crop=20:14:4:2", "yuv420p", None),
+             ("crop=w=16:h=10", "gray16le", None),
+             ("hflip,vflip", "yuv422p10le", None),
+             ("transpose=1", "yuv420p", None),
+             ("transpose=3,scale=30:20", "yuv444p", "yuv420p"),
+             ("trim=start_frame=1:end_frame=3", "bgr0", None)]
+
+
+@pytest.mark.parametrize("chain,src,dst", VF_CHAINS,
+                         ids=[c[0] for c in VF_CHAINS])
+def test_filtergraph_matches(chain, src, dst):
+    """filtergraph.py: the negotiated output format and size, and every
+    frame a chain gives, against the JAX package's FilterGraph."""
+    from tpu_ffv1 import filtergraph as jfg
+    from tpu_ffv1_torch import filtergraph as tfg
+    w, h = 40, 30
+    frames = [_frame(src, w, h, seed) for seed in range(4)]
+    gt = tfg.FilterGraph(chain, src, w, h, dst_fmt=dst)
+    gj = jfg.FilterGraph(chain, src, w, h, dst_fmt=dst)
+    assert (gt.out_fmt, gt.out_w, gt.out_h) == \
+        (gj.out_fmt, gj.out_w, gj.out_h)
+    _same_frames(gt.run(frames), gj.run(frames))

@@ -27,7 +27,13 @@ MODULES = ["tpu_ffv1_torch", "tpu_ffv1_torch.device",
            "tpu_ffv1_torch.bitstream.symbols",
            "tpu_ffv1_torch.bitstream.headers",
            "tpu_ffv1_torch.pframe", "tpu_ffv1_torch.pframe.codec",
-           "tpu_ffv1_torch.pframe.motion", "tpu_ffv1_torch.pframe.tpu"]
+           "tpu_ffv1_torch.pframe.motion", "tpu_ffv1_torch.pframe.tpu",
+           "tpu_ffv1_torch.io.rawvideo", "tpu_ffv1_torch.io.y4m",
+           "tpu_ffv1_torch.io.avi", "tpu_ffv1_torch.io.mkv",
+           "tpu_ffv1_torch.io.nut", "tpu_ffv1_torch.swscale",
+           "tpu_ffv1_torch.filtergraph", "tpu_ffv1_torch.cli",
+           "tpu_ffv1_torch.cli.main", "tpu_ffv1_torch.cli.__main__",
+           "tpu_ffv1_torch.__main__"]
 
 
 def _jax_modules_after(imports: str) -> str:
@@ -55,6 +61,24 @@ def test_port_never_imports_jax():
         "tpu_ffv1_torch.TorchFFV1PEncoder, tpu_ffv1_torch.TorchFFV1PDecoder\n"
         "tpu_ffv1_torch.EncoderParams\n")
     assert bad == "", f"port pulled in jax / tpu_ffv1: {bad}"
+
+
+def test_command_line_never_imports_jax():
+    """``python -m tpu_ffv1_torch``, run to its end (a conversion-only
+    call: raw frames in, y4m out, no codec), imports the port and nothing
+    of jax or tpu_ffv1."""
+    bad = _jax_modules_after(
+        "import os, runpy, tempfile\n"
+        "d = tempfile.mkdtemp()\n"
+        "raw = os.path.join(d, 'in.yuv')\n"
+        "open(raw, 'wb').write(bytes(range(24)) * 2)\n"
+        "sys.argv = ['tpu_ffv1_torch', '-s', '4x4', '-i', raw,\n"
+        "            os.path.join(d, 'out.y4m')]\n"
+        "try:\n"
+        "    runpy.run_module('tpu_ffv1_torch', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n")
+    assert bad == "", f"the command line pulled in jax / tpu_ffv1: {bad}"
 
 
 def test_chip_smoke_never_imports_jax():

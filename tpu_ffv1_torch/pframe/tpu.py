@@ -516,12 +516,10 @@ class TorchFFV1PDecoder:
                                     self.p_states)
         # sentinel + byte-count check (ffv1dec.c:459-467); a slice that
         # fails it keeps what it decoded, as the host's does
-        kept = b.slice_damaged.copy()
-        b.slice_damaged[:] = False
-        b._validate(parsed, torch.stack([low, rng, pos]).cpu().numpy(),
-                    buflens)
-        failed = b.slice_damaged & dec.reshape(self.batch, -1)
-        b.slice_damaged[:] = kept | failed
+        failed = b._sentinel_failed(
+            parsed, torch.stack([low, rng, pos]).cpu().numpy(), buflens) & \
+            dec.reshape(self.batch, -1)
+        b.slice_damaged |= failed
         self.slice_damaged |= failed
         return self._reconstruct(planes, torch.from_numpy(mvs).to(
             self.device), torch.from_numpy(intra).to(self.device), dec_t)

@@ -22,7 +22,8 @@ holds a line of every plane G, B, R(, A) at the coded width (9 for
 assembly and the output packing run as torch ops (ffv1dec.c:264-272).
 Output as the host decoder's: 8-bit RGB one (H, W, 4) uint8 array in
 memory order B, G, R, A (A = 0 for bgr0), deeper RGB three uint16
-planes in the format's order.
+planes in the format's order; ya8 (gray + alpha) one (H, W, 2) uint8
+array, decoded as a luma and an alpha plane (alpha on state plane 1).
 
 Version 4's slice headers add each slice's RCT coefficients, coding mode
 and slice_reset_contexts (ffv1dec.c:345-356): RGB's inverse transform
@@ -86,8 +87,9 @@ class TorchFFV1Decoder:
     ``device_out``: collect_frames returns (planes, keyframes), the
     planes stacked (batch, Hk, Wk) tensors on the device in the dtype
     ``TorchFFV1Encoder.submit_device_frames`` takes (uint8 at 8 bits,
-    int32 above), so a transcode keeps every pixel on the card;
-    concealment needs the previous picture on the host, so a damaged
+    int32 above; ya8: the luma and alpha pair), so a transcode keeps
+    every pixel on the card; concealment needs the previous picture on
+    the host, so a damaged
     slice raises RuntimeError instead (decoder.py:91-97, 683-695 of the
     JAX package).  Planar YUV/gray with the range coder on a uniform
     grid only, as there.
@@ -131,9 +133,11 @@ class TorchFFV1Decoder:
         self.pix_fmt = reconstruct_pix_fmt(
             g.colorspace, g.bits_per_raw_sample or 8, g.chroma_planes,
             g.chroma_h_shift, g.chroma_v_shift, g.transparency)
-        if not self.rgb and g.transparency and not g.chroma_planes:
-            raise NotImplementedError("ya8 (interleaved alpha) is not "
-                                      "ported")
+        # ya8 (transparency without chroma, colorspace 0): decoded as a
+        # luma + alpha plane pair (alpha on state plane 1), returned as one
+        # interleaved (h, w, 2) array (decoder.py:164-167, 808-811 of the
+        # JAX package)
+        self.ya = not self.rgb and g.transparency and not g.chroma_planes
         if g.ac == T.AC_RANGE_CUSTOM_TAB:
             one, zero = custom_state_tables(g.state_transition)
         else:
@@ -280,7 +284,8 @@ class TorchFFV1Decoder:
                 ss = SliceState(geom=geom)
                 qidxs, _ = read_slice_header(self, ss, src)
                 qidx = qidxs[0]
-                if len(set(qidxs)) > 1 and not damaged[si]:
+                if len(set(qidxs)) > 1 and not damaged[si] and not (
+                        not keyframe and self._in_flight_sentinel(bi)[si]):
                     # the reference reads only the first index
                     # (decoder.py:288-289 of the JAX package); FFmpeg's
                     # encoders write one index for every plane
@@ -308,14 +313,45 @@ class TorchFFV1Decoder:
 
     def _known_damage(self, bi: int):
         """Stream ``bi``'s damage flags as a frame submitted now finds
-        them: the last frame in flight's, else the stream's own.  A frame
-        still in flight has not run its sentinel check, so at depth 2 a
-        slice that fails only that check is known one frame later (it
-        matters only to which quant tables count as intact on the RGB and
-        Golomb-Rice paths, ``_lane_inputs``)."""
-        if self.pipe.pending:
-            return self.pipe.pending[-1].meta["damaged"][bi]
-        return self.slice_damaged[bi]
+        them: the last frame in flight's (its parse started from those
+        known at its submit), and, unless a keyframe in flight cleared
+        them, the stream's own, which the collects since then may have
+        raised (the sentinel check runs in the collect).  The sentinel
+        checks of the frames still in flight are not known here; the two
+        refusals these flags decide (a slice whose planes name different
+        quant tables, ``_parse_packet``; intact RGB or Golomb-Rice slices
+        that name different tables, ``_lane_inputs``) ask
+        ``_in_flight_sentinel`` before they raise, so they decide as at
+        depth 1."""
+        own = self.slice_damaged[bi]
+        if not self.pipe.pending:
+            return own
+        flags = self.pipe.pending[-1].meta["damaged"][bi]
+        if any(rec.meta["keyframes"][bi] for rec in self.pipe.pending):
+            return flags
+        return flags | own
+
+    def _in_flight_sentinel(self, bi: int):
+        """bool (n_slices,): the slices of stream ``bi`` that the sentinel
+        check of a frame in flight flags, from its last keyframe in flight
+        on: what the collects will add to the flags a submit sees.  Waits
+        for those frames' (low, range, pos), so only a decision that would
+        otherwise refuse asks for it; each frame keeps its result for its
+        collect."""
+        flags = np.zeros(self.n_slices, bool)
+        for rec in self.pipe.pending:
+            if rec.meta["keyframes"][bi]:
+                flags[:] = False
+            if "lrp" not in rec.host:
+                continue
+            if "sentinel" not in rec.meta:
+                if rec.event is not None:
+                    rec.event.synchronize()
+                rec.meta["sentinel"] = self._sentinel_failed(
+                    rec.meta["parsed"], self.pipe.host(rec, "lrp"),
+                    rec.meta["buflens"])
+            flags |= rec.meta["sentinel"][bi]
+        return flags
 
     def _plane_specs(self, geom=None):
         """(w, h, state_plane) per coded plane of a slice of ``geom``
@@ -333,7 +369,7 @@ class TorchFFV1Decoder:
             ch = ceil_rshift(sh, g.chroma_v_shift)
             specs += [(cw, ch, 1), (cw, ch, 1)]
         if g.transparency:
-            specs.append((sw, sh, 2))
+            specs.append((sw, sh, 2 if g.chroma_planes else 1))
         return specs
 
     def _fresh_states(self, qidx: int):
@@ -412,17 +448,25 @@ class TorchFFV1Decoder:
         parsed header's table serves, else the stream's first.  Intact
         slices that name different tables raise, as the reference's
         fallback has no Golomb-Rice or RGB branch (decoder.py:377-383
-        there)."""
+        there); before they do, the sentinel checks of the frames in
+        flight are folded in, as depth 1 would have them."""
         damaged = self.slice_damaged if damaged is None else damaged
-        named = [(damaged[bi, si], s[1])
-                 for bi, (_kf, sl, _ex) in enumerate(parsed)
+        named = [(bi, si, s[1]) for bi, (_kf, sl, _ex) in enumerate(parsed)
                  for si, s in enumerate(sl) if s[1] is not None]
-        intact = {q for damaged, q in named if not damaged}
-        if len(intact) > 1:
+
+        def intact(flags):
+            return {q for bi, si, q in named if not flags[bi, si]}
+        tables = intact(damaged)
+        if len(tables) > 1 and self.pipe.pending:
+            tables = intact(damaged | np.stack([
+                np.zeros(self.n_slices, bool) if kf else
+                self._in_flight_sentinel(bi)
+                for bi, (kf, _sl, _ex) in enumerate(parsed)]))
+        if len(tables) > 1:
             raise NotImplementedError(
                 f"{'RGB' if self.rgb else 'Golomb-Rice'} slices with "
                 f"differing quant tables are not ported; use FFV1Decoder")
-        qidx0 = intact.pop() if intact else named[0][1] if named else 0
+        qidx0 = tables.pop() if tables else named[0][2] if named else 0
         return (*self._lane_buffers(parsed), qidx0)
 
     def _lane_buffers(self, parsed):
@@ -555,8 +599,12 @@ class TorchFFV1Decoder:
                     self.slice_damaged[bi] = False
             self.slice_damaged |= m["damaged"]
             if "lrp" in rec.host:
-                self._validate(m["parsed"], self.pipe.host(rec, "lrp"),
-                               m["buflens"])
+                sentinel = m.get("sentinel")
+                if sentinel is None:
+                    sentinel = self._sentinel_failed(
+                        m["parsed"], self.pipe.host(rec, "lrp"),
+                        m["buflens"])
+                self.slice_damaged |= sentinel
             if self.device_out:
                 if self.slice_damaged.any():
                     raise RuntimeError(
@@ -568,9 +616,15 @@ class TorchFFV1Decoder:
                       if k.startswith("plane")]
             if self.bits > 8:
                 planes = [p.view(np.uint16) for p in planes]
-            return [(self._conceal(bi, [p[bi] for p in planes],
-                                   m["geoms"][bi]), kf)
-                    for bi, kf in enumerate(m["keyframes"])]
+            out = [(self._conceal(bi, [p[bi] for p in planes],
+                                  m["geoms"][bi]), kf)
+                   for bi, kf in enumerate(m["keyframes"])]
+            if self.ya:
+                # one (h, w, 2) interleaved array, the host decoder's
+                # channel-strided ya8 storage (ffv1dec.c:185)
+                out = [([np.stack(planes[:2], axis=-1)], kf)
+                       for planes, kf in out]
+            return out
         finally:
             self.pipe.release(rec)
 
@@ -774,8 +828,11 @@ class TorchFFV1Decoder:
             return [full.to(torch.uint8)]
         return self._narrow([self._assemble(c) for c in (b, g, r)])
 
-    def _validate(self, parsed, lrp, buflens):
-        """Sentinel + byte-count check per lane (ffv1dec.c:459-467)."""
+    def _sentinel_failed(self, parsed, lrp, buflens):
+        """bool (batch, n_slices): the slices whose lane's final coder
+        state (``lrp``: low, range, pos per lane) fails the sentinel +
+        byte-count check (ffv1dec.c:459-467)."""
+        failed = np.zeros((self.batch, self.n_slices), bool)
         low, rng, pos = lrp
         for bi, (_kf, sl, _ex) in enumerate(parsed):
             for si, (buf, *_rest) in enumerate(sl):
@@ -793,7 +850,8 @@ class TorchFFV1Decoder:
                     if v:
                         raise ValueError("bytestream end mismatch")
                 except (ValueError, IndexError):
-                    self.slice_damaged[bi, si] = True
+                    failed[bi, si] = True
+        return failed
 
     def _conceal(self, bi: int, planes, geoms=None):
         """Copy damaged slice rects from the stream's previous picture

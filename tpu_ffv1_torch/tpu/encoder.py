@@ -80,8 +80,9 @@ and 4, range coder, planar YUV/gray at every coded width (<= 10 bits
 through the fast schedule, 11..16 through the extended one) on any slice
 grid, and RGB on uniform grids, context models 0 and 1 (the 5-input
 context, whose 2 x 7,563-row state table the lane scan keeps in global
-memory); Golomb-Rice for planar YUV/gray on uniform grids; everything
-else raises NotImplementedError.
+memory); Golomb-Rice for planar YUV/gray on uniform grids; ya8 (gray +
+alpha, one (H, W, 2) array per frame) as a luma and an alpha plane on
+both coders; everything else raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -133,7 +134,8 @@ class TorchFFV1Encoder:
     lanes = batch x slices, lane index = stream * n_slices + slice.  Use
     encode_frames([stream0_planes, stream1_planes, ...]); a bgr0 or bgra
     frame is one (H, W, 4) uint8 array, a gbrp frame three uint16 planes
-    in the format's order (G, B, R).  ``compact``
+    in the format's order (G, B, R), a ya8 frame one (H, W, 2) uint8
+    array.  ``compact``
     selects the compact lane-scan form at coded widths <= 10 and version
     3 (see the module docstring); the bytes do not change.
     """
@@ -151,10 +153,13 @@ class TorchFFV1Encoder:
             raise NotImplementedError("only versions 3 and 4 are ported "
                                       "(version 2's output is unreadable "
                                       "in the reference)")
-        if rp.colorspace not in (0, 1) or \
-                (rp.colorspace == 0 and rp.fmt.interleaved):
-            raise NotImplementedError("only planar YUV/gray and RGB are "
-                                      "ported")
+        if rp.colorspace not in (0, 1):
+            raise NotImplementedError("only YUV/gray and RGB are ported")
+        # ya8 (interleaved luma and alpha): split where a host frame
+        # enters (``_host_planes``) into a luma and an alpha plane, which
+        # the planar path codes, alpha on state plane 1 (encoder.py:92-96,
+        # 853-859 of the JAX package; ffv1enc.c:1196)
+        self.ya = rp.colorspace == 0 and rp.fmt.interleaved
         if self.rgb and self.golomb:
             raise NotImplementedError("RGB needs the range coder (coder 1 "
                                       "or 2), as in the reference")
@@ -212,6 +217,12 @@ class TorchFFV1Encoder:
             one, zero = default_state_tables()
         dev = self.device
         self.pipe = FramePipeline(dev)
+        # frames a caller may keep in flight through submit_frames /
+        # collect_frames (None: no limit); version 4's PCM retry resets
+        # states the next frame already read, so it refuses a frame in
+        # flight (_packets)
+        self.max_in_flight = 1 if rp.version > 3 and not self.golomb \
+            else None
         self.one_tab = torch.from_numpy(one).to(dev)
         self.zero_tab = torch.from_numpy(zero).to(dev)
         self.cc = cc = rp.context_counts[rp.context_model]
@@ -642,12 +653,15 @@ class TorchFFV1Encoder:
         diffs = torch.stack(diff_p, dim=2).reshape(self.L, -1)
         return ctxs, diffs, torch.ones_like(ctxs, dtype=torch.bool)
 
-    @staticmethod
-    def _host_planes(stream):
-        """One stream's frame as a list of numpy planes (a bgr0/bgra frame
-        may come as its one array)."""
-        return [np.asarray(p) for p in
-                (stream if isinstance(stream, (list, tuple)) else [stream])]
+    def _host_planes(self, stream):
+        """One stream's frame as a list of numpy planes (a bgr0/bgra or ya8
+        frame may come as its one array); ya8's (H, W, 2) storage split
+        into its luma and alpha planes."""
+        planes = [np.asarray(p) for p in
+                  (stream if isinstance(stream, (list, tuple)) else [stream])]
+        if self.ya:
+            return [np.ascontiguousarray(planes[0][..., k]) for k in (0, 1)]
+        return planes
 
     def _upload(self, streams):
         """Per-plane (batch, Hk, Wk) tensors on the device (8-bit planes
@@ -806,8 +820,9 @@ class TorchFFV1Encoder:
     def submit_device_frames(self, planes):
         """``submit_frames`` for a source already on the device: ``planes``
         is a tuple of per-plane (batch, Hk, Wk) tensors (bgr0/bgra: one
-        (batch, H, W, 4)) on this encoder's device, uint8 at 8 bits, int32
-        or uint16 above: a decoder's ``device_out`` frames, for a
+        (batch, H, W, 4); ya8: the luma and alpha pair, as the JAX
+        package's class takes them) on this encoder's device, uint8 at 8
+        bits, int32 or uint16 above: a decoder's ``device_out`` frames, for a
         transcode whose pixels never reach the host.  Only the byte slab
         crosses; a PCM retry at version 4 fetches the failing stream's
         planes (encoder.py:906-934 of the JAX package)."""
