@@ -158,7 +158,24 @@ exits non-zero without the final result line:
    temporary directory to an avi whose packets equal the 8bit golden
    digests of stream 0, then back to a y4m equal to the source, with
    its wall time and -benchmark Mpix/s, each run's frame-1 launch (24
-   lanes) kept for phase 6; then K1's,
+   lanes) kept for phase 6; then the sharded phase (sharded_phase): it
+   prints torch.cuda.device_count() and splits the lanes into groups
+   over make_devices(k), the largest k of 2, 4 and 8 that the card count
+   allows, or over cuda:0 twice on a machine with one card (the groups
+   then run one after the other, and it says so); sharded_8bit and
+   sharded_16bit: the first 4 frames of those cells through
+   TorchFFV1Encoder / TorchFFV1Decoder(devices=...) at depth 1 and at
+   depth 2 (every submit strict), the packets equal to the goldens, the
+   decodes lossless in one lane group, each kernel once per frame and
+   group, the steps beside the unsharded pipelined ones of this run, the
+   stencil, each group's scan and finalize (decode: K2) and the gather
+   timed alone; config5_4k: BASELINE config 5 at its real geometry,
+   3840x2160 yuv422p10le, 16 slices, EPZS, the JAX package's 4K dry-run
+   content, a key and a P frame through TorchFFV1PEncoder(devices=...),
+   equal to the golden config5_4k (the host FFV1PEncoder's), with each
+   frame's stages (search, OBMC + residual + stencil, each group's scan
+   and finalize, the gather), the last lane group's launches kept for
+   phase 6; then K1's,
    K1-ext's, K2's and
    K2-ext's stage split: each stage probe of K1 and of its global form, and of K2 and
    K2-five, on the 8bit and 8bit_ctx1 warm-up inputs, of K1-ext and
@@ -170,7 +187,9 @@ exits non-zero without the final result line:
    K1-compact's through its raw path's K1 launch, phase 5; mixed_q's
    two launches on their own 24 lanes each; each P path's warm-up P
    frame's, 24 lanes; ya8's and ya8_golomb's at two planes a lane,
-   48 lanes; cli's frame-1 launches, 24 lanes), held exactly
+   48 lanes; cli's frame-1 launches, 24 lanes; config5_4k's last lane
+   group's K1 and K1-ext launches, 8 lanes of about 1M slots, on their
+   last segment only), held exactly
    (integer codec) against its plain version, run on CPU copies of the
    same inputs (the plain versions are per-pixel loops of small tensor
    ops, faster on the host than as per-op card launches).  Each
@@ -189,11 +208,14 @@ exits non-zero without the final result line:
    stage times ("steps"), mixed_q's and nonuniform_ext's steps, the P
    paths' steps and stages ("pframe"), the pipelined phases' steps at
    depth 1 and 2 ("pipeline"), the ya8 and cli phases' steps and times
-   ("ya8", "cli"), the stage splits ("stages") and
+   ("ya8", "cli"), the sharded phase ("sharded"), the stage splits
+   ("stages") and
    the
    per-kernel numbers ("kernels": time, launches, roofline and chain
    bounds, plain version's time, max abs error; a grouped decode's row
-   sums its launches and lists each under "groups"); then the nvidia-smi
+   sums its launches and lists each under "groups"; the sharded paths'
+   launches of an instance under "sharded" in its first row); then the
+   nvidia-smi
    line, and the result line {"ok": true, "device": {...}} last.
 
 Imports nothing of JAX and nothing of the JAX package (tpu_ffv1);
@@ -236,11 +258,12 @@ from tpu_ffv1_torch.kernels import build, probes
 from tpu_ffv1_torch.tpu import decoder as port_decoder
 from tpu_ffv1_torch.tpu import encoder as port_encoder
 from tpu_ffv1_torch.tpu import (golomb_decode, golomb_encode, rc_decode,
-                                 rc_encode)
+                                 rc_encode, sharding)
 from tpu_ffv1_torch.tpu.encoder import PREFIX_CAP, row_bytes
 from tpu_ffv1_torch.tpu.finalize import (compact_packed, finalize_compact,
                                          finalize_packed)
 from tpu_ffv1_torch.tpu.residual import rct_transform
+from tpu_ffv1_torch.tpu.sharding import make_devices
 
 W, H, SLICES, BATCH = 1920, 1080, 24, 2
 WARM, TIMED = 1, 6                  # non-key frames after the key frame
@@ -2602,6 +2625,387 @@ def cli_phase(dev, gpu, recorders):
     return out
 
 
+# ---------------------------------------------------------- sharded phase
+
+# the sharded phase (sharded_phase): the 8bit path (BASELINE config 2) and
+# the 16bit path at full size, 48 lanes, a prefix of their frames and
+# goldens; BASELINE config 5 at its real geometry, 16 lanes
+SHARD_PATHS = ("8bit", "16bit")
+SHARD_FRAMES = 4                    # a key, a warm-up and two timed frames
+C5_W, C5_H, C5_SLICES = 3840, 2160, 16
+C5_ME = "epzs"
+
+
+def config5_kw():
+    """EncoderParams fields of BASELINE config 5 as the JAX package's 4K
+    dry run codes it (__graft_entry__.py:177-227): 3840x2160 yuv422p10le,
+    16 slices (4 x 4), range coder, slice CRCs, GOP 2."""
+    return dict(width=C5_W, height=C5_H, pix_fmt="yuv422p10le", level=3,
+                coder=2, slices=C5_SLICES, slicecrc=1, gop_size=2)
+
+
+def config5_frames():
+    """That dry run's key frame and P frame (__graft_entry__.py:189-202): a
+    ramp of step 9 mod 1024 moved by (t, 3t) in luma, (t, t) and (t, 2t)
+    in the chroma planes."""
+    base = (np.add.outer(np.arange(C5_H + 8), np.arange(C5_W + 8)) * 9
+            % 1024).astype(np.uint16)
+    return [[np.ascontiguousarray(p) for p in (
+        base[t:t + C5_H, 3 * t:3 * t + C5_W],
+        base[t:t + C5_H, t:t + C5_W // 2],
+        base[t:t + C5_H, 2 * t:2 * t + C5_W // 2])] for t in range(2)]
+
+
+def shard_devices():
+    """The sharded phase's device list: make_devices(k) for the largest k
+    of 2, 4 and 8 that the card count allows and that divides both of its
+    lane counts (48 and 16); with one card, cuda:0 twice.  Prints the
+    card count on a line of its own and what the groups run on."""
+    n = torch.cuda.device_count()
+    log(f"[sharded] torch.cuda.device_count() = {n}")
+    ks = [k for k in (2, 4, 8)
+          if k <= n and (BATCH * SLICES) % k == 0 and C5_SLICES % k == 0]
+    if ks:
+        devs = make_devices(max(ks))
+        log(f"[sharded] {len(devs)} lane groups on {len(devs)} distinct "
+            f"cards: {', '.join(map(str, devs))}")
+    else:
+        devs = [torch.device("cuda", 0)] * 2
+        log("[sharded] one card: 2 lane groups, both on cuda:0, run one "
+            "after the other; their step times are not a scaling figure")
+    return devs
+
+
+def on_device_ms(dev, fn, reps):
+    """cuda_time_ms of fn with ``dev`` current."""
+    with torch.cuda.device(dev):
+        return cuda_time_ms(fn, reps)
+
+
+def group_stages(devs, kept, blocks, s2, reps):
+    """Each lane group's scan and finalize, and the gather of their outputs
+    on the lead device, timed alone (CUDA events) on the last frame's
+    recorded block launches ``blocks`` [(args, out)] and the prefixes of
+    its kept ``_scan_finalize`` arguments.  Returns (scan ms per group,
+    finalize ms per group, gather ms)."""
+    prefixes, plens = kept[6], kept[7]
+    scan_ms, fin_ms, outs = [], [], []
+    for dev, sl, (args, out) in zip(
+            devs, sharding.lane_blocks(prefixes.shape[0], len(devs)),
+            blocks):
+        packed, low, rng, states = out
+        pre, pl = prefixes[sl].to(dev), plens[sl].to(dev)
+        scan_ms.append(on_device_ms(
+            dev, lambda a=args: rc_encode.rc_encode_packed(*a), reps))
+        fin_ms.append(on_device_ms(dev, lambda: finalize_packed(
+            packed, low, rng, pre, pl, s2), reps))
+        with torch.cuda.device(dev):
+            fo, fc, fv = finalize_packed(packed, low, rng, pre, pl, s2)
+        outs.append((fo, fc, states, fv, packed, low, rng))
+    dims = (0, 0, 0, 0, 2, 0, 0)
+    gather_ms = cuda_time_ms(lambda: [
+        sharding._gather(parts, devs[0], d)
+        for parts, d in zip(zip(*outs), dims)], reps)
+    return scan_ms, fin_ms, gather_ms
+
+
+def sharded_intra(gpu, name, devs, recorders, unsharded):
+    """(a): a prefix of ``name``'s frames (SHARD_FRAMES) through
+    TorchFFV1Encoder(devices=devs) and TorchFFV1Decoder(devices=devs), at
+    depth 1 (encode_frames, decode_frames) and at depth 2 (``pipelined``,
+    every submit strict): every packet equal to the path's golden, every
+    decode lossless in one lane group, each kernel launched once per
+    frame and group.  Prints the median steps beside the unsharded ones
+    of this run (``unsharded``: {enc_d1, dec_d1, enc_d2, dec_d2} or None)
+    and the last frame's stages: the stencil, each group's scan and
+    finalize (K2 decode), the gather.  Returns the figures and the last
+    frame's block launches."""
+    path = PATHS[name]
+    w, h, frames = path.width, path.height, SHARD_FRAMES
+    k_enc, k_dec = path.kernels
+    streams = path_streams(name)
+    golden = load_goldens()[name]
+    steps = [[streams[b][t] for b in range(BATCH)] for t in range(frames)]
+    ng = len(devs)
+    tag = f"sharded {name}"
+    mpix = BATCH * w * h / 1e6
+
+    def packets_ok(label, keep=None):
+        def on_result(t, res):
+            for b in range(BATCH):
+                want = golden["packets"][b][t]
+                check(digest(res[b][0]) == {"sha256": want["sha256"],
+                                            "len": want["len"]} and
+                      res[b][1] == want["key"],
+                      f"{label} stream {b} frame {t}: packet differs from "
+                      f"the golden")
+            if keep is not None:
+                keep.append([r[0] for r in res])
+        return on_result
+
+    def lossless(label):
+        def on_result(t, res):
+            for b in range(BATCH):
+                planes, kf = res[b]
+                check(kf == (t == 0) and all(
+                    a.dtype == f.dtype and np.array_equal(a, f)
+                    for a, f in zip(planes, steps[t][b])),
+                    f"{label} stream {b} frame {t}: decode not lossless")
+        return on_result
+
+    def launches_ok(label, want):
+        got = all_launches()
+        check(got == want, f"{label}: expected {want} launches (one per "
+              f"frame and lane group), got {got}")
+        return got
+
+    def new_enc():
+        return TorchFFV1Encoder(EncoderParams(**params_kw(name)),
+                                batch=BATCH, devices=devs)
+
+    rec_enc, rec_dec = recorders["packed"], recorders["decode"]
+    enc = new_enc()
+    check(enc.device == devs[0] and enc.L == BATCH * SLICES,
+          f"{tag}: lead device {enc.device}, {enc.L} lanes")
+    kept = {}
+    scanfin = keep_args(enc, "_scan_finalize", kept)
+    stencil = keep_args(enc, "_streams", kept)
+    reset_counts()
+    d1_enc, packets = [], []
+    for t, step in enumerate(steps):
+        rec_enc.armed = t == frames - 1
+        t0 = time.perf_counter()
+        res = enc.encode_frames(step)
+        d1_enc.append(time.perf_counter() - t0)
+        packets_ok(f"{tag} depth 1", packets)(t, res)
+    rec_enc.armed = False
+    launches = dict(encode=launches_ok(f"{tag} encode depth 1",
+                                       {k_enc: frames * ng}))
+    enc_blocks = rec_enc.take_all()
+    enc2 = new_enc()
+    reset_counts()
+    d2_enc = pipelined(enc2.submit_frames, enc2.collect_frames, steps,
+                       packets_ok(f"{tag} depth 2"))
+    launches_ok(f"{tag} encode depth 2", {k_enc: frames * ng})
+    dec1 = TorchFFV1Decoder(w, h, enc.extradata, batch=BATCH, devices=devs)
+    reset_counts()
+    d1_dec = []
+    for t, pk in enumerate(packets):
+        rec_dec.armed = t == frames - 1
+        t0 = time.perf_counter()
+        res = dec1.decode_frames(pk)
+        d1_dec.append(time.perf_counter() - t0)
+        lossless(f"{tag} depth 1")(t, res)
+        check(len(dec1.last_groups) == 1, f"{tag}: one lane group")
+    rec_dec.armed = False
+    launches["decode"] = launches_ok(f"{tag} decode depth 1",
+                                     {k_dec: frames * ng})
+    dec_blocks = rec_dec.take_all()
+    dec2 = TorchFFV1Decoder(w, h, enc.extradata, batch=BATCH, devices=devs)
+    reset_counts()
+    d2_dec = pipelined(dec2.submit_frames, dec2.collect_frames, packets,
+                       lossless(f"{tag} depth 2"))
+    check(not dec1.slice_damaged.any() and not dec2.slice_damaged.any(),
+          f"{tag}: slice flagged damaged")
+    launches_ok(f"{tag} decode depth 2", {k_dec: frames * ng})
+    check(len(enc_blocks) == ng and len(dec_blocks) == ng,
+          f"{tag}: the last frame's block launches were not recorded")
+    med = {k: median([1e3 * x for x in v[1 + WARM:]])
+           for k, v in (("enc_d1", d1_enc), ("enc_d2", d2_enc),
+                        ("dec_d1", d1_dec), ("dec_d2", d2_dec))}
+
+    # the last frame's stages, each timed alone
+    st_ms = cuda_time_ms(lambda: stencil(*kept["_streams"]), 3)
+    scan_ms, fin_ms, gather_ms = group_stages(
+        devs, kept["_scan_finalize"], enc_blocks, enc.s2, 3)
+    sf_ms = cuda_time_ms(lambda: scanfin(*kept["_scan_finalize"]), 2)
+    dscan_ms = [on_device_ms(d, lambda a=a: rc_decode.rc_decode_planes(*a),
+                             3) for d, (a, _o) in zip(devs, dec_blocks)]
+    dgather_ms = cuda_time_ms(lambda: [
+        sharding._gather(parts, devs[0], 0)
+        for parts in zip(*(o for _a, o in dec_blocks))], 3)
+    reset_counts()
+    side = "" if not unsharded else (
+        f"; unsharded in this run: encode {unsharded['enc_d1']:.2f} / "
+        f"{unsharded['enc_d2']:.2f} ms, decode {unsharded['dec_d1']:.2f} / "
+        f"{unsharded['dec_d2']:.2f} ms (depth 1 / depth 2)")
+    log(f"[{tag}] {w}x{h} {path.pix_fmt}, batch {BATCH}, {frames} frames, "
+        f"{ng} lane groups of {enc.L // ng} lanes on "
+        f"{len(set(devs))} distinct card(s), every depth-2 submit strict: "
+        f"packets equal to the goldens, decodes lossless; launches per "
+        f"run: {launches}; median step over the {frames - 1 - WARM} timed "
+        f"frames ({gpu}): encode {med['enc_d1']:.2f} ms "
+        f"({mpix / med['enc_d1'] * 1e3:.2f} Mpix/s) at depth 1, "
+        f"{med['enc_d2']:.2f} at depth 2; decode {med['dec_d1']:.2f} ms "
+        f"({mpix / med['dec_d1'] * 1e3:.2f} Mpix/s), {med['dec_d2']:.2f}"
+        f"{side}")
+    log(f"[{tag}] last frame's stages (ms, each timed alone, {gpu}): "
+        f"stencil {st_ms:.2f}; {k_enc} per group "
+        f"{' + '.join(f'{x:.2f}' for x in scan_ms)}; finalize s2={enc.s2} "
+        f"per group {' + '.join(f'{x:.2f}' for x in fin_ms)}; gather "
+        f"{gather_ms:.2f}; the whole sharded scan + finalize {sf_ms:.2f}; "
+        f"{k_dec} per group {' + '.join(f'{x:.2f}' for x in dscan_ms)}, "
+        f"gather {dgather_ms:.2f}")
+    return dict(
+        med, frames=frames, groups=ng, distinct_cards=len(set(devs)),
+        launches=launches, stages=dict(
+            stencil=st_ms, scan=scan_ms, finalize=fin_ms, gather=gather_ms,
+            scan_finalize=sf_ms, dscan=dscan_ms, dgather=dgather_ms),
+        blocks={k_enc: enc_blocks, k_dec: dec_blocks},
+        block_ms={k_enc: scan_ms, k_dec: dscan_ms},
+        kernel_launches={k_enc: frames * ng, k_dec: frames * ng})
+
+
+def sharded_config5(gpu, devs, recorders):
+    """(b): BASELINE config 5 at its real geometry (``config5_kw``, me
+    "epzs", batch 1, 16 lanes) through TorchFFV1PEncoder(devices=devs): a
+    key frame (K1 at 10 bits per group) and a P frame (K1-ext at 11 bits
+    per group), each packet equal to the golden ``config5_4k`` (the host
+    FFV1PEncoder's).  No decode: the P decoder takes 8 bits only, as the
+    JAX class.  Prints each frame's step and its stages: search, OBMC +
+    residual + stencil (P), stencil (key), each group's scan and
+    finalize, the gather."""
+    golden = load_goldens()["config5_4k"]
+    frames = config5_frames()
+    ng = len(devs)
+    tag = "sharded config5_4k"
+    t0 = time.perf_counter()
+    enc = TorchFFV1PEncoder(EncoderParams(**config5_kw()), batch=1,
+                            me=C5_ME, experimental=True, devices=devs)
+    check(digest(enc.extradata) == golden["extradata"],
+          f"{tag}: extradata differs from the golden")
+    check(enc.L == C5_SLICES and enc.p_bits == 11,
+          f"{tag}: {enc.L} lanes, residuals at {enc.p_bits} bits")
+    kept = {}
+    scanfin = keep_args(enc, "_scan_finalize", kept)
+    stencil = keep_args(enc, "_streams", kept)
+    search = keep_args(enc, "_search", kept)
+    residual = keep_args(enc, "_residual_streams", kept)
+    rec = recorders["packed"]
+    out, blocks, launches = {}, {}, {}
+    for t, kind, k in ((0, "key", "rc_encode"), (1, "P", "rc_encode_ext")):
+        reset_counts()
+        rec.armed = True
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        (pkt, key), = enc.encode_frames([frames[t]])
+        step = (time.perf_counter() - t1) * 1e3
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        rec.armed = False
+        want = golden["packets"][0][t]
+        check(digest(pkt) == {"sha256": want["sha256"], "len": want["len"]}
+              and key == want["key"] == (t == 0),
+              f"{tag} frame {t}: packet differs from the golden "
+              f"({len(pkt)} vs {want['len']} B)")
+        launches[k] = all_launches()
+        check(launches[k] == {k: ng}, f"{tag} frame {t}: expected "
+              f"{{{k!r}: {ng}}} launches, got {launches[k]}")
+        blocks[k] = rec.take_all()
+        check(len(blocks[k]) == ng, f"{tag}: block launches not recorded")
+        reps = 2
+        st = {}
+        if t == 0:
+            st["stencil"] = cuda_time_ms(lambda: stencil(*kept["_streams"]),
+                                         reps)
+        else:
+            st["search"] = cuda_time_ms(lambda: search(*kept["_search"]),
+                                        reps)
+            st["obmc_residual_stencil"] = cuda_time_ms(
+                lambda: residual(*kept["_residual_streams"]), reps)
+        st["scan"], st["finalize"], st["gather"] = group_stages(
+            devs, kept["_scan_finalize"], blocks[k],
+            4 if kept["_scan_finalize"][8] <= 10 else 6, reps)
+        st["scan_finalize"] = cuda_time_ms(
+            lambda: scanfin(*kept["_scan_finalize"]), reps)
+        reset_counts()
+        out[kind] = dict(step_ms=step, bytes=len(pkt), peak_gib=peak,
+                         stages=st)
+        lane_n = blocks[k][0][0][0].shape[1]
+        log(f"[{tag}] frame {t} ({kind}): {len(pkt)} B, equal to the "
+            f"golden; step {step:.2f} ms (host clock, the first such "
+            f"frame: allocations included); {k} at bits "
+            f"{kept['_scan_finalize'][8]} over {ng} groups of "
+            f"{enc.L // ng} lanes x {lane_n} slots; stages (ms, each timed "
+            f"alone, {gpu}): " + ", ".join(
+                f"{n} " + (' + '.join(f'{x:.2f}' for x in v)
+                           if isinstance(v, list) else f"{v:.2f}")
+                for n, v in st.items()) +
+            f"; step peak {peak:.2f} GiB")
+    log(f"[{tag}] {C5_W}x{C5_H} yuv422p10le, {C5_SLICES} slices, me "
+        f"{C5_ME}: key and P frame equal to config5_4k on {ng} lane groups "
+        f"({len(set(devs))} distinct card(s)) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return dict(out, groups=ng, distinct_cards=len(set(devs)),
+                launches=launches, blocks=blocks,
+                block_ms={k: out[kind]["stages"]["scan"] for kind, k in
+                          (("key", "rc_encode"), ("P", "rc_encode_ext"))},
+                kernel_launches={k: ng for k in launches})
+
+
+def sharded_phase(gpu, recorders, unsharded=None, probe=None, funcs=None):
+    """The sharded phase: ``shard_devices``' groups, (a) the 8bit and
+    16bit paths (``sharded_intra``), (b) BASELINE config 5
+    (``sharded_config5``).  ``unsharded``: per path the unsharded steps of
+    this run, or None.  With the decision probe's figures (``probe``) and
+    the SASS (``funcs``), each path's ``entries`` for the kernels line
+    (``sharded_entries``).  Returns ({path: figures}, config 5's last lane
+    group's launches {instance: (args, outputs)}, which phase 6 holds
+    against their plain versions on their last segment)."""
+    t0 = time.perf_counter()
+    devs = shard_devices()
+    res = {f"sharded_{name}": sharded_intra(
+        gpu, name, devs, recorders, (unsharded or {}).get(name))
+        for name in SHARD_PATHS}
+    res["config5_4k"] = sharded_config5(gpu, devs, recorders)
+    tails = {k: b[-1] for k, b in res["config5_4k"]["blocks"].items()}
+    for pn, p in res.items():
+        blocks = p.pop("blocks")
+        if probe is not None:
+            p["entries"] = sharded_entries(pn, p, blocks, probe, funcs, gpu)
+    log(f"[sharded] the sharded phase in {time.perf_counter() - t0:.1f} s")
+    return res, tails
+
+
+def sharded_entries(pn, p, blocks_by_name, probe, funcs, gpu):
+    """A sharded path's launches as entries for the ``kernels`` line, one
+    per instance, each to go under the row of that instance: its launches
+    and the last frame's launch per group (time, roofline and chain bounds
+    from the group's own inputs; a decode group's decisions are those of
+    the encode group of the same lanes and frame).  Held to the golden
+    packets (config 5's last group also to the plain version on its last
+    segment, in phase 6); each instance is held whole to its plain
+    version on its own row.  Returns {instance: entry}."""
+    out = {}
+    for name, blocks in blocks_by_name.items():
+        if name.startswith("rc_encode"):
+            src = blocks
+        else:
+            src = next(b for k, b in blocks_by_name.items()
+                       if k.startswith("rc_encode"))
+        decisions = torch.cat([decisions_per_lane(a[1], a[2])
+                               for a, _o in src])
+        lk = blocks[0][0][0].shape[0]
+        lanes = [list(range(i * lk, (i + 1) * lk))
+                 for i in range(len(blocks))]
+        row = rc_row(name, pn, blocks, p["block_ms"][name],
+                     [0.0] * len(blocks), lanes,
+                     p["kernel_launches"][name],
+                     p["kernel_launches"][name] // len(blocks),
+                     decisions, probe, funcs, {},
+                     launch_shape(name, *blocks[0]), [], gpu)
+        out[name] = {k: row[k] for k in (
+            "main_path", "launches", "launches_per_step", "ms",
+            "bound_ms", "bound_by", "chain_bound_ms",
+            "chain_decisions_max_lane", "main_path_shape")}
+        out[name].update(groups=len(blocks),
+                         distinct_cards=p["distinct_cards"],
+                         group_ms=p["block_ms"][name], max_abs_err=0,
+                         held_to="the golden packets")
+    return out
+
+
 def check_compact_launch(name, rec, raw_name, raw_rec):
     """A compact path's warm-up launch against its raw path's K1 launch
     on the same frame: the same inputs (SHA-256 of every input tensor),
@@ -2745,7 +3149,14 @@ def plain_worker(name, args):
     return time.perf_counter() - t0, output_digests(out)
 
 
-def segments(name, args, out):
+def encode_cuts(N, bits):
+    """Where ``segments`` cuts an encode launch of N pixels: equal parts,
+    two per 129,600 pixels, three above 10 bits."""
+    nseg = (3 if bits > 10 else 2) * -(-N // 129_600)
+    return [N * i // nseg for i in range(nseg + 1)]
+
+
+def segments(name, args, out, tail=False):
     """Split one main-path launch into independent segments for the
     plain version: [(plain args, the kernel's outputs for them)].
 
@@ -2767,30 +3178,37 @@ def segments(name, args, out):
     The Golomb-Rice scans (G1, G2) carry their state from pixel to pixel
     (bit accumulator, run state) and run whole: their plain versions loop
     over every pixel of a lane, so a split by lanes would only repeat the
-    loop (the checks are CPU-bound)."""
+    loop (the checks are CPU-bound).
+
+    ``tail`` (an encode launch): its last segment alone, from the state of
+    the kernel relaunched on every pixel before it: the far end of a lane
+    too long to check whole, at the cost of one segment."""
     if name.startswith("golomb"):
         return [(args, out)]
     if name.startswith("rc_encode"):
         ctx, diff, act, st0, one, zero, low0, rng0, bits = args
         packed, low, rng, st = out
-        N = ctx.shape[1]
-        nseg = (3 if bits > 10 else 2) * -(-N // 129_600)
-        cuts = [N * i // nseg for i in range(nseg + 1)]
-        ends = []
-        for c in cuts[1:-1]:
+        cuts = encode_cuts(ctx.shape[1], bits)
+        if tail:
+            cuts = cuts[-2:]
+        # the coder at each cut: (low, range, states)
+        at = []
+        for c in cuts[:-1]:
+            if not c:
+                at.append((low0, rng0, st0))
+                continue
             pk, lo, ra, s = rc_encode.rc_encode_packed(
                 ctx[:, :c].contiguous(), diff[:, :c].contiguous(),
                 act[:, :c].contiguous(), st0, one, zero, low0, rng0, bits)
             check(torch.equal(pk, packed[:c]),
                   f"{name} relaunched on {c} pixels is not the main-path "
                   f"launch's prefix")
-            ends.append((lo, ra, s))
-        ends.append((low, rng, st))
-        starts = [(low0, rng0, st0)] + ends[:-1]
+            at.append((lo, ra, s))
+        at.append((low, rng, st))
         return [((ctx[:, a:b], diff[:, a:b], act[:, a:b], s0, one, zero,
-                  l0, r0, bits), (packed[a:b], *ends[i]))
+                  l0, r0, bits), (packed[a:b], *at[i + 1]))
                 for i, (a, b, (l0, r0, s0)) in enumerate(
-                    zip(cuts, cuts[1:], starts))]
+                    zip(cuts, cuts[1:], at))]
     if "_rgb" in name:
         return rgb_segments(name, args, out)
     bufs, st0, one, zero, qt, low0, rng0, pos0, specs, bits, five = args
@@ -2994,10 +3412,12 @@ def plain_checks(launches):
     ``segments``), the others run whole.  The workers return digests of
     their outputs, which must equal the digests of the kernel's outputs.
     Returns the plain version's seconds per segment of each launch, in
-    the order given, and the number of workers."""
+    the order given, and the number of workers.  ``split`` "tail": only
+    the last segment (``segments``' tail)."""
     jobs = []
     for i, (name, (args, out), split) in enumerate(launches):
-        segs = segments(name, args, out) if split else [(args, out)]
+        segs = segments(name, args, out, split == "tail") if split else \
+            [(args, out)]
         for k, (seg_args, want) in enumerate(segs):
             cpu_args = [a.cpu().numpy() if isinstance(a, torch.Tensor)
                         else a for a in seg_args]
@@ -3344,6 +3764,11 @@ def main():
     side = dict(ya8, cli=cli)
     log(f"[ya8+cli] the ya8 and cli phases in "
         f"{time.perf_counter() - t0:.1f} s")
+    # the sharded phase, beside this run's unsharded pipelined steps
+    sharded, c5_tails = sharded_phase(gpu, recorders, {
+        name: {k: pipes[f"{name}_pipe"][k]
+               for k in ("enc_d1", "dec_d1", "enc_d2", "dec_d2")}
+        for name in SHARD_PATHS}, probe, funcs)
     # each instance's launch on the first path that ran it (K1 and K1-ext
     # also run on the RGB paths: their stage splits and compact checks
     # take the planar paths' launches)
@@ -3399,8 +3824,11 @@ def main():
         for k, rec in p["recs"].items():
             main_recs[(pn, k, 0)] = rec
     merged = merge_launches(main_recs)
+    # config 5's launches (lanes of about 1M slots): the last group's last
+    # segment, the far end of its lanes
     launches = [(name, rec, False) for name, _info, rec in random] + \
-        [(name, rec, True) for name, rec, _keys in merged]
+        [(name, rec, True) for name, rec, _keys in merged] + \
+        [(name, rec, "tail") for name, rec in c5_tails.items()]
     secs, workers = plain_checks(launches)
     checks = {}
     for (name, info, _rec), segs in zip(random, secs):
@@ -3409,6 +3837,19 @@ def main():
         log(f"[check] {name} {info['check_shape']} {info['label']}: exact "
             f"match (equal SHA-256 of every output); plain version on the "
             f"host CPU {segs[0]:.1f} s")
+    c5_entries = sharded["config5_4k"]["entries"]
+    for (name, (args, out)), segs in zip(
+            c5_tails.items(), secs[len(random) + len(merged):]):
+        a, n = encode_cuts(args[0].shape[1], args[8])[-2:]
+        shape = f"{launch_shape(name, args, out)}, slots {a}:{n}"
+        c5_entries[name].update(
+            held_to=f"the golden packets; the last lane group's last "
+            f"segment ({shape}) exact against the plain version",
+            plain_segment_s=segs[0], plain_segment_shape=shape)
+        log(f"[check] {name}, config5_4k's last lane group ({shape}): "
+            f"exact match on its last segment, from the state of the "
+            f"kernel relaunched on slots 0:{a} (equal SHA-256 of every "
+            f"output); plain version on the host CPU {segs[0]:.1f} s")
     mp, group_plain = {}, {}
     for (name, rec, keys), segs in zip(merged, secs[len(random):]):
         lanes = [main_recs[k][0][0].shape[0] for k in keys]
@@ -3534,6 +3975,11 @@ def main():
                 [list(range(len(decisions)))], p["launches"][name],
                 p["steps"], decisions, probe, funcs, compact_sec,
                 m["main_path_shape"], checks[name], gpu))
+    # the sharded paths' launches, under the rows of their instances
+    for p in sharded.values():
+        for name, entry in p.pop("entries").items():
+            next(r for r in kernels if r["name"] == name).setdefault(
+                "sharded", []).append(entry)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"probes": dict(
         decision_encode_ns=ns_enc, decision_decode_ns=ns_dec,
@@ -3559,6 +4005,7 @@ def main():
              for pn, p in side.items()}
     log(json.dumps({"ya8": {pn: shown[pn] for pn in YA8},
                     "cli": shown["cli"]}))
+    log(json.dumps({"sharded": sharded}))
     log(json.dumps({"stages": stages}))
     log(json.dumps({"kernels": kernels}))
     log(gpu)

@@ -28,6 +28,8 @@ compact-form paths
 (8bit_compact, 8bit_ctx1_compact) have no digests of their own: the
 host encoder on their content and configuration must give those of the
 path they name (their packets are the raw form's, byte for byte).
+The sharded phase's config5_4k digests are checked in
+tests/test_torch_goldens_4k.py.
 
 To rewrite the file after a deliberate change of the content or the
 configuration:  python tests/test_torch_goldens.py
@@ -180,6 +182,8 @@ if __name__ == "__main__":
     out["nonuniform_ext"] = golden_nonuniform()
     out.update((name, golden_pframe(name)) for name in chip_smoke.P_PATHS)
     out.update((name, golden_ya8(name)) for name in chip_smoke.YA8)
+    from test_torch_goldens_4k import golden_config5
+    out["config5_4k"] = golden_config5()
     with open(chip_smoke.GOLDENS, "w") as f:
         json.dump(out, f, indent=1)
         f.write("\n")

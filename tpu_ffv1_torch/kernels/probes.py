@@ -92,8 +92,10 @@ def smem_probe(table: torch.Tensor, n: int, mode: str) -> torch.Tensor:
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     out = torch.empty((32, 2), dtype=torch.int32, device=dev)
-    err = fn(table.data_ptr(), rows, n, MODES[mode], out.data_ptr(),
-             torch.cuda.current_stream(dev).cuda_stream)
+    # the runtime launches on the current device: make it the tensors'
+    with torch.cuda.device(dev):
+        err = fn(table.data_ptr(), rows, n, MODES[mode], out.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"smem_probe ({mode}) launch failed: CUDA error "
                            f"{err}")
@@ -211,9 +213,11 @@ def golomb_step(vlc0: torch.Tensor, pix: torch.Tensor, data: torch.Tensor,
                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     out = torch.empty(4 + 4 * rows + GOLOMB_RING, dtype=torch.int32,
                       device=dev)
-    err = fn(vlc0.data_ptr(), rows, pix.data_ptr(), data.data_ptr(),
-             qt.data_ptr(), n, GOLOMB_MODES[mode], out.data_ptr(),
-             torch.cuda.current_stream(dev).cuda_stream)
+    # the runtime launches on the current device: make it the tensors'
+    with torch.cuda.device(dev):
+        err = fn(vlc0.data_ptr(), rows, pix.data_ptr(), data.data_ptr(),
+                 qt.data_ptr(), n, GOLOMB_MODES[mode], out.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"golomb_step ({mode}) launch failed: CUDA error "
                            f"{err}")

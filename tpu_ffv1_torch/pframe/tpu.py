@@ -150,11 +150,14 @@ class TorchFFV1PEncoder(TorchFFV1Encoder):
     lanes = batch x slices.  Keyframes are the intra encoder's packets;
     P frames are byte-identical to the host FFV1PEncoder's.  Planar
     YUV/gray up to 15 bits, range coder, version 3, uniform slice grids,
-    ``gop_size`` >= 2; ``me`` "full" or "epzs" within ``radius``."""
+    ``gop_size`` >= 2; ``me`` "full" or "epzs" within ``radius``.
+    ``devices``: the lane scan and finalize split over those devices, as
+    ``TorchFFV1Encoder``'s (pframe/tpu.py:184 of the JAX package's
+    ``mesh=``); the search and OBMC stay on the lead device."""
 
     def __init__(self, params: EncoderParams, batch: int = 1,
                  radius: int = 7, experimental: bool = False,
-                 me: str = "full", device="cuda"):
+                 me: str = "full", device=None, devices=None):
         if not experimental:
             raise ValueError(
                 "FFV1-P motion coding is experimental; pass "
@@ -165,7 +168,8 @@ class TorchFFV1PEncoder(TorchFFV1Encoder):
         if me not in SEARCH_FNS:
             raise ValueError(f"me must be one of {sorted(SEARCH_FNS)}")
         self.me = me
-        super().__init__(params, batch=batch, device=device)
+        super().__init__(params, batch=batch, device=device,
+                         devices=devices)
         rp = self.rp
         if rp.bits_per_raw_sample > 15 or rp.colorspace != 0 or \
                 rp.fmt.interleaved:

@@ -52,6 +52,12 @@ port.  A slice whose header fails is flagged and keeps its adaptive
 states, as the host's slice aborts before it touches them; on the
 planar range-coder path its lane is not decoded, elsewhere it is decoded
 with the others all the same, and the result is discarded.
+
+With ``devices=`` (sharding.py) a planar range-coder frame whose lanes
+form one group decodes them in contiguous blocks, one per device,
+gathered on the lead device (decoder.py:441-473 of the JAX package);
+every other decode runs on the lead device, as the reference's ignores
+its mesh there.
 """
 from __future__ import annotations
 
@@ -68,12 +74,12 @@ from ..core.crc import crc32_ieee
 from ..core.intmath import ceil_rshift
 from ..core.rac import (RangeDecoder, custom_state_tables,
                         default_state_tables)
-from ..device import resolve_device
 from .golomb_decode import golomb_decode_planes
 from .golomb_encode import fresh_vlc_states
 from .pipeline import FramePipeline
 from .rc_decode import RGB_BITS, rc_decode_groups, rc_decode_rgb
 from .residual import wrap_int16
+from .sharding import lane_blocks, resolve_devices
 
 
 class TorchFFV1Decoder:
@@ -93,11 +99,20 @@ class TorchFFV1Decoder:
     slice raises RuntimeError instead (decoder.py:91-97, 683-695 of the
     JAX package).  Planar YUV/gray with the range coder on a uniform
     grid only, as there.
+
+    ``devices``: a list of devices over which the planar range-coder
+    scan splits its lanes into contiguous blocks when a frame's lanes
+    form one group (a uniform grid, one quant table: decoder.py:139-146,
+    441-473 of the JAX package's ``mesh=``); its length must divide the
+    lane count.  Grouped frames, Golomb-Rice and RGB decode on the lead
+    device, ``devices[0]``, as the reference's paths ignore the mesh;
+    ``device`` must then name it or be left out.
     """
 
     def __init__(self, width: int, height: int, extradata: bytes,
-                 batch: int = 1, device="cuda", device_out: bool = False):
-        self.device = resolve_device(device)
+                 batch: int = 1, device=None, device_out: bool = False,
+                 devices=None):
+        self.devices, self.device = resolve_devices(devices, device)
         g = read_extra_header(extradata)
         self.golomb = g.ac == T.AC_GOLOMB_RICE
         self.rgb = g.colorspace == 1
@@ -151,6 +166,8 @@ class TorchFFV1Decoder:
                                       g.num_v_slices))
         self.n_slices = len(self.geoms)
         self.L = self.n_slices * batch
+        if self.devices is not None:
+            lane_blocks(self.L, len(self.devices), " (slices x batch)")
         self.qts = [torch.from_numpy(np.asarray(q, np.int32)).to(dev)
                     for q in g.quant_tables]
         g0 = self.geoms[0]
@@ -693,7 +710,8 @@ class TorchFFV1Decoder:
         placed from the groups' planes.  A lane whose header failed is
         not decoded: it is flagged, and its rect is concealed.  Returns
         (per plane a (batch, Hk, Wk) int32 tensor, the lanes' (low, range,
-        pos) int32 (3, L), both on the device, the buffer lengths)."""
+        pos) int32 (3, L), both on the device, the buffer lengths).  With
+        ``devices``, a frame of one group splits its launch over them."""
         (bufs, lows, ranges, poss), buflens = self._lane_buffers(parsed)
         _by, _ry, resets = self._lane_extras(parsed)
         lane_q = [s[1] for p in parsed for s in p[1]]
@@ -702,7 +720,7 @@ class TorchFFV1Decoder:
         self.last_groups = self._lane_groups(lane_q)
         planes_g, self.states, low, rng, pos = rc_decode_groups(
             bufs, self.states, self.one_tab, self.zero_tab, self.quant,
-            lows, ranges, poss, self.last_groups, self.bits)
+            lows, ranges, poss, self.last_groups, self.bits, self.devices)
         full = self._place(self.last_groups, planes_g)
         return full, torch.stack([low, rng, pos]), buflens
 

@@ -83,6 +83,12 @@ context, whose 2 x 7,563-row state table the lane scan keeps in global
 memory); Golomb-Rice for planar YUV/gray on uniform grids; ya8 (gray +
 alpha, one (H, W, 2) array per frame) as a luma and an alpha plane on
 both coders; everything else raises NotImplementedError.
+
+With ``devices=`` (sharding.py, the port of the JAX package's ``mesh=``)
+the lane scan and finalize, or G1, run on contiguous blocks of lanes,
+one per device, and their outputs are gathered on the lead device,
+which runs every other stage and keeps the states (encoder.py:138-147,
+370-383, 686-793 of the JAX package).
 """
 from __future__ import annotations
 
@@ -100,13 +106,13 @@ from ..core.crc import crc32_ieee
 from ..core.intmath import ceil_rshift
 from ..core.rac import (ProvisionalRangeEncoder, RangeEncoder,
                         custom_state_tables, default_state_tables)
-from ..device import resolve_device
 from .finalize import finalize_compact, finalize_packed, finalize_packed_full
 from .golomb_encode import fresh_vlc_states, golomb_encode_lanes, make_flags
 from .pipeline import FramePipeline
 from .rc_encode import rc_encode_compact, rc_encode_packed
 from .rct_search import pick_rct_coefs, rct_cost_pairs
 from .residual import load_plane, rct_transform, residuals_and_contexts
+from .sharding import lane_blocks, resolve_devices, shard_lanes
 
 PREFIX_CAP = 96
 
@@ -138,14 +144,23 @@ class TorchFFV1Encoder:
     array.  ``compact``
     selects the compact lane-scan form at coded widths <= 10 and version
     3 (see the module docstring); the bytes do not change.
+
+    ``devices``: a list of devices (``sharding.make_devices(n)``, or a
+    device named more than once) over which the lanes split into
+    contiguous blocks for the lane scan and finalize, or the Golomb-Rice
+    scan (encoder.py:138-147, 370-383, 686-793 of the JAX package's
+    ``mesh=``); its length must divide the lane count.  The lead device,
+    ``devices[0]``, runs everything else and holds the states between
+    frames; ``device`` (default "cuda") must then name it or be left
+    out.  The packets do not change.
     """
 
     def __init__(self, params: EncoderParams, batch: int = 1,
-                 device="cuda", compact: bool = False):
+                 device=None, compact: bool = False, devices=None):
         if params.pass1 or params.stats_in is not None:
             raise NotImplementedError("two-pass statistics are not ported "
                                       "yet; use the host encoder")
-        self.device = resolve_device(device)
+        self.devices, self.device = resolve_devices(devices, device)
         self.rp = rp = resolve(params)
         self.golomb = rp.ac == T.AC_GOLOMB_RICE
         self.rgb = rp.colorspace == 1
@@ -239,6 +254,8 @@ class TorchFFV1Encoder:
         self.five_input = bool(qt[3][127])
         self.n_slices = len(self.geoms)
         self.L = self.n_slices * batch
+        if self.devices is not None:
+            lane_blocks(self.L, len(self.devices), " (batch x slices)")
         # each lane's stream length (slices of a non-uniform grid differ
         # by a row or a column) and the longest, the lane arrays' width
         self.stream_lens = [self._stream_len(g) for g in self.geoms]
@@ -754,20 +771,31 @@ class TorchFFV1Encoder:
         codes its residuals at bits + 1, pframe/tpu.py; encoder.py:686 of
         the JAX package), in the compact form if ``compact``.  Returns
         (bytes, counts, states, overflow, packed, low, range); packed is
-        None in the compact form, whose raw slots never exist."""
-        if compact:
-            cm, low, rng, states_out = rc_encode_compact(
-                ctxs, diffs, acts, states0, self.one_tab, self.zero_tab,
-                lows, ranges, bits)
-            out, counts, overflow = finalize_compact(cm, low, rng, prefixes,
-                                                     plens)
-            return out, counts, states_out, overflow, None, low, rng
-        packed, low, rng, states_out = rc_encode_packed(
-            ctxs, diffs, acts, states0, self.one_tab, self.zero_tab,
-            lows, ranges, bits)
-        out, counts, overflow = finalize_packed(packed, low, rng, prefixes,
-                                                plens, 4 if bits <= 10 else 6)
-        return out, counts, states_out, overflow, packed, low, rng
+        None in the compact form, whose raw slots never exist.  With
+        ``devices`` each lane block runs on its device and the outputs
+        are gathered on the lead device (the raw slots along their lane
+        axis, dim 2)."""
+
+        def scanfin(ctxs, diffs, acts, states0, one_tab, zero_tab, lows,
+                    ranges, prefixes, plens):
+            if compact:
+                cm, low, rng, states_out = rc_encode_compact(
+                    ctxs, diffs, acts, states0, one_tab, zero_tab, lows,
+                    ranges, bits)
+                out, counts, overflow = finalize_compact(
+                    cm, low, rng, prefixes, plens)
+                return out, counts, states_out, overflow, None, low, rng
+            packed, low, rng, states_out = rc_encode_packed(
+                ctxs, diffs, acts, states0, one_tab, zero_tab, lows,
+                ranges, bits)
+            out, counts, overflow = finalize_packed(
+                packed, low, rng, prefixes, plens, 4 if bits <= 10 else 6)
+            return out, counts, states_out, overflow, packed, low, rng
+
+        return shard_lanes(self.devices, scanfin,
+                           (ctxs, diffs, acts, states0, self.one_tab,
+                            self.zero_tab, lows, ranges, prefixes, plens),
+                           (0, 1, 2, 3, 6, 7, 8, 9), (0, 0, 0, 0, 2, 0, 0))
 
     def _assemble(self, payloads):
         rp = self.rp
@@ -933,9 +961,10 @@ class TorchFFV1Encoder:
         vlc0 = fresh_vlc_states(self.L, self.total_cc, self.device) \
             if keyframe else self.vlc_states
         ctxs, diffs, acts = self._streams_uniform(planes)
-        out, counts, self.vlc_states, _ri = golomb_encode_lanes(
-            ctxs, diffs, acts, self.gflags, vlc0, prefixes, plens,
-            self.bits, self.cc, self.out_cap)
+        out, counts, self.vlc_states, _ri = shard_lanes(
+            self.devices, golomb_encode_lanes,
+            (ctxs, diffs, acts, self.gflags, vlc0, prefixes, plens,
+             self.bits, self.cc, self.out_cap), (0, 1, 2, 4, 5, 6))
         self.picture_number += 1
         return out, counts
 

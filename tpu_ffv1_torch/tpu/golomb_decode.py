@@ -223,11 +223,13 @@ def _launch(name, bufs, vlc0, qt, pos0, plane_specs, bits, five):
     bitpos = torch.empty((L,), dtype=torch.int32, device=dev)
     # the global-table instance adapts the rows in place, in vlc_out
     vlc_out = vlc0.clone() if gtab else torch.empty_like(vlc0)
-    err = fn(bufs.data_ptr(), cap, vlc0.data_ptr(), qt.data_ptr(),
-             pos0.data_ptr(), ctypes.cast(spec, ctypes.c_void_p),
-             len(plane_specs), out.data_ptr(), total, bitpos.data_ptr(),
-             vlc_out.data_ptr(), L, CC, bits, int(five), int(gtab),
-             torch.cuda.current_stream(dev).cuda_stream)
+    # the runtime launches on the current device: make it the tensors'
+    with torch.cuda.device(dev):
+        err = fn(bufs.data_ptr(), cap, vlc0.data_ptr(), qt.data_ptr(),
+                 pos0.data_ptr(), ctypes.cast(spec, ctypes.c_void_p),
+                 len(plane_specs), out.data_ptr(), total, bitpos.data_ptr(),
+                 vlc_out.data_ptr(), L, CC, bits, int(five), int(gtab),
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     planes, off = [], 0

@@ -285,11 +285,14 @@ def _launch(name, ctx, diff, active, flags, vlc0, prefixes, plens, bits,
     run_index = torch.empty((L,), dtype=torch.int32, device=dev)
     # the global-table instance adapts the rows in place, in vlc_out
     vlc_out = vlc0.clone() if gtab else torch.empty_like(vlc0)
-    err = fn(ctx.data_ptr(), diff.data_ptr(), active.data_ptr(),
-             flags.data_ptr(), vlc0.data_ptr(), prefixes.data_ptr(),
-             plens.data_ptr(), out.data_ptr(), counts.data_ptr(),
-             vlc_out.data_ptr(), run_index.data_ptr(), L, N, CC, pcap, T,
-             bits, cc, int(gtab), torch.cuda.current_stream(dev).cuda_stream)
+    # the runtime launches on the current device: make it the tensors'
+    with torch.cuda.device(dev):
+        err = fn(ctx.data_ptr(), diff.data_ptr(), active.data_ptr(),
+                 flags.data_ptr(), vlc0.data_ptr(), prefixes.data_ptr(),
+                 plens.data_ptr(), out.data_ptr(), counts.data_ptr(),
+                 vlc_out.data_ptr(), run_index.data_ptr(), L, N, CC, pcap, T,
+                 bits, cc, int(gtab),
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return out, counts, vlc_out, run_index

@@ -46,6 +46,7 @@ timing instruments with stages stubbed, never called by the codec.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -330,14 +331,16 @@ def _launch(name, bufs, states, one_tab, zero_tab, qt, low0, range0,
     # the global-table instance adapts the rows in place, in states_out
     states_out = states.clone() if gtab else \
         torch.empty((L, CC, 32), dtype=torch.uint8, device=dev)
-    err = fn(bufs.data_ptr(), cap, states.data_ptr(), one_tab.data_ptr(),
-             zero_tab.data_ptr(), qt.data_ptr(), low0.data_ptr(),
-             range0.data_ptr(), pos0.data_ptr(),
-             ctypes.cast(spec, ctypes.c_void_p), len(plane_specs),
-             out.data_ptr(), total, low.data_ptr(), rng.data_ptr(),
-             pos.data_ptr(), states_out.data_ptr(), L, CC,
-             bits if code is None else code, int(five), int(gtab),
-             torch.cuda.current_stream(dev).cuda_stream)
+    # the runtime launches on the current device: make it the tensors'
+    with torch.cuda.device(dev):
+        err = fn(bufs.data_ptr(), cap, states.data_ptr(), one_tab.data_ptr(),
+                 zero_tab.data_ptr(), qt.data_ptr(), low0.data_ptr(),
+                 range0.data_ptr(), pos0.data_ptr(),
+                 ctypes.cast(spec, ctypes.c_void_p), len(plane_specs),
+                 out.data_ptr(), total, low.data_ptr(), rng.data_ptr(),
+                 pos.data_ptr(), states_out.data_ptr(), L, CC,
+                 bits if code is None else code, int(five), int(gtab),
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     planes, off = [], 0
@@ -375,7 +378,7 @@ def rc_decode_planes(bufs, states, one_tab, zero_tab, qt, low0, range0,
 
 
 def rc_decode_groups(bufs, states, one_tab, zero_tab, quant, low0, range0,
-                     pos0, groups, bits: int):
+                     pos0, groups, bits: int, devices=None):
     """Decode lanes of unequal plane geometry or quant table: one
     ``rc_decode_planes`` launch per group (K2, K2-five, K2-ext or
     K2-ext-five, whichever the group needs), one after another on the
@@ -391,11 +394,19 @@ def rc_decode_groups(bufs, states, one_tab, zero_tab, quant, low0, range0,
     ``len(states planes) x cc`` rows of its lanes' tables, so the kernel
     instance (shared or global table) follows the group's own context
     count.  A lane in no group keeps its states and coder state.
+    ``devices``: a device list (sharding.py); a frame of one group whose
+    lane count it divides splits that group's launch over them
+    (``decode_lanes_sharded``), any other frame runs as without it.
     Returns (per group its planes, a tuple of int32 (n, h, w); states_out
     uint8 (L, R, 32); low, range, pos int32 (L,))."""
     dev = bufs.device
     states_out = states.clone()
     low, rng, pos = low0.clone(), range0.clone(), pos0.clone()
+    decode = rc_decode_planes
+    if devices is not None and len(groups) == 1 and \
+            len(groups[0][0]) % len(devices) == 0:
+        from .sharding import decode_lanes_sharded  # it imports this module
+        decode = functools.partial(decode_lanes_sharded, devices)
     out = []
     for lanes, dims, q in groups:
         qt, cc, five = quant[q]
@@ -405,7 +416,7 @@ def rc_decode_groups(bufs, states, one_tab, zero_tab, quant, low0, range0,
         idx = slice(None) if list(lanes) == list(range(len(low0))) else \
             torch.tensor(list(lanes), dtype=torch.long).to(
                 dev, non_blocking=True)
-        planes, st, lo, ra, po = rc_decode_planes(
+        planes, st, lo, ra, po = decode(
             bufs[idx], states[idx, :rows].contiguous(), one_tab, zero_tab,
             qt, low0[idx], range0[idx], pos0[idx],
             tuple((w, h, sp * cc) for (w, h, sp) in dims), bits, five)

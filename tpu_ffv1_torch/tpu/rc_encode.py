@@ -335,12 +335,14 @@ def _launch(name, gtab, ctx, diff, active, states0, one_tab, zero_tab,
     # the global-table instance adapts the rows in place, in states
     states = states0.clone() if gtab else \
         torch.empty((L, CC, 32), dtype=torch.uint8, device=dev)
-    err = fn(ctx.data_ptr(), diff.data_ptr(), active.data_ptr(),
-             states0.data_ptr(), one_tab.data_ptr(), zero_tab.data_ptr(),
-             low0.data_ptr(), range0.data_ptr(), packed.data_ptr(),
-             low.data_ptr(), rng.data_ptr(), states.data_ptr(),
-             L, N, CC, bits if code is None else code, int(gtab),
-             torch.cuda.current_stream(dev).cuda_stream)
+    # the runtime launches on the current device: make it the tensors'
+    with torch.cuda.device(dev):
+        err = fn(ctx.data_ptr(), diff.data_ptr(), active.data_ptr(),
+                 states0.data_ptr(), one_tab.data_ptr(), zero_tab.data_ptr(),
+                 low0.data_ptr(), range0.data_ptr(), packed.data_ptr(),
+                 low.data_ptr(), rng.data_ptr(), states.data_ptr(),
+                 L, N, CC, bits if code is None else code, int(gtab),
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return packed.permute(1, 2, 0), low, rng, states
