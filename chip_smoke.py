@@ -12,8 +12,8 @@ exits non-zero without the final result line:
    K1, K2, K1-ext, K2-ext, each with its state table in shared memory
    and in global memory, the decoders also with the 5-input context and
    in their line-interleaved RGB form, B1 and B1-ext,
-   K1 also in its compact form, K1, K1-ext, K2 and K2-ext as stage
-   probes; G1 and G2, the Golomb-Rice scans, with the VLC table in
+   K1 also in its compact form, K1, K1-ext, K2, K2-ext, G1 and G2 as
+   stage probes; G1 and G2, the Golomb-Rice scans, with the VLC table in
    shared and in global memory, G2 also with the 5-input context) and
    the probes (chain_probe.cu, golomb_probe.cu) from
    tpu_ffv1_torch/csrc, one nvcc per source, all
@@ -26,11 +26,12 @@ exits non-zero without the final result line:
    of one dependent 32-byte row read from L2 on one warp, which the
    global-table decoders add to their chain per pixel, and the
    shared-memory lookups of the lane scans (a 32-byte row read from
-   context model 0's table, a transition-table byte), and one VLC-coded
-   pixel's dependent step of the Golomb-Rice scans (encode form, G1's;
-   decode form, G2's) with the SASS instructions of its loop, the
-   yardstick of their chain bound and the operations term of their
-   roofline bound, each held against its plain loop;
+   context model 0's table, a transition-table byte), and the dependent
+   steps of the Golomb-Rice scans (a VLC-coded pixel, encode form, G1's,
+   and decode form, G2's; a run step: a completed run chunk of G1's run
+   machine, a pixel inside a run of G2's) with the SASS instructions of
+   each loop, the yardstick of their chain bound and the operations term
+   of their roofline bound, each held against its plain loop;
 4. kernel launches on random codec-like inputs, each instance timed
    and held against its plain PyTorch version in phase 6: K1 (8 bits)
    and its global-table form (8 bits, context model 1's 15,126 rows);
@@ -175,12 +176,12 @@ exits non-zero without the final result line:
    equal to the golden config5_4k (the host FFV1PEncoder's), with each
    frame's stages (search, OBMC + residual + stencil, each group's scan
    and finalize, the gather), the last lane group's launches kept for
-   phase 6; then K1's,
-   K1-ext's, K2's and
-   K2-ext's stage split: each stage probe of K1 and of its global form, and of K2 and
+   phase 6; then K1's, K1-ext's, K2's, K2-ext's, G1's and G2's stage
+   split: each stage probe of K1 and of its global form, and of K2 and
    K2-five, on the 8bit and 8bit_ctx1 warm-up inputs, of K1-ext and
    K2-ext on the 16bit ones and of their global forms (K2-ext-five) on
-   16bit_ctx1_540p's, the median of 5 launches;
+   16bit_ctx1_540p's, of G1 and G2 on 8bit_golomb's, the median of 5
+   launches;
 6. plain checks: every launch of phase 4, and each kernel's launch on
    its path's warm-up frame (all 48 lanes at full shape; a grouped
    decode's every launch on its own lanes, nonuniform_ext's too;
@@ -904,11 +905,12 @@ def smem_probe_ns(dev, mode, n=1 << 20):
 
 
 def golomb_step_ns(dev, mode, n=1 << 20):
-    """ns per VLC-coded pixel's dependent step on one warp (mode
-    "encode", G1's; "decode", G2's): probes.golomb_step
-    (csrc/golomb_probe.cu) on context model 0's table (1,332 rows), timed
-    with CUDA events.  A launch of 4,096 pixels is held against the plain
-    loop first."""
+    """ns per dependent step on one warp of probes.golomb_step
+    (csrc/golomb_probe.cu) in ``mode``: a VLC-coded pixel ("encode", G1's;
+    "decode", G2's), a run step ("run_encode": a completed run chunk of
+    G1's run machine; "run_decode": a pixel inside a run, G2's), on
+    context model 0's table (1,332 rows), timed with CUDA events.  A
+    launch of 4,096 steps is held against the plain loop first."""
     host = probes.golomb_step_inputs(2 * T.CONTEXT_COUNTS[0], mode,
                                      SEED + 4 + (mode == "decode"))
     args = [torch.from_numpy(a).to(dev) for a in host]
@@ -945,6 +947,63 @@ def golomb_vlc_pixels(ctx, diff, active, flags, cc):
     return torch.from_numpy((a & ~(in_run & (d == 0))).sum(1))
 
 
+def golomb_run_work(ctx, diff, active, flags, cc):
+    """(run_steps, run_px), int64 numpy (L,) each: the run work of each
+    lane of a G1 launch, and of the G2 launch that decodes its bytes.
+    run_steps: the steps of G1's run machine, one per completed run chunk
+    (2^log2_run[run_index] zero residuals), per break and per line-end
+    flush; run_px: the zero-residual pixels inside runs, each one step of
+    G2's median recurrence.  For flags as make_flags gives them (lines
+    from line start to line end, plane starts on line starts); each run
+    is walked once, from its entry (an active pixel of the plane's
+    context 0) to its break (the next active nonzero residual) or the
+    line's end, with run_index carried through the plane."""
+    c, d = ctx.cpu().numpy(), diff.cpu().numpy()
+    a, f = active.cpu().numpy().astype(bool), flags.cpu().numpy()
+    starts = np.flatnonzero(f & golomb_encode.FLAG_LINE_START)
+    ends = np.append(starts[1:], len(f))
+    plane = (f & golomb_encode.FLAG_PLANE_START) != 0
+    base = ((f & 0xFFFF) >> golomb_encode.FLAG_SPLANE_SHIFT) * cc
+    l2run = np.append(T.LOG2_RUN, 0)
+    steps = np.zeros(c.shape[0], np.int64)
+    run_px = np.zeros(c.shape[0], np.int64)
+    for lane in range(c.shape[0]):
+        enter = np.flatnonzero(a[lane] & (c[lane] == base))
+        brk = np.flatnonzero(a[lane] & (d[lane] != 0))
+        acc = np.concatenate([[0], np.cumsum(a[lane])])
+        ri = 0
+        for s, e in zip(starts, ends):
+            ri = 0 if plane[s] else ri
+            i = s
+            while True:
+                k = np.searchsorted(enter, i)
+                if k == len(enter) or enter[k] >= e:
+                    break
+                j = enter[k]
+                kb = np.searchsorted(brk, j)
+                b = brk[kb] if kb < len(brk) and brk[kb] < e else e
+                z = int(acc[b] - acc[j])            # the run's zeros
+                run_px[lane] += z
+                rc = 0
+                while z:
+                    size = 1 << int(l2run[min(ri, 41)])
+                    if rc + z < size:
+                        rc += z
+                        break
+                    z -= size - rc
+                    rc = 0
+                    ri += 1
+                    steps[lane] += 1
+                if b < e:                           # the break
+                    steps[lane] += 1
+                    ri = max(ri - 1, 0)
+                    i = b + 1
+                else:                               # the line-end flush
+                    steps[lane] += int(rc > 0 and a[lane, e - 1])
+                    break
+    return steps, run_px
+
+
 def sass_functions(name, build_dir=None):
     """{kernel instance: [(address, SASS instruction)]} of lib<name>.so,
     from ``cuobjdump -sass``; an instance is named by its function and
@@ -972,8 +1031,8 @@ def pixel_loop_count(ins, marker="SHFL"):
     per-pixel loop: of the spans from a backward branch's target to the
     branch, the innermost of those with the most instructions named
     ``marker`` (shuffles in the range-coder scans, whose pixels take
-    their bytes by shuffle; FLO, the leading-zero count of the Golomb
-    parameter, in the Golomb-Rice step probe)."""
+    their bytes by shuffle; the empty marker, every instruction, in the
+    Golomb-Rice step probe, whose step loop is its largest)."""
     best = (0, 0, 0)                  # (markers, -span, instructions)
     for addr, text in ins:
         m = re.search(r"\bBRA\S*\s+0x([0-9a-f]+)", text)
@@ -3039,11 +3098,12 @@ STAGE_REPLACES = ("scripts/probes/ablate_kernel.py:206, "
 
 
 def stage_split(gpu, recs, reps=5):
-    """K1's, K1-ext's, K2's and K2-ext's stage probes on their paths'
-    warm-up inputs (K1 and its global form, K2 and K2-five on the 8bit
-    and 8bit_ctx1 inputs at 1080p; K1-ext and K2-ext on the 16bit inputs
-    at 1080p, K1-ext's global form and K2-ext-five on 16bit_ctx1_540p's;
-    48 lanes): ``full`` through
+    """K1's, K1-ext's, K2's, K2-ext's, G1's and G2's stage probes on their
+    paths' warm-up inputs (K1 and its global form, K2 and K2-five on the
+    8bit and 8bit_ctx1 inputs at 1080p; K1-ext and K2-ext on the 16bit
+    inputs at 1080p, K1-ext's global form and K2-ext-five on
+    16bit_ctx1_540p's; G1 and G2 on 8bit_golomb's; 48 lanes): ``full``
+    through
     the stage entry point equals the production launch; each variant's
     median of ``reps`` launches, each timed alone with CUDA events.
     Returns the rows of the ``stages`` JSON line."""
@@ -3056,9 +3116,21 @@ def stage_split(gpu, recs, reps=5):
                             ("8bit_ctx1", "rc_decode_five_global"),
                             ("16bit", "rc_decode_ext"),
                             ("16bit_ctx1_540p",
-                             "rc_decode_ext_five_global")):
+                             "rc_decode_ext_five_global"),
+                            ("8bit_golomb", "golomb_encode"),
+                            ("8bit_golomb", "golomb_decode")):
         args, out = recs[inst]
-        if inst.startswith("rc_encode"):
+        if inst.startswith("golomb_encode"):
+            probe, variants = (golomb_encode.golomb_encode_stages,
+                               golomb_encode.STAGE_VARIANTS)
+            L, N = args[0].shape
+            replaces = None
+        elif inst.startswith("golomb_decode"):
+            probe, variants = (golomb_decode.golomb_decode_stages,
+                               golomb_decode.STAGE_VARIANTS)
+            L, N = args[0].shape[0], sum(w * h for (w, h, _b) in args[4])
+            replaces = None
+        elif inst.startswith("rc_encode"):
             probe, variants = (rc_encode.rc_encode_ext_stages,
                                rc_encode.EXT_STAGE_VARIANTS) \
                 if inst.startswith("rc_encode_ext") else \
@@ -3478,21 +3550,29 @@ def kernel_bounds(name, rec, ns_per_decision, ops_per_decision,
     return bound, term, chain
 
 
-def golomb_bounds(name, rec, step_ns, step_ops, vlc_px):
-    """(roofline bound ms, its term, chain bound ms) of a Golomb-Rice
-    launch whose lanes code ``vlc_px`` (L,) VLC symbols (golomb_vlc_pixels).
-    Bytes: G1 reads ctx and diff (8 B) and active (1 B) per pixel, the
-    flags (4 B a pixel, shared by the lanes) and the prefixes, reads and
-    writes each lane's VLC table once and writes the bytes it counts; G2
-    reads the bytes its readers consumed and the quant tables, reads and
-    writes the VLC tables and writes 4 B a pixel.  Operations:
-    ``step_ops`` per VLC-coded pixel (the step probe's pixel loop: one
-    symbol as the kernels code it), none for a pixel a run codes.  Chain:
-    the longest lane's VLC-coded pixels, each one dependent step
-    (``step_ns``, the step probe) after the one before; a run's pixels
-    are left out of both, so both bounds are below what the lanes need."""
+def golomb_bounds(name, rec, steps, work):
+    """(roofline bound ms, its term, chain bound ms, the longest lane) of
+    a Golomb-Rice launch whose lanes do ``work`` = (vlc_px, run_steps,
+    run_px), each (L,): the VLC symbols each lane codes
+    (golomb_vlc_pixels) and its run work (golomb_run_work).  Bytes: G1
+    reads ctx and diff (8 B) and active (1 B) per pixel, the flags (4 B a
+    pixel, shared by the lanes) and the prefixes, reads and writes each
+    lane's VLC table once and writes the bytes it counts; G2 reads the
+    bytes its readers consumed and the quant tables, reads and writes the
+    VLC tables and writes 4 B a pixel.  Operations and chain from the
+    step probe's modes (``steps``: ns and SASS instructions of each): G1
+    a VLC-coded pixel ("encode") and a run machine step ("run_encode")
+    per completed run chunk, break or line-end flush; G2 a VLC-coded
+    pixel ("decode") and a run pixel ("run_decode").  Chain: the lane
+    whose steps, each dependent on the one before, add up to the most."""
     args, out = rec
-    if name.startswith("golomb_encode"):
+    enc = name.startswith("golomb_encode")
+    vlc_px, run_steps, run_px = work
+    runs = run_steps if enc else run_px
+    (vlc_ns, vlc_ops), (run_ns, run_ops) = (
+        steps["encode"], steps["run_encode"]) if enc else (
+        steps["decode"], steps["run_decode"])
+    if enc:
         L, px = args[0].shape
         CC, pcap, T = args[4].shape[1], args[5].shape[1], out[0].shape[1]
         nbytes = L * px * 9 + px * 4 + 2 * L * CC * 16 + L * pcap * 4 + \
@@ -3504,8 +3584,13 @@ def golomb_bounds(name, rec, step_ns, step_ops, vlc_px):
         consumed = int(((bitpos.long() + 7) // 8 - args[3].long()).sum())
         nq = 5 if args[6] else 3
         nbytes = consumed + 2 * L * CC * 16 + nq * 1024 + 8 * L + L * px * 4
-    bound, term = roofline_ms(nbytes, int(vlc_px.sum()) * step_ops)
-    return bound, term, int(vlc_px.max()) * step_ns * 1e-6
+    vlc = vlc_px.numpy().astype(np.int64)
+    bound, term = roofline_ms(nbytes, int(vlc.sum()) * vlc_ops +
+                              int(runs.sum()) * run_ops)
+    lane_ns = vlc * vlc_ns + runs * run_ns
+    worst = int(lane_ns.argmax())
+    return bound, term, float(lane_ns[worst]) * 1e-6, \
+        (int(vlc[worst]), int(runs[worst]))
 
 
 # kernel instance -> (source, the TPU kernel it replaces)
@@ -3552,29 +3637,34 @@ OFF_PATH = ("rc_decode_five", "rc_decode_global", "rc_decode_ext_five",
                 for i in ("_five", "_global", "_five_global"))
 
 
-def golomb_row(name, path_name, p, rec, mp, checks, step, vlc_px, gpu):
+def golomb_row(name, path_name, p, rec, mp, checks, steps, work, gpu):
     """The ``kernels`` JSON row of G1 or G2 on its main path: its time,
     launches, roofline bound and chain bound (golomb_bounds), from the
-    step probe of its direction (``step``: ns and SASS instructions of one
-    VLC-coded pixel) and the lanes' VLC-coded pixels."""
+    step probe's modes (``steps``: ns and SASS instructions of each) and
+    the lanes' work (VLC-coded pixels, run steps, run pixels)."""
     src, replaces = KERNELS[name]
-    step_ns, step_ops = step
-    bound, term, chain = golomb_bounds(name, rec, step_ns, step_ops, vlc_px)
+    enc = name.startswith("golomb_encode")
+    bound, term, chain, (w_vlc, w_runs) = golomb_bounds(name, rec, steps,
+                                                         work)
+    vlc_ns, vlc_ops = steps["encode" if enc else "decode"]
+    run_ns, _run_ops = steps["run_encode" if enc else "run_decode"]
+    run_what = "run steps" if enc else "run pixels"
     log(f"[bound] {name} ({path_name}, {gpu}): {p['ms'][name]:.2f} ms at "
         f"the main path's shape; roofline bound {bound:.3f} ms ({term}, "
-        f"{int(vlc_px.sum())} VLC-coded pixels x {step_ops} SASS "
-        f"instructions of the step probe); chain bound {chain:.2f} ms "
-        f"({int(vlc_px.max())} VLC-coded pixels on the longest lane x "
-        f"{step_ns:.2f} ns)")
+        f"{int(work[0].sum())} VLC-coded pixels x {vlc_ops} SASS "
+        f"instructions of the step probe and the {run_what}); chain bound "
+        f"{chain:.2f} ms (the longest lane: {w_vlc} VLC-coded pixels x "
+        f"{vlc_ns:.2f} ns + {w_runs} {run_what} x {run_ns:.2f} ns)")
     return dict(
         name=name, route="cuda", source=src, replaces=replaces,
         main_path=path_name, launches=p["launches"][name],
         launches_per_step=p["launches"][name] / p["steps"], max_abs_err=0,
         ms=p["ms"][name], plain_ms=mp["plain_ms"], plain_device="cpu",
         bound_ms=bound, bound_by=term, chain_bound_ms=chain,
-        chain_vlc_pixels_max_lane=int(vlc_px.max()),
-        vlc_pixels=int(vlc_px.sum()), ns_per_vlc_pixel=step_ns,
-        ops_per_vlc_pixel=step_ops, library_ms=None,
+        chain_vlc_pixels_max_lane=w_vlc, chain_run_steps_max_lane=w_runs,
+        vlc_pixels=int(work[0].sum()), ns_per_vlc_pixel=vlc_ns,
+        ops_per_vlc_pixel=vlc_ops, ns_per_run_step=run_ns,
+        run_steps=int((work[1] if enc else work[2]).sum()), library_ms=None,
         main_path_shape=mp["main_path_shape"],
         checks=[{k: c[k] for k in ("check_shape", "check_ms",
                                    "check_plain_ms")} for c in checks])
@@ -3684,9 +3774,11 @@ def main():
     probe = (ns_enc, ops_enc, ns_dec, ops_dec, row_ns)
     smem_row_ns = smem_probe_ns(dev, "row")
     smem_byte_ns = smem_probe_ns(dev, "byte")
+    # each mode's step loop is its instance's largest (the set-up loops
+    # stay rolled): the empty marker counts every instruction
     golomb_step = {m: (golomb_step_ns(dev, m), pixel_loop_count(
-        funcs["golomb_probe"][f"golomb_step_kernel<{i}>"], "FLO"))
-        for i, m in enumerate(("encode", "decode"))}
+        funcs["golomb_probe"][f"golomb_step_kernel<{i}>"], ""))
+        for i, m in enumerate(probes.GOLOMB_MODES)}
     check(all(ops > 0 for _ns, ops in golomb_step.values()),
           "no pixel loop found in the Golomb-Rice step probe's SASS")
     log(f"[probe] one dependent decision on one warp ({gpu}): encode form "
@@ -3699,7 +3791,11 @@ def main():
         f"pixel's dependent step: encode form (G1) "
         f"{golomb_step['encode'][0]:.2f} ns, {golomb_step['encode'][1]} SASS "
         f"instructions, decode form (G2) {golomb_step['decode'][0]:.2f} ns, "
-        f"{golomb_step['decode'][1]} SASS instructions (each held against "
+        f"{golomb_step['decode'][1]} SASS instructions; a run step: G1's "
+        f"run machine {golomb_step['run_encode'][0]:.2f} ns, "
+        f"{golomb_step['run_encode'][1]} SASS instructions, G2's run pixel "
+        f"{golomb_step['run_decode'][0]:.2f} ns, "
+        f"{golomb_step['run_decode'][1]} SASS instructions (each held against "
         f"its plain loop)")
 
     random = ([check_encode_kernel(dev, 8, 4096, 0)] +
@@ -3893,10 +3989,11 @@ def main():
             if name.startswith("golomb"):
                 # G1's inputs: the warm-up frame's decode makes the same
                 # decisions
-                vlc_px = golomb_vlc_pixels(*enc_args[:4], enc_args[8])
+                work = (golomb_vlc_pixels(*enc_args[:4], enc_args[8]),
+                        *golomb_run_work(*enc_args[:4], enc_args[8]))
                 kernels.append(golomb_row(
-                    name, path_name, p, rec, m, checks[name],
-                    golomb_step[name.split("_")[1]], vlc_px, gpu))
+                    name, path_name, p, rec, m, checks[name], golomb_step,
+                    work, gpu))
                 continue
             grouped = name == path.kernels[1] and len(p["group_recs"]) > 1
             recs_g = p["group_recs"] if grouped else [rec]
@@ -3964,10 +4061,11 @@ def main():
         for name, rec in p["recs"].items():
             m = mp[(pn, name)]
             if name.startswith("golomb"):
-                vlc_px = golomb_vlc_pixels(*enc_args[:4], enc_args[8])
+                work = (golomb_vlc_pixels(*enc_args[:4], enc_args[8]),
+                        *golomb_run_work(*enc_args[:4], enc_args[8]))
                 kernels.append(golomb_row(
-                    name, pn, p, rec, m, checks[name],
-                    golomb_step[name.split("_")[1]], vlc_px, gpu))
+                    name, pn, p, rec, m, checks[name], golomb_step, work,
+                    gpu))
                 continue
             decisions = decisions_per_lane(enc_args[1], enc_args[2])
             kernels.append(rc_row(
@@ -3986,7 +4084,9 @@ def main():
         l2_row_ns=row_ns, smem_row_ns=smem_row_ns,
         smem_byte_ns=smem_byte_ns,
         golomb_step_encode_ns=golomb_step["encode"][0],
-        golomb_step_decode_ns=golomb_step["decode"][0])}))
+        golomb_step_decode_ns=golomb_step["decode"][0],
+        golomb_step_run_encode_ns=golomb_step["run_encode"][0],
+        golomb_step_run_decode_ns=golomb_step["run_decode"][0])}))
     log(json.dumps({"steps": {name: dict(encode_ms=p["enc_ms"],
                                          decode_ms=p["dec_ms"], **p["stages"])
                               for name, p in paths.items()}}))

@@ -234,7 +234,8 @@ def test_lookup_probes_match_plain_loops(cuda, mode):
     assert torch.equal(got.cpu(), want)
 
 
-@pytest.mark.parametrize("mode", ["encode", "decode"])
+@pytest.mark.parametrize("mode", ["encode", "decode", "run_encode",
+                                  "run_decode"])
 def test_golomb_step_probe_matches_plain_loop(cuda, mode):
     from tpu_ffv1_torch.kernels import probes
     host = probes.golomb_step_inputs(2 * T.CONTEXT_COUNTS[0], mode, 7)
@@ -553,6 +554,36 @@ def test_golomb_decode_kernel_matches_plain(cuda, five, model):
         assert torch.equal(a.cpu(), b)
     for a, b in zip(got[1:], want[1:]):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("model", [0, 1], ids=["shared", "global"])
+def test_golomb_stages_full_is_the_production_instance(cuda, model):
+    """G1's and G2's stage probes: ``full`` equals the production launch,
+    every stubbed variant launches (its outputs are wrong on purpose)."""
+    from tpu_ffv1_torch.tpu import golomb_decode as GD
+    from tpu_ffv1_torch.tpu import golomb_encode as GE
+    cc = T.CONTEXT_COUNTS[model]
+    arrs = chip_smoke.golomb_encode_edge_inputs(
+        5, ((64, 12, 0), (32, 6, 1), (32, 6, 1)), cc, 11 + model)
+    args = (*[torch.from_numpy(a).to(cuda) for a in arrs], 8, cc, None)
+    want = GE.golomb_encode_lanes(*args)
+    got = GE.golomb_encode_stages(*args, "full")
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for variant in GE.STAGE_VARIANTS:
+        GE.golomb_encode_stages(*args, variant)
+    arrs = chip_smoke.golomb_decode_random_inputs(5, 1024, cc, model == 1,
+                                                  13 + model)
+    specs = ((40, 6, 0), (33, 4, cc), (2, 4, cc), (1, 4, 0))
+    args = (*[torch.from_numpy(a).to(cuda) for a in arrs], specs, 8,
+            model == 1)
+    want = GD.golomb_decode_planes(*args)
+    got = GD.golomb_decode_stages(*args, "full")
+    assert all(torch.equal(a, b) for a, b in
+               zip(chip_smoke.flat_outputs(got),
+                   chip_smoke.flat_outputs(want)))
+    for variant in GD.STAGE_VARIANTS:
+        GD.golomb_decode_stages(*args, variant)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("context_model", [0, 1])

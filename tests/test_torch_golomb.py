@@ -95,6 +95,83 @@ def test_vlc_pixel_count_follows_the_run_machine(cc):
     assert 0 < min(want) and max(want) < ctx.shape[1]
 
 
+@pytest.mark.parametrize("cc", [666, 7563])
+def test_run_work_follows_the_run_machine(cc):
+    """chip_smoke.golomb_run_work (the chain bound's run work: G1's run
+    machine steps, G2's run pixels) against the run machine of
+    ffv1enc.c:326-367 pixel by pixel, as G1 runs it: a step per completed
+    run chunk, per break and per line-end flush; a run pixel per zero
+    residual inside a run.  On G1's edge inputs, with long runs across
+    lines and chunks in the last lanes (run_index past 16)."""
+    dims = ((64, 8, 0), (32, 4, 1), (1, 6, 1), (2, 5, 0))
+    ctx, diff, act, flags = chip_smoke.golomb_encode_edge_inputs(
+        4, dims, cc, 23)[:4]
+    base = ((flags & 0xFFFF) >> E.FLAG_SPLANE_SHIFT) * cc
+    ctx[2:, :600] = base[:600]
+    diff[2:, :600] = 0
+    diff[3, 300] = 5
+    act[3, 100:140] = True
+    l2run = list(E.LOG2_RUN) + [0]
+    want_steps, want_px, top = [], [], 0
+    for c, d, a in zip(ctx, diff, act):
+        run_index = run_mode = run_count = steps = px = 0
+        for ci, di, ai, f in zip(c, d, a, flags):
+            if f & E.FLAG_PLANE_START:
+                run_index = 0
+            if f & E.FLAG_LINE_START:
+                run_mode = run_count = 0
+            if ai and ci == ((f & 0xFFFF) >> E.FLAG_SPLANE_SHIFT) * cc:
+                run_mode = 1
+            if run_mode and ai:
+                if di == 0:
+                    px += 1
+                    run_count += 1
+                    if run_count == 1 << l2run[min(run_index, 41)]:
+                        steps += 1
+                        run_count = 0
+                        run_index += 1
+                else:
+                    steps += 1
+                    run_index = max(run_index - 1, 0)
+                    run_mode = run_count = 0
+            if run_mode and ai and f & E.FLAG_LINE_END and run_count:
+                steps += 1                    # the line-end flush
+            top = max(top, run_index)
+        want_steps.append(steps)
+        want_px.append(px)
+    got = chip_smoke.golomb_run_work(*[torch.from_numpy(x) for x in (
+        ctx, diff, act, flags)], cc)
+    assert got[0].tolist() == want_steps and got[1].tolist() == want_px
+    assert min(want_steps) > 0 and top > 16
+
+
+@pytest.mark.parametrize("variant", ["full", "no_vlc"])
+def test_stage_probes_on_the_cpu(variant):
+    """G1's and G2's stage probes on CPU tensors: ``full`` is the plain
+    version, a stubbed stage has none (it times the card)."""
+    cc = 666
+    dims = ((40, 6, 0), (20, 3, 1), (20, 3, 1))
+    args = (*[torch.from_numpy(a) for a in
+              chip_smoke.golomb_encode_edge_inputs(3, dims, cc, 5)],
+            8, cc, None)
+    dargs = (*[torch.from_numpy(a) for a in
+               chip_smoke.golomb_decode_random_inputs(3, 256, cc, False,
+                                                      6)],
+             ((40, 2, 0), (20, 1, cc)), 8, False)
+    if variant != "full":
+        with pytest.raises(NotImplementedError):
+            E.golomb_encode_stages(*args, variant)
+        with pytest.raises(NotImplementedError):
+            D.golomb_decode_stages(*dargs, variant)
+        return
+    for a, b in zip(E.golomb_encode_stages(*args, variant),
+                    E.golomb_encode_lanes_ref(*args)):
+        assert torch.equal(a, b)
+    got = chip_smoke.flat_outputs(D.golomb_decode_stages(*dargs, variant))
+    want = chip_smoke.flat_outputs(D.golomb_decode_planes_ref(*dargs))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 ENCODE_CASES = [
     # (label, lanes, planes (w, h, state_plane), contexts a plane, fresh)
     ("ctx0_yuv420p", 3, ((40, 6, 0), (20, 3, 1), (20, 3, 1)), 666, False),

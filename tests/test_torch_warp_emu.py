@@ -148,6 +148,42 @@ def test_rc_encode_source_matches_plain(libs, bits, compact, gtab):
     _check(got, want)
 
 
+def emulate_golomb_encode(lib, args, bits, cc, gtab, cap=None):
+    """G1's source under the emulation on numpy inputs (ctx, diff, active,
+    flags, vlc0, prefixes, plens): (bytes, counts, vlc_out, run_index)."""
+    ctx, diff, act, flags, vlc0, pre, plens = args
+    L_, N_ = ctx.shape
+    CC, pcap = vlc0.shape[1], pre.shape[1]
+    Tc = GE.default_out_cap(N_, pcap) if cap is None else cap
+    out = np.zeros((L_, Tc), np.uint8)
+    counts, run_index = np.zeros(L_, np.int32), np.zeros(L_, np.int32)
+    vlc = vlc0.copy() if gtab else np.zeros_like(vlc0)
+    fn = lib.golomb_encode_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + \
+        [ctypes.c_void_p]
+    act8 = act.astype(np.uint8)
+    err = fn(*[a.ctypes.data for a in (ctx, diff, act8, flags, vlc0, pre,
+                                       plens, out, counts, vlc,
+                                       run_index)],
+             L_, N_, CC, pcap, Tc, bits, cc, int(gtab), None)
+    assert err == 0
+    assert lib.emu_fault_count() == 0, "warp primitives under a divergent " \
+        "branch"
+    return out, counts, vlc, run_index
+
+
+def check_golomb_encode(lib, args, bits, cc, gtab, cap=None):
+    """G1's source against its plain twin on ``args``; returns the plain
+    version's outputs."""
+    got = emulate_golomb_encode(lib, args, bits, cc, gtab, cap)
+    want = GE.golomb_encode_lanes_ref(*[torch.from_numpy(a) for a in args],
+                                      bits, cc, cap)
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w.numpy())
+    return want
+
+
 @pytest.mark.parametrize("cap", [None, 120], ids=["full", "capped"])
 @pytest.mark.parametrize("model", [0, 1], ids=["shared", "global"])
 def test_golomb_encode_source_matches_plain(libs, model, cap):
@@ -157,36 +193,169 @@ def test_golomb_encode_source_matches_plain(libs, model, cap):
     cc = T.CONTEXT_COUNTS[model]
     dims = ((40, 6, 0), (20, 3, 1), (20, 3, 1))
     args = chip_smoke.golomb_encode_edge_inputs(L, dims, cc, 90 + model)
-    ctx, diff, act, flags, vlc0, pre, plens = args
-    N, CC, pcap = ctx.shape[1], vlc0.shape[1], pre.shape[1]
-    Tc = GE.default_out_cap(N, pcap) if cap is None else cap
-    out = np.zeros((L, Tc), np.uint8)
-    counts, run_index = np.zeros(L, np.int32), np.zeros(L, np.int32)
-    vlc = vlc0.copy() if model == 1 else np.zeros_like(vlc0)
-    lib = libs["golomb_encode"]
-    fn = lib.golomb_encode_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + \
-        [ctypes.c_void_p]
-    act8 = act.astype(np.uint8)
-    err = fn(*[a.ctypes.data for a in (ctx, diff, act8, flags, vlc0, pre,
-                                       plens, out, counts, vlc,
-                                       run_index)],
-             L, N, CC, pcap, Tc, 8, cc, model, None)
-    assert err == 0
-    assert lib.emu_fault_count() == 0, "warp primitives under a divergent " \
-        "branch"
-    want = GE.golomb_encode_lanes_ref(*[torch.from_numpy(a) for a in args],
-                                      8, cc, cap)
+    want = check_golomb_encode(libs["golomb_encode"], args, 8, cc,
+                               model == 1, cap)
     assert cap is None or int(want[1].max()) > cap
-    for got, w in zip((out, counts, vlc, run_index), want):
-        assert np.array_equal(got, w.numpy())
 
 
-@pytest.mark.parametrize("mode", ["encode", "decode"])
+# planes 64, 33, 2 and 1 wide: runs across the 32-pixel chunks and whole
+# chunks, lines of one and two pixels (each pixel a line start and end)
+EDGE_DIMS = ((64, 6, 0), (33, 3, 1), (2, 4, 1), (1, 5, 0))
+
+
+def golomb_design_edge_inputs(dims, cc, bits, seed):
+    """G1 inputs (numpy, as golomb_encode_lanes takes them) for L lanes
+    that reach the edges of its chunked design, segment by segment: runs
+    of the plane's context 0 with zero residuals of 20-100 pixels
+    (across chunks, whole chunks, to a line end or a plane start), such
+    runs ended by a break of a positive or a negative residual, one
+    context over consecutive VLC-coded pixels (the forwarded row) and two
+    contexts alternating (the same row two pixels apart), large residuals
+    (escapes under a small k), blocks of inactive pixels, and zero
+    residuals outside context 0; carried VLC states and prefixes of
+    0..PREFIX_CAP bytes."""
+    r = np.random.RandomState(seed)
+    flags = GE.make_flags(dims)
+    N_ = flags.shape[0]
+    rows = (max(sp for (_w, _h, sp) in dims) + 1) * cc
+    pbase = (flags >> GE.FLAG_SPLANE_SHIFT) * cc
+    half = 1 << (bits - 1)
+    ctx = pbase + r.randint(1, cc, (L, N_))
+    diff = r.randint(-5, 6, (L, N_))
+    act = np.ones((L, N_), bool)
+    for lane in range(L):
+        p = 0
+        while p < N_:
+            kind = r.randint(7)
+            q = min(N_, p + (r.randint(20, 101) if kind < 2 else
+                             r.randint(2, 24)))
+            seg = slice(p, q)
+            if kind in (0, 1):                 # a run, maybe broken
+                ctx[lane, seg] = pbase[seg]
+                diff[lane, seg] = 0
+                if kind == 1:
+                    diff[lane, q - 1] = r.choice([-1, 1]) * r.randint(1, 4)
+            elif kind == 2:                    # one context
+                ctx[lane, seg] = pbase[seg] + r.randint(1, cc)
+            elif kind == 3:                    # two contexts alternating
+                a, b = r.randint(1, cc, 2)
+                ctx[lane, seg] = pbase[seg] + np.where(
+                    np.arange(q - p) % 2 == 0, a, b)
+            elif kind == 4:                    # escapes
+                diff[lane, seg] = r.choice([-1, 1], q - p) * r.randint(
+                    half * 3 // 4, half, q - p)
+            elif kind == 5:
+                act[lane, seg] = False
+            else:
+                diff[lane, seg] = 0
+            p = q
+    return [np.ascontiguousarray(a) for a in (
+        ctx.astype(np.int32), diff.astype(np.int32), act, flags,
+        chip_smoke.random_vlc_states(r, L, rows),
+        r.randint(0, 256, (L, chip_smoke.PREFIX_CAP)).astype(np.int32),
+        r.randint(0, chip_smoke.PREFIX_CAP + 1, L).astype(np.int32))]
+
+
+@pytest.mark.parametrize("model,cap,bits", [(0, None, 8), (1, 150, 8),
+                                            (0, 150, 16), (1, None, 16)],
+                         ids=["shared-8", "global-capped-8",
+                              "shared-capped-16", "global-16"])
+def test_golomb_encode_source_design_edges(libs, model, cap, bits):
+    """G1 on golomb_design_edge_inputs, each lane's runs, breaks, forwarded
+    rows and escapes held exact to the plain twin, in both table
+    placements, at 8 and 16 bits, with all bytes or a cap below the
+    counts."""
+    cc = T.CONTEXT_COUNTS[model]
+    args = golomb_design_edge_inputs(EDGE_DIMS, cc, bits,
+                                     300 + 10 * model + bits)
+    want = check_golomb_encode(libs["golomb_encode"], args, bits, cc,
+                               model == 1, cap)
+    assert cap is None or int(want[1].max()) > cap
+    ctx, diff, act, flags = args[:4]
+    zero = (ctx == (flags >> GE.FLAG_SPLANE_SHIFT) * cc) & (diff == 0) & act
+    longest = max(max(map(len, "".join("1" if z else "0" for z in row)
+                          .split("0"))) for row in zero)
+    assert longest > 64, "no run spans two whole chunks"
+
+
+# each intrinsic the warp emulation adds for the Golomb-Rice scans, on the
+# emulation against its CUDA definition
+INTRINSICS_SRC = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+template <int U>
+__global__ void __launch_bounds__(32) intrinsics_kernel(
+    const int32_t* in, int32_t* out, int d) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  unsigned* words = reinterpret_cast<unsigned*>(smem);
+  const int t = threadIdx.x;
+  if (t < 4) words[t] = 0;
+  __syncwarp();
+  const int v = in[t];
+  out[t] = __shfl_up_sync(0xffffffffu, v, d);
+  out[32 + t] = __shfl_xor_sync(0xffffffffu, v, d);
+  const unsigned long long w =
+      (unsigned long long)(unsigned)v << 32 | (unsigned)t;
+  const unsigned long long x = __shfl_xor_sync(0xffffffffu, w, d);
+  out[64 + t] = (int)(x >> 32);
+  out[96 + t] = (int)(unsigned)x;
+  atomicOr(&words[t & 3], 1u << t);
+  __syncwarp();
+  if (t < 4) out[128 + t] = (int)words[t];
+  out[132 + t] = (int)__funnelshift_l((unsigned)v, (unsigned)in[t ^ 1],
+                                      (unsigned)(t * 7 + d));
+}
+
+extern "C" int intrinsics_launch(const void* in, void* out, int d) {
+  intrinsics_kernel<0><<<1, 32, 16, nullptr>>>((const int32_t*)in,
+                                               (int32_t*)out, d);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+@pytest.mark.parametrize("d", [1, 3, 16])
+def test_warp_emu_intrinsics_match_cuda(tmp_path, d):
+    """__shfl_up_sync (a thread below d keeps its own value), the int and
+    64-bit __shfl_xor_sync (thread t takes t ^ d's), atomicOr on shared
+    memory (every thread's bit lands) and __funnelshift_l (the upper word
+    of hi:lo shifted left by s & 31) under the emulation, as CUDA defines
+    them."""
+    if warp_emu.compiler() is None:
+        pytest.skip("needs a host C++ compiler (g++) for the warp emulation")
+    src = tmp_path / "intrinsics.cu"
+    src.write_text(INTRINSICS_SRC)
+    lib = ctypes.CDLL(warp_emu.build(str(src), str(tmp_path)))
+    vals = np.random.RandomState(d).randint(-1 << 31, 1 << 31, 32) \
+        .astype(np.int32)
+    out = np.zeros(164, np.int32)
+    fn = lib.intrinsics_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    assert fn(vals.ctypes.data, out.ctypes.data, d) == 0
+    assert lib.emu_fault_count() == 0
+    t = np.arange(32)
+    assert np.array_equal(out[:32], np.where(t >= d, vals[t - d], vals))
+    assert np.array_equal(out[32:64], vals[t ^ d])
+    assert np.array_equal(out[64:96], vals[t ^ d])
+    assert np.array_equal(out[96:128], (t ^ d).astype(np.int32))
+    want = [sum(1 << int(i) for i in t if i % 4 == k) for k in range(4)]
+    assert np.array_equal(out[128:132].view(np.uint32),
+                          np.array(want, np.uint32))
+    lo, hi = vals.view(np.uint32).astype(np.uint64), \
+        vals[t ^ 1].view(np.uint32).astype(np.uint64)
+    s = ((t * 7 + d) & 31).astype(np.uint64)
+    shifted = (((hi << np.uint64(32)) | lo) << s) >> np.uint64(32)
+    assert np.array_equal(out[132:].view(np.uint32),
+                          (shifted & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+
+
+@pytest.mark.parametrize("mode", list(probes.GOLOMB_MODES))
 def test_golomb_step_probe_source_matches_plain(libs, mode):
-    """The Golomb-Rice pixel-step probe on context model 0's table (1,332
-    rows): the chain's final state, the adapted table and the ring."""
+    """The Golomb-Rice step probe on context model 0's table (1,332 rows),
+    each mode (a VLC-coded pixel of G1 and of G2, G1's run chunk, G2's
+    run pixel): the chain's final state, the adapted table and the
+    ring."""
     rows, n = 2 * T.CONTEXT_COUNTS[0], 3000
     vlc0, pix, data, qt = probes.golomb_step_inputs(rows, mode, 11)
     out = np.zeros(4 + 4 * rows + probes.GOLOMB_RING, np.int32)

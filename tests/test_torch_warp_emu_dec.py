@@ -24,13 +24,17 @@ from tpu_ffv1_torch.tpu import golomb_decode as GD
 from tpu_ffv1_torch.tpu import rc_decode as D
 from tpu_ffv1_torch.tpu import rc_encode as K
 
-from .test_torch_warp_emu import L, build_libs, chip_smoke
+from tpu_ffv1_torch.tpu import golomb_encode as GE
+from tpu_ffv1_torch.tpu.residual import residuals_and_contexts
+
+from .test_torch_warp_emu import (L, build_libs, check_golomb_encode,
+                                  chip_smoke)
 
 
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
     return build_libs(tmp_path_factory, ("rc_decode", "rc_decode_ext",
-                                         "golomb_decode"))
+                                         "golomb_decode", "golomb_encode"))
 
 
 def _decode_args(bits, five, CC, seed, cap=512):
@@ -189,6 +193,47 @@ def test_rc_decode_ext_source_long_pixels_match_plain(libs, bits, gtab):
         assert torch.equal(a, b)
 
 
+def emulate_golomb_decode(lib, bufs, vlc0, qt, pos0, specs, bits, five,
+                          gtab):
+    """G2's source under the emulation: (planes, vlc_out, bitpos)."""
+    cap = bufs.shape[1]
+    total = sum(w * h for (w, h, _b) in specs)
+    out = np.full((L, total), 0x5A5A5A5A, np.int32)
+    bitpos = np.zeros(L, np.int32)
+    vlc = vlc0.copy() if gtab else np.zeros_like(vlc0)
+    spec = (ctypes.c_int * (3 * len(specs)))(*[v for s in specs for v in s])
+    fn = lib.golomb_decode_launch
+    fn.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, i, p, p, p, p, i, p, i, p, p, i, i, i, i, i, p]
+    err = fn(bufs.ctypes.data, cap, vlc0.ctypes.data, qt.ctypes.data,
+             pos0.ctypes.data, ctypes.cast(spec, p), len(specs),
+             out.ctypes.data, total, bitpos.ctypes.data, vlc.ctypes.data, L,
+             vlc0.shape[1], bits, int(five), int(gtab), None)
+    assert err == 0
+    assert lib.emu_fault_count() == 0, "warp primitives under a divergent " \
+        "branch"
+    planes, off = [], 0
+    for (w, h, _b) in specs:
+        planes.append(out[:, off:off + w * h].reshape(L, h, w))
+        off += w * h
+    return planes, vlc, bitpos
+
+
+def check_golomb_decode(lib, bufs, vlc0, qt, pos0, specs, bits, five, gtab):
+    """G2's source against its plain twin; returns the plain outputs."""
+    got = emulate_golomb_decode(lib, bufs, vlc0, qt, pos0, specs, bits,
+                                five, gtab)
+    want = GD.golomb_decode_planes_ref(
+        *[torch.from_numpy(a) for a in (bufs, vlc0, qt, pos0)], specs, bits,
+        five)
+    for a, b in zip(got[0], want[0]):
+        assert np.array_equal(a, b.numpy())
+    assert np.array_equal(got[1], want[1].numpy())
+    assert np.array_equal(got[2], want[2].numpy())
+    return want
+
+
 @pytest.mark.parametrize("five,model", DECODE_INSTANCES, ids=DECODE_IDS)
 def test_golomb_decode_source_matches_plain(libs, five, model):
     """G2's four instances: the 3- or 5-input context, the VLC table in
@@ -198,31 +243,105 @@ def test_golomb_decode_source_matches_plain(libs, five, model):
     bufs, vlc0, qt, pos0 = chip_smoke.golomb_decode_random_inputs(
         L, cap, cc, five, 95 + 2 * model + five)
     specs = ((40, 3, 0), (33, 2, cc), (2, 2, cc), (1, 2, 0))
-    total = sum(w * h for (w, h, _b) in specs)
-    out = np.full((L, total), 0x5A5A5A5A, np.int32)
-    bitpos = np.zeros(L, np.int32)
-    vlc = vlc0.copy() if model == 1 else np.zeros_like(vlc0)
-    spec = (ctypes.c_int * (3 * len(specs)))(*[v for s in specs for v in s])
-    lib = libs["golomb_decode"]
-    fn = lib.golomb_decode_launch
-    fn.restype = ctypes.c_int
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, i, p, p, p, p, i, p, i, p, p, i, i, i, i, i, p]
-    err = fn(bufs.ctypes.data, cap, vlc0.ctypes.data, qt.ctypes.data,
-             pos0.ctypes.data, ctypes.cast(spec, p), len(specs),
-             out.ctypes.data, total, bitpos.ctypes.data, vlc.ctypes.data, L,
-             vlc0.shape[1], 8, int(five), model, None)
-    assert err == 0
-    assert lib.emu_fault_count() == 0, "warp primitives under a divergent " \
-        "branch"
-    want = GD.golomb_decode_planes_ref(
-        *[torch.from_numpy(a) for a in (bufs, vlc0, qt, pos0)], specs, 8,
-        five)
-    off = 0
-    for (w, h, _b), plane in zip(specs, want[0]):
-        assert np.array_equal(out[:, off:off + w * h].reshape(L, h, w),
-                              plane.numpy())
-        off += w * h
-    assert np.array_equal(vlc, want[1].numpy())
-    assert np.array_equal(bitpos, want[2].numpy())
-    assert int(bitpos[2]) >= 8 * cap, "lane 2 did not read past its buffer"
+    want = check_golomb_decode(libs["golomb_decode"], bufs, vlc0, qt, pos0,
+                               specs, 8, five, model == 1)
+    assert int(want[2][2]) >= 8 * cap, "lane 2 did not read past its buffer"
+
+
+# planes 64, 33, 2 and 1 wide, as state planes 0, 1, 1, 0
+CODED_DIMS = ((64, 12, 0), (33, 4, 1), (2, 5, 1), (1, 4, 0))
+
+
+def coded_planes(dims, bits, seed):
+    """Per lane and plane, samples that reach the Golomb-Rice scans' run
+    and window edges: flat rows and blocks (runs across whole lines, long
+    chunks, the line end), single spikes of either sign in the flat (runs
+    broken by a positive or a negative residual), a ramp (zero residuals
+    outside context 0), noise and jumps of 3/4 of the range (escapes: at
+    16 bits codes of 28 bits, the samples int16-wrapped as the codec holds
+    them); lane 0 noisier (about 6 bits a pixel, so its stream passes the
+    ring's words)."""
+    r = np.random.RandomState(seed)
+    top = (1 << bits) - 1
+    out = []
+    for lane in range(L):
+        planes = []
+        for (w, h, _sp) in dims:
+            c0 = r.randint(0, top + 1)
+            p = np.full((h, w), c0, np.int64)
+            yy, xx = np.mgrid[0:h, 0:w]
+            noise = r.randint(-40, 41, (h, w)) if lane == 0 else \
+                r.randint(-3, 4, (h, w))
+            blk = (yy % 6 >= 3) & (xx % 40 < 20)
+            p = np.where(blk, c0 + noise, p)
+            p = np.where((yy % 6 == 5) & (xx >= w // 2), c0 + 2 * xx, p)
+            spikes = (r.rand(h, w) < 0.05) & ~blk
+            p = np.where(spikes, c0 + r.choice([-2, -1, 1, 2], (h, w)), p)
+            jumps = r.rand(h, w) < 0.03
+            p = np.where(jumps, c0 + r.choice([-1, 1], (h, w)) *
+                         (top * 3 // 4), p)
+            p = np.clip(p, 0, top)
+            if bits == 16:                     # int16_t sample rows
+                p = ((p + 0x8000) & 0xFFFF) - 0x8000
+            planes.append(p)
+        out.append(planes)
+    return out
+
+
+def coded_inputs(dims, bits, five, cc, seed):
+    """(planes, G1's inputs) of coded_planes: each plane's contexts and
+    residuals from the port's stencil (residuals_and_contexts) with the
+    state plane's offset, every pixel active, fresh VLC states, prefixes
+    of 0..PREFIX_CAP bytes."""
+    planes = coded_planes(dims, bits, seed)
+    qt = torch.from_numpy(T.default_quant_tables(bits)[int(five)]
+                          .astype(np.int32))
+    ctxs, diffs = [], []
+    for lane in range(L):
+        cs_, ds_ = [], []
+        for (w, h, sp), p in zip(dims, planes[lane]):
+            c, d = residuals_and_contexts(torch.from_numpy(p), qt, bits,
+                                          five)
+            cs_.append(c.reshape(-1).numpy() + sp * cc)
+            ds_.append(d.reshape(-1).numpy())
+        ctxs.append(np.concatenate(cs_))
+        diffs.append(np.concatenate(ds_))
+    rows = (max(sp for (_w, _h, sp) in dims) + 1) * cc
+    r = np.random.RandomState(seed + 1)
+    flags = GE.make_flags(dims)
+    vlc0 = np.ascontiguousarray(np.broadcast_to(
+        np.array(GE.VLC_FRESH, np.int32), (L, rows, 4)))
+    args = [np.ascontiguousarray(a) for a in (
+        np.stack(ctxs).astype(np.int32), np.stack(diffs).astype(np.int32),
+        np.ones((L, flags.shape[0]), bool), flags, vlc0,
+        r.randint(0, 256, (L, chip_smoke.PREFIX_CAP)).astype(np.int32),
+        r.randint(0, chip_smoke.PREFIX_CAP + 1, L).astype(np.int32))]
+    return planes, args, qt.numpy()
+
+
+@pytest.mark.parametrize("five,model,bits", [(False, 0, 8), (True, 1, 8),
+                                             (True, 0, 10), (False, 1, 16)],
+                         ids=[f"{i}-{b}" for i, b in
+                              zip(DECODE_IDS, (8, 8, 10, 16))])
+def test_golomb_sources_round_trip_coded_planes(libs, five, model, bits):
+    """Coded planes (coded_planes) through G1's source and then G2's, each
+    held exact to its plain twin, in every G2 instance (and G1's two
+    placements): the decode reads from after each lane's prefix, its
+    window refills across words and around the ring, and it gives back
+    the source samples."""
+    cc = T.CONTEXT_COUNTS[model]
+    planes, args, qt = coded_inputs(CODED_DIMS, bits, five, cc,
+                                    500 + 10 * model + bits + five)
+    enc = check_golomb_encode(libs["golomb_encode"], args, bits, cc,
+                              model == 1)
+    bufs = enc[0].numpy()
+    specs = tuple((w, h, sp * cc) for (w, h, sp) in CODED_DIMS)
+    got = check_golomb_decode(libs["golomb_decode"], bufs, args[4], qt,
+                              args[6].copy(), specs, bits, five, model == 1)
+    for k in range(len(CODED_DIMS)):
+        assert np.array_equal(got[0][k].numpy(),
+                              np.stack([pl[k] for pl in planes]))
+    ring_bits = 32 * GD.ring_words(max(w for (w, _h, _s) in CODED_DIMS))
+    read = got[2].numpy() - 8 * args[6]
+    assert int(read.max()) > ring_bits, "no lane's stream went round the ring"
+    assert np.array_equal(enc[1].numpy(), args[6] + (read + 7) // 8)

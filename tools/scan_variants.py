@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Compare copies of a lane scan's source on the card: K1-ext
-(csrc/rc_encode_ext.cu), K2 (csrc/rc_decode.cu) or K2-ext
-(csrc/rc_decode_ext.cu).
+(csrc/rc_encode_ext.cu), K2 (csrc/rc_decode.cu), K2-ext
+(csrc/rc_decode_ext.cu), G1 (csrc/golomb_encode.cu) or G2
+(csrc/golomb_decode.cu).
 
     python3 tools/scan_variants.py
-        [--source rc_encode_ext|rc_decode|rc_decode_ext]
+        [--source rc_encode_ext|rc_decode|rc_decode_ext|golomb_encode|
+                  golomb_decode]
         [--variant TAG=PATH ...] [--reps 5] [--stages]
         [--sass-against PATH]
 
@@ -19,10 +21,14 @@ spills are printed.  Then, on the warm-up inputs of chip_smoke.py's
 shared-memory instances) and ``16bit_ctx1_540p`` path (K1-ext's
 global-memory instance, K2-ext-five), or for K2 of its ``8bit`` and
 ``8bit_ctx1`` paths (K2, K2-five), recorded from the port's encoder or
-decoder exactly as chip_smoke.py records them:
+decoder exactly as chip_smoke.py records them; for G1 and G2 those of
+the ``8bit_golomb`` path (1080p yuv420p, Golomb-Rice: G1's two
+instances and G2's four, each instance on the same inputs) and of the
+``ya8_golomb`` path (1080p ya8, two 320x270 planes a lane):
 
 - each variant's outputs must equal the tree's production launch (which
-  chip_smoke.py holds to the plain version);
+  chip_smoke.py holds to the plain version; an instance the path does not
+  pick itself: the tree's launch of that instance);
 - each variant is timed in turns, every variant once per round, with
   CUDA events, ``--reps`` rounds; the median is reported;
 - with ``--stages``, every variant that has the stage entry point
@@ -58,7 +64,8 @@ from tpu_ffv1_torch import (EncoderParams, TorchFFV1Decoder,  # noqa: E402
 from tpu_ffv1_torch.kernels import build  # noqa: E402
 from tpu_ffv1_torch.tpu import decoder as port_decoder  # noqa: E402
 from tpu_ffv1_torch.tpu import encoder as port_encoder  # noqa: E402
-from tpu_ffv1_torch.tpu import rc_decode, rc_encode  # noqa: E402
+from tpu_ffv1_torch.tpu import (golomb_decode, golomb_encode,  # noqa: E402
+                                rc_decode, rc_encode)
 
 VARIANT_DIR = os.path.join(build.BUILD_DIR, "variants")
 # per source: the paths whose warm-up inputs it runs and the instance
@@ -70,10 +77,20 @@ INPUTS = {"rc_encode_ext": (("16bit", "rc_encode_ext"),
                         ("8bit_ctx1", "rc_decode_five_global")),
           "rc_decode_ext": (("16bit", "rc_decode_ext"),
                             ("16bit_ctx1_540p",
-                             "rc_decode_ext_five_global"))}
+                             "rc_decode_ext_five_global")),
+          "golomb_encode": (("8bit_golomb", "golomb_encode"),
+                            ("8bit_golomb", "golomb_encode_global"),
+                            ("ya8_golomb", "golomb_encode")),
+          "golomb_decode": (("8bit_golomb", "golomb_decode"),
+                            ("8bit_golomb", "golomb_decode_five"),
+                            ("8bit_golomb", "golomb_decode_global"),
+                            ("8bit_golomb", "golomb_decode_five_global"),
+                            ("ya8_golomb", "golomb_decode"))}
 STAGE_VARIANTS = {"rc_encode_ext": rc_encode.EXT_STAGE_VARIANTS,
                   "rc_decode": rc_decode.STAGE_VARIANTS,
-                  "rc_decode_ext": rc_decode.EXT_STAGE_VARIANTS}
+                  "rc_decode_ext": rc_decode.EXT_STAGE_VARIANTS,
+                  "golomb_encode": golomb_encode.STAGE_VARIANTS,
+                  "golomb_decode": golomb_decode.STAGE_VARIANTS}
 
 
 def build_variants(name, sources):
@@ -135,20 +152,32 @@ def same_sass(name, tree_dir, other_dir):
 
 
 def warmup_inputs(dev, source):
-    """{path: (args, outputs)} of the encoder's (rc_encode_ext) or the
-    decoder's (rc_decode, rc_decode_ext) lane-scan launch on each path's
-    warm-up frame (frames 0 and 1 of chip_smoke.py's content)."""
-    decode = source.startswith("rc_decode")
-    rec = cs.LastLaunch(port_decoder, "rc_decode_planes") if decode else \
-        cs.LastLaunch(port_encoder, "rc_encode_packed")
+    """{path: (args, outputs)} of the encoder's (rc_encode_ext,
+    golomb_encode) or the decoder's (rc_decode, rc_decode_ext,
+    golomb_decode) lane-scan launch on each path's warm-up frame (frames
+    0 and 1 of chip_smoke.py's content)."""
+    decode = "decode" in source
+    golomb = source.startswith("golomb")
+    if golomb:
+        rec = cs.LastLaunch(port_decoder, "golomb_decode_planes") \
+            if decode else cs.LastLaunch(port_encoder, "golomb_encode_lanes")
+    else:
+        rec = cs.LastLaunch(port_decoder, "rc_decode_planes") if decode \
+            else cs.LastLaunch(port_encoder, "rc_encode_packed")
     res = {}
     for name, inst in INPUTS[source]:
-        streams = cs.path_streams(name)
-        p = cs.PATHS[name]
-        enc = TorchFFV1Encoder(EncoderParams(**cs.params_kw(name)),
-                               batch=cs.BATCH, device=dev)
-        dec = TorchFFV1Decoder(p.width, p.height, enc.extradata,
-                               batch=cs.BATCH, device=dev)
+        if name in res:
+            continue
+        if name in cs.YA8:
+            kw, (w, h) = cs.ya8_kw(name), (cs.W, cs.H)
+            streams = cs.ya8_streams()
+        else:
+            kw, p = cs.params_kw(name), cs.PATHS[name]
+            w, h, streams = p.width, p.height, cs.path_streams(name)
+        enc = TorchFFV1Encoder(EncoderParams(**kw), batch=cs.BATCH,
+                               device=dev)
+        dec = TorchFFV1Decoder(w, h, enc.extradata, batch=cs.BATCH,
+                               device=dev)
         for t in range(2):
             rec.armed = t == 1
             pkts = enc.encode_frames([streams[b][t] for b in range(cs.BATCH)])
@@ -156,11 +185,46 @@ def warmup_inputs(dev, source):
                 dec.decode_frames([pk for pk, _key in pkts])
         rec.armed = False
         args, out = rec.take()
-        got = cs.decode_instance(args) if decode else \
-            rc_encode.instance(args[8], args[3].shape[1])
+        if golomb:
+            got = golomb_decode.instance(
+                args[6], args[1].shape[1],
+                max(pw for (pw, _h, _b) in args[4])) if decode else \
+                golomb_encode.instance(args[4].shape[1])
+        else:
+            got = cs.decode_instance(args) if decode else \
+                rc_encode.instance(args[8], args[3].shape[1])
         cs.check(got == inst, f"{name}: not {inst}")
         res[name] = (args, out)
     return res
+
+
+def launcher(name, inst, args, out, libs):
+    """(launch(tag, entry=None, code=None), L, N, bits) of instance
+    ``inst`` of source ``name`` on a recorded launch's ``args``."""
+    if name == "golomb_encode":
+        T = out[0].shape[1]
+
+        def launch(tag, entry=None, code=None):
+            return golomb_encode._launch(inst, *args[:9], T, code=code,
+                                         lib=libs[tag])
+        return launch, args[0].shape[0], args[0].shape[1], args[7]
+    if name == "golomb_decode":
+        def launch(tag, entry=None, code=None):
+            return golomb_decode._launch(inst, *args[:6], "_five" in inst,
+                                         code=code, lib=libs[tag])
+        return launch, args[0].shape[0], sum(
+            w * h for (w, h, _b) in args[4]), args[5]
+    if name.startswith("rc_decode"):
+        def launch(tag, entry=None, code=None):
+            return rc_decode._launch(inst, *args, entry=entry, code=code,
+                                     lib=libs[tag])
+        return launch, args[0].shape[0], sum(
+            w * h for (w, h, _b) in args[8]), args[9]
+
+    def launch(tag, entry=None, code=None):
+        return rc_encode._launch(name, inst.endswith("_global"), *args,
+                                 entry=entry, code=code, lib=libs[tag])
+    return launch, args[0].shape[0], args[0].shape[1], args[8]
 
 
 def main():
@@ -207,35 +271,22 @@ def main():
     stage_entry = f"{name}_stages_launch"
     for path, inst in INPUTS[name]:
         args, want = inputs[path]
-        if name.startswith("rc_decode"):
-            L = args[0].shape[0]
-            N = sum(w * h for (w, h, _b) in args[8])
-            bits = args[9]
-
-            def launch(tag, entry=None, code=None):
-                return rc_decode._launch(inst, *args, entry=entry,
-                                         code=code, lib=libs[tag])
-        else:
-            L, N = args[0].shape
-            bits = args[8]
-
-            def launch(tag, entry=None, code=None):
-                return rc_encode._launch(name, inst.endswith("_global"),
-                                         *args, entry=entry, code=code,
-                                         lib=libs[tag])
-
+        launch, L, N, bits = launcher(name, inst, args, want, libs)
+        if any(p == path and i != inst for p, i in INPUTS[name][:1]):
+            want = launch("tree")          # an instance the path does not pick
         for tag in libs:
             got = cs.flat_outputs(launch(tag))
             cs.check(len(got) == len(cs.flat_outputs(want)) and
                      all(torch.equal(a, b) for a, b in
                          zip(got, cs.flat_outputs(want))),
-                     f"{tag} differs from the production launch on {path}")
+                     f"{tag} differs from the production launch of {inst} "
+                     f"on {path}")
         times = {tag: [] for tag in libs}
         for _ in range(opt.reps):
             for tag in libs:
                 times[tag].append(cs.launch_ms(lambda: launch(tag)))
         med = {tag: sorted(v)[len(v) // 2] for tag, v in times.items()}
-        result["ms"][path] = med
+        result["ms"][f"{path}:{inst}"] = med
         cs.log(f"[time] {inst} on {path}'s warm-up inputs (L={L}, N={N}, "
                f"bits={bits}; outputs equal to the production launch; "
                f"median of {opt.reps} in turns; {gpu}): " + ", ".join(
@@ -253,7 +304,7 @@ def main():
                 split[variant] = sorted(cs.launch_ms(probe)
                                         for _ in range(opt.reps))[
                     opt.reps // 2]
-            result["stages"].setdefault(path, {})[tag] = split
+            result["stages"].setdefault(f"{path}:{inst}", {})[tag] = split
             cs.log(f"[stage] {tag} {inst} on {path} (median of {opt.reps}, "
                    f"{gpu}): " + ", ".join(
                        f"{v} {ms:.2f} ms" + ("" if v == "full" else

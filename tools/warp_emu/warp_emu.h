@@ -23,6 +23,8 @@ typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
        cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 struct uint4 { unsigned x, y, z, w; };
+struct uint2 { unsigned x, y; };
+inline uint2 make_uint2(unsigned x, unsigned y) { return uint2{x, y}; }
 struct int2 { int x, y; };
 inline int2 make_int2(int x, int y) { return int2{x, y}; }
 struct alignas(16) int4 { int x, y, z, w; };
@@ -54,19 +56,41 @@ inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
   return r;
 }
 inline int max(int a, int b) { return a > b ? a : b; }
+// the upper 32 bits of hi:lo shifted left by s & 31
+inline unsigned __funnelshift_l(unsigned lo, unsigned hi, unsigned s) {
+  const unsigned long long v = (unsigned long long)hi << 32 | lo;
+  return (unsigned)((v << (s & 31)) >> 32);
+}
+// the word's old value; the OR is atomic among the block's threads
+inline unsigned atomicOr(unsigned* p, unsigned v) {
+  return std::atomic_ref<unsigned>(*p).fetch_or(v);
+}
 
 inline void __syncwarp(unsigned = 0xffffffffu) {
   emu_blk->nsync[threadIdx.x]++;
   emu_blk->bar.arrive_and_wait();
 }
-template <class T> inline T __shfl_sync(unsigned, T v, int src) {
+// every thread t publishes v and takes the value of thread src(t)
+template <class T, class F> inline T emu_exchange(T v, F src) {
   EmuBlock* b = emu_blk;
-  b->nsync[threadIdx.x]++;
-  b->slots[threadIdx.x] = (long long)v;
+  const int t = threadIdx.x;
+  b->nsync[t]++;
+  b->slots[t] = (long long)v;
   b->bar.arrive_and_wait();
-  T r = (T)b->slots[src & 31];
+  T r = (T)b->slots[src(t)];
   b->bar.arrive_and_wait();
   return r;
+}
+template <class T> inline T __shfl_sync(unsigned, T v, int src) {
+  return emu_exchange(v, [&](int) { return src & 31; });
+}
+// the value of thread t - d, or the thread's own below d
+template <class T> inline T __shfl_up_sync(unsigned, T v, unsigned d) {
+  return emu_exchange(v, [&](int t) { return t >= (int)d ? t - (int)d : t; });
+}
+// the value of thread t ^ m
+template <class T> inline T __shfl_xor_sync(unsigned, T v, int m) {
+  return emu_exchange(v, [&](int t) { return (t ^ m) & 31; });
 }
 inline unsigned __ballot_sync(unsigned, int p) {
   EmuBlock* b = emu_blk;

@@ -11,36 +11,31 @@ __device__ __forceinline__ int log2_run(int i) {
   return i < 16 ? i >> 2 : i < 24 ? 4 + ((i - 16) >> 1) : i < 41 ? i - 16 : 0;
 }
 
-// the smallest k <= 17 with count << k >= error_sum (17 steps of doubling)
+// the smallest k <= 17 with count << k >= error_sum (17 steps of doubling),
+// without a branch: the serial chains that use it issue one instruction at
+// a time
 __device__ __forceinline__ int vlc_k(int count, int esum) {
-  if (count == 0) return esum > 0 ? 17 : 0;
   const int a = 32 - __clz(count), b = 32 - __clz(esum);
   int k = max(b - a, 0);
   k += (count << k) < esum;
-  return min(k, 17);
+  k = min(k, 17);
+  return count == 0 ? (esum > 0 ? 17 : 0) : k;
 }
 
 // update_vlc_state (ffv1.h:192-224): the row (drift, error_sum, bias, count)
-// after the symbol v
+// after the symbol v, as selects (no branch)
 __device__ __forceinline__ int4 update_vlc(int4 row, int v) {
+  const bool halve = row.w == 128;
   int nesum = (row.y + (v < 0 ? -v : v)) & 0xFFFF;
   int ndrift = row.x + v;
-  int ncount = row.w;
-  if (ncount == 128) {
-    ncount = 64;
-    ndrift >>= 1;
-    nesum >>= 1;
-  }
-  ++ncount;
-  int nbias = row.z;
-  if (ndrift <= -ncount) {
-    if (row.z > -128) --nbias;
-    ndrift += ncount;
-    if (ndrift <= -ncount) ndrift = 1 - ncount;
-  } else if (ndrift > 0) {
-    if (row.z < 127) ++nbias;
-    ndrift -= ncount;
-    if (ndrift > 0) ndrift = 0;
-  }
+  nesum = halve ? nesum >> 1 : nesum;
+  ndrift = halve ? ndrift >> 1 : ndrift;
+  const int ncount = (halve ? 64 : row.w) + 1;
+  const bool neg = ndrift <= -ncount;
+  const bool pos = !neg && ndrift > 0;
+  const int nbias = row.z - (neg && row.z > -128 ? 1 : 0) +
+                    (pos && row.z < 127 ? 1 : 0);
+  ndrift = neg ? max(ndrift + ncount, 1 - ncount)
+               : pos ? min(ndrift - ncount, 0) : ndrift;
   return make_int4(ndrift, nesum, nbias, ncount);
 }

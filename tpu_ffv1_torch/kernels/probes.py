@@ -30,11 +30,14 @@ import ctypes
 import numpy as np
 import torch
 
+from ..core.tables import LOG2_RUN
 from ..tpu.golomb_encode import update_vlc, vlc_k
 from .build import expect, load
 
 MODES = {"row": 0, "byte": 1}
-GOLOMB_MODES = {"encode": 0, "decode": 1}
+# the Golomb-Rice step probe's modes: a VLC-coded pixel of G1 and of G2, a
+# completed run chunk of G1's run machine, a run pixel of G2
+GOLOMB_MODES = {"encode": 0, "decode": 1, "run_encode": 2, "run_decode": 3}
 GOLOMB_RING = 512
 
 
@@ -106,14 +109,15 @@ def golomb_step_inputs(rows: int, mode: str, seed: int):
     """Inputs of the Golomb-Rice step probe: (vlc0 int32 (rows, 4) of valid
     VlcStates, pix int32 (32, 2), bytes uint8 (512,), qt int32 (256,)).
     ``pix`` holds per entry the context (below rows) and a residual, mostly
-    small, one in 16 large enough to escape (encode), or T and the part of
-    the context that does not depend on L (decode)."""
+    small, one in 16 large enough to escape (encode, run_encode: unused),
+    or T and the part of the context that does not depend on L (decode,
+    run_decode: T alone)."""
     r = np.random.RandomState(seed)
     count = r.randint(1, 129, rows)
     vlc0 = np.stack([-r.randint(0, count), np.minimum(
         count * r.randint(0, 40, rows), 0xFFFF), r.randint(-20, 21, rows),
         count], 1).astype(np.int32)
-    if mode == "encode":
+    if mode in ("encode", "run_encode"):
         res = np.where(r.rand(32) < 1 / 16, r.randint(-128, 128, 32),
                        r.randint(-6, 7, 32))
         pix = np.stack([r.randint(0, rows, 32), res], 1)
@@ -127,38 +131,56 @@ def golomb_step_inputs(rows: int, mode: str, seed: int):
 
 def golomb_step_ref(vlc0, pix, data, qt, n: int, mode: str) -> torch.Tensor:
     """Plain loop of the Golomb-Rice step probe (``golomb_step``): int32
-    (4 + 4 * rows + 512,), the chain's state (encode: bytes written, the
-    pending bits' count and value; decode: bit position, L, LT), the
-    table and the ring."""
+    (4 + 4 * rows + 512,), the chain's state (encode: pixels coded, the
+    last folded residual; decode: bit position, L, LT; run_encode: run
+    chunks, the zero mask left, the sum of each chunk's last position;
+    run_decode: pixels, L, LT), the table, and the ring (encode: the last
+    128 pixels' (residual, drift, count, error_sum), each coded under its
+    row before the update; decode: the bytes, unchanged; run_encode:
+    zeros; run_decode: the last 512 samples)."""
     tab = np.array(vlc0, np.int64)
     pix, qt = np.asarray(pix, np.int64), np.asarray(qt, np.int64)
-    ring = np.zeros(GOLOMB_RING, np.int64) if mode == "encode" else \
-        np.asarray(data, np.int64)
+    ring = np.asarray(data, np.int64) if mode == "decode" else \
+        np.zeros(GOLOMB_RING, np.int64)
+    if mode.startswith("run"):
+        s0 = s1 = s2 = 0
+        if mode == "run_encode":     # run chunks, the mask, the positions
+            zeros, full = 0xFFFFFFFF, 0xFFFFFFFF
+            for i in range(n):
+                need = 1 << int(LOG2_RUN[i & 15])
+                if bin(zeros).count("1") < need:
+                    zeros = full
+                bits_set = [b for b in range(32) if (zeros >> b) & 1]
+                p = bits_set[need - 1]
+                zeros &= (full << (p + 1)) & full if p < 31 else 0
+                s2 += p
+            s0, s1 = n, zeros - (1 << 32 if zeros >> 31 else 0)
+        else:                        # pixels, L, LT; the samples
+            for i in range(n):
+                T = int(pix[i & 31][0])
+                val = min(max(s1 + T - s2, min(s1, T)), max(s1, T))
+                ring[i & (GOLOMB_RING - 1)] = val
+                s1, s2 = val, T
+            s0 = n
+        return torch.from_numpy(np.concatenate(
+            [[s0, s1, s2, 0], tab.ravel(), ring]).astype(np.int32))
     bits, half = 8, 128
-    s0 = s1 = s2 = 0                   # encode: bytes, nacc, acc
+    s0 = s1 = s2 = 0                   # decode: bit position, L, LT
     for i in range(n):
         if mode == "encode":
             c, res = map(int, pix[i & 31])
-        else:                          # decode: bit position, L, LT
+        else:
             T, part = map(int, pix[i & 31])
             c = part + int(qt[(s1 - s2) & 0xFF])
             csign = c < 0
             c = min(abs(c), len(tab) - 1)
         drift, esum, bias, count = map(int, tab[c])
-        k = int(vlc_k(torch.tensor([count]), torch.tensor([esum]))[0])
         if mode == "encode":
             sym = ((res - bias + half) & 255) - half
-            code = ~sym if 2 * drift + count < 0 else sym
-            code2 = 2 * code if code >= 0 else -2 * code - 1
-            nb, val = (12 + bits, code2 - 11) if (code2 >> k) >= 12 else \
-                ((code2 >> k) + k + 1, (1 << k) + (code2 & ((1 << k) - 1)))
-            s2, s1 = (s2 << nb) | val, s1 + nb
-            while s1 >= 8:
-                s1 -= 8
-                ring[s0 & (GOLOMB_RING - 1)] = (s2 >> s1) & 0xFF
-                s0 += 1
-            s2 &= (1 << s1) - 1
+            ring[4 * (i & 127):4 * (i & 127) + 4] = (sym, drift, count, esum)
+            s0, s1 = i + 1, sym
         else:
+            k = int(vlc_k(torch.tensor([count]), torch.tensor([esum]))[0])
             b, w = s0 >> 3, 0
             for j in range(5):
                 w = (w << 8) | int(ring[(b + j) & (GOLOMB_RING - 1)])

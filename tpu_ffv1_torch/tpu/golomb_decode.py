@@ -25,7 +25,9 @@ plain version for CPU tensors and the kernel for CUDA tensors.  The
 kernel keeps the lane's VLC table in shared memory where it fits a
 block (context model 0) and in global memory where it does not (context
 model 1); the wrapper picks the instance from the table's size
-(``build.table_in_global``).
+(``build.table_in_global``).  ``golomb_decode_stages`` launches G2's
+stage probes (csrc/golomb_decode.cu STAGES): timing instruments with a
+stage stubbed, never called by the codec.
 """
 from __future__ import annotations
 
@@ -43,15 +45,32 @@ from .golomb_encode import update_vlc, vlc_k
 # 5-input context and _global for the VLC table in global memory
 LAUNCHES: dict = {}
 
+# G2's stage probes: the stages each variant keeps (csrc/golomb_decode.cu
+# STAGE_WINDOW 1, the bit window; STAGE_CTX 2, the context's lookups on
+# the chain; STAGE_VLC 4, the VLC step; STAGE_RECON 8, the median
+# reconstruction)
+STAGE_VARIANTS = {"full": 15, "no_window": 14, "no_ctx": 13, "no_vlc": 11,
+                  "no_recon": 7}
+
+
+def ring_words(wmax: int) -> int:
+    """The word ring G2 keeps for planes at most ``wmax`` wide: a power
+    of two above the words a row can take in (54 bits a pixel, and two
+    more), as csrc/golomb_decode.cu's ring_words counts them."""
+    need = (54 * wmax + 31) // 32 + 4
+    return 1 << (need - 1).bit_length()
+
 
 def instance(five: bool, CC: int, wmax: int) -> str:
     """The kernel instance golomb_decode_planes launches for the context
     model's ``five``, a VLC table of CC rows and planes at most ``wmax``
-    wide.  Beside the table, shared memory holds the quant tables, a
-    512-byte ring of the slice's bytes and four int32 per column (two
-    sample rows, each pixel's T and context part), as the launcher counts
-    them (csrc/golomb_decode.cu)."""
-    other = (5 if five else 3) * 256 * 4 + 512 + 4 * (wmax + 1) * 4
+    wide.  Beside the table, shared memory holds the quant tables, the
+    ring of the slice's words (``ring_words``), four int32 per column
+    (two sample rows, each pixel's T and context part) and each row's k
+    (a byte a row), as the launcher counts them
+    (csrc/golomb_decode.cu)."""
+    other = (5 if five else 3) * 256 * 4 + 4 * ring_words(wmax) + \
+        16 * (wmax + 1) + 16 + CC
     return "golomb_decode" + ("_five" if five else "") + \
         ("_global" if table_in_global(CC * 16, other) else "")
 
@@ -196,10 +215,14 @@ def golomb_decode_planes_ref(bufs, vlc0, qt, pos0, plane_specs, bits: int,
             bitpos.to(torch.int32))
 
 
-def _launch(name, bufs, vlc0, qt, pos0, plane_specs, bits, five):
+def _launch(name, bufs, vlc0, qt, pos0, plane_specs, bits, five,
+            code=None, lib=None):
     """Check the arguments and launch csrc/golomb_decode.cu's
-    golomb_decode_launch for kernel instance ``name`` on the current
-    stream.  Returns the outputs."""
+    golomb_decode_launch (with ``code``, the stage entry point
+    golomb_decode_stages_launch and its STAGES) for kernel instance
+    ``name`` on the current stream, from the loaded library ``lib`` (a
+    build of another copy of the source) or the package's.  Returns the
+    outputs."""
     dev = bufs.device
     L, cap = bufs.shape
     CC = vlc0.shape[1]
@@ -212,10 +235,14 @@ def _launch(name, bufs, vlc0, qt, pos0, plane_specs, bits, five):
     if vlc0.data_ptr() % 16:
         vlc0 = vlc0.clone()                 # the kernel copies in 16 B rows
     gtab = name.endswith("_global")
-    fn = load("golomb_decode").golomb_decode_launch
+    lib = lib or load("golomb_decode")
+    stage = () if code is None else (int(code),)
+    fn = lib.golomb_decode_stages_launch if stage else \
+        lib.golomb_decode_launch
     fn.restype = ctypes.c_int
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, i, p, p, p, p, i, p, i, p, p, i, i, i, i, i, p]
+    fn.argtypes = [p, i, p, p, p, p, i, p, i, p, p, i, i, i, i, i] + \
+        [i] * len(stage) + [p]
     spec = (ctypes.c_int * (3 * len(plane_specs)))(
         *[v for s in plane_specs for v in s])
     total = sum(w * h for (w, h, _b) in plane_specs)
@@ -229,7 +256,7 @@ def _launch(name, bufs, vlc0, qt, pos0, plane_specs, bits, five):
                  pos0.data_ptr(), ctypes.cast(spec, ctypes.c_void_p),
                  len(plane_specs), out.data_ptr(), total, bitpos.data_ptr(),
                  vlc_out.data_ptr(), L, CC, bits, int(five), int(gtab),
-                 torch.cuda.current_stream(dev).cuda_stream)
+                 *stage, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     planes, off = [], 0
@@ -260,3 +287,29 @@ def golomb_decode_planes(bufs, vlc0, qt, pos0, plane_specs, bits: int,
     out = _launch(name, bufs, vlc0, qt, pos0, plane_specs, bits, five)
     LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
     return out
+
+
+def golomb_decode_stages(bufs, vlc0, qt, pos0, plane_specs, bits: int,
+                         five: bool, variant: str,
+                         instance_name: str | None = None, lib=None):
+    """G2 with the stages of ``variant`` (STAGE_VARIANTS) stubbed: a
+    timing instrument whose outputs are wrong on purpose, except
+    ``full``, which is the production instance (``instance_name``, by
+    default the one golomb_decode_planes picks).  CUDA tensors only; on
+    the CPU only ``full`` has a plain version."""
+    stages = STAGE_VARIANTS[variant]
+    five = bool(five)
+    plane_specs = tuple(tuple(int(v) for v in s) for s in plane_specs)
+    dev = bufs.device
+    if dev.type == "cpu":
+        if variant != "full":
+            raise NotImplementedError("a stubbed stage probe has no plain "
+                                      "version: it times the card")
+        return golomb_decode_planes_ref(bufs, vlc0, qt, pos0, plane_specs,
+                                        bits, five)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    name = instance_name or instance(five, vlc0.shape[1], max(
+        w for (w, _h, _b) in plane_specs))
+    return _launch(name, bufs, vlc0, qt, pos0, plane_specs, bits,
+                   "_five" in name, code=stages, lib=lib)

@@ -36,7 +36,9 @@ kernel for CUDA tensors.  The kernel keeps the lane's VLC table (16 B a
 row) in shared memory where it fits a block (context model 0: 2 x 666
 rows) and in global memory where it does not (context model 1: 2 x
 7,563 rows, 242 KB); the wrapper picks the instance from the table's
-size (``build.table_in_global``).
+size (``build.table_in_global``).  ``golomb_encode_stages`` launches
+G1's stage probes (csrc/golomb_encode.cu STAGES): timing instruments
+with a stage stubbed, never called by the codec.
 """
 from __future__ import annotations
 
@@ -61,8 +63,17 @@ FLAG_SPLANE_SHIFT = 4         # bits 4.. : state-plane index of the pixel
 
 VLC_FRESH = (0, 4, 0, 1)      # drift, error_sum, bias, count (ffv1.c:179)
 
-# shared memory G1 uses beside the VLC table: the 512-byte output ring
-OTHER_SMEM = 512
+# shared memory G1 uses beside the VLC table (csrc/golomb_encode.cu
+# OTHER_SMEM): the 512-byte output ring, the list of a chunk's VLC-coded
+# pixels (context, residual; two more read ahead) and their symbols with
+# the rows they were coded under
+OTHER_SMEM = 512 + 34 * 8 + 32 * 16
+
+# G1's stage probes: the stages each variant keeps (csrc/golomb_encode.cu
+# STAGE_READ 1, the chunk's input read; STAGE_RUN 2, the run machine;
+# STAGE_VLC 4, the VLC step; STAGE_PACK 8, the bit packing)
+STAGE_VARIANTS = {"full": 15, "no_read": 14, "no_run": 13, "no_vlc": 11,
+                  "no_pack": 7}
 
 
 def make_flags(plane_dims) -> np.ndarray:
@@ -259,10 +270,13 @@ def golomb_encode_lanes_ref(ctx, diff, active, flags, vlc0, prefixes, plens,
 
 
 def _launch(name, ctx, diff, active, flags, vlc0, prefixes, plens, bits,
-            cc, T):
+            cc, T, code=None, lib=None):
     """Check the arguments and launch csrc/golomb_encode.cu's
-    golomb_encode_launch for kernel instance ``name`` on the current
-    stream.  Returns the outputs."""
+    golomb_encode_launch (with ``code``, the stage entry point
+    golomb_encode_stages_launch and its STAGES) for kernel instance
+    ``name`` on the current stream, from the loaded library ``lib`` (a
+    build of another copy of the source) or the package's.  Returns the
+    outputs."""
     dev = ctx.device
     L, N = ctx.shape
     CC, pcap = vlc0.shape[1], prefixes.shape[1]
@@ -276,10 +290,13 @@ def _launch(name, ctx, diff, active, flags, vlc0, prefixes, plens, bits,
     if vlc0.data_ptr() % 16:
         vlc0 = vlc0.clone()                 # the kernel copies in 16 B rows
     gtab = name.endswith("_global")
-    fn = load("golomb_encode").golomb_encode_launch
+    lib = lib or load("golomb_encode")
+    stage = () if code is None else (int(code),)
+    fn = lib.golomb_encode_stages_launch if stage else \
+        lib.golomb_encode_launch
     fn.restype = ctypes.c_int
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 11 + [i] * 8 + [p]
+    fn.argtypes = [p] * 11 + [i] * (8 + len(stage)) + [p]
     out = torch.zeros((L, T), dtype=torch.uint8, device=dev)
     counts = torch.empty((L,), dtype=torch.int32, device=dev)
     run_index = torch.empty((L,), dtype=torch.int32, device=dev)
@@ -291,7 +308,7 @@ def _launch(name, ctx, diff, active, flags, vlc0, prefixes, plens, bits,
                  flags.data_ptr(), vlc0.data_ptr(), prefixes.data_ptr(),
                  plens.data_ptr(), out.data_ptr(), counts.data_ptr(),
                  vlc_out.data_ptr(), run_index.data_ptr(), L, N, CC, pcap, T,
-                 bits, cc, int(gtab),
+                 bits, cc, int(gtab), *stage,
                  torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
@@ -319,3 +336,29 @@ def golomb_encode_lanes(ctx, diff, active, flags, vlc0, prefixes, plens,
                   bits, cc, T)
     LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
     return out
+
+
+def golomb_encode_stages(ctx, diff, active, flags, vlc0, prefixes, plens,
+                         bits: int, cc: int, out_cap: int | None,
+                         variant: str, instance_name: str | None = None,
+                         lib=None):
+    """G1 with the stages of ``variant`` (STAGE_VARIANTS) stubbed: a
+    timing instrument whose outputs are wrong on purpose, except
+    ``full``, which is the production instance (``instance_name``, by
+    default the one golomb_encode_lanes picks).  CUDA tensors only; on
+    the CPU only ``full`` has a plain version."""
+    stages = STAGE_VARIANTS[variant]
+    dev = ctx.device
+    if dev.type == "cpu":
+        if variant != "full":
+            raise NotImplementedError("a stubbed stage probe has no plain "
+                                      "version: it times the card")
+        return golomb_encode_lanes_ref(ctx, diff, active, flags, vlc0,
+                                       prefixes, plens, bits, cc, out_cap)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    T = default_out_cap(ctx.shape[1], prefixes.shape[1]) \
+        if out_cap is None else out_cap
+    return _launch(instance_name or instance(vlc0.shape[1]), ctx, diff,
+                   active, flags, vlc0, prefixes, plens, bits, cc, T,
+                   code=stages, lib=lib)
