@@ -3102,9 +3102,9 @@ def stage_split(gpu, recs, reps=5):
     paths' warm-up inputs (K1 and its global form, K2 and K2-five on the
     8bit and 8bit_ctx1 inputs at 1080p; K1-ext and K2-ext on the 16bit
     inputs at 1080p, K1-ext's global form and K2-ext-five on
-    16bit_ctx1_540p's; G1 and G2 on 8bit_golomb's; 48 lanes): ``full``
-    through
-    the stage entry point equals the production launch; each variant's
+    16bit_ctx1_540p's; G1 and G2 on 8bit_golomb's; B1 on rgb8's and
+    B1-ext on rgb14_540p's; 48 lanes): ``full`` through the stage entry
+    point equals the production launch; each variant's
     median of ``reps`` launches, each timed alone with CUDA events.
     Returns the rows of the ``stages`` JSON line."""
     rows = []
@@ -3118,9 +3118,18 @@ def stage_split(gpu, recs, reps=5):
                             ("16bit_ctx1_540p",
                              "rc_decode_ext_five_global"),
                             ("8bit_golomb", "golomb_encode"),
-                            ("8bit_golomb", "golomb_decode")):
+                            ("8bit_golomb", "golomb_decode"),
+                            ("rgb8", "rc_decode_rgb"),
+                            ("rgb14_540p", "rc_decode_ext_rgb")):
         args, out = recs[inst]
-        if inst.startswith("golomb_encode"):
+        if inst.endswith("_rgb"):
+            probe = rc_decode.rc_decode_rgb_stages
+            variants = rc_decode.EXT_RGB_STAGE_VARIANTS \
+                if inst.startswith("rc_decode_ext") else \
+                rc_decode.RGB_STAGE_VARIANTS
+            L, N = args[0].shape[0], args[8] * args[9] * args[10]
+            replaces = None
+        elif inst.startswith("golomb_encode"):
             probe, variants = (golomb_encode.golomb_encode_stages,
                                golomb_encode.STAGE_VARIANTS)
             L, N = args[0].shape

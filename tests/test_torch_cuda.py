@@ -637,6 +637,32 @@ def test_rc_decode_rgb_kernels_match_plain(cuda, bits, five, model):
             assert torch.equal(a.cpu(), b)
 
 
+@pytest.mark.parametrize("bits", [9, 15])
+def test_rc_decode_rgb_stages_full_is_the_production_instance(cuda, bits):
+    """B1's (9 bits) and B1-ext's (15 bits) stage entry points: ``full``
+    equals the production launch of rc_decode_rgb (3-input context, table
+    in shared memory), 3 and 4 planes; every stubbed variant, no_line
+    among them, launches (timing only: its outputs are wrong on
+    purpose)."""
+    from tpu_ffv1_torch.tpu import rc_decode as K
+    cc = T.CONTEXT_COUNTS[0]
+    variants = K.EXT_RGB_STAGE_VARIANTS if bits > 10 else \
+        K.RGB_STAGE_VARIANTS
+    for w, P in ((40, 3), (33, 4)):
+        arrs = chip_smoke.rgb_decode_random_inputs(6, 1024, bits, False, cc,
+                                                   P, 60 + bits + w)
+        args = [torch.from_numpy(a).to(cuda) for a in arrs]
+        want = K.rc_decode_rgb(*args, w, 4, P, cc, bits, False)
+        got = K.rc_decode_rgb_stages(*args, w, 4, P, cc, bits, False, "full")
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        for variant in variants:
+            out = K.rc_decode_rgb_stages(*args, w, 4, P, cc, bits, False,
+                                         variant)
+            torch.cuda.synchronize()
+            assert out[0].shape == want[0].shape
+
+
 @pytest.mark.parametrize("context_model", [0, 1])
 @pytest.mark.parametrize("pix_fmt", ["bgr0", "gbrp14le"])
 def test_rgb_slice_on_cuda_matches_host(cuda, pix_fmt, context_model):

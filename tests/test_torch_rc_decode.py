@@ -342,3 +342,35 @@ def test_ext_instance_counts_its_shared_memory(five):
     k2 = q + 512 + 512 + 4 * 321 * 4
     assert instance(8, five, (SMEM_PER_BLOCK - k2) // 32, 320) == \
         ("rc_decode_five" if five else "rc_decode")
+
+
+@pytest.mark.parametrize("bits", [9, 15])
+def test_rgb_stage_probe_full_is_the_plain_version_on_cpu(bits):
+    """B1's (9 bits) and B1-ext's (15 bits) stage probes have a plain
+    version only for ``full`` (rc_decode_rgb_ref, the production
+    instance's); the stubbed variants, no_line among them, time the
+    card, and other widths and instances have no probes."""
+    from tpu_ffv1.core import tables as T
+    from tpu_ffv1_torch.tpu import rc_decode as K
+    cc = T.CONTEXT_COUNTS[0]
+    args = _random_bytes_args(bits, cc, 0, 11 + bits)
+    w, h, P = 7, 3, 3
+    got = K.rc_decode_rgb_stages(*args, w, h, P, cc, bits, False, "full")
+    want = K.rc_decode_rgb_ref(*args, w, h, P, cc, bits, False)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    variants = K.EXT_RGB_STAGE_VARIANTS if bits > 10 else \
+        K.RGB_STAGE_VARIANTS
+    assert "no_line" in variants
+    for variant in variants:
+        if variant != "full":
+            with pytest.raises(NotImplementedError):
+                K.rc_decode_rgb_stages(*args, w, h, P, cc, bits, False,
+                                       variant)
+    other = 10 if bits == 9 else 13
+    with pytest.raises(NotImplementedError):
+        K.rc_decode_rgb_stages(*_random_bytes_args(other, cc, 0, 1), w, h,
+                               P, cc, other, False, "full")
+    with pytest.raises(NotImplementedError):      # the 5-input instance
+        K.rc_decode_rgb_stages(*_random_bytes_args(bits, cc, 1, 2), w, h,
+                               P, cc, bits, True, "full")

@@ -1,17 +1,18 @@
-"""The decoders' CUDA sources (csrc/rc_decode.cu: K2, K2-five and B1;
-csrc/rc_decode_ext.cu: K2-ext, K2-ext-five and B1-ext;
-csrc/golomb_decode.cu: G2) compiled for the host under the warp
-emulation of tools/warp_emu, against their plain PyTorch versions on
-the same inputs, in every table placement and both contexts (the
-encoders' sources are in test_torch_warp_emu.py, whose helpers this file
-shares).  The inputs are random bytes: garbage symbols whose exponents
-run past the width (e = bits with no stop decision), clamped contexts,
-planes 40, 33, 2 and 1 wide (the row borders, the context a warp's 32
-columns at a time and its edge), and one lane started 8 bytes before
-its buffer's end (reads at pos >= cap give 0); B1's and B1-ext's on
-chip_smoke.py's phase-4 inputs, 3 and 4 planes 40, 33, 2 and 1 wide; G2
-on chip_smoke.py's random bytes (long runs, escapes, reads past cap).
-Exact: the codec is integer."""
+"""The decoders' CUDA sources (csrc/rc_decode.cu: K2 and K2-five;
+csrc/rc_decode_ext.cu: K2-ext and K2-ext-five; csrc/golomb_decode.cu:
+G2) compiled for the host under the warp emulation of tools/warp_emu,
+against their plain PyTorch versions on the same inputs, in every table
+placement and both contexts (the encoders' sources are in
+test_torch_warp_emu.py, whose helpers this file shares; B1's and
+B1-ext's, the same sources' RGB instances, in test_torch_warp_emu_rgb.py).
+The inputs are random bytes: garbage symbols whose exponents run past
+the width (e = bits with no stop decision), clamped contexts, planes 40,
+33, 2 and 1 wide (the row borders, the context a warp's 32 columns at a
+time and its edge), and one lane started 8 bytes before its buffer's
+end (reads at pos >= cap give 0); quant tables that put every pixel, or
+most pixels, on the row the pixel before adapted; pixels that read
+nearly every byte they can; G2 on chip_smoke.py's random bytes (long
+runs, escapes, reads past cap).  Exact: the codec is integer."""
 import ctypes
 
 import numpy as np
@@ -110,50 +111,61 @@ def test_rc_decode_sources_match_plain(libs, bits, five, model):
         "past its buffer"
 
 
-RGB_COMBOS = [(b, i) for b in (9, 10, 11, 13, 15) for i in range(4)]
+def few_rows_qt(kind, bits, five, seed):
+    """Quant tables (int32 (5, 256)) that keep the context index small:
+    ``zero``, every table 0 (every pixel of a plane on its first row,
+    the row of the pixel before); ``few``, values in -1..1 (a few rows,
+    each pixel often on the row before, the sign flipping)."""
+    qt = np.zeros((5, 256), np.int32)
+    if kind == "few":
+        qt[:5 if five else 3] = np.random.RandomState(seed).randint(
+            -1, 2, (5 if five else 3, 256))
+    return qt
 
 
-@pytest.mark.parametrize("bits,inst", RGB_COMBOS,
-                         ids=[f"{b}-{DECODE_IDS[i]}" for b, i in RGB_COMBOS])
-def test_rc_decode_rgb_sources_match_plain(libs, bits, inst):
-    """B1's four instances (csrc/rc_decode.cu, rc_decode_rgb_launch) at 9
-    and 10 bits, B1-ext's (csrc/rc_decode_ext.cu) at 11, 13 and 15: the
-    3- or 5-input context, the table in shared or global memory; each
-    instance over the bits meets every (plane width, planes) of
-    chip_smoke.RGB_RANDOM_SHAPES."""
+@pytest.mark.parametrize("kind,bits,inst", [("zero", 8, 0), ("few", 8, 1),
+                                            ("few", 10, 0), ("zero", 16, 3),
+                                            ("few", 16, 0), ("few", 17, 1)])
+def test_rc_decode_sources_on_the_row_the_pixel_before_adapted(libs, kind,
+                                                                bits, inst):
+    """K2 and K2-ext where a pixel's row is the one the pixel before
+    adapted (every pixel with ``zero`` quant tables, many with ``few``,
+    the context's sign flipping): its states are read after that
+    adaptation.  Planes 45, 5 and 1 wide."""
     five, model = DECODE_INSTANCES[inst]
-    cc = T.CONTEXT_COUNTS[model]
-    k = (chip_smoke.rc_decode.RGB_BITS.index(bits) + inst) % 4
-    w, P = chip_smoke.RGB_RANDOM_SHAPES[k]
-    h = 3 if w > 2 else 48
-    args = chip_smoke.rgb_decode_random_inputs(L, 512, bits, five, cc, P,
-                                               130 + bits + 7 * inst)
+    CC = T.CONTEXT_COUNTS[model]
+    args = _decode_args(bits, five, CC, 300 + bits + 10 * inst)
+    args[4] = few_rows_qt(kind, bits, five, bits + inst)
+    specs = ((45, 2, 0), (5, 3, CC), (1, 4, CC))
     name = "rc_decode_ext" if bits > 10 else "rc_decode"
-    got = _emulate_decode(libs[name], f"{name}_rgb_launch", args,
-                          D.rgb_specs(w, h, P, cc), bits, five, model == 1)
-    want = D.rc_decode_rgb_ref(*[torch.from_numpy(a) for a in args], w, h,
-                               P, cc, bits, five)
-    assert torch.equal(torch.stack(got[0]), want[0])
+    got = _emulate_decode(libs[name], f"{name}_launch", args, specs, bits,
+                          five, model == 1)
+    ref = D.rc_decode_planes_ext_ref if bits > 10 else \
+        D.rc_decode_planes_ref
+    want = ref(*[torch.from_numpy(a) for a in args], specs, bits, five)
+    for a, b in zip(got[0], want[0]):
+        assert torch.equal(a, b)
     for a, b in zip(got[1:], want[1:]):
         assert torch.equal(a, b)
-    assert int(got[4][2]) >= 512, "lane 2 did not read past its buffer"
 
 
-def _long_pixel_args(bits, CC):
-    """A stream where every pixel reads about one byte per decision, so
-    that a pixel consumes more than 32 bytes (at 17 bits 34): the plain
-    encoder codes the symbol -2^(bits-1) (e = bits - 1, mantissa zeros)
-    in every pixel with each decision's improbable outcome (states 255
-    where the bit is 0, 1 where it is 1: the zero flag and the mantissa
-    rows 22..31 at 255, the exponent and sign rows 1..21 at 1) and no
-    adaptation (identity transition tables); every context row is the
-    same, so the decoder's contexts pick the same states."""
+def long_pixel_args(bits, CC, n=40, cap=2048):
+    """A stream of ``n`` pixels where every pixel reads about one byte per
+    decision, so that a pixel consumes nearly the 2 * bits + 1 bytes it
+    can (more than 32 at 16 and 17 bits): the plain encoder codes the
+    symbol -2^(bits-1) (e = bits - 1, mantissa zeros) in every pixel
+    with each decision's improbable outcome (states 255 where the bit is
+    0, 1 where it is 1: the zero flag and the mantissa rows 22..31 at
+    255, the exponent and sign rows 1..21 at 1) and no adaptation
+    (identity transition tables); every context row is the same, so the
+    decoder's contexts pick the same states."""
     from tpu_ffv1_torch.tpu.finalize import finalize_packed_full
-    n, cap = 40, 2048
     row = np.array([255] + [1] * 21 + [255] * 10, np.uint8)
     states = np.ascontiguousarray(np.broadcast_to(row, (L, 2 * CC, 32)))
     ident = np.arange(256, dtype=np.uint8)
-    packed, low, rng, _st = K.rc_encode_packed_ext_ref(
+    encode = K.rc_encode_packed_ext_ref if bits > 10 else \
+        K.rc_encode_packed_ref
+    packed, low, rng, _st = encode(
         torch.zeros((L, n), dtype=torch.int32),
         torch.full((L, n), -(1 << (bits - 1)), dtype=torch.int32),
         torch.ones((L, n), dtype=torch.bool), torch.from_numpy(states),
@@ -166,7 +178,10 @@ def _long_pixel_args(bits, CC):
     bufs = np.zeros((L, cap), np.uint8)
     for lane in range(L):
         bufs[lane, :int(count[lane])] = out[lane, :int(count[lane])].numpy()
-    assert int(count.min()) > 32 * n, "a pixel reads fewer than 32 bytes"
+    # more than 32 bytes a pixel at 16 and 17 bits, nearly every byte it
+    # can below
+    assert int(count.min()) > (32 if bits >= 16 else 2 * bits - 2) * n, \
+        "a pixel reads fewer bytes than it should"
     low0 = bufs[:, 0].astype(np.int32) << 8 | bufs[:, 1]
     qt = T.default_quant_tables(bits)[0].astype(np.int32)
     return [np.ascontiguousarray(a) for a in (
@@ -181,7 +196,7 @@ def test_rc_decode_ext_source_long_pixels_match_plain(libs, bits, gtab):
     decision's byte then comes from the second 32 bytes a pixel holds),
     in both table placements; every lane decodes the coded symbols."""
     CC = T.CONTEXT_COUNTS[int(gtab)]
-    args = _long_pixel_args(bits, CC)
+    args = long_pixel_args(bits, CC)
     specs = ((40, 1, 0),)
     got = _emulate_decode(libs["rc_decode_ext"], "rc_decode_ext_launch",
                           args, specs, bits, False, gtab)
@@ -345,3 +360,23 @@ def test_golomb_sources_round_trip_coded_planes(libs, five, model, bits):
     read = got[2].numpy() - 8 * args[6]
     assert int(read.max()) > ring_bits, "no lane's stream went round the ring"
     assert np.array_equal(enc[1].numpy(), args[6] + (read + 7) // 8)
+
+
+@pytest.mark.parametrize("bits", [8, 10, 11])
+def test_rc_decode_source_long_pixels_at_fast_widths(libs, bits):
+    """K2 at 8 and 10 bits, K2-ext at 11, on pixels that read nearly the
+    2 * bits + 1 bytes they can: every renormalisation's byte from the
+    refill window a warp holds."""
+    CC = T.CONTEXT_COUNTS[0]
+    args = long_pixel_args(bits, CC)
+    specs = ((40, 1, 0),)
+    name = "rc_decode_ext" if bits > 10 else "rc_decode"
+    got = _emulate_decode(libs[name], f"{name}_launch", args, specs, bits,
+                          False, False)
+    ref = D.rc_decode_planes_ext_ref if bits > 10 else \
+        D.rc_decode_planes_ref
+    want = ref(*[torch.from_numpy(a) for a in args], specs, bits, False)
+    for a, b in zip(got[0], want[0]):
+        assert torch.equal(a, b)
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a, b)

@@ -8,7 +8,7 @@
         [--source rc_encode_ext|rc_decode|rc_decode_ext|golomb_encode|
                   golomb_decode]
         [--variant TAG=PATH ...] [--reps 5] [--stages]
-        [--sass-against PATH]
+        [--sass-against PATH] [--sass-loops DIR]
 
 Run from the repository's root on a machine with one GPU.  Each
 ``--variant`` is a copy of the ``--source`` (default rc_encode_ext; a
@@ -32,13 +32,21 @@ instances and G2's four, each instance on the same inputs) and of the
 - each variant is timed in turns, every variant once per round, with
   CUDA events, ``--reps`` rounds; the median is reported;
 - with ``--stages``, every variant that has the stage entry point
-  (``<source>_stages_launch``) is split: the median of ``--reps``
-  launches of each stage probe.
+  (``<source>_stages_launch``; B1's and B1-ext's
+  ``<source>_rgb_stages_launch``) with the tree's stage codes is split:
+  the median of ``--reps`` launches of each stage probe (for the
+  range-coder decoders with the bytes each probe's coders read, a lane's
+  mean: a stubbed stage changes the decoded symbols and their work).
 
 ``--sass-against PATH`` builds PATH (a source with or without
 ``STAGES``) and checks that every production instance of the tree's
 source has the same SASS as PATH's instance of the same template
 arguments (``cuobjdump -sass``).
+
+``--sass-loops DIR`` (K2, K2-ext and B1, B1-ext's sources) counts the
+pixel loop of every variant's instance on each path: its instructions,
+its shuffles (one a decision) and the instructions between them, and
+writes the loop's SASS into DIR.
 
 Prints one JSON line with every number, last.
 """
@@ -74,10 +82,12 @@ VARIANT_DIR = os.path.join(build.BUILD_DIR, "variants")
 INPUTS = {"rc_encode_ext": (("16bit", "rc_encode_ext"),
                             ("16bit_ctx1_540p", "rc_encode_ext_global")),
           "rc_decode": (("8bit", "rc_decode"),
-                        ("8bit_ctx1", "rc_decode_five_global")),
+                        ("8bit_ctx1", "rc_decode_five_global"),
+                        ("rgb8", "rc_decode_rgb")),
           "rc_decode_ext": (("16bit", "rc_decode_ext"),
                             ("16bit_ctx1_540p",
-                             "rc_decode_ext_five_global")),
+                             "rc_decode_ext_five_global"),
+                            ("rgb14_540p", "rc_decode_ext_rgb")),
           "golomb_encode": (("8bit_golomb", "golomb_encode"),
                             ("8bit_golomb", "golomb_encode_global"),
                             ("ya8_golomb", "golomb_encode")),
@@ -91,6 +101,9 @@ STAGE_VARIANTS = {"rc_encode_ext": rc_encode.EXT_STAGE_VARIANTS,
                   "rc_decode_ext": rc_decode.EXT_STAGE_VARIANTS,
                   "golomb_encode": golomb_encode.STAGE_VARIANTS,
                   "golomb_decode": golomb_decode.STAGE_VARIANTS}
+# the RGB instances' (B1, B1-ext: their own entry points)
+RGB_STAGE_VARIANTS = {"rc_decode": rc_decode.RGB_STAGE_VARIANTS,
+                      "rc_decode_ext": rc_decode.EXT_RGB_STAGE_VARIANTS}
 
 
 def build_variants(name, sources):
@@ -132,13 +145,17 @@ def same_sass(name, tree_dir, other_dir):
     theirs = cs.sass_functions(name, other_dir)
     full = str(STAGE_VARIANTS[name]["full"])
     n_tree = len(re.match(r".*<(.*)>", next(iter(mine)))[1].split(","))
+    # the other's ALL_STAGES: its largest STAGES (a source that adds a
+    # stage raises it)
+    their_full = max((int(m[1]) for m in (
+        re.match(r".*,(\d+)>$", label) for label in theirs) if m), default=0)
     res = []
     for label, ins in sorted(theirs.items()):
         targs = re.match(rf"{name}_kernel<(.*)>", label)
         cs.check(targs is not None, f"unexpected instance {label}")
         targs = targs[1].split(",")
         if len(targs) == n_tree:
-            if targs[-1] != full:
+            if int(targs[-1]) != their_full:
                 continue                       # a stage probe
             targs = targs[:-1]
         want = f"{name}_kernel<{','.join(targs + [full])}>"
@@ -149,6 +166,41 @@ def same_sass(name, tree_dir, other_dir):
             cs.log(f"[sass] {want}: {len(mine[want])} instructions against "
                    f"{len(ins)}; first differences (tree, other): {diff}")
     return res
+
+
+def loop_counts(ins):
+    """SASS counts of a range-coder decode instance's pixel loop (the
+    innermost backward-branch span with the most shuffles: one shuffle a
+    decision, the renormalisation's byte): its instructions (branches
+    and NOPs left out, as chip_smoke.pixel_loop_count), its shuffles,
+    the instructions from each shuffle to the next in address order (a
+    decision's code where they follow one another), and those before the
+    first and after the last shuffle (the per-pixel code around the
+    decisions), with the loop's text."""
+    best = None
+    for addr, text in ins:
+        m = re.search(r"\bBRA\S*\s+0x([0-9a-f]+)", text)
+        if not m or int(m.group(1), 16) >= addr:
+            continue
+        body = [t for a, t in ins if int(m.group(1), 16) <= a <= addr]
+        key = (sum("SHFL" in t for t in body), -len(body))
+        if best is None or key > best[0]:
+            best = (key, body)
+    body = [t for t in best[1] if not re.search(r"\b(BRA|NOP)\b", t)]
+    at = [i for i, t in enumerate(body) if "SHFL" in t]
+    return dict(instructions=len(body), shuffles=len(at),
+                between_shuffles=[b - a for a, b in zip(at, at[1:])],
+                before_first=at[0] if at else None,
+                after_last=len(body) - 1 - at[-1] if at else None,
+                text=best[1])
+
+
+def instance_label(name, inst, bits, full):
+    """The template instance ``<name>_kernel<...>`` of kernel instance
+    ``inst`` at ``bits`` in a build whose ALL_STAGES is ``full``
+    (rc_decode and rc_decode_ext: BITS, FIVE, GTAB, RGB, STAGES)."""
+    return (f"{name}_kernel<{bits},{int('_five' in inst)},"
+            f"{int(inst.endswith('_global'))},{int('_rgb' in inst)},{full}>")
 
 
 def warmup_inputs(dev, source):
@@ -162,12 +214,15 @@ def warmup_inputs(dev, source):
         rec = cs.LastLaunch(port_decoder, "golomb_decode_planes") \
             if decode else cs.LastLaunch(port_encoder, "golomb_encode_lanes")
     else:
-        rec = cs.LastLaunch(port_decoder, "rc_decode_planes") if decode \
+        rec = cs.LastLaunch(rc_decode, "rc_decode_planes") if decode \
             else cs.LastLaunch(port_encoder, "rc_encode_packed")
+    rec_rgb = cs.LastLaunch(port_decoder, "rc_decode_rgb") if decode and \
+        not golomb else None
     res = {}
     for name, inst in INPUTS[source]:
         if name in res:
             continue
+        rgb = inst.endswith("_rgb")
         if name in cs.YA8:
             kw, (w, h) = cs.ya8_kw(name), (cs.W, cs.H)
             streams = cs.ya8_streams()
@@ -178,14 +233,18 @@ def warmup_inputs(dev, source):
                                device=dev)
         dec = TorchFFV1Decoder(w, h, enc.extradata, batch=cs.BATCH,
                                device=dev)
+        on = rec_rgb if rgb else rec
         for t in range(2):
-            rec.armed = t == 1
+            on.armed = t == 1
             pkts = enc.encode_frames([streams[b][t] for b in range(cs.BATCH)])
             if decode:
                 dec.decode_frames([pk for pk, _key in pkts])
-        rec.armed = False
-        args, out = rec.take()
-        if golomb:
+        on.armed = False
+        args, out = on.take()
+        if rgb:
+            got = rc_decode.instance(args[12], args[13], args[1].shape[1],
+                                     args[8], args[10])
+        elif golomb:
             got = golomb_decode.instance(
                 args[6], args[1].shape[1],
                 max(pw for (pw, _h, _b) in args[4])) if decode else \
@@ -214,6 +273,16 @@ def launcher(name, inst, args, out, libs):
                                          code=code, lib=libs[tag])
         return launch, args[0].shape[0], sum(
             w * h for (w, h, _b) in args[4]), args[5]
+    if inst.endswith("_rgb"):
+        w, h, P, cc, bits, five = args[8:]
+
+        def launch(tag, entry=None, code=None):
+            planes, *rest = rc_decode._launch(
+                inst, *args[:8], rc_decode.rgb_specs(w, h, P, cc), bits,
+                five, entry=entry or f"{name}_rgb_launch", code=code,
+                lib=libs[tag])
+            return (torch.stack(planes), *rest)
+        return launch, args[0].shape[0], w * h * P, bits
     if name.startswith("rc_decode"):
         def launch(tag, entry=None, code=None):
             return rc_decode._launch(inst, *args, entry=entry, code=code,
@@ -236,6 +305,9 @@ def main():
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--stages", action="store_true")
     ap.add_argument("--sass-against", default=None)
+    ap.add_argument("--sass-loops", default=None, metavar="DIR",
+                    help="count each variant's pixel loop (range-coder "
+                    "decoders) and write its text into DIR")
     opt = ap.parse_args()
     if not torch.cuda.is_available():
         cs.log("torch.cuda.is_available() is False: this needs a GPU")
@@ -268,8 +340,31 @@ def main():
     libs = {tag: ctypes.CDLL(os.path.join(d, f"lib{name}.so"))
             for tag, (d, _log) in built.items()}
     inputs = warmup_inputs(dev, name)
-    stage_entry = f"{name}_stages_launch"
+    if opt.sass_loops and name.startswith("rc_decode"):
+        out_dir = opt.sass_loops
+        os.makedirs(out_dir, exist_ok=True)
+        result["sass_loops"] = {}
+        for tag, (d, _log) in built.items():
+            funcs = cs.sass_functions(name, d)
+            full = max(int(re.match(r".*,(\d+)>$", k)[1]) for k in funcs)
+            for path, inst in INPUTS[name]:
+                args = inputs[path][0]
+                bits = args[12] if inst.endswith("_rgb") else args[9]
+                label = instance_label(name, inst, bits, full)
+                c = loop_counts(funcs[label])
+                with open(os.path.join(out_dir, f"{tag}_{inst}.sass"),
+                          "w") as f:
+                    f.write("\n".join(c.pop("text")) + "\n")
+                result["sass_loops"][f"{tag}:{inst}"] = c
+                cs.log(f"[sass] {tag} {label}: pixel loop "
+                       f"{c['instructions']} instructions, {c['shuffles']} "
+                       f"shuffles; between shuffles {c['between_shuffles']}; "
+                       f"before the first {c['before_first']}, after the "
+                       f"last {c['after_last']}")
     for path, inst in INPUTS[name]:
+        rgb = inst.endswith("_rgb")
+        stage_entry = f"{name}{'_rgb' if rgb else ''}_stages_launch"
+        variants = (RGB_STAGE_VARIANTS if rgb else STAGE_VARIANTS)[name]
         args, want = inputs[path]
         launch, L, N, bits = launcher(name, inst, args, want, libs)
         if any(p == path and i != inst for p, i in INPUTS[name][:1]):
@@ -296,19 +391,32 @@ def main():
         for tag, lib in libs.items():
             if not hasattr(lib, stage_entry):
                 continue
-            split = {}
-            for variant, code in STAGE_VARIANTS[name].items():
+            try:                   # another source's stage codes differ
+                launch(tag, stage_entry, variants["full"])
+            except RuntimeError as err:
+                cs.log(f"[stage] {tag}: no split ({err})")
+                continue
+            split, read = {}, {}
+            for variant, code in variants.items():
                 def probe():
                     return launch(tag, stage_entry, code)
-                probe()
+                out = probe()
+                if name.startswith("rc_decode"):
+                    # the bytes the lanes' coders read: a stubbed stage
+                    # changes the decoded symbols, and with them the work
+                    read[variant] = float((out[-1] - args[7]).float().mean())
                 split[variant] = sorted(cs.launch_ms(probe)
                                         for _ in range(opt.reps))[
                     opt.reps // 2]
             result["stages"].setdefault(f"{path}:{inst}", {})[tag] = split
+            if read:
+                result.setdefault("stage_bytes_read", {}).setdefault(
+                    f"{path}:{inst}", {})[tag] = read
             cs.log(f"[stage] {tag} {inst} on {path} (median of {opt.reps}, "
                    f"{gpu}): " + ", ".join(
                        f"{v} {ms:.2f} ms" + ("" if v == "full" else
-                                             f" ({split['full'] - ms:.2f})")
+                                             f" ({split['full'] - ms:.2f})") +
+                       (f" [{read[v]:.0f} B a lane]" if read else "")
                        for v, ms in split.items()))
     print(json.dumps(result), flush=True)
     return 0

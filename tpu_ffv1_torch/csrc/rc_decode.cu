@@ -102,9 +102,38 @@
 // same plane) runs once per line, from that plane's ring, before the line
 // overwrites it.  Shared memory holds 2P ring rows instead of two.
 //
-// Stage probes (STAGES != ALL_STAGES, 8 bits only, reached through
-// rc_decode_stages_launch and never by the codec): the same kernel with one
-// stage stubbed, for timing only (their outputs are wrong on purpose).
+// B1's redesign began with its stage split (the LINE probe below) and a
+// count of its pixel loop's SASS (PERF.md): its time follows the bytes its
+// coders read, every stub that saved time read fewer bytes, the line loop
+// (810 row passes a lane on the rgb8 path) showed no cost of its own, and
+// the loop issues about 24 SASS instructions a decision (the chain probe's
+// decision 17.5).  What was kept is in the loop it shares with K2: each
+// decision's owner test is a compare with a constant (the mantissa's
+// positions through jt = 21 + e - t, computed once a pixel), an
+// instruction fewer in each mantissa decision.  In one call on the warm-up
+// inputs (tools/scan_variants.py, NVIDIA H100 80GB HBM3 at 700 W), against
+// the design before it: 65.52 against 65.91 ms (B1, rgb8), 28.63 against
+// 28.89 (K2, 8bit), 42.18 against 42.48 (K2-five, table in global memory).
+// Tried and dropped on the same inputs, each exact, ms against the design
+// before it in the same call (PERF.md): the next pixel's row read ahead
+// for each value the pixel can take (the zero symbol's at the pixel's
+// start, pred +- a's before the sign decision) and read again only where
+// it is the pixel's own row, with the refill window kept across pixels
+// (81.70 against 65.97; K2 37.48 against 28.90, K2-five 67.73 against
+// 42.61), and with the thread's own byte taken from the registers and its
+// adaptation picked after the pixel (84.04 against 65.80); only the row's
+// first word read ahead (77.85 against 65.97); the refill window kept
+// across pixels (71.91 against 65.44 with the owner tests); the owner's
+// decision kept as 0, 1 or 2 and its byte picked after the pixel (65.94
+// against 65.63); the shuffle's source kept as the count of bytes the
+// pixel read (67.62 against 65.52).  Every read ahead lost; a load among
+// the decisions may delay their shuffles, which use the same memory pipe
+// (not measured apart).
+//
+// Stage probes (STAGES != ALL_STAGES, reached through
+// rc_decode_stages_launch, K2 at 8 bits, and rc_decode_rgb_stages_launch,
+// B1 at 9 bits, never by the codec): the same kernel with one stage
+// stubbed, for timing only (their outputs are wrong on purpose).
 // CTX: the context index from the decoded neighbours (stubbed: from the
 // pixel's column, which cuts the val -> context -> row dependency between
 // pixels; the context's sign stays live); READ: the row read (stubbed: the
@@ -112,7 +141,9 @@
 // the transition lookup (stubbed: the state stays); WRITE: the adaptation
 // store; REFILL: the renormalisation byte and the ring (stubbed: a constant
 // byte, no reload); CHAIN: the low/range arithmetic (stubbed: each bit a
-// fixed function of its state, so the loops keep their shape).  The
+// fixed function of its state, so the loops keep their shape); LINE (B1's
+// probes only): the row pass and the row's output stores (stubbed: every
+// (T, context part) pair stays 0, nothing is written to out).  The
 // production instances are ALL_STAGES.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -127,7 +158,8 @@ enum : int {
   STAGE_WRITE = 8,
   STAGE_REFILL = 16,
   STAGE_CHAIN = 32,
-  ALL_STAGES = 63
+  STAGE_LINE = 64,
+  ALL_STAGES = 127
 };
 
 struct PlaneSpecs {
@@ -156,6 +188,7 @@ __global__ void __launch_bounds__(32) rc_decode_kernel(
   constexpr bool WRITE = (STAGES & STAGE_WRITE) != 0;
   constexpr bool REFILL = (STAGES & STAGE_REFILL) != 0;
   constexpr bool CHAIN = (STAGES & STAGE_CHAIN) != 0;
+  constexpr bool LINE = (STAGES & STAGE_LINE) != 0;
   extern __shared__ __align__(16) uint8_t smem[];
   const int lane = blockIdx.x;
   const int t = threadIdx.x;
@@ -233,7 +266,7 @@ __global__ void __launch_bounds__(32) rc_decode_kernel(
       // being decoded, 32 columns at a time: LT - T and T - RT (FIVE: TT
       // - T, TT the stale cur[x] of the 2-row ring, row y-2); LT at x = 0
       // is the stale cur[0] (ffv1dec.c:202-203)
-      for (int x = t; x < w; x += 32) {
+      for (int x = t; LINE && x < w; x += 32) {
         const int T = prev[x];
         const int LT = x > 0 ? prev[x - 1] : cur[0];
         const int RT = prev[min(x + 1, w - 1)];
@@ -314,9 +347,9 @@ __global__ void __launch_bounds__(32) rc_decode_kernel(
         int val = pred & MASK_V;          // a zero symbol
         place(tc_n.y, lterms(val), cin, csn);
 
-        // one decision at row position p; its owner thread takes the
-        // successor its bit picks
-        auto decide = [&](int s, int p) -> int {
+        // one decision; the owner thread of its row position (``own``)
+        // takes the successor its bit picks
+        auto decide = [&](int s, bool own) -> int {
           int bit;
           if constexpr (CHAIN) {
             const int r1 = (rng * s) >> 8;
@@ -333,10 +366,10 @@ __global__ void __launch_bounds__(32) rc_decode_kernel(
           } else {
             bit = ((unsigned)s * 0x9E3779B1u) >> 31;
           }
-          nb = t == p ? (bit ? up : dn) : nb;
+          nb = own ? (bit ? up : dn) : nb;
           return bit;
         };
-        if (!decide(sb(0), 0)) {          // nonzero symbol
+        if (!decide(sb(0), t == 0)) {     // nonzero symbol
           int e = 0;
           // P: the mantissa's states in coding order for the run so far
           // (byte j = row[21 + e - j]); ss: the sign's, row[11 + e]
@@ -348,7 +381,7 @@ __global__ void __launch_bounds__(32) rc_decode_kernel(
           // streams, with no stop decision
 #pragma unroll
           for (int k = 1; k <= E_MAX + 1; ++k) {
-            if (!decide(sb(k), k)) break;
+            if (!decide(sb(k), t == k)) break;
             e = k;
 #pragma unroll
             for (int i = PW - 1; i > 0; --i)
@@ -357,22 +390,24 @@ __global__ void __launch_bounds__(32) rc_decode_kernel(
                                0x2104 + ((21 + k) & 3));
             ss = sb(11 + min(k, 10));
           }
-          // mantissa: min(e, E_MAX) decisions, MSB first
+          // mantissa: min(e, E_MAX) decisions, MSB first, decision j at
+          // row position 21 + e - j (thread t's: jt)
           const int m = min(e, E_MAX);
+          const int jt = 21 + e - t;
           int a = 1;
 #pragma unroll
           for (int j = 0; j < E_MAX; ++j) {
             if (j == m) break;
             a = 2 * a + decide((int)__byte_perm(P[j >> 2], 0,
                                                  0x4440 | (j & 3)),
-                               21 + e - j);
+                               jt == j);
           }
           const int vp = (pred + a) & MASK_V, vm = (pred - a) & MASK_V;
           int cip, cim;
           bool csp, csm;
           place(tc_n.y, lterms(vp), cip, csp);
           place(tc_n.y, lterms(vm), cim, csm);
-          const int sbit = decide(ss, 11 + e);
+          const int sbit = decide(ss, t == 11 + e);
           const bool neg = sbit != (int)csign;
           val = neg ? vm : vp;
           cin = neg ? cim : cip;
@@ -391,7 +426,7 @@ __global__ void __launch_bounds__(32) rc_decode_kernel(
         tc = tc_n;
       }
       __syncwarp();
-      for (int x = t; x < w; x += 32) out_p[y * w + x] = cur[x];
+      for (int x = t; LINE && x < w; x += 32) out_p[y * w + x] = cur[x];
       if constexpr (!RGB) {
         int32_t* tmp = cur;
         cur = prev;
@@ -558,6 +593,38 @@ extern "C" int rc_decode_stages_launch(RC_DEC_PARAMS, int stages, int five,
     RC_STAGE_CASE(ALL_STAGES & ~STAGE_WRITE)
     RC_STAGE_CASE(ALL_STAGES & ~STAGE_REFILL)
     RC_STAGE_CASE(ALL_STAGES & ~STAGE_CHAIN)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef RC_STAGE_CASE
+}
+
+// B1's stage probes: the RGB instance the rgb8 path runs (bits 9, the
+// 3-input context, the table in shared memory) with the stages of the
+// bitmask ``stages`` kept and the others stubbed; timing only.  The
+// variants: K2's, and no_line (the row pass and the row's output stores
+// stubbed).  Other widths and instances have no probes.
+extern "C" int rc_decode_rgb_stages_launch(RC_DEC_PARAMS, int stages,
+                                           int five, int gtab,
+                                           void* stream) {
+  PlaneSpecs specs;
+  int wmax;
+  if (!plane_specs(spec, nplanes, out_stride, specs, wmax) ||
+      !same_size(specs) || five || gtab)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define RC_STAGE_CASE(M) \
+  case M:                \
+    return launch<9, false, false, M, true>(RC_DEC_ARGS);
+  switch (stages) {
+    RC_STAGE_CASE(ALL_STAGES)
+    RC_STAGE_CASE(ALL_STAGES & ~STAGE_CTX)
+    RC_STAGE_CASE(ALL_STAGES & ~STAGE_READ)
+    RC_STAGE_CASE(ALL_STAGES & ~STAGE_TRANS)
+    RC_STAGE_CASE(ALL_STAGES & ~STAGE_WRITE)
+    RC_STAGE_CASE(ALL_STAGES & ~STAGE_REFILL)
+    RC_STAGE_CASE(ALL_STAGES & ~STAGE_CHAIN)
+    RC_STAGE_CASE(ALL_STAGES & ~STAGE_LINE)
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -136,10 +136,33 @@
 // same plane) runs once per line, from that plane's ring, before the line
 // overwrites it.  Shared memory holds 2P ring rows instead of two.
 //
-// Stage probes (STAGES != ALL_STAGES, 16 bits only, reached through
-// rc_decode_ext_stages_launch and never by the codec): the same kernel
-// with one stage stubbed, for timing only (their outputs are wrong on
-// purpose), as K2's.  CTX: the context index from the decoded neighbours
+// B1-ext's redesign began with its stage split (the LINE probe below) and
+// a count of its pixel loop's SASS (PERF.md): every stub changed the
+// decoded symbols and read a third fewer bytes or more, and the loop issues
+// about 24 SASS instructions a decision (20 on row 10).  What was kept is
+// in the loop it shares with K2-ext, as in B1 (csrc/rc_decode.cu): each
+// decision's owner test is a compare with a constant (the running rows
+// none, the single-row mantissa through jt = 21 + min(e, 9) - t).  In one
+// call on the warm-up inputs (tools/scan_variants.py, NVIDIA H100 80GB
+// HBM3 at 700 W), against the design before it: 33.70 against 34.03 ms
+// (B1-ext, rgb14_540p), 160.57 against 162.19 (K2-ext, 16bit), 50.01
+// against 50.07 (K2-ext-five, table in global memory).  Tried and dropped
+// on the same inputs, each exact (PERF.md), as in B1: the next pixel's row
+// read ahead for each value the pixel can take, with the refill window
+// kept across pixels (38.15 against 33.97; K2-ext 184.81 against 162.25,
+// K2-ext-five 65.66 against 50.06), and with the own byte from the
+// registers and the adaptation picked after the pixel (39.10 against
+// 33.79); the row's first word read ahead (36.26 against 34.00); the
+// window kept across pixels (39.07 against 33.46 with the owner tests);
+// the owner's decision picked after the pixel (33.93 against 33.72); the
+// shuffle's source kept as the count of bytes the pixel read (33.86
+// against 33.70).
+//
+// Stage probes (STAGES != ALL_STAGES, reached through
+// rc_decode_ext_stages_launch, K2-ext at 16 bits, and
+// rc_decode_ext_rgb_stages_launch, B1-ext at 15 bits, never by the codec):
+// the same kernel with one stage stubbed, for timing only (their outputs
+// are wrong on purpose), as K2's.  CTX: the context index from the decoded neighbours
 // (stubbed: from the pixel's column; the context's sign stays live);
 // READ: the row read (stubbed: the states constants); TRANS: the
 // single-touch transition lookup (stubbed: the state stays); WRITE: the
@@ -148,7 +171,9 @@
 // (stubbed: each bit a fixed function of its state, so the loops keep
 // their shape); RUN: the running rows' lookups (stubbed: one_pow and row
 // 31's successors give the state itself, and row 10's final is its last
-// state).  The production instances are ALL_STAGES.
+// state); LINE (B1-ext's probes only): the row pass and the row's output
+// stores (stubbed: every (T, context part) pair stays 0, nothing is
+// written to out).  The production instances are ALL_STAGES.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -163,7 +188,8 @@ enum : int {
   STAGE_REFILL = 16,
   STAGE_CHAIN = 32,
   STAGE_RUN = 64,
-  ALL_STAGES = 127
+  STAGE_LINE = 128,
+  ALL_STAGES = 255
 };
 
 struct PlaneSpecs {
@@ -195,6 +221,7 @@ __global__ void __launch_bounds__(32) rc_decode_ext_kernel(
   constexpr bool REFILL = (STAGES & STAGE_REFILL) != 0;
   constexpr bool CHAIN = (STAGES & STAGE_CHAIN) != 0;
   constexpr bool RUN = (STAGES & STAGE_RUN) != 0;
+  constexpr bool LINE = (STAGES & STAGE_LINE) != 0;
   extern __shared__ __align__(16) uint8_t smem[];
   const int lane = blockIdx.x;
   const int t = threadIdx.x;
@@ -286,7 +313,7 @@ __global__ void __launch_bounds__(32) rc_decode_ext_kernel(
       // being decoded, 32 columns at a time: LT - T and T - RT (FIVE: TT
       // - T, TT the stale cur[x] of the 2-row ring, row y-2); LT at x = 0
       // is the stale cur[0] (ffv1dec.c:202-203)
-      for (int x = t; x < w; x += 32) {
+      for (int x = t; LINE && x < w; x += 32) {
         const int T = prev[x];
         const int LT = x > 0 ? prev[x - 1] : cur[0];
         const int RT = prev[min(x + 1, w - 1)];
@@ -367,9 +394,10 @@ __global__ void __launch_bounds__(32) rc_decode_ext_kernel(
         int val = fold(pred);             // a zero symbol
         place(tc_n.y, lterms(val), cin, csn);
 
-        // one decision; the owner thread of row position p (p < 0: a
-        // running row) takes the successor its bit picks
-        auto decide = [&](int s, int p) -> int {
+        // one decision; the owner thread of its single-touch row position
+        // (``own``; none for a running row) takes the successor its bit
+        // picks
+        auto decide = [&](int s, bool own) -> int {
           int bit;
           if constexpr (CHAIN) {
             const int r1 = (rng * s) >> 8;
@@ -386,12 +414,12 @@ __global__ void __launch_bounds__(32) rc_decode_ext_kernel(
           } else {
             bit = ((unsigned)s * 0x9E3779B1u) >> 31;
           }
-          if (p >= 0) nb = t == p ? (bit ? up : dn) : nb;
+          nb = own ? (bit ? up : dn) : nb;
           return bit;
         };
         // the running rows' final states, where the pixel touches them
         int fin10 = -1, fin31 = -1;
-        if (!decide(sb(0), 0)) {          // nonzero symbol
+        if (!decide(sb(0), t == 0)) {     // nonzero symbol
           int e = 0;
           // P: the single-row mantissa states in coding order for the run
           // so far (byte j = row[21 + min(e, 9) - j]); ss: the sign's,
@@ -401,7 +429,7 @@ __global__ void __launch_bounds__(32) rc_decode_ext_kernel(
           // unary exponent + stop, rows 1..9
 #pragma unroll
           for (int k = 1; k <= 9; ++k) {
-            if (!decide(sb(k), k)) break;
+            if (!decide(sb(k), t == k)) break;
             e = k;
             P[2] = __byte_perm(P[2], P[1], 0x2107);
             P[1] = __byte_perm(P[1], P[0], 0x2107);
@@ -422,7 +450,7 @@ __global__ void __launch_bounds__(32) rc_decode_ext_kernel(
             fin10 = p10[N_RUN];
 #pragma unroll
             for (int k = 0; k < N_RUN; ++k) {
-              if (!decide(p10[k], -1)) {
+              if (!decide(p10[k], false)) {
                 fin10 = RUN ? oz_s[p10[k]] >> 8 : p10[k];
                 break;
               }
@@ -448,7 +476,7 @@ __global__ void __launch_bounds__(32) rc_decode_ext_kernel(
             for (int r = 0; r < N_RUN; ++r) {
               if (r == e - 9) break;
               const int oz31 = RUN ? oz_s[s31] : s31 | (s31 << 8);
-              const int bit = decide(s31, -1);
+              const int bit = decide(s31, false);
               a = 2 * a + bit;
               s31 = bit ? oz31 & 0xFF : oz31 >> 8;
             }
@@ -458,19 +486,20 @@ __global__ void __launch_bounds__(32) rc_decode_ext_kernel(
           // damaged stream), rows 22 + i
           const int ep = min(e, 9);
           const int ns = e == BITS ? 8 : ep;
+          const int jt = 21 + ep - t;      // thread t's decision j, if any
 #pragma unroll
           for (int j = 0; j < 9; ++j) {
             if (j == ns) break;
             a = 2 * a + decide((int)__byte_perm(P[j >> 2], 0,
                                                  0x4440 | (j & 3)),
-                               21 + ep - j);
+                               jt == j);
           }
           const int vp = fold(pred + a), vm = fold(pred - a);
           int cip, cim;
           bool csp, csm;
           place(tc_n.y, lterms(vp), cip, csp);
           place(tc_n.y, lterms(vm), cim, csm);
-          const int sbit = decide(ss, 11 + min(e, 10));
+          const int sbit = decide(ss, t == 11 + min(e, 10));
           const bool neg = sbit != (int)csign;
           val = neg ? vm : vp;
           cin = neg ? cim : cip;
@@ -491,7 +520,7 @@ __global__ void __launch_bounds__(32) rc_decode_ext_kernel(
         tc = tc_n;
       }
       __syncwarp();
-      for (int x = t; x < w; x += 32) out_p[y * w + x] = cur[x];
+      for (int x = t; LINE && x < w; x += 32) out_p[y * w + x] = cur[x];
       if constexpr (!RGB) {
         int32_t* tmp = cur;
         cur = prev;
@@ -664,6 +693,39 @@ extern "C" int rc_decode_ext_stages_launch(RC_DEC_PARAMS, int stages,
     RC_STAGE_CASE(ALL_STAGES & ~STAGE_REFILL)
     RC_STAGE_CASE(ALL_STAGES & ~STAGE_CHAIN)
     RC_STAGE_CASE(ALL_STAGES & ~STAGE_RUN)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef RC_STAGE_CASE
+}
+
+// B1-ext's stage probes: the RGB instance the rgb14_540p path runs (bits
+// 15, the 3-input context, the table in shared memory) with the stages of
+// the bitmask ``stages`` kept and the others stubbed; timing only.  The
+// variants: K2-ext's, and no_line (the row pass and the row's output
+// stores stubbed).  Other widths and instances have no probes.
+extern "C" int rc_decode_ext_rgb_stages_launch(RC_DEC_PARAMS, int stages,
+                                               int five, int gtab,
+                                               void* stream) {
+  PlaneSpecs specs;
+  int wmax;
+  if (!plane_specs(spec, nplanes, out_stride, specs, wmax) ||
+      !same_size(specs) || five || gtab)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define RC_STAGE_CASE(M) \
+  case M:                \
+    return launch<15, false, false, M, true>(RC_DEC_ARGS);
+  switch (stages) {
+    RC_STAGE_CASE(ALL_STAGES)
+    RC_STAGE_CASE(ALL_STAGES & ~STAGE_CTX)
+    RC_STAGE_CASE(ALL_STAGES & ~STAGE_READ)
+    RC_STAGE_CASE(ALL_STAGES & ~STAGE_TRANS)
+    RC_STAGE_CASE(ALL_STAGES & ~STAGE_WRITE)
+    RC_STAGE_CASE(ALL_STAGES & ~STAGE_REFILL)
+    RC_STAGE_CASE(ALL_STAGES & ~STAGE_CHAIN)
+    RC_STAGE_CASE(ALL_STAGES & ~STAGE_RUN)
+    RC_STAGE_CASE(ALL_STAGES & ~STAGE_LINE)
     default:
       return (int)cudaErrorInvalidValue;
   }

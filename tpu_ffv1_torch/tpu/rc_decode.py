@@ -40,8 +40,9 @@ decodes lanes of unequal plane geometry or quant table: one
 after another; no kernel of its own.
 
 ``rc_decode_stages`` and ``rc_decode_ext_stages`` launch K2's and
-K2-ext's stage probes (csrc/rc_decode.cu and rc_decode_ext.cu STAGES):
-timing instruments with stages stubbed, never called by the codec.
+K2-ext's stage probes (csrc/rc_decode.cu and rc_decode_ext.cu STAGES),
+``rc_decode_rgb_stages`` B1's at 9 bits and B1-ext's at 15: timing
+instruments with stages stubbed, never called by the codec.
 """
 from __future__ import annotations
 
@@ -63,14 +64,23 @@ LAUNCHES: dict = {}
 
 # K2's stage probes: the stages each variant keeps (csrc/rc_decode.cu
 # STAGE_CTX 1, STAGE_READ 2, STAGE_TRANS 4, STAGE_WRITE 8, STAGE_REFILL
-# 16, STAGE_CHAIN 32)
-STAGE_VARIANTS = {"full": 63, "no_ctx": 62, "no_read": 61, "no_trans": 59,
-                  "no_write": 55, "no_refill": 47, "no_chain": 31}
-# K2-ext's (csrc/rc_decode_ext.cu: the same stages, and STAGE_RUN 64, the
-# running rows 10/31)
-EXT_STAGE_VARIANTS = {"full": 127, "no_ctx": 126, "no_read": 125,
-                      "no_trans": 123, "no_write": 119, "no_refill": 111,
-                      "no_chain": 95, "no_run": 63}
+# 16, STAGE_CHAIN 32, STAGE_LINE 64)
+STAGE_VARIANTS = {"full": 127, "no_ctx": 126, "no_read": 125,
+                  "no_trans": 123, "no_write": 119, "no_refill": 111,
+                  "no_chain": 95}
+# B1's: K2's, and without the row pass and the row's output stores
+RGB_STAGE_VARIANTS = dict(STAGE_VARIANTS, no_line=63)
+# K2-ext's (csrc/rc_decode_ext.cu: the same stages, STAGE_RUN 64, the
+# running rows 10/31, and STAGE_LINE 128)
+EXT_STAGE_VARIANTS = {"full": 255, "no_ctx": 254, "no_read": 253,
+                      "no_trans": 251, "no_write": 247, "no_refill": 239,
+                      "no_chain": 223, "no_run": 191}
+# B1-ext's: K2-ext's, and no_line
+EXT_RGB_STAGE_VARIANTS = dict(EXT_STAGE_VARIANTS, no_line=127)
+# the (coded width, instance) each RGB source's probes are built for: the
+# rgb8 and rgb14_540p paths' launches
+RGB_STAGE_INSTANCES = {"rc_decode": (9, "rc_decode_rgb"),
+                       "rc_decode_ext": (15, "rc_decode_ext_rgb")}
 
 
 def instance(bits: int, five: bool, CC: int, wmax: int,
@@ -514,3 +524,37 @@ def rc_decode_ext_stages(bufs, states, one_tab, zero_tab, qt, low0,
                          pos0), plane_specs, five, variant, 16,
                         EXT_STAGE_VARIANTS, "rc_decode_ext_stages_launch",
                         rc_decode_planes_ext_ref)
+
+
+def rc_decode_rgb_stages(bufs, states, one_tab, zero_tab, qt, low0, range0,
+                         pos0, w: int, h: int, nplanes: int, cc: int,
+                         bits: int, five: bool, variant: str):
+    """B1 at 9 bits or B1-ext at 15 (rc_decode_rgb's arguments; the
+    3-input context with the table in shared memory, the instances of
+    the rgb8 and rgb14_540p paths) with the stages of ``variant``
+    (RGB_STAGE_VARIANTS, EXT_RGB_STAGE_VARIANTS) stubbed: a timing
+    instrument whose outputs are wrong on purpose, except ``full``,
+    which is the production instance.  Other widths and instances have
+    no probes; on the CPU only ``full`` has a plain version."""
+    src = "rc_decode_ext" if bits > 10 else "rc_decode"
+    want_bits, want = RGB_STAGE_INSTANCES[src]
+    name = instance(bits, five, states.shape[1], w, nplanes)
+    if bits != want_bits or name != want:
+        raise NotImplementedError(f"the RGB stage probes are built for "
+                                  f"{want} at {want_bits} bits only")
+    variants = EXT_RGB_STAGE_VARIANTS if bits > 10 else RGB_STAGE_VARIANTS
+    stages = variants[variant]
+    if bufs.device.type == "cpu":
+        if variant != "full":
+            raise NotImplementedError("a stubbed stage probe has no plain "
+                                      "version: it times the card")
+        return rc_decode_rgb_ref(bufs, states, one_tab, zero_tab, qt, low0,
+                                 range0, pos0, w, h, nplanes, cc, bits,
+                                 five)
+    if bufs.device.type != "cuda":
+        raise ValueError(f"unsupported device {bufs.device}")
+    planes, *rest = _launch(name, bufs, states, one_tab, zero_tab, qt, low0,
+                            range0, pos0, rgb_specs(w, h, nplanes, cc),
+                            bits, five, entry=f"{src}_rgb_stages_launch",
+                            code=stages)
+    return (torch.stack(planes), *rest)
