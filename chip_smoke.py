@@ -159,7 +159,15 @@ exits non-zero without the final result line:
    temporary directory to an avi whose packets equal the 8bit golden
    digests of stream 0, then back to a y4m equal to the source, with
    its wall time and -benchmark Mpix/s, each run's frame-1 launch (24
-   lanes) kept for phase 6; then the sharded phase (sharded_phase): it
+   lanes) kept for phase 6; then serve (serve_phase): the port's
+   streaming server (cli/serve.py) on a thread of this process on the
+   card, the same 8 frames POSTed as y4m to a live feed (K1 once a
+   frame) while two /live.nut clients, a /live.y4m client and a GET of
+   cli's avi as a file stream's /clip.y4m (K2 once a frame each) pull,
+   every NUT packet equal to the 8bit golden digests of stream 0, every
+   y4m frame equal to its source, then the player's -nodisp -ss 5 on
+   the avi, with the ingest's frames/s, each client's MB/s and the
+   phase's seconds; then the sharded phase (sharded_phase): it
    prints torch.cuda.device_count() and splits the lanes into groups
    over make_devices(k), the largest k of 2, 4 and 8 that the card count
    allows, or over cuda:0 twice on a machine with one card (the groups
@@ -208,8 +216,8 @@ exits non-zero without the final result line:
 7. JSON lines: the probes' latencies ("probes"), each path's step and
    stage times ("steps"), mixed_q's and nonuniform_ext's steps, the P
    paths' steps and stages ("pframe"), the pipelined phases' steps at
-   depth 1 and 2 ("pipeline"), the ya8 and cli phases' steps and times
-   ("ya8", "cli"), the sharded phase ("sharded"), the stage splits
+   depth 1 and 2 ("pipeline"), the ya8, cli and serve phases' steps and
+   times ("ya8", "cli", "serve"), the sharded phase ("sharded"), the stage splits
    ("stages") and
    the
    per-kernel numbers ("kernels": time, launches, roofline and chain
@@ -232,14 +240,18 @@ import contextlib
 import ctypes
 import filecmp
 import hashlib
+import http.client
 import io
 import json
 import multiprocessing
 import os
 import re
+import shutil
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from typing import Callable, NamedTuple
 
@@ -250,11 +262,15 @@ import tpu_ffv1_torch
 from tpu_ffv1_torch import (EncoderParams, TorchFFV1Decoder, TorchFFV1Encoder,
                             TorchFFV1PDecoder, TorchFFV1PEncoder)
 from tpu_ffv1_torch.cli import main as port_cli
+from tpu_ffv1_torch.cli import play as port_play
+from tpu_ffv1_torch.cli import serve as port_serve
+from tpu_ffv1_torch.cli.ffserver_conf import parse_config
 from tpu_ffv1_torch.core import tables as T
 from tpu_ffv1_torch.core.crc import crc32_ieee
 from tpu_ffv1_torch.core.rac import custom_state_tables
 from tpu_ffv1_torch.io.avi import read_avi
-from tpu_ffv1_torch.io.y4m import read_y4m, write_y4m
+from tpu_ffv1_torch.io.nut import read_nut
+from tpu_ffv1_torch.io.y4m import read_y4m, write_y4m, write_y4m_stream
 from tpu_ffv1_torch.kernels import build, probes
 from tpu_ffv1_torch.tpu import decoder as port_decoder
 from tpu_ffv1_torch.tpu import encoder as port_encoder
@@ -2584,7 +2600,7 @@ def scan_ms(recs):
 CLI_PATH = "8bit"
 
 
-def cli_phase(dev, gpu, recorders):
+def cli_phase(dev, gpu, recorders, keep_avi=None):
     """cli: the 8bit path's stream 0 (8 frames of 1080p yuv420p) written to
     a y4m in a temporary directory, then the port's command line run in
     this process on the card (``python -m tpu_ffv1_torch``'s ``run``,
@@ -2596,7 +2612,8 @@ def cli_phase(dev, gpu, recorders):
     K2 once per frame.  ``recorders``: the LastLaunch of K1 and K2; each
     run is made again, untimed, for its frame-1 launch (batch 1, L=24),
     kept for phase 6 and timed alone.  Prints each run's wall time and its -benchmark Mpix/s;
-    returns the figures (``recs``: the kept launches)."""
+    returns the figures (``recs``: the kept launches).  ``keep_avi``: a
+    path the encoded avi is copied to (the serve phase's file stream)."""
     frames = [s for s in path_streams(CLI_PATH)[0]]
     n = len(frames)
     golden = load_goldens()[CLI_PATH]
@@ -2661,6 +2678,8 @@ def cli_phase(dev, gpu, recorders):
                                   "len": want["len"]} and
                   bool(key) == want["key"],
                   f"cli frame {t}: packet differs from the golden")
+        if keep_avi:
+            shutil.copyfile(avi, keep_avi)
         line_dec = cli("decode", ["-i", avi, "-benchmark", back], k_dec)
         got, fmt, w, h, _fps = read_y4m(back)
         check(fmt == "yuv420p" and (w, h) == (W, H) and len(got) == n and
@@ -2681,6 +2700,221 @@ def cli_phase(dev, gpu, recorders):
         f"{out['encode']['launches']}, {out['decode']['launches']}; the "
         f"frame-1 launches alone: " + ", ".join(
             f"{k} {v:.2f}" for k, v in out["ms"].items()))
+    return out
+
+
+# ------------------------------------------------------------ serve phase
+
+# the streaming server on the card (serve_phase): cli's content, the
+# 8bit path's stream 0, published to a live feed whose stream options
+# give that path's parameters (with _feed_params' level 3, coder 2,
+# slicecrc 1); limits raised for 1080p (one client moves about 280
+# Mbit/s at 25 fps, past the default MaxBandwidth of 1000 kbit/s)
+SERVE_CONF = """
+MaxClients 8
+MaxBandwidth 10000000
+<Feed cam.ffm>
+FileMaxSize 40M
+ACL allow 127.0.0.1
+</Feed>
+<Stream live.nut>
+Feed cam.ffm
+VideoGopSize 12
+AVOptionVideo slices {slices}
+</Stream>
+<Stream live.y4m>
+Feed cam.ffm
+</Stream>
+<Stream clip.avi>
+File {avi}
+</Stream>
+"""
+SERVE_TIMEOUT = 300                 # seconds for any one request
+
+
+def http_post(port, path, payload):
+    """POST ``payload`` over a raw socket -> the whole response."""
+    with socket.create_connection(("127.0.0.1", port),
+                                  timeout=SERVE_TIMEOUT) as sk:
+        sk.sendall(f"POST {path} HTTP/1.1\r\nHost: chip_smoke\r\n"
+                   f"Content-Length: {len(payload)}\r\n\r\n".encode())
+        sk.sendall(payload)
+        resp = bytearray()
+        while (b := sk.recv(1 << 20)):
+            resp += b
+    return bytes(resp)
+
+
+def http_get(port, path):
+    """GET ``path`` -> (status, body)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                      timeout=SERVE_TIMEOUT)
+    try:
+        conn.request("GET", path)
+        r = conn.getresponse()
+        return r.status, r.read()
+    finally:
+        conn.close()
+
+
+def serve_phase(gpu, avi):
+    """serve: the port's streaming server (cli/serve.py) on the card, on a
+    thread of this process, ``make_server(config=parse_config(SERVE_CONF),
+    port=0, device="cuda")``.  A publisher POSTs cli's 8 frames of 1080p
+    yuv420p as y4m at 25/1 (K1 once a frame, two in flight); once the
+    first packet has landed, two /live.nut clients, one /live.y4m client
+    (its own decoder: K2 once a frame) and a GET of the file stream
+    /clip.y4m (``avi``, cli's file, decoded through play._decode_from)
+    run while the ingest goes on.  Every NUT packet of both clients equals
+    the 8bit golden of stream 0 (SHA-256, length, key flag), every y4m
+    frame equals its source, K1 ran 8 times and K2 16 (8 for each y4m
+    decode).  Then each alone: the same POST with no client (K1 8 times,
+    the ring's packets the goldens) and a /live.y4m pull once it has
+    ended (K2 8 times, the same body).  Then ``play -nodisp -ss 5`` on
+    the avi (K2 8 times: the roll-in from keyframe 0) and its
+    ``_decode_from`` frames 5-7 equal to the source.  Prints the ingest's
+    frames/s, each client's wall time and MB/s, the runs alone and the
+    play decode's wall time; returns the figures."""
+    t_phase = time.perf_counter()
+    frames = path_streams(CLI_PATH)[0]
+    n = len(frames)
+    golden = load_goldens()[CLI_PATH]
+    want_pkts = [({"sha256": p["sha256"], "len": p["len"]}, p["key"])
+                 for p in golden["packets"][0]]
+    k_enc, k_dec = PATHS[CLI_PATH].kernels
+    buf = io.BytesIO()
+    write_y4m_stream(buf, frames, "yuv420p", W, H, (25, 1))
+    payload = buf.getvalue()
+    srv = port_serve.make_server(config=parse_config(SERVE_CONF.format(
+        slices=SLICES, avi=avi)), port=0, device="cuda")
+    server = threading.Thread(target=srv.serve_forever, daemon=True)
+    server.start()
+    port = srv.server_address[1]
+    feed = srv.RequestHandlerClass.live_feeds["cam.ffm"]
+    res, errors = {}, []
+    gets = {"nut_a": "/live.nut", "nut_b": "/live.nut",
+            "y4m": "/live.y4m", "file_y4m": "/clip.y4m"}
+
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            out = fn(*args)
+        except Exception as e:        # failed by the check after the join
+            errors.append(f"{label}: {type(e).__name__}: {e}")
+            return
+        res[label] = (out, time.perf_counter() - t0)
+
+    def launched(label, want):
+        torch.cuda.synchronize()
+        got = all_launches()
+        check(got == want, f"serve {label}: expected launches {want}, got "
+              f"{got}")
+        return got
+
+    def ingested(label):
+        resp = res[label][0]
+        check(resp.startswith(b"HTTP/1.0 200") and
+              resp.endswith(f"ingested {n} frame(s)\n".encode()),
+              f"serve {label}: the POST answered {resp[:200]!r}")
+
+    try:
+        # all at once: the ingest, then four clients once a packet landed
+        reset_counts()
+        pub = threading.Thread(target=timed, args=(
+            "ingest", http_post, port, "/cam.ffm", payload))
+        pub.start()
+        t_end = time.perf_counter() + SERVE_TIMEOUT
+        while not feed.ring and pub.is_alive() and \
+                time.perf_counter() < t_end:
+            time.sleep(0.001)
+        check(bool(feed.ring), f"serve: no packet landed ({errors})")
+        joined = feed.publishing
+        clients = [threading.Thread(target=timed,
+                                    args=(label, http_get, port, path))
+                   for label, path in gets.items()]
+        for t in clients:
+            t.start()
+        for t in [pub] + clients:
+            t.join(SERVE_TIMEOUT)
+            check(not t.is_alive(), "serve: a request did not end")
+        check(not errors, f"serve: {errors}")
+        ingested("ingest")
+        launches = launched("all at once", {k_enc: n, k_dec: 2 * n})
+        # each alone: the ingest with no client, then one y4m pull
+        reset_counts()
+        timed("ingest_alone", http_post, port, "/cam.ffm", payload)
+        check(not errors, f"serve: {errors}")
+        ingested("ingest_alone")
+        launched("ingest alone", {k_enc: n})
+        check([(digest(p), bool(k)) for _s, p, k in feed.ring] == want_pkts,
+              "serve ingest alone: the ring's packets differ from the "
+              "goldens")
+        reset_counts()
+        timed("y4m_alone", http_get, port, "/live.y4m")
+        check(not errors, f"serve: {errors}")
+        launched("y4m pull alone", {k_dec: n})
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        server.join(60)
+    check(res["y4m_alone"][0] == res["y4m"][0],
+          "serve: the y4m pull alone differs from the one beside the ingest")
+    out = dict(frames=n, ingest_s=res["ingest"][1],
+               ingest_fps=n / res["ingest"][1],
+               clients_joined_during_ingest=joined, launches=launches,
+               ingest_alone_s=res["ingest_alone"][1],
+               y4m_alone_s=res["y4m_alone"][1])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as d:
+        for label in gets:
+            (status, body), wall = res[label]
+            check(status == 200, f"serve {label}: status {status}")
+            path = os.path.join(d, f"{label}.{gets[label][-3:]}")
+            with open(path, "wb") as f:
+                f.write(body)
+            if label.startswith("nut"):
+                st = read_nut(path)
+                check(digest(st.extradata) == golden["extradata"] and
+                      [(digest(p), bool(k)) for p, k in
+                       zip(st.packets, st.keyflags)] == want_pkts,
+                      f"serve {label}: the packets differ from the goldens")
+            else:
+                got, fmt, w, h, _fps = read_y4m(path)
+                check(fmt == "yuv420p" and (w, h) == (W, H) and
+                      len(got) == n and
+                      all(np.array_equal(a, b) for fa, fb in
+                          zip(got, frames) for a, b in zip(fa, fb)),
+                      f"serve {label}: the y4m differs from the source")
+            out[label] = dict(wall_s=wall, bytes=len(body),
+                              mb_s=len(body) / wall / 1e6)
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(io.StringIO()) as err:
+        rc = port_play.play(["-nodisp", "-ss", "5", avi, "-device", "cuda"])
+    said = err.getvalue().strip()
+    check(rc == 0, f"serve play: exit code {rc}: {said}")
+    launched("play", {k_dec: n})
+    play_s = time.perf_counter() - t0
+    got, fmt, w, h, _fps, start = port_play._decode_from(avi, 5, "cuda")
+    check(start == 0 and len(got) == n - 5 and
+          all(np.array_equal(a, b) for fa, fb in zip(got, frames[5:])
+              for a, b in zip(fa, fb)),
+          "serve play: frames 5-7 differ from the source")
+    out.update(play=dict(wall_s=play_s, said=said),
+               seconds=time.perf_counter() - t_phase)
+    log(f"[serve] the port's streaming server on the card ({gpu}): "
+        f"{n} frames {W}x{H} yuv420p POSTed to cam.ffm in "
+        f"{out['ingest_s']:.3f} s ({out['ingest_fps']:.2f} frames/s, K1 "
+        f"two in flight); clients (joined "
+        f"{'during' if joined else 'after'} the ingest): " + "; ".join(
+            f"{label} {out[label]['wall_s']:.3f} s, "
+            f"{out[label]['bytes']} B, {out[label]['mb_s']:.2f} MB/s"
+            for label in gets) +
+        f"; every NUT packet equal to the golden digests, every y4m frame "
+        f"equal to its source; launches {launches}; alone: the ingest "
+        f"{out['ingest_alone_s']:.3f} s ({n / out['ingest_alone_s']:.2f} "
+        f"frames/s), the y4m pull {out['y4m_alone_s']:.3f} s, the same "
+        f"bytes; play -nodisp -ss 5 {play_s:.3f} s (\"{said}\"), frames "
+        f"5-7 equal to the source; the phase {out['seconds']:.1f} s")
     return out
 
 
@@ -3863,11 +4097,14 @@ def main():
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     ya8 = {name: ya8_phase(dev, gpu, name, recorders) for name in YA8}
-    cli = cli_phase(dev, gpu, recorders)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_clip_") as d:
+        clip = os.path.join(d, "clip.avi")
+        cli = cli_phase(dev, gpu, recorders, keep_avi=clip)
+        serve = serve_phase(gpu, clip)
     # the ya8 and cli paths' launches: their own shapes (ya8 L=48 at two
     # planes a lane, cli L=24), each held to its plain version in phase 6
     side = dict(ya8, cli=cli)
-    log(f"[ya8+cli] the ya8 and cli phases in "
+    log(f"[ya8+cli+serve] the ya8, cli and serve phases in "
         f"{time.perf_counter() - t0:.1f} s")
     # the sharded phase, beside this run's unsharded pipelined steps
     sharded, c5_tails = sharded_phase(gpu, recorders, {
@@ -4113,7 +4350,7 @@ def main():
     shown = {pn: {k: v for k, v in p.items() if k != "recs"}
              for pn, p in side.items()}
     log(json.dumps({"ya8": {pn: shown[pn] for pn in YA8},
-                    "cli": shown["cli"]}))
+                    "cli": shown["cli"], "serve": serve}))
     log(json.dumps({"sharded": sharded}))
     log(json.dumps({"stages": stages}))
     log(json.dumps({"kernels": kernels}))

@@ -962,3 +962,63 @@ def test_submits_make_no_synchronising_call(cuda):
                              experimental=True, device=cuda)
     penc.submit_frames = strict(penc.submit_frames)
     assert len(_pipelined(penc, [[f] for f in frames])) == 3
+
+
+def test_server_on_cuda_ingest_and_y4m_pull_lossless(cuda, tmp_path):
+    """The port's streaming server (cli/serve.py) on the card at 64x48: one
+    POST of 4 frames (K1 once a frame, two in flight) and one /live.y4m
+    pull (K2 once a frame), the packets the host encoder's and the pull
+    lossless."""
+    import http.client
+    import io
+    import socket
+    import threading
+    from tpu_ffv1.io.y4m import read_y4m, write_y4m_stream
+    from tpu_ffv1_torch.cli.ffserver_conf import parse_config
+    from tpu_ffv1_torch.cli.serve import make_server
+    w, h = 64, 48
+    frames = _frames(w, h, 4, 140)
+    buf = io.BytesIO()
+    write_y4m_stream(buf, frames, "yuv420p", w, h, (25, 1))
+    payload = buf.getvalue()
+    srv = make_server(config=parse_config(
+        "<Feed cam.ffm>\n</Feed>\n<Stream live.y4m>\nFeed cam.ffm\n"
+        "AVOptionVideo slices 4\nVideoGopSize 12\nPreroll 10\n"
+        "</Stream>\n"), port=0, device="cuda")
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        port = srv.server_address[1]
+        chip_smoke.reset_counts()
+        sk = socket.create_connection(("127.0.0.1", port), timeout=120)
+        sk.sendall(f"POST /cam.ffm HTTP/1.1\r\nHost: t\r\nContent-Length: "
+                   f"{len(payload)}\r\n\r\n".encode() + payload)
+        resp = b""
+        while (b := sk.recv(65536)):
+            resp += b
+        sk.close()
+        assert resp.startswith(b"HTTP/1.0 200") and \
+            resp.endswith(b"ingested 4 frame(s)\n"), resp
+        assert chip_smoke.all_launches() == {"rc_encode": 4}
+        feed = srv.RequestHandlerClass.live_feeds["cam.ffm"]
+        enc = FFV1Encoder(EncoderParams(width=w, height=h,
+                                        pix_fmt="yuv420p", level=3, coder=2,
+                                        slices=4, gop_size=12, slicecrc=1))
+        assert [(p, k) for _s, p, k in feed.ring] == \
+            [enc.encode_frame(f) for f in frames]
+        chip_smoke.reset_counts()
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        conn.request("GET", "/live.y4m")
+        r = conn.getresponse()
+        assert r.status == 200
+        (tmp_path / "got.y4m").write_bytes(r.read())
+        conn.close()
+        assert chip_smoke.all_launches() == {"rc_decode": 4}
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(30)
+    got, fmt, gw, gh, _fps = read_y4m(str(tmp_path / "got.y4m"))
+    assert (fmt, gw, gh, len(got)) == ("yuv420p", w, h, 4)
+    assert all(np.array_equal(a, b) for fa, fb in zip(got, frames)
+               for a, b in zip(fa, fb))

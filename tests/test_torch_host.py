@@ -2,6 +2,8 @@
 .bitstream) equal the JAX package's modules they were copied from:
 tables, state-transition tables, CRC-32, resolved parameters, the global
 header and the slice headers, byte for byte (exact: integer codec)."""
+import io
+
 import numpy as np
 import pytest
 
@@ -296,6 +298,68 @@ def test_rawvideo_and_y4m_match(pix, tmp_path):
     got, want = ty4m.read_y4m(str(yj)), jy4m.read_y4m(str(yj))
     assert got[1:] == want[1:]
     _same_frames(got[0], want[0])
+
+
+class _Chunked:
+    """A socket-like reader: at most ``n`` bytes a read."""
+
+    def __init__(self, data, n):
+        self.f, self.n = io.BytesIO(data), n
+
+    def read(self, n):
+        return self.f.read(min(n, self.n))
+
+
+def _stream_read(mod, data, chunk):
+    """Header and frames through ``mod``'s stream readers -> what each
+    call gave, an exception as its type and message."""
+    f = io.BytesIO(data) if chunk is None else _Chunked(data, chunk)
+    out = []
+    try:
+        hdr = mod.read_y4m_stream_header(f)
+        out.append(hdr)
+        while hdr is not None:
+            planes = mod.read_y4m_stream_frame(f, *hdr[:3])
+            out.append(planes)
+            if planes is None:
+                break
+    except ValueError as e:
+        out.append((type(e), str(e)))
+    return out
+
+
+@pytest.mark.parametrize("pix", ["yuv420p", "yuv422p10le"])
+@pytest.mark.parametrize("body", ["whole", "chunked", "truncated"])
+def test_y4m_stream_readers_match(body, pix):
+    """io/y4m.py's stream readers (the server's ingest): a whole body, one
+    read 7 bytes at a time, and one cut mid-frame, against the JAX
+    package's; and an empty body."""
+    from tpu_ffv1.io import y4m as jy4m
+    from tpu_ffv1_torch.io import y4m as ty4m
+    w, h = 13, 7
+    frames = [_frame(pix, w, h, seed) for seed in range(3)]
+    buf = io.BytesIO()
+    jy4m.write_y4m_stream(buf, frames, pix, w, h, (30000, 1001))
+    data = buf.getvalue()
+    if body == "truncated":
+        data = data[:len(data) - 5]
+    chunk = 7 if body == "chunked" else None
+    got, want = _stream_read(ty4m, data, chunk), _stream_read(jy4m, data,
+                                                              chunk)
+    assert len(got) == len(want)
+    assert got[0] == want[0] == (pix, w, h, (30000, 1001))
+    for g, x in zip(got[1:], want[1:]):
+        if isinstance(x, list):
+            _same_frames([g], [x])
+        else:
+            assert g == x
+    if body == "truncated":
+        assert want[-1] == (ValueError, "truncated y4m frame")
+        _same_frames(got[1:3], frames[:2])
+    else:
+        assert want[-1] is None
+        _same_frames(got[1:4], frames)
+    assert _stream_read(ty4m, b"", chunk) == [None]
 
 
 @pytest.mark.parametrize("container", ["avi", "mkv", "nut"])

@@ -33,6 +33,8 @@ MODULES = ["tpu_ffv1_torch", "tpu_ffv1_torch.device",
            "tpu_ffv1_torch.io.nut", "tpu_ffv1_torch.swscale",
            "tpu_ffv1_torch.filtergraph", "tpu_ffv1_torch.cli",
            "tpu_ffv1_torch.cli.main", "tpu_ffv1_torch.cli.__main__",
+           "tpu_ffv1_torch.cli.ffserver_conf", "tpu_ffv1_torch.cli.serve",
+           "tpu_ffv1_torch.cli.play",
            "tpu_ffv1_torch.__main__"]
 
 

@@ -33,8 +33,13 @@ import time
 
 import numpy as np
 
+from .play import seek_start
+
 # frames in flight in the encoder and the decoder (1: one at a time)
 DEPTH = 2
+# the refusal of a stream whose headers are in band (versions 0 and 1)
+NO_EXTRADATA = ("tpu_ffv1_torch needs out-of-band headers (version >= 2); "
+                "use the host decoder for v0/v1 streams")
 
 
 def build_parser():
@@ -95,15 +100,6 @@ def build_parser():
     p.add_argument("-y", action="store_true", help="overwrite (always on)")
     p.add_argument("output", nargs="?")
     return p
-
-
-def seek_start(keyflags, target):
-    """Keyframe random access: index of the keyframe decode must restart
-    from to show `target` (seek.mak behavior; ffv1dec.c:931 guard)."""
-    for i in range(min(target, len(keyflags) - 1), -1, -1):
-        if keyflags[i]:
-            return i
-    return 0
 
 
 def probe(path: str, ofmt: str = "default"):
@@ -309,9 +305,7 @@ def _run(args):
                   + f" -> {args.output}", file=sys.stderr)
             return 0
         if not st.extradata:
-            sys.exit("error: tpu_ffv1_torch needs out-of-band headers "
-                     "(version >= 2); use the host decoder for v0/v1 "
-                     "streams")
+            sys.exit(f"error: {NO_EXTRADATA}")
         from ..tpu.decoder import TorchFFV1Decoder
         dec = _codec(TorchFFV1Decoder, st.width, st.height, st.extradata,
                      device=args.device)

@@ -10,8 +10,9 @@ Only progressive streams are produced; the demuxer accepts any
 interlacing tag but returns plain planar frames (field handling is the
 caller's concern, as in rawvideo).
 
-The port's own copy of ``tpu_ffv1/io/y4m.py``, trimmed to what the
-port reaches.
+The port's own copy of ``tpu_ffv1/io/y4m.py``: the file reader and
+writers, and the stream readers the streaming server ingests a
+publisher's socket with.
 """
 from __future__ import annotations
 
@@ -130,6 +131,59 @@ def parse_y4m_header(line: bytes):
     if width <= 0 or height <= 0:
         raise ValueError("y4m header missing W/H")
     return pix_fmt, width, height, fps
+
+
+def _read_line(f, limit=4096):
+    """Read up to LF from a binary stream without over-reading past it
+    (socket feeds can't be seeked back)."""
+    buf = bytearray()
+    while len(buf) < limit:
+        b = f.read(1)
+        if not b:
+            break
+        if b == b"\n":
+            return bytes(buf)
+        buf += b
+    if len(buf) >= limit:
+        raise ValueError("y4m header line too long")
+    return bytes(buf) if buf else None
+
+
+def read_y4m_stream_header(f):
+    """Incremental form of the header parse for live ingestion (the
+    ffserver-analog feed reads its publisher's socket with this) ->
+    (pix_fmt, width, height, fps).  Raises on garbage, returns None on
+    immediate EOF."""
+    line = _read_line(f)
+    if line is None:
+        return None
+    return parse_y4m_header(line)
+
+
+def read_y4m_stream_frame(f, pix_fmt: str, width: int, height: int):
+    """Read one FRAME from an open binary stream -> plane list, or
+    None on clean EOF (publisher closed between frames)."""
+    line = _read_line(f)
+    if line is None:
+        return None
+    if not line.startswith(b"FRAME"):
+        raise ValueError("bad y4m frame header")
+    fmt = get_pix_fmt(pix_fmt)
+    dims = _plane_dims(fmt, width, height)
+    itemsz = 2 if fmt.bits > 8 else 1
+    planes = []
+    for h, w in dims:
+        need = h * w * itemsz
+        chunks = bytearray()
+        while len(chunks) < need:
+            b = f.read(need - len(chunks))
+            if not b:
+                raise ValueError("truncated y4m frame")
+            chunks += b
+        a = np.frombuffer(bytes(chunks),
+                          "<u2" if itemsz == 2 else np.uint8).reshape(h, w)
+        planes.append(a.astype(np.uint16 if itemsz == 2 else np.uint8))
+    return planes
 
 
 def read_y4m(path: str):

@@ -6,6 +6,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 then loaded with ``ctypes``.  A library is rebuilt when its source, or
 a header of ``csrc`` (``*.cuh``), is newer than it; ``build_all`` compiles several sources in parallel.
 Nothing here falls back: a missing ``nvcc`` or a failed build raises.
+``load`` may be called from several threads at once (the streaming
+server runs each request on its own thread): one lock covers the check,
+the build and the load, so each library is built and loaded once.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -25,6 +29,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SMEM_PER_BLOCK = 232448
 
 _LIBS: dict = {}
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 # seconds spent compiling each library in this process (0.0 when an
 # existing build was loaded)
 BUILD_SECONDS: dict = {}
@@ -57,6 +63,13 @@ def expect(name, t, dtype, shape, device):
                          f"{t.device}")
 
 
+def count_launch(counts: dict, name: str) -> None:
+    """Add one to ``counts[name]`` (a wrapper's launch count); safe when
+    several threads launch at once, as the streaming server's do."""
+    with _COUNT_LOCK:
+        counts[name] = counts.get(name, 0) + 1
+
+
 def table_in_global(table_bytes: int, other_smem_bytes: int) -> bool:
     """Whether a lane scan keeps its state table in global memory: when
     the table and the kernel's other shared memory do not fit a block.
@@ -85,7 +98,8 @@ def build_all(names) -> None:
             continue
         src = os.path.join(CSRC, f"{name}.cu")
         out = os.path.join(BUILD_DIR, f"lib{name}.so")
-        tmp = f"{out}.{os.getpid()}.tmp"
+        # one name per process and thread: two builds never share a file
+        tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
         proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
                                 stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
@@ -104,11 +118,14 @@ def build_all(names) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library built from ``csrc/<name>.cu``."""
+    """The loaded library built from ``csrc/<name>.cu``; thread-safe."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    build_all([name])
-    lib = ctypes.CDLL(os.path.join(BUILD_DIR, f"lib{name}.so"))
-    _LIBS[name] = lib
+    with _LOAD_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build_all([name])
+            lib = ctypes.CDLL(os.path.join(BUILD_DIR, f"lib{name}.so"))
+            _LIBS[name] = lib
     return lib

@@ -107,6 +107,11 @@ class TorchFFV1Decoder:
     lane count.  Grouped frames, Golomb-Rice and RGB decode on the lead
     device, ``devices[0]``, as the reference's paths ignore the mesh;
     ``device`` must then name it or be left out.
+
+    One thread submits to and collects from an instance: each submit
+    enqueues on the calling thread's current stream, which the pipeline
+    captures then, and nothing here is locked.  Threads that decode at
+    once (the streaming server's clients) each own an instance.
     """
 
     def __init__(self, width: int, height: int, extradata: bytes,

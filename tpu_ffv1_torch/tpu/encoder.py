@@ -153,6 +153,11 @@ class TorchFFV1Encoder:
     ``devices[0]``, runs everything else and holds the states between
     frames; ``device`` (default "cuda") must then name it or be left
     out.  The packets do not change.
+
+    One thread submits to and collects from an instance: each submit
+    enqueues on the calling thread's current stream, which the pipeline
+    captures then, and nothing here is locked.  Threads that code at
+    once (the streaming server's requests) each own an instance.
     """
 
     def __init__(self, params: EncoderParams, batch: int = 1,

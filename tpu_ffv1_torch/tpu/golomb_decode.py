@@ -37,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.tables import LOG2_RUN
-from ..kernels.build import expect, load, table_in_global
+from ..kernels.build import count_launch, expect, load, table_in_global
 from .golomb_encode import update_vlc, vlc_k
 
 # kernel launches made by golomb_decode_planes, by kernel instance (read
@@ -285,7 +285,7 @@ def golomb_decode_planes(bufs, vlc0, qt, pos0, plane_specs, bits: int,
     name = instance(five, vlc0.shape[1],
                     max(w for (w, _h, _b) in plane_specs))
     out = _launch(name, bufs, vlc0, qt, pos0, plane_specs, bits, five)
-    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+    count_launch(LAUNCHES, name)
     return out
 
 

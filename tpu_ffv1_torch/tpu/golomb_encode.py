@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from ..core.tables import LOG2_RUN
-from ..kernels.build import expect, load, table_in_global
+from ..kernels.build import count_launch, expect, load, table_in_global
 
 # kernel launches made by golomb_encode_lanes, by kernel instance (read
 # by chip_smoke.py): golomb_encode (G1, VLC table in shared memory) and
@@ -334,7 +334,7 @@ def golomb_encode_lanes(ctx, diff, active, flags, vlc0, prefixes, plens,
     name = instance(vlc0.shape[1])
     out = _launch(name, ctx, diff, active, flags, vlc0, prefixes, plens,
                   bits, cc, T)
-    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+    count_launch(LAUNCHES, name)
     return out
 
 

@@ -52,7 +52,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from ..kernels.build import expect, load, table_in_global
+from ..kernels.build import count_launch, expect, load, table_in_global
 
 # kernel launches made by rc_decode_planes and rc_decode_rgb, by kernel
 # instance (read by chip_smoke.py): rc_decode (K2, bits <= 10) and
@@ -383,7 +383,7 @@ def rc_decode_planes(bufs, states, one_tab, zero_tab, qt, low0, range0,
                     max(w for (w, _h, _b) in plane_specs))
     out = _launch(name, bufs, states, one_tab, zero_tab, qt, low0, range0,
                   pos0, plane_specs, bits, five)
-    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+    count_launch(LAUNCHES, name)
     return out
 
 
@@ -469,7 +469,7 @@ def rc_decode_rgb(bufs, states, one_tab, zero_tab, qt, low0, range0, pos0,
     planes, *rest = _launch(name, bufs, states, one_tab, zero_tab, qt, low0,
                             range0, pos0, rgb_specs(w, h, nplanes, cc),
                             bits, five, entry=f"{src}_rgb_launch")
-    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+    count_launch(LAUNCHES, name)
     return (torch.stack(planes), *rest)
 
 

@@ -43,7 +43,7 @@ import ctypes
 
 import torch
 
-from ..kernels.build import expect, load, table_in_global
+from ..kernels.build import count_launch, expect, load, table_in_global
 
 from .finalize import compact_packed
 from .schedule import chain_order_nosign, ext_slots
@@ -368,7 +368,7 @@ def rc_encode_packed(ctx, diff, active, states0, one_tab, zero_tab,
     out = _launch("rc_encode_ext" if ext else "rc_encode",
                   name.endswith("_global"), ctx, diff, active, states0,
                   one_tab, zero_tab, low0, range0, bits)
-    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+    count_launch(LAUNCHES, name)
     return out
 
 
@@ -390,7 +390,7 @@ def rc_encode_compact(ctx, diff, active, states0, one_tab, zero_tab,
     out = _launch("rc_encode", name.endswith("_global"), ctx, diff, active,
                   states0, one_tab, zero_tab, low0, range0, bits,
                   entry="rc_encode_compact_launch", width=8)
-    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+    count_launch(LAUNCHES, name)
     return out
 
 
