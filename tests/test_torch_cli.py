@@ -5,9 +5,9 @@ reports.  The JAX CLI runs ``-engine tpu`` in one module-scoped case (its
 compiles are slow on the CPU); the other cases hold the port to
 ``-engine native``, whose packets the JAX package's tests show to equal
 its device classes' (tests/test_tpu.py).  Also: the port's frames at
-depth 2 write the same bytes as at depth 1, and the refusals (two-pass
-mode, v0/v1 streams, the default device without a GPU) end the run with
-their message."""
+depth 2 write the same bytes as at depth 1; two-pass mode's files and
+messages are the JAX CLI's; and the refusals (v0/v1 streams, the default
+device without a GPU) end the run with their message."""
 import json
 import os
 import subprocess
@@ -204,14 +204,29 @@ def test_version4_runs_one_frame_in_flight(media, tmp_path, capsys,
     assert depths == [1]
 
 
-@pytest.mark.parametrize("rc_pass", ["1", "2"])
-def test_two_pass_is_refused(media, tmp_path, rc_pass):
+def test_pass2_writes_the_host_file(media, tmp_path, capsys):
+    """-pass 2 reads <passlogfile>-0.log, here the JAX CLI's pass 1, and
+    writes the same avi as python -m tpu_ffv1 -pass 2 -engine native."""
     _d, paths, _frames = media
+    log = str(tmp_path / "stats")
+    assert jax_run(["-i", paths["y4m"], *ENC, "-coder", "2", "-pass", "1",
+                    "-passlogfile", log, "-engine", "native",
+                    str(tmp_path / "p1.avi")]) == 0
+    _both(tmp_path, capsys, ["-i", paths["y4m"], *ENC, "-coder", "2",
+                             "-pass", "2", "-passlogfile", log], "avi")
+
+
+def test_pass2_without_stats_exits(media, tmp_path):
+    """A missing log ends the run with the JAX CLI's message."""
+    _d, paths, _frames = media
+    log = str(tmp_path / "none")
+    args = ["-i", paths["y4m"], *ENC, "-pass", "2", "-passlogfile", log]
     with pytest.raises(SystemExit) as e:
-        port_cli.run(["-i", paths["y4m"], *ENC, "-pass", rc_pass,
-                      "-device", "cpu", str(tmp_path / "t.avi")])
-    assert f"-pass {rc_pass}: two-pass statistics are not ported" in \
-        str(e.value.code)
+        port_cli.run([*args, "-device", "cpu", str(tmp_path / "t.avi")])
+    with pytest.raises(SystemExit) as j:
+        jax_run([*args, "-engine", "native", str(tmp_path / "j.avi")])
+    assert str(e.value.code) == str(j.value.code) == \
+        f"error: pass-2 needs stats at {log}-0.log (run -pass 1 first)"
     assert not os.path.exists(tmp_path / "t.avi")
 
 

@@ -24,6 +24,7 @@ MODULES = ["tpu_ffv1_torch", "tpu_ffv1_torch.device",
            "tpu_ffv1_torch.core.intmath", "tpu_ffv1_torch.codec.pixfmt",
            "tpu_ffv1_torch.codec.params", "tpu_ffv1_torch.codec.context",
            "tpu_ffv1_torch.codec.slice_codec",
+           "tpu_ffv1_torch.codec.twopass",
            "tpu_ffv1_torch.bitstream.symbols",
            "tpu_ffv1_torch.bitstream.headers",
            "tpu_ffv1_torch.pframe", "tpu_ffv1_torch.pframe.codec",

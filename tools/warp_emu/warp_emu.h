@@ -65,6 +65,14 @@ inline unsigned __funnelshift_l(unsigned lo, unsigned hi, unsigned s) {
 inline unsigned atomicOr(unsigned* p, unsigned v) {
   return std::atomic_ref<unsigned>(*p).fetch_or(v);
 }
+// the word's old value; the sum is atomic among the block's threads
+inline int atomicAdd(int* p, int v) {
+  return std::atomic_ref<int>(*p).fetch_add(v);
+}
+// double arithmetic rounded once to nearest (the host compiles these
+// without FMA contraction: x86-64 with no -march)
+inline double __dmul_rn(double a, double b) { return a * b; }
+inline double __dadd_rn(double a, double b) { return a + b; }
 
 inline void __syncwarp(unsigned = 0xffffffffu) {
   emu_blk->nsync[threadIdx.x]++;

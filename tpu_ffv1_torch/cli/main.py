@@ -5,10 +5,11 @@ The same options and messages as the JAX package's CLI, through
 ``TorchFFV1Encoder`` and ``TorchFFV1Decoder``: -i, -f, -pix_fmt,
 -in_pix_fmt, -s, -c:v (ffv1 | copy), -level, -coder, -context, -slices,
 -slicecrc, -g, -strict, -frames:v, -ss (keyframe-accurate seek), -vf,
--probe [-of json], -benchmark; ``-engine`` becomes ``-device {cuda,cpu}``
-(default cuda: without a GPU the run fails, it never falls back to the
-CPU), and ``-pass 1`` / ``-pass 2`` are refused, as the port's classes
-refuse two-pass statistics.  Frames run two in flight
+-probe [-of json], -benchmark, -pass 1 / -pass 2 with -passlogfile (pass
+1 counts its statistics on the device and writes
+``<passlogfile>-0.log``, pass 2 reads it); ``-engine`` becomes
+``-device {cuda,cpu}`` (default cuda: without a GPU the run fails, it
+never falls back to the CPU).  Frames run two in flight
 (``submit_frames`` / ``collect_frames``), or as few as the encoder's
 ``max_in_flight`` allows, which writes the same bytes as one at a time.
 
@@ -79,8 +80,8 @@ def build_parser():
                         "keyframe (seek.mak semantics)")
     p.add_argument("-pass", dest="rc_pass", type=int, default=0,
                    choices=[0, 1, 2],
-                   help="two-pass mode: not ported (the host engines of "
-                        "python -m tpu_ffv1 run it)")
+                   help="two-pass mode (1 = gather stats on the device "
+                        "into <passlogfile>-0.log, 2 = encode with them)")
     p.add_argument("-passlogfile", default="ffv1_2pass",
                    help="stats file prefix (two-pass mode)")
     p.add_argument("-vf", dest="vf", default=None,
@@ -241,19 +242,27 @@ def _encode_frames_to(args, frames, w, h, pix_fmt, fps=(25, 1)):
     are already in ``pix_fmt`` at (w, h).  Returns the report line."""
     from ..codec.params import EncoderParams
     from ..tpu.encoder import TorchFFV1Encoder
-    if args.rc_pass:
-        sys.exit(f"error: -pass {args.rc_pass}: two-pass statistics are not "
-                 "ported (use python -m tpu_ffv1 -engine native)")
+    stats_in = None
+    logf = args.passlogfile + "-0.log"
+    if args.rc_pass == 2:
+        if not os.path.exists(logf):
+            sys.exit(f"error: pass-2 needs stats at {logf} "
+                     "(run -pass 1 first)")
+        with open(logf) as f:
+            stats_in = f.read()
     params = EncoderParams(
         width=w, height=h, pix_fmt=pix_fmt, level=args.level,
         coder=args.coder, context_model=args.context,
         slices=args.slices, slicecrc=args.slicecrc, gop_size=args.gop,
-        strict=args.strict)
+        strict=args.strict, pass1=args.rc_pass == 1, stats_in=stats_in)
     enc = _codec(TorchFFV1Encoder, params, device=args.device)
     depth = min(DEPTH, enc.max_in_flight or DEPTH)
     res = _pipelined(enc.submit_frames, enc.collect_frames, frames, depth)
     pkts = [pkt for pkt, _key in res]
     keys = [key for _pkt, key in res]
+    if args.rc_pass == 1:
+        with open(logf, "w") as f:
+            f.write(enc.get_stats())
     _mux(args.output, w, h, enc.extradata or b"", pkts, keys, fps=fps)
     total = sum(len(p) for p in pkts)
     return (f"encoded {len(pkts)} frames {w}x{h} -> {total} bytes "

@@ -165,6 +165,9 @@ class TorchFFV1PEncoder(TorchFFV1Encoder):
                 "gate, ffv1enc.c:703-706)")
         if params.gop_size < 2:
             raise ValueError("FFV1-P needs gop_size >= 2")
+        if params.pass1 or params.stats_in is not None:
+            raise NotImplementedError("FFV1-P has no two-pass statistics, "
+                                      "as in the reference")
         if me not in SEARCH_FNS:
             raise ValueError(f"me must be one of {sorted(SEARCH_FNS)}")
         self.me = me

@@ -74,8 +74,10 @@ grids the reference has no row budget: a slice retries as PCM only when
 its bytes pass the output cap, taken at the reference's padded length.
 
 Adaptive states stay on the device across frames (GOP context
-carry-over, ffv1enc.c:1171-1172): keyframes reset them to 128, other
-frames continue from the previous frame's states.  Covered: versions 3
+carry-over, ffv1enc.c:1171-1172): keyframes reset them to 128, or to the
+tuned initial states of a pass-2 encoder (``stats_in``, codec/twopass.py:
+the sorted custom table and the initial states, which the extradata
+carries), other frames continue from the previous frame's states.  Covered: versions 3
 and 4, range coder, planar YUV/gray at every coded width (<= 10 bits
 through the fast schedule, 11..16 through the extended one) on any slice
 grid, and RGB on uniform grids, context models 0 and 1 (the 5-input
@@ -101,6 +103,7 @@ from ..bitstream.headers import write_extradata, write_slice_header
 from ..codec.context import SliceState, slice_grid
 from ..codec.slice_codec import encode_plane_pcm, encode_rgb_pcm
 from ..codec.params import EncoderParams, resolve
+from ..codec.twopass import tuned_params
 from ..core import tables as T
 from ..core.crc import crc32_ieee
 from ..core.intmath import ceil_rshift
@@ -162,11 +165,17 @@ class TorchFFV1Encoder:
 
     def __init__(self, params: EncoderParams, batch: int = 1,
                  device=None, compact: bool = False, devices=None):
-        if params.pass1 or params.stats_in is not None:
-            raise NotImplementedError("two-pass statistics are not ported "
-                                      "yet; use the host encoder")
+        if params.pass1:
+            raise NotImplementedError("two-pass statistics gathering (pass "
+                                      "1) is not ported yet; use the host "
+                                      "encoder")
         self.devices, self.device = resolve_devices(devices, device)
         self.rp = rp = resolve(params)
+        if params.stats_in:
+            # pass 2: the sorted custom table and the tuned initial states
+            # (codec/encoder.py:53-61 of the JAX package), before the
+            # state tables and the extradata below read them
+            tuned_params(rp, params.stats_in, self.device)
         self.golomb = rp.ac == T.AC_GOLOMB_RICE
         self.rgb = rp.colorspace == 1
         if rp.version not in (3, 4):
@@ -277,8 +286,16 @@ class TorchFFV1Encoder:
             cap_len = -(-self.n_max // pad) * pad
         self.out_cap = cap_len * (3 if self.bits <= 10 and
                                   not self.golomb else 4) + 4096
-        self.states = torch.full((self.L, self.total_cc, 32), 128,
-                                 dtype=torch.uint8, device=dev)
+        # a fresh lane's states: the tuned initial states of the context
+        # model's quant table tiled per state plane (pass 2), else 128
+        # (clear_slice_state, codec/context.py:80-88 of the JAX package)
+        init = rp.initial_states[rp.context_model]
+        self.init_states = None if init is None else torch.from_numpy(
+            np.tile(np.asarray(init[:cc], np.uint8),
+                    (n_state_planes, 1))).to(dev)
+        self.states = self._fresh_states(
+            torch.empty((self.L, self.total_cc, 32), dtype=torch.uint8,
+                        device=dev))
         self.picture_number = 0
         self._prefix_cache = {}
         # (slice, keyframe, (by, ry)) -> (low, range, provisional bytes)
@@ -303,6 +320,13 @@ class TorchFFV1Encoder:
             self.vlc_states = fresh_vlc_states(self.L, self.total_cc, dev)
 
     # -----------------------------------------------------------------
+
+    def _fresh_states(self, like):
+        """Fresh start states shaped as ``like`` (L, rows, 32): the tiled
+        initial states of a pass-2 encoder, else 128 everywhere."""
+        if self.init_states is None:
+            return torch.full_like(like, 128)
+        return self.init_states.expand_as(like).clone()
 
     def _plane_dims(self, geom):
         """(w, h, state_plane) of each coded plane of a slice, in coding
@@ -818,7 +842,7 @@ class TorchFFV1Encoder:
         """Flush analog (avcodec_flush_buffers): the next frame starts a
         fresh GOP; frames in flight are dropped."""
         self.pipe.drain()
-        self.states.fill_(128)
+        self.states = self._fresh_states(self.states)
         if self.golomb:
             self.vlc_states = fresh_vlc_states(self.L, self.total_cc,
                                                self.device)
@@ -893,7 +917,7 @@ class TorchFFV1Encoder:
                 rct = (c[:, 0], c[:, 1])
         else:
             lows, ranges, prefixes, plens = self._prefix_arrays(keyframe)
-        states0 = torch.full_like(self.states, 128) if keyframe \
+        states0 = self._fresh_states(self.states) if keyframe \
             else self.states
         out, counts, states_out, overflow, packed, low, rng = \
             self._frame_pipeline(planes, states0, lows, ranges, prefixes,
@@ -1002,8 +1026,9 @@ class TorchFFV1Encoder:
         if pcm.any():
             # a PCM slice's header sets slice_reset_contexts, which clears
             # the lane's contexts on both sides (ffv1enc.c:1054-1056,
-            # ffv1dec.c:419-420)
-            self.states[torch.from_numpy(pcm).to(self.device)] = 128
+            # ffv1dec.c:419-420) to their initial states
+            mask = torch.from_numpy(pcm).to(self.device)
+            self.states[mask] = self._fresh_states(self.states)[mask]
         return [(self._assemble(payloads[bi * self.n_slices:
                                          (bi + 1) * self.n_slices]),
                  keyframe)
