@@ -12,10 +12,12 @@ exits non-zero without the final result line:
    K1, K2, K1-ext, K2-ext, each with its state table in shared memory
    and in global memory, the decoders also with the 5-input context and
    in their line-interleaved RGB form, B1 and B1-ext,
-   K1 also in its compact form, K1, K1-ext, K2, K2-ext, G1 and G2 as
-   stage probes; G1 and G2, the Golomb-Rice scans, with the VLC table in
-   shared and in global memory, G2 also with the 5-input context) and
-   the probes (chain_probe.cu, golomb_probe.cu) from
+   K1 also in its compact form, K1 and K1-ext also as the stats
+   instances of two-pass encoding's pass 1, K1, K1-ext, K2, K2-ext, G1
+   and G2 as stage probes; G1 and G2, the Golomb-Rice scans, with the
+   VLC table in shared and in global memory, G2 also with the 5-input
+   context), find_best_state.cu (pass 2's table of tuned initial
+   states) and the probes (chain_probe.cu, golomb_probe.cu) from
    tpu_ffv1_torch/csrc, one nvcc per source, all
    started together; the registers, spills and SASS instructions of
    every instance;
@@ -107,7 +109,21 @@ exits non-zero without the final result line:
    must equal the JAX package's TPUFFV1Encoder's on the CPU (the host
    encoder has no PCM retry), its slices' coding modes that pattern, and
    each frame's row bytes the plain computation on a host copy of the
-   same raw slots; then two main paths on non-uniform grids, each
+   same raw slots; then twopass (twopass_phase), two-pass encoding: pass
+   1 on two small cuts (256x144 yuv420p and 128x72 yuv444p16le, 2
+   streams x 2 frames, 24 slices: the stats instances of K1 and K1-ext)
+   whose get_stats texts and packets must equal the host spec encoder's
+   golden digests, pass 1 on the 8bit path's first 4 frames at 1080p
+   (packets 8bit's goldens, every lane's counts its decisions, the
+   stats instance timed beside the production K1 on the same inputs and
+   equal to it in every other output), and pass 2 of those frames from
+   the 8-bit cut's text (find_best_state on the card; extradata and
+   packets equal to the host native encoder's goldens, the decode through
+   K2 from the tuned initial states lossless), find_best_state's table
+   equal to the host's digest and 14 of its rows to the plain version's,
+   and the stats instances in both placements on random inputs at small
+   N (held to their plain versions in phase 6); then two main paths on
+   non-uniform grids, each
    at FFmpeg's -slices 24 (6 x 4) with six timed frames: 720p
    (1280x720 yuv420p, context model 0: slices 213 and 214 wide, so K1
    over lanes of two lengths and two K2 launches of 24 lanes per step)
@@ -219,7 +235,7 @@ exits non-zero without the final result line:
    depth 1 and 2 ("pipeline"), the ya8, cli and serve phases' steps and
    times ("ya8", "cli", "serve"), the sharded phase ("sharded"), the stage splits
    ("stages") and
-   the
+   the twopass phase's numbers ("twopass"), the
    per-kernel numbers ("kernels": time, launches, roofline and chain
    bounds, plain version's time, max abs error; a grouped decode's row
    sums its launches and lists each under "groups"; the sharded paths'
@@ -265,6 +281,7 @@ from tpu_ffv1_torch.cli import main as port_cli
 from tpu_ffv1_torch.cli import play as port_play
 from tpu_ffv1_torch.cli import serve as port_serve
 from tpu_ffv1_torch.cli.ffserver_conf import parse_config
+from tpu_ffv1_torch.codec import twopass
 from tpu_ffv1_torch.core import tables as T
 from tpu_ffv1_torch.core.crc import crc32_ieee
 from tpu_ffv1_torch.core.rac import custom_state_tables
@@ -688,6 +705,42 @@ def synthetic_streams_pcm():
 
     return [[noise() if t != 1 else ramp(t) for t in range(PCM_FRAMES)],
             [ramp(t) for t in range(PCM_FRAMES)]]
+
+
+# twopass: two-pass encoding (see twopass_phase).  Its small cuts (pass
+# 1's statistics held to the host spec encoder's digests): name ->
+# (pix_fmt, width, height, seed); 2 streams x 2 frames, 24 slices, coder
+# 2, context model 0
+TWOPASS_CUTS = {"8bit": ("yuv420p", 256, 144, SEED + 21),
+                "16bit": ("yuv444p16le", 128, 72, SEED + 22)}
+TWOPASS_CUT_FRAMES = 2
+# the 8bit path's first frames, through pass 1 and pass 2 at 1080p
+TWOPASS_FRAMES = 4
+# the probabilities i whose find_best_state rows the plain version checks:
+# the edges (candidates i - 10 below 1, i + 10 past 255) and the middle
+TWOPASS_FBS_ROWS = (0, 1, 5, 10, 11, 64, 127, 128, 129, 200, 245, 246,
+                    254, 255)
+# the stats instances, each checked on random inputs
+STATS_INSTANCES = ("rc_encode_stats", "rc_encode_stats_global",
+                   "rc_encode_ext_stats", "rc_encode_ext_stats_global")
+# H100 SXM FP64 rate outside the tensor cores (data sheet): the
+# operations term of find_best_state's bound
+PEAK_FP64_S = 34e12
+
+
+def twopass_cut_kw(name):
+    """EncoderParams fields of a twopass small cut."""
+    pix_fmt, w, h, _seed = TWOPASS_CUTS[name]
+    return dict(width=w, height=h, pix_fmt=pix_fmt, level=3, coder=2,
+                slices=SLICES, context_model=0)
+
+
+def twopass_cut_streams(name):
+    """A twopass small cut's content: 8bit's and 16bit's generators at the
+    cut's size."""
+    _pix, w, h, seed = TWOPASS_CUTS[name]
+    gen = synthetic_streams if name == "8bit" else synthetic_streams16
+    return gen(BATCH, TWOPASS_CUT_FRAMES, w, h, seed)
 
 
 # ya8: gray + alpha at 1080p, both coders (see ya8_phase)
@@ -1212,6 +1265,31 @@ def check_encode_kernel(dev, bits, N, context_model, compact=False,
         (args, got)
 
 
+def check_stats_kernel(dev, bits, N, context_model):
+    """The stats instance of K1 (8 bits) or K1-ext (16 bits) on random
+    codec-like inputs (states from 1..255) at L = 8 and the two state
+    planes of the context model (the table in shared or in global
+    memory), timed.  Returns (instance, its numbers, the launch's (args,
+    outputs)) for the plain check (``plain_checks``)."""
+    L = 8
+    CC = 2 * T.CONTEXT_COUNTS[context_model]
+    args = (*random_encode_args(dev, bits, L, N, CC,
+                                SEED + 7000 + bits + 100 * context_model, 1),
+            bits)
+    name = rc_encode.instance(bits, CC, stats=True)
+    got = rc_encode.rc_encode_stats(*args)
+    decisions = decisions_per_lane(args[1], args[2])
+    check(torch.equal(got[4].sum((1, 2)).long(), decisions) and
+          torch.equal(got[5].sum((1, 2, 3)).long(), decisions),
+          f"{name}: the counts do not add up to the decisions")
+    ms = cuda_time_ms(lambda: rc_encode.rc_encode_stats(*args), 5)
+    shape = f"bits={bits} L={L} N={N} CC={CC} S={got[0].shape[1]}"
+    label = "random residuals, states 1..255"
+    log(f"[kernels] {name} {shape} {label}: kernel {ms:.3f} ms")
+    return name, dict(check_ms=ms, check_shape=shape, label=label), \
+        (args, got)
+
+
 def decode_args_from_packets(dec, pkts, bits):
     parsed = [dec._parse_packet(bi, p) for bi, p in enumerate(pkts)]
     (bufs, lows, ranges, poss), _lens, q = dec._lane_inputs(parsed)
@@ -1593,13 +1671,15 @@ def step_stats(tag, name, steps_s, mpix, gpu):
 
 
 def reset_counts():
-    for mod in (rc_encode, rc_decode, golomb_encode, golomb_decode):
+    for mod in (rc_encode, rc_decode, golomb_encode, golomb_decode,
+                twopass):
         mod.LAUNCHES.clear()
 
 
 def all_launches():
     return {**rc_encode.LAUNCHES, **rc_decode.LAUNCHES,
-            **golomb_encode.LAUNCHES, **golomb_decode.LAUNCHES}
+            **golomb_encode.LAUNCHES, **golomb_decode.LAUNCHES,
+            **twopass.LAUNCHES}
 
 
 def main_path(dev, gpu, name, recorders):
@@ -1894,6 +1974,246 @@ def pcm_phase(dev, gpu, rec):
         f"on the host ({gpu}); launches {launches}")
     return dict(encode_ms=enc_ms, rowbytes_ms=rb_ms, modes=modes,
                 launches=launches)
+
+
+def fold_terms(one, dev):
+    """The terms find_best_state's fold computes for the state-transition
+    table ``one`` (256,): per (i, j) row and step k, the m in 1..255
+    whose occ[m] is not 0 (the C skips the others), by the same
+    propagation in float64 on the card (its sums in another order, which
+    can move a term across an underflow to 0 and no further).  Returns
+    (terms, rows)."""
+    rows = [(i, j) for i in range(256)
+            for j in range(max(i - 10, 1), min(i + 11, 256)) if one[j]]
+    R = len(rows)
+    p = torch.tensor([i / 256.0 for i, _j in rows], dtype=torch.float64,
+                     device=dev)[:, None]
+    up = torch.tensor([int(one[m]) for m in range(1, 256)], device=dev)
+    down = torch.tensor([256 - int(one[256 - m]) for m in range(1, 256)],
+                        device=dev)
+    occ = torch.zeros((R, 257), dtype=torch.float64, device=dev)
+    occ[torch.arange(R, device=dev), torch.tensor([j for _i, j in rows],
+                                                 device=dev)] = 1.0
+    terms = torch.zeros((), dtype=torch.int64, device=dev)
+    for _k in range(256):
+        live = occ[:, 1:256]
+        terms += (live != 0).sum()
+        nocc = torch.zeros_like(occ)
+        nocc.index_add_(1, up, live * p)
+        nocc.index_add_(1, down, live * (1 - p))
+        occ = nocc
+    return int(terms), R
+
+
+def twopass_phase(dev, gpu, rec):
+    """twopass: pass 1 and pass 2 of two-pass encoding through
+    TorchFFV1Encoder on the card.
+
+    - The small cuts (TWOPASS_CUTS: 256x144 yuv420p and 128x72
+      yuv444p16le, 2 streams x 2 frames, 24 slices, coder 2): pass 1 on
+      the stats instances of K1 and K1-ext, each stream's get_stats text
+      and its packets equal to the host spec FFV1Encoder(pass1=True)'s
+      golden digests.
+    - 1080p pass 1: the 8bit path's first 4 frames, batch 2, on K1's
+      stats instance: the packets 8bit's goldens (pass 1 does not change
+      the bytes), every lane's counts adding up to its decisions
+      (decisions_per_lane) in every frame, the warm-up launch's slots,
+      low, range and states equal to the production K1's on the same
+      inputs, and both timed there.
+    - 1080p pass 2: the same frames with the 8-bit cut's stream-0 text
+      as stats_in (find_best_state on the card): extradata and packets
+      equal to the host native FFV1Encoder(stats_in=...)'s goldens, the
+      decode through TorchFFV1Decoder (K2 from the tuned initial states)
+      lossless; the constructor, encode and decode steps timed.
+    - find_best_state: its table of the pass-2 encoder's sorted
+      state-transition table equal to the host native table's digest,
+      TWOPASS_FBS_ROWS of it equal to the plain version's, timed.
+    - The stats instances, both placements, on random inputs at small N,
+      held to their plain versions in phase 6 (check_stats_kernel).
+
+    The launch counts are set to 0 before each part and read after it.
+    ``rec``: the LastLaunch of rc_encode_stats.  Returns its numbers, the
+    recorded launches and the random checks."""
+    tag = "twopass"
+    t_phase = time.perf_counter()
+    golden = load_goldens()["twopass"]
+    texts, cut_recs = {}, {}
+    reset_counts()
+    rec.armed = True
+    for name in TWOPASS_CUTS:
+        kw = twopass_cut_kw(name)
+        enc = TorchFFV1Encoder(EncoderParams(**kw, pass1=True), batch=BATCH,
+                               device=dev)
+        streams = twopass_cut_streams(name)
+        for t in range(TWOPASS_CUT_FRAMES):
+            res = enc.encode_frames([s[t] for s in streams])
+            for b in range(BATCH):
+                want = golden[name]["packets"][b][t]
+                check(digest(res[b][0]) == {"sha256": want["sha256"],
+                                            "len": want["len"]} and
+                      res[b][1] == want["key"],
+                      f"twopass {name} stream {b} frame {t}: packet differs "
+                      f"from the golden")
+        texts[name] = [enc.get_stats(b) for b in range(BATCH)]
+        check([digest(x.encode()) for x in texts[name]] ==
+              golden[name]["stats"],
+              f"twopass {name}: pass-1 statistics differ from the host's")
+        cut_recs[name] = rec.take_all()[1]
+        log(f"[{tag}] {name} cut: {kw['width']}x{kw['height']} "
+            f"{kw['pix_fmt']}, {BATCH} x {TWOPASS_CUT_FRAMES} frames, pass 1 "
+            f"on the card: each stream's statistics text "
+            f"({', '.join(str(len(x)) for x in texts[name])} B) and packets "
+            f"equal to the host spec encoder's golden digests")
+    rec.armed = False
+    cut_launches = all_launches()
+    check(cut_launches == {"rc_encode_stats": TWOPASS_CUT_FRAMES,
+                           "rc_encode_ext_stats": TWOPASS_CUT_FRAMES},
+          f"twopass cuts: expected each stats instance once per step: "
+          f"{cut_launches}")
+
+    # 1080p pass 1
+    g8 = load_goldens()["8bit"]
+    frames = [s[:TWOPASS_FRAMES] for s in path_streams("8bit")]
+    enc = TorchFFV1Encoder(EncoderParams(**params_kw("8bit"), pass1=True),
+                           batch=BATCH, device=dev)
+    check(digest(enc.extradata) == g8["extradata"],
+          "twopass pass 1: extradata differs from 8bit's golden")
+    p1_ms = []
+    reset_counts()
+    rec.armed = True
+    for t in range(TWOPASS_FRAMES):
+        ms, res = host_time_ms(
+            lambda: enc.encode_frames([f[t] for f in frames]))
+        p1_ms.append(ms)
+        for b in range(BATCH):
+            want = g8["packets"][b][t]
+            check(digest(res[b][0]) == {"sha256": want["sha256"],
+                                        "len": want["len"]},
+                  f"twopass pass 1 stream {b} frame {t}: packet differs from "
+                  f"8bit's golden")
+    rec.armed = False
+    p1_launches = all_launches()
+    check(p1_launches == {"rc_encode_stats": TWOPASS_FRAMES},
+          f"twopass pass 1: expected rc_encode_stats once per step: "
+          f"{p1_launches}")
+    calls = rec.take_all()
+    for t, (args, out) in enumerate(calls):
+        decisions = decisions_per_lane(args[1], args[2])
+        check(torch.equal(out[4].sum((1, 2)).long(), decisions) and
+              torch.equal(out[5].sum((1, 2, 3)).long(), decisions),
+              f"twopass pass 1 frame {t}: a lane's counts differ from its "
+              f"decisions")
+    p1_rec = calls[1]
+    args = p1_rec[0]
+    prod = rc_encode.rc_encode_packed(*args)
+    check(all(torch.equal(a, b) for a, b in zip(p1_rec[1][:4], prod)),
+          "twopass: the stats instance's slots, low, range or states differ "
+          "from K1's on the same inputs")
+    stats_ms = cuda_time_ms(lambda: rc_encode.rc_encode_stats(*args), 3)
+    k1_ms = cuda_time_ms(lambda: rc_encode.rc_encode_packed(*args), 3)
+    ext_args = cut_recs["16bit"][0]
+    ext_stats_ms = cuda_time_ms(
+        lambda: rc_encode.rc_encode_stats(*ext_args), 3)
+    ext_ms = cuda_time_ms(lambda: rc_encode.rc_encode_packed(*ext_args), 3)
+    total = int(sum(int(o[4].sum()) for _a, o in calls))
+    log(f"[{tag}] 1080p pass 1 (8bit's first {TWOPASS_FRAMES} frames, "
+        f"batch {BATCH}): packets equal to 8bit's golden digests; every "
+        f"lane's counts add up to its decisions in every frame ({total} "
+        f"decisions); encode steps {', '.join(f'{x:.2f}' for x in p1_ms)} "
+        f"ms; on the warm-up frame's inputs (L={args[0].shape[0]} "
+        f"N={args[0].shape[1]}) K1's stats instance {stats_ms:.2f} ms, "
+        f"production K1 {k1_ms:.2f} ms, the same slots, low, range and "
+        f"states; K1-ext's stats instance on the 16bit cut's frame 1 "
+        f"(L={ext_args[0].shape[0]} N={ext_args[0].shape[1]}) "
+        f"{ext_stats_ms:.3f} ms, production K1-ext {ext_ms:.3f} ms ({gpu})")
+
+    # 1080p pass 2, from the 8-bit cut's stream-0 statistics
+    gp = golden["pass2"]
+    twopass._BEST_STATE.clear()
+    reset_counts()
+    ctor_ms, enc2 = host_time_ms(lambda: TorchFFV1Encoder(
+        EncoderParams(**params_kw("8bit"), stats_in=texts["8bit"][0]),
+        batch=BATCH, device=dev))
+    check(digest(enc2.extradata) == gp["extradata"],
+          "twopass pass 2: extradata differs from the host's golden")
+    dec = TorchFFV1Decoder(W, H, enc2.extradata, batch=BATCH, device=dev)
+    p2_ms, p2_dec_ms = [], []
+    for t in range(TWOPASS_FRAMES):
+        frame = [f[t] for f in frames]
+        ms, res = host_time_ms(lambda: enc2.encode_frames(frame))
+        p2_ms.append(ms)
+        for b in range(BATCH):
+            want = gp["packets"][b][t]
+            check(digest(res[b][0]) == {"sha256": want["sha256"],
+                                        "len": want["len"]} and
+                  res[b][1] == want["key"],
+                  f"twopass pass 2 stream {b} frame {t}: packet differs from "
+                  f"the host's golden ({len(res[b][0])} vs {want['len']} B)")
+        ms, out = host_time_ms(
+            lambda: dec.decode_frames([r[0] for r in res]))
+        p2_dec_ms.append(ms)
+        for b in range(BATCH):
+            check(all(np.array_equal(a, c) for a, c in
+                      zip(out[b][0], frame[b])),
+                  f"twopass pass 2 stream {b} frame {t}: decode not "
+                  f"lossless")
+    check(not dec.slice_damaged.any(), "twopass pass 2: slice flagged")
+    p2_launches = all_launches()
+    check(p2_launches == {"find_best_state": 1,
+                          "rc_encode": TWOPASS_FRAMES,
+                          "rc_decode": TWOPASS_FRAMES},
+          f"twopass pass 2: expected find_best_state once, K1 and K2 once "
+          f"per step: {p2_launches}")
+    sizes = [sum(golden_pkt["len"] for golden_pkt in g8["packets"][b][
+        :TWOPASS_FRAMES]) for b in range(BATCH)]
+    sizes2 = [sum(p["len"] for p in gp["packets"][b])
+              for b in range(BATCH)]
+    log(f"[{tag}] 1080p pass 2 from the 8bit cut's stream-0 statistics: "
+        f"extradata ({len(enc2.extradata)} B) and packets equal to the host "
+        f"native encoder's golden digests, decode lossless; constructor "
+        f"{ctor_ms:.1f} ms (the sorted table, find_best_state on the card, "
+        f"the initial states); encode steps "
+        f"{', '.join(f'{x:.2f}' for x in p2_ms)} ms, decode steps "
+        f"{', '.join(f'{x:.2f}' for x in p2_dec_ms)} ms; bytes per stream "
+        f"{sizes2} against one-pass {sizes} ({gpu})")
+
+    # find_best_state on the pass-2 encoder's sorted table
+    one = enc2.rp.state_transition.copy()
+    one_t = torch.from_numpy(one).to(dev)
+    best = twopass.find_best_state_kernel(one_t).cpu().numpy()
+    check(digest(best.tobytes()) == golden["find_best_state"],
+          "find_best_state differs from the host's table")
+    t0 = time.perf_counter()
+    plain = twopass.find_best_state_ref(one, TWOPASS_FBS_ROWS)
+    fbs_plain_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(best[list(TWOPASS_FBS_ROWS)], plain),
+          "find_best_state differs from its plain version")
+    fbs_ms = cuda_time_ms(lambda: twopass.find_best_state_kernel(one_t), 3)
+    terms, n_rows = fold_terms(one, dev)
+    log(f"[{tag}] find_best_state: the table equal to the host native "
+        f"table's digest, rows {list(TWOPASS_FBS_ROWS)} equal to the plain "
+        f"version's ({fbs_plain_ms:.0f} ms on the host CPU); kernel "
+        f"{fbs_ms:.2f} ms for {n_rows} (i, j) rows, {terms} fold terms "
+        f"({gpu})")
+    random = [check_stats_kernel(dev, b, n, m) for b, n in ((8, 2048),
+                                                            (16, 1024))
+              for m in (0, 1)]
+    check(sorted(r[0] for r in random) == sorted(STATS_INSTANCES),
+          "the stats checks do not cover every stats instance")
+    seconds = time.perf_counter() - t_phase
+    log(f"[{tag}] the phase in {seconds:.1f} s")
+    return dict(
+        random=random, p1_rec=p1_rec, ext_rec=cut_recs["16bit"],
+        fbs=dict(ms=fbs_ms, plain_ms=fbs_plain_ms, terms=terms,
+                 rows=n_rows),
+        launches=dict(cuts=cut_launches, pass1=p1_launches,
+                      pass2=p2_launches),
+        numbers=dict(
+            pass1_encode_ms=p1_ms, pass2_constructor_ms=ctor_ms,
+            pass2_encode_ms=p2_ms, pass2_decode_ms=p2_dec_ms,
+            stats_ms=stats_ms, k1_ms=k1_ms, ext_stats_ms=ext_stats_ms,
+            k1_ext_ms=ext_ms, pass2_bytes=sizes2, one_pass_bytes=sizes,
+            find_best_state_ms=fbs_ms, seconds=seconds))
 
 
 def mixed_q_phase(dev, gpu, rec, paths):
@@ -3437,6 +3757,10 @@ def plain_version(name):
         return golomb_encode.golomb_encode_lanes_ref
     if name.startswith("golomb_decode"):
         return golomb_decode.golomb_decode_planes_ref
+    if name.startswith("rc_encode_ext_stats"):
+        return rc_encode.rc_encode_ext_stats_ref
+    if name.startswith("rc_encode_stats"):
+        return rc_encode.rc_encode_stats_ref
     if name.startswith("rc_encode_compact"):
         return rc_encode.rc_encode_compact_ref
     if name.startswith("rc_encode"):
@@ -3870,6 +4194,96 @@ KERNELS = {
 }
 
 
+# the twopass phase's kernels: the stats instances on its paths, and
+# find_best_state, which replaces the host C fold (the JAX package has
+# no device kernel for it)
+TWOPASS_KERNELS = {
+    "rc_encode_stats": ("tpu_ffv1_torch/csrc/rc_encode.cu",
+                        "tpu_ffv1/tpu/rc_pallas.py:58"),
+    "rc_encode_ext_stats": ("tpu_ffv1_torch/csrc/rc_encode_ext.cu",
+                            "tpu_ffv1/tpu/rc_pallas.py:317"),
+    "find_best_state": ("tpu_ffv1_torch/csrc/find_best_state.cu",
+                        "native/ffv1_native.c:850"),
+}
+
+
+def twopass_rows(tp, checks, probe, funcs, gpu):
+    """The ``kernels`` JSON rows of the twopass phase: the stats instances
+    of K1 (1080p pass 1) and K1-ext (the 16bit cut), each with the
+    production instance's time on the same inputs, their roofline bound
+    (K1's bytes and the count tables written once; the decisions'
+    instructions from the decision probe and the instance's pixel loop)
+    and chain bound, their plain versions timed on the random checks'
+    shape; and find_best_state (FP64 operations: 10 a fold term)."""
+    ns_enc, ops_enc, _ns_dec, _ops_dec, _row_ns = probe
+    n = tp["numbers"]
+    rows = []
+    for name, path_name, (args, out), launches, steps, ms, prod_ms in (
+            ("rc_encode_stats", "twopass_1080p_pass1", tp["p1_rec"],
+             tp["launches"]["pass1"]["rc_encode_stats"], TWOPASS_FRAMES,
+             n["stats_ms"], n["k1_ms"]),
+            ("rc_encode_ext_stats", "twopass_16bit_cut", tp["ext_rec"],
+             tp["launches"]["cuts"]["rc_encode_ext_stats"],
+             TWOPASS_CUT_FRAMES, n["ext_stats_ms"], n["k1_ext_ms"])):
+        src, replaces = TWOPASS_KERNELS[name]
+        bits = args[8]
+        L, N = args[0].shape
+        CC, S = args[3].shape[1], out[0].shape[1]
+        lib = "rc_encode_ext" if bits > 10 else "rc_encode"
+        # the pixel loop's SASS instructions, the stats instance's and the
+        # production instance's
+        loop, loop_prod = (pixel_loop_count(funcs[lib][label]) for label in (
+            f"{lib}_stats_kernel<{bits},0>",
+            f"{lib}_kernel<{bits},0,{'31' if bits > 10 else '0,15'}>"))
+        extra = max(0, loop - (2 * bits + 2) * ops_enc)
+        decisions = decisions_per_lane(args[1], args[2])
+        nbytes = L * N * 9 + 2 * L * CC * 32 + 512 + 16 * L + \
+            L * N * S * 4 + L * 512 * 4 + L * CC * 64 * 4
+        bound, term = roofline_ms(
+            nbytes, int(decisions.sum()) * ops_enc + L * N * extra)
+        chain = int(decisions.max()) * ns_enc * 1e-6
+        chk = checks[name]
+        shape = launch_shape(name, args, out)
+        log(f"[bound] {name} ({path_name}, {gpu}): {ms:.3f} ms at {shape} "
+            f"(production {prod_ms:.3f} ms on the same inputs); pixel loop "
+            f"{loop} SASS instructions (production {loop_prod}); roofline "
+            f"bound {bound:.3f} ms ({term}); chain bound {chain:.2f} ms")
+        rows.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            main_path=path_name, launches=launches,
+            launches_per_step=launches / steps, max_abs_err=0, ms=ms,
+            production_ms=prod_ms, plain_ms=chk[0]["check_plain_ms"],
+            plain_shape=chk[0]["check_shape"], plain_device="cpu",
+            bound_ms=bound, bound_by=term, chain_bound_ms=chain,
+            chain_decisions_max_lane=int(decisions.max()),
+            ns_per_decision=ns_enc, ops_per_decision=ops_enc,
+            extra_ops_per_pixel=extra, pixel_loop_instructions=loop,
+            production_pixel_loop_instructions=loop_prod, library_ms=None,
+            main_path_shape=shape,
+            checks=[{k: c[k] for k in ("check_shape", "check_ms",
+                                       "check_plain_ms")} for c in chk]))
+    fbs = tp["fbs"]
+    # bytes: the table, l2tab and the output; operations: the fold terms
+    bound, term = max(
+        ((256 + 256 * 8 + 256 * 256) / PEAK_BYTES_S * 1e3, "bytes"),
+        (10 * fbs["terms"] / PEAK_FP64_S * 1e3, "operations"))
+    src, replaces = TWOPASS_KERNELS["find_best_state"]
+    log(f"[bound] find_best_state (twopass pass 2, {gpu}): {fbs['ms']:.2f} "
+        f"ms; roofline bound {bound:.5f} ms ({term}: {fbs['terms']} fold "
+        f"terms x 10 FP64 operations at {PEAK_FP64_S / 1e12:.0f} TFLOP/s)")
+    rows.append(dict(
+        name="find_best_state", route="cuda", source=src, replaces=replaces,
+        main_path="twopass_1080p_pass2",
+        launches=tp["launches"]["pass2"]["find_best_state"],
+        launches_per_step=0, max_abs_err=0, ms=fbs["ms"],
+        plain_ms=fbs["plain_ms"],
+        plain_shape=f"{len(TWOPASS_FBS_ROWS)} of 256 probabilities",
+        plain_device="cpu", bound_ms=bound, bound_by=term,
+        fold_terms=fbs["terms"], fold_rows=fbs["rows"], library_ms=None,
+        main_path_shape="one_state (256,) -> best_state (256, 256)"))
+    return rows
+
+
 # instances no main path launches (the placement follows the table's size
 # alone: reachable with custom quant tables), checked on random inputs
 OFF_PATH = ("rc_decode_five", "rc_decode_global", "rc_decode_ext_five",
@@ -3989,7 +4403,8 @@ def main():
     t_start = time.perf_counter()
 
     libs = ("rc_encode", "rc_decode", "rc_encode_ext", "rc_decode_ext",
-            "golomb_encode", "golomb_decode", "chain_probe", "golomb_probe")
+            "golomb_encode", "golomb_decode", "find_best_state",
+            "chain_probe", "golomb_probe")
     t0 = time.perf_counter()
     build.build_all(libs)
     log(f"[build] " + ", ".join(f"{n} {build.BUILD_SECONDS[n]:.1f} s"
@@ -4081,9 +4496,12 @@ def main():
                      golomb_encode=LastLaunch(port_encoder,
                                               "golomb_encode_lanes"),
                      golomb_decode=LastLaunch(port_decoder,
-                                              "golomb_decode_planes"))
+                                              "golomb_decode_planes"),
+                     stats=LastLaunch(port_encoder, "rc_encode_stats"))
     paths = {name: main_path(dev, gpu, name, recorders) for name in PATHS}
     pcm = pcm_phase(dev, gpu, recorders["packed"])
+    tp = twopass_phase(dev, gpu, recorders["stats"])
+    random += tp.pop("random")
     mixed = mixed_q_phase(dev, gpu, recorders["decode"], paths)
     nonuni = nonuniform_phase(dev, gpu, recorders["packed"],
                               recorders["decode"])
@@ -4319,6 +4737,7 @@ def main():
                 [list(range(len(decisions)))], p["launches"][name],
                 p["steps"], decisions, probe, funcs, compact_sec,
                 m["main_path_shape"], checks[name], gpu))
+    kernels += twopass_rows(tp, checks, probe, funcs, gpu)
     # the sharded paths' launches, under the rows of their instances
     for p in sharded.values():
         for name, entry in p.pop("entries").items():
@@ -4337,6 +4756,8 @@ def main():
                                          decode_ms=p["dec_ms"], **p["stages"])
                               for name, p in paths.items()}}))
     log(json.dumps({"v4_pcm": pcm}))
+    log(json.dumps({"twopass": dict(launches=tp["launches"],
+                                    **tp["numbers"])}))
     log(json.dumps({"mixed_q": {k: mixed[k] for k in (
         "launches", "dec_ms", "group_ms", "steps")},
         "nonuniform_ext": {k: nonuni[k] for k in (

@@ -8,6 +8,7 @@ its device classes' (tests/test_tpu.py).  Also: the port's frames at
 depth 2 write the same bytes as at depth 1; two-pass mode's files and
 messages are the JAX CLI's; and the refusals (v0/v1 streams, the default
 device without a GPU) end the run with their message."""
+import filecmp
 import json
 import os
 import subprocess
@@ -214,6 +215,32 @@ def test_pass2_writes_the_host_file(media, tmp_path, capsys):
                     str(tmp_path / "p1.avi")]) == 0
     _both(tmp_path, capsys, ["-i", paths["y4m"], *ENC, "-coder", "2",
                              "-pass", "2", "-passlogfile", log], "avi")
+
+
+@pytest.mark.parametrize("coder", ["2", "0"])
+def test_two_pass_writes_the_host_files(media, tmp_path, capsys, coder):
+    """-pass 1 counts its statistics (the range coder's on the device's
+    stats scans; Golomb-Rice none) and writes the same <passlogfile>-0.log
+    and avi as python -m tpu_ffv1 -pass 1 -engine native (whose pass 1
+    counts on the spec engine); -pass 2 from the port's log then writes
+    the JAX CLI's pass-2 avi."""
+    _d, paths, _frames = media
+    logs = {k: str(tmp_path / f"stats_{k}") for k in ("t", "j")}
+    args = ["-i", paths["y4m"], *ENC, "-coder", coder, "-pass", "1"]
+    assert port_cli.run([*args, "-passlogfile", logs["t"], "-device", "cpu",
+                         str(tmp_path / "t1.avi")]) == 0
+    assert jax_run([*args, "-passlogfile", logs["j"], "-engine", "native",
+                    str(tmp_path / "j1.avi")]) == 0
+    texts = {}
+    for k, log in logs.items():
+        with open(f"{log}-0.log") as f:
+            texts[k] = f.read()
+    assert texts["t"] == texts["j"]
+    assert filecmp.cmp(tmp_path / "t1.avi", tmp_path / "j1.avi",
+                       shallow=False)
+    _both(tmp_path, capsys, ["-i", paths["y4m"], *ENC, "-coder", coder,
+                             "-pass", "2", "-passlogfile", logs["t"]],
+          "avi")
 
 
 def test_pass2_without_stats_exits(media, tmp_path):

@@ -373,20 +373,9 @@ def test_16bit_flipped_byte_flags_slice_and_conceals():
     dict(pix_fmt="yuv420p", coder=0, slices=6),          # Golomb, non-unif.
     dict(pix_fmt="yuv420p16le", coder=2, level=1),       # 16 bits, v1
     dict(pix_fmt="yuv420p", coder=2, level=2, strict=-2),  # version 2
-    dict(pix_fmt="yuv420p", coder=2, pass1=True),        # two-pass, 1st
-], ids=["golomb_rgb", "golomb_nonuniform", "16bit", "v2", "pass1"])
+], ids=["golomb_rgb", "golomb_nonuniform", "16bit", "v2"])
 def test_outside_the_slice_raises(kw):
     params = EncoderParams(**{"width": 50, "height": 40, "level": 3, **kw})
-    with pytest.raises(NotImplementedError):
-        TorchFFV1Encoder(params, device="cpu")
-
-
-@pytest.mark.parametrize("kw", [dict(pass1=True)], ids=["pass1"])
-def test_port_params_two_pass_raises(kw):
-    """The port's own EncoderParams carries the two-pass fields; the
-    encoder refuses them rather than ignore them."""
-    params = TorchEncoderParams(width=50, height=40, pix_fmt="yuv420p",
-                                level=3, coder=2, **kw)
     with pytest.raises(NotImplementedError):
         TorchFFV1Encoder(params, device="cpu")
 

@@ -5,7 +5,9 @@ state table the kernels keep in global memory), in the raw and the
 compact encode form, with the range coder and with Golomb-Rice (G1, G2
 in every instance), and RGB (bgr0 and gbrp14le through B1 and B1-ext,
 every instance of both on random bytes), version 4 (the RCT search,
-the per-lane RCT, the row bytes, the PCM retry); K1's, K1-ext's, K2's and
+the per-lane RCT, the row bytes, the PCM retry), two-pass encoding (the
+stats instances of K1 and K1-ext, find_best_state, pass 1 and pass 2
+against the host, K2 on a pass-2 stream); K1's, K1-ext's, K2's and
 K2-ext's stage probes, the lookup probes and the Golomb-Rice pixel-step
 probe.  Marked ``cuda``; each test skips where
 torch.cuda.is_available() is False (this file imports no jax, so it runs
@@ -1022,3 +1024,80 @@ def test_server_on_cuda_ingest_and_y4m_pull_lossless(cuda, tmp_path):
     assert (fmt, gw, gh, len(got)) == ("yuv420p", w, h, 4)
     assert all(np.array_equal(a, b) for fa, fb in zip(got, frames)
                for a, b in zip(fa, fb))
+
+
+@pytest.mark.parametrize("model", [0, 1], ids=["shared", "global"])
+@pytest.mark.parametrize("bits", [8, 10, 11, 16, 17])
+def test_rc_encode_stats_kernels_match_plain(cuda, bits, model):
+    """The stats instances of K1 and K1-ext (pass 1 of two-pass
+    encoding), in both table placements: the scan's outputs and the
+    decision counts equal their plain versions', and the scan's outputs
+    the production instance's."""
+    from tpu_ffv1_torch.tpu import rc_encode as K
+    CC = 2 * T.CONTEXT_COUNTS[model]
+    args = [*chip_smoke.random_encode_args(cuda, bits, 5, 700, CC,
+                                           300 + bits + model, 1), bits]
+    name = K.instance(bits, CC, stats=True)
+    before = K.LAUNCHES.get(name, 0)
+    got = K.rc_encode_stats(*args)
+    assert K.LAUNCHES[name] == before + 1
+    twin = K.rc_encode_ext_stats_ref if bits > 10 else K.rc_encode_stats_ref
+    want = twin(*[a.cpu() if isinstance(a, torch.Tensor) else a
+                  for a in args])
+    assert len(got) == len(want) == 6
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    for a, b in zip(got[:4], K.rc_encode_packed(*args)):
+        assert torch.equal(a, b)
+
+
+def test_find_best_state_kernel_matches_plain(cuda):
+    """find_best_state on the card against its plain version, bit for bit,
+    on VER2_STATE sorted by random counts (about 6 s of plain version)."""
+    from tpu_ffv1_torch.codec import twopass as TP
+    one = T.VER2_STATE.copy()
+    r = np.random.RandomState(9)
+    TP.sort_stt(r.randint(0, 1 << 20, (256, 2)).astype(np.uint64), one)
+    one[0] = 0
+    before = TP.LAUNCHES.get("find_best_state", 0)
+    got = TP.find_best_state_kernel(torch.from_numpy(one).to(cuda))
+    assert TP.LAUNCHES["find_best_state"] == before + 1
+    assert np.array_equal(got.cpu().numpy(), TP.find_best_state_ref(one))
+
+
+@pytest.mark.parametrize("pix_fmt", ["yuv420p", "yuv444p16le"])
+def test_two_pass_on_cuda_matches_host(cuda, pix_fmt):
+    """Pass 1 on the stats instances (K1, K1-ext) gives the host spec
+    encoder's text; pass 2 from it (find_best_state on the card) the host
+    native encoder's extradata and packets; and K2, from the tuned
+    initial states, decodes the 8-bit stream losslessly (above 8 bits
+    the host's pass-2 extradata is unreadable: its initial states have
+    more rows than its quant tables' contexts)."""
+    from tpu_ffv1_torch import EncoderParams as TP
+    from tpu_ffv1_torch import TorchFFV1Decoder, TorchFFV1Encoder
+    w, h = 48, 40
+    kw = dict(width=w, height=h, pix_fmt=pix_fmt, level=3, coder=2,
+              slices=4, gop_size=2)
+    frames = _frames(w, h, 4, 17) if pix_fmt == "yuv420p" else [
+        [np.random.RandomState(t + k).randint(0, 65536, (h, w))
+         .astype(np.uint16) >> (t % 3) for k in range(3)] for t in range(4)]
+    host = FFV1Encoder(EncoderParams(**kw, pass1=True))
+    for f in frames:
+        host.encode_frame(f)
+    text = host.get_stats()
+    enc = TorchFFV1Encoder(TP(**kw, pass1=True), device=cuda)
+    for f in frames:
+        enc.encode_frame(f)
+    assert enc.get_stats() == text
+    want = FFV1Encoder(EncoderParams(**kw, stats_in=text), engine="native")
+    want_pkts = [want.encode_frame(f) for f in frames]
+    enc = TorchFFV1Encoder(TP(**kw, stats_in=text), device=cuda)
+    assert enc.extradata == want.extradata
+    pkts = [enc.encode_frame(f) for f in frames]
+    assert pkts == want_pkts
+    if pix_fmt != "yuv420p":
+        return
+    dec = TorchFFV1Decoder(w, h, enc.extradata, device=cuda)
+    for f, (pkt, _key) in zip(frames, pkts):
+        planes = dec.decode_frame(pkt)[0]
+        assert all(np.array_equal(a, b) for a, b in zip(planes, f))

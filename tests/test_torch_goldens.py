@@ -29,7 +29,13 @@ compact-form paths
 host encoder on their content and configuration must give those of the
 path they name (their packets are the raw form's, byte for byte).
 The sharded phase's config5_4k digests are checked in
-tests/test_torch_goldens_4k.py.
+tests/test_torch_goldens_4k.py.  The twopass phase's: the host spec
+encoder's pass-1 statistics texts and packets of its two small cuts
+(2 x 2 frames of 256x144 yuv420p and of 128x72 yuv444p16le, 24
+slices, coder 2), the host native find_best_state table of VER2_STATE
+sorted by the 8-bit cut's stream-0 statistics, and the host native
+encoder's pass-2 extradata and packets of the 8bit path's first 4
+frames (2 streams) from those statistics.
 
 To rewrite the file after a deliberate change of the content or the
 configuration:  python tests/test_torch_goldens.py
@@ -146,6 +152,58 @@ def golden_ya8(name):
             "packets": packets}
 
 
+def golden_twopass():
+    """Digests of the twopass phase: each small cut's pass-1 packets and
+    statistics text per stream (the host spec encoder, the one that
+    counts), the native find_best_state table of the table that the
+    8-bit cut's stream-0 text sorts, and the native encoder's pass 2 of
+    the 8bit path's first frames from that text."""
+    from tpu_ffv1.codec.twopass import find_best_state, parse_stats, \
+        sort_stt
+    from tpu_ffv1.core import tables as JT
+    out = {}
+    for name in chip_smoke.TWOPASS_CUTS:
+        params = EncoderParams(**chip_smoke.twopass_cut_kw(name),
+                               pass1=True)
+        texts, packets = [], []
+        for frames in chip_smoke.twopass_cut_streams(name):
+            enc = FFV1Encoder(params)
+            assert enc.engine == "spec"
+            packets.append([])
+            for f in frames:
+                pkt, key = enc.encode_frame(f)
+                packets[-1].append(dict(chip_smoke.digest(pkt),
+                                        key=bool(key)))
+            texts.append(enc.get_stats())
+        out[name] = {"stats": [chip_smoke.digest(t.encode()) for t in texts],
+                     "packets": packets}
+        if name == "8bit":
+            stats_in = texts[0]
+    stt = JT.VER2_STATE.copy()
+    stt[0] = 0
+    sort_stt(parse_stats(stats_in, 2, JT.CONTEXT_COUNTS)[0], stt)
+    assert native.available(), \
+        "the host C tier (native/) must build for find_best_state"
+    out["find_best_state"] = chip_smoke.digest(find_best_state(stt)
+                                               .tobytes())
+    params = EncoderParams(**chip_smoke.params_kw("8bit"), stats_in=stats_in)
+    encs = [FFV1Encoder(params, engine="native")
+            for _ in range(chip_smoke.BATCH)]
+    packets = []
+    for enc, frames in zip(encs, chip_smoke.path_streams("8bit")):
+        packets.append([])
+        for f in frames[:chip_smoke.TWOPASS_FRAMES]:
+            pkt, key = enc.encode_frame(f)
+            packets[-1].append(dict(chip_smoke.digest(pkt), key=bool(key)))
+    out["pass2"] = {"extradata": chip_smoke.digest(encs[0].extradata),
+                    "packets": packets}
+    return out
+
+
+def test_twopass_goldens_match_host():
+    assert golden_twopass() == chip_smoke.load_goldens()["twopass"]
+
+
 @pytest.mark.parametrize("name", sorted(chip_smoke.YA8))
 def test_ya8_goldens_match_host_c_encoder(name):
     assert native.available(), \
@@ -182,6 +240,7 @@ if __name__ == "__main__":
     out["nonuniform_ext"] = golden_nonuniform()
     out.update((name, golden_pframe(name)) for name in chip_smoke.P_PATHS)
     out.update((name, golden_ya8(name)) for name in chip_smoke.YA8)
+    out["twopass"] = golden_twopass()
     from test_torch_goldens_4k import golden_config5
     out["config5_4k"] = golden_config5()
     with open(chip_smoke.GOLDENS, "w") as f:

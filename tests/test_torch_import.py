@@ -92,7 +92,7 @@ def test_chip_smoke_never_imports_jax():
 
 
 @pytest.mark.parametrize("tool", ["scan_variants", "warp_emu",
-                                  "pframe_smoke"])
+                                  "pframe_smoke", "twopass_smoke"])
 def test_tools_never_import_jax(tool):
     """The port's tools (tools/: the kernel-variant comparison on the
     card, the host warp emulation) import the port and chip_smoke.py,

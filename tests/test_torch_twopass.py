@@ -5,83 +5,41 @@ The copies (parse_stats, sort_stt, build_initial_states, the stats text)
 against their originals; find_best_state's plain version
 (``find_best_state_ref``) against the host's native fold, bit for bit,
 on the default state-transition table and on VER2_STATE sorted by
-random counts (about 6 s each); pass 2: ``TorchFFV1Encoder(stats_in=...,
-device="cpu")`` against the host ``FFV1Encoder(stats_in=...)`` (its
-native engine), extradata and every packet, with the statistics of the
-host's pass 1 on the same frames, over the range coder's two tables
-(coders 1 and 2, and -2), context models 0 and 1, 8 and 16 bits, bgr0,
-a non-uniform grid, version 4, Golomb-Rice (the tuned states reach its
-extradata only) and depth 2; and ``TorchFFV1Decoder(device="cpu")`` on
-pass-2 streams, lossless and equal to ``FFV1Decoder``.  Frames are 48x40
-(a non-uniform grid: 50x40), 4 frames at GOP 2, from a seed.  Exact:
-the codec is integer, and find_best_state's doubles follow the C fold's
-operations one by one."""
-import functools
+random counts (about 6 s each); the plain versions of the stats
+instances of K1 and K1-ext (``rc_encode_stats_ref``,
+``rc_encode_ext_stats_ref``) against the host's pass-1 hook on one lane
+of random residuals; both passes at depth 2, at batch 2 (a text per
+stream) and over ``devices=["cpu"] * 2``; version 4's PCM retry, whose
+slices count none of their scan's decisions; and ``TorchFFV1Decoder(
+device="cpu")`` on pass-2 streams, lossless and equal to
+``FFV1Decoder``.  The configuration matrix is in
+test_torch_twopass_matrix.py and test_torch_twopass_deep.py
+(tests/twopass_cases.py).  Exact: the codec is integer, and
+find_best_state's doubles follow the C fold's operations one by one."""
+import os
+import sys
 
 import numpy as np
 import pytest
+import torch
 
-from tpu_ffv1 import EncoderParams, FFV1Decoder, FFV1Encoder
+from tpu_ffv1 import FFV1Decoder
+from tpu_ffv1.bitstream.symbols import put_symbol
 from tpu_ffv1.codec import twopass as J
 from tpu_ffv1.core import tables as JT
-from tpu_ffv1.core.rac import build_rac_states
-from tpu_ffv1_torch import EncoderParams as TorchEncoderParams
-from tpu_ffv1_torch import TorchFFV1Decoder, TorchFFV1Encoder
+from tpu_ffv1.core.rac import RangeEncoder, build_rac_states, \
+    custom_state_tables
+from tpu_ffv1_torch import TorchFFV1Decoder
 from tpu_ffv1_torch.codec import twopass as P
+from tpu_ffv1_torch.tpu import rc_encode as K
 
+from .twopass_cases import (N_FRAMES, config, host_pass1, host_pass2,
+                            host_stats, port_pass1, port_pass2)
 from .util import synth_frames
 
-N_FRAMES, GOP = 4, 2
-
-# (id, EncoderParams fields): the pass-2 matrix
-CONFIGS = {
-    "coder2": dict(pix_fmt="yuv420p", coder=2),
-    "coder1_ctx1": dict(pix_fmt="yuv420p", coder=1, context_model=1),
-    "default_table": dict(pix_fmt="yuv420p", coder=-2),
-    "16bit": dict(pix_fmt="yuv444p16le", coder=2),
-    "16bit_ctx1": dict(pix_fmt="yuv420p16le", coder=1, context_model=1),
-    "bgr0": dict(pix_fmt="bgr0", coder=2),
-    "nonuniform": dict(pix_fmt="yuv420p", coder=2, width=50),
-    "v4": dict(pix_fmt="yuv420p", coder=2, level=4, strict=-2),
-    "golomb": dict(pix_fmt="yuv420p", coder=0),
-}
-
-
-def config(name):
-    """(EncoderParams fields, frames) of a configuration."""
-    kw = dict(dict(width=48, height=40, level=3, slices=4, gop_size=GOP),
-              **CONFIGS[name])
-    return kw, synth_frames(kw["pix_fmt"], kw["width"], kw["height"],
-                            N_FRAMES, seed=21)
-
-
-@functools.lru_cache(maxsize=None)
-def host_stats(name):
-    """The host's pass-1 statistics text on a configuration's frames."""
-    kw, frames = config(name)
-    enc = FFV1Encoder(EncoderParams(**kw, pass1=True))
-    for f in frames:
-        enc.encode_frame(f)
-    return enc.get_stats()
-
-
-def host_pass2(kw, frames, text):
-    enc = FFV1Encoder(EncoderParams(**kw, stats_in=text), engine="native")
-    assert enc.engine == "native"
-    return enc.extradata, [enc.encode_frame(f) for f in frames]
-
-
-def port_pass2(kw, frames, text, depth=1):
-    enc = TorchFFV1Encoder(TorchEncoderParams(**kw, stats_in=text),
-                           device="cpu")
-    out = []
-    for i, f in enumerate(frames):
-        enc.submit_frames([f])
-        if i + 1 >= depth:
-            out.append(enc.collect_frames()[0])
-    out += [enc.collect_frames()[0] for _ in range(depth - 1)]
-    return enc.extradata, out
-
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+import chip_smoke  # noqa: E402  (v4_pcm's content)
 
 def _random_stats(seed, counts=(JT.CONTEXT_COUNTS[0], JT.CONTEXT_COUNTS[1])):
     r = np.random.RandomState(seed)
@@ -147,27 +105,88 @@ def test_find_best_state_ref_matches_native(table):
     assert np.array_equal(P.find_best_state_ref(one, rows), want[rows])
 
 
-@pytest.mark.parametrize("name", sorted(CONFIGS))
-def test_pass2_matches_host(name):
-    """Extradata and packets of the port's pass 2 equal the host's, from
-    the host's pass-1 statistics of the same frames; Golomb-Rice, whose
-    pass 1 counts no decision, from the range coder's (coder2's), so
-    that tuned states reach its extradata."""
-    kw, frames = config(name)
-    text = host_stats("coder2" if name == "golomb" else name)
-    want = host_pass2(kw, frames, text)
-    assert port_pass2(kw, frames, text) == want
-    # the tuned states changed the stream (Golomb-Rice: its extradata)
-    plain = FFV1Encoder(EncoderParams(**kw), engine="native")
-    assert plain.extradata != want[0]
+@pytest.mark.parametrize("bits", [8, 16])
+def test_stats_twins_match_the_host_hook(bits):
+    """The stats instances' plain versions count what the host's pass-1
+    hook counts (symbols.put_symbol's stat_hook, the state before each
+    put_rac), on one lane of random residuals (above 10 bits the running
+    rows 10 and 31) and inactive pixels, from random start states; their
+    other outputs are the production scan's."""
+    CC = 2 * JT.CONTEXT_COUNTS[0]
+    r = np.random.RandomState(bits)
+    n = 600
+    ctx = r.randint(0, CC, (1, n))
+    ctx[0, 100:160] = ctx[0, 100]
+    e = r.randint(0, bits, (1, n))
+    a = (1 << e) | (r.randint(0, 1 << 30, (1, n)) & ((1 << e) - 1))
+    diff = np.where(r.rand(1, n) < 0.5, -a, a)
+    diff = np.where(r.rand(1, n) < 0.2, 0, diff)
+    act = r.rand(1, n) < 0.9
+    states = r.randint(1, 256, (1, CC, 32)).astype(np.uint8)
+    stt = JT.VER2_STATE.copy()
+    stt[0] = 0
+    one, zero = custom_state_tables(stt)
+    hook = J.Pass1Stats(1, [CC])
+    rc = RangeEncoder(one, zero)
+    host_states = states[0].copy()
+    for c, d, on in zip(ctx[0], diff[0], act[0]):
+        if on:
+            put_symbol(rc, host_states[c], int(d), True, hook.hook(0, c))
+    args = [torch.from_numpy(np.ascontiguousarray(x).astype(t)) for x, t in (
+        (ctx, np.int32), (diff, np.int32), (act, np.bool_),
+        (states, np.uint8), (one, np.uint8), (zero, np.uint8),
+        (np.zeros(1), np.int32), (np.full(1, 0xFF00), np.int32))]
+    twin = K.rc_encode_ext_stats_ref if bits > 10 else K.rc_encode_stats_ref
+    plain = K.rc_encode_packed_ext_ref if bits > 10 else \
+        K.rc_encode_packed_ref
+    got = twin(*args, bits)
+    assert np.array_equal(got[4][0].numpy(), hook.rc_stat)
+    assert np.array_equal(got[5][0].numpy(), hook.rc_stat2[0])
+    assert np.array_equal(got[3][0].numpy(), host_states)
+    assert all(torch.equal(x, y) for x, y in zip(got[:4], plain(*args, bits)))
 
 
-def test_pass2_depth2_matches_host():
-    """Two frames in flight write the same bytes."""
+@pytest.mark.parametrize("how", ["depth2", "batch2", "devices2"])
+def test_two_pass_in_flight_batched_and_sharded(how):
+    """Pass 1 at depth 2, at batch 2 (each stream its own text, the
+    second stream of other frames) and over devices=["cpu"] * 2 (each
+    lane block's counts gathered) gives the host's texts; pass 2 at depth
+    2 writes the host's bytes."""
     kw, frames = config("coder2")
-    text = host_stats("coder2")
-    assert port_pass2(kw, frames, text, depth=2) == \
-        host_pass2(kw, frames, text)
+    if how == "depth2":
+        assert port_pass1(kw, [frames], depth=2)[0] == [host_stats("coder2")]
+        text = host_stats("coder2")
+        assert port_pass2(kw, frames, text, depth=2) == \
+            host_pass2(kw, frames, text)
+        return
+    other = synth_frames(kw["pix_fmt"], kw["width"], kw["height"], N_FRAMES,
+                         seed=22)
+    enc_kw = dict(devices=["cpu"] * 2) if how == "devices2" else {}
+    texts, _pkts, _extradata = port_pass1(kw, [frames, other], **enc_kw)
+    assert texts == [host_stats("coder2"), host_pass1(kw, other)[0]]
+
+
+def test_pcm_slices_count_nothing():
+    """Version 4 (chip_smoke.py's v4_pcm content, 512x4 yuv444p16le, batch
+    2, GOP 3): stream 0's noise frames 0 and 2 retry every slice as PCM,
+    whose packets code none of the scan's decisions, and frame 1 codes
+    from the reset states, so stream 0's text is the host's pass 1 of
+    frame 1 alone (fresh states, one keyframe); stream 1 never retries,
+    and its text is the host's."""
+    kw = chip_smoke.pcm_kw()
+    streams = chip_smoke.synthetic_streams_pcm()
+    texts, pkts, extradata = port_pass1(kw, streams)
+    modes = []
+    for stream_pkts in pkts:
+        host = FFV1Decoder(kw["width"], kw["height"], extradata)
+        modes.append([])
+        for pkt, _key in stream_pkts:
+            host.decode_frame(pkt)
+            modes[-1].append([s.slice_coding_mode
+                              for s in host.slices[:host.slice_count]])
+    assert modes == [[[1] * 4, [0] * 4, [1] * 4], [[0] * 4] * 3]
+    assert texts == [host_pass1(kw, streams[0][1:2])[0],
+                     host_pass1(kw, streams[1])[0]]
 
 
 @pytest.mark.parametrize("name", ["coder2", "coder1_ctx1"])

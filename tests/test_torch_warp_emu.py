@@ -1,6 +1,7 @@
-"""The encoders' CUDA sources (csrc/rc_encode.cu, K1 and K1-compact;
-csrc/rc_encode_ext.cu, K1-ext; csrc/golomb_encode.cu, G1) and the
-Golomb-Rice pixel-step probe (csrc/golomb_probe.cu), compiled for the
+"""The encoders' CUDA sources (csrc/rc_encode.cu, K1, K1-compact and K1's
+stats instance; csrc/rc_encode_ext.cu, K1-ext and its stats instance;
+csrc/golomb_encode.cu, G1; csrc/find_best_state.cu, pass 2's table) and
+the Golomb-Rice pixel-step probe (csrc/golomb_probe.cu), compiled for the
 host under the warp emulation of tools/warp_emu (32 threads per block, a
 barrier per warp primitive), against their plain PyTorch versions on the
 same inputs, in every table placement (the decoders' sources are in
@@ -11,7 +12,11 @@ bits exponents drawn uniformly, so the running rows 10 and 31 carry
 from pixel to pixel.  G1 runs on chip_smoke.py's phase-4 edge inputs
 (run chunks, breaks, the line-end flush, zero residuals, escapes,
 inactive blocks, carried VLC states, and an output cap below the
-counts); the pixel-step probe, both modes, against its plain loop."""
+counts); the pixel-step probe, both modes, against its plain loop; the
+stats instances' decision counts on the encode inputs; find_best_state
+on the default and a sorted table against its plain version's rows at
+the edges of the probabilities (its doubles: the host's own IEEE
+operations, as the kernel's explicit __dmul_rn / __dadd_rn)."""
 import concurrent.futures
 import ctypes
 import os
@@ -21,8 +26,9 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_ffv1_torch.codec import twopass as TP
 from tpu_ffv1_torch.core import tables as T
-from tpu_ffv1_torch.core.rac import custom_state_tables
+from tpu_ffv1_torch.core.rac import build_rac_states, custom_state_tables
 from tpu_ffv1_torch.kernels import probes
 from tpu_ffv1_torch.tpu import golomb_encode as GE
 from tpu_ffv1_torch.tpu import rc_encode as K
@@ -54,7 +60,8 @@ def build_libs(tmp_path_factory, names):
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
     return build_libs(tmp_path_factory, ("rc_encode", "rc_encode_ext",
-                                         "golomb_encode", "golomb_probe"))
+                                         "golomb_encode", "golomb_probe",
+                                         "find_best_state"))
 
 
 def _args(bits, CC, seed):
@@ -86,26 +93,32 @@ def _args(bits, CC, seed):
         (r.randint(0x100, 0x10000, L), np.int32))]
 
 
-def _emulate(lib, entry, args, bits, gtab, width):
+def _emulate(lib, entry, args, bits, gtab, width, stats=False):
     ctx, diff, act, st0, one, zero, low0, rng0 = args
     CC = st0.shape[1]
     packed = np.full((L, N, width), 0x5A5A5A5A, np.int32)
     low, rng = np.zeros(L, np.int32), np.zeros(L, np.int32)
     states = st0.copy() if gtab else np.zeros_like(st0)
+    # a stats instance writes stat whole and adds to stat2
+    counts = (np.full((L, 256, 2), -7, np.int32),
+              np.zeros((L, CC, 32, 2), np.int32)) if stats else ()
     fn = getattr(lib, entry)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + \
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + \
+        [ctypes.c_void_p] * len(counts) + [ctypes.c_int] * 2 + \
         [ctypes.c_void_p]
     err = fn(*[a.ctypes.data for a in (ctx, diff, act, st0, one, zero, low0,
                                        rng0, packed, low, rng, states)],
-             L, N, CC, bits, int(gtab), None)
+             L, N, CC, *[c.ctypes.data for c in counts], bits, int(gtab),
+             None)
     assert err == 0
     assert lib.emu_fault_count() == 0, "warp primitives under a divergent " \
         "branch"
-    return [torch.from_numpy(x) for x in (packed, low, rng, states)]
+    return [torch.from_numpy(x) for x in (packed, low, rng, states, *counts)]
 
 
 def _check(got, want):
+    assert len(got) == len(want)
     assert torch.equal(got[0].permute(1, 2, 0), want[0])
     for a, b in zip(got[1:], want[1:]):
         assert torch.equal(a, b)
@@ -146,6 +159,49 @@ def test_rc_encode_source_matches_plain(libs, bits, compact, gtab):
                        gtab, 2 * bits + 1)
         want = K.rc_encode_packed_ref(*targs, bits)
     _check(got, want)
+
+
+@pytest.mark.parametrize("gtab", [False, True], ids=["shared", "global"])
+@pytest.mark.parametrize("bits", [8, 10, 11, 16, 17])
+def test_rc_encode_stats_source_matches_plain(libs, bits, gtab):
+    """The stats instances of K1 (8, 10 bits) and K1-ext (11, 16, 17: the
+    running rows' decisions each with its own state): every output of
+    the scan and the decision counts, against their plain versions."""
+    args = _args(bits, 2 * T.CONTEXT_COUNTS[0], 70 + bits + 100 * gtab)
+    ext = bits > 10
+    got = _emulate(libs["rc_encode_ext" if ext else "rc_encode"],
+                   f"rc_encode{'_ext' if ext else ''}_stats_launch", args,
+                   bits, gtab, 2 * bits + 1, stats=True)
+    twin = K.rc_encode_ext_stats_ref if ext else K.rc_encode_stats_ref
+    want = twin(*[torch.from_numpy(a) for a in args], bits)
+    assert int(want[5].sum()) > 0
+    _check(got, want)
+
+
+@pytest.mark.parametrize("table", ["default", "ver2_sorted"])
+def test_find_best_state_source_matches_plain(libs, table):
+    """The fold and the pick kernels on the whole table; the plain
+    version on the probabilities at the edges (i - 10 below 1, i + 10
+    past 255) and in the middle, where candidates tie closest."""
+    if table == "default":
+        one = build_rac_states()[0].copy()
+    else:
+        one = T.VER2_STATE.copy()
+        r = np.random.RandomState(5)
+        TP.sort_stt(r.randint(0, 1 << 20, (256, 2)).astype(np.uint64), one)
+    one = np.ascontiguousarray(one, np.uint8)
+    one[0] = 0
+    l2 = TP.l2tab()
+    lens = np.zeros((256 * TP.SPAN, 256))
+    best = np.zeros((256, 256), np.uint8)
+    fn = libs["find_best_state"].find_best_state_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5
+    assert fn(one.ctypes.data, l2.ctypes.data, lens.ctypes.data,
+              best.ctypes.data, None) == 0
+    assert libs["find_best_state"].emu_fault_count() == 0
+    rows = [0, 1, 5, 10, 11, 64, 127, 128, 129, 200, 245, 246, 254, 255]
+    assert np.array_equal(best[rows], TP.find_best_state_ref(one, rows))
 
 
 def emulate_golomb_encode(lib, args, bits, cc, gtab, cap=None):

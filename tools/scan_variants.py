@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Compare copies of a lane scan's source on the card: K1-ext
-(csrc/rc_encode_ext.cu), K2 (csrc/rc_decode.cu), K2-ext
-(csrc/rc_decode_ext.cu), G1 (csrc/golomb_encode.cu) or G2
-(csrc/golomb_decode.cu).
+"""Compare copies of a lane scan's source on the card: K1
+(csrc/rc_encode.cu), K1-ext (csrc/rc_encode_ext.cu), K2
+(csrc/rc_decode.cu), K2-ext (csrc/rc_decode_ext.cu), G1
+(csrc/golomb_encode.cu) or G2 (csrc/golomb_decode.cu).
 
     python3 tools/scan_variants.py
-        [--source rc_encode_ext|rc_decode|rc_decode_ext|golomb_encode|
-                  golomb_decode]
+        [--source rc_encode|rc_encode_ext|rc_decode|rc_decode_ext|
+                  golomb_encode|golomb_decode]
         [--variant TAG=PATH ...] [--reps 5] [--stages]
         [--sass-against PATH] [--sass-loops DIR]
 
@@ -19,8 +19,9 @@ package's nvcc flags into its own directory under
 spills are printed.  Then, on the warm-up inputs of chip_smoke.py's
 ``16bit`` path (1080p yuv444p16le, 48 lanes: K1-ext's and K2-ext's
 shared-memory instances) and ``16bit_ctx1_540p`` path (K1-ext's
-global-memory instance, K2-ext-five), or for K2 of its ``8bit`` and
-``8bit_ctx1`` paths (K2, K2-five), recorded from the port's encoder or
+global-memory instance, K2-ext-five), or for K1 and K2 of its ``8bit``
+and ``8bit_ctx1`` paths (K1 and its global-memory instance; K2,
+K2-five), recorded from the port's encoder or
 decoder exactly as chip_smoke.py records them; for G1 and G2 those of
 the ``8bit_golomb`` path (1080p yuv420p, Golomb-Rice: G1's two
 instances and G2's four, each instance on the same inputs) and of the
@@ -41,7 +42,9 @@ instances and G2's four, each instance on the same inputs) and of the
 ``--sass-against PATH`` builds PATH (a source with or without
 ``STAGES``) and checks that every production instance of the tree's
 source has the same SASS as PATH's instance of the same template
-arguments (``cuobjdump -sass``).
+arguments (``cuobjdump -sass``); only ``<source>_kernel`` is compared,
+not the stats kernels of K1 and K1-ext (``<source>_stats_kernel``, pass
+1 of two-pass encoding).
 
 ``--sass-loops DIR`` (K2, K2-ext and B1, B1-ext's sources) counts the
 pixel loop of every variant's instance on each path: its instructions,
@@ -79,7 +82,9 @@ VARIANT_DIR = os.path.join(build.BUILD_DIR, "variants")
 # per source: the paths whose warm-up inputs it runs and the instance
 # each launches; its stage variants ("full": the production instances'
 # STAGES)
-INPUTS = {"rc_encode_ext": (("16bit", "rc_encode_ext"),
+INPUTS = {"rc_encode": (("8bit", "rc_encode"),
+                        ("8bit_ctx1", "rc_encode_global")),
+          "rc_encode_ext": (("16bit", "rc_encode_ext"),
                             ("16bit_ctx1_540p", "rc_encode_ext_global")),
           "rc_decode": (("8bit", "rc_decode"),
                         ("8bit_ctx1", "rc_decode_five_global"),
@@ -96,7 +101,8 @@ INPUTS = {"rc_encode_ext": (("16bit", "rc_encode_ext"),
                             ("8bit_golomb", "golomb_decode_global"),
                             ("8bit_golomb", "golomb_decode_five_global"),
                             ("ya8_golomb", "golomb_decode"))}
-STAGE_VARIANTS = {"rc_encode_ext": rc_encode.EXT_STAGE_VARIANTS,
+STAGE_VARIANTS = {"rc_encode": rc_encode.STAGE_VARIANTS,
+                  "rc_encode_ext": rc_encode.EXT_STAGE_VARIANTS,
                   "rc_decode": rc_decode.STAGE_VARIANTS,
                   "rc_decode_ext": rc_decode.EXT_STAGE_VARIANTS,
                   "golomb_encode": golomb_encode.STAGE_VARIANTS,
@@ -140,9 +146,12 @@ def same_sass(name, tree_dir, other_dir):
     build, each against the tree's production instance (STAGES =
     ALL_STAGES) of the same other template arguments: where the other
     source has no STAGES, every instance of it; the first differing
-    instructions of an instance that differs are printed."""
-    mine = cs.sass_functions(name, tree_dir)
-    theirs = cs.sass_functions(name, other_dir)
+    instructions of an instance that differs are printed.  Only the
+    ``<name>_kernel`` instances count."""
+    mine, theirs = ({label: ins for label, ins in
+                     cs.sass_functions(name, d).items()
+                     if label.startswith(f"{name}_kernel<")}
+                    for d in (tree_dir, other_dir))
     full = str(STAGE_VARIANTS[name]["full"])
     n_tree = len(re.match(r".*<(.*)>", next(iter(mine)))[1].split(","))
     # the other's ALL_STAGES: its largest STAGES (a source that adds a
@@ -198,13 +207,14 @@ def loop_counts(ins):
 def instance_label(name, inst, bits, full):
     """The template instance ``<name>_kernel<...>`` of kernel instance
     ``inst`` at ``bits`` in a build whose ALL_STAGES is ``full``
-    (rc_decode and rc_decode_ext: BITS, FIVE, GTAB, RGB, STAGES)."""
+    (rc_decode and rc_decode_ext: BITS, FIVE, GTAB, RGB, STAGES; the
+    --sass-loops count reads the decoders only)."""
     return (f"{name}_kernel<{bits},{int('_five' in inst)},"
             f"{int(inst.endswith('_global'))},{int('_rgb' in inst)},{full}>")
 
 
 def warmup_inputs(dev, source):
-    """{path: (args, outputs)} of the encoder's (rc_encode_ext,
+    """{path: (args, outputs)} of the encoder's (rc_encode, rc_encode_ext,
     golomb_encode) or the decoder's (rc_decode, rc_decode_ext,
     golomb_decode) lane-scan launch on each path's warm-up frame (frames
     0 and 1 of chip_smoke.py's content)."""

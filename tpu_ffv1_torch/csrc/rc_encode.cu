@@ -101,6 +101,21 @@
 // WRITE: the adaptation store; CHAIN: the low/range chain and its
 // emissions (stubbed: each slot stores its owner's state, so the reads
 // stay live).  The production instances are ALL_STAGES.
+//
+// Stats instances (rc_encode_stats_kernel: the scan's body with STATS =
+// true, raw form, ALL_STAGES; reached through rc_encode_stats_launch by
+// the two-pass encoder's pass 1; rc_encode_kernel, with STATS = false,
+// keeps the parameters and the SASS it had before the stats instances
+// existed, tools/scan_variants.py --sass-against) also count every
+// decision the host's pass-1 hook counts
+// (tpu_ffv1/bitstream/symbols.py:26-29, the state read before put_rac):
+// per lane, stat2[row][slot][bit] (row the pixel's context row, slot the
+// row position) and stat[state][bit] (the state before its update).
+// Thread t owns position t of the row, so each (row, slot) of a lane has
+// one writer, its count a fire-and-forget global atomic off the chain; the
+// 256 x 2 state counts gather in shared memory with shared atomics
+// (threads meet on one state) and are written out at the end.  Inactive
+// pixels count nothing.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -138,15 +153,18 @@ struct Coder {
   }
 };
 
-template <int BITS, bool GTAB, bool COMPACT, int STAGES>
-__global__ void __launch_bounds__(32) rc_encode_kernel(
+// The lane scan, inlined into the production kernel (STATS = false) and
+// the stats kernel (STATS = true) below.
+template <int BITS, bool GTAB, bool COMPACT, int STAGES, bool STATS>
+__device__ __forceinline__ void rc_encode_body(
     const int32_t* __restrict__ ctx, const int32_t* __restrict__ diff,
     const uint8_t* __restrict__ active, const uint8_t* __restrict__ states0,
     const uint8_t* __restrict__ one_tab, const uint8_t* __restrict__ zero_tab,
     const int32_t* __restrict__ low0, const int32_t* __restrict__ range0,
     int32_t* __restrict__ packed, int32_t* __restrict__ low_out,
     int32_t* __restrict__ range_out, uint8_t* __restrict__ states_out,
-    int N, int CC) {
+    int N, int CC, int32_t* __restrict__ stat,
+    int32_t* __restrict__ stat2) {
   constexpr int E_MAX = BITS - 1;
   constexpr int S = 2 * BITS + 1;   // zero, E_MAX+1 exp, E_MAX man, sign
   constexpr int SOUT = COMPACT ? 8 : S;   // ints stored per pixel
@@ -157,6 +175,11 @@ __global__ void __launch_bounds__(32) rc_encode_kernel(
   uint8_t* st = GTAB ? states_out + (size_t)lane * CC * 32 : smem;
   uint8_t* one_s = smem + (GTAB ? 0 : CC * 32);
   uint8_t* zero_s = one_s + 256;
+  // stats instances: the lane's state counts [state][bit] after zero_s,
+  // and its rows' [row][slot][bit] counts (named only where STATS holds:
+  // the production instances' code stays as it was)
+#define SSTAT reinterpret_cast<int*>(zero_s + 256)
+#define STAT2_L (stat2 + (size_t)lane * CC * 64)
 
   if (!GTAB) {
     const uint4* src = reinterpret_cast<const uint4*>(
@@ -167,6 +190,9 @@ __global__ void __launch_bounds__(32) rc_encode_kernel(
   for (int i = t; i < 256; i += 32) {
     one_s[i] = one_tab[i];
     zero_s[i] = zero_tab[i];
+  }
+  if constexpr (STATS) {
+    for (int i = t; i < 512; i += 32) SSTAT[i] = 0;
   }
   __syncwarp();
 
@@ -280,6 +306,12 @@ __global__ void __launch_bounds__(32) rc_encode_kernel(
       const int bit_t = (bit_m >> t) & 1;
       if constexpr ((STAGES & STAGE_CHAIN) == 0)
         my_pv = mys | (act_t ? 1 << 20 : 0);
+      if constexpr (STATS) {
+        if (act_t) {
+          atomicAdd(&SSTAT[mys * 2 + bit_t], 1);
+          atomicAdd(&STAT2_L[(c * 32 + t) * 2 + bit_t], 1);
+        }
+      }
       // its adapted byte
       int new_t = mys;
       if constexpr ((STAGES & STAGE_TRANS) != 0) {
@@ -327,28 +359,84 @@ __global__ void __launch_bounds__(32) rc_encode_kernel(
     for (int i = t; i < CC * 2; i += 32)
       dst[i] = reinterpret_cast<const uint4*>(st)[i];
   }
+  if constexpr (STATS) {
+    for (int i = t; i < 512; i += 32) stat[(size_t)lane * 512 + i] = SSTAT[i];
+  }
+#undef SSTAT
+#undef STAT2_L
 }
 
+// The production instances and the stage probes: the kernel's
+// parameters and code are those it had before the stats instances.
 template <int BITS, bool GTAB, bool COMPACT, int STAGES>
+__global__ void __launch_bounds__(32) rc_encode_kernel(
+    const int32_t* __restrict__ ctx, const int32_t* __restrict__ diff,
+    const uint8_t* __restrict__ active, const uint8_t* __restrict__ states0,
+    const uint8_t* __restrict__ one_tab, const uint8_t* __restrict__ zero_tab,
+    const int32_t* __restrict__ low0, const int32_t* __restrict__ range0,
+    int32_t* __restrict__ packed, int32_t* __restrict__ low_out,
+    int32_t* __restrict__ range_out, uint8_t* __restrict__ states_out,
+    int N, int CC) {
+  rc_encode_body<BITS, GTAB, COMPACT, STAGES, false>(
+      ctx, diff, active, states0, one_tab, zero_tab, low0, range0, packed,
+      low_out, range_out, states_out, N, CC, nullptr, nullptr);
+}
+
+// The stats instances (pass 1): the same scan with its decision counts.
+template <int BITS, bool GTAB>
+__global__ void __launch_bounds__(32) rc_encode_stats_kernel(
+    const int32_t* __restrict__ ctx, const int32_t* __restrict__ diff,
+    const uint8_t* __restrict__ active, const uint8_t* __restrict__ states0,
+    const uint8_t* __restrict__ one_tab, const uint8_t* __restrict__ zero_tab,
+    const int32_t* __restrict__ low0, const int32_t* __restrict__ range0,
+    int32_t* __restrict__ packed, int32_t* __restrict__ low_out,
+    int32_t* __restrict__ range_out, uint8_t* __restrict__ states_out,
+    int N, int CC, int32_t* __restrict__ stat,
+    int32_t* __restrict__ stat2) {
+  rc_encode_body<BITS, GTAB, false, ALL_STAGES, true>(
+      ctx, diff, active, states0, one_tab, zero_tab, low0, range0, packed,
+      low_out, range_out, states_out, N, CC, stat, stat2);
+}
+
+template <int BITS, bool GTAB, bool COMPACT, int STAGES, bool STATS = false>
 static int launch(const void* ctx, const void* diff, const void* active,
                   const void* states0, const void* one_tab,
                   const void* zero_tab, const void* low0,
                   const void* range0, void* packed, void* low_out,
                   void* range_out, void* states_out, int L, int N, int CC,
-                  cudaStream_t stream) {
-  const size_t smem = (GTAB ? 0 : (size_t)CC * 32) + 512;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        rc_encode_kernel<BITS, GTAB, COMPACT, STAGES>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+                  cudaStream_t stream, void* stat = nullptr,
+                  void* stat2 = nullptr) {
+  // the state table (shared-memory instance), one_tab and zero_tab, and
+  // a stats instance's state counts (rc_encode.py: other_smem_bytes)
+  const size_t smem = (GTAB ? 0 : (size_t)CC * 32) + 512 + (STATS ? 2048 : 0);
+  if constexpr (STATS) {
+    if (smem > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(
+          rc_encode_stats_kernel<BITS, GTAB>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    rc_encode_stats_kernel<BITS, GTAB><<<L, 32, smem, stream>>>(
+        (const int32_t*)ctx, (const int32_t*)diff, (const uint8_t*)active,
+        (const uint8_t*)states0, (const uint8_t*)one_tab,
+        (const uint8_t*)zero_tab, (const int32_t*)low0,
+        (const int32_t*)range0, (int32_t*)packed, (int32_t*)low_out,
+        (int32_t*)range_out, (uint8_t*)states_out, N, CC, (int32_t*)stat,
+        (int32_t*)stat2);
+  } else {
+    if (smem > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(
+          rc_encode_kernel<BITS, GTAB, COMPACT, STAGES>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    rc_encode_kernel<BITS, GTAB, COMPACT, STAGES><<<L, 32, smem, stream>>>(
+        (const int32_t*)ctx, (const int32_t*)diff, (const uint8_t*)active,
+        (const uint8_t*)states0, (const uint8_t*)one_tab,
+        (const uint8_t*)zero_tab, (const int32_t*)low0,
+        (const int32_t*)range0, (int32_t*)packed, (int32_t*)low_out,
+        (int32_t*)range_out, (uint8_t*)states_out, N, CC);
   }
-  rc_encode_kernel<BITS, GTAB, COMPACT, STAGES><<<L, 32, smem, stream>>>(
-      (const int32_t*)ctx, (const int32_t*)diff, (const uint8_t*)active,
-      (const uint8_t*)states0, (const uint8_t*)one_tab,
-      (const uint8_t*)zero_tab, (const int32_t*)low0,
-      (const int32_t*)range0, (int32_t*)packed, (int32_t*)low_out,
-      (int32_t*)range_out, (uint8_t*)states_out, N, CC);
   return (int)cudaGetLastError();
 }
 
@@ -361,13 +449,16 @@ static int launch(const void* ctx, const void* diff, const void* active,
       const void *low0, const void *range0, void *packed, void *low_out,   \
       void *range_out, void *states_out, int L, int N, int CC
 
-template <bool COMPACT>
-static int launch_bits(RC_ENC_PARAMS, int bits, int gtab, void* stream) {
+template <bool COMPACT, bool STATS = false>
+static int launch_bits(RC_ENC_PARAMS, int bits, int gtab, void* stream,
+                       void* stat = nullptr, void* stat2 = nullptr) {
   cudaStream_t s = (cudaStream_t)stream;
 #define RC_ENC_CASE(B)                                                     \
   case B:                                                                  \
-    return gtab ? launch<B, true, COMPACT, ALL_STAGES>(RC_ENC_ARGS, s)     \
-                : launch<B, false, COMPACT, ALL_STAGES>(RC_ENC_ARGS, s);
+    return gtab ? launch<B, true, COMPACT, ALL_STAGES, STATS>(             \
+                      RC_ENC_ARGS, s, stat, stat2)                         \
+                : launch<B, false, COMPACT, ALL_STAGES, STATS>(            \
+                      RC_ENC_ARGS, s, stat, stat2);
   switch (bits) {
     RC_ENC_CASE(1) RC_ENC_CASE(2) RC_ENC_CASE(3) RC_ENC_CASE(4)
     RC_ENC_CASE(5) RC_ENC_CASE(6) RC_ENC_CASE(7) RC_ENC_CASE(8)
@@ -391,6 +482,16 @@ extern "C" int rc_encode_launch(RC_ENC_PARAMS, int bits, int gtab,
 extern "C" int rc_encode_compact_launch(RC_ENC_PARAMS, int bits, int gtab,
                                         void* stream) {
   return launch_bits<true>(RC_ENC_ARGS, bits, gtab, stream);
+}
+
+// K1's stats instance (pass 1 of two-pass encoding): K1's raw slots,
+// low, range and states, and the lane's decision counts, stat int32
+// (L, 256, 2) written whole and stat2 int32 (L, CC, 32, 2) added to
+// (the caller zeroes it).
+extern "C" int rc_encode_stats_launch(RC_ENC_PARAMS, void* stat, void* stat2,
+                                      int bits, int gtab, void* stream) {
+  return launch_bits<false, true>(RC_ENC_ARGS, bits, gtab, stream, stat,
+                                  stat2);
 }
 
 // The stage probes: K1 at 8 bits with the stages of the bitmask

@@ -101,6 +101,20 @@
 // emissions and the states' shuffles (stubbed: each slot owner stores its
 // byte); RUN: the running rows' lookups (stubbed: s10 and s31 stay).
 // The production instances are ALL_STAGES.
+//
+// Stats instances (rc_encode_ext_stats_kernel: the scan's body with STATS
+// = true, ALL_STAGES; reached through rc_encode_ext_stats_launch by the
+// two-pass encoder's pass 1; rc_encode_ext_kernel, with STATS = false,
+// keeps the parameters and the SASS it had before the stats instances
+// existed, tools/scan_variants.py --sass-against) also count every
+// decision as the host's pass-1 hook does
+// (tpu_ffv1/bitstream/symbols.py:26-29, the state read before put_rac), as
+// K1's (csrc/rc_encode.cu): per lane, stat2[row][slot][bit] by a global
+// atomic of the slot's owner, and stat[state][bit] in shared memory.  The
+// running rows count each of their decisions with its own state: thread 10
+// row 10's (one^k(s10), k = 0..e-9, bits 1 then a 0), thread 31 row 31's
+// (the mantissa bits e-1..9 on the states the chain's lookups gave).
+// Inactive pixels count nothing.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -152,15 +166,18 @@ __device__ __forceinline__ int packed_value(int cap_r, int cap_l) {
              : 0;
 }
 
-template <int BITS, bool GTAB, int STAGES>
-__global__ void __launch_bounds__(32) rc_encode_ext_kernel(
+// The lane scan, inlined into the production kernel (STATS = false) and
+// the stats kernel (STATS = true) below.
+template <int BITS, bool GTAB, int STAGES, bool STATS>
+__device__ __forceinline__ void rc_encode_ext_body(
     const int32_t* __restrict__ ctx, const int32_t* __restrict__ diff,
     const uint8_t* __restrict__ active, const uint8_t* __restrict__ states0,
     const uint8_t* __restrict__ one_tab, const uint8_t* __restrict__ zero_tab,
     const int32_t* __restrict__ low0, const int32_t* __restrict__ range0,
     int32_t* __restrict__ packed, int32_t* __restrict__ low_out,
     int32_t* __restrict__ range_out, uint8_t* __restrict__ states_out,
-    int N, int CC) {
+    int N, int CC, int32_t* __restrict__ stat,
+    int32_t* __restrict__ stat2) {
   constexpr int E_MAX = BITS - 1;
   constexpr int N_R10 = E_MAX - 8;          // row-10 decisions, j = 9..E_MAX
   constexpr int N_M31 = E_MAX - 9;          // row-31 decisions, r = 0..
@@ -175,6 +192,11 @@ __global__ void __launch_bounds__(32) rc_encode_ext_kernel(
   uint8_t* zero_s = one_s + 256;
   // one_pow[k - 1][s] = one_tab applied k times to s, k = 1..N_R10-1
   uint8_t* one_pow = zero_s + 256;
+  // stats instances: the lane's state counts [state][bit] after one_pow,
+  // and its rows' [row][slot][bit] counts (named only where STATS holds:
+  // the production instances' code stays as it was)
+#define SSTAT reinterpret_cast<int*>(one_pow + 256 * (N_R10 - 1))
+#define STAT2_L (stat2 + (size_t)lane * CC * 64)
 
   if (!GTAB) {
     const uint4* src = reinterpret_cast<const uint4*>(
@@ -185,6 +207,9 @@ __global__ void __launch_bounds__(32) rc_encode_ext_kernel(
   for (int i = t; i < 256; i += 32) {
     one_s[i] = one_tab[i];
     zero_s[i] = zero_tab[i];
+  }
+  if constexpr (STATS) {
+    for (int i = t; i < 512; i += 32) SSTAT[i] = 0;
   }
   __syncwarp();
   for (int i = t; i < 256; i += 32) {
@@ -337,6 +362,27 @@ __global__ void __launch_bounds__(32) rc_encode_ext_kernel(
           my_pv0 = packed_value(cd.cap_r0, cd.cap_l0);
           my_pv1 = packed_value(cd.cap_r1, cd.cap_l1);
         }
+        if constexpr (STATS) {
+          // the running rows' decisions, each with its own state
+          if (e >= 9 && t == 10) {
+#pragma unroll
+            for (int k = 0; k < N_R10; ++k) {
+              if (k > e - 9) break;
+              atomicAdd(&SSTAT[p10[k] * 2 + (k < e - 9)], 1);
+            }
+            atomicAdd(&STAT2_L[(c * 32 + 10) * 2 + 1], e - 9);
+            atomicAdd(&STAT2_L[(c * 32 + 10) * 2], 1);
+          }
+          if (e >= 10 && t == 31) {
+#pragma unroll
+            for (int r = 0; r < N_M31; ++r) {
+              if (r > e - 10) break;
+              const int b = (a >> (e - 1 - r)) & 1;
+              atomicAdd(&SSTAT[p31[r] * 2 + b], 1);
+              atomicAdd(&STAT2_L[(c * 32 + 31) * 2 + b], 1);
+            }
+          }
+        }
       } else if (ap) {
         if constexpr ((STAGES & STAGE_CHAIN) != 0) {
           const int s0 = __shfl_sync(FULL_MASK, mys, 0);
@@ -375,6 +421,12 @@ __global__ void __launch_bounds__(32) rc_encode_ext_kernel(
         if (act_t) new_t = bit_t ? up : dn;
       }
       if (run_t) new_t = t == 10 ? fin10 : fin31;
+      if constexpr (STATS) {
+        if (act_t) {
+          atomicAdd(&SSTAT[mys * 2 + bit_t], 1);
+          atomicAdd(&STAT2_L[(c * 32 + t) * 2 + bit_t], 1);
+        }
+      }
       int32_t* px = out_l + (size_t)(base + j) * S;
       if (t < S) px[t] = my_pv0;
       if (t + 32 < S) px[t + 32] = my_pv1;
@@ -403,30 +455,85 @@ __global__ void __launch_bounds__(32) rc_encode_ext_kernel(
     for (int i = t; i < CC * 2; i += 32)
       dst[i] = reinterpret_cast<const uint4*>(st)[i];
   }
+  if constexpr (STATS) {
+    for (int i = t; i < 512; i += 32) stat[(size_t)lane * 512 + i] = SSTAT[i];
+  }
+#undef SSTAT
+#undef STAT2_L
 }
 
+// The production instances and the stage probes: the kernel's
+// parameters and code are those it had before the stats instances.
 template <int BITS, bool GTAB, int STAGES>
+__global__ void __launch_bounds__(32) rc_encode_ext_kernel(
+    const int32_t* __restrict__ ctx, const int32_t* __restrict__ diff,
+    const uint8_t* __restrict__ active, const uint8_t* __restrict__ states0,
+    const uint8_t* __restrict__ one_tab, const uint8_t* __restrict__ zero_tab,
+    const int32_t* __restrict__ low0, const int32_t* __restrict__ range0,
+    int32_t* __restrict__ packed, int32_t* __restrict__ low_out,
+    int32_t* __restrict__ range_out, uint8_t* __restrict__ states_out,
+    int N, int CC) {
+  rc_encode_ext_body<BITS, GTAB, STAGES, false>(
+      ctx, diff, active, states0, one_tab, zero_tab, low0, range0, packed,
+      low_out, range_out, states_out, N, CC, nullptr, nullptr);
+}
+
+// The stats instances (pass 1): the same scan with its decision counts.
+template <int BITS, bool GTAB>
+__global__ void __launch_bounds__(32) rc_encode_ext_stats_kernel(
+    const int32_t* __restrict__ ctx, const int32_t* __restrict__ diff,
+    const uint8_t* __restrict__ active, const uint8_t* __restrict__ states0,
+    const uint8_t* __restrict__ one_tab, const uint8_t* __restrict__ zero_tab,
+    const int32_t* __restrict__ low0, const int32_t* __restrict__ range0,
+    int32_t* __restrict__ packed, int32_t* __restrict__ low_out,
+    int32_t* __restrict__ range_out, uint8_t* __restrict__ states_out,
+    int N, int CC, int32_t* __restrict__ stat,
+    int32_t* __restrict__ stat2) {
+  rc_encode_ext_body<BITS, GTAB, ALL_STAGES, true>(
+      ctx, diff, active, states0, one_tab, zero_tab, low0, range0, packed,
+      low_out, range_out, states_out, N, CC, stat, stat2);
+}
+
+template <int BITS, bool GTAB, int STAGES, bool STATS = false>
 static int launch(const void* ctx, const void* diff, const void* active,
                   const void* states0, const void* one_tab,
                   const void* zero_tab, const void* low0,
                   const void* range0, void* packed, void* low_out,
                   void* range_out, void* states_out, int L, int N, int CC,
-                  cudaStream_t stream) {
-  // the state table (shared-memory instance), one_tab, zero_tab and
-  // one_pow (rc_encode.py: other_smem_bytes)
-  const size_t smem = (GTAB ? 0 : (size_t)CC * 32) + 512 + 256 * (BITS - 10);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        rc_encode_ext_kernel<BITS, GTAB, STAGES>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+                  cudaStream_t stream, void* stat = nullptr,
+                  void* stat2 = nullptr) {
+  // the state table (shared-memory instance), one_tab, zero_tab, one_pow
+  // and a stats instance's state counts (rc_encode.py: other_smem_bytes)
+  const size_t smem = (GTAB ? 0 : (size_t)CC * 32) + 512 +
+                      256 * (BITS - 10) + (STATS ? 2048 : 0);
+  if constexpr (STATS) {
+    if (smem > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(
+          rc_encode_ext_stats_kernel<BITS, GTAB>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    rc_encode_ext_stats_kernel<BITS, GTAB><<<L, 32, smem, stream>>>(
+        (const int32_t*)ctx, (const int32_t*)diff, (const uint8_t*)active,
+        (const uint8_t*)states0, (const uint8_t*)one_tab,
+        (const uint8_t*)zero_tab, (const int32_t*)low0,
+        (const int32_t*)range0, (int32_t*)packed, (int32_t*)low_out,
+        (int32_t*)range_out, (uint8_t*)states_out, N, CC, (int32_t*)stat,
+        (int32_t*)stat2);
+  } else {
+    if (smem > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(
+          rc_encode_ext_kernel<BITS, GTAB, STAGES>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    rc_encode_ext_kernel<BITS, GTAB, STAGES><<<L, 32, smem, stream>>>(
+        (const int32_t*)ctx, (const int32_t*)diff, (const uint8_t*)active,
+        (const uint8_t*)states0, (const uint8_t*)one_tab,
+        (const uint8_t*)zero_tab, (const int32_t*)low0,
+        (const int32_t*)range0, (int32_t*)packed, (int32_t*)low_out,
+        (int32_t*)range_out, (uint8_t*)states_out, N, CC);
   }
-  rc_encode_ext_kernel<BITS, GTAB, STAGES><<<L, 32, smem, stream>>>(
-      (const int32_t*)ctx, (const int32_t*)diff, (const uint8_t*)active,
-      (const uint8_t*)states0, (const uint8_t*)one_tab,
-      (const uint8_t*)zero_tab, (const int32_t*)low0,
-      (const int32_t*)range0, (int32_t*)packed, (int32_t*)low_out,
-      (int32_t*)range_out, (uint8_t*)states_out, N, CC);
   return (int)cudaGetLastError();
 }
 
@@ -439,16 +546,16 @@ static int launch(const void* ctx, const void* diff, const void* active,
       const void *low0, const void *range0, void *packed, void *low_out,   \
       void *range_out, void *states_out, int L, int N, int CC
 
-// Plain C entry point: returns the cudaError_t of the launch (0 = ok).
-// gtab != 0 selects the table-in-global-memory instance; states_out must
-// then hold a copy of states0.
-extern "C" int rc_encode_ext_launch(RC_ENC_EXT_PARAMS, int bits, int gtab,
-                                    void* stream) {
+template <bool STATS>
+static int launch_bits(RC_ENC_EXT_PARAMS, int bits, int gtab, void* stream,
+                       void* stat, void* stat2) {
   cudaStream_t s = (cudaStream_t)stream;
 #define RC_ENC_EXT_CASE(B)                                                 \
   case B:                                                                  \
-    return gtab ? launch<B, true, ALL_STAGES>(RC_ENC_EXT_ARGS, s)          \
-                : launch<B, false, ALL_STAGES>(RC_ENC_EXT_ARGS, s);
+    return gtab ? launch<B, true, ALL_STAGES, STATS>(RC_ENC_EXT_ARGS, s,   \
+                                                     stat, stat2)          \
+                : launch<B, false, ALL_STAGES, STATS>(RC_ENC_EXT_ARGS, s,  \
+                                                      stat, stat2);
   switch (bits) {
     RC_ENC_EXT_CASE(11) RC_ENC_EXT_CASE(12) RC_ENC_EXT_CASE(13)
     RC_ENC_EXT_CASE(14) RC_ENC_EXT_CASE(15) RC_ENC_EXT_CASE(16)
@@ -457,6 +564,26 @@ extern "C" int rc_encode_ext_launch(RC_ENC_EXT_PARAMS, int bits, int gtab,
       return (int)cudaErrorInvalidValue;
   }
 #undef RC_ENC_EXT_CASE
+}
+
+// Plain C entry point: returns the cudaError_t of the launch (0 = ok).
+// gtab != 0 selects the table-in-global-memory instance; states_out must
+// then hold a copy of states0.
+extern "C" int rc_encode_ext_launch(RC_ENC_EXT_PARAMS, int bits, int gtab,
+                                    void* stream) {
+  return launch_bits<false>(RC_ENC_EXT_ARGS, bits, gtab, stream, nullptr,
+                            nullptr);
+}
+
+// K1-ext's stats instance (pass 1 of two-pass encoding): K1-ext's slots,
+// low, range and states, and the lane's decision counts, stat int32
+// (L, 256, 2) written whole and stat2 int32 (L, CC, 32, 2) added to
+// (the caller zeroes it).
+extern "C" int rc_encode_ext_stats_launch(RC_ENC_EXT_PARAMS, void* stat,
+                                          void* stat2, int bits, int gtab,
+                                          void* stream) {
+  return launch_bits<true>(RC_ENC_EXT_ARGS, bits, gtab, stream, stat,
+                           stat2);
 }
 
 // The stage probes: K1-ext at 16 bits with the stages of the bitmask

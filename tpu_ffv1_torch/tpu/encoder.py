@@ -75,16 +75,17 @@ its bytes pass the output cap, taken at the reference's padded length.
 
 Adaptive states stay on the device across frames (GOP context
 carry-over, ffv1enc.c:1171-1172): keyframes reset them to 128, or to the
-tuned initial states of a pass-2 encoder (``stats_in``, codec/twopass.py:
-the sorted custom table and the initial states, which the extradata
-carries), other frames continue from the previous frame's states.  Covered: versions 3
-and 4, range coder, planar YUV/gray at every coded width (<= 10 bits
-through the fast schedule, 11..16 through the extended one) on any slice
-grid, and RGB on uniform grids, context models 0 and 1 (the 5-input
-context, whose 2 x 7,563-row state table the lane scan keeps in global
-memory); Golomb-Rice for planar YUV/gray on uniform grids; ya8 (gray +
-alpha, one (H, W, 2) array per frame) as a luma and an alpha plane on
-both coders; everything else raises NotImplementedError.
+tuned initial states of a pass-2 encoder (``stats_in``,
+codec/twopass.py: the sorted custom table and the initial states, which
+the extradata carries), other frames continue from the previous frame's
+states.  Covered: versions 3 and 4, range coder, planar YUV/gray at
+every coded width (<= 10 bits through the fast schedule, 11..16 through
+the extended one) on any slice grid, and RGB on uniform grids, context
+models 0 and 1 (the 5-input context, whose 2 x 7,563-row state table the
+lane scan keeps in global memory); Golomb-Rice for planar YUV/gray on
+uniform grids; ya8 (gray + alpha, one (H, W, 2) array per frame) as a
+luma and an alpha plane on both coders; everything else raises
+NotImplementedError.
 
 With ``devices=`` (sharding.py, the port of the JAX package's ``mesh=``)
 the lane scan and finalize, or G1, run on contiguous blocks of lanes,
@@ -103,7 +104,7 @@ from ..bitstream.headers import write_extradata, write_slice_header
 from ..codec.context import SliceState, slice_grid
 from ..codec.slice_codec import encode_plane_pcm, encode_rgb_pcm
 from ..codec.params import EncoderParams, resolve
-from ..codec.twopass import tuned_params
+from ..codec.twopass import serialize_stats, tuned_params
 from ..core import tables as T
 from ..core.crc import crc32_ieee
 from ..core.intmath import ceil_rshift
@@ -112,7 +113,7 @@ from ..core.rac import (ProvisionalRangeEncoder, RangeEncoder,
 from .finalize import finalize_compact, finalize_packed, finalize_packed_full
 from .golomb_encode import fresh_vlc_states, golomb_encode_lanes, make_flags
 from .pipeline import FramePipeline
-from .rc_encode import rc_encode_compact, rc_encode_packed
+from .rc_encode import rc_encode_compact, rc_encode_packed, rc_encode_stats
 from .rct_search import pick_rct_coefs, rct_cost_pairs
 from .residual import load_plane, rct_transform, residuals_and_contexts
 from .sharding import lane_blocks, resolve_devices, shard_lanes
@@ -157,6 +158,12 @@ class TorchFFV1Encoder:
     frames; ``device`` (default "cuda") must then name it or be left
     out.  The packets do not change.
 
+    Two-pass encoding: with ``pass1`` the lane scans are the stats
+    instances of K1 and K1-ext, and ``get_stats(stream)`` returns each
+    stream's statistics text; ``stats_in`` (pass 2) sorts the custom
+    table and starts every fresh lane from the tuned initial states
+    (codec/twopass.py).  The packets of pass 1 are one-pass packets.
+
     One thread submits to and collects from an instance: each submit
     enqueues on the calling thread's current stream, which the pipeline
     captures then, and nothing here is locked.  Threads that code at
@@ -165,10 +172,6 @@ class TorchFFV1Encoder:
 
     def __init__(self, params: EncoderParams, batch: int = 1,
                  device=None, compact: bool = False, devices=None):
-        if params.pass1:
-            raise NotImplementedError("two-pass statistics gathering (pass "
-                                      "1) is not ported yet; use the host "
-                                      "encoder")
         self.devices, self.device = resolve_devices(devices, device)
         self.rp = rp = resolve(params)
         if params.stats_in:
@@ -220,9 +223,15 @@ class TorchFFV1Encoder:
             # (encoder.py:194-201 of the JAX package)
             warnings.warn("compact=True is off at version 4: the row "
                           "budget reads the raw form's emit flags")
+        # pass 1 counts its decisions in the stats instances of the raw
+        # form's scans
+        self.pass1 = bool(params.pass1)
+        if compact and self.pass1:
+            warnings.warn("compact=True is off in pass 1: its statistics "
+                          "are counted by the raw form's scans")
         # the compact form is fast-path only (rc_pallas.py:500)
         self.compact = bool(compact) and self.bits <= 10 and \
-            rp.version <= 3
+            rp.version <= 3 and not self.pass1
         self.batch = batch
         self.extradata = write_extradata(rp)
         self.geoms = slice_grid(rp.width, rp.height,
@@ -297,6 +306,16 @@ class TorchFFV1Encoder:
             torch.empty((self.L, self.total_cc, 32), dtype=torch.uint8,
                         device=dev))
         self.picture_number = 0
+        if self.pass1:
+            # each stream's pass-1 statistics (codec/twopass.py of the
+            # JAX package, Pass1Stats): the decisions by state and bit,
+            # and by context, slot and bit on the context model's quant
+            # table; keyframes so far (gob_count, ffv1enc.c:193-200)
+            self.rc_stat = torch.zeros((batch, 256, 2), dtype=torch.int64,
+                                       device=dev)
+            self.rc_stat2 = torch.zeros((batch, cc, 32, 2),
+                                        dtype=torch.int64, device=dev)
+            self.gob_count = 0
         self._prefix_cache = {}
         # (slice, keyframe, (by, ry)) -> (low, range, provisional bytes)
         self._header_cache = {}
@@ -800,10 +819,13 @@ class TorchFFV1Encoder:
         codes its residuals at bits + 1, pframe/tpu.py; encoder.py:686 of
         the JAX package), in the compact form if ``compact``.  Returns
         (bytes, counts, states, overflow, packed, low, range); packed is
-        None in the compact form, whose raw slots never exist.  With
-        ``devices`` each lane block runs on its device and the outputs
-        are gathered on the lead device (the raw slots along their lane
-        axis, dim 2)."""
+        None in the compact form, whose raw slots never exist; in pass 1
+        also each lane's decision counts (stat, stat2: rc_encode_stats).
+        With ``devices`` each lane block runs on its device and the
+        outputs are gathered on the lead device (the raw slots along their
+        lane axis, dim 2)."""
+
+        stats = self.pass1
 
         def scanfin(ctxs, diffs, acts, states0, one_tab, zero_tab, lows,
                     ranges, prefixes, plens):
@@ -814,17 +836,20 @@ class TorchFFV1Encoder:
                 out, counts, overflow = finalize_compact(
                     cm, low, rng, prefixes, plens)
                 return out, counts, states_out, overflow, None, low, rng
-            packed, low, rng, states_out = rc_encode_packed(
+            scan = rc_encode_stats if stats else rc_encode_packed
+            packed, low, rng, states_out, *lane_stats = scan(
                 ctxs, diffs, acts, states0, one_tab, zero_tab, lows,
                 ranges, bits)
             out, counts, overflow = finalize_packed(
                 packed, low, rng, prefixes, plens, 4 if bits <= 10 else 6)
-            return out, counts, states_out, overflow, packed, low, rng
+            return (out, counts, states_out, overflow, packed, low, rng,
+                    *lane_stats)
 
         return shard_lanes(self.devices, scanfin,
                            (ctxs, diffs, acts, states0, self.one_tab,
                             self.zero_tab, lows, ranges, prefixes, plens),
-                           (0, 1, 2, 3, 6, 7, 8, 9), (0, 0, 0, 0, 2, 0, 0))
+                           (0, 1, 2, 3, 6, 7, 8, 9),
+                           (0, 0, 0, 0, 2, 0, 0) + (0, 0) * stats)
 
     def _assemble(self, payloads):
         rp = self.rp
@@ -902,7 +927,11 @@ class TorchFFV1Encoder:
         ``streams`` too where they exist, for a PCM retry) and queue what
         its collect reads."""
         keyframe = self._keyframe()
+        if keyframe and self.pass1:
+            self.gob_count += 1
         if self.golomb:
+            # Golomb-Rice codes no range-coder decision the statistics
+            # count, as the host's VLC path calls no hook
             out, counts = self._encode_golomb(planes, keyframe)
             self._fetch(dict(out=out, counts=counts), keyframe, self.out_cap,
                         planes, streams)
@@ -919,12 +948,15 @@ class TorchFFV1Encoder:
             lows, ranges, prefixes, plens = self._prefix_arrays(keyframe)
         states0 = self._fresh_states(self.states) if keyframe \
             else self.states
-        out, counts, states_out, overflow, packed, low, rng = \
+        out, counts, states_out, overflow, packed, low, rng, *lane_stats = \
             self._frame_pipeline(planes, states0, lows, ranges, prefixes,
                                  plens, rct=rct)
         self.states = states_out
         self.picture_number += 1
         fetch = dict(out=out, counts=counts, overflow=overflow)
+        # pass 1's counts join the streams' tables at collect, without
+        # the lanes that retry as PCM
+        counted = dict(lane_stats=lane_stats) if lane_stats else {}
         if self.rp.version > 3 and self.uniform:
             # each lane's provisional byte position at its line starts
             fetch["rowpos"] = row_bytes(packed, self.row_offs) + \
@@ -933,7 +965,7 @@ class TorchFFV1Encoder:
         redo = dict(states0=states0, rct=rct) if self.compact else {}
         self._fetch(fetch, keyframe, self.out_cap, planes, streams,
                     packed=packed, low=low, rng=rng, lows=lows, ranges=ranges,
-                    prefixes=prefixes, plens=plens, **redo)
+                    prefixes=prefixes, plens=plens, **redo, **counted)
 
     def _fetch(self, tensors, keyframe: bool, cap: int, planes, streams,
                **meta):
@@ -1029,7 +1061,39 @@ class TorchFFV1Encoder:
             # ffv1dec.c:419-420) to their initial states
             mask = torch.from_numpy(pcm).to(self.device)
             self.states[mask] = self._fresh_states(self.states)[mask]
+        if "lane_stats" in m:
+            self._add_stats(*m["lane_stats"], pcm)
         return [(self._assemble(payloads[bi * self.n_slices:
                                          (bi + 1) * self.n_slices]),
                  keyframe)
                 for bi in range(self.batch)]
+
+    def _add_stats(self, stat, stat2, pcm):
+        """Add one frame's per-lane decision counts (stat int32 (L, 256,
+        2), stat2 int32 (L, total_cc, 32, 2)) to each stream's tables:
+        the lanes of a stream summed, and its state planes' rows summed
+        onto the quant table's contexts.  A lane retried as PCM (``pcm``,
+        bool (L,)) adds nothing: its packet codes none of the scan's
+        decisions."""
+        if pcm.any():
+            keep = torch.from_numpy(~pcm).to(self.device)
+            stat = stat * keep[:, None, None]
+            stat2 = stat2 * keep[:, None, None, None]
+        self.rc_stat += stat.view(self.batch, -1, 256, 2).sum(
+            1, dtype=torch.int64)
+        self.rc_stat2 += stat2.view(self.batch, -1, self.cc, 32, 2).sum(
+            1, dtype=torch.int64)
+
+    def get_stats(self, stream: int = 0) -> str:
+        """Stream ``stream``'s pass-1 statistics as the reference's
+        stats_out text (ffv1enc.c:1235-1279; the host encoder's
+        get_stats): the decisions of the frames collected so far; feed it
+        into a pass-2 EncoderParams.stats_in."""
+        if not self.pass1:
+            raise RuntimeError("encoder was not created with pass1=True")
+        rp = self.rp
+        rc_stat2 = [np.zeros((rp.context_counts[i], 32, 2), np.uint64)
+                    for i in range(rp.quant_table_count)]
+        rc_stat2[rp.context_model] = self.rc_stat2[stream].cpu().numpy()
+        return serialize_stats(self.rc_stat[stream].cpu().numpy(), rc_stat2,
+                               self.gob_count)

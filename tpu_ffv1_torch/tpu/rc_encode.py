@@ -33,6 +33,15 @@ The plain version works slot by slot over all lanes; K1 and K1-ext code
 only a pixel's active decisions, one warp per lane (csrc/rc_encode.cu
 and rc_encode_ext.cu, headers); both give the same outputs.
 
+``rc_encode_stats`` (pass 1 of two-pass encoding) runs the stats
+instances of K1 and K1-ext (csrc/rc_encode.cu and rc_encode_ext.cu
+STATS): the raw form's outputs, and each lane's counts of the decisions
+the host's pass-1 hook counts (tpu_ffv1/bitstream/symbols.py:26-29),
+stat int32 (L, 256, 2) by the state before the decision and its bit,
+stat2 int32 (L, CC, 32, 2) by context row, row position and bit.
+Inactive pixels count nothing.  Its plain versions are
+``rc_encode_stats_ref`` and ``rc_encode_ext_stats_ref``.
+
 ``rc_encode_stages`` and ``rc_encode_ext_stages`` launch K1's and
 K1-ext's stage probes (csrc/rc_encode.cu and rc_encode_ext.cu STAGES):
 timing instruments with stages stubbed, never called by the codec.
@@ -48,11 +57,12 @@ from ..kernels.build import count_launch, expect, load, table_in_global
 from .finalize import compact_packed
 from .schedule import chain_order_nosign, ext_slots
 
-# kernel launches made by rc_encode_packed and rc_encode_compact, by
-# kernel instance (read by chip_smoke.py): rc_encode (K1, bits <= 10),
-# rc_encode_ext (K1-ext, bits 11..17), rc_encode_compact (K1-compact),
-# and their table-in-global-memory forms rc_encode_global,
-# rc_encode_ext_global and rc_encode_compact_global
+# kernel launches made by rc_encode_packed, rc_encode_compact and
+# rc_encode_stats, by kernel instance (read by chip_smoke.py): rc_encode
+# (K1, bits <= 10), rc_encode_ext (K1-ext, bits 11..17),
+# rc_encode_compact (K1-compact), rc_encode_stats and
+# rc_encode_ext_stats (the stats instances of K1 and K1-ext), and their
+# table-in-global-memory forms (``_global``)
 LAUNCHES: dict = {}
 
 # K1's stage probes: the stages each variant keeps (csrc/rc_encode.cu
@@ -67,21 +77,23 @@ EXT_STAGE_VARIANTS = {"full": 31, "no_read": 30, "no_trans": 29,
                       "loops_only": 5}
 
 
-def other_smem_bytes(bits: int) -> int:
+def other_smem_bytes(bits: int, stats: bool = False) -> int:
     """Shared memory a lane scan uses beside the state table: one_tab and
-    zero_tab, and at bits > 10 K1-ext's one_pow (one_tab applied 1..bits
-    - 10 times, csrc/rc_encode_ext.cu)."""
-    return 512 + 256 * max(0, bits - 10)
+    zero_tab, at bits > 10 K1-ext's one_pow (one_tab applied 1..bits - 10
+    times, csrc/rc_encode_ext.cu), and a stats instance's (256, 2) int32
+    state counts."""
+    return 512 + 256 * max(0, bits - 10) + (2048 if stats else 0)
 
 
-def instance(bits: int, CC: int, compact: bool = False) -> str:
+def instance(bits: int, CC: int, compact: bool = False,
+             stats: bool = False) -> str:
     """The kernel instance rc_encode_packed (or, with ``compact``,
-    rc_encode_compact) launches for a coded width and a state table of
-    CC rows."""
+    rc_encode_compact; with ``stats``, rc_encode_stats) launches for a
+    coded width and a state table of CC rows."""
     name = "rc_encode_ext" if bits > 10 else \
         "rc_encode_compact" if compact else "rc_encode"
-    return name + ("_global" if table_in_global(
-        CC * 32, other_smem_bytes(bits)) else "")
+    return name + ("_stats" if stats else "") + ("_global" if table_in_global(
+        CC * 32, other_smem_bytes(bits, stats)) else "")
 
 
 def floor_log2(a: torch.Tensor) -> torch.Tensor:
@@ -115,9 +127,26 @@ def _slot_masks(diff, active, bits):
     return pos.long(), act, bit
 
 
+def _count(at, bit, act, used, L, CC):
+    """A stats instance's counts of the active decisions: ``at`` (.., S)
+    each decision's flat state index (lane * CC + row) * 32 + slot,
+    ``bit``, ``act`` and ``used`` (the state before the decision) alike;
+    returns (stat int32 (L, 256, 2), stat2 int32 (L, CC, 32, 2))."""
+    lane = at >> 5
+    lane = torch.div(lane, CC, rounding_mode="floor")
+    b = bit.long()
+    stat = torch.bincount(((lane * 256 + used) * 2 + b)[act],
+                          minlength=L * 512)
+    stat2 = torch.bincount((at * 2 + b)[act], minlength=L * CC * 64)
+    return (stat.to(torch.int32).view(L, 256, 2),
+            stat2.to(torch.int32).view(L, CC, 32, 2))
+
+
 def rc_encode_packed_ref(ctx, diff, active, states0, one_tab, zero_tab,
-                         low0, range0, bits: int):
-    """Plain PyTorch version: a loop over pixels, vectorised over lanes."""
+                         low0, range0, bits: int, stats: bool = False):
+    """Plain PyTorch version: a loop over pixels, vectorised over lanes.
+    With ``stats``, the stats instance's: also the decision counts
+    (stat, stat2; see the module docstring)."""
     L, N = ctx.shape
     CC = states0.shape[1]
     dev = ctx.device
@@ -143,10 +172,15 @@ def rc_encode_packed_ref(ctx, diff, active, states0, one_tab, zero_tab,
     no_em = torch.zeros((L,), dtype=torch.bool, device=dev)
     # slots no lane codes are exact no-ops: skip them in the chain
     coded = act.any(dim=0).cpu().numpy()                   # (N, S)
+    # the state before each decision (the positions of a pixel are
+    # pairwise distinct: the state at the pixel's start)
+    used = torch.zeros_like(at) if stats else None
 
     for i in range(N):
         at_i = at[:, i]
         s_all = st[at_i]                                   # (L, S)
+        if stats:
+            used[:, i] = s_all
         # a lane that does not code slot k sees state 0 and bit 0 there:
         # r1 = 0, so low and range pass through unchanged
         s_k = (s_all * act_l[:, i]).unbind(1)
@@ -170,8 +204,11 @@ def rc_encode_packed_ref(ctx, diff, active, states0, one_tab, zero_tab,
 
     pv = (nl_all >> 8) | (((nl_all & 0xFF) != 0).long() << 16) | (1 << 20)
     packed = torch.where(em_all, pv, 0).to(torch.int32)
-    return (packed.permute(1, 2, 0), low.to(torch.int32),
-            rng.to(torch.int32), st.to(torch.uint8).view(L, CC, 32))
+    out = (packed.permute(1, 2, 0), low.to(torch.int32),
+           rng.to(torch.int32), st.to(torch.uint8).view(L, CC, 32))
+    if stats:
+        out += _count(at, bit, act, used, L, CC)
+    return out
 
 
 def _ext_slot_masks(diff, active, bits):
@@ -208,13 +245,16 @@ def _ext_slot_masks(diff, active, bits):
 
 
 def rc_encode_packed_ext_ref(ctx, diff, active, states0, one_tab, zero_tab,
-                             low0, range0, bits: int, _chunk: int = 4096):
+                             low0, range0, bits: int, _chunk: int = 4096,
+                             stats: bool = False):
     """Plain PyTorch version of the extended schedule (bits 11..17): a
     loop over pixels, vectorised over lanes (the semantics of
     rc_scan_lanes.rc_encode_scan_lanes_ext).  Rows 10 and 31 carry
     running states through every decision that touches them; the other
     positions adapt once per pixel after the chain.  The per-slot masks
-    are built ``_chunk`` pixels at a time to bound memory."""
+    are built ``_chunk`` pixels at a time to bound memory.  With
+    ``stats``, the stats instance's: also the decision counts, each
+    running row's decisions with their own states."""
     L, N = ctx.shape
     CC = states0.shape[1]
     dev = ctx.device
@@ -237,6 +277,9 @@ def rc_encode_packed_ext_ref(ctx, diff, active, states0, one_tab, zero_tab,
                 ctx.long().clamp(0, CC - 1)) << 5            # (L, N)
     no_nl = torch.zeros((L,), dtype=torch.int64, device=dev)
     no_em = torch.zeros((L,), dtype=torch.bool, device=dev)
+    if stats:
+        stat = torch.zeros((L, 256, 2), dtype=torch.int32, device=dev)
+        stat2 = torch.zeros((L, CC, 32, 2), dtype=torch.int32, device=dev)
 
     for c0 in range(0, N, _chunk):
         c1 = min(N, c0 + _chunk)
@@ -251,6 +294,8 @@ def rc_encode_packed_ext_ref(ctx, diff, active, states0, one_tab, zero_tab,
         coded = act.any(dim=0).cpu().numpy()                  # (n, S)
         nl_c = torch.zeros((L, n, S), dtype=torch.int64, device=dev)
         em_c = torch.zeros((L, n, S), dtype=torch.bool, device=dev)
+        # the state before each decision
+        used = torch.zeros_like(at) if stats else None
         for i in range(n):
             at_i = at[:, i]
             s_all = st[at_i]                                  # (L, S)
@@ -260,13 +305,19 @@ def rc_encode_packed_ext_ref(ctx, diff, active, states0, one_tab, zero_tab,
             sel_k = sel[:, i].unbind(1)
             s10 = s_all[:, run10[0]]
             s31 = s_all[:, run31[0]]
+            if stats:
+                used[:, i] = s_all
             nls, ems = [no_nl] * S, [no_em] * S
             for k in coded[i].nonzero()[0]:
                 b = b_k[k]
                 if k in run10:
+                    if stats:
+                        used[:, i, k] = s10
                     s = s10 * a_k[k]
                     s10 = trans[sel_k[k] + s10]
                 elif k in run31:
+                    if stats:
+                        used[:, i, k] = s31
                     s = s31 * a_k[k]
                     s31 = trans[sel_k[k] + s31]
                 else:
@@ -289,9 +340,33 @@ def rc_encode_packed_ext_ref(ctx, diff, active, states0, one_tab, zero_tab,
             st[row + 31] = s31
         pv = (nl_c >> 8) | (((nl_c & 0xFF) != 0).long() << 16) | (1 << 20)
         packed[:, c0:c1] = torch.where(em_c, pv, 0).to(torch.int32)
+        if stats:
+            c_stat, c_stat2 = _count(at, bit, act, used, L, CC)
+            stat += c_stat
+            stat2 += c_stat2
 
-    return (packed.permute(1, 2, 0), low.to(torch.int32),
-            rng.to(torch.int32), st.to(torch.uint8).view(L, CC, 32))
+    out = (packed.permute(1, 2, 0), low.to(torch.int32),
+           rng.to(torch.int32), st.to(torch.uint8).view(L, CC, 32))
+    if stats:
+        out += (stat, stat2)
+    return out
+
+
+def rc_encode_stats_ref(ctx, diff, active, states0, one_tab, zero_tab,
+                        low0, range0, bits: int):
+    """Plain version of K1's stats instance (bits <= 10): (packed, low,
+    range, states, stat, stat2)."""
+    return rc_encode_packed_ref(ctx, diff, active, states0, one_tab,
+                                zero_tab, low0, range0, bits, stats=True)
+
+
+def rc_encode_ext_stats_ref(ctx, diff, active, states0, one_tab, zero_tab,
+                            low0, range0, bits: int):
+    """Plain version of K1-ext's stats instance (bits 11..17): (packed,
+    low, range, states, stat, stat2)."""
+    return rc_encode_packed_ext_ref(ctx, diff, active, states0, one_tab,
+                                    zero_tab, low0, range0, bits,
+                                    stats=True)
 
 
 def rc_encode_compact_ref(ctx, diff, active, states0, one_tab, zero_tab,
@@ -304,13 +379,15 @@ def rc_encode_compact_ref(ctx, diff, active, states0, one_tab, zero_tab,
 
 
 def _launch(name, gtab, ctx, diff, active, states0, one_tab, zero_tab,
-            low0, range0, bits, entry=None, code=None, width=None, lib=None):
+            low0, range0, bits, entry=None, code=None, width=None, lib=None,
+            stats=False):
     """Check the arguments and launch ``<entry>`` (default
-    ``<name>_launch``) from csrc/<name>.cu (or the loaded library
-    ``lib``, a build of another copy of the source) on the current
-    stream, with the state table in global memory if ``gtab``; ``code``
-    is the int passed in the bits position, ``width`` the ints stored per
-    pixel (default 2 * bits + 1).  Returns the outputs."""
+    ``<name>_launch``; with ``stats``, ``<name>_stats_launch``, which
+    also returns the decision counts) from csrc/<name>.cu (or the loaded
+    library ``lib``, a build of another copy of the source) on the
+    current stream, with the state table in global memory if ``gtab``;
+    ``code`` is the int passed in the bits position, ``width`` the ints
+    stored per pixel (default 2 * bits + 1).  Returns the outputs."""
     dev = ctx.device
     L, N = ctx.shape
     CC = states0.shape[1]
@@ -325,10 +402,15 @@ def _launch(name, gtab, ctx, diff, active, states0, one_tab, zero_tab,
     expect("range0", range0, torch.int32, (L,), dev)
     if states0.data_ptr() % 16:
         states0 = states0.clone()          # the kernel copies in 16 B words
-    fn = getattr(lib or load(name), entry or f"{name}_launch")
+    fn = getattr(lib or load(name), entry or
+                 f"{name}{'_stats' if stats else ''}_launch")
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + \
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + \
+        [ctypes.c_void_p] * (2 if stats else 0) + [ctypes.c_int] * 2 + \
         [ctypes.c_void_p]
+    counts = (torch.empty((L, 256, 2), dtype=torch.int32, device=dev),
+              torch.zeros((L, CC, 32, 2), dtype=torch.int32, device=dev)) \
+        if stats else ()
     packed = torch.empty((L, N, S), dtype=torch.int32, device=dev)
     low = torch.empty((L,), dtype=torch.int32, device=dev)
     rng = torch.empty((L,), dtype=torch.int32, device=dev)
@@ -341,11 +423,12 @@ def _launch(name, gtab, ctx, diff, active, states0, one_tab, zero_tab,
                  states0.data_ptr(), one_tab.data_ptr(), zero_tab.data_ptr(),
                  low0.data_ptr(), range0.data_ptr(), packed.data_ptr(),
                  low.data_ptr(), rng.data_ptr(), states.data_ptr(),
-                 L, N, CC, bits if code is None else code, int(gtab),
+                 L, N, CC, *(c.data_ptr() for c in counts),
+                 bits if code is None else code, int(gtab),
                  torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    return packed.permute(1, 2, 0), low, rng, states
+    return (packed.permute(1, 2, 0), low, rng, states, *counts)
 
 
 def rc_encode_packed(ctx, diff, active, states0, one_tab, zero_tab,
@@ -368,6 +451,31 @@ def rc_encode_packed(ctx, diff, active, states0, one_tab, zero_tab,
     out = _launch("rc_encode_ext" if ext else "rc_encode",
                   name.endswith("_global"), ctx, diff, active, states0,
                   one_tab, zero_tab, low0, range0, bits)
+    count_launch(LAUNCHES, name)
+    return out
+
+
+def rc_encode_stats(ctx, diff, active, states0, one_tab, zero_tab,
+                    low0, range0, bits: int):
+    """Encode lane scan with pass-1 decision counts: the stats instance
+    of K1 (bits <= 10) or K1-ext (11..17) for CUDA tensors, its plain
+    version for CPU tensors.  Returns (packed, low, range, states, stat
+    int32 (L, 256, 2), stat2 int32 (L, CC, 32, 2)); the first four are
+    rc_encode_packed's."""
+    if not 1 <= bits <= 17:
+        raise NotImplementedError("the lane scan covers bits 1..17")
+    ext = bits > 10
+    dev = ctx.device
+    if dev.type == "cpu":
+        ref = rc_encode_ext_stats_ref if ext else rc_encode_stats_ref
+        return ref(ctx, diff, active, states0, one_tab, zero_tab, low0,
+                   range0, bits)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    name = instance(bits, states0.shape[1], stats=True)
+    out = _launch("rc_encode_ext" if ext else "rc_encode",
+                  name.endswith("_global"), ctx, diff, active, states0,
+                  one_tab, zero_tab, low0, range0, bits, stats=True)
     count_launch(LAUNCHES, name)
     return out
 
