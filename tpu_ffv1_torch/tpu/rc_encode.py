@@ -33,14 +33,15 @@ The plain version works slot by slot over all lanes; K1 and K1-ext code
 only a pixel's active decisions, one warp per lane (csrc/rc_encode.cu
 and rc_encode_ext.cu, headers); both give the same outputs.
 
-``rc_encode_stats`` (pass 1 of two-pass encoding) runs the stats
-instances of K1 and K1-ext (csrc/rc_encode.cu and rc_encode_ext.cu
-STATS): the raw form's outputs, and each lane's counts of the decisions
-the host's pass-1 hook counts (tpu_ffv1/bitstream/symbols.py:26-29),
-stat int32 (L, 256, 2) by the state before the decision and its bit,
-stat2 int32 (L, CC, 32, 2) by context row, row position and bit.
-Inactive pixels count nothing.  Its plain versions are
-``rc_encode_stats_ref`` and ``rc_encode_ext_stats_ref``.
+``rc_encode_stats`` (pass 1 of two-pass encoding) runs the stats kernels
+of K1 and K1-ext (csrc/rc_encode.cu and rc_encode_ext.cu,
+``*_stats_kernel``: the scan's body with STATS): the raw form's outputs,
+and each lane's counts of the decisions the host's pass-1 hook counts
+(tpu_ffv1/bitstream/symbols.py:26-29), stat int32 (L, 256, 2) by the
+state before the decision and its bit, stat2 int32 (L, CC, 32, 2) by
+context row, row position and bit.  Inactive pixels count nothing.  Its
+plain versions are ``rc_encode_stats_ref`` and
+``rc_encode_ext_stats_ref``.
 
 ``rc_encode_stages`` and ``rc_encode_ext_stages`` launch K1's and
 K1-ext's stage probes (csrc/rc_encode.cu and rc_encode_ext.cu STAGES):
@@ -92,8 +93,8 @@ def instance(bits: int, CC: int, compact: bool = False,
     coded width and a state table of CC rows."""
     name = "rc_encode_ext" if bits > 10 else \
         "rc_encode_compact" if compact else "rc_encode"
-    return name + ("_stats" if stats else "") + ("_global" if table_in_global(
-        CC * 32, other_smem_bytes(bits, stats)) else "")
+    gtab = table_in_global(CC * 32, other_smem_bytes(bits, stats))
+    return name + ("_stats" if stats else "") + ("_global" if gtab else "")
 
 
 def floor_log2(a: torch.Tensor) -> torch.Tensor:
@@ -132,8 +133,7 @@ def _count(at, bit, act, used, L, CC):
     each decision's flat state index (lane * CC + row) * 32 + slot,
     ``bit``, ``act`` and ``used`` (the state before the decision) alike;
     returns (stat int32 (L, 256, 2), stat2 int32 (L, CC, 32, 2))."""
-    lane = at >> 5
-    lane = torch.div(lane, CC, rounding_mode="floor")
+    lane = torch.div(at >> 5, CC, rounding_mode="floor")
     b = bit.long()
     stat = torch.bincount(((lane * 256 + used) * 2 + b)[act],
                           minlength=L * 512)
@@ -431,12 +431,11 @@ def _launch(name, gtab, ctx, diff, active, states0, one_tab, zero_tab,
     return (packed.permute(1, 2, 0), low, rng, states, *counts)
 
 
-def rc_encode_packed(ctx, diff, active, states0, one_tab, zero_tab,
-                     low0, range0, bits: int):
-    """Encode lane scan; the CUDA kernel for CUDA tensors (K1 at
-    bits <= 10, K1-ext at 11..17, each with the state table in shared or
-    in global memory by its size), the plain version for CPU tensors
-    (see the module docstring for the contract)."""
+def _lane_scan(ctx, diff, active, states0, one_tab, zero_tab, low0,
+               range0, bits: int, stats: bool):
+    """K1 (bits <= 10) or K1-ext (11..17), the stats kernels with
+    ``stats``, for CUDA tensors, with the state table in shared or in
+    global memory by its size; their plain versions for CPU tensors."""
     if not 1 <= bits <= 17:
         raise NotImplementedError("the lane scan covers bits 1..17")
     ext = bits > 10
@@ -444,40 +443,35 @@ def rc_encode_packed(ctx, diff, active, states0, one_tab, zero_tab,
     if dev.type == "cpu":
         ref = rc_encode_packed_ext_ref if ext else rc_encode_packed_ref
         return ref(ctx, diff, active, states0, one_tab, zero_tab, low0,
-                   range0, bits)
+                   range0, bits, stats=stats)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    name = instance(bits, states0.shape[1])
+    name = instance(bits, states0.shape[1], stats=stats)
     out = _launch("rc_encode_ext" if ext else "rc_encode",
                   name.endswith("_global"), ctx, diff, active, states0,
-                  one_tab, zero_tab, low0, range0, bits)
+                  one_tab, zero_tab, low0, range0, bits, stats=stats)
     count_launch(LAUNCHES, name)
     return out
+
+
+def rc_encode_packed(ctx, diff, active, states0, one_tab, zero_tab,
+                     low0, range0, bits: int):
+    """Encode lane scan; the CUDA kernel for CUDA tensors (K1 at
+    bits <= 10, K1-ext at 11..17, each with the state table in shared or
+    in global memory by its size), the plain version for CPU tensors
+    (see the module docstring for the contract)."""
+    return _lane_scan(ctx, diff, active, states0, one_tab, zero_tab, low0,
+                      range0, bits, False)
 
 
 def rc_encode_stats(ctx, diff, active, states0, one_tab, zero_tab,
                     low0, range0, bits: int):
-    """Encode lane scan with pass-1 decision counts: the stats instance
-    of K1 (bits <= 10) or K1-ext (11..17) for CUDA tensors, its plain
-    version for CPU tensors.  Returns (packed, low, range, states, stat
-    int32 (L, 256, 2), stat2 int32 (L, CC, 32, 2)); the first four are
-    rc_encode_packed's."""
-    if not 1 <= bits <= 17:
-        raise NotImplementedError("the lane scan covers bits 1..17")
-    ext = bits > 10
-    dev = ctx.device
-    if dev.type == "cpu":
-        ref = rc_encode_ext_stats_ref if ext else rc_encode_stats_ref
-        return ref(ctx, diff, active, states0, one_tab, zero_tab, low0,
-                   range0, bits)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    name = instance(bits, states0.shape[1], stats=True)
-    out = _launch("rc_encode_ext" if ext else "rc_encode",
-                  name.endswith("_global"), ctx, diff, active, states0,
-                  one_tab, zero_tab, low0, range0, bits, stats=True)
-    count_launch(LAUNCHES, name)
-    return out
+    """Encode lane scan with pass-1 decision counts: the stats kernel of
+    K1 or K1-ext for CUDA tensors, its plain version for CPU tensors.
+    Returns (packed, low, range, states, stat int32 (L, 256, 2), stat2
+    int32 (L, CC, 32, 2)); the first four are rc_encode_packed's."""
+    return _lane_scan(ctx, diff, active, states0, one_tab, zero_tab, low0,
+                      range0, bits, True)
 
 
 def rc_encode_compact(ctx, diff, active, states0, one_tab, zero_tab,
