@@ -120,9 +120,11 @@ exits non-zero without the final result line:
    the 8-bit cut's text (find_best_state on the card; extradata and
    packets equal to the host native encoder's goldens, the decode through
    K2 from the tuned initial states lossless), find_best_state's table
-   equal to the host's digest and 14 of its rows to the plain version's,
-   and the stats instances in both placements on random inputs at small
-   N (held to their plain versions in phase 6); then two main paths on
+   equal to the host's digest and 14 of its rows to the plain version's
+   (its terms counted by the fold's counting instance), and the stats
+   instances in both placements on random inputs at small N; the cuts'
+   launches, 1080p pass 1's frame-1 launch and the random ones are held
+   to their plain versions in phase 6; then two main paths on
    non-uniform grids, each
    at FFmpeg's -slices 24 (6 x 4) with six timed frames: 720p
    (1280x720 yuv420p, context model 0: slices 213 and 214 wide, so K1
@@ -214,7 +216,9 @@ exits non-zero without the final result line:
    frame's, 24 lanes; ya8's and ya8_golomb's at two planes a lane,
    48 lanes; cli's frame-1 launches, 24 lanes; config5_4k's last lane
    group's K1 and K1-ext launches, 8 lanes of about 1M slots, on their
-   last segment only), held exactly
+   last segment only; twopass's stats launches, the small cuts' each
+   whole and 1080p pass 1's frame 1 in segments, all six outputs with
+   both count tables), held exactly
    (integer codec) against its plain version, run on CPU copies of the
    same inputs (the plain versions are per-pixel loops of small tensor
    ops, faster on the host than as per-op card launches).  Each
@@ -1976,35 +1980,6 @@ def pcm_phase(dev, gpu, rec):
                 launches=launches)
 
 
-def fold_terms(one, dev):
-    """The terms find_best_state's fold computes for the state-transition
-    table ``one`` (256,): per (i, j) row and step k, the m in 1..255
-    whose occ[m] is not 0 (the C skips the others), by the same
-    propagation in float64 on the card (its sums in another order, which
-    can move a term across an underflow to 0 and no further).  Returns
-    (terms, rows)."""
-    rows = [(i, j) for i in range(256)
-            for j in range(max(i - 10, 1), min(i + 11, 256)) if one[j]]
-    R = len(rows)
-    p = torch.tensor([i / 256.0 for i, _j in rows], dtype=torch.float64,
-                     device=dev)[:, None]
-    up = torch.tensor([int(one[m]) for m in range(1, 256)], device=dev)
-    down = torch.tensor([256 - int(one[256 - m]) for m in range(1, 256)],
-                        device=dev)
-    occ = torch.zeros((R, 257), dtype=torch.float64, device=dev)
-    occ[torch.arange(R, device=dev), torch.tensor([j for _i, j in rows],
-                                                 device=dev)] = 1.0
-    terms = torch.zeros((), dtype=torch.int64, device=dev)
-    for _k in range(256):
-        live = occ[:, 1:256]
-        terms += (live != 0).sum()
-        nocc = torch.zeros_like(occ)
-        nocc.index_add_(1, up, live * p)
-        nocc.index_add_(1, down, live * (1 - p))
-        occ = nocc
-    return int(terms), R
-
-
 def twopass_phase(dev, gpu, rec):
     """twopass: pass 1 and pass 2 of two-pass encoding through
     TorchFFV1Encoder on the card.
@@ -2027,13 +2002,17 @@ def twopass_phase(dev, gpu, rec):
       lossless; the constructor, encode and decode steps timed.
     - find_best_state: its table of the pass-2 encoder's sorted
       state-transition table equal to the host native table's digest,
-      TWOPASS_FBS_ROWS of it equal to the plain version's, timed.
-    - The stats instances, both placements, on random inputs at small N,
-      held to their plain versions in phase 6 (check_stats_kernel).
+      TWOPASS_FBS_ROWS of it equal to the plain version's, timed; its
+      fold terms counted by the fold's counting instance
+      (find_best_state_terms), for the bound.
+    - The stats instances, both placements, on random inputs at small N
+      (check_stats_kernel).
 
     The launch counts are set to 0 before each part and read after it.
     ``rec``: the LastLaunch of rc_encode_stats.  Returns its numbers, the
-    recorded launches and the random checks."""
+    random checks, and ``main_recs``, the stats launches phase 6 holds to
+    their plain versions on all six outputs: the small cuts' four, each
+    whole, and 1080p pass 1's frame 1, in segments."""
     tag = "twopass"
     t_phase = time.perf_counter()
     golden = load_goldens()["twopass"]
@@ -2058,7 +2037,7 @@ def twopass_phase(dev, gpu, rec):
         check([digest(x.encode()) for x in texts[name]] ==
               golden[name]["stats"],
               f"twopass {name}: pass-1 statistics differ from the host's")
-        cut_recs[name] = rec.take_all()[1]
+        cut_recs[name] = rec.take_all()
         log(f"[{tag}] {name} cut: {kw['width']}x{kw['height']} "
             f"{kw['pix_fmt']}, {BATCH} x {TWOPASS_CUT_FRAMES} frames, pass 1 "
             f"on the card: each stream's statistics text "
@@ -2070,6 +2049,14 @@ def twopass_phase(dev, gpu, rec):
                            "rc_encode_ext_stats": TWOPASS_CUT_FRAMES},
           f"twopass cuts: expected each stats instance once per step: "
           f"{cut_launches}")
+    # the cuts' launches, each timed, for phase 6: (instance, launch,
+    # split, label, kernel ms)
+    main_recs = [
+        (rc_encode.instance(args[8], args[3].shape[1], stats=True),
+         (args, out), False, f"twopass {name} cut frame {t}",
+         cuda_time_ms(lambda a=args: rc_encode.rc_encode_stats(*a), 3))
+        for name in TWOPASS_CUTS
+        for t, (args, out) in enumerate(cut_recs[name])]
 
     # 1080p pass 1
     g8 = load_goldens()["8bit"]
@@ -2110,8 +2097,10 @@ def twopass_phase(dev, gpu, rec):
           "twopass: the stats instance's slots, low, range or states differ "
           "from K1's on the same inputs")
     stats_ms = cuda_time_ms(lambda: rc_encode.rc_encode_stats(*args), 3)
+    main_recs.append(("rc_encode_stats", p1_rec, True,
+                      "twopass 1080p pass 1 frame 1", stats_ms))
     k1_ms = cuda_time_ms(lambda: rc_encode.rc_encode_packed(*args), 3)
-    ext_args = cut_recs["16bit"][0]
+    ext_args = cut_recs["16bit"][1][0]
     ext_stats_ms = cuda_time_ms(
         lambda: rc_encode.rc_encode_stats(*ext_args), 3)
     ext_ms = cuda_time_ms(lambda: rc_encode.rc_encode_packed(*ext_args), 3)
@@ -2189,12 +2178,16 @@ def twopass_phase(dev, gpu, rec):
     check(np.array_equal(best[list(TWOPASS_FBS_ROWS)], plain),
           "find_best_state differs from its plain version")
     fbs_ms = cuda_time_ms(lambda: twopass.find_best_state_kernel(one_t), 3)
-    terms, n_rows = fold_terms(one, dev)
+    counted, terms = twopass.find_best_state_terms(one_t)
+    check(np.array_equal(counted.cpu().numpy(), best),
+          "find_best_state's counting instance differs from its table")
+    n_rows = sum(1 for i in range(256)
+                 for j in range(max(i - 10, 1), min(i + 11, 256)) if one[j])
     log(f"[{tag}] find_best_state: the table equal to the host native "
         f"table's digest, rows {list(TWOPASS_FBS_ROWS)} equal to the plain "
         f"version's ({fbs_plain_ms:.0f} ms on the host CPU); kernel "
-        f"{fbs_ms:.2f} ms for {n_rows} (i, j) rows, {terms} fold terms "
-        f"({gpu})")
+        f"{fbs_ms:.2f} ms for {n_rows} (i, j) rows, {terms} fold terms (the "
+        f"fold's count) ({gpu})")
     random = [check_stats_kernel(dev, b, n, m) for b, n in ((8, 2048),
                                                             (16, 1024))
               for m in (0, 1)]
@@ -2203,7 +2196,8 @@ def twopass_phase(dev, gpu, rec):
     seconds = time.perf_counter() - t_phase
     log(f"[{tag}] the phase in {seconds:.1f} s")
     return dict(
-        random=random, p1_rec=p1_rec, ext_rec=cut_recs["16bit"],
+        random=random, main_recs=main_recs, p1_rec=p1_rec,
+        ext_rec=cut_recs["16bit"][1],
         fbs=dict(ms=fbs_ms, plain_ms=fbs_plain_ms, terms=terms,
                  rows=n_rows),
         launches=dict(cuts=cut_launches, pass1=p1_launches,
@@ -3821,32 +3815,44 @@ def segments(name, args, out, tail=False):
 
     ``tail`` (an encode launch): its last segment alone, from the state of
     the kernel relaunched on every pixel before it: the far end of a lane
-    too long to check whole, at the cost of one segment."""
+    too long to check whole, at the cost of one segment.
+
+    A stats instance of K1 or K1-ext splits as the encoder does; a
+    segment's decision counts are those of the relaunch on the pixels up
+    to its end less those up to its start, so that each segment's plain
+    run holds all six outputs."""
     if name.startswith("golomb"):
         return [(args, out)]
     if name.startswith("rc_encode"):
         ctx, diff, act, st0, one, zero, low0, rng0, bits = args
-        packed, low, rng, st = out
+        packed, low, rng, st, *counts = out
+        # a stats instance's counts are those of its own pixels: a
+        # segment's are the relaunch to its end's less the one to its start
+        scan = rc_encode.rc_encode_stats if counts else \
+            rc_encode.rc_encode_packed
         cuts = encode_cuts(ctx.shape[1], bits)
         if tail:
             cuts = cuts[-2:]
-        # the coder at each cut: (low, range, states)
+        # the coder at each cut: (low, range, states, counts so far)
         at = []
         for c in cuts[:-1]:
             if not c:
-                at.append((low0, rng0, st0))
+                at.append((low0, rng0, st0,
+                           *[torch.zeros_like(x) for x in counts]))
                 continue
-            pk, lo, ra, s = rc_encode.rc_encode_packed(
+            pk, *end = scan(
                 ctx[:, :c].contiguous(), diff[:, :c].contiguous(),
                 act[:, :c].contiguous(), st0, one, zero, low0, rng0, bits)
             check(torch.equal(pk, packed[:c]),
                   f"{name} relaunched on {c} pixels is not the main-path "
                   f"launch's prefix")
-            at.append((lo, ra, s))
-        at.append((low, rng, st))
+            at.append(tuple(end))
+        at.append((low, rng, st, *counts))
         return [((ctx[:, a:b], diff[:, a:b], act[:, a:b], s0, one, zero,
-                  l0, r0, bits), (packed[a:b], *at[i + 1]))
-                for i, (a, b, (l0, r0, s0)) in enumerate(
+                  l0, r0, bits),
+                 (packed[a:b], *at[i + 1][:3],
+                  *[e - c0 for e, c0 in zip(at[i + 1][3:], c0s)]))
+                for i, (a, b, (l0, r0, s0, *c0s)) in enumerate(
                     zip(cuts, cuts[1:], at))]
     if "_rgb" in name:
         return rgb_segments(name, args, out)
@@ -4207,22 +4213,46 @@ TWOPASS_KERNELS = {
 }
 
 
-def twopass_rows(tp, checks, probe, funcs, gpu):
+def twopass_checks(tp_recs, secs):
+    """The twopass phase's stats launches (``main_recs``: the small cuts'
+    whole, 1080p pass 1's in segments) after ``plain_checks`` held them
+    (``secs``: the plain version's seconds per segment of each): their
+    entries by instance, for ``twopass_rows``."""
+    tp_checks = {}
+    for (name, rec, split, label, ms), segs in zip(tp_recs, secs):
+        shape = launch_shape(name, *rec)
+        tp_checks.setdefault(name, []).append(dict(
+            label=label, check_shape=shape, check_ms=ms,
+            check_plain_ms=sum(segs) * 1e3))
+        log(f"[check] {name}, {label} ({shape}): exact match"
+            f"{f' in {len(segs)} segments' if split else ''} (equal SHA-256 "
+            f"of all six outputs: slots, low, range, states and both count "
+            f"tables); plain version on the host CPU "
+            f"{' + '.join(f'{x:.1f}' for x in segs)} s")
+    return tp_checks
+
+
+def twopass_rows(tp, checks, tp_checks, probe, funcs, gpu):
     """The ``kernels`` JSON rows of the twopass phase: the stats instances
     of K1 (1080p pass 1) and K1-ext (the 16bit cut), each with the
     production instance's time on the same inputs, their roofline bound
     (K1's bytes and the count tables written once; the decisions'
     instructions from the decision probe and the instance's pixel loop)
-    and chain bound, their plain versions timed on the random checks'
-    shape; and find_best_state (FP64 operations: 10 a fold term)."""
+    and chain bound, their plain versions timed on the main path's
+    launch (``tp_checks``: the twopass launches held in phase 6, the
+    rows' checks with the random ones); and find_best_state (FP64
+    operations: 10 a fold term, the fold's own count)."""
     ns_enc, ops_enc, _ns_dec, _ops_dec, _row_ns = probe
     n = tp["numbers"]
     rows = []
-    for name, path_name, (args, out), launches, steps, ms, prod_ms in (
-            ("rc_encode_stats", "twopass_1080p_pass1", tp["p1_rec"],
+    for name, path_name, main_label, (args, out), launches, steps, ms, \
+            prod_ms in (
+            ("rc_encode_stats", "twopass_1080p_pass1",
+             "twopass 1080p pass 1 frame 1", tp["p1_rec"],
              tp["launches"]["pass1"]["rc_encode_stats"], TWOPASS_FRAMES,
              n["stats_ms"], n["k1_ms"]),
-            ("rc_encode_ext_stats", "twopass_16bit_cut", tp["ext_rec"],
+            ("rc_encode_ext_stats", "twopass_16bit_cut",
+             "twopass 16bit cut frame 1", tp["ext_rec"],
              tp["launches"]["cuts"]["rc_encode_ext_stats"],
              TWOPASS_CUT_FRAMES, n["ext_stats_ms"], n["k1_ext_ms"])):
         src, replaces = TWOPASS_KERNELS[name]
@@ -4242,7 +4272,8 @@ def twopass_rows(tp, checks, probe, funcs, gpu):
         bound, term = roofline_ms(
             nbytes, int(decisions.sum()) * ops_enc + L * N * extra)
         chain = int(decisions.max()) * ns_enc * 1e-6
-        chk = checks[name]
+        chk = tp_checks[name] + checks[name]
+        plain = next(c for c in chk if c["label"] == main_label)
         shape = launch_shape(name, args, out)
         log(f"[bound] {name} ({path_name}, {gpu}): {ms:.3f} ms at {shape} "
             f"(production {prod_ms:.3f} ms on the same inputs); pixel loop "
@@ -4252,15 +4283,15 @@ def twopass_rows(tp, checks, probe, funcs, gpu):
             name=name, route="cuda", source=src, replaces=replaces,
             main_path=path_name, launches=launches,
             launches_per_step=launches / steps, max_abs_err=0, ms=ms,
-            production_ms=prod_ms, plain_ms=chk[0]["check_plain_ms"],
-            plain_shape=chk[0]["check_shape"], plain_device="cpu",
+            production_ms=prod_ms, plain_ms=plain["check_plain_ms"],
+            plain_shape=plain["check_shape"], plain_device="cpu",
             bound_ms=bound, bound_by=term, chain_bound_ms=chain,
             chain_decisions_max_lane=int(decisions.max()),
             ns_per_decision=ns_enc, ops_per_decision=ops_enc,
             extra_ops_per_pixel=extra, pixel_loop_instructions=loop,
             production_pixel_loop_instructions=loop_prod, library_ms=None,
             main_path_shape=shape,
-            checks=[{k: c[k] for k in ("check_shape", "check_ms",
+            checks=[{k: c[k] for k in ("label", "check_shape", "check_ms",
                                        "check_plain_ms")} for c in chk]))
     fbs = tp["fbs"]
     # bytes: the table, l2tab and the output; operations: the fold terms
@@ -4502,6 +4533,7 @@ def main():
     pcm = pcm_phase(dev, gpu, recorders["packed"])
     tp = twopass_phase(dev, gpu, recorders["stats"])
     random += tp.pop("random")
+    tp_recs = tp.pop("main_recs")
     mixed = mixed_q_phase(dev, gpu, recorders["decode"], paths)
     nonuni = nonuniform_phase(dev, gpu, recorders["packed"],
                               recorders["decode"])
@@ -4588,8 +4620,10 @@ def main():
     # segment, the far end of its lanes
     launches = [(name, rec, False) for name, _info, rec in random] + \
         [(name, rec, True) for name, rec, _keys in merged] + \
-        [(name, rec, "tail") for name, rec in c5_tails.items()]
+        [(name, rec, "tail") for name, rec in c5_tails.items()] + \
+        [(name, rec, split) for name, rec, split, _l, _ms in tp_recs]
     secs, workers = plain_checks(launches)
+    tp_checks = twopass_checks(tp_recs, secs[len(secs) - len(tp_recs):])
     checks = {}
     for (name, info, _rec), segs in zip(random, secs):
         info["check_plain_ms"] = segs[0] * 1e3
@@ -4737,7 +4771,7 @@ def main():
                 [list(range(len(decisions)))], p["launches"][name],
                 p["steps"], decisions, probe, funcs, compact_sec,
                 m["main_path_shape"], checks[name], gpu))
-    kernels += twopass_rows(tp, checks, probe, funcs, gpu)
+    kernels += twopass_rows(tp, checks, tp_checks, probe, funcs, gpu)
     # the sharded paths' launches, under the rows of their instances
     for p in sharded.values():
         for name, entry in p.pop("entries").items():

@@ -1053,7 +1053,9 @@ def test_rc_encode_stats_kernels_match_plain(cuda, bits, model):
 
 def test_find_best_state_kernel_matches_plain(cuda):
     """find_best_state on the card against its plain version, bit for bit,
-    on VER2_STATE sorted by random counts (about 6 s of plain version)."""
+    on VER2_STATE sorted by random counts (about 6 s of plain version);
+    the fold's counting instance gives the same table and the plain
+    version's count of the terms folded."""
     from tpu_ffv1_torch.codec import twopass as TP
     one = T.VER2_STATE.copy()
     r = np.random.RandomState(9)
@@ -1062,7 +1064,12 @@ def test_find_best_state_kernel_matches_plain(cuda):
     before = TP.LAUNCHES.get("find_best_state", 0)
     got = TP.find_best_state_kernel(torch.from_numpy(one).to(cuda))
     assert TP.LAUNCHES["find_best_state"] == before + 1
-    assert np.array_equal(got.cpu().numpy(), TP.find_best_state_ref(one))
+    want, terms = TP.find_best_state_ref(one, count=True)
+    assert np.array_equal(got.cpu().numpy(), want)
+    counted, got_terms = TP.find_best_state_terms(
+        torch.from_numpy(one).to(cuda))
+    assert np.array_equal(counted.cpu().numpy(), want)
+    assert got_terms == terms
 
 
 @pytest.mark.parametrize("pix_fmt", ["yuv420p", "yuv444p16le"])

@@ -1,7 +1,8 @@
 """chip_smoke.segments on the CPU: an encode launch's segments chain their
 start states from the kernel relaunched on the prefix, and its tail
 (the last segment alone, which holds the far end of config 5's lanes
-against the plain version) is the last of those segments.  On the CPU
+against the plain version) is the last of those segments; a stats
+instance's segments count their own pixels' decisions.  On the CPU
 the "kernel" is the plain version itself, so this checks the cutting
 and the state chaining, not a kernel."""
 import pytest
@@ -20,11 +21,15 @@ def _same(a, b):
 
 
 @pytest.mark.parametrize("name,bits", [("rc_encode", 10),
-                                       ("rc_encode_ext", 11)])
+                                       ("rc_encode_ext", 11),
+                                       ("rc_encode_stats", 8),
+                                       ("rc_encode_ext_stats", 16)])
 def test_tail_segment_is_the_last_of_the_split(name, bits):
     args = tuple(chip_smoke.random_encode_args("cpu", bits, 4, 600, 48,
                                                seed=bits)) + (bits,)
-    out = rc_encode.rc_encode_packed(*args)
+    stats = name.endswith("_stats")
+    out = (rc_encode.rc_encode_stats if stats else
+           rc_encode.rc_encode_packed)(*args)
     full = chip_smoke.segments(name, args, out)
     tail = chip_smoke.segments(name, args, out, tail=True)
     cuts = chip_smoke.encode_cuts(600, bits)
@@ -36,3 +41,6 @@ def test_tail_segment_is_the_last_of_the_split(name, bits):
     for seg_args, want in full:
         assert chip_smoke.output_digests(plain(*seg_args)) == \
             chip_smoke.output_digests(want)
+    if stats:
+        # each segment counts decisions of its own
+        assert all(int(seg[1][5].sum()) > 0 for seg in full)

@@ -29,7 +29,8 @@ from tpu_ffv1.codec import twopass as J
 from tpu_ffv1.core import tables as JT
 from tpu_ffv1.core.rac import RangeEncoder, build_rac_states, \
     custom_state_tables
-from tpu_ffv1_torch import TorchFFV1Decoder
+from tpu_ffv1_torch import EncoderParams as TorchEncoderParams
+from tpu_ffv1_torch import TorchFFV1Decoder, TorchFFV1Encoder
 from tpu_ffv1_torch.codec import twopass as P
 from tpu_ffv1_torch.tpu import rc_encode as K
 
@@ -164,6 +165,22 @@ def test_two_pass_in_flight_batched_and_sharded(how):
     enc_kw = dict(devices=["cpu"] * 2) if how == "devices2" else {}
     texts, _pkts, _extradata = port_pass1(kw, [frames, other], **enc_kw)
     assert texts == [host_stats("coder2"), host_pass1(kw, other)[0]]
+
+
+def test_reset_drops_the_counts_of_frames_in_flight():
+    """Pass 1 at depth 2 with reset() while keyframe 2 is in flight: the
+    dropped frame counts neither its decisions nor its keyframe, so
+    get_stats is the host's text for the frames collected (0 and 1)."""
+    kw, frames = config("coder2")
+    enc = TorchFFV1Encoder(TorchEncoderParams(**kw, pass1=True),
+                           device="cpu")
+    enc.submit_frames([frames[0]])
+    enc.submit_frames([frames[1]])
+    enc.collect_frames()
+    enc.submit_frames([frames[2]])
+    enc.collect_frames()
+    enc.reset()
+    assert enc.get_stats() == host_pass1(kw, frames[:2])[0]
 
 
 def test_pcm_slices_count_nothing():

@@ -182,7 +182,9 @@ def test_rc_encode_stats_source_matches_plain(libs, bits, gtab):
 def test_find_best_state_source_matches_plain(libs, table):
     """The fold and the pick kernels on the whole table; the plain
     version on the probabilities at the edges (i - 10 below 1, i + 10
-    past 255) and in the middle, where candidates tie closest."""
+    past 255) and in the middle, where candidates tie closest.  On the
+    default table the fold's counting instance runs, and its count of
+    the terms folded is the plain version's."""
     if table == "default":
         one = build_rac_states()[0].copy()
     else:
@@ -196,12 +198,17 @@ def test_find_best_state_source_matches_plain(libs, table):
     best = np.zeros((256, 256), np.uint8)
     fn = libs["find_best_state"].find_best_state_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5
+    fn.argtypes = [ctypes.c_void_p] * 6
+    terms = np.zeros(1, np.uint64)
+    count = table == "default"
     assert fn(one.ctypes.data, l2.ctypes.data, lens.ctypes.data,
-              best.ctypes.data, None) == 0
+              best.ctypes.data, terms.ctypes.data if count else None,
+              None) == 0
     assert libs["find_best_state"].emu_fault_count() == 0
     rows = [0, 1, 5, 10, 11, 64, 127, 128, 129, 200, 245, 246, 254, 255]
     assert np.array_equal(best[rows], TP.find_best_state_ref(one, rows))
+    if count:
+        assert int(terms[0]) == TP.find_best_state_ref(one, count=True)[1]
 
 
 def emulate_golomb_encode(lib, args, bits, cc, gtab, cap=None):

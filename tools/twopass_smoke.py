@@ -9,10 +9,11 @@ K2, find_best_state), runs chip_smoke.py's ``twopass_phase`` (the small
 cuts' pass-1 texts and the 1080p pass-2 packets against the host's
 golden digests, find_best_state against the host's table and its plain
 version's rows, the stats instance beside the production K1), holds the
-stats instances' random launches exactly against their plain versions
-(``plain_checks``), and prints the phase's kernel rows with the bounds
-from the decision probe.  About a minute; the quick check of a change to
-two-pass encoding.
+stats instances' launches exactly against their plain versions
+(``plain_checks``: the random ones, the small cuts' and 1080p pass 1's
+frame 1 in segments), and prints the phase's kernel rows with the bounds
+from the decision probe.  About two minutes; the quick check of a change
+to two-pass encoding.
 """
 from __future__ import annotations
 
@@ -56,8 +57,11 @@ def main():
     tp = c.twopass_phase(dev, gpu, c.LastLaunch(port_encoder,
                                                 "rc_encode_stats"))
     random = tp.pop("random")
-    secs, workers = c.plain_checks([(name, rec, False)
-                                    for name, _info, rec in random])
+    tp_recs = tp.pop("main_recs")
+    secs, workers = c.plain_checks(
+        [(name, rec, False) for name, _info, rec in random] +
+        [(name, rec, split) for name, rec, split, _l, _ms in tp_recs])
+    tp_checks = c.twopass_checks(tp_recs, secs[len(random):])
     checks = {}
     for (name, info, _rec), segs in zip(random, secs):
         info["check_plain_ms"] = segs[0] * 1e3
@@ -65,8 +69,8 @@ def main():
         c.log(f"[check] {name} {info['check_shape']}: exact match (equal "
               f"SHA-256 of every output); plain version on the host CPU "
               f"{segs[0]:.1f} s")
-    rows = c.twopass_rows(tp, checks, (ns_enc, ops_enc, 0.0, 0.0, 0.0),
-                          funcs, gpu)
+    rows = c.twopass_rows(tp, checks, tp_checks,
+                          (ns_enc, ops_enc, 0.0, 0.0, 0.0), funcs, gpu)
     c.log(json.dumps({"twopass": dict(launches=tp["launches"],
                                       **tp["numbers"])}))
     c.log(json.dumps({"kernels": rows}))

@@ -40,7 +40,7 @@ def transform(text: str) -> str:
     text = text.replace("extern __shared__ __align__(16) uint8_t smem[];",
                         "uint8_t* smem = emu_blk->smem;")
     return re.sub(
-        r"(\w+<[^;<>]*>)<<<([^>]*)>>>\((.*?)\);",
+        r"(\w+(?:<[^;<>]*>)?)<<<([^>]*)>>>\((.*?)\);",
         lambda m: ("emu_launch(" + ",".join(m.group(2).split(",")[:3]) +
                    ", [&]() { " + m.group(1) + "(" + m.group(3) + "); });"),
         text, flags=re.S)

@@ -69,6 +69,10 @@ inline unsigned atomicOr(unsigned* p, unsigned v) {
 inline int atomicAdd(int* p, int v) {
   return std::atomic_ref<int>(*p).fetch_add(v);
 }
+inline unsigned long long atomicAdd(unsigned long long* p,
+                                    unsigned long long v) {
+  return std::atomic_ref<unsigned long long>(*p).fetch_add(v);
+}
 // double arithmetic rounded once to nearest (the host compiles these
 // without FMA contraction: x86-64 with no -march)
 inline double __dmul_rn(double a, double b) { return a * b; }

@@ -35,7 +35,7 @@ from ..kernels.build import count_launch, expect, load
 
 # find_best_state kernel launches (read by chip_smoke.py)
 LAUNCHES: dict = {}
-# (table bytes, device type) -> find_best_state's (256, 256) table
+# table bytes -> find_best_state's (256, 256) table
 _BEST_STATE: dict = {}
 # the candidate initial states j of a probability i: i - 10 .. i + 10
 SPAN = 21
@@ -129,10 +129,13 @@ def l2tab() -> np.ndarray:
     return tab
 
 
-def find_best_state_ref(one_state, i_values=range(256)) -> np.ndarray:
+def find_best_state_ref(one_state, i_values=range(256), count=False):
     """Plain version of find_best_state (ffv1enc.c:139-183): uint8
     (len(i_values), 256), row r the best initial state for a one-bit
-    probability of i_values[r] / 256 after each count k = 0..255.
+    probability of i_values[r] / 256 after each count k = 0..255.  With
+    ``count``, (that table, the number of terms folded: the (k, m) of
+    each (i, j) row with occ[m] != 0, which the C computes and the
+    kernel counts in ``find_best_state_terms``).
 
     The C fold runs per candidate row (i, j): occ, a distribution over
     the states, starts at state j; each step k adds to len the expected
@@ -162,8 +165,9 @@ def find_best_state_ref(one_state, i_values=range(256)) -> np.ndarray:
     rows = [(i, j) for i in i_values
             for j in range(max(i - 10, 1), min(i + 11, 256)) if one[j]]
     best = np.zeros((len(i_values), 256), np.uint8)
+    terms = 0
     if not rows:
-        return best
+        return (best, terms) if count else best
     R = len(rows)
     p = np.array([i / 256.0 for i, _j in rows])
     q = 1 - p
@@ -190,9 +194,11 @@ def find_best_state_ref(one_state, i_values=range(256)) -> np.ndarray:
     length = np.zeros(R)
     lens = np.empty((256, R))
     for k in range(256):
-        terms = occ[1:256] * cvec
+        if count:
+            terms += int(np.count_nonzero(occ[1:256]))
+        folded = occ[1:256] * cvec
         for m in range(255):
-            length -= terms[m]
+            length -= folded[m]
         lens[k] = length
         prod = np.concatenate([occ[1:256] * p, occ[1:256] * q])
         nocc = np.zeros((257, R))
@@ -204,12 +210,14 @@ def find_best_state_ref(one_state, i_values=range(256)) -> np.ndarray:
         if mine:
             pick = np.argmin(lens[:, mine], axis=1)
             best[r] = np.array([rows[mine[c]][1] for c in pick], np.uint8)
-    return best
+    return (best, terms) if count else best
 
 
-def _launch(one_state: torch.Tensor) -> torch.Tensor:
+def _launch(one_state: torch.Tensor, terms=None) -> torch.Tensor:
     """find_best_state's kernels (csrc/find_best_state.cu) on the current
-    stream: uint8 (256,) on a CUDA device -> uint8 (256, 256)."""
+    stream: uint8 (256,) on a CUDA device -> uint8 (256, 256).  With
+    ``terms`` (a zeroed int64 (1,) tensor there) the fold adds the
+    number of terms it folds to it."""
     dev = one_state.device
     expect("one_state", one_state, torch.uint8, (256,), dev)
     l2 = torch.from_numpy(l2tab()).to(dev)
@@ -217,15 +225,26 @@ def _launch(one_state: torch.Tensor) -> torch.Tensor:
     best = torch.empty((256, 256), dtype=torch.uint8, device=dev)
     fn = load("find_best_state").find_best_state_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5
+    fn.argtypes = [ctypes.c_void_p] * 6
     with torch.cuda.device(dev):
         err = fn(one_state.data_ptr(), l2.data_ptr(), lens.data_ptr(),
-                 best.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                 best.data_ptr(), None if terms is None else
+                 terms.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"find_best_state kernel launch failed: CUDA "
                            f"error {err}")
     count_launch(LAUNCHES, "find_best_state")
     return best
+
+
+def find_best_state_terms(one_state: torch.Tensor):
+    """find_best_state's kernels on a CUDA tensor, counting: (the uint8
+    (256, 256) table, the number of terms the fold folds, those (k, m) of
+    each (i, j) row with occ[m] != 0), for the kernel's roofline bound."""
+    terms = torch.zeros(1, dtype=torch.int64, device=one_state.device)
+    best = _launch(one_state, terms)
+    return best, int(terms.item())
 
 
 def find_best_state_kernel(one_state) -> torch.Tensor:
@@ -243,10 +262,11 @@ def find_best_state(one_state, device) -> np.ndarray:
     """find_best_state's (256, 256) uint8 table for the state-transition
     table ``one_state`` (256,), computed on ``device`` and cached by the
     table's bytes (every pass-2 encoder of one statistics text asks for
-    the same table)."""
+    the same table; the kernel's table and the plain version's are the
+    same bits)."""
     dev = torch.device(device)
     one = np.ascontiguousarray(one_state, dtype=np.uint8)
-    key = (one.tobytes(), dev.type)
+    key = one.tobytes()
     if key not in _BEST_STATE:
         _BEST_STATE[key] = find_best_state_kernel(
             torch.from_numpy(one).to(dev)).cpu().numpy()

@@ -49,10 +49,12 @@ __device__ __forceinline__ int candidate(int row, const uint8_t* one) {
   return (j >= 1 && j <= 255 && one[j]) ? j : -1;
 }
 
-template <int SPAN>
+// COUNT: also add the number of terms folded (the (k, m) with occ[m] != 0)
+// to *terms, for the roofline bound of a measurement
+template <int SPAN, bool COUNT>
 __global__ void __launch_bounds__(32) fold_kernel(
     const uint8_t* __restrict__ one_state, const double* __restrict__ l2tab,
-    double* __restrict__ lens) {
+    double* __restrict__ lens, unsigned long long* __restrict__ terms) {
   extern __shared__ __align__(16) uint8_t smem[];
   double* l2 = reinterpret_cast<double*>(smem);
   uint8_t* one = smem + 256 * sizeof(double);
@@ -74,11 +76,13 @@ __global__ void __launch_bounds__(32) fold_kernel(
   for (int m = 0; m < 257; ++m) occ[m] = 0.0;
   occ[j] = 1.0;
   double len = 0.0;
+  unsigned long long n = 0;
   double* out = lens + (size_t)row * 256;
   for (int k = 0; k < 256; ++k) {
     for (int m = 1; m < 256; ++m) {
       const double o = occ[m];
       if (o != 0.0) {
+        if constexpr (COUNT) ++n;
         const double c = __dadd_rn(__dmul_rn(p, l2[m]),
                                    __dmul_rn(q, l2[256 - m]));
         len = __dadd_rn(len, -__dmul_rn(o, c));
@@ -99,6 +103,7 @@ __global__ void __launch_bounds__(32) fold_kernel(
     occ = nocc;
     nocc = s;
   }
+  if constexpr (COUNT) atomicAdd(terms, n);
 }
 
 // best_state[i][k]: the first candidate j of i with the least len at k
@@ -124,15 +129,24 @@ __global__ void __launch_bounds__(32) pick_kernel(
 
 // Plain C entry point: one_state uint8 (256,), l2tab float64 (256,) (0 at
 // 0, log2(m / 256) from the host's libm), lens float64 (256 * 21, 256)
-// scratch, best_state uint8 (256, 256) out.  Returns the cudaError_t of
-// the launches (0 = ok).
+// scratch, best_state uint8 (256, 256) out; terms uint64 (1,), zeroed,
+// or null: where given, the fold's COUNT instance adds its terms there.
+// Returns the cudaError_t of the launches (0 = ok).
 extern "C" int find_best_state_launch(const void* one_state,
                                       const void* l2tab, void* lens,
-                                      void* best_state, void* stream) {
+                                      void* best_state, void* terms,
+                                      void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const size_t smem = 256 * sizeof(double) + 256;
-  fold_kernel<kSpan><<<(256 * kSpan + 31) / 32, 32, smem, s>>>(
-      (const uint8_t*)one_state, (const double*)l2tab, (double*)lens);
+  const int blocks = (256 * kSpan + 31) / 32;
+  if (terms)
+    fold_kernel<kSpan, true><<<blocks, 32, smem, s>>>(
+        (const uint8_t*)one_state, (const double*)l2tab, (double*)lens,
+        (unsigned long long*)terms);
+  else
+    fold_kernel<kSpan, false><<<blocks, 32, smem, s>>>(
+        (const uint8_t*)one_state, (const double*)l2tab, (double*)lens,
+        nullptr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   pick_kernel<kSpan><<<256 * 256 / 32, 32, 0, s>>>(

@@ -409,35 +409,27 @@ static int launch(const void* ctx, const void* diff, const void* active,
   // the state table (shared-memory instance), one_tab and zero_tab, and
   // a stats instance's state counts (rc_encode.py: other_smem_bytes)
   const size_t smem = (GTAB ? 0 : (size_t)CC * 32) + 512 + (STATS ? 2048 : 0);
-  if constexpr (STATS) {
+  // the production kernel, or the stats kernel with its two count tables
+  // after the common arguments
+  auto go = [&](auto kernel, auto... counts) {
     if (smem > 48 * 1024) {
       cudaError_t err = cudaFuncSetAttribute(
-          rc_encode_stats_kernel<BITS, GTAB>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (err != cudaSuccess) return (int)err;
     }
-    rc_encode_stats_kernel<BITS, GTAB><<<L, 32, smem, stream>>>(
+    kernel<<<L, 32, smem, stream>>>(
         (const int32_t*)ctx, (const int32_t*)diff, (const uint8_t*)active,
         (const uint8_t*)states0, (const uint8_t*)one_tab,
         (const uint8_t*)zero_tab, (const int32_t*)low0,
         (const int32_t*)range0, (int32_t*)packed, (int32_t*)low_out,
-        (int32_t*)range_out, (uint8_t*)states_out, N, CC, (int32_t*)stat,
-        (int32_t*)stat2);
-  } else {
-    if (smem > 48 * 1024) {
-      cudaError_t err = cudaFuncSetAttribute(
-          rc_encode_kernel<BITS, GTAB, COMPACT, STAGES>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    rc_encode_kernel<BITS, GTAB, COMPACT, STAGES><<<L, 32, smem, stream>>>(
-        (const int32_t*)ctx, (const int32_t*)diff, (const uint8_t*)active,
-        (const uint8_t*)states0, (const uint8_t*)one_tab,
-        (const uint8_t*)zero_tab, (const int32_t*)low0,
-        (const int32_t*)range0, (int32_t*)packed, (int32_t*)low_out,
-        (int32_t*)range_out, (uint8_t*)states_out, N, CC);
-  }
-  return (int)cudaGetLastError();
+        (int32_t*)range_out, (uint8_t*)states_out, N, CC, counts...);
+    return (int)cudaGetLastError();
+  };
+  if constexpr (STATS)
+    return go(rc_encode_stats_kernel<BITS, GTAB>, (int32_t*)stat,
+              (int32_t*)stat2);
+  else
+    return go(rc_encode_kernel<BITS, GTAB, COMPACT, STAGES>);
 }
 
 #define RC_ENC_ARGS                                                        \

@@ -927,8 +927,6 @@ class TorchFFV1Encoder:
         ``streams`` too where they exist, for a PCM retry) and queue what
         its collect reads."""
         keyframe = self._keyframe()
-        if keyframe and self.pass1:
-            self.gob_count += 1
         if self.golomb:
             # Golomb-Rice codes no range-coder decision the statistics
             # count, as the host's VLC path calls no hook
@@ -1061,8 +1059,12 @@ class TorchFFV1Encoder:
             # ffv1dec.c:419-420) to their initial states
             mask = torch.from_numpy(pcm).to(self.device)
             self.states[mask] = self._fresh_states(self.states)[mask]
-        if "lane_stats" in m:
-            self._add_stats(*m["lane_stats"], pcm)
+        if self.pass1:
+            # counted at collect, as the frame's decisions are: a frame
+            # that reset() drops in flight counts in neither
+            self.gob_count += keyframe
+            if "lane_stats" in m:
+                self._add_stats(*m["lane_stats"], pcm)
         return [(self._assemble(payloads[bi * self.n_slices:
                                          (bi + 1) * self.n_slices]),
                  keyframe)
