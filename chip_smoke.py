@@ -13,7 +13,8 @@ exits non-zero without the final result line:
    and in global memory, the decoders also with the 5-input context and
    in their line-interleaved RGB form, B1 and B1-ext,
    K1 also in its compact form, K1 and K1-ext also as the stats
-   instances of two-pass encoding's pass 1, K1, K1-ext, K2, K2-ext, G1
+   instances of two-pass encoding's pass 1 (K1's with its row-count
+   kernel, rc_stats_rows_kernel), K1, K1-ext, K2, K2-ext, G1
    and G2 as stage probes; G1 and G2, the Golomb-Rice scans, with the
    VLC table in shared and in global memory, G2 also with the 5-input
    context), find_best_state.cu (pass 2's table of tuned initial
@@ -111,20 +112,23 @@ exits non-zero without the final result line:
    each frame's row bytes the plain computation on a host copy of the
    same raw slots; then twopass (twopass_phase), two-pass encoding: pass
    1 on two small cuts (256x144 yuv420p and 128x72 yuv444p16le, 2
-   streams x 2 frames, 24 slices: the stats instances of K1 and K1-ext)
-   whose get_stats texts and packets must equal the host spec encoder's
-   golden digests, pass 1 on the 8bit path's first 4 frames at 1080p
-   (packets 8bit's goldens, every lane's counts its decisions, the
-   stats instance timed beside the production K1 on the same inputs and
-   equal to it in every other output), and pass 2 of those frames from
+   streams x 2 frames, 24 slices: the stats instances of K1 and K1-ext,
+   K1's as its stats scan and its row counts on a side stream; at depth
+   2, every submit strict) whose get_stats texts and packets must equal
+   the host spec encoder's golden digests, pass 1 on the 8bit path's
+   first 4 frames at 1080p (packets 8bit's goldens, every lane's counts
+   its decisions, the pair, the scan alone and the row counts alone
+   timed beside the production K1 on the same inputs, the scan equal to
+   it in every other output), and pass 2 of those frames from
    the 8-bit cut's text (find_best_state on the card; extradata and
    packets equal to the host native encoder's goldens, the decode through
    K2 from the tuned initial states lossless), find_best_state's table
    equal to the host's digest and 14 of its rows to the plain version's
    (its terms counted by the fold's counting instance), and the stats
-   instances in both placements on random inputs at small N; the cuts'
-   launches, 1080p pass 1's frame-1 launch and the random ones are held
-   to their plain versions in phase 6; then two main paths on
+   instances in both placements (and K1's row counts) on random inputs
+   at small N; the cuts' launches, 1080p pass 1's frame-1 launch and the
+   random ones are held to their plain versions in phase 6; then two
+   main paths on
    non-uniform grids, each
    at FFmpeg's -slices 24 (6 x 4) with six timed frames: 720p
    (1280x720 yuv420p, context model 0: slices 213 and 214 wide, so K1
@@ -217,8 +221,9 @@ exits non-zero without the final result line:
    48 lanes; cli's frame-1 launches, 24 lanes; config5_4k's last lane
    group's K1 and K1-ext launches, 8 lanes of about 1M slots, on their
    last segment only; twopass's stats launches, the small cuts' each
-   whole and 1080p pass 1's frame 1 in segments, all six outputs with
-   both count tables), held exactly
+   whole and 1080p pass 1's frame 1 in segments: K1-ext's six outputs
+   with both count tables, K1's stats scan's five and its row counts'
+   table, whole), held exactly
    (integer codec) against its plain version, run on CPU copies of the
    same inputs (the plain versions are per-pixel loops of small tensor
    ops, faster on the host than as per-op card launches).  Each
@@ -231,8 +236,10 @@ exits non-zero without the final result line:
    full and EPZS P paths' K1) share one plain run over their lanes side
    by side (``merge_launches``), each launch's outputs held exactly; all
    segments run in parallel worker processes, one per core, the
-   longest first; the workers return digests of their outputs, which
-   must equal the digests of the kernel's outputs;
+   longest launches first, each launch's segments submitted as soon as
+   they are cut (the cutting overlaps the workers); the workers return
+   digests of their outputs, which must equal the digests of the
+   kernel's outputs;
 7. JSON lines: the probes' latencies ("probes"), each path's step and
    stage times ("steps"), mixed_q's and nonuniform_ext's steps, the P
    paths' steps and stages ("pframe"), the pipelined phases' steps at
@@ -851,7 +858,10 @@ def host_time_ms(fn):
 
 
 def flat_outputs(out):
-    """Kernel outputs as a flat list of tensors (planes tuple unpacked)."""
+    """Kernel outputs as a flat list of tensors (planes tuple unpacked; a
+    kernel with one output, rc_stats_rows, may give it bare)."""
+    if isinstance(out, torch.Tensor):
+        return [out]
     return [t for o in out for t in (o if isinstance(o, tuple) else (o,))]
 
 
@@ -1273,25 +1283,29 @@ def check_stats_kernel(dev, bits, N, context_model):
     """The stats instance of K1 (8 bits) or K1-ext (16 bits) on random
     codec-like inputs (states from 1..255) at L = 8 and the two state
     planes of the context model (the table in shared or in global
-    memory), timed.  Returns (instance, its numbers, the launch's (args,
-    outputs)) for the plain check (``plain_checks``)."""
+    memory), timed.  Returns [(instance, its numbers, the launch's (args,
+    outputs))] for the plain check (``plain_checks``): K1's as its two
+    kernels, the stats scan and the row counts (``stats_recs``)."""
     L = 8
     CC = 2 * T.CONTEXT_COUNTS[context_model]
     args = (*random_encode_args(dev, bits, L, N, CC,
                                 SEED + 7000 + bits + 100 * context_model, 1),
             bits)
-    name = rc_encode.instance(bits, CC, stats=True)
     got = rc_encode.rc_encode_stats(*args)
+    name = rc_encode.instance(bits, CC, stats=True)
     decisions = decisions_per_lane(args[1], args[2])
     check(torch.equal(got[4].sum((1, 2)).long(), decisions) and
           torch.equal(got[5].sum((1, 2, 3)).long(), decisions),
           f"{name}: the counts do not add up to the decisions")
-    ms = cuda_time_ms(lambda: rc_encode.rc_encode_stats(*args), 5)
-    shape = f"bits={bits} L={L} N={N} CC={CC} S={got[0].shape[1]}"
     label = "random residuals, states 1..255"
-    log(f"[kernels] {name} {shape} {label}: kernel {ms:.3f} ms")
-    return name, dict(check_ms=ms, check_shape=shape, label=label), \
-        (args, got)
+    res = []
+    for kname, rec, _split, _label, ms in stats_recs((args, got), False,
+                                                     label):
+        shape = f"bits={bits} L={L} N={N} CC={CC} S={got[0].shape[1]}"
+        log(f"[kernels] {kname} {shape} {label}: kernel {ms:.3f} ms")
+        res.append((kname, dict(check_ms=ms, check_shape=shape, label=label),
+                    rec))
+    return res
 
 
 def decode_args_from_packets(dec, pkts, bits):
@@ -1980,15 +1994,42 @@ def pcm_phase(dev, gpu, rec):
                 launches=launches)
 
 
+def stats_rows_args(args):
+    """rc_stats_rows' arguments for a stats launch's ``args``."""
+    return (*args[:3], args[8], args[3].shape[1])
+
+
+def stats_recs(launch, split, label, ms=None):
+    """A stats launch (args, its six outputs) as phase 6 holds it:
+    [(instance, (args, outputs), split, label, kernel ms)].  K1-ext's
+    stats kernel computes all six; K1's are two kernels, its stats scan
+    (slots, low, range, states, stat; in segments with ``split``) and its
+    row counts (stat2, always whole: one bincount).  ``ms``: the kernels'
+    times, else timed here."""
+    args, out = launch
+    name = rc_encode.instance(args[8], args[3].shape[1], stats=True)
+    if args[8] > 10:
+        return [(name, launch, split, label, ms if ms is not None else
+                 cuda_time_ms(lambda: rc_encode.rc_encode_stats(*args), 3))]
+    rows_args = stats_rows_args(args)
+    scan_ms, rows_ms = ms if ms is not None else (
+        cuda_time_ms(lambda: rc_encode.rc_encode_stats_scan(*args), 3),
+        cuda_time_ms(lambda: rc_encode.rc_stats_rows(*rows_args), 3))
+    return [(name, (args, out[:5]), split, label, scan_ms),
+            ("rc_stats_rows", (rows_args, (out[5],)), False, label, rows_ms)]
+
+
 def twopass_phase(dev, gpu, rec):
     """twopass: pass 1 and pass 2 of two-pass encoding through
     TorchFFV1Encoder on the card.
 
     - The small cuts (TWOPASS_CUTS: 256x144 yuv420p and 128x72
       yuv444p16le, 2 streams x 2 frames, 24 slices, coder 2): pass 1 on
-      the stats instances of K1 and K1-ext, each stream's get_stats text
-      and its packets equal to the host spec FFV1Encoder(pass1=True)'s
-      golden digests.
+      the stats instances of K1 and K1-ext at depth 2, every submit
+      under set_sync_debug_mode("error") (``pipelined``: K1's row counts
+      run on a side stream joined by events), each stream's get_stats
+      text and its packets equal to the host spec
+      FFV1Encoder(pass1=True)'s golden digests.
     - 1080p pass 1: the 8bit path's first 4 frames, batch 2, on K1's
       stats instance: the packets 8bit's goldens (pass 1 does not change
       the bytes), every lane's counts adding up to its decisions
@@ -2011,8 +2052,9 @@ def twopass_phase(dev, gpu, rec):
     The launch counts are set to 0 before each part and read after it.
     ``rec``: the LastLaunch of rc_encode_stats.  Returns its numbers, the
     random checks, and ``main_recs``, the stats launches phase 6 holds to
-    their plain versions on all six outputs: the small cuts' four, each
-    whole, and 1080p pass 1's frame 1, in segments."""
+    their plain versions (``stats_recs``): the small cuts' four, each
+    whole, and 1080p pass 1's frame 1, K1's as its scan (in segments at
+    1080p) and its row counts (whole)."""
     tag = "twopass"
     t_phase = time.perf_counter()
     golden = load_goldens()["twopass"]
@@ -2024,8 +2066,8 @@ def twopass_phase(dev, gpu, rec):
         enc = TorchFFV1Encoder(EncoderParams(**kw, pass1=True), batch=BATCH,
                                device=dev)
         streams = twopass_cut_streams(name)
-        for t in range(TWOPASS_CUT_FRAMES):
-            res = enc.encode_frames([s[t] for s in streams])
+
+        def on_result(t, res, name=name):
             for b in range(BATCH):
                 want = golden[name]["packets"][b][t]
                 check(digest(res[b][0]) == {"sha256": want["sha256"],
@@ -2033,6 +2075,12 @@ def twopass_phase(dev, gpu, rec):
                       res[b][1] == want["key"],
                       f"twopass {name} stream {b} frame {t}: packet differs "
                       f"from the golden")
+
+        # at depth 2, every submit strict: K1's row counts join the scan's
+        # stream by events
+        pipelined(enc.submit_frames, enc.collect_frames,
+                  [[s[t] for s in streams]
+                   for t in range(TWOPASS_CUT_FRAMES)], on_result)
         texts[name] = [enc.get_stats(b) for b in range(BATCH)]
         check([digest(x.encode()) for x in texts[name]] ==
               golden[name]["stats"],
@@ -2040,23 +2088,23 @@ def twopass_phase(dev, gpu, rec):
         cut_recs[name] = rec.take_all()
         log(f"[{tag}] {name} cut: {kw['width']}x{kw['height']} "
             f"{kw['pix_fmt']}, {BATCH} x {TWOPASS_CUT_FRAMES} frames, pass 1 "
-            f"on the card: each stream's statistics text "
+            f"on the card at depth 2 (every submit under "
+            f"set_sync_debug_mode(\"error\")): each stream's statistics text "
             f"({', '.join(str(len(x)) for x in texts[name])} B) and packets "
             f"equal to the host spec encoder's golden digests")
     rec.armed = False
     cut_launches = all_launches()
     check(cut_launches == {"rc_encode_stats": TWOPASS_CUT_FRAMES,
+                           "rc_stats_rows": TWOPASS_CUT_FRAMES,
                            "rc_encode_ext_stats": TWOPASS_CUT_FRAMES},
-          f"twopass cuts: expected each stats instance once per step: "
-          f"{cut_launches}")
+          f"twopass cuts: expected each stats instance (K1's: its scan "
+          f"and its row counts) once per step: {cut_launches}")
     # the cuts' launches, each timed, for phase 6: (instance, launch,
-    # split, label, kernel ms)
+    # split, label, kernel ms); K1's as its two kernels
     main_recs = [
-        (rc_encode.instance(args[8], args[3].shape[1], stats=True),
-         (args, out), False, f"twopass {name} cut frame {t}",
-         cuda_time_ms(lambda a=args: rc_encode.rc_encode_stats(*a), 3))
-        for name in TWOPASS_CUTS
-        for t, (args, out) in enumerate(cut_recs[name])]
+        rec for name in TWOPASS_CUTS
+        for t, launch in enumerate(cut_recs[name])
+        for rec in stats_recs(launch, False, f"twopass {name} cut frame {t}")]
 
     # 1080p pass 1
     g8 = load_goldens()["8bit"]
@@ -2080,9 +2128,10 @@ def twopass_phase(dev, gpu, rec):
                   f"8bit's golden")
     rec.armed = False
     p1_launches = all_launches()
-    check(p1_launches == {"rc_encode_stats": TWOPASS_FRAMES},
-          f"twopass pass 1: expected rc_encode_stats once per step: "
-          f"{p1_launches}")
+    check(p1_launches == {"rc_encode_stats": TWOPASS_FRAMES,
+                          "rc_stats_rows": TWOPASS_FRAMES},
+          f"twopass pass 1: expected K1's stats scan and its row counts "
+          f"once per step: {p1_launches}")
     calls = rec.take_all()
     for t, (args, out) in enumerate(calls):
         decisions = decisions_per_lane(args[1], args[2])
@@ -2096,9 +2145,14 @@ def twopass_phase(dev, gpu, rec):
     check(all(torch.equal(a, b) for a, b in zip(p1_rec[1][:4], prod)),
           "twopass: the stats instance's slots, low, range or states differ "
           "from K1's on the same inputs")
+    # the pair as pass 1 runs it (the row counts on the side stream),
+    # each kernel alone, and production K1, all on the same inputs
     stats_ms = cuda_time_ms(lambda: rc_encode.rc_encode_stats(*args), 3)
-    main_recs.append(("rc_encode_stats", p1_rec, True,
-                      "twopass 1080p pass 1 frame 1", stats_ms))
+    scan_ms = cuda_time_ms(lambda: rc_encode.rc_encode_stats_scan(*args), 3)
+    rows_args = stats_rows_args(args)
+    rows_ms = cuda_time_ms(lambda: rc_encode.rc_stats_rows(*rows_args), 3)
+    main_recs += stats_recs(p1_rec, True, "twopass 1080p pass 1 frame 1",
+                            (scan_ms, rows_ms))
     k1_ms = cuda_time_ms(lambda: rc_encode.rc_encode_packed(*args), 3)
     ext_args = cut_recs["16bit"][1][0]
     ext_stats_ms = cuda_time_ms(
@@ -2110,9 +2164,10 @@ def twopass_phase(dev, gpu, rec):
         f"lane's counts add up to its decisions in every frame ({total} "
         f"decisions); encode steps {', '.join(f'{x:.2f}' for x in p1_ms)} "
         f"ms; on the warm-up frame's inputs (L={args[0].shape[0]} "
-        f"N={args[0].shape[1]}) K1's stats instance {stats_ms:.2f} ms, "
-        f"production K1 {k1_ms:.2f} ms, the same slots, low, range and "
-        f"states; K1-ext's stats instance on the 16bit cut's frame 1 "
+        f"N={args[0].shape[1]}) K1's stats instance {stats_ms:.2f} ms "
+        f"(its scan alone {scan_ms:.2f} ms, its row counts alone "
+        f"{rows_ms:.3f} ms, on a side stream in the pair), production K1 "
+        f"{k1_ms:.2f} ms, the same slots, low, range and states; K1-ext's stats instance on the 16bit cut's frame 1 "
         f"(L={ext_args[0].shape[0]} N={ext_args[0].shape[1]}) "
         f"{ext_stats_ms:.3f} ms, production K1-ext {ext_ms:.3f} ms ({gpu})")
 
@@ -2188,11 +2243,12 @@ def twopass_phase(dev, gpu, rec):
         f"version's ({fbs_plain_ms:.0f} ms on the host CPU); kernel "
         f"{fbs_ms:.2f} ms for {n_rows} (i, j) rows, {terms} fold terms (the "
         f"fold's count) ({gpu})")
-    random = [check_stats_kernel(dev, b, n, m) for b, n in ((8, 2048),
-                                                            (16, 1024))
-              for m in (0, 1)]
-    check(sorted(r[0] for r in random) == sorted(STATS_INSTANCES),
-          "the stats checks do not cover every stats instance")
+    random = [r for b, n in ((8, 2048), (16, 1024)) for m in (0, 1)
+              for r in check_stats_kernel(dev, b, n, m)]
+    check(sorted(r[0] for r in random) ==
+          sorted(STATS_INSTANCES + ("rc_stats_rows",) * 2),
+          "the stats checks do not cover every stats instance and K1's row "
+          "counts at both context models")
     seconds = time.perf_counter() - t_phase
     log(f"[{tag}] the phase in {seconds:.1f} s")
     return dict(
@@ -2205,7 +2261,8 @@ def twopass_phase(dev, gpu, rec):
         numbers=dict(
             pass1_encode_ms=p1_ms, pass2_constructor_ms=ctor_ms,
             pass2_encode_ms=p2_ms, pass2_decode_ms=p2_dec_ms,
-            stats_ms=stats_ms, k1_ms=k1_ms, ext_stats_ms=ext_stats_ms,
+            stats_ms=stats_ms, stats_scan_ms=scan_ms, stats_rows_ms=rows_ms,
+            k1_ms=k1_ms, ext_stats_ms=ext_stats_ms,
             k1_ext_ms=ext_ms, pass2_bytes=sizes2, one_pass_bytes=sizes,
             find_best_state_ms=fbs_ms, seconds=seconds))
 
@@ -3754,7 +3811,9 @@ def plain_version(name):
     if name.startswith("rc_encode_ext_stats"):
         return rc_encode.rc_encode_ext_stats_ref
     if name.startswith("rc_encode_stats"):
-        return rc_encode.rc_encode_stats_ref
+        return rc_encode.rc_encode_stats_scan_ref
+    if name == "rc_stats_rows":
+        return rc_encode.rc_stats_rows_ref
     if name.startswith("rc_encode_compact"):
         return rc_encode.rc_encode_compact_ref
     if name.startswith("rc_encode"):
@@ -3828,8 +3887,10 @@ def segments(name, args, out, tail=False):
         packed, low, rng, st, *counts = out
         # a stats instance's counts are those of its own pixels: a
         # segment's are the relaunch to its end's less the one to its start
-        scan = rc_encode.rc_encode_stats if counts else \
-            rc_encode.rc_encode_packed
+        # (K1's stats scan: stat alone; K1-ext's: stat and stat2)
+        scan = rc_encode.rc_encode_packed if not counts else \
+            rc_encode.rc_encode_stats if bits > 10 else \
+            rc_encode.rc_encode_stats_scan
         cuts = encode_cuts(ctx.shape[1], bits)
         if tail:
             cuts = cuts[-2:]
@@ -3918,6 +3979,9 @@ def decode_five(args):
 
 def launch_shape(name, args, out):
     """A main-path launch's shape, for the log and the JSON line."""
+    if name == "rc_stats_rows":
+        return (f"L={args[0].shape[0]} N={args[0].shape[1]} CC={args[4]} "
+                f"bits={args[3]}")
     if name.startswith("golomb_encode"):
         return (f"L={args[0].shape[0]} N={args[0].shape[1]} "
                 f"CC={args[4].shape[1]} T={out[0].shape[1]} bits={args[7]}")
@@ -3944,6 +4008,9 @@ def plain_cost(name, args):
         return 600 * args[0].shape[1]
     if name.startswith("golomb_decode"):
         return 700 * sum(w * h for (w, h, _b) in args[4])
+    if name == "rc_stats_rows":
+        # vectorised over every slot of every pixel: one bincount
+        return args[0].numel() * (2 * args[3] + 1) // 20
     if name.startswith("rc_encode"):
         return args[0].numel() * (2 * args[8] + 1)
     if "_rgb" in name:
@@ -4052,31 +4119,44 @@ def merge_launches(recs):
 def plain_checks(launches):
     """Hold kernel launches exactly against their plain versions, run on
     CPU copies of the same inputs in parallel worker processes, one per
-    CPU core, the longest jobs first.  ``launches``: [(instance, (args,
-    outputs), split)]; a launch with ``split`` is cut into segments (see
-    ``segments``), the others run whole.  The workers return digests of
-    their outputs, which must equal the digests of the kernel's outputs.
+    CPU core, the longest launches first.  ``launches``: [(instance,
+    (args, outputs), split)]; a launch with ``split`` is cut into
+    segments (see ``segments``), the others run whole.  Each launch's
+    segments are cut, copied to the host and submitted while the workers
+    run the ones before (the cutting relaunches the kernel on prefixes,
+    and the digests read every output: serial work that used to come
+    before the first job).  The workers return digests of their
+    outputs, which must equal the digests of the kernel's outputs.
     Returns the plain version's seconds per segment of each launch, in
     the order given, and the number of workers.  ``split`` "tail": only
     the last segment (``segments``' tail)."""
-    jobs = []
-    for i, (name, (args, out), split) in enumerate(launches):
-        segs = segments(name, args, out, split == "tail") if split else \
-            [(args, out)]
-        for k, (seg_args, want) in enumerate(segs):
-            cpu_args = [a.cpu().numpy() if isinstance(a, torch.Tensor)
-                        else a for a in seg_args]
-            jobs.append((plain_cost(name, seg_args), i, k, name,
-                         output_digests(want), cpu_args))
-    jobs.sort(key=lambda j: -j[0])
+
+    def cost(launch):
+        name, (args, _out), split = launch
+        c = plain_cost(name, args)
+        return c / (len(encode_cuts(args[0].shape[1], args[8])) - 1) \
+            if split == "tail" else c
+
     secs = [{} for _ in launches]
     workers = os.cpu_count() or 4
     ctx = multiprocessing.get_context("spawn")
+    t0 = time.perf_counter()
     with concurrent.futures.ProcessPoolExecutor(
             max_workers=workers, mp_context=ctx) as pool:
-        futs = [(job, pool.submit(plain_worker, job[3], job[5]))
-                for job in jobs]
-        for (_c, i, k, name, mine, _a), fut in futs:
+        futs = []
+        for i in sorted(range(len(launches)),
+                        key=lambda i: -cost(launches[i])):
+            name, (args, out), split = launches[i]
+            segs = segments(name, args, out, split == "tail") if split \
+                else [(args, out)]
+            for k, (seg_args, want) in enumerate(segs):
+                cpu_args = [a.cpu().numpy() if isinstance(a, torch.Tensor)
+                            else a for a in seg_args]
+                futs.append(((i, k, name, output_digests(want)),
+                             pool.submit(plain_worker, name, cpu_args)))
+        log(f"[check] {len(futs)} plain jobs cut and submitted in "
+            f"{time.perf_counter() - t0:.1f} s, the workers running")
+        for (i, k, name, mine), fut in futs:
             sec, theirs = fut.result()
             check(theirs == mine,
                   f"{name} differs from its plain version on the same "
@@ -4208,6 +4288,8 @@ TWOPASS_KERNELS = {
                         "tpu_ffv1/tpu/rc_pallas.py:58"),
     "rc_encode_ext_stats": ("tpu_ffv1_torch/csrc/rc_encode_ext.cu",
                             "tpu_ffv1/tpu/rc_pallas.py:317"),
+    "rc_stats_rows": ("tpu_ffv1_torch/csrc/rc_encode.cu",
+                      "tpu_ffv1/bitstream/symbols.py:26"),
     "find_best_state": ("tpu_ffv1_torch/csrc/find_best_state.cu",
                         "native/ffv1_native.c:850"),
 }
@@ -4224,24 +4306,32 @@ def twopass_checks(tp_recs, secs):
         tp_checks.setdefault(name, []).append(dict(
             label=label, check_shape=shape, check_ms=ms,
             check_plain_ms=sum(segs) * 1e3))
+        what = "stat2, the row counts" if name == "rc_stats_rows" else \
+            "all six outputs: slots, low, range, states and both count " \
+            "tables" if name.startswith("rc_encode_ext") else \
+            "all five outputs: slots, low, range, states and the state " \
+            "counts"
         log(f"[check] {name}, {label} ({shape}): exact match"
             f"{f' in {len(segs)} segments' if split else ''} (equal SHA-256 "
-            f"of all six outputs: slots, low, range, states and both count "
-            f"tables); plain version on the host CPU "
+            f"of {what}); plain version on the host CPU "
             f"{' + '.join(f'{x:.1f}' for x in segs)} s")
     return tp_checks
 
 
 def twopass_rows(tp, checks, tp_checks, probe, funcs, gpu):
     """The ``kernels`` JSON rows of the twopass phase: the stats instances
-    of K1 (1080p pass 1) and K1-ext (the 16bit cut), each with the
-    production instance's time on the same inputs, their roofline bound
-    (K1's bytes and the count tables written once; the decisions'
-    instructions from the decision probe and the instance's pixel loop)
-    and chain bound, their plain versions timed on the main path's
-    launch (``tp_checks``: the twopass launches held in phase 6, the
-    rows' checks with the random ones); and find_best_state (FP64
-    operations: 10 a fold term, the fold's own count)."""
+    of K1 (1080p pass 1: the pair as pass 1 runs it, its scan beside its
+    row counts on a side stream, with the scan's time alone) and K1-ext
+    (the 16bit cut), each with the production instance's time on the
+    same inputs, their roofline bound (K1's bytes and the count tables
+    written once; the decisions' instructions from the decision probe and
+    the instance's pixel loop) and chain bound, their plain versions
+    timed on the main path's launch (``tp_checks``: the twopass launches
+    held in phase 6, the rows' checks with the random ones; K1's the
+    scan's, in segments); K1's row counts (rc_stats_rows, alone on the
+    same inputs; bytes: ctx, diff and active read, the counts written);
+    and find_best_state (FP64 operations: 10 a fold term, the fold's own
+    count)."""
     ns_enc, ops_enc, _ns_dec, _ops_dec, _row_ns = probe
     n = tp["numbers"]
     rows = []
@@ -4279,10 +4369,13 @@ def twopass_rows(tp, checks, tp_checks, probe, funcs, gpu):
             f"(production {prod_ms:.3f} ms on the same inputs); pixel loop "
             f"{loop} SASS instructions (production {loop_prod}); roofline "
             f"bound {bound:.3f} ms ({term}); chain bound {chain:.2f} ms")
+        extra_ms = dict(scan_ms=n["stats_scan_ms"]) \
+            if name == "rc_encode_stats" else {}
         rows.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             main_path=path_name, launches=launches,
             launches_per_step=launches / steps, max_abs_err=0, ms=ms,
+            **extra_ms,
             production_ms=prod_ms, plain_ms=plain["check_plain_ms"],
             plain_shape=plain["check_shape"], plain_device="cpu",
             bound_ms=bound, bound_by=term, chain_bound_ms=chain,
@@ -4293,6 +4386,31 @@ def twopass_rows(tp, checks, tp_checks, probe, funcs, gpu):
             main_path_shape=shape,
             checks=[{k: c[k] for k in ("label", "check_shape", "check_ms",
                                        "check_plain_ms")} for c in chk]))
+    # K1's row counts on 1080p pass 1's frame-1 inputs
+    args = stats_rows_args(tp["p1_rec"][0])
+    L, N = args[0].shape
+    CC = args[4]
+    nbytes = L * N * 9 + L * CC * 64 * 4
+    bound, term = roofline_ms(nbytes, 0)
+    src, replaces = TWOPASS_KERNELS["rc_stats_rows"]
+    chk = tp_checks["rc_stats_rows"] + checks["rc_stats_rows"]
+    plain = next(c for c in chk
+                 if c["label"] == "twopass 1080p pass 1 frame 1")
+    shape = launch_shape("rc_stats_rows", args, None)
+    log(f"[bound] rc_stats_rows (twopass_1080p_pass1, {gpu}): "
+        f"{n['stats_rows_ms']:.3f} ms alone at {shape}, the zeroing "
+        f"included; roofline bound {bound:.4f} ms ({term}: {nbytes} B)")
+    rows.append(dict(
+        name="rc_stats_rows", route="cuda", source=src, replaces=replaces,
+        main_path="twopass_1080p_pass1",
+        launches=tp["launches"]["pass1"]["rc_stats_rows"],
+        launches_per_step=tp["launches"]["pass1"]["rc_stats_rows"] /
+        TWOPASS_FRAMES, max_abs_err=0, ms=n["stats_rows_ms"],
+        plain_ms=plain["check_plain_ms"], plain_shape=plain["check_shape"],
+        plain_device="cpu", bound_ms=bound, bound_by=term, library_ms=None,
+        main_path_shape=shape,
+        checks=[{k: c[k] for k in ("label", "check_shape", "check_ms",
+                                   "check_plain_ms")} for c in chk]))
     fbs = tp["fbs"]
     # bytes: the table, l2tab and the output; operations: the fold terms
     bound, term = max(

@@ -8,6 +8,7 @@ its device classes' (tests/test_tpu.py).  Also: the port's frames at
 depth 2 write the same bytes as at depth 1; two-pass mode's files and
 messages are the JAX CLI's; and the refusals (v0/v1 streams, the default
 device without a GPU) end the run with their message."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import filecmp
 import json
 import os

@@ -3,6 +3,7 @@ of both kernels): packets byte-identical to TPUFFV1Encoder and the host
 FFV1Encoder, lossless decode, GOP state handed over from the JAX
 classes, damage concealment; at context models 0 and 1.  Every comparison is exact: the codec is
 integer and lossless."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import copy
 import dataclasses
 
@@ -98,19 +99,29 @@ def test_encoder_overflow_redo_is_byte_exact(monkeypatch):
     assert calls, "the overflow redo path was not taken"
 
 
-def test_compact_gop_begun_in_jax_continues_in_port():
-    """The compact form (compact=True) continues a GOP begun in
-    TPUFFV1Encoder with the raw form's bytes: those of JAX alone."""
+@pytest.fixture(scope="module")
+def jax_ctx0():
+    """A GOP of 4 frames through TPUFFV1Encoder (one instance, so one
+    compile, shared by the hand-over tests of the raw and the compact
+    form): params, frames, its packets (the bytes of JAX alone), and the
+    state it carries on after frame 1 with that frame's picture number."""
     params = _params(48, 40, 4, 4)
     frames = _frames(48, 40, 4, seed=7)
-    alone = TPUFFV1Encoder(params)
-    want = [alone.encode_frame(f) for f in frames]
     jaxe = TPUFFV1Encoder(params)
-    for f in frames[:2]:
-        jaxe.encode_frame(f)
+    pkts = []
+    for t, f in enumerate(frames):
+        pkts.append(jaxe.encode_frame(f))
+        if t == 1:
+            state = (np.asarray(jaxe.states), jaxe.picture_number)
+    return params, frames, pkts, state, jaxe.extradata
+
+
+def test_compact_gop_begun_in_jax_continues_in_port(jax_ctx0):
+    """The compact form (compact=True) continues a GOP begun in
+    TPUFFV1Encoder with the raw form's bytes: those of JAX alone."""
+    params, frames, want, (states, pn), _extradata = jax_ctx0
     port = TorchFFV1Encoder(params, device="cpu", compact=True)
-    encoder_state_from_numpy(port, np.asarray(jaxe.states),
-                             jaxe.picture_number)
+    encoder_state_from_numpy(port, states, pn)
     assert [port.encode_frame(f) for f in frames[2:]] == want[2:]
 
 
@@ -142,26 +153,20 @@ def test_host_decoder_reads_port_packets():
             assert np.array_equal(a, b)
 
 
-def test_gop_begun_in_jax_continues_in_port():
+def test_gop_begun_in_jax_continues_in_port(jax_ctx0):
     """Frames 0-1 in TPUFFV1Encoder, frames 2-3 in the port after
     encoder_state_from_numpy: the same bytes as JAX alone.  Likewise the
     decoder: frame 0 in TPUFFV1Decoder, the rest in the port."""
-    params = _params(48, 40, 4, 4)
-    frames = _frames(48, 40, 4, seed=7)
-    alone = TPUFFV1Encoder(params)
-    want = [alone.encode_frame(f) for f in frames]
-    jaxe = TPUFFV1Encoder(params)
-    got = [jaxe.encode_frame(f) for f in frames[:2]]
+    params, frames, want, (states, pn), extradata = jax_ctx0
     port = TorchFFV1Encoder(params, device="cpu")
-    encoder_state_from_numpy(port, np.asarray(jaxe.states),
-                             jaxe.picture_number)
-    got += [port.encode_frame(f) for f in frames[2:]]
+    encoder_state_from_numpy(port, states, pn)
+    got = want[:2] + [port.encode_frame(f) for f in frames[2:]]
     assert got == want
     assert not want[2][1]                       # frame 2 is non-key
 
-    jaxd = TPUFFV1Decoder(48, 40, jaxe.extradata)
+    jaxd = TPUFFV1Decoder(48, 40, extradata)
     jaxd.decode_frame(want[0][0])
-    portd = TorchFFV1Decoder(48, 40, jaxe.extradata, device="cpu")
+    portd = TorchFFV1Decoder(48, 40, extradata, device="cpu")
     decoder_state_from_numpy(portd, np.asarray(jaxd.states),
                              jaxd.key_frame_ok)
     for (pkt, _kf), f in zip(want[1:], frames[1:]):

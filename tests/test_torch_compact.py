@@ -4,6 +4,7 @@ plain version against the Pallas kernel's compact branch (interpret
 mode, as tests/test_pallas.py runs it), ``finalize_compact`` against the
 JAX one, the encoder against the host encoder, and the overflow redo.
 Every comparison is exact: the codec is integer and lossless."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import numpy as np
 import pytest
 import torch

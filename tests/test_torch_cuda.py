@@ -6,13 +6,15 @@ compact encode form, with the range coder and with Golomb-Rice (G1, G2
 in every instance), and RGB (bgr0 and gbrp14le through B1 and B1-ext,
 every instance of both on random bytes), version 4 (the RCT search,
 the per-lane RCT, the row bytes, the PCM retry), two-pass encoding (the
-stats instances of K1 and K1-ext, find_best_state, pass 1 and pass 2
-against the host, K2 on a pass-2 stream); K1's, K1-ext's, K2's and
+stats instances of K1 and K1-ext, K1's stats scan and its row counts
+each alone, find_best_state, pass 1 and pass 2 against the host, pass 1
+at depth 2 with no synchronising submit, K2 on a pass-2 stream); K1's, K1-ext's, K2's and
 K2-ext's stage probes, the lookup probes and the Golomb-Rice pixel-step
 probe.  Marked ``cuda``; each test skips where
 torch.cuda.is_available() is False (this file imports no jax, so it runs
 on a machine without it: FFV1_TEST_NO_CACHE=1 python -m pytest
 tests/test_torch_cuda.py)."""
+from . import torch_cpu  # noqa: F401  (one PyTorch thread; no inference mode)
 import os
 import sys
 
@@ -1049,6 +1051,91 @@ def test_rc_encode_stats_kernels_match_plain(cuda, bits, model):
         assert torch.equal(a.cpu(), b)
     for a, b in zip(got[:4], K.rc_encode_packed(*args)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("model", [0, 1], ids=["shared", "global"])
+@pytest.mark.parametrize("bits", [8, 10])
+def test_rc_stats_rows_kernel_matches_plain(cuda, bits, model):
+    """K1's row counts (rc_stats_rows) on the card against their plain
+    version: contexts past both ends of the table, inactive pixels, zero
+    residuals and +-2^(bits-1), on 5 lanes of 700 pixels and on 48 lanes
+    of 20,000 (more than the grid's warps take at once: a grid stride),
+    the table zeroed by the launch itself; one launch counted each."""
+    from tpu_ffv1_torch.tpu import rc_encode as K
+    CC = 2 * T.CONTEXT_COUNTS[model]
+    r = np.random.RandomState(400 + bits + model)
+    half = 1 << (bits - 1)
+    for L, n in ((5, 700), (48, 20_000)):
+        ctx = r.randint(-4, CC + 4, (L, n))
+        diff = np.where(r.rand(L, n) < 0.3, r.randint(-half, half, (L, n)),
+                        r.randint(-3, 4, (L, n)))
+        diff[:, :3] = [-half, half - 1, 0]
+        args = [torch.from_numpy(np.ascontiguousarray(x).astype(t))
+                for x, t in ((ctx, np.int32), (diff, np.int32),
+                             (r.rand(L, n) < 0.9, np.bool_))]
+        before = K.LAUNCHES.get("rc_stats_rows", 0)
+        got = K.rc_stats_rows(*[a.to(cuda) for a in args], bits, CC)
+        assert K.LAUNCHES["rc_stats_rows"] == before + 1
+        want = K.rc_stats_rows_ref(*args, bits, CC)
+        assert int(want.sum()) > 0
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("model", [0, 1], ids=["shared", "global"])
+def test_rc_encode_stats_scan_shared_states_match_plain(cuda, model):
+    """K1's stats scan alone where many threads hold one state at once
+    (every position of every row starts at 128; 3 rows; lanes of 3,000
+    pixels): the private count columns summed give the plain version's
+    counts, and the scan's other outputs the production instance's."""
+    from tpu_ffv1_torch.tpu import rc_encode as K
+    CC = 2 * T.CONTEXT_COUNTS[model]
+    args = [*chip_smoke.random_encode_args(cuda, 8, 6, 3000, CC, 77, 1), 8]
+    r = np.random.RandomState(78)
+    args[0] = torch.from_numpy(r.randint(0, 3, (6, 3000)).astype(
+        np.int32)).to(cuda)
+    args[3] = torch.full((6, CC, 32), 128, dtype=torch.uint8, device=cuda)
+    got = K.rc_encode_stats_scan(*args)
+    want = K.rc_encode_stats_scan_ref(*[
+        a.cpu() if isinstance(a, torch.Tensor) else a for a in args])
+    assert len(got) == len(want) == 5
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    for a, b in zip(got[:4], K.rc_encode_packed(*args)):
+        assert torch.equal(a, b)
+
+
+def test_pass1_depth2_submits_make_no_synchronising_call(cuda):
+    """Pass 1 at depth 2 on the card (K1's stats scan, its row counts on
+    the side stream joined by events): every submit under
+    torch.cuda.set_sync_debug_mode("error"), and the texts the host's."""
+    from tpu_ffv1_torch import EncoderParams as TP
+    from tpu_ffv1_torch import TorchFFV1Encoder
+    w, h = 64, 48
+    kw = dict(width=w, height=h, pix_fmt="yuv420p", level=3, coder=2,
+              slices=4, gop_size=2)
+    streams = [_frames(w, h, 4, 140 + b) for b in range(2)]
+    steps = [[s[t] for s in streams] for t in range(4)]
+    TorchFFV1Encoder(TP(**kw, pass1=True), batch=2,
+                     device=cuda).encode_frames(steps[0])
+    enc = TorchFFV1Encoder(TP(**kw, pass1=True), batch=2, device=cuda)
+
+    def submit(step):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            enc.submit_frames(step)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    submit(steps[0])
+    for step in steps[1:]:
+        submit(step)
+        enc.collect_frames()
+    enc.collect_frames()
+    for b, frames in enumerate(streams):
+        host = FFV1Encoder(EncoderParams(**kw, pass1=True))
+        for f in frames:
+            host.encode_frame(f)
+        assert enc.get_stats(b) == host.get_stats()
 
 
 def test_find_best_state_kernel_matches_plain(cuda):

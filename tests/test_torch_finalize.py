@@ -2,6 +2,7 @@
 compaction) equal the JAX versions (sort compaction) on random packed
 arrays, byte for byte up to each lane's count, with the same overflow
 verdicts (exact: integer codec)."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import numpy as np
 import pytest
 import torch

@@ -1,6 +1,7 @@
 """The port's slice over its other planar layouts, on device="cpu":
 packets byte-identical to the host FFV1Encoder and a lossless decode by
 TorchFFV1Decoder (exact: integer codec)."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import numpy as np
 import pytest
 

@@ -48,6 +48,7 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
+from tests.torch_cpu import plain_inference_mode  # noqa: E402,F401
 
 import chip_smoke  # noqa: E402
 from tpu_ffv1 import EncoderParams, FFV1Encoder, native  # noqa: E402

@@ -9,6 +9,7 @@ the host FFV1Encoder (yuv420p, gray, yuv444p, yuva420p; context models
 streams, a GOP handed over from the JAX classes, reset, and a CRC-damaged
 slice concealed as the host conceals it.  Every comparison is exact: the
 codec is integer and lossless."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import os
 import sys
 

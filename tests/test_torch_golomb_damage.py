@@ -8,6 +8,7 @@ by np.random.RandomState(t).randint(0, 256, 3), frames 0-3, slices 0 and
 one batch of 12 independent streams.  The port's slice-header parse
 hands no geometry to a lane and gives no quant table for a failed
 header, and a slice whose header fails keeps its VLC states."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import numpy as np
 import pytest
 

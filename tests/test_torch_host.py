@@ -2,6 +2,7 @@
 .bitstream) equal the JAX package's modules they were copied from:
 tables, state-transition tables, CRC-32, resolved parameters, the global
 header and the slice headers, byte for byte (exact: integer codec)."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import io
 
 import numpy as np

@@ -1,5 +1,6 @@
 """The port imports torch and never jax nor anything of the JAX package
 (tpu_ffv1), and never hides a missing GPU."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import os
 import subprocess
 import sys

@@ -9,6 +9,7 @@ tables on a non-key frame (its states restart as the host's do), and the
 refusals the port keeps: a slice whose planes name different tables
 (R6), Golomb-Rice (R7) and RGB with mixed tables, Golomb-Rice and RGB on
 non-uniform grids.  Every comparison is exact."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import numpy as np
 import pytest
 

@@ -5,6 +5,7 @@ against tpu_ffv1.pframe.motion under jax.vmap), the OBMC prediction
 and the host's numpy obmc_predict) and the edge padding.  Exact integer
 equality throughout; the flat cases make every candidate tie, so they
 hold the first-minimum rule the packets depend on."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import zlib
 
 import numpy as np

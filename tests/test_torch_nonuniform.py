@@ -5,6 +5,7 @@ search and its output-cap PCM trigger) against TPUFFV1Encoder and the
 host FFV1Encoder; the decode of these grids is in
 test_torch_nonuniform_dec.py.  Every comparison is exact: the codec is
 integer and lossless."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import numpy as np
 import pytest
 

@@ -5,6 +5,7 @@ are at different GOP phases and on damaged slice headers (C1, C2), and
 ``rc_decode_groups`` (one K2-family launch per plane geometry and quant
 table) against the JAX package's per-slice scan
 ``dec_scan.rc_decode_plane``.  Every comparison is exact."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import copy
 
 import jax.numpy as jnp

@@ -5,6 +5,7 @@ context model 1, the EPZS search and reset(), and through the overflow
 redo; the committed P format golden is reproduced
 (test_torch_pframe_formats.py holds 10-bit 4:2:2 and gray,
 test_torch_pframe_state.py the carried state and the refusals)."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import hashlib
 import os
 

@@ -6,6 +6,7 @@ GOP (a slice whose CRC fails keeps the previous picture; without CRCs a
 flipped byte gives whatever the host's decode gives, flagged by the
 sentinel).  The marker rejection and the refusals raise what the JAX
 class raises."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import numpy as np
 import pytest
 

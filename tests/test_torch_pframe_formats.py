@@ -2,6 +2,7 @@
 8-bit 4:2:0: 10-bit 4:2:2 (residuals at 11 bits through K1-ext's plain
 version; 48x36 slices whose blocks pad 12 rows, chroma blocks 16x8) and
 gray with blocks padded in both directions."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import numpy as np
 
 from tpu_ffv1 import EncoderParams

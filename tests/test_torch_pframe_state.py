@@ -2,6 +2,7 @@
 TPUFFV1PEncoder's, the JAX package's device class, on the CPU; and the
 refusals of both P classes against the JAX classes' (the same exception
 type for each configuration they do not take)."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import numpy as np
 import pytest
 

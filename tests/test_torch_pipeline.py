@@ -9,6 +9,7 @@ overflow redo, deferred to the collect; and TorchFFV1PEncoder at depth 2
 against the host FFV1PEncoder (tests/test_pframe_tpu.py:96), its states
 and MV predictors after each collect equal to its depth-1 path's.  The
 decoder's half is in test_torch_pipeline_dec.py."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import functools
 
 import numpy as np

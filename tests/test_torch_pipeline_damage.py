@@ -10,6 +10,7 @@ off every stream that names one table, clean or damaged.  And the
 damaged-stream check of five configurations: depth 2 equals
 decode_frames, which equals FFV1Decoder(engine="spec"), planes and
 flags alike, with and without slice CRCs."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import numpy as np
 import pytest
 

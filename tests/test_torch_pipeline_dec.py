@@ -6,6 +6,7 @@ packets with damaged slices across a GOP boundary (tests/test_tpu.py:
 TorchFFV1Encoder.submit_device_frames with no plane fetched, at 8 and 16
 bits against FFV1Encoder on the source frames (:206); and device_out's
 refusals and its damage RuntimeError against TPUFFV1Decoder's."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import numpy as np
 import pytest
 import torch

@@ -4,6 +4,7 @@ host engine): keyframe-accurate seek through ``_decode_from`` (the same
 frames and restart index), the terminal rendering byte for byte, the
 display conversion for every storage convention, the refusals, and a
 cuda player without a GPU exiting before it decodes."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import io
 
 import numpy as np

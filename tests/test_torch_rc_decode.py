@@ -4,6 +4,7 @@ the same inputs: planes, states, low, range and pos, exactly (integer
 codec), on intact and on damaged streams, at the fast widths (8, 10)
 and the extended ones (12, 16), with the 3-input context and with the
 5-input one of context model 1."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import numpy as np
 import pytest
 import torch

@@ -7,6 +7,7 @@ it): emit flags and coder/state outputs everywhere, provisional values
 where a slot emits (the port stores 0 in silent slots, the Pallas kernel
 an unused value).  Against the XLA scan: the finalized bytes.
 """
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import numpy as np
 import pytest
 import torch

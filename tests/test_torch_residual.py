@@ -1,5 +1,6 @@
 """Encode stencil: the port's residual.py equals tpu_ffv1.tpu.residual
 on the same numpy inputs (exact: integer arithmetic)."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import numpy as np
 import pytest
 import torch

@@ -10,6 +10,7 @@ classes (tpu/state.py), and the configurations the port refuses.  The
 deeper gbrp formats, damage and concealment are in
 test_torch_rgb_deep.py.  Every comparison is exact: the codec is
 integer."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import numpy as np
 import pytest
 import torch

@@ -9,6 +9,7 @@ two planar streams whose keyframes fall on different frames (GOP 3 and
 GOP 2): every frame equal to the host decoder's, with the range coder
 and with Golomb-Rice, at context models 0 and 1 (a keyframe resets only
 its own stream's lanes).  Exact: the codec is integer."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import dataclasses
 
 import numpy as np

@@ -4,6 +4,7 @@ K1-ext / B1-ext above) on device="cpu", at context models 0 and 1, GOP
 2, batch 2: packets equal to TPUFFV1Encoder's and the host
 FFV1Encoder's, decodes equal to the host FFV1Decoder's (three uint16
 planes in the format's order).  Exact: the codec is integer."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import pytest
 
 from .test_torch_rgb import check_decode, check_encode

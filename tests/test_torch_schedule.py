@@ -1,5 +1,6 @@
 """Re-derived slot schedules equal tpu_ffv1.tpu.rc_scan_fast's (exact:
 they are static integer lists)."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import pytest
 
 from tpu_ffv1.tpu import rc_scan_fast as jax_sched

@@ -7,6 +7,7 @@ concurrent clients get the same packets; a cuda server without a GPU
 exits before it binds; and the kernel build's lock (kernels/build.py
 ``load``) builds a library once when threads ask for it at the same
 moment.  Every HTTP call and thread join has its own timeout."""
+from . import torch_cpu  # noqa: F401  (one PyTorch thread; no inference mode)
 import contextlib
 import dataclasses
 import http.client

@@ -8,6 +8,7 @@ the JAX classes to them) and lossless decodes; a GOP carried over from
 the JAX class; the refusals (the decoder's device counts and
 ``__graft_entry__.dryrun_multichip``'s legs: test_torch_sharding_dec.py).
 Every comparison is exact."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import numpy as np
 import pytest
 import torch

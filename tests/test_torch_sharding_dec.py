@@ -6,6 +6,7 @@ intra GOP and its decode against the host encoder, BASELINE config 5's
 10-bit 4:2:2 P-frame GOP against the host FFV1PEncoder), and the P
 encoder at 1, 2, 4 and 8 devices on a smaller such GOP.  Every
 comparison is exact."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import numpy as np
 import pytest
 

@@ -2,9 +2,12 @@
 start states from the kernel relaunched on the prefix, and its tail
 (the last segment alone, which holds the far end of config 5's lanes
 against the plain version) is the last of those segments; a stats
-instance's segments count their own pixels' decisions.  On the CPU
+instance's segments count their own pixels' decisions (K1's: its stats
+scan's five outputs, beside its row counts held whole, as
+``chip_smoke.stats_recs`` gives them to the plain checks).  On the CPU
 the "kernel" is the plain version itself, so this checks the cutting
 and the state chaining, not a kernel."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import pytest
 import torch
 
@@ -30,6 +33,16 @@ def test_tail_segment_is_the_last_of_the_split(name, bits):
     stats = name.endswith("_stats")
     out = (rc_encode.rc_encode_stats if stats else
            rc_encode.rc_encode_packed)(*args)
+    if stats:
+        recs = chip_smoke.stats_recs((args, out), True, "cpu",
+                                     0.0 if bits > 10 else (0.0, 0.0))
+        assert [r[0] for r in recs] == [name] + \
+            ["rc_stats_rows"] * (bits <= 10)
+        for rname, (r_args, r_out), _split, _label, _ms in recs[1:]:
+            assert chip_smoke.output_digests(
+                chip_smoke.plain_version(rname)(*r_args)) == \
+                chip_smoke.output_digests(r_out)
+        out = recs[0][1][1]
     full = chip_smoke.segments(name, args, out)
     tail = chip_smoke.segments(name, args, out, tail=True)
     cuts = chip_smoke.encode_cuts(600, bits)
@@ -43,4 +56,4 @@ def test_tail_segment_is_the_last_of_the_split(name, bits):
             chip_smoke.output_digests(want)
     if stats:
         # each segment counts decisions of its own
-        assert all(int(seg[1][5].sum()) > 0 for seg in full)
+        assert all(int(seg[1][4].sum()) > 0 for seg in full)

@@ -16,6 +16,7 @@ device="cpu")`` on pass-2 streams, lossless and equal to
 test_torch_twopass_matrix.py and test_torch_twopass_deep.py
 (tests/twopass_cases.py).  Exact: the codec is integer, and
 find_best_state's doubles follow the C fold's operations one by one."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import os
 import sys
 
@@ -145,6 +146,92 @@ def test_stats_twins_match_the_host_hook(bits):
     assert np.array_equal(got[5][0].numpy(), hook.rc_stat2[0])
     assert np.array_equal(got[3][0].numpy(), host_states)
     assert all(torch.equal(x, y) for x, y in zip(got[:4], plain(*args, bits)))
+
+
+@pytest.mark.parametrize("model", [0, 1])
+@pytest.mark.parametrize("bits", [8, 10])
+def test_row_counts_twin_matches_the_host_hook(bits, model):
+    """K1's row counts (``rc_stats_rows_ref``, the plain version of
+    ``rc_stats_rows_kernel``) count what the host's pass-1 hook counts by
+    (row, position, bit), at context models 0 and 1, on two lanes of
+    random residuals up to +-2^(bits-1) with zero residuals, inactive
+    pixels and contexts past the table's end (clamped, as the scan does);
+    the same as the stats plain version's stat2, whose state counts are
+    the hook's too."""
+    CC = 2 * JT.CONTEXT_COUNTS[model]
+    r = np.random.RandomState(100 * model + bits)
+    L, n = 2, 500
+    half = 1 << (bits - 1)
+    ctx = r.randint(0, CC + 3, (L, n))
+    ctx[:, 50:90] = ctx[:, 50:51]
+    diff = np.where(r.rand(L, n) < 0.4, r.randint(-half, half, (L, n)),
+                    r.randint(-2, 3, (L, n)))
+    diff[:, :2] = [-half, half - 1]
+    act = r.rand(L, n) < 0.85
+    states = r.randint(1, 256, (L, CC, 32)).astype(np.uint8)
+    one, zero = custom_state_tables(JT.VER2_STATE)
+    hook = J.Pass1Stats(L, [CC] * L)
+    for lane in range(L):
+        rc = RangeEncoder(one, zero)
+        st = states[lane].copy()
+        for c, d, on in zip(ctx[lane], diff[lane], act[lane]):
+            c = min(c, CC - 1)
+            if on:
+                put_symbol(rc, st[c], int(d), True, hook.hook(lane, c))
+    args = [torch.from_numpy(np.ascontiguousarray(x).astype(t)) for x, t in (
+        (ctx, np.int32), (diff, np.int32), (act, np.bool_),
+        (states, np.uint8), (one, np.uint8), (zero, np.uint8),
+        (np.zeros(L), np.int32), (np.full(L, 0xFF00), np.int32))]
+    rows = K.rc_stats_rows_ref(*args[:3], bits, CC)
+    want = np.stack([hook.rc_stat2[lane] for lane in range(L)])
+    assert int(want.sum()) > 0
+    assert np.array_equal(rows.numpy(), want)
+    got = K.rc_encode_stats_ref(*args, bits)
+    assert torch.equal(got[5], rows)
+    assert np.array_equal(got[4].sum(0).numpy(), hook.rc_stat)
+
+
+def _pcm8_streams():
+    """640x4 yuv444p at version 4 in a 2 x 2 grid (slices 320 x 2): each
+    slice's budget, 11,776 bytes, against w * 35 = 11,200 at its line
+    starts, so 8-bit noise retries as PCM and a smooth ramp does not.
+    Stream 0: noise, ramp, noise; stream 1: the ramp in every frame."""
+    r = np.random.RandomState(8)
+    w, h = 640, 4
+    yy, xx = np.mgrid[0:h, 0:w]
+
+    def ramp(t):
+        return [((xx + yy + 3 * t + 7 * k) % 256).astype(np.uint8)
+                for k in range(3)]
+
+    def noise():
+        return [r.randint(0, 256, (h, w)).astype(np.uint8) for _ in range(3)]
+
+    kw = dict(width=w, height=h, pix_fmt="yuv444p", level=4, strict=-2,
+              coder=2, slices=4, gop_size=3)
+    return kw, [[noise() if t != 1 else ramp(t) for t in range(3)],
+                [ramp(t) for t in range(3)]]
+
+
+def test_pcm_slices_count_nothing_8bit():
+    """The 8-bit form of test_pcm_slices_count_nothing, through K1's stats
+    scan and row counts: stream 0's noise frames 0 and 2 retry every
+    slice as PCM, whose lanes the encoder leaves out of both count
+    tables, and frame 1 codes from the reset states, so stream 0's text
+    is the host's pass 1 of frame 1 alone; stream 1's is the host's."""
+    kw, streams = _pcm8_streams()
+    texts, pkts, extradata = port_pass1(kw, streams)
+    modes = []
+    for stream_pkts in pkts:
+        host = FFV1Decoder(kw["width"], kw["height"], extradata)
+        modes.append([])
+        for pkt, _key in stream_pkts:
+            host.decode_frame(pkt)
+            modes[-1].append([s.slice_coding_mode
+                              for s in host.slices[:host.slice_count]])
+    assert modes == [[[1] * 4, [0] * 4, [1] * 4], [[0] * 4] * 3]
+    assert texts == [host_pass1(kw, streams[0][1:2])[0],
+                     host_pass1(kw, streams[1])[0]]
 
 
 @pytest.mark.parametrize("how", ["depth2", "batch2", "devices2"])

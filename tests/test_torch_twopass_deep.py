@@ -7,6 +7,7 @@ and packets to the host native encoder's from that text).  Above 8 bits
 the host's pass-2 extradata carries 666 and 7,563 rows of initial states
 where its quant tables have 365 and 5,063 contexts, so no decoder reads
 it; the port writes the same bytes.  Exact: the codec is integer."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import pytest
 
 from .twopass_cases import check_two_pass

@@ -15,6 +15,7 @@ bits; context models 0 and 1; GOP 2 over 3 frames; batch 2) is in
 test_torch_v4_rgb.py, _rgb_deep.py, _yuv.py and _yuv8.py, through
 ``check_encode`` here.  Every comparison is exact: the codec is
 integer."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import numpy as np
 import pytest
 import torch

@@ -5,6 +5,7 @@ searched and applied per lane; packets equal to TPUFFV1Encoder's and the
 host FFV1Encoder's, and bgr0's decode equal to the host decoder's and
 the source (see test_torch_v4.check_encode).  Exact: the codec is
 integer."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import pytest
 
 from .test_torch_v4 import check_encode

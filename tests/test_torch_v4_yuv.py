@@ -6,6 +6,7 @@ into the slice headers only; packets equal to TPUFFV1Encoder's and the
 host FFV1Encoder's, and yuv444p16le's decode equal to the host
 decoder's and the source (see test_torch_v4.check_encode).  Exact: the
 codec is integer."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import pytest
 
 from .test_torch_v4 import check_encode

@@ -4,6 +4,7 @@ version 4, codec/params.py) and Golomb-Rice on yuv420p (the v4 header
 fields with (1, 1), no budget check), at context models 0 and 1; packets
 equal to TPUFFV1Encoder's and the host FFV1Encoder's (see
 test_torch_v4.check_encode).  Exact: the codec is integer."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import pytest
 
 from .test_torch_v4 import check_encode

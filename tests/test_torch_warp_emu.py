@@ -17,6 +17,7 @@ stats instances' decision counts on the encode inputs; find_best_state
 on the default and a sorted table against its plain version's rows at
 the edges of the probabilities (its doubles: the host's own IEEE
 operations, as the kernel's explicit __dmul_rn / __dadd_rn)."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import concurrent.futures
 import ctypes
 import os
@@ -95,13 +96,17 @@ def _args(bits, CC, seed):
 
 def _emulate(lib, entry, args, bits, gtab, width, stats=False):
     ctx, diff, act, st0, one, zero, low0, rng0 = args
+    L, N = ctx.shape
     CC = st0.shape[1]
     packed = np.full((L, N, width), 0x5A5A5A5A, np.int32)
     low, rng = np.zeros(L, np.int32), np.zeros(L, np.int32)
     states = st0.copy() if gtab else np.zeros_like(st0)
-    # a stats instance writes stat whole and adds to stat2
-    counts = (np.full((L, 256, 2), -7, np.int32),
-              np.zeros((L, CC, 32, 2), np.int32)) if stats else ()
+    # a stats instance writes stat whole; K1-ext's also adds to stat2
+    counts = ()
+    if stats:
+        counts = (np.full((L, 256, 2), -7, np.int32),)
+        if bits > 10:
+            counts += (np.zeros((L, CC, 32, 2), np.int32),)
     fn = getattr(lib, entry)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + \
@@ -164,18 +169,89 @@ def test_rc_encode_source_matches_plain(libs, bits, compact, gtab):
 @pytest.mark.parametrize("gtab", [False, True], ids=["shared", "global"])
 @pytest.mark.parametrize("bits", [8, 10, 11, 16, 17])
 def test_rc_encode_stats_source_matches_plain(libs, bits, gtab):
-    """The stats instances of K1 (8, 10 bits) and K1-ext (11, 16, 17: the
-    running rows' decisions each with its own state): every output of
-    the scan and the decision counts, against their plain versions."""
+    """The stats instances of K1 (8, 10 bits: the scan's outputs and its
+    counts by state, ``rc_encode_stats_scan_ref``) and K1-ext (11, 16, 17:
+    the running rows' decisions each with its own state; both count
+    tables): every output of the scan and the decision counts, against
+    their plain versions."""
     args = _args(bits, 2 * T.CONTEXT_COUNTS[0], 70 + bits + 100 * gtab)
     ext = bits > 10
     got = _emulate(libs["rc_encode_ext" if ext else "rc_encode"],
                    f"rc_encode{'_ext' if ext else ''}_stats_launch", args,
                    bits, gtab, 2 * bits + 1, stats=True)
-    twin = K.rc_encode_ext_stats_ref if ext else K.rc_encode_stats_ref
+    twin = K.rc_encode_ext_stats_ref if ext else K.rc_encode_stats_scan_ref
     want = twin(*[torch.from_numpy(a) for a in args], bits)
-    assert int(want[5].sum()) > 0
+    assert int(want[4].sum()) > 0
     _check(got, want)
+
+
+def _shared_state_args(bits, CC, seed, n):
+    """Encode inputs where many threads hold one state: every position of
+    every row starts at 128 and a lane of ``n`` pixels (several chunks)
+    runs over 3 rows, so each pixel's positions meet on a few states."""
+    args = _args(bits, CC, seed)
+    r = np.random.RandomState(seed)
+    half = 1 << (bits - 1)
+    args[0] = np.ascontiguousarray(r.randint(0, 3, (L, n)).astype(np.int32))
+    args[1] = np.ascontiguousarray(np.where(
+        r.rand(L, n) < 0.2, r.randint(-half, half, (L, n)),
+        r.randint(-2, 3, (L, n))).astype(np.int32))
+    args[2] = np.ascontiguousarray(r.rand(L, n) < 0.9)
+    args[3] = np.full((L, CC, 32), 128, np.uint8)
+    return args
+
+
+@pytest.mark.parametrize("gtab", [False, True], ids=["shared", "global"])
+def test_rc_encode_stats_source_shared_states(libs, gtab):
+    """K1's stats scan where several threads hold one state at once (all
+    positions start at 128; three rows), over a lane of 200 pixels (7
+    chunks, the last one short), in both table placements (the global
+    form at context model 1's table size): the private columns summed
+    give the plain version's counts, and the scan's other outputs too."""
+    CC = 2 * T.CONTEXT_COUNTS[1 if gtab else 0]
+    args = _shared_state_args(8, CC, 90 + gtab, 200)
+    got = _emulate(libs["rc_encode"], "rc_encode_stats_launch", args, 8,
+                   gtab, 17, stats=True)
+    want = K.rc_encode_stats_scan_ref(*[torch.from_numpy(a) for a in args],
+                                      8)
+    # in each lane, decisions of one pixel counted by several threads
+    # that hold state 128 (a fresh row's first nonzero pixel: 3 or more)
+    assert bool((want[4][:, 128].sum(-1) >= 3).all())
+    _check(got, want)
+
+
+@pytest.mark.parametrize("bits", [8, 10])
+def test_rc_stats_rows_source_matches_plain(libs, bits):
+    """K1's row-count kernel against its plain version: contexts past
+    both ends of the table (clamped), inactive pixels, zero residuals and
+    residuals at +-2^(bits-1); 900 pixels in 3 lanes on the emulation's 2
+    SMs (64 one-warp blocks), and 4,500 in 2 lanes, which the warps walk
+    three times (grid stride)."""
+    lib = libs["rc_encode"]
+    fn = lib.rc_stats_rows_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
+        [ctypes.c_void_p]
+    CC = 2 * T.CONTEXT_COUNTS[0]
+    r = np.random.RandomState(bits)
+    half = 1 << (bits - 1)
+    for lanes, n in ((3, 300), (2, 2_250)):
+        ctx = r.randint(-5, CC + 5, (lanes, n)).astype(np.int32)
+        diff = np.where(r.rand(lanes, n) < 0.3,
+                        r.randint(-half, half, (lanes, n)),
+                        r.randint(-3, 4, (lanes, n)))
+        diff[:, :4] = [-half, half - 1, 0, 1]
+        diff = diff.astype(np.int32)
+        act = r.rand(lanes, n) < 0.9
+        stat2 = np.full((lanes, CC, 32, 2), -3, np.int32)   # zeroed first
+        assert fn(ctx.ctypes.data, diff.ctypes.data, act.ctypes.data,
+                  stat2.ctypes.data, lanes, n, CC, bits, None) == 0
+        assert lib.emu_fault_count() == 0
+        want = K.rc_stats_rows_ref(torch.from_numpy(ctx),
+                                   torch.from_numpy(diff),
+                                   torch.from_numpy(act), bits, CC)
+        assert int(want.sum()) > 0
+        assert np.array_equal(stat2, want.numpy())
 
 
 @pytest.mark.parametrize("table", ["default", "ver2_sorted"])

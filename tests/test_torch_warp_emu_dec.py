@@ -13,6 +13,7 @@ end (reads at pos >= cap give 0); quant tables that put every pixel, or
 most pixels, on the row the pixel before adapted; pixels that read
 nearly every byte they can; G2 on chip_smoke.py's random bytes (long
 runs, escapes, reads past cap).  Exact: the codec is integer."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import ctypes
 
 import numpy as np

@@ -12,6 +12,7 @@ than a warp and not a multiple of 32, one pixel wide, 3 and 4 planes,
 quant tables that put every pixel, or most pixels, on the row the
 pixel before adapted, and pixels that read nearly every byte they can.
 Exact: the codec is integer."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import pytest
 import torch
 

@@ -6,6 +6,7 @@ Golomb-Rice, at depth 1 and at depth 2; the decoder returns one
 interleaved (h, w, 2) array; device_out gives the luma and alpha pair
 that submit_device_frames takes, as the JAX classes do; a non-uniform
 grid follows the JAX encoder.  Every comparison is exact."""
+from .torch_cpu import plain_inference_mode  # noqa: F401
 import numpy as np
 import pytest
 import torch

@@ -28,8 +28,9 @@ CONFIGS = {
 
 
 def config(name):
-    """(EncoderParams fields, frames) of a configuration."""
-    kw = dict(dict(width=48, height=40, level=3, slices=4, gop_size=GOP),
+    """(EncoderParams fields, frames) of a configuration: 32x24 in 4
+    slices (nonuniform: 50 wide, so its chroma slices differ)."""
+    kw = dict(dict(width=32, height=24, level=3, slices=4, gop_size=GOP),
               **CONFIGS[name])
     return kw, synth_frames(kw["pix_fmt"], kw["width"], kw["height"],
                             N_FRAMES, seed=21)

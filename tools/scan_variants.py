@@ -49,7 +49,10 @@ not the stats kernels of K1 and K1-ext (``<source>_stats_kernel``, pass
 ``--sass-loops DIR`` (K2, K2-ext and B1, B1-ext's sources) counts the
 pixel loop of every variant's instance on each path: its instructions,
 its shuffles (one a decision) and the instructions between them, and
-writes the loop's SASS into DIR.
+writes the loop's SASS into DIR.  On K1's source it counts, in every
+variant that has them, the 8-bit pixel loops of K1 and of K1's stats
+scan in both table placements (pass 1's scan beside the production
+one) and the loop of K1's row-count kernel.
 
 Prints one JSON line with every number, last.
 """
@@ -195,6 +198,8 @@ def loop_counts(ins):
         key = (sum("SHFL" in t for t in body), -len(body))
         if best is None or key > best[0]:
             best = (key, body)
+    if best is None:                   # no loop: the whole function
+        best = (None, [t for _a, t in ins])
     body = [t for t in best[1] if not re.search(r"\b(BRA|NOP)\b", t)]
     at = [i for i, t in enumerate(body) if "SHFL" in t]
     return dict(instructions=len(body), shuffles=len(at),
@@ -350,6 +355,27 @@ def main():
     libs = {tag: ctypes.CDLL(os.path.join(d, f"lib{name}.so"))
             for tag, (d, _log) in built.items()}
     inputs = warmup_inputs(dev, name)
+    if opt.sass_loops and name == "rc_encode":
+        os.makedirs(opt.sass_loops, exist_ok=True)
+        result["sass_loops"] = {}
+        for tag, (d, _log) in built.items():
+            funcs = cs.sass_functions(name, d)
+            full = max(int(re.match(r".*,(\d+)>$", k)[1]) for k in funcs
+                       if k.startswith("rc_encode_kernel<"))
+            for label in (f"rc_encode_kernel<8,0,0,{full}>",
+                          f"rc_encode_kernel<8,1,0,{full}>",
+                          "rc_encode_stats_kernel<8,0>",
+                          "rc_encode_stats_kernel<8,1>",
+                          "rc_stats_rows_kernel"):
+                if label not in funcs:
+                    continue
+                c = loop_counts(funcs[label])
+                with open(os.path.join(opt.sass_loops,
+                                       f"{tag}_{label}.sass"), "w") as f:
+                    f.write("\n".join(c.pop("text")) + "\n")
+                result["sass_loops"][f"{tag}:{label}"] = c
+                cs.log(f"[sass] {tag} {label}: loop {c['instructions']} "
+                       f"instructions, {c['shuffles']} shuffles")
     if opt.sass_loops and name.startswith("rc_decode"):
         out_dir = opt.sass_loops
         os.makedirs(out_dir, exist_ok=True)

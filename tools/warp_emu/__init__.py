@@ -7,16 +7,23 @@ dynamic shared-memory array a pointer to the block's buffer, each
 ``kernel<<<grid, block, smem, stream>>>(...)`` a call of
 ``emu_launch``) and compiles it with g++ into a shared library with the
 source's own plain C entry points; host arrays stand in for device
-memory.  warp_emu.h runs each block as 32 std::threads: every
-``__shfl_sync``, ``__ballot_sync`` and ``__syncwarp`` is a barrier over
-the 32, so code whose warp primitives are reached by all 32 threads
-alike (the lane scans' uniform branches) computes what the card
-computes.  A block whose threads reach different numbers of warp
-primitives (a shuffle under a branch that diverges) is counted as a
-fault: ``emu_fault_count()`` in the library.
+memory.  warp_emu.h runs each block's 32 threads as coroutines on one
+host thread (ucontext), one block after another: every
+``__shfl_sync``, ``__ballot_sync`` and ``__syncwarp`` is the point
+where a thread hands its turn to the next, and a primitive's values are
+read only after all 32 threads have published theirs, so code whose
+warp primitives are reached by all 32 threads alike (the lane scans'
+uniform branches) computes what the card computes.  One host thread a
+block keeps the emulation's speed independent of how busy the machine's
+other cores are (a test run's other workers).  A block whose threads
+reach different numbers of warp primitives (a shuffle under a branch
+that diverges) is counted as a fault: ``emu_fault_count()`` in the
+library.  The emulated card has 2 SMs (``cudaDeviceGetAttribute``), for
+kernels that size their grid by it.
 
 It checks logic, not timing, and not the memory model beyond the
-barriers: a kernel that races within a warp between two primitives may
+primitives: between two of them the threads run one after another, in
+order, so a kernel that races within a warp between two primitives may
 pass here and fail on the card.
 """
 from __future__ import annotations

@@ -1,13 +1,13 @@
 // Host emulation of the CUDA subset the port's lane scans use (see
-// tools/warp_emu/__init__.py): one block at a time, 32 std::threads per
-// block, every warp-wide primitive a barrier over the 32.
+// tools/warp_emu/__init__.py): one block at a time, its 32 threads as
+// coroutines on one host thread, every warp-wide primitive the point
+// where a thread hands its turn to the next.
 #pragma once
 #include <algorithm>
 #include <atomic>
-#include <barrier>
 #include <cstdint>
+#include <cstring>
 #include <functional>
-#include <thread>
 #include <vector>
 
 #define __global__
@@ -21,7 +21,8 @@
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
-       cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+       cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+       cudaDevAttrMultiProcessorCount = 16 };
 struct uint4 { unsigned x, y, z, w; };
 struct uint2 { unsigned x, y; };
 inline uint2 make_uint2(unsigned x, unsigned y) { return uint2{x, y}; }
@@ -30,18 +31,31 @@ inline int2 make_int2(int x, int y) { return int2{x, y}; }
 struct alignas(16) int4 { int x, y, z, w; };
 inline int4 make_int4(int x, int y, int z, int w) { return int4{x, y, z, w}; }
 struct Dim { unsigned x, y, z; };
-extern thread_local Dim threadIdx, blockIdx;
+extern thread_local Dim threadIdx, blockIdx, gridDim;
 
 struct EmuBlock {
-  std::barrier<> bar{32};
-  long long slots[32];
+  // each primitive's values, by the parity of the thread's primitive count
+  // (a thread that has passed primitive k can publish k + 1 before the
+  // others have read k, never k + 2)
+  long long slots[2][32];
   unsigned char* smem;
   long long nsync[32];
 };
 extern thread_local EmuBlock* emu_blk;
+// hand the emulated thread's turn to the next one; back when all 32 have
+// reached their next warp primitive (or ended)
+void emu_yield();
 
 template <class F> inline int cudaFuncSetAttribute(F, int, int) { return 0; }
 inline int cudaGetLastError() { return 0; }
+// the emulated card has 2 SMs, so a kernel that sizes its grid by the
+// SM count walks a few thousand pixels with a grid stride
+inline int cudaGetDevice(int* d) { *d = 0; return 0; }
+inline int cudaDeviceGetAttribute(int* v, int, int) { *v = 2; return 0; }
+inline int cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  std::memset(p, v, n);
+  return 0;
+}
 inline int __clz(int x) { return x == 0 ? 32 : __builtin_clz((unsigned)x); }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(int x) { return __builtin_ffs(x); }
@@ -80,18 +94,16 @@ inline double __dadd_rn(double a, double b) { return a + b; }
 
 inline void __syncwarp(unsigned = 0xffffffffu) {
   emu_blk->nsync[threadIdx.x]++;
-  emu_blk->bar.arrive_and_wait();
+  emu_yield();
 }
 // every thread t publishes v and takes the value of thread src(t)
 template <class T, class F> inline T emu_exchange(T v, F src) {
   EmuBlock* b = emu_blk;
   const int t = threadIdx.x;
-  b->nsync[t]++;
-  b->slots[t] = (long long)v;
-  b->bar.arrive_and_wait();
-  T r = (T)b->slots[src(t)];
-  b->bar.arrive_and_wait();
-  return r;
+  long long* slot = b->slots[b->nsync[t]++ & 1];
+  slot[t] = (long long)v;
+  emu_yield();
+  return (T)slot[src(t)];
 }
 template <class T> inline T __shfl_sync(unsigned, T v, int src) {
   return emu_exchange(v, [&](int) { return src & 31; });
@@ -106,12 +118,12 @@ template <class T> inline T __shfl_xor_sync(unsigned, T v, int m) {
 }
 inline unsigned __ballot_sync(unsigned, int p) {
   EmuBlock* b = emu_blk;
-  b->nsync[threadIdx.x]++;
-  b->slots[threadIdx.x] = p ? 1 : 0;
-  b->bar.arrive_and_wait();
+  const int t = threadIdx.x;
+  long long* slot = b->slots[b->nsync[t]++ & 1];
+  slot[t] = p ? 1 : 0;
+  emu_yield();
   unsigned m = 0;
-  for (int i = 0; i < 32; ++i) m |= (b->slots[i] ? 1u : 0u) << i;
-  b->bar.arrive_and_wait();
+  for (int i = 0; i < 32; ++i) m |= (slot[i] ? 1u : 0u) << i;
   return m;
 }
 

@@ -108,16 +108,34 @@
 // keeps the parameters and the SASS it had before the stats instances
 // existed, tools/scan_variants.py --sass-against) also count every
 // decision the host's pass-1 hook counts
-// (tpu_ffv1/bitstream/symbols.py:26-29, the state read before put_rac):
-// per lane, stat2[row][slot][bit] (row the pixel's context row, slot the
-// row position) and stat[state][bit] (the state before its update).
-// Thread t owns position t of the row, so each (row, slot) of a lane has
-// one writer, its count a fire-and-forget global atomic off the chain; the
-// 256 x 2 state counts gather in shared memory with shared atomics
-// (threads meet on one state) and are written out at the end.  Inactive
-// pixels count nothing.
+// (tpu_ffv1/bitstream/symbols.py:26-29, the state read before put_rac)
+// by the state before its update and its bit: stat[state][bit] per lane.
+// Only the chain knows that state, and thread t holds it for row
+// position t (mys), so each thread counts its own decisions in a private
+// column of shared memory, priv[(state * 32 + t) * 2 + bit] (256 x 32 x
+// 2 int32 = 64 KB): bank t, or t + 16 for the high half-warp's 8-byte
+// word, whatever the state, so the count is a plain load, add and store
+// with no conflict and no atomic.  The columns sit at the start of
+// shared memory (the table and the transition tables after them), so a
+// count's address is (state * 32 + t) * 8 and nothing else moves.  The
+// load of both bits' counts is issued with the transition lookups at the
+// pixel's start and is in flight during the chain; after the bit, the
+// pair goes back with one of them raised, to the same address.  The 32
+// columns are summed once, after the loop.  Shared memory: 65,536 B +
+// the table (42,624 B on the 1080p main path) + 512, under a block's
+// 227 KB; the global-table form needs the 65,536 + 512 B alone.
+//
+// The other pass-1 count, stat2[row][slot][bit] per lane, depends on the
+// residuals and contexts alone (which slots a pixel codes and with which
+// bits follows from diff and active, ctx says where), so it is not on the
+// scan at all: rc_stats_rows_kernel (below, rc_stats_rows_launch) counts
+// it over every pixel of every lane in parallel, one thread a pixel, and
+// the wrapper runs it on a side stream beside the scan.  Inactive pixels
+// count nothing.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #define FULL_MASK 0xffffffffu
 
@@ -163,8 +181,7 @@ __device__ __forceinline__ void rc_encode_body(
     const int32_t* __restrict__ low0, const int32_t* __restrict__ range0,
     int32_t* __restrict__ packed, int32_t* __restrict__ low_out,
     int32_t* __restrict__ range_out, uint8_t* __restrict__ states_out,
-    int N, int CC, int32_t* __restrict__ stat,
-    int32_t* __restrict__ stat2) {
+    int N, int CC, int32_t* __restrict__ stat) {
   constexpr int E_MAX = BITS - 1;
   constexpr int S = 2 * BITS + 1;   // zero, E_MAX+1 exp, E_MAX man, sign
   constexpr int SOUT = COMPACT ? 8 : S;   // ints stored per pixel
@@ -172,14 +189,16 @@ __device__ __forceinline__ void rc_encode_body(
   const int lane = blockIdx.x;
   const int t = threadIdx.x;
   // CC x 32 state table: shared memory, or the lane's rows of states_out
-  uint8_t* st = GTAB ? states_out + (size_t)lane * CC * 32 : smem;
-  uint8_t* one_s = smem + (GTAB ? 0 : CC * 32);
+  // stats instances: the threads' private columns of state counts first,
+  // priv[(state * 32 + t) * 2 + bit], at a constant address, so that a
+  // count's address is (state * 32 + t) * 8 and the table's base stays a
+  // uniform register (PRIV_B is 0 in the production instances; PRIV is
+  // named only where STATS holds: their code stays as it was)
+  constexpr int PRIV_B = STATS ? 256 * 32 * 2 * 4 : 0;
+  uint8_t* st = GTAB ? states_out + (size_t)lane * CC * 32 : smem + PRIV_B;
+  uint8_t* one_s = smem + PRIV_B + (GTAB ? 0 : CC * 32);
   uint8_t* zero_s = one_s + 256;
-  // stats instances: the lane's state counts [state][bit] after zero_s,
-  // and its rows' [row][slot][bit] counts (named only where STATS holds:
-  // the production instances' code stays as it was)
-#define SSTAT reinterpret_cast<int*>(zero_s + 256)
-#define STAT2_L (stat2 + (size_t)lane * CC * 64)
+#define PRIV reinterpret_cast<int*>(smem)
 
   if (!GTAB) {
     const uint4* src = reinterpret_cast<const uint4*>(
@@ -192,7 +211,8 @@ __device__ __forceinline__ void rc_encode_body(
     zero_s[i] = zero_tab[i];
   }
   if constexpr (STATS) {
-    for (int i = t; i < 512; i += 32) SSTAT[i] = 0;
+    for (int i = t; i < 256 * 32 * 2 / 4; i += 32)
+      reinterpret_cast<int4*>(PRIV)[i] = make_int4(0, 0, 0, 0);
   }
   __syncwarp();
 
@@ -248,6 +268,13 @@ __device__ __forceinline__ void rc_encode_body(
       if constexpr ((STAGES & STAGE_TRANS) != 0) {
         up = one_s[mys];
         dn = zero_s[mys];
+      }
+      // a stats instance: this thread's counts of its state, both bits
+      [[maybe_unused]] int2* cnt_at;
+      [[maybe_unused]] int2 cnt;
+      if constexpr (STATS) {
+        cnt_at = reinterpret_cast<int2*>(PRIV) + mys * 32 + t;
+        cnt = *cnt_at;
       }
 
       int my_pv = 0;
@@ -307,10 +334,7 @@ __device__ __forceinline__ void rc_encode_body(
       if constexpr ((STAGES & STAGE_CHAIN) == 0)
         my_pv = mys | (act_t ? 1 << 20 : 0);
       if constexpr (STATS) {
-        if (act_t) {
-          atomicAdd(&SSTAT[mys * 2 + bit_t], 1);
-          atomicAdd(&STAT2_L[(c * 32 + t) * 2 + bit_t], 1);
-        }
+        if (act_t) *cnt_at = make_int2(cnt.x + 1 - bit_t, cnt.y + bit_t);
       }
       // its adapted byte
       int new_t = mys;
@@ -360,10 +384,16 @@ __device__ __forceinline__ void rc_encode_body(
       dst[i] = reinterpret_cast<const uint4*>(st)[i];
   }
   if constexpr (STATS) {
-    for (int i = t; i < 512; i += 32) stat[(size_t)lane * 512 + i] = SSTAT[i];
+    // entry i = state * 2 + bit summed over the 32 columns; thread t
+    // starts at column t / 2, so the warp's 32 loads fall in 32 banks
+    for (int i = t; i < 512; i += 32) {
+      int sum = 0;
+      for (int k = 0; k < 32; ++k)
+        sum += PRIV[(i >> 1) * 64 + ((k + (t >> 1)) & 31) * 2 + (i & 1)];
+      stat[(size_t)lane * 512 + i] = sum;
+    }
   }
-#undef SSTAT
-#undef STAT2_L
+#undef PRIV
 }
 
 // The production instances and the stage probes: the kernel's
@@ -379,7 +409,7 @@ __global__ void __launch_bounds__(32) rc_encode_kernel(
     int N, int CC) {
   rc_encode_body<BITS, GTAB, COMPACT, STAGES, false>(
       ctx, diff, active, states0, one_tab, zero_tab, low0, range0, packed,
-      low_out, range_out, states_out, N, CC, nullptr, nullptr);
+      low_out, range_out, states_out, N, CC, nullptr);
 }
 
 // The stats instances (pass 1): the same scan with its decision counts.
@@ -391,11 +421,53 @@ __global__ void __launch_bounds__(32) rc_encode_stats_kernel(
     const int32_t* __restrict__ low0, const int32_t* __restrict__ range0,
     int32_t* __restrict__ packed, int32_t* __restrict__ low_out,
     int32_t* __restrict__ range_out, uint8_t* __restrict__ states_out,
-    int N, int CC, int32_t* __restrict__ stat,
-    int32_t* __restrict__ stat2) {
+    int N, int CC, int32_t* __restrict__ stat) {
   rc_encode_body<BITS, GTAB, false, ALL_STAGES, true>(
       ctx, diff, active, states0, one_tab, zero_tab, low0, range0, packed,
-      low_out, range_out, states_out, N, CC, stat, stat2);
+      low_out, range_out, states_out, N, CC, stat);
+}
+
+// K1's row counts (pass 1): stat2 int32 (L, CC, 32, 2), per lane the
+// active decisions by context row, row position and bit, which is what
+// the stats scan counted in a global atomic per decision before.  They
+// follow from each pixel's (ctx, diff, active) alone, so one thread
+// takes a pixel: the positions it codes and their bits as the scan's two
+// masks over the row (zero flag 0, exponent 1..e+1, sign 11+e, mantissa
+// 22..21+e), then one fire-and-forget global add per coded position
+// into its lane's row.  Warps walk the L x N pixels 32 at a time,
+// coalesced, grid-stride.  What bounds it: the bytes, 9 a pixel in and
+// the zeroed table out (about 56 + 16 MB at 1080p, 0.022 ms at 3.35
+// TB/s), and the adds, about 2e + 3 a pixel, which meet on one address
+// where a lane's pixels share a row and a residual class.
+__global__ void __launch_bounds__(32) rc_stats_rows_kernel(
+    const int32_t* __restrict__ ctx, const int32_t* __restrict__ diff,
+    const uint8_t* __restrict__ active, int32_t* __restrict__ stat2, int L,
+    int N, int CC) {
+  const long long total = (long long)L * N;
+  const long long stride = (long long)gridDim.x * 32;
+  for (long long i = (long long)blockIdx.x * 32 + threadIdx.x; i < total;
+       i += stride) {
+    if (!active[i]) continue;
+    const int lane = (int)(i / N);
+    const int c = min(max(ctx[i], 0), CC - 1);
+    const int v = diff[i];
+    const int a = abs(v);
+    const int e = 31 - __clz(max(a, 1));
+    const bool nz = v != 0;
+    const unsigned em_e = (2u << e) - 1;      // bits 0..e
+    unsigned act_m = nz ? 1u | (em_e << 1) | (1u << (11 + e)) |
+                              ((em_e >> 1) << 22)
+                        : 1u;
+    const unsigned bit_m = (nz ? 0u : 1u) | ((em_e >> 1) << 1) |
+                           ((v < 0 ? 1u : 0u) << (11 + e)) |
+                           (((unsigned)a & (em_e >> 1)) << 22);
+    int32_t* row = stat2 + ((size_t)lane * CC + c) * 64;
+    while (act_m) {
+      const int p = __ffs(act_m) - 1;
+      act_m &= act_m - 1;
+      atomicAdd(&row[p * 2 + ((bit_m >> p) & 1)], 1);
+    }
+  }
 }
 
 template <int BITS, bool GTAB, bool COMPACT, int STAGES, bool STATS = false>
@@ -404,12 +476,13 @@ static int launch(const void* ctx, const void* diff, const void* active,
                   const void* zero_tab, const void* low0,
                   const void* range0, void* packed, void* low_out,
                   void* range_out, void* states_out, int L, int N, int CC,
-                  cudaStream_t stream, void* stat = nullptr,
-                  void* stat2 = nullptr) {
+                  cudaStream_t stream, void* stat = nullptr) {
   // the state table (shared-memory instance), one_tab and zero_tab, and
-  // a stats instance's state counts (rc_encode.py: other_smem_bytes)
-  const size_t smem = (GTAB ? 0 : (size_t)CC * 32) + 512 + (STATS ? 2048 : 0);
-  // the production kernel, or the stats kernel with its two count tables
+  // a stats instance's private count columns (rc_encode.py:
+  // other_smem_bytes)
+  const size_t smem =
+      (GTAB ? 0 : (size_t)CC * 32) + 512 + (STATS ? 256 * 32 * 2 * 4 : 0);
+  // the production kernel, or the stats kernel with its state counts
   // after the common arguments
   auto go = [&](auto kernel, auto... counts) {
     if (smem > 48 * 1024) {
@@ -426,8 +499,7 @@ static int launch(const void* ctx, const void* diff, const void* active,
     return (int)cudaGetLastError();
   };
   if constexpr (STATS)
-    return go(rc_encode_stats_kernel<BITS, GTAB>, (int32_t*)stat,
-              (int32_t*)stat2);
+    return go(rc_encode_stats_kernel<BITS, GTAB>, (int32_t*)stat);
   else
     return go(rc_encode_kernel<BITS, GTAB, COMPACT, STAGES>);
 }
@@ -443,14 +515,14 @@ static int launch(const void* ctx, const void* diff, const void* active,
 
 template <bool COMPACT, bool STATS = false>
 static int launch_bits(RC_ENC_PARAMS, int bits, int gtab, void* stream,
-                       void* stat = nullptr, void* stat2 = nullptr) {
+                       void* stat = nullptr) {
   cudaStream_t s = (cudaStream_t)stream;
 #define RC_ENC_CASE(B)                                                     \
   case B:                                                                  \
     return gtab ? launch<B, true, COMPACT, ALL_STAGES, STATS>(             \
-                      RC_ENC_ARGS, s, stat, stat2)                         \
+                      RC_ENC_ARGS, s, stat)                                \
                 : launch<B, false, COMPACT, ALL_STAGES, STATS>(            \
-                      RC_ENC_ARGS, s, stat, stat2);
+                      RC_ENC_ARGS, s, stat);
   switch (bits) {
     RC_ENC_CASE(1) RC_ENC_CASE(2) RC_ENC_CASE(3) RC_ENC_CASE(4)
     RC_ENC_CASE(5) RC_ENC_CASE(6) RC_ENC_CASE(7) RC_ENC_CASE(8)
@@ -477,13 +549,38 @@ extern "C" int rc_encode_compact_launch(RC_ENC_PARAMS, int bits, int gtab,
 }
 
 // K1's stats instance (pass 1 of two-pass encoding): K1's raw slots,
-// low, range and states, and the lane's decision counts, stat int32
-// (L, 256, 2) written whole and stat2 int32 (L, CC, 32, 2) added to
-// (the caller zeroes it).
-extern "C" int rc_encode_stats_launch(RC_ENC_PARAMS, void* stat, void* stat2,
-                                      int bits, int gtab, void* stream) {
-  return launch_bits<false, true>(RC_ENC_ARGS, bits, gtab, stream, stat,
-                                  stat2);
+// low, range and states, and the lane's decision counts by state, stat
+// int32 (L, 256, 2), written whole.
+extern "C" int rc_encode_stats_launch(RC_ENC_PARAMS, void* stat, int bits,
+                                      int gtab, void* stream) {
+  return launch_bits<false, true>(RC_ENC_ARGS, bits, gtab, stream, stat);
+}
+
+// K1's row counts (pass 1 of two-pass encoding): stat2 int32 (L, CC, 32,
+// 2) zeroed, then counted by rc_stats_rows_kernel, both on ``stream``.
+// The coded width only bounds the residuals (bits <= 10: the fast
+// schedule's positions); the kernel does not depend on it.
+extern "C" int rc_stats_rows_launch(const void* ctx, const void* diff,
+                                    const void* active, void* stat2, int L,
+                                    int N, int CC, int bits, void* stream) {
+  if (bits < 1 || bits > 10) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err =
+      cudaMemsetAsync(stat2, 0, (size_t)L * CC * 64 * sizeof(int32_t), s);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return (int)err;
+  // at most 32 one-warp blocks an SM (the most an SM holds), each walking
+  // the pixels past the grid
+  const long long warps = ((long long)L * N + 31) / 32;
+  const int grid = (int)std::max(1LL, std::min(warps, 32LL * sms));
+  rc_stats_rows_kernel<<<grid, 32, 0, s>>>(
+      (const int32_t*)ctx, (const int32_t*)diff, (const uint8_t*)active,
+      (int32_t*)stat2, L, N, CC);
+  return (int)cudaGetLastError();
 }
 
 // The stage probes: K1 at 8 bits with the stages of the bitmask

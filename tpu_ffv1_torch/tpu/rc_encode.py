@@ -33,15 +33,19 @@ The plain version works slot by slot over all lanes; K1 and K1-ext code
 only a pixel's active decisions, one warp per lane (csrc/rc_encode.cu
 and rc_encode_ext.cu, headers); both give the same outputs.
 
-``rc_encode_stats`` (pass 1 of two-pass encoding) runs the stats kernels
-of K1 and K1-ext (csrc/rc_encode.cu and rc_encode_ext.cu,
-``*_stats_kernel``: the scan's body with STATS): the raw form's outputs,
-and each lane's counts of the decisions the host's pass-1 hook counts
-(tpu_ffv1/bitstream/symbols.py:26-29), stat int32 (L, 256, 2) by the
-state before the decision and its bit, stat2 int32 (L, CC, 32, 2) by
-context row, row position and bit.  Inactive pixels count nothing.  Its
-plain versions are ``rc_encode_stats_ref`` and
-``rc_encode_ext_stats_ref``.
+``rc_encode_stats`` (pass 1 of two-pass encoding) returns the raw
+form's outputs and each lane's counts of the decisions the host's pass-1
+hook counts (tpu_ffv1/bitstream/symbols.py:26-29): stat int32 (L, 256,
+2) by the state before the decision and its bit, stat2 int32 (L, CC, 32,
+2) by context row, row position and bit.  Inactive pixels count nothing.
+At bits <= 10 two kernels of csrc/rc_encode.cu compute them: K1's stats
+scan (``rc_encode_stats_kernel``: the scan's body with STATS; the raw
+outputs and stat; ``rc_encode_stats_scan``) and the row counts
+(``rc_stats_rows_kernel``; ``rc_stats_rows``), which depend on the
+residuals alone and run on a side stream beside the scan.  Above 10 bits
+K1-ext's stats kernel (csrc/rc_encode_ext.cu) computes all six.  Plain
+versions: ``rc_encode_stats_ref`` (``rc_encode_stats_scan_ref`` and
+``rc_stats_rows_ref``) and ``rc_encode_ext_stats_ref``.
 
 ``rc_encode_stages`` and ``rc_encode_ext_stages`` launch K1's and
 K1-ext's stage probes (csrc/rc_encode.cu and rc_encode_ext.cu STAGES):
@@ -50,6 +54,7 @@ timing instruments with stages stubbed, never called by the codec.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -58,12 +63,13 @@ from ..kernels.build import count_launch, expect, load, table_in_global
 from .finalize import compact_packed
 from .schedule import chain_order_nosign, ext_slots
 
-# kernel launches made by rc_encode_packed, rc_encode_compact and
-# rc_encode_stats, by kernel instance (read by chip_smoke.py): rc_encode
-# (K1, bits <= 10), rc_encode_ext (K1-ext, bits 11..17),
-# rc_encode_compact (K1-compact), rc_encode_stats and
-# rc_encode_ext_stats (the stats instances of K1 and K1-ext), and their
-# table-in-global-memory forms (``_global``)
+# kernel launches made by rc_encode_packed, rc_encode_compact,
+# rc_encode_stats (rc_encode_stats_scan, rc_stats_rows), by kernel
+# instance (read by chip_smoke.py): rc_encode (K1, bits <= 10),
+# rc_encode_ext (K1-ext, bits 11..17), rc_encode_compact (K1-compact),
+# rc_encode_stats and rc_encode_ext_stats (the stats instances of K1 and
+# K1-ext), their table-in-global-memory forms (``_global``), and
+# rc_stats_rows (K1's row counts)
 LAUNCHES: dict = {}
 
 # K1's stage probes: the stages each variant keeps (csrc/rc_encode.cu
@@ -81,9 +87,11 @@ EXT_STAGE_VARIANTS = {"full": 31, "no_read": 30, "no_trans": 29,
 def other_smem_bytes(bits: int, stats: bool = False) -> int:
     """Shared memory a lane scan uses beside the state table: one_tab and
     zero_tab, at bits > 10 K1-ext's one_pow (one_tab applied 1..bits - 10
-    times, csrc/rc_encode_ext.cu), and a stats instance's (256, 2) int32
-    state counts."""
-    return 512 + 256 * max(0, bits - 10) + (2048 if stats else 0)
+    times, csrc/rc_encode_ext.cu), and a stats instance's state counts:
+    K1's a private (256, 2) int32 column per thread (32 x 2,048 B),
+    K1-ext's one shared (256, 2) table."""
+    counts = 0 if not stats else 2048 if bits > 10 else 32 * 2048
+    return 512 + 256 * max(0, bits - 10) + counts
 
 
 def instance(bits: int, CC: int, compact: bool = False,
@@ -128,25 +136,55 @@ def _slot_masks(diff, active, bits):
     return pos.long(), act, bit
 
 
-def _count(at, bit, act, used, L, CC):
-    """A stats instance's counts of the active decisions: ``at`` (.., S)
-    each decision's flat state index (lane * CC + row) * 32 + slot,
-    ``bit``, ``act`` and ``used`` (the state before the decision) alike;
-    returns (stat int32 (L, 256, 2), stat2 int32 (L, CC, 32, 2))."""
+def _state_counts(at, bit, act, used, L, CC):
+    """A stats instance's counts of the active decisions by state: ``at``
+    (.., S) each decision's flat state index (lane * CC + row) * 32 +
+    slot, ``bit``, ``act`` and ``used`` (the state before the decision)
+    alike; returns stat int32 (L, 256, 2)."""
     lane = torch.div(at >> 5, CC, rounding_mode="floor")
-    b = bit.long()
-    stat = torch.bincount(((lane * 256 + used) * 2 + b)[act],
+    stat = torch.bincount(((lane * 256 + used) * 2 + bit.long())[act],
                           minlength=L * 512)
-    stat2 = torch.bincount((at * 2 + b)[act], minlength=L * CC * 64)
-    return (stat.to(torch.int32).view(L, 256, 2),
-            stat2.to(torch.int32).view(L, CC, 32, 2))
+    return stat.to(torch.int32).view(L, 256, 2)
+
+
+def _row_counts(at, bit, act, L, CC):
+    """The counts of the active decisions by (lane, row, slot, bit), with
+    ``at``, ``bit`` and ``act`` as ``_state_counts``'; returns stat2 int32
+    (L, CC, 32, 2)."""
+    stat2 = torch.bincount((at * 2 + bit.long())[act], minlength=L * CC * 64)
+    return stat2.to(torch.int32).view(L, CC, 32, 2)
+
+
+def _flat_states(ctx, pos, CC):
+    """Each slot's flat state index (lane * CC + row) * 32 + position,
+    (L, n, S), from the pixels' contexts and the slots' positions."""
+    rows = torch.arange(ctx.shape[0], device=ctx.device)[:, None] * CC + \
+        ctx.long().clamp(0, CC - 1)
+    return (rows << 5)[..., None] + pos
+
+
+def rc_stats_rows_ref(ctx, diff, active, bits: int, CC: int,
+                      _chunk: int = 16384):
+    """Plain version of K1's row counts (``rc_stats_rows``, bits <= 10):
+    stat2 int32 (L, CC, 32, 2), each lane's active decisions by context
+    row, row position and bit; the slots a pixel codes and their bits
+    come from its residual alone (``_slot_masks``).  ``_chunk`` pixels at
+    a time, to bound memory."""
+    L, N = ctx.shape
+    stat2 = torch.zeros((L, CC, 32, 2), dtype=torch.int32, device=ctx.device)
+    for c0 in range(0, N, _chunk):
+        c1 = min(N, c0 + _chunk)
+        pos, act, bit = _slot_masks(diff[:, c0:c1], active[:, c0:c1], bits)
+        stat2 += _row_counts(_flat_states(ctx[:, c0:c1], pos, CC), bit & act,
+                             act, L, CC)
+    return stat2
 
 
 def rc_encode_packed_ref(ctx, diff, active, states0, one_tab, zero_tab,
                          low0, range0, bits: int, stats: bool = False):
     """Plain PyTorch version: a loop over pixels, vectorised over lanes.
-    With ``stats``, the stats instance's: also the decision counts
-    (stat, stat2; see the module docstring)."""
+    With ``stats``, the stats scan's: also the decision counts by state
+    (stat; see the module docstring)."""
     L, N = ctx.shape
     CC = states0.shape[1]
     dev = ctx.device
@@ -155,9 +193,7 @@ def rc_encode_packed_ref(ctx, diff, active, states0, one_tab, zero_tab,
     bit = bit & act
     # flat index of every slot's state, and the row of its transition in
     # trans = [keep | zero | one] (an inactive slot keeps its state)
-    rows = torch.arange(L, device=dev)[:, None] * CC + \
-        ctx.long().clamp(0, CC - 1)
-    at = (rows << 5)[..., None] + pos                      # (L, N, S)
+    at = _flat_states(ctx, pos, CC)                        # (L, N, S)
     sel = (act.long() + bit.long()) << 8
     trans = torch.cat([torch.arange(256, device=dev),
                        zero_tab.to(dev, torch.int64),
@@ -207,7 +243,7 @@ def rc_encode_packed_ref(ctx, diff, active, states0, one_tab, zero_tab,
     out = (packed.permute(1, 2, 0), low.to(torch.int32),
            rng.to(torch.int32), st.to(torch.uint8).view(L, CC, 32))
     if stats:
-        out += _count(at, bit, act, used, L, CC)
+        out += (_state_counts(at, bit, act, used, L, CC),)
     return out
 
 
@@ -341,9 +377,8 @@ def rc_encode_packed_ext_ref(ctx, diff, active, states0, one_tab, zero_tab,
         pv = (nl_c >> 8) | (((nl_c & 0xFF) != 0).long() << 16) | (1 << 20)
         packed[:, c0:c1] = torch.where(em_c, pv, 0).to(torch.int32)
         if stats:
-            c_stat, c_stat2 = _count(at, bit, act, used, L, CC)
-            stat += c_stat
-            stat2 += c_stat2
+            stat += _state_counts(at, bit, act, used, L, CC)
+            stat2 += _row_counts(at, bit, act, L, CC)
 
     out = (packed.permute(1, 2, 0), low.to(torch.int32),
            rng.to(torch.int32), st.to(torch.uint8).view(L, CC, 32))
@@ -352,12 +387,21 @@ def rc_encode_packed_ext_ref(ctx, diff, active, states0, one_tab, zero_tab,
     return out
 
 
-def rc_encode_stats_ref(ctx, diff, active, states0, one_tab, zero_tab,
-                        low0, range0, bits: int):
-    """Plain version of K1's stats instance (bits <= 10): (packed, low,
-    range, states, stat, stat2)."""
+def rc_encode_stats_scan_ref(ctx, diff, active, states0, one_tab, zero_tab,
+                             low0, range0, bits: int):
+    """Plain version of K1's stats scan (``rc_encode_stats_scan``, bits <=
+    10): (packed, low, range, states, stat)."""
     return rc_encode_packed_ref(ctx, diff, active, states0, one_tab,
                                 zero_tab, low0, range0, bits, stats=True)
+
+
+def rc_encode_stats_ref(ctx, diff, active, states0, one_tab, zero_tab,
+                        low0, range0, bits: int):
+    """Plain version of ``rc_encode_stats`` at bits <= 10, K1's stats scan
+    and its row counts: (packed, low, range, states, stat, stat2)."""
+    return (*rc_encode_stats_scan_ref(ctx, diff, active, states0, one_tab,
+                                      zero_tab, low0, range0, bits),
+            rc_stats_rows_ref(ctx, diff, active, bits, states0.shape[1]))
 
 
 def rc_encode_ext_stats_ref(ctx, diff, active, states0, one_tab, zero_tab,
@@ -383,11 +427,12 @@ def _launch(name, gtab, ctx, diff, active, states0, one_tab, zero_tab,
             stats=False):
     """Check the arguments and launch ``<entry>`` (default
     ``<name>_launch``; with ``stats``, ``<name>_stats_launch``, which
-    also returns the decision counts) from csrc/<name>.cu (or the loaded
-    library ``lib``, a build of another copy of the source) on the
-    current stream, with the state table in global memory if ``gtab``;
-    ``code`` is the int passed in the bits position, ``width`` the ints
-    stored per pixel (default 2 * bits + 1).  Returns the outputs."""
+    also returns the decision counts: K1's stat, K1-ext's stat and stat2)
+    from csrc/<name>.cu (or the loaded library ``lib``, a build of another
+    copy of the source) on the current stream, with the state table in
+    global memory if ``gtab``; ``code`` is the int passed in the bits
+    position, ``width`` the ints stored per pixel (default 2 * bits + 1).
+    Returns the outputs."""
     dev = ctx.device
     L, N = ctx.shape
     CC = states0.shape[1]
@@ -404,13 +449,16 @@ def _launch(name, gtab, ctx, diff, active, states0, one_tab, zero_tab,
         states0 = states0.clone()          # the kernel copies in 16 B words
     fn = getattr(lib or load(name), entry or
                  f"{name}{'_stats' if stats else ''}_launch")
+    counts = ()
+    if stats:
+        counts = (torch.empty((L, 256, 2), dtype=torch.int32, device=dev),)
+        if name == "rc_encode_ext":
+            counts += (torch.zeros((L, CC, 32, 2), dtype=torch.int32,
+                                   device=dev),)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + \
-        [ctypes.c_void_p] * (2 if stats else 0) + [ctypes.c_int] * 2 + \
+        [ctypes.c_void_p] * len(counts) + [ctypes.c_int] * 2 + \
         [ctypes.c_void_p]
-    counts = (torch.empty((L, 256, 2), dtype=torch.int32, device=dev),
-              torch.zeros((L, CC, 32, 2), dtype=torch.int32, device=dev)) \
-        if stats else ()
     packed = torch.empty((L, N, S), dtype=torch.int32, device=dev)
     low = torch.empty((L,), dtype=torch.int32, device=dev)
     rng = torch.empty((L,), dtype=torch.int32, device=dev)
@@ -431,27 +479,78 @@ def _launch(name, gtab, ctx, diff, active, states0, one_tab, zero_tab,
     return (packed.permute(1, 2, 0), low, rng, states, *counts)
 
 
+def _cuda_device(t):
+    """``t``'s device, which must be a CUDA one (the wrappers' CPU case is
+    handled before)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device
+
+
 def _lane_scan(ctx, diff, active, states0, one_tab, zero_tab, low0,
                range0, bits: int, stats: bool):
-    """K1 (bits <= 10) or K1-ext (11..17), the stats kernels with
-    ``stats``, for CUDA tensors, with the state table in shared or in
-    global memory by its size; their plain versions for CPU tensors."""
+    """K1 (bits <= 10) or K1-ext (11..17), K1's stats scan or K1-ext's
+    stats kernel with ``stats``, for CUDA tensors, with the state table in
+    shared or in global memory by its size; their plain versions for CPU
+    tensors."""
     if not 1 <= bits <= 17:
         raise NotImplementedError("the lane scan covers bits 1..17")
     ext = bits > 10
-    dev = ctx.device
-    if dev.type == "cpu":
+    if ctx.device.type == "cpu":
         ref = rc_encode_packed_ext_ref if ext else rc_encode_packed_ref
         return ref(ctx, diff, active, states0, one_tab, zero_tab, low0,
                    range0, bits, stats=stats)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
+    _cuda_device(ctx)
     name = instance(bits, states0.shape[1], stats=stats)
     out = _launch("rc_encode_ext" if ext else "rc_encode",
                   name.endswith("_global"), ctx, diff, active, states0,
                   one_tab, zero_tab, low0, range0, bits, stats=stats)
     count_launch(LAUNCHES, name)
     return out
+
+
+def rc_stats_rows(ctx, diff, active, bits: int, CC: int):
+    """K1's row counts (pass 1, bits <= 10): stat2 int32 (L, CC, 32, 2),
+    each lane's active decisions by context row, row position and bit
+    (csrc/rc_encode.cu ``rc_stats_rows_kernel``, the table zeroed and
+    counted on the current stream) for CUDA tensors; its plain version
+    ``rc_stats_rows_ref`` for CPU tensors."""
+    if not 1 <= bits <= 10:
+        raise NotImplementedError("K1's row counts cover bits 1..10")
+    if ctx.device.type == "cpu":
+        return rc_stats_rows_ref(ctx, diff, active, bits, CC)
+    dev = _cuda_device(ctx)
+    L, N = ctx.shape
+    expect("ctx", ctx, torch.int32, (L, N), dev)
+    expect("diff", diff, torch.int32, (L, N), dev)
+    expect("active", active, torch.bool, (L, N), dev)
+    stat2 = torch.empty((L, CC, 32, 2), dtype=torch.int32, device=dev)
+    fn = load("rc_encode").rc_stats_rows_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
+        [ctypes.c_void_p]
+    with torch.cuda.device(dev):
+        err = fn(ctx.data_ptr(), diff.data_ptr(), active.data_ptr(),
+                 stat2.data_ptr(), L, N, CC, bits,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"rc_stats_rows kernel launch failed: CUDA error "
+                           f"{err}")
+    count_launch(LAUNCHES, "rc_stats_rows")
+    return stat2
+
+
+# one side stream per CUDA device, for K1's row counts beside its scan
+_SIDE: dict = {}
+_SIDE_LOCK = threading.Lock()
+
+
+def _side_stream(dev):
+    with _SIDE_LOCK:
+        s = _SIDE.get(dev)
+        if s is None:
+            s = _SIDE[dev] = torch.cuda.Stream(device=dev)
+    return s
 
 
 def rc_encode_packed(ctx, diff, active, states0, one_tab, zero_tab,
@@ -464,14 +563,45 @@ def rc_encode_packed(ctx, diff, active, states0, one_tab, zero_tab,
                       range0, bits, False)
 
 
-def rc_encode_stats(ctx, diff, active, states0, one_tab, zero_tab,
-                    low0, range0, bits: int):
-    """Encode lane scan with pass-1 decision counts: the stats kernel of
-    K1 or K1-ext for CUDA tensors, its plain version for CPU tensors.
-    Returns (packed, low, range, states, stat int32 (L, 256, 2), stat2
-    int32 (L, CC, 32, 2)); the first four are rc_encode_packed's."""
+def rc_encode_stats_scan(ctx, diff, active, states0, one_tab, zero_tab,
+                         low0, range0, bits: int):
+    """K1's stats scan alone (bits <= 10): the CUDA kernel for CUDA
+    tensors, ``rc_encode_stats_scan_ref`` for CPU tensors; returns
+    (packed, low, range, states, stat int32 (L, 256, 2))."""
+    if not 1 <= bits <= 10:
+        raise NotImplementedError("K1's stats scan covers bits 1..10")
     return _lane_scan(ctx, diff, active, states0, one_tab, zero_tab, low0,
                       range0, bits, True)
+
+
+def rc_encode_stats(ctx, diff, active, states0, one_tab, zero_tab,
+                    low0, range0, bits: int):
+    """Encode lane scan with pass-1 decision counts.  Returns (packed,
+    low, range, states, stat int32 (L, 256, 2), stat2 int32 (L, CC, 32,
+    2)); the first four are rc_encode_packed's.  For CUDA tensors at bits
+    <= 10: K1's stats scan on the current stream and its row counts
+    (``rc_stats_rows``) on a side stream of the device, which waits for
+    the current stream's work so far and which the current stream waits
+    for after the scan (events only: nothing waits on the host); above 10
+    bits K1-ext's stats kernel.  Their plain versions for CPU tensors."""
+    if bits > 10:
+        return _lane_scan(ctx, diff, active, states0, one_tab, zero_tab,
+                          low0, range0, bits, True)
+    if ctx.device.type == "cpu":
+        return rc_encode_stats_ref(ctx, diff, active, states0, one_tab,
+                                   zero_tab, low0, range0, bits)
+    dev = _cuda_device(ctx)
+    main = torch.cuda.current_stream(dev)
+    side = _side_stream(dev)
+    side.wait_stream(main)
+    out = rc_encode_stats_scan(ctx, diff, active, states0, one_tab,
+                               zero_tab, low0, range0, bits)
+    with torch.cuda.stream(side):
+        stat2 = rc_stats_rows(ctx, diff, active, bits, states0.shape[1])
+    main.wait_stream(side)
+    # stat2 comes from the side stream's pool; it is read on this one
+    stat2.record_stream(main)
+    return (*out, stat2)
 
 
 def rc_encode_compact(ctx, diff, active, states0, one_tab, zero_tab,
