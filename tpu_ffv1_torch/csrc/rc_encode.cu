@@ -113,9 +113,10 @@
 // Only the chain knows that state, and thread t holds it for row
 // position t (mys), so each thread counts its own decisions in a private
 // column of shared memory, priv[(state * 32 + t) * 2 + bit] (256 x 32 x
-// 2 int32 = 64 KB): bank t, or t + 16 for the high half-warp's 8-byte
-// word, whatever the state, so the count is a plain load, add and store
-// with no conflict and no atomic.  The columns sit at the start of
+// 2 int32 = 64 KB): thread t's 8-byte pair sits in banks 2t and 2t + 1
+// (mod 32) whatever the state, and the two half-warp phases of an 8-byte
+// access keep t and t + 16 apart, so the count is a plain load, add and
+// store with no conflict and no atomic.  The columns sit at the start of
 // shared memory (the table and the transition tables after them), so a
 // count's address is (state * 32 + t) * 8 and nothing else moves.  The
 // load of both bits' counts is issued with the transition lookups at the
